@@ -1,0 +1,103 @@
+// Device helpers shared by the SIA2D kernels (sia2d_rhs.cu, si_step.cu).
+//
+// Planes are (n_g, nx, ny) row-major with y contiguous. The staggered
+// diffusivity D[a][c] lives on the (nx-1, ny-1) grid of cell corners: it is
+// formed from the 2x2 block of cells (a..a+1, c..c+1). The arithmetic, and
+// its order, follows the plain PyTorch versions in ops/cuda/*.py.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace odinn {
+
+// x^e for x >= 0. An integer-valued e is an integer power by binary
+// exponentiation (the multiply sequence of XLA's integer_pow); any other e
+// is exp(e*log x) with 0^e := 0.
+template <typename T>
+__device__ __forceinline__ T pow_pos(T x, T e) {
+  const T r = rint(e);
+  if (r == e && fabs(e) <= T(64)) {
+    int k = static_cast<int>(r);
+    const bool recip = k < 0;
+    if (recip) k = -k;
+    T acc = T(1);
+    bool have = false;
+    while (k > 0) {
+      if (k & 1) {
+        acc = have ? acc * x : x;
+        have = true;
+      }
+      k >>= 1;
+      if (k > 0) x = x * x;
+    }
+    return recip ? T(1) / acc : acc;
+  }
+  return x > T(0) ? exp(e * log(x)) : T(0);
+}
+
+// Per-glacier scalars of the derived table row.
+template <typename T>
+struct Scalars {
+  T dx, dy, creep, slide, e_hc, e_sc, e_hs, e_ss;
+};
+
+// D at the corner whose 2x2 block of relu'd thickness h and surface s is
+// given as h00 = (a, c), h10 = (a+1, c), h01 = (a, c+1), h11 = (a+1, c+1):
+//   D = slide*h̄^e_hs*|∇S|^e_ss + creep*h̄^e_hc*|∇S|^e_sc.
+template <typename T>
+__device__ __forceinline__ T stag_D(T h00, T h10, T h01, T h11, T s00, T s10,
+                                    T s01, T s11, const Scalars<T>& k) {
+  const T dsdx0 = (s10 - s00) / k.dx;   // x-difference at column c
+  const T dsdx1 = (s11 - s01) / k.dx;   // x-difference at column c+1
+  const T dsdy0 = (s01 - s00) / k.dy;   // y-difference at row a
+  const T dsdy1 = (s11 - s10) / k.dy;   // y-difference at row a+1
+  const T gsx = T(0.5) * (dsdx0 + dsdx1);
+  const T gsy = T(0.5) * (dsdy0 + dsdy1);
+  const T sq = gsx * gsx + gsy * gsy;
+  const T grad_s = sq > T(0) ? sqrt(sq) : T(0);
+  const T hbar = T(0.25) * (h00 + h10 + h01 + h11);
+  const T slide = k.slide * pow_pos(hbar, k.e_hs) * pow_pos(grad_s, k.e_ss);
+  const T creep = k.creep * pow_pos(hbar, k.e_hc) * pow_pos(grad_s, k.e_sc);
+  return slide + creep;
+}
+
+__device__ __forceinline__ float relu(float h) { return h > 0.0f ? h : 0.0f; }
+__device__ __forceinline__ double relu(double h) { return h > 0.0 ? h : 0.0; }
+
+// The 3x3 neighbourhood of cell (i, j) of a glacier plane: relu'd thickness
+// and surface B + relu(H), and the four corner diffusivities around the
+// cell: d[0][0] = D(i-1, j-1), d[1][0] = D(i, j-1), d[0][1] = D(i-1, j),
+// d[1][1] = D(i, j). Valid for 1 <= i <= nx-2, 1 <= j <= ny-2.
+template <typename T>
+struct Patch {
+  T h[3][3];
+  T s[3][3];
+  T d[2][2];
+};
+
+template <typename T>
+__device__ __forceinline__ void load_patch(const T* __restrict__ H,
+                                           const T* __restrict__ B, int ny,
+                                           int i, int j, const Scalars<T>& k,
+                                           Patch<T>& p) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const long idx = static_cast<long>(i - 1 + a) * ny + (j - 1 + c);
+      p.h[a][c] = relu(H[idx]);
+      p.s[a][c] = B[idx] + p.h[a][c];
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      p.d[a][c] = stag_D(p.h[a][c], p.h[a + 1][c], p.h[a][c + 1],
+                         p.h[a + 1][c + 1], p.s[a][c], p.s[a + 1][c],
+                         p.s[a][c + 1], p.s[a + 1][c + 1], k);
+    }
+  }
+}
+
+}  // namespace odinn

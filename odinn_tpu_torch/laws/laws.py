@@ -1,0 +1,148 @@
+"""Laws: parameterizations binding inputs (and trainable θ) to PDE slots.
+
+A ``Law`` is a static description: input specs, a pure apply function and a
+schedule. Trainable state lives in the θ dict under the law's slot key.
+``callback_freq``: ``None`` → evaluated at every RHS call (inner laws);
+``0`` → once at simulation start; ``x > 0`` → every x years at tstop
+boundaries.
+
+This module holds the non-learnable laws of the forward path; the NN and
+inversion laws come with the training path.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from odinn_tpu_torch.laws import inputs as law_inputs
+from odinn_tpu_torch.ops.stencils import avg
+
+__all__ = [
+    "Law",
+    "ConstantA",
+    "CuffeyPaterson",
+    "poly_A_paterson_cuffey",
+    "SyntheticC",
+    "eval_law",
+]
+
+
+@dataclass(frozen=True)
+class Law:
+    """A parameterization of one PDE slot: ``apply_fn(theta, inputs)``."""
+
+    slot: str                                   # "A" | "C" | "n" | "Y" | "U" | ...
+    apply_fn: Callable[[Any, dict], Any]
+    inputs: Tuple[Any, ...] = ()
+    callback_freq: Optional[float] = 0.0
+    trainable: bool = True
+    name: str = "law"
+    init_theta: Optional[Callable] = None       # (glaciers, dtype) -> θ subtree
+
+    @property
+    def is_inner(self) -> bool:
+        """True if the law must be evaluated inside the RHS (every call)."""
+        return self.callback_freq is None
+
+    @property
+    def input_names(self) -> Tuple[str, ...]:
+        return tuple(i.name for i in self.inputs)
+
+    def apply(self, theta, inputs: dict):
+        return self.apply_fn(theta, inputs)
+
+
+def ConstantA(a_value: float) -> Law:
+    """Constant creep coefficient (a float64 0-dim tensor)."""
+    return Law(
+        slot="A",
+        apply_fn=lambda theta, inputs: torch.tensor(a_value, dtype=torch.float64),
+        inputs=(),
+        callback_freq=0.0,
+        trainable=False,
+        name="ConstantA",
+    )
+
+
+# Cuffey & Paterson (2010, "The Physics of Glaciers", Table 3.4) creep
+# coefficients A(T) in Pa⁻³ s⁻¹, converted to yr⁻¹ below.
+_CP_TEMPS = np.array(
+    [-50.0, -45.0, -40.0, -35.0, -30.0, -25.0, -20.0, -15.0, -10.0, -5.0, -2.0, 0.0]
+)
+_CP_A_SI = np.array(
+    [2.6e-27, 5.2e-27, 1.0e-26, 2.0e-26, 3.7e-26, 6.8e-26, 1.2e-25, 2.1e-25,
+     3.5e-25, 9.3e-25, 1.7e-24, 2.4e-24]
+)
+_SEC_IN_YEAR = 365.25 * 24 * 3600
+_CP_A_YR = _CP_A_SI * _SEC_IN_YEAR
+
+
+def poly_A_paterson_cuffey():
+    """Degree-4 fit of log₁₀A(T) to the Cuffey–Paterson table; returns A(T)
+    in Pa⁻³ yr⁻¹, evaluated in float64 whatever the temperature's dtype."""
+    coeffs = [float(c) for c in np.polyfit(_CP_TEMPS, np.log10(_CP_A_YR), deg=4)]
+
+    def a_of_t(temp):
+        temp = torch.clamp(torch.as_tensor(temp, dtype=torch.float64),
+                           float(_CP_TEMPS[0]), float(_CP_TEMPS[-1]))
+        acc = torch.zeros_like(temp)
+        for c in coeffs:                       # Horner, highest power first
+            acc = acc * temp + c
+        return 10.0 ** acc
+
+    return a_of_t
+
+
+def CuffeyPaterson(scalar: bool = True) -> Law:
+    """A(T) from the Cuffey–Paterson polynomial."""
+    a_of_t = poly_A_paterson_cuffey()
+
+    def apply_fn(theta, inputs):
+        return a_of_t(inputs["T"] if scalar else inputs["T_grid"])
+
+    inp = (law_inputs.AvgScalarTemp(),) if scalar else (law_inputs.AvgGriddedTemp(),)
+    return Law(
+        slot="A",
+        apply_fn=apply_fn,
+        inputs=inp,
+        callback_freq=0.0,
+        trainable=False,
+        name="CuffeyPaterson",
+    )
+
+
+def SyntheticC(params, inputs: Tuple[Any, ...] = None, c_max: Optional[float] = None) -> Law:
+    """Synthetic sliding coefficient from CPDD and topographic roughness:
+    C = maxC · σ(CPDD/1000) · exp(−roughness/10⁻²), bounded in [0, maxC].
+    Inputs missing from the resolved dict count as 0; gridded values are
+    averaged onto the staggered grid."""
+    if inputs is None:
+        inputs = (law_inputs.CPDD(), law_inputs.TopoRough())
+    c_hi = c_max if c_max is not None else params.physical.max_C
+
+    def apply_fn(theta, inp):
+        cpdd = torch.as_tensor(inp.get("CPDD", 0.0), dtype=torch.float64)
+        rough = torch.as_tensor(inp.get("topo_rough", 0.0), dtype=torch.float64)
+        c = c_hi * torch.sigmoid(cpdd / 1000.0) * torch.exp(-rough / 1e-2)
+        return avg(c) if c.ndim >= 2 else c
+
+    return Law(
+        slot="C",
+        apply_fn=apply_fn,
+        inputs=inputs,
+        callback_freq=0.0,
+        trainable=False,
+        name="SyntheticC",
+    )
+
+
+def eval_law(law: Law, theta, glacier, state=None, t=0.0, glacier_idx=0):
+    """One-shot law evaluation with freshly resolved inputs."""
+    resolved = {"glacier_idx": torch.as_tensor(glacier_idx)}
+    for spec in law.inputs:
+        resolved[spec.name] = spec.get(glacier, state, t)
+    return law.apply(theta, resolved)

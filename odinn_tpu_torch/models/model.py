@@ -1,0 +1,146 @@
+"""Model container: iceflow law slots, mass balance and target inference.
+
+The model is a static description (laws are pure closures); trainable
+numbers live in one θ dict. Law values are resolved for a whole stacked
+batch at once: a law returning one value per glacier gives a (n_g,) tensor,
+which becomes an (n_g, 1, 1) column broadcasting against the staggered grid.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+
+from odinn_tpu_torch.core.glacier import per_glacier_column
+from odinn_tpu_torch.laws import inputs as law_inputs_mod
+from odinn_tpu_torch.laws.laws import Law
+from odinn_tpu_torch.physics import targets as targets_mod
+from odinn_tpu_torch.physics.sia2d import SIAValues, ValuesFn, default_values
+
+__all__ = ["SIA2DModel", "Model", "make_values_fn", "resolve_outer_values"]
+
+
+@dataclass(frozen=True)
+class SIA2DModel:
+    """Slot-based SIA model description.
+
+    ``n_value`` / ``p_value`` / ``q_value``: when Glen's n (and the sliding
+    p, q) are one constant for every glacier, these Python floats make the
+    diffusivity powers integer powers (multiplies) and give the fused
+    kernels their static exponents.
+    """
+
+    A: Optional[Law] = None
+    C: Optional[Law] = None
+    n: Optional[Law] = None
+    Y: Optional[Law] = None
+    U: Optional[Law] = None
+    n_H: Optional[float] = None       # decoupled exponents (hybrid target)
+    n_gradS: Optional[float] = None
+    n_value: Optional[float] = None
+    p_value: Optional[float] = None
+    q_value: Optional[float] = None
+    max_D: Optional[float] = None
+
+    @property
+    def laws(self):
+        return {s: getattr(self, s) for s in ("A", "C", "n", "Y", "U") if getattr(self, s) is not None}
+
+    @property
+    def periodic_laws(self):
+        """Laws re-evaluated every callback_freq years at save boundaries."""
+        return {
+            s: l for s, l in self.laws.items()
+            if l.callback_freq is not None and l.callback_freq > 0
+        }
+
+
+@dataclass(frozen=True)
+class Model:
+    """Iceflow + mass balance + trainable components.
+
+    The target is inferred from the laws: the A target unless a U or Y law is
+    present. Only the A target is ported so far.
+    """
+
+    iceflow: SIA2DModel
+    mass_balance: Any = None                 # TImodel1 | None
+    initial_condition: Any = None
+    target: Any = None                       # inferred if None
+
+    def __post_init__(self):
+        if self.iceflow.U is not None and self.iceflow.Y is not None:
+            raise ValueError("U and Y laws are mutually exclusive (pure-D vs hybrid-D target)")
+        for slot, law in self.iceflow.laws.items():
+            if law.slot != slot:
+                raise ValueError(
+                    f"law {law.name!r} was built for slot {law.slot!r} but is "
+                    f"assigned to SIA2DModel slot {slot!r}"
+                )
+        if self.target is None:
+            if self.iceflow.U is not None or self.iceflow.Y is not None or self.iceflow.max_D is not None:
+                raise NotImplementedError(
+                    "odinn_tpu_torch ports the A target only; the D, D_hybrid and "
+                    "capped targets come with the NN laws"
+                )
+            object.__setattr__(self, "target", targets_mod.ATarget())
+
+    @property
+    def trainable_laws(self):
+        return {s: l for s, l in self.iceflow.laws.items() if l.trainable}
+
+
+def _glacier_idx(glacier):
+    if glacier.is_batched:
+        return torch.arange(glacier.H0.shape[0], device=glacier.H0.device)
+    return torch.tensor(0, device=glacier.H0.device)
+
+
+def resolve_outer_values(model: Model, theta, glacier, t, H=None) -> SIAValues:
+    """Evaluate every non-inner law (callback_freq ≥ 0) into an SIAValues
+    for the glacier or stacked batch, at time t (state ``H``, default H₀)."""
+    vals = default_values(glacier)
+    if model.iceflow.n_value is not None:
+        nv = float(model.iceflow.n_value)
+        pv = float(model.iceflow.p_value) if model.iceflow.p_value is not None else nv
+        qv = float(model.iceflow.q_value) if model.iceflow.q_value is not None else 0.0
+        vals = vals.replace(n=nv, p=pv, q=qv)
+    state = H if H is not None else glacier.H0
+    for slot, law in model.iceflow.laws.items():
+        if law.is_inner:
+            continue
+        inputs = {"glacier_idx": _glacier_idx(glacier)}
+        for spec in law.inputs:
+            inputs[spec.name] = spec.get(glacier, state, t)
+        vals = vals.replace(**{slot: per_glacier_column(glacier, law.apply(theta, inputs))})
+    if model.iceflow.n_H is not None:
+        vals = vals.replace(n_H=float(model.iceflow.n_H))
+    if model.iceflow.n_gradS is not None:
+        vals = vals.replace(n_gradS=float(model.iceflow.n_gradS))
+    return vals
+
+
+def make_values_fn(model: Model, theta, glacier, t, outer_vals: SIAValues) -> ValuesFn:
+    """The per-RHS-call law resolver: inner laws (callback_freq None) are
+    re-evaluated from the current (H̄, |∇S|); everything else comes from
+    ``outer_vals``. With no inner laws the resolver is constant."""
+    inner = [(s, l) for s, l in model.iceflow.laws.items() if l.is_inner]
+    if not inner:
+        return ValuesFn(outer_vals)
+    # outer inputs of inner laws are time-constant within a solve
+    static_inputs = {}
+    for _, law in inner:
+        for spec in law.inputs:
+            if spec.name not in law_inputs_mod.INNER_INPUTS:
+                static_inputs[spec.name] = spec.get(glacier, glacier.H0, t)
+    idx = _glacier_idx(glacier)
+
+    def resolve_inner(vals, hbar, grad_s):
+        for slot, law in inner:
+            inputs = dict(static_inputs, glacier_idx=idx, Hbar=hbar, gradS=grad_s)
+            vals = vals.replace(**{slot: per_glacier_column(glacier, law.apply(theta, inputs))})
+        return vals
+
+    return ValuesFn(outer_vals, resolve_inner)

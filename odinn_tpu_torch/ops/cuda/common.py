@@ -1,0 +1,96 @@
+"""What the fused kernels share: the per-glacier derived table, powers with
+the kernels' semantics, and the wrappers' input checks."""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+__all__ = ["derived_scalars", "pow_pos", "shared_exps", "check_inputs"]
+
+
+def derived_scalars(dx, dy, A, C, n, p, q, rho, g):
+    """Per-glacier derived table (n_g, 8) of the kernels:
+    [dx, dy, creep=A·Γ_noA, slide=C(ρg)^{p−q}, n+2, n−1, p−q+1, p−1]."""
+    return torch.stack(
+        [
+            dx,
+            dy,
+            A * 2.0 * (rho * g) ** n / (n + 2.0),
+            C * (rho * g) ** (p - q),
+            n + 2.0,
+            n - 1.0,
+            p - q + 1.0,
+            p - 1.0,
+        ],
+        dim=1,
+    )
+
+
+def _int_pow(x, k: int):
+    """xᵏ by binary exponentiation, the multiply sequence of XLA's
+    integer_pow and of the kernels."""
+    if k == 0:
+        return torch.ones_like(x)
+    recip, k = k < 0, abs(k)
+    acc = None
+    while k > 0:
+        if k & 1:
+            acc = x if acc is None else acc * x
+        k >>= 1
+        if k > 0:
+            x = x * x
+    return 1.0 / acc if recip else acc
+
+
+def pow_pos(x, e: float):
+    """xᵉ for x ≥ 0 and a Python-number exponent: an integer-valued e is an
+    integer power (multiplies); any other is exp(e·log x) with 0ᵉ := 0."""
+    e = float(e)
+    if e.is_integer():
+        return _int_pow(x, int(e))
+    pos = x > 0.0
+    return torch.exp(e * torch.log(torch.where(pos, x, torch.ones_like(x)))) * pos
+
+
+def shared_exps(derived: torch.Tensor) -> Optional[Tuple[float, float, float, float]]:
+    """The exponent columns (n+2, n−1, p−q+1, p−1) of a derived table as
+    Python floats if every glacier has the same set, else None. Reads the
+    table on the host."""
+    rows = derived[:, 4:8].tolist()
+    if any(r != rows[0] for r in rows):
+        return None
+    return tuple(float(e) for e in rows[0])
+
+
+def check_inputs(name: str, planes: Sequence[torch.Tensor], table: torch.Tensor,
+                 table_cols: int) -> None:
+    """Raise on what the kernels do not take: gradients, mixed devices or
+    dtypes, a dtype other than float32/float64, a non-contiguous or non-3-D
+    plane, planes of different shapes, nx or ny below 3, a table of the
+    wrong shape."""
+    H = planes[0]
+    for a in list(planes) + [table]:
+        if a.requires_grad:
+            raise RuntimeError(
+                f"{name}: gradients through the kernel are not supported yet; "
+                "pass tensors that do not require grad")
+        if a.device != H.device:
+            raise ValueError(f"{name}: all inputs must be on {H.device}, got {a.device}")
+    if H.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: float32 or float64 planes only, got {H.dtype}")
+    if H.ndim != 3:
+        raise ValueError(f"{name}: planes must be (n_g, nx, ny), got {tuple(H.shape)}")
+    for a in planes:
+        if a.dtype != H.dtype or a.shape != H.shape:
+            raise ValueError(f"{name}: planes must share dtype and shape "
+                             f"({H.dtype}, {tuple(H.shape)})")
+        if not a.is_contiguous():
+            raise ValueError(f"{name}: planes must be contiguous")
+    n_g, nx, ny = H.shape
+    if nx < 3 or ny < 3:
+        raise ValueError(f"{name}: nx and ny must be at least 3, got ({nx}, {ny})")
+    if table.shape != (n_g, table_cols) or not table.is_floating_point():
+        raise ValueError(f"{name}: the table must be a float ({n_g}, {table_cols}) "
+                         f"tensor, got {table.dtype} {tuple(table.shape)}")

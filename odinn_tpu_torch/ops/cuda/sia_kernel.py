@@ -1,0 +1,123 @@
+"""Fused SIA2D right-hand side (A target, per-glacier scalar laws).
+
+``sia2d_rhs`` launches the hand-written CUDA kernel ``csrc/sia2d_rhs.cu`` on
+a CUDA tensor and runs its plain PyTorch version,
+:func:`sia2d_rhs_reference`, on a CPU tensor. The kernel replaces the TPU
+kernel ``odinn_tpu.ops.pallas.sia_kernel.sia2d_rhs_pallas``: one thread per
+cell reads its 3×3 neighbourhood of (H, B), forms the four staggered
+diffusivities around the cell, the η₀-clamped edge fluxes and the negated
+divergence, and writes dH/dt with a zero ring.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from odinn_tpu_torch.ops import stencils as st
+from odinn_tpu_torch.ops.cuda.build import load_library
+from odinn_tpu_torch.ops.cuda.common import check_inputs, derived_scalars, pow_pos
+
+__all__ = ["sia2d_rhs", "sia2d_rhs_reference", "derive_table"]
+
+
+def derive_table(scalars, rho, g):
+    """The raw (n_g, 7) table (dx, dy, A, C, n, p, q) → the kernel's derived
+    (n_g, 8) table, in the raw table's dtype."""
+    return derived_scalars(*(scalars[:, i] for i in range(7)), rho, g)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The built library, its entry points' signatures declared once."""
+    lib = load_library("sia2d_rhs")
+    for fn in (lib.sia2d_rhs_f32, lib.sia2d_rhs_f64):
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_double,
+                                                                     ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+# The last raw table the wrapper derived, with its derived table: a solve
+# hands the same raw table to every RHS call. It is reused only while that
+# tensor is unchanged (same object, same version counter) and rho, g and the
+# dtype are the same.
+_last_derived = [None]
+
+
+def _kernel_table(scalars, rho, g, dtype):
+    key = (scalars._version, float(rho), float(g), dtype)
+    hit = _last_derived[0]
+    if hit is not None and hit[0] is scalars and hit[1] == key:
+        return hit[2]
+    derived = derive_table(scalars, rho, g).to(dtype).contiguous()
+    _last_derived[0] = (scalars, key, derived)
+    return derived
+
+
+def _rhs_math(H, B, row, exps, eta0):
+    """The fused stencil chain on (…, nx, ny) planes; ``row`` holds the
+    derived per-glacier columns, ``exps`` the four exponents as numbers."""
+    dx, dy, creep, slide = row
+    e_hc, e_sc, e_hs, e_ss = exps
+    H = st.relu_strict(H)
+    S = B + H
+    gsx, gsy = st.grad_slope(S, dx, dy)
+    grad_s = st.safe_norm(gsx, gsy)
+    hbar = st.avg(H)
+    D = slide * pow_pos(hbar, e_hs) * pow_pos(grad_s, e_ss) + creep * pow_pos(
+        hbar, e_hc) * pow_pos(grad_s, e_sc)
+    dsdx_e = st.clamp_borders_dx(st.diff_x(S[..., :, 1:-1]) / dx, H, eta0, dx)
+    dsdy_e = st.clamp_borders_dy(st.diff_y(S[..., 1:-1, :]) / dy, H, eta0, dy)
+    Fx = -st.avg_y(D) * dsdx_e
+    Fy = -st.avg_x(D) * dsdy_e
+    div = st.diff_x(Fx) / dx + st.diff_y(Fy) / dy
+    return st.pad_inner(-div)
+
+
+def sia2d_rhs_reference(H, B, scalars, rho, g, eta0):
+    """Plain PyTorch version of the kernel: H, B of shape (n_g, nx, ny),
+    ``scalars`` the raw (n_g, 7) table (dx, dy, A, C, n, p, q). Glaciers
+    that share an exponent set run together; exponents are read on the
+    host."""
+    derived = derive_table(scalars, rho, g).to(H.dtype)
+    groups = {}
+    for k, exps in enumerate(derived[:, 4:8].tolist()):
+        groups.setdefault(tuple(exps), []).append(k)
+    if len(groups) == 1:
+        cols = tuple(derived[:, k].reshape(-1, 1, 1) for k in range(4))
+        return _rhs_math(H, B, cols, next(iter(groups)), eta0)
+    out = torch.empty_like(H)
+    for exps, idx in groups.items():
+        sel = torch.tensor(idx, device=H.device)
+        cols = tuple(derived[sel, k].reshape(-1, 1, 1) for k in range(4))
+        out[sel] = _rhs_math(H[sel], B[sel], cols, exps, eta0)
+    return out
+
+
+def sia2d_rhs(H, B, scalars, rho, g, eta0):
+    """dH/dt for a batch: H, B of shape (n_g, nx, ny); ``scalars`` the raw
+    (n_g, 7) table (dx, dy, A, C, n, p, q), derived here (in its own dtype,
+    then cast to H's) into the kernel's 8-column table. A CUDA tensor
+    launches the kernel; a CPU tensor takes :func:`sia2d_rhs_reference`."""
+    check_inputs("sia2d_rhs", (H, B), scalars, 7)
+    if H.device.type == "cpu":
+        return sia2d_rhs_reference(H, B, scalars, rho, g, eta0)
+    if H.device.type != "cuda":
+        raise ValueError(f"sia2d_rhs: no kernel for device {H.device}")
+    derived = _kernel_table(scalars, rho, g, H.dtype)
+    out = torch.empty_like(H)
+    n_g, nx, ny = H.shape
+    lib = _library()
+    fn = lib.sia2d_rhs_f32 if H.dtype == torch.float32 else lib.sia2d_rhs_f64
+    err = fn(H.data_ptr(), B.data_ptr(), derived.data_ptr(), out.data_ptr(),
+             n_g, nx, ny, float(eta0), torch.cuda.current_stream(H.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sia2d_rhs: kernel launch failed with CUDA error {err}")
+    sia2d_rhs.launches += 1
+    return out
+
+
+sia2d_rhs.launches = 0

@@ -1,0 +1,189 @@
+"""SIA2D: the 2-D Shallow Ice Approximation right-hand side and diagnostics.
+
+    ∂H/∂t = −∇·F,     F = −D(H̄, |∇S|) ∇S|_edges (clamped at borders)
+
+A pure function of the state. Law values arrive through a :class:`ValuesFn`;
+when they are per-glacier scalars for the A target (no inner laws), the RHS
+of a (n_g, nx, ny) batch is the fused kernel
+:func:`odinn_tpu_torch.ops.cuda.sia_kernel.sia2d_rhs` (its plain PyTorch
+version on a CPU tensor); every other law configuration takes the stencil
+chain below on either device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import torch
+
+from odinn_tpu_torch.core.glacier import per_glacier_column
+from odinn_tpu_torch.ops import stencils as st
+from odinn_tpu_torch.ops.cuda import sia_kernel
+from odinn_tpu_torch.physics.targets import ATarget
+
+__all__ = [
+    "SIAValues", "ValuesFn", "default_values", "scalar_law_table", "sia2d_rhs",
+    "sia2d_rhs_generic", "surface_velocity", "v_from_h",
+]
+
+
+@dataclass(frozen=True)
+class SIAValues:
+    """Evaluated law values for every SIA2D slot: Python numbers, per-glacier
+    columns broadcastable against the staggered grid, or staggered
+    (…, nx−1, ny−1) tensors. ``None`` slots are unused by the target."""
+
+    A: Any = None          # creep coefficient
+    C: Any = None          # sliding coefficient
+    n: Any = None          # Glen exponent
+    p: Any = None          # sliding thickness exponent (defaults to n)
+    q: Any = None          # sliding slope exponent offset (defaults to 0)
+    Y: Any = None          # hybrid diffusivity (D_hybrid target)
+    U: Any = None          # diffusive velocity (D target)
+    n_H: Any = None        # decoupled H exponent (hybrid)
+    n_gradS: Any = None    # decoupled |∇S| exponent (hybrid)
+
+    def replace(self, **kw) -> "SIAValues":
+        return dataclasses.replace(self, **kw)
+
+
+class ValuesFn:
+    """The per-RHS-call law resolver ``values_fn(hbar, grad_s) -> SIAValues``.
+
+    ``outer`` holds the values fixed for the solve; ``inner`` (optional)
+    re-evaluates the state-dependent laws from (H̄, |∇S|). Without inner laws
+    the values are ``constant``, which is what lets the solvers hand them to
+    the fused kernels. ``cache`` keeps the kernels' per-glacier tables for
+    the life of one solve.
+    """
+
+    def __init__(self, outer: SIAValues,
+                 inner: Optional[Callable[[SIAValues, Any, Any], SIAValues]] = None):
+        self.outer = outer
+        self.inner = inner
+        self.cache = {}
+
+    @property
+    def constant(self) -> Optional[SIAValues]:
+        return self.outer if self.inner is None else None
+
+    def __call__(self, hbar, grad_s) -> SIAValues:
+        if self.inner is None:
+            return self.outer
+        return self.inner(self.outer, hbar, grad_s)
+
+
+def default_values(glacier) -> SIAValues:
+    """Slot defaults from the glacier constants (A, C, n with p = n, q = 0)."""
+    n = per_glacier_column(glacier, glacier.n)
+    return SIAValues(A=per_glacier_column(glacier, glacier.A),
+                     C=per_glacier_column(glacier, glacier.C),
+                     n=n, p=n, q=torch.zeros_like(n))
+
+
+def _as_column(v, n_g: int, device) -> Optional[torch.Tensor]:
+    """``v`` as a float64 (n_g,) column if it is one value per glacier."""
+    if isinstance(v, (int, float)):
+        return torch.full((n_g,), float(v), dtype=torch.float64, device=device)
+    if not isinstance(v, torch.Tensor):
+        return None
+    v = v.to(device=device, dtype=torch.float64)
+    if v.numel() == 1:
+        return v.reshape(1).expand(n_g)
+    if v.ndim >= 1 and v.shape[0] == n_g and v.numel() == n_g:
+        return v.reshape(n_g)
+    return None
+
+
+def scalar_law_table(values_fn, target, dx, dy, H) -> Optional[torch.Tensor]:
+    """The raw (n_g, 7) float64 table (dx, dy, A, C, n, p, q) of the fused
+    kernels, or None when the configuration is not theirs: the A target,
+    constant values, every slot one value per glacier, an (n_g, nx, ny)
+    state. Cached on ``values_fn`` for as long as ``dx``/``dy`` are the same
+    tensors."""
+    vals = getattr(values_fn, "constant", None)
+    if vals is None or type(target) is not ATarget or H.ndim != 3:
+        return None
+    hit = values_fn.cache.get("table")
+    if hit is not None and hit[0] is dx and hit[1] is dy and hit[2] == H.device:
+        return hit[3]
+    n_g = H.shape[0]
+    cols = [_as_column(v, n_g, H.device)
+            for v in (dx, dy, vals.A, vals.C, vals.n, vals.p, vals.q)]
+    if any(c is None for c in cols):
+        return None
+    table = torch.stack(cols, dim=1)
+    values_fn.cache["table"] = (dx, dy, H.device, table)
+    return table
+
+
+def sia2d_rhs_generic(H, B, dx, dy, values_fn, target, phys):
+    """The unfused stencil chain of :func:`sia2d_rhs` (any law configuration)."""
+    H = st.relu_strict(H)
+    # solve dtype = state dtype: neither the bed nor float64 law values
+    # (CuffeyPaterson's table fit) may promote a float32 solve
+    S = B.to(H.dtype) + H
+
+    gsx, gsy = st.grad_slope(S, dx, dy)           # (nx-1, ny-1) staggered
+    grad_s = st.safe_norm(gsx, gsy)
+    hbar = st.avg(H)
+
+    vals = values_fn(hbar, grad_s)
+    D = target.diffusivity(vals, hbar, grad_s, phys).to(H.dtype)
+
+    dsdx_e = st.diff_x(S[..., :, 1:-1]) / dx       # (nx-1, ny-2)
+    dsdy_e = st.diff_y(S[..., 1:-1, :]) / dy       # (nx-2, ny-1)
+    eta0 = phys.eta0
+    dsdx_e = st.clamp_borders_dx(dsdx_e, H, eta0, dx)
+    dsdy_e = st.clamp_borders_dy(dsdy_e, H, eta0, dy)
+
+    Fx = -st.avg_y(D) * dsdx_e
+    Fy = -st.avg_x(D) * dsdy_e
+
+    div = st.diff_x(Fx) / dx + st.diff_y(Fy) / dy  # (nx-2, ny-2)
+    return st.pad_inner(-div)
+
+
+def sia2d_rhs(H, B, dx, dy, values_fn, target, phys):
+    """dH/dt of the SIA2D equation for a glacier or a (n_g, nx, ny) batch.
+
+    Steps: clamp H ≥ 0 and S = B + H; staggered gradients, |∇S| and H̄; law
+    values; D from the target; η₀-clamped edge gradients; fluxes and the
+    negated interior divergence, with a zero ring.
+    """
+    table = scalar_law_table(values_fn, target, dx, dy, H)
+    if table is not None:
+        return sia_kernel.sia2d_rhs(H, B.to(H.dtype), table, phys.rho, phys.g,
+                                    phys.eta0)
+    return sia2d_rhs_generic(H, B, dx, dy, values_fn, target, phys)
+
+
+def surface_velocity(H, B, dx, dy, values_fn, target, phys):
+    """Staggered surface velocity (Vx, Vy, |V|) on the (nx−1, ny−1) grid:
+    V = −Velocityꜛ(H̄, |∇S|)·∇S."""
+    H = st.relu_strict(H)
+    S = B.to(H.dtype) + H
+    gsx, gsy = st.grad_slope(S, dx, dy)
+    grad_s = st.safe_norm(gsx, gsy)
+    hbar = st.avg(H)
+    vals = values_fn(hbar, grad_s)
+    v_up = target.velocity_up(vals, hbar, grad_s, phys).to(H.dtype)
+    vx = -v_up * gsx
+    vy = -v_up * gsy
+    return vx, vy, st.safe_norm(vx, vy)
+
+
+def _to_centers(a):
+    """Average an edge-replicated staggered field back to cell centers."""
+    a = torch.cat([a[..., :1, :], a, a[..., -1:, :]], dim=-2)
+    a = torch.cat([a[..., :, :1], a, a[..., :, -1:]], dim=-1)
+    return st.avg(a)
+
+
+def v_from_h(H, B, dx, dy, values_fn, target, phys):
+    """Cell-centered (nx, ny) surface velocity (Vx, Vy, |V|)."""
+    vx_s, vy_s, _ = surface_velocity(H, B, dx, dy, values_fn, target, phys)
+    vx, vy = _to_centers(vx_s), _to_centers(vy_s)
+    return vx, vy, st.safe_norm(vx, vy)

@@ -1,0 +1,151 @@
+"""Forward simulation: ``forward_batch``, ``Prediction`` and ``run_prediction``.
+
+The whole stacked glacier batch advances at once: the glacier axis is the
+leading dimension of every state tensor, and per-glacier scalars are
+(n_g, 1, 1) columns. Fixed-substep solvers only; the adaptive, replay,
+``substeps="auto"`` and periodic-law paths come with later slices.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+
+from odinn_tpu_torch.core.device import resolve_device
+from odinn_tpu_torch.core.glacier import Glacier, per_glacier_column, stack_glaciers
+from odinn_tpu_torch.models.model import Model, make_values_fn, resolve_outer_values
+from odinn_tpu_torch.physics.mass_balance import mb_timestep
+from odinn_tpu_torch.physics.sia2d import sia2d_rhs, v_from_h
+from odinn_tpu_torch.simulation.implicit import integrate_semi_implicit
+from odinn_tpu_torch.simulation.solver import build_tstops, host_tstops, integrate_scan
+
+__all__ = ["forward_glacier", "forward_batch", "Prediction", "run_prediction"]
+
+_METHODS = ("RK4", "SSPRK3", "Euler", "RKC", "SI", "SI2")
+
+
+def _mb_every(params) -> int:
+    """MB callback cadence in save intervals: step_MB / solver.step."""
+    return max(int(round(params.simulation.step_MB / params.solver.step)), 1)
+
+
+def _check_supported(model: Model, params) -> None:
+    solver = params.solver
+    if solver.adaptive:
+        raise NotImplementedError(
+            "odinn_tpu_torch: solver.adaptive (error-controlled and replay "
+            "solves) comes with the tolerance slice; use fixed substeps")
+    if isinstance(solver.substeps, str):
+        raise NotImplementedError(
+            "odinn_tpu_torch: substeps='auto' comes with the tolerance slice; "
+            "give an integer substep count")
+    if model.iceflow.periodic_laws:
+        raise NotImplementedError(
+            "odinn_tpu_torch: periodic laws (callback_freq > 0) come with the "
+            "training slice")
+    if model.initial_condition is not None:
+        raise NotImplementedError(
+            "odinn_tpu_torch: trainable initial conditions come with the "
+            "training slice")
+
+
+def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=None):
+    """Solve a glacier, or a stacked batch at once, over ``tstops``; returns
+    the trajectory (T, …, nx, ny) with the time axis first.
+
+    Outer laws are evaluated at the first tstop, inner laws at every RHS
+    call, and the mass balance is applied at every ``step_MB`` interval end.
+    """
+    _check_supported(model, params)
+    phys = params.physical
+    H0 = glacier.H0 if H0 is None else H0
+    ts = host_tstops(tstops, H0.dtype)
+    t_first = float(ts[0])
+    outer_vals = resolve_outer_values(model, theta, glacier, t_first, H=H0)
+    values_fn = make_values_fn(model, theta, glacier, t_first, outer_vals)
+    target = model.target
+    dx, dy = per_glacier_column(glacier, glacier.dx), per_glacier_column(glacier, glacier.dy)
+
+    def rhs(H, t):
+        if not params.simulation.use_iceflow:
+            return torch.zeros_like(H)
+        return sia2d_rhs(H, glacier.B, dx, dy, values_fn, target, phys)
+
+    callback = None
+    if params.simulation.use_MB and model.mass_balance is not None:
+        k = _mb_every(params)
+        step_mb = params.simulation.step_MB
+
+        def callback(H, ta, tb, i):
+            if (i + 1) % k != 0:
+                return H
+            return mb_timestep(H, glacier, model.mass_balance, tb, step_mb)
+
+    method = params.solver.solver if params.solver.solver in _METHODS else "RK4"
+    if method in ("SI", "SI2"):
+        return integrate_semi_implicit(
+            H0, glacier.B, dx, dy, values_fn, target, phys, ts,
+            substeps=params.solver.substeps, cg_iters=params.solver.cg_iters,
+            callback=callback, corrector=method == "SI2",
+            cg_iters_predictor=params.solver.cg_iters_predictor,
+        )
+    return integrate_scan(
+        rhs, H0, ts, params.solver.substeps, method=method, callback=callback,
+        rkc_stages=params.solver.rkc_stages, compensated=params.solver.compensated,
+    )
+
+
+def forward_batch(theta, batch: Glacier, model: Model, params, tstops, device=None):
+    """Forward solve of a stacked batch on ``device`` (None: the CUDA card).
+    Returns trajectories of shape (n_glaciers, T, nx, ny)."""
+    batch = batch.to(resolve_device(device))
+    return forward_glacier(theta, batch, model, params, tstops).movedim(0, 1)
+
+
+@dataclass
+class Prediction:
+    """Forward-simulation container: a stacked batch (or a list of glaciers,
+    stacked on construction) on ``device`` (None: the CUDA card)."""
+
+    model: Model
+    glaciers: Any
+    parameters: Any
+    theta: Any = None
+    results: Any = None
+    device: Optional[Any] = None
+
+    def __post_init__(self):
+        dev = resolve_device(self.device)
+        if isinstance(self.glaciers, (list, tuple)):
+            self.glaciers = stack_glaciers(list(self.glaciers), device=dev)
+        else:
+            self.glaciers = self.glaciers.to(dev)
+        self.device = dev
+
+
+def run_prediction(pred: Prediction, tstops=None):
+    """Run the forward solve; stores the trajectories (and, with
+    ``use_velocities``, the surface velocities at every tstop) in
+    ``pred.results``."""
+    params = pred.parameters
+    if tstops is None:
+        tstops = build_tstops(params.simulation.tspan, params.solver.step)
+    batch = pred.glaciers
+    trajs = forward_batch(pred.theta, batch, pred.model, params, tstops, device=pred.device)
+    results = {"t": tstops, "H": trajs}
+    if params.simulation.use_velocities:
+        t_first = float(host_tstops(tstops, trajs.dtype)[0])
+        dx, dy = per_glacier_column(batch, batch.dx), per_glacier_column(batch, batch.dy)
+        vel = []
+        for k in range(trajs.shape[1]):
+            H = trajs[:, k]
+            outer = resolve_outer_values(pred.model, pred.theta, batch, t_first, H=H)
+            vfn = make_values_fn(pred.model, pred.theta, batch, t_first, outer)
+            vel.append(v_from_h(H, batch.B, dx, dy, vfn, pred.model.target,
+                                params.physical))
+        vx, vy, vabs = (torch.stack(v, dim=1) for v in zip(*vel))
+        results.update({"Vx": vx, "Vy": vy, "V": vabs})
+    pred.results = results
+    return results

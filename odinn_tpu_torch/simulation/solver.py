@@ -1,0 +1,246 @@
+"""Fixed-step time integrators for the SIA2D solve.
+
+:func:`integrate_scan` advances the state with a fixed number of substeps
+per save interval (Euler, RK4, SSPRK3 or RKC2), optionally with Kahan-
+compensated accumulation, and runs a callback (mass balance) at every
+interval end. It returns the trajectory saved at the tstops.
+
+Times are handled on the host in the state's dtype: the tstops are cast to
+it before they are differenced, so a float32 solve steps by float32 dt, as
+the JAX package does. Steppers receive dt as a Python number holding that
+value.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+__all__ = [
+    "build_tstops",
+    "host_tstops",
+    "integrate_scan",
+    "rk4_step",
+    "ssprk3_step",
+    "euler_step",
+    "get_stepper",
+    "make_rkc2_step",
+]
+
+
+def build_tstops(tspan, step, extra=None) -> torch.Tensor:
+    """Uniform tstops over tspan at ``step``, unioned with ``extra`` times;
+    a sorted float64 CPU tensor. Times closer than a few float32 ulps are
+    merged, keeping the data time, so an observation instant never becomes a
+    zero-length interval under a float32 solve."""
+    t0, t1 = float(tspan[0]), float(tspan[1])
+    n = int(round((t1 - t0) / step))
+    grid = np.linspace(t0, t1, n + 1)
+    if extra is None:
+        return torch.from_numpy(grid)
+
+    data = np.asarray(extra, float).ravel()
+    data = data[(data >= t0 - 1e-9) & (data <= t1 + 1e-9)]
+    cands = sorted(
+        [(float(t), False) for t in grid] + [(float(t), True) for t in np.unique(data)]
+    )
+
+    def tol(t):
+        return 1e-9 + 5e-7 * abs(t)   # ≈4 f32 ulps
+
+    merged = []   # (representative, has_data)
+    for t, is_data in cands:
+        if merged and t - merged[-1][0] <= tol(t):
+            rep, had_data = merged[-1]
+            merged[-1] = (t if (is_data and not had_data) else rep,
+                          had_data or is_data)
+        else:
+            merged.append((t, is_data))
+    return torch.from_numpy(np.asarray([t for t, _ in merged]))
+
+
+def host_tstops(tstops, dtype: torch.dtype) -> np.ndarray:
+    """tstops as a numpy array in the state's dtype."""
+    if isinstance(tstops, torch.Tensor):
+        tstops = tstops.detach().cpu().numpy()
+    return np.asarray(tstops, dtype=np.float32 if dtype == torch.float32 else np.float64)
+
+
+# ---------------------------------------------------------------------------
+# Explicit steppers
+# ---------------------------------------------------------------------------
+
+def euler_step(f, y, t, dt):
+    return y + dt * f(y, t)
+
+
+def rk4_step(f, y, t, dt):
+    k1 = f(y, t)
+    k2 = f(y + 0.5 * dt * k1, t + 0.5 * dt)
+    k3 = f(y + 0.5 * dt * k2, t + 0.5 * dt)
+    k4 = f(y + dt * k3, t + dt)
+    return y + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+
+def ssprk3_step(f, y, t, dt):
+    """3-stage 3rd-order strong-stability-preserving RK (Shu–Osher)."""
+    y1 = y + dt * f(y, t)
+    y2 = 0.75 * y + 0.25 * (y1 + dt * f(y1, t + dt))
+    return y / 3.0 + (2.0 / 3.0) * (y2 + dt * f(y2, t + 0.5 * dt))
+
+
+# Increment forms Δ = y_{n+1} − y_n for compensated accumulation.
+
+def euler_increment(f, y, t, dt):
+    return dt * f(y, t)
+
+
+def rk4_increment(f, y, t, dt):
+    k1 = f(y, t)
+    k2 = f(y + 0.5 * dt * k1, t + 0.5 * dt)
+    k3 = f(y + 0.5 * dt * k2, t + 0.5 * dt)
+    k4 = f(y + dt * k3, t + dt)
+    return (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+
+def ssprk3_increment(f, y, t, dt):
+    """SSPRK3 as Δ = dt·(k1 + k2 + 4·k3)/6 with k1 = f(y), k2 = f(y + dt·k1),
+    k3 = f(y + dt(k1+k2)/4)."""
+    k1 = f(y, t)
+    k2 = f(y + dt * k1, t + dt)
+    k3 = f(y + 0.25 * dt * (k1 + k2), t + 0.5 * dt)
+    return dt * (k1 + k2 + 4.0 * k3) / 6.0
+
+
+_INCREMENTS = {"RK4": rk4_increment, "SSPRK3": ssprk3_increment,
+               "Euler": euler_increment}
+
+
+def _rkc2_coeffs(s: int, eps: float = 2.0 / 13.0):
+    """Damped second-order Runge–Kutta–Chebyshev coefficients (RKC2); real-
+    axis stability interval ≈ 0.65·s²."""
+    w0 = 1.0 + eps / s**2
+
+    T = np.zeros(s + 1)
+    dT = np.zeros(s + 1)
+    d2T = np.zeros(s + 1)
+    T[0], dT[0], d2T[0] = 1.0, 0.0, 0.0
+    T[1], dT[1], d2T[1] = w0, 1.0, 0.0
+    for j in range(2, s + 1):
+        T[j] = 2.0 * w0 * T[j - 1] - T[j - 2]
+        dT[j] = 2.0 * T[j - 1] + 2.0 * w0 * dT[j - 1] - dT[j - 2]
+        d2T[j] = 4.0 * dT[j - 1] + 2.0 * w0 * d2T[j - 1] - d2T[j - 2]
+
+    w1 = dT[s] / d2T[s]
+    b = np.zeros(s + 1)
+    for j in range(2, s + 1):
+        b[j] = d2T[j] / dT[j] ** 2
+    b[0] = b[2]
+    b[1] = 1.0 / w0
+    a = 1.0 - b[: s + 1] * T[: s + 1]
+
+    mu1_t = b[1] * w1
+    mu = np.zeros(s + 1)
+    nu = np.zeros(s + 1)
+    mu_t = np.zeros(s + 1)
+    gam_t = np.zeros(s + 1)
+    c = np.zeros(s + 1)
+    c[1] = mu1_t
+    for j in range(2, s + 1):
+        mu[j] = 2.0 * b[j] * w0 / b[j - 1]
+        nu[j] = -b[j] / b[j - 2]
+        mu_t[j] = mu[j] * w1 / w0
+        gam_t[j] = -a[j - 1] * mu_t[j]
+        c[j] = (dT[s] / d2T[s]) * (d2T[j] / dT[j]) if j < s else 1.0
+    return w0, w1, mu1_t, mu, nu, mu_t, gam_t, c
+
+
+def make_rkc2_step(s: int):
+    """An s-stage RKC2 stepper ``step(f, y, t, dt)``. Coefficients are
+    rounded to the state's dtype, and the stage weights formed in it."""
+    _, _, mu1_t, mu_np, nu_np, mu_t_np, gam_t_np, c_np = _rkc2_coeffs(s)
+    mu1_t = float(mu1_t)
+
+    def step(f, y, t, dt):
+        npt = np.float32 if y.dtype == torch.float32 else np.float64
+        mu, nu, mu_t, gam_t, c = (a.astype(npt) for a in (mu_np, nu_np, mu_t_np, gam_t_np, c_np))
+        dtn = npt(dt)
+        f0 = f(y, t)
+        y_jm1, y_jm2 = y + float(npt(mu1_t) * dtn) * f0, y
+        for j in range(2, s + 1):
+            f_j = f(y_jm1, float(t + c[j - 1] * dtn))
+            y_j = (
+                float(npt(1.0) - mu[j] - nu[j]) * y
+                + float(mu[j]) * y_jm1
+                + float(nu[j]) * y_jm2
+                + float(mu_t[j] * dtn) * f_j
+                + float(gam_t[j] * dtn) * f0
+            )
+            y_jm1, y_jm2 = y_j, y_jm1
+        return y_jm1
+
+    return step
+
+
+_STEPPERS = {"RK4": rk4_step, "SSPRK3": ssprk3_step, "Euler": euler_step}
+
+
+def get_stepper(method: str, rkc_stages: int = 16):
+    """Resolve a stepper name; "RKC" builds an s-stage Chebyshev stepper."""
+    if method == "RKC":
+        return make_rkc2_step(rkc_stages)
+    return _STEPPERS[method]
+
+
+def _kahan_add(y, c, inc):
+    delta = inc - c
+    t = y + delta
+    return t, (t - y) - delta
+
+
+def integrate_scan(
+    rhs: Callable,
+    y0,
+    tstops,
+    substeps: int,
+    method: str = "RK4",
+    callback: Optional[Callable] = None,
+    rkc_stages: int = 16,
+    compensated: bool = False,
+):
+    """Integrate ``dy/dt = rhs(y, t)`` saving at every tstop.
+
+    ``callback(y, t0, t1, interval_idx) -> y`` runs at the end of each save
+    interval. ``compensated=True`` (Euler/SSPRK3/RK4) accumulates the state
+    with Kahan summation in increment form, callback jumps folded in as
+    increments. Returns the trajectory, shape ``(len(tstops), *y0.shape)``
+    with ``traj[0] = y0``.
+    """
+    ts = host_tstops(tstops, y0.dtype)
+    npt = ts.dtype.type
+    if compensated and method not in _INCREMENTS:
+        raise ValueError(
+            f"compensated accumulation supports Euler/SSPRK3/RK4, not {method!r}")
+    advance = _INCREMENTS[method] if compensated else get_stepper(method, rkc_stages)
+
+    y, comp = y0, torch.zeros_like(y0)
+    traj = [y0]
+    for i in range(len(ts) - 1):
+        t0, t1 = ts[i], ts[i + 1]
+        dt = (t1 - t0) / npt(substeps)
+        for k in range(substeps):
+            t, h = float(t0 + npt(k) * dt), float(dt)
+            if compensated:
+                y, comp = _kahan_add(y, comp, advance(rhs, y, t, h))
+            else:
+                y = advance(rhs, y, t, h)
+        if callback is not None:
+            y_cb = callback(y, t0, t1, i)
+            if compensated:
+                y, comp = _kahan_add(y, comp, y_cb - y)
+            else:
+                y = y_cb
+        traj.append(y)
+    return torch.stack(traj)

@@ -1,0 +1,168 @@
+"""The plain versions of odinn_tpu_torch's CUDA kernels against the JAX
+package's Pallas kernels (interpret mode on the CPU) and references, and the
+kernel wrappers' contract on the CPU: a CPU tensor takes the plain version,
+and gradients, mixed exponent sets and unsupported inputs are refused.
+
+The kernels themselves run only on a CUDA card; ``chip_smoke.py`` holds them
+against these plain versions there. Float64; tolerance 1e-10 relative to
+max|H| (or max|dH/dt|).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from odinn_tpu.ops.pallas.rkc_kernel import derived_scalars as j_derived
+from odinn_tpu.ops.pallas.si_kernel import si_step_pallas, si_step_reference as j_si_ref
+from odinn_tpu.ops.pallas.sia_kernel import sia2d_rhs_pallas
+from odinn_tpu_torch.ops.cuda import si_kernel, sia_kernel
+from odinn_tpu_torch.ops.cuda.common import derived_scalars, pow_pos, shared_exps
+from tests.torch_parity import assert_rel
+
+RTOL = 1e-10
+RHO, G, ETA0 = 900.0, 9.81, 1.0
+DT = 1.0 / 12.0
+
+
+def _inputs(n_g=3, nx=28, ny=34, seed=0):
+    """Domes of varied size on a rough bed; the raw (dx, dy, A, C, n, p, q)
+    table with sliding on one glacier."""
+    rng = np.random.default_rng(seed)
+    x = (np.arange(nx) - nx / 2) * 100.0
+    y = (np.arange(ny) - ny / 2) * 90.0
+    r2 = x[:, None] ** 2 + y[None, :] ** 2
+    radius = 0.35 * nx * 100.0 * (0.8 + 0.4 * rng.random(n_g))
+    H = (400.0 * (0.6 + 0.6 * rng.random(n_g)))[:, None, None] * np.clip(
+        1.0 - r2 / radius[:, None, None] ** 2, 0.0, None) ** (3.0 / 7.0)
+    B = 20.0 * rng.random((n_g, nx, ny))
+    A = np.array([8e-19, 3e-18, 1.5e-18])[:n_g]
+    C = np.array([0.0, 2e-18, 0.0])[:n_g]
+    raw = np.stack([np.full(n_g, 100.0), np.full(n_g, 90.0), A, C,
+                    np.full(n_g, 3.0), np.full(n_g, 3.0), np.zeros(n_g)], axis=1)
+    return H, B, raw
+
+
+def _j_table(raw):
+    return j_derived(*(jnp.asarray(raw[:, k]) for k in range(7)), RHO, G)
+
+
+def _t_table(raw):
+    return derived_scalars(*(torch.from_numpy(raw[:, k]) for k in range(7)), RHO, G)
+
+
+def test_derived_table_matches():
+    _, _, raw = _inputs()
+    assert_rel(_t_table(raw), _j_table(raw), 1e-14)
+
+
+@pytest.mark.parametrize("theta,hd_scale", [(1.0, 1.0), (0.5, 1.0), (0.5, 0.97), (1.0, 1.03)])
+def test_si_step_reference_matches_jax(theta, hd_scale):
+    H, B, raw = _inputs()
+    H_D, x0 = hd_scale * H, 0.99 * H
+    jt, tt = _j_table(raw), _t_table(raw)
+    args_j = (jnp.asarray(H), jnp.asarray(H_D), jnp.asarray(B), jnp.asarray(x0), jt, DT, theta, 8)
+    ref_j = j_si_ref(*args_j)
+    pal_j = si_step_pallas(*args_j)
+    t = torch.from_numpy
+    out = si_kernel.si_step_reference(t(H), t(H_D), t(B), t(x0), tt, DT, theta, 8)
+    assert_rel(out, ref_j, RTOL, "vs jax si_step_reference")
+    assert_rel(out, pal_j, RTOL, "vs si_step_pallas (interpret)")
+    # the wrapper on CPU tensors is the plain version, bit for bit
+    wrapped = si_kernel.si_step(t(H), t(H_D), t(B), t(x0), tt, DT, theta, 8)
+    assert torch.equal(wrapped, out)
+
+
+@pytest.mark.parametrize("with_bed", [True, False])
+def test_sia2d_rhs_reference_matches_jax(with_bed):
+    import odinn_tpu.physics.sia2d as jsia
+    from odinn_tpu.core.params import PhysicalParameters
+    from odinn_tpu.physics.targets import ATarget
+
+    H, B, raw = _inputs(seed=1)
+    if not with_bed:
+        B = np.zeros_like(B)
+    pal = sia2d_rhs_pallas(jnp.asarray(H), jnp.asarray(B), jnp.asarray(raw), RHO, G, ETA0)
+
+    def one(h, b, row):
+        vals = jsia.SIAValues(A=row[2], C=row[3], n=3.0, p=3.0, q=0.0)
+        return jsia.sia2d_rhs(h, b, row[0], row[1], lambda hb, gs: vals, ATarget(),
+                              PhysicalParameters())
+
+    ref = jax.vmap(one)(jnp.asarray(H), jnp.asarray(B), jnp.asarray(raw))
+    t = torch.from_numpy
+    out = sia_kernel.sia2d_rhs_reference(t(H), t(B), t(raw), RHO, G, ETA0)
+    assert_rel(out, pal, RTOL, "vs sia2d_rhs_pallas (interpret)")
+    assert_rel(out, ref, RTOL, "vs physics.sia2d.sia2d_rhs")
+    assert torch.equal(sia_kernel.sia2d_rhs(t(H), t(B), t(raw), RHO, G, ETA0), out)
+
+
+def test_sia2d_rhs_reference_mixed_exponents():
+    """Glaciers with their own Glen n run in groups, each with its own
+    exponent set — the same as one glacier at a time."""
+    H, B, raw = _inputs(seed=2)
+    raw[1, 4] = raw[1, 5] = 4.0
+    raw[2, 4] = raw[2, 5] = 2.5
+    t = torch.from_numpy
+    out = sia_kernel.sia2d_rhs_reference(t(H), t(B), t(raw), RHO, G, ETA0)
+    for k in range(3):
+        one = sia_kernel.sia2d_rhs_reference(t(H[k:k + 1]), t(B[k:k + 1]), t(raw[k:k + 1]),
+                                             RHO, G, ETA0)
+        assert torch.equal(out[k:k + 1], one)
+    pal = sia2d_rhs_pallas(jnp.asarray(H), jnp.asarray(B), jnp.asarray(raw), RHO, G, ETA0)
+    assert_rel(out, pal, RTOL)
+
+
+def test_pow_pos_semantics():
+    x = torch.tensor([0.0, 0.5, 2.0, 3.0], dtype=torch.float64)
+    x2 = x * x
+    assert torch.equal(pow_pos(x, 5.0), x * (x2 * x2))   # integer_pow's multiplies
+    assert torch.equal(pow_pos(x, 2.0), x2)
+    assert torch.equal(pow_pos(x, 0.0), torch.ones_like(x))
+    non_int = pow_pos(x, 2.5)
+    assert non_int[0] == 0.0
+    assert torch.allclose(non_int[1:], x[1:] ** 2.5, rtol=1e-14, atol=0)
+
+
+def test_wrappers_refuse_gradients():
+    H, B, raw = _inputs()
+    t = torch.from_numpy
+    Hg = t(H).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="gradients"):
+        si_kernel.si_step(Hg, t(H), t(B), t(H), _t_table(raw), DT)
+    with pytest.raises(RuntimeError, match="gradients"):
+        sia_kernel.sia2d_rhs(Hg, t(B), t(raw), RHO, G, ETA0)
+    with pytest.raises(RuntimeError, match="gradients"):
+        sia_kernel.sia2d_rhs(t(H), t(B), t(raw).requires_grad_(True), RHO, G, ETA0)
+
+
+def test_si_step_refuses_mixed_exponent_sets():
+    H, B, raw = _inputs()
+    raw[1, 4] = raw[1, 5] = 4.0
+    table = _t_table(raw)
+    assert shared_exps(table) is None
+    assert shared_exps(_t_table(_inputs()[2])) == (5.0, 2.0, 4.0, 2.0)
+    t = torch.from_numpy
+    with pytest.raises(ValueError, match="different exponent sets"):
+        si_kernel.si_step(t(H), t(H), t(B), t(H), table, DT)
+
+
+@pytest.mark.parametrize("bad", ["small", "2d", "dtype", "shape", "table", "noncontig"])
+def test_wrappers_check_inputs(bad):
+    H, B, raw = _inputs()
+    H, B, table = torch.from_numpy(H), torch.from_numpy(B), _t_table(raw)
+    if bad == "small":
+        H, B = H[:, :2].contiguous(), B[:, :2].contiguous()
+    elif bad == "2d":
+        H, B = H[0], B[0]
+    elif bad == "dtype":
+        H, B = H.to(torch.int64), B.to(torch.int64)
+    elif bad == "shape":
+        B = B[:, :-1].contiguous()
+    elif bad == "table":
+        table = table[:, :7]
+    elif bad == "noncontig":
+        H = H.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises((ValueError, TypeError)):
+        si_kernel.si_step(H, H, B, H, table, DT, exps=(5.0, 2.0, 4.0, 2.0))

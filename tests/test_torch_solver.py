@@ -1,0 +1,242 @@
+"""odinn_tpu_torch time integration against odinn_tpu: tstops, the explicit
+steppers, the fixed-substep and semi-implicit integrators, and the places
+where a port can drift from the JAX package without failing loudly (float32
+time arithmetic, the month-window index, dtype promotion, the CG warm
+start).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import odinn_tpu.simulation.implicit as jimp
+import odinn_tpu.simulation.solver as jsol
+import odinn_tpu_torch.simulation.implicit as timp
+import odinn_tpu_torch.simulation.solver as tsol
+from odinn_tpu.core.params import PhysicalParameters as JPhys
+from odinn_tpu.physics.sia2d import SIAValues as JVals
+from odinn_tpu.physics.targets import ATarget as JTarget
+from odinn_tpu_torch.core.params import PhysicalParameters as TPhys
+from odinn_tpu_torch.physics.sia2d import SIAValues as TVals, ValuesFn
+from odinn_tpu_torch.physics.targets import ATarget as TTarget
+from tests.torch_parity import assert_rel
+
+RTOL = 1e-12
+
+
+def test_build_tstops_matches():
+    for args in [((5.0, 10.0), 1 / 12), ((2010.0, 2012.0), 0.25, [2010.3, 2011.0000001, 2013.0]),
+                 ((0.0, 1.0), 0.1, np.float32([0.35, 0.4]))]:
+        np.testing.assert_array_equal(tsol.build_tstops(*args).numpy(),
+                                      np.asarray(jsol.build_tstops(*args)))
+
+
+def _linear_rhs(k):
+    """dy/dt = −k·y + sin(y) on both sides."""
+    return (lambda y, t: -k * y + jnp.sin(y)), (lambda y, t: -k * y + torch.sin(y))
+
+
+@pytest.mark.parametrize("method,compensated", [
+    ("Euler", False), ("RK4", False), ("SSPRK3", False), ("RKC", False),
+    ("RK4", True), ("SSPRK3", True), ("Euler", True),
+])
+def test_integrate_scan_matches(method, compensated):
+    rng = np.random.default_rng(3)
+    y0 = rng.random((2, 5, 6))
+    fj, ft = _linear_rhs(2.0)
+    ts = jsol.build_tstops((0.0, 1.0), 0.125)
+
+    def cb_j(y, t0, t1, i):
+        return jax.lax.cond(i % 2 == 1, lambda y: y * 0.99 + 0.01, lambda y: y, y)
+
+    def cb_t(y, t0, t1, i):
+        return y * 0.99 + 0.01 if i % 2 == 1 else y
+
+    ref = jsol.integrate_scan(fj, jnp.asarray(y0), ts, 3, method=method, callback=cb_j,
+                              rkc_stages=5, compensated=compensated)
+    out = tsol.integrate_scan(ft, torch.from_numpy(y0), tsol.build_tstops((0.0, 1.0), 0.125),
+                              3, method=method, callback=cb_t, rkc_stages=5,
+                              compensated=compensated)
+    assert_rel(out, ref, RTOL)
+
+
+def test_float32_time_arithmetic_matches():
+    """tstops are cast to the state dtype before differencing: in a float32
+    solve dt and the substep times are float32 quantities. Euler on
+    dy/dt = 1 sums dt = (t1 − t0)/substeps formed from float32 tstops with
+    IEEE float32 division, bit for bit; the JAX package's XLA:CPU program
+    multiplies by a rounded reciprocal of the substep count instead, so it
+    agrees to an ulp; differencing the float64 tstops first would give
+    another trajectory."""
+    y0 = np.zeros((3, 4), dtype=np.float32)
+    tspan = (2010.0, 2015.0)
+    ref = jsol.integrate_scan(lambda y, t: jnp.ones_like(y), jnp.asarray(y0),
+                              jsol.build_tstops(tspan, 1 / 12), 3, method="Euler")
+    out = tsol.integrate_scan(lambda y, t: torch.ones_like(y), torch.from_numpy(y0),
+                              tsol.build_tstops(tspan, 1 / 12), 3, method="Euler")
+    assert out.dtype == torch.float32
+    ts64 = np.asarray(jsol.build_tstops(tspan, 1 / 12), np.float64)
+    ts32 = ts64.astype(np.float32)
+    y32, y64dt = [np.float32(0.0)], [np.float32(0.0)]
+    for i in range(len(ts32) - 1):
+        dt32 = (ts32[i + 1] - ts32[i]) / np.float32(3)
+        dt64 = (ts64[i + 1] - ts64[i]) / 3.0      # differenced before the cast
+        a, b = y32[-1], y64dt[-1]
+        for _ in range(3):
+            a, b = np.float32(a + dt32), np.float32(b + np.float32(dt64))
+        y32.append(a)
+        y64dt.append(b)
+    np.testing.assert_array_equal(out[:, 0, 0].numpy(), np.asarray(y32))
+    assert not np.array_equal(np.asarray(y32), np.asarray(y64dt))
+    assert_rel(out, ref, 2e-7)
+    # and a stiff nonlinear RHS, compensated SSPRK3, to float32 roundoff
+    fj, ft = _linear_rhs(3.0)
+    y1 = np.linspace(0.1, 2.0, 12, dtype=np.float32).reshape(3, 4)
+    ref = jsol.integrate_scan(fj, jnp.asarray(y1), jsol.build_tstops(tspan, 1 / 12), 4,
+                              method="SSPRK3", compensated=True)
+    out = tsol.integrate_scan(ft, torch.from_numpy(y1), tsol.build_tstops(tspan, 1 / 12), 4,
+                              method="SSPRK3", compensated=True)
+    assert_rel(out, ref, 1e-6)
+    ts32 = tsol.host_tstops(tsol.build_tstops(tspan, 1 / 12), torch.float32)
+    assert ts32.dtype == np.float32
+    dts = np.diff(ts32)
+    assert len(set(dts.tolist())) > 1   # float32 monthly steps are not all equal
+
+
+def _si_problem(n_g=2, nx=20, ny=24, seed=6):
+    rng = np.random.default_rng(seed)
+    x = (np.arange(nx) - nx / 2) * 100.0
+    y = (np.arange(ny) - ny / 2) * 100.0
+    r2 = x[:, None] ** 2 + y[None, :] ** 2
+    H = np.stack([300.0 * s * np.clip(1 - r2 / (700.0 * s) ** 2, 0, None) ** (3 / 7)
+                  for s in (1.0, 0.8, 1.2)[:n_g]])
+    B = 10.0 * rng.random((n_g, nx, ny))
+    A = np.array([2e-18, 6e-18, 4e-18])[:n_g]
+    return H, B, A
+
+
+def _j_vfn(A):
+    vals = JVals(A=A, C=0.0, n=3.0, p=3.0, q=0.0)
+    return lambda hb, gs: vals
+
+
+def _t_vfn(A, fused=True):
+    vals = TVals(A=torch.from_numpy(A).reshape(-1, 1, 1), C=0.0, n=3.0, p=3.0, q=0.0)
+    return ValuesFn(vals) if fused else ValuesFn(vals, lambda v, hb, gs: v)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("theta,star", [(1.0, False), (0.5, True)])
+def test_semi_implicit_step_matches(fused, theta, star):
+    H, B, A = _si_problem()
+    H_star = 0.95 * H if star else None
+    x0 = 1.01 * H
+
+    def jone(h, b, a, hs, x):
+        return jimp.semi_implicit_step(h, b, 100.0, 100.0, _j_vfn(a), JTarget(), JPhys(),
+                                       0.25, 10, x0=x, theta=theta,
+                                       H_star=hs if star else None)
+
+    ref = jax.vmap(jone)(jnp.asarray(H), jnp.asarray(B), jnp.asarray(A),
+                         jnp.asarray(H if H_star is None else H_star), jnp.asarray(x0))
+    t = torch.from_numpy
+    out = timp.semi_implicit_step(t(H), t(B), 100.0, 100.0, _t_vfn(A, fused), TTarget(), TPhys(),
+                                  0.25, 10, x0=t(x0), theta=theta,
+                                  H_star=None if H_star is None else t(H_star))
+    assert_rel(out, ref, 1e-10)
+
+
+@pytest.mark.parametrize("corrector", [False, True])
+def test_integrate_semi_implicit_matches(corrector):
+    H, B, A = _si_problem()
+    ts = jsol.build_tstops((0.0, 0.5), 1 / 12)
+
+    def jone(h, b, a):
+        return jimp.integrate_semi_implicit(h, b, 100.0, 100.0, _j_vfn(a), JTarget(), JPhys(),
+                                            ts, substeps=2, cg_iters=8,
+                                            corrector=corrector, cg_iters_predictor=4)
+
+    ref = jax.vmap(jone)(jnp.asarray(H), jnp.asarray(B), jnp.asarray(A))
+    out = timp.integrate_semi_implicit(
+        torch.from_numpy(H), torch.from_numpy(B), 100.0, 100.0, _t_vfn(A), TTarget(), TPhys(),
+        tsol.build_tstops((0.0, 0.5), 1 / 12), substeps=2, cg_iters=8, corrector=corrector,
+        cg_iters_predictor=4)
+    assert_rel(out.movedim(0, 1), ref, 1e-10)
+
+
+def test_si_warm_start_begins_with_ratio_zero():
+    """The warm-start carry starts at dt_prev = 0, so the first step's CG
+    guess is H itself; the second step extrapolates."""
+    H, B, A = _si_problem()
+    t = torch.from_numpy
+    ts = tsol.build_tstops((0.0, 2 / 12), 1 / 12)
+    traj = timp.integrate_semi_implicit(t(H), t(B), 100.0, 100.0, _t_vfn(A), TTarget(), TPhys(),
+                                        ts, cg_iters=3)
+    dt = float(ts[1] - ts[0])
+    first = timp.semi_implicit_step(t(H), t(B), 100.0, 100.0, _t_vfn(A), TTarget(), TPhys(),
+                                    dt, 3, x0=t(H))
+    assert torch.equal(traj[1], first)
+    second = timp.semi_implicit_step(first, t(B), 100.0, 100.0, _t_vfn(A), TTarget(), TPhys(),
+                                     dt, 3, x0=first + 1.0 * (first - t(H)))
+    assert torch.equal(traj[2], second)
+    # 3 CG iterations from a cold guess give another answer
+    cold = timp.semi_implicit_step(first, t(B), 100.0, 100.0, _t_vfn(A), TTarget(), TPhys(),
+                                   dt, 3, x0=first)
+    assert not torch.equal(traj[2], cold)
+
+
+def test_float64_law_values_do_not_promote_a_float32_solve():
+    """Cuffey–Paterson gives float64 values and the bed may be float64: the
+    RHS, the SI step and the MB step all stay in the state's float32."""
+    from odinn_tpu_torch.core.glacier import Glacier
+    from odinn_tpu_torch.data.synthetic import monthly_dummy_climate
+    from odinn_tpu_torch.laws.laws import poly_A_paterson_cuffey
+    from odinn_tpu_torch.physics.mass_balance import TImodel1, mb_timestep
+    from odinn_tpu_torch.physics.sia2d import sia2d_rhs
+
+    H, B, _ = _si_problem()
+    A = poly_A_paterson_cuffey()(torch.tensor([-10.0, -20.0]))
+    assert A.dtype == torch.float64
+    H32, B64 = torch.from_numpy(H).float(), torch.from_numpy(B)
+    for fused in (True, False):
+        vfn = ValuesFn(TVals(A=A.reshape(-1, 1, 1), C=0.0, n=3.0, p=3.0, q=0.0),
+                       None if fused else (lambda v, hb, gs: v))
+        assert sia2d_rhs(H32, B64, 100.0, 100.0, vfn, TTarget(), TPhys()).dtype == torch.float32
+        step = timp.semi_implicit_step(H32, B64, 100.0, 100.0, vfn, TTarget(), TPhys(),
+                                       float(np.float32(1 / 12)), 4)
+        assert step.dtype == torch.float32
+    clim = monthly_dummy_climate(0.0, 14, device="cpu")
+    stacked = Glacier(H0=H32, B=B64, climate=type(clim)(
+        **{k: torch.stack([v, v]) for k, v in vars(clim).items() if v is not None}))
+    assert mb_timestep(H32, stacked, TImodel1(), np.float32(0.5), 1 / 12).dtype == torch.float32
+
+
+def test_mb_window_index_in_state_dtype():
+    """m0 = round((t − step − t_start)·12) is formed in the state dtype with
+    round-half-even. Times t = 2010 + (k + ½)/12 put the index near the tie
+    k − ½, where float32 and float64 rounding pick different months for
+    some k; the port picks the JAX package's month in both dtypes."""
+    import odinn_tpu.physics.mass_balance as jmb
+    import odinn_tpu.data.synthetic as jsyn
+    import odinn_tpu_torch.physics.mass_balance as tmb
+    from tests.torch_parity import carry_glacier
+
+    found = False
+    for dtype, jdt in ((torch.float64, jnp.float64), (torch.float32, jnp.float32)):
+        clim = jsyn.monthly_dummy_climate(2010.0, 30, temp_amplitude=9.0)
+        g = jsyn.halfar_glacier(nx=10, ny=10, dx=100.0, climate=clim)
+        g = jax.tree.map(lambda x: x.astype(jdt) if jnp.issubdtype(x.dtype, jnp.floating) else x, g)
+        tg = carry_glacier(g)
+        mb_j, mb_t = jmb.TImodel1(), tmb.TImodel1()
+        for k in range(1, 25):
+            tj = jnp.asarray(2010.0 + (k + 0.5) / 12.0, jdt)
+            idx_j = int(jnp.round((tj - 1 / 12 - g.climate.t_start) * 12.0))
+            idx_64 = int(np.round((2010.0 + (k + 0.5) / 12.0 - 1 / 12 - 2010.0) * 12.0))
+            found |= idx_j != idx_64
+            ref = jmb.compute_mb(mb_j, g.climate, g.S, tj, 1 / 12)
+            out = tmb.compute_mb(mb_t, tg.climate, tg.S, np.asarray(tj), 1 / 12)
+            assert out.dtype == dtype
+            np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    assert found   # some float32 window index differs from the float64 one
