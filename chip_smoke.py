@@ -9,16 +9,25 @@ Phases, each printed as one JSON line:
 2. build: the CUDA kernels under ``odinn_tpu_torch/csrc``, one ``nvcc`` per
    source, all started together;
 3. kernel checks: each kernel against its plain PyTorch version on the card,
-   at the main path's 4 x 128^2 and at a ragged 3 x 97 x 131, in float64 and
-   float32 (``si_step`` in float32 also on its increment out − H);
+   at the main path's 4 x 128^2 and at a ragged 3 x 97 x 131 (the new
+   kernels also at 2 x 10 x 33), in float64 and float32 (``si_step`` in float32 also on its increment out − H;
+   ``rkc_interval`` at s = 8 and 25); the two autograd Functions' gradients
+   (kernel forward, pullback kernel backward) against autograd through the
+   plain versions in float64; ``si_step`` refusing an input that requires
+   grad;
 4. main path: the forward prediction of 4 Halfar glaciers, 128^2, float32,
    5 years with monthly saves and monthly mass balance, Cuffey–Paterson A(T),
-   n = 3, for the rows SI (PCG-6), SI2 (PCG-6) and compensated SSPRK3 at 3
-   substeps. Each row runs through ``run_prediction`` with the launch
-   counters set to 0 just before and read just after; its final thickness is
-   held against the port's float64 run of the row on the unfused path; it is
-   timed with CUDA events;
-5. the ``kernels`` line: per kernel, what it replaces, its launches on the
+   n = 3, for the rows SI (PCG-6), SI2 (PCG-6), compensated SSPRK3 at 3
+   substeps and RKC at 1 substep of 25 stages. Each row runs through
+   ``run_prediction`` with the launch counters set to 0 just before and read
+   just after; its final thickness is held against the port's float64 run of
+   the row on the unfused path; it is timed with CUDA events;
+5. training: ``run_inversion`` (Adam then LBFGS) of A = NN(T) on 16 Halfar
+   glaciers, 128^2, float32, 2 years of monthly Cuffey–Paterson ground
+   truth, through the RKC solve, with the launch counters set to 0 just
+   before and read just after; the time of one Adam epoch (forward,
+   gradient, update) by CUDA events and its device idle share;
+6. the ``kernels`` line: per kernel, what it replaces, its launches on the
    main path, its time, its plain version's time and its bound.
 
 Any failed check raises, so the exit code is not 0. The last line is
@@ -62,6 +71,26 @@ TOL_F32 = 1e-5
 # changes H by a small fraction of max|H|, so the same roundoff is a larger
 # share of the increment. Measured on an H100: 3.7e-6 to 1.1e-5.
 TOL_F32_INCREMENT = 1e-4
+# float32 rkc_interval, relative to max|reference|: each of the s stages
+# rounds in another order (fused multiply-adds, the corner diffusivities
+# from shared memory), and the Chebyshev recursion carries every stage's
+# roundoff into the next with weights above 1. Measured on an H100: 3.5e-6
+# (s = 8) to 1.9e-5 (s = 25).
+TOL_RKC_F32 = 1e-4
+# float64 gradients of the autograd Functions (kernel forward and pullback)
+# against autograd through the plain versions: the same derivative, taken
+# by another route (the hand-written chain against autograd's), roundoff.
+TOL_GRAD_F64 = 1e-9
+# float32 gradient of the RKC Function at s = 25 against the float64 plain
+# gradient: stage-by-stage roundoff through 25 stages forward (the
+# rematerialised stages) and 25 pullbacks backward, which the plain version
+# in float32 shows too (measured on an H100: 1.2e-4 of max|dH| and 1.1e-3 of
+# max|d(creep)|). The kernels are held to this factor times the float32
+# plain version's own error.
+GRAD_F32_FACTOR = 2.0
+RKC_STAGES = 25                    # the RKC row's stages (benchmarks/perf_tpu.py)
+N_TRAIN = 16                       # glaciers of the training phase
+TRAIN_TSPAN = (5.0, 7.0)           # 24 monthly intervals
 
 
 def emit(obj) -> None:
@@ -176,6 +205,24 @@ def si_bound(n_g, nx, ny, itemsize, cg_iters):
     return nbytes, ops
 
 
+# rkc_interval: per stage the fused RHS of every cell (as sia_bound counts
+# it) and the stage combination (5 multiplies, 4 adds a cell); H and B are
+# read once and H' written once for all s stages.
+def rkc_bound(n_g, nx, ny, itemsize, s):
+    nbytes, rhs_ops = sia_bound(n_g, nx, ny, itemsize)
+    return nbytes, s * (rhs_ops + 9 * n_g * nx * ny)
+
+
+# sia2d_rhs_vjp: per corner its diffusivity, the two partials and the creep
+# factor (58), per edge its clamped slope and flux cotangent with the three
+# routes back (19, two edges a cell), and per cell the four corners'
+# contributions (12 each); lam, H and B read once, dH written once.
+def vjp_bound(n_g, nx, ny, itemsize):
+    cells, corners = n_g * nx * ny, n_g * (nx - 1) * (ny - 1)
+    nbytes = 4 * cells * itemsize + n_g * 8 * 8 + n_g * itemsize
+    return nbytes, 58 * corners + 2 * 19 * cells + 4 * 12 * cells
+
+
 def bound_ms(nbytes, ops, dtype):
     peak = PEAK_FP32_OPS_PER_S if dtype == torch.float32 else PEAK_FP64_OPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
@@ -229,44 +276,169 @@ def check_kernels():
             emit(row)
             if not (torch.isfinite(out).all() and err <= tol):
                 raise AssertionError(f"sia2d_rhs disagrees with its plain version: {row}")
+            check_rkc_and_vjp(H, B, derived, shape, dtype, tol)
+    # 10 rows leave three of rkc_interval's 8 cluster blocks without rows
+    for dtype in (torch.float64, torch.float32):
+        H, B, raw = kernel_inputs(2, 10, 33, dtype, seed=45)
+        derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+        check_rkc_and_vjp(H, B, derived, (2, 10, 33), dtype,
+                          TOL_F64 if dtype == torch.float64 else TOL_F32)
+
+
+def check_rkc_and_vjp(H, B, derived, shape, dtype, tol):
+    """rkc_interval and sia2d_rhs_vjp against their plain versions on the card."""
+    from odinn_tpu_torch.core.params import PhysicalParameters
+    from odinn_tpu_torch.ops.cuda import rkc_kernel, sia_kernel
+
+    PHYS = PhysicalParameters()
+    # rkc_interval at s = 8 and 25, each at the stability ratio of the
+    # RKC row's monthly step at 25 stages
+    for s_ in (8, RKC_STAGES):
+        dt = DT * (s_ / RKC_STAGES) ** 2
+        out = rkc_kernel.rkc_interval(H, B, derived, dt, s_, PHYS.eta0)
+        ref = rkc_kernel.rkc_interval_reference(H, B, derived, dt, s_, PHYS.eta0)
+        torch.cuda.synchronize()
+        tol_r = TOL_F64 if dtype == torch.float64 else TOL_RKC_F32
+        row = {"phase": "check", "kernel": f"rkc_interval s={s_}", "shape": list(shape),
+               "dtype": str(dtype), "rel_err": rel_err(out, ref), "tol": tol_r,
+               "increment_rel_err": rel_err(out.double() - H.double(),
+                                            ref.double() - H.double())}
+        emit(row)
+        if not (torch.isfinite(out).all() and row["rel_err"] <= tol_r):
+            raise AssertionError(f"rkc_interval disagrees with its plain version: {row}")
+    lam = torch.randn(shape, generator=torch.Generator().manual_seed(sum(shape) + 1),
+                      dtype=torch.float64).to("cuda", dtype)
+    dH, dcreep = sia_kernel.sia2d_rhs_vjp(lam, H, B, derived, PHYS.eta0)
+    rH, rcreep = sia_kernel.sia2d_rhs_vjp_reference(lam, H, B, derived, PHYS.eta0)
+    torch.cuda.synchronize()
+    row = {"phase": "check", "kernel": "sia2d_rhs_vjp", "shape": list(shape),
+           "dtype": str(dtype), "dH_rel_err": rel_err(dH, rH),
+           "dcreep_rel_err": rel_err(dcreep, rcreep), "tol": tol}
+    emit(row)
+    if not (torch.isfinite(dH).all() and torch.isfinite(dcreep).all()
+            and row["dH_rel_err"] <= tol and row["dcreep_rel_err"] <= tol):
+        raise AssertionError(f"sia2d_rhs_vjp disagrees with its plain version: {row}")
+
+
+def check_gradients():
+    """The autograd Functions on the card (kernel forward, pullback kernel
+    backward) against autograd through the plain versions, float64, at the
+    main path's shape; and si_step refusing an input that requires grad."""
+    from odinn_tpu_torch.core.params import PhysicalParameters
+    from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
+    from odinn_tpu_torch.ops.cuda.common import derived_scalars
+
+    PHYS = PhysicalParameters()
+    H, B, raw = kernel_inputs(N_G, NX, NY, torch.float64, seed=11)
+    lam = torch.randn(H.shape, generator=torch.Generator().manual_seed(12),
+                      dtype=torch.float64).to("cuda")
+    derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+
+    def grads(fn, table):
+        h, tab = H.clone().requires_grad_(True), table.clone().requires_grad_(True)
+        return torch.autograd.grad(fn(h, tab), (h, tab), lam)
+
+    s_ = 8
+    dt = DT * (s_ / RKC_STAGES) ** 2
+    cases = {
+        "sia2d_rhs": (lambda h, t: sia_kernel.sia2d_rhs(h, B, t, PHYS.rho, PHYS.g, PHYS.eta0),
+                      lambda h, t: sia_kernel.sia2d_rhs_reference(h, B, t, PHYS.rho, PHYS.g,
+                                                                  PHYS.eta0), raw),
+        f"rkc_interval s={s_}": (
+            lambda h, t: rkc_kernel.rkc_interval(h, B, t, dt, s_, PHYS.eta0),
+            lambda h, t: rkc_kernel.rkc_interval_reference(h, B, t, dt, s_, PHYS.eta0), derived),
+    }
+    for name, (kern, plain, table) in cases.items():
+        gk, gp = grads(kern, table), grads(plain, table)
+        torch.cuda.synchronize()
+        row = {"phase": "check_grad", "function": name, "dtype": "torch.float64",
+               "dH_rel_err": rel_err(gk[0], gp[0]),
+               "d_table_col2_rel_err": rel_err(gk[1][:, 2], gp[1][:, 2]), "tol": TOL_GRAD_F64}
+        emit(row)
+        if not (row["dH_rel_err"] <= TOL_GRAD_F64 and row["d_table_col2_rel_err"] <= TOL_GRAD_F64):
+            raise AssertionError(f"{name}: gradient disagrees with autograd through its plain "
+                                 f"version: {row}")
+    # the training dtype: float32 kernels against the float64 plain gradient
+    H32, B32, lam32 = H.float(), B.float(), lam.float()
+
+    def grads32(fn, Hx, Bx, lx):
+        h, tab = Hx.clone().requires_grad_(True), derived.clone().requires_grad_(True)
+        return torch.autograd.grad(fn(h, Bx, tab), (h, tab), lx)
+
+    gk = grads32(lambda h, b, t: rkc_kernel.rkc_interval(h, b, t, DT, RKC_STAGES, PHYS.eta0),
+                 H32, B32, lam32)
+    gp = grads32(lambda h, b, t: rkc_kernel.rkc_interval_reference(h, b, t, DT, RKC_STAGES,
+                                                                   PHYS.eta0), H, B, lam)
+    gp32 = grads32(lambda h, b, t: rkc_kernel.rkc_interval_reference(h, b, t, DT, RKC_STAGES,
+                                                                     PHYS.eta0), H32, B32, lam32)
+    torch.cuda.synchronize()
+    row = {"phase": "check_grad", "function": f"rkc_interval s={RKC_STAGES}",
+           "dtype": "torch.float32 vs float64 plain", "dH_rel_err": rel_err(gk[0], gp[0]),
+           "d_table_col2_rel_err": rel_err(gk[1][:, 2], gp[1][:, 2]),
+           "f32_plain_dH_rel_err": rel_err(gp32[0], gp[0]),
+           "f32_plain_d_table_col2_rel_err": rel_err(gp32[1][:, 2], gp[1][:, 2]),
+           "factor": GRAD_F32_FACTOR}
+    emit(row)
+    if not (row["dH_rel_err"] <= GRAD_F32_FACTOR * row["f32_plain_dH_rel_err"]
+            and row["d_table_col2_rel_err"]
+            <= GRAD_F32_FACTOR * row["f32_plain_d_table_col2_rel_err"]):
+        raise AssertionError(f"rkc_interval float32 gradient disagrees: {row}")
+    refused = False
+    try:
+        si_kernel.si_step(H.clone().requires_grad_(True), H, B, H, derived, DT)
+    except RuntimeError as err:
+        refused = "SI-adjoint" in str(err)
+    emit({"phase": "check_grad", "function": "si_step", "refuses_grad": refused})
+    if not refused:
+        raise AssertionError("si_step accepted an input that requires grad")
 
 
 def time_kernels():
-    """Kernel and plain-version times at the main path's shape (float32)."""
-    from odinn_tpu_torch.ops.cuda import si_kernel, sia_kernel
+    """Kernel and plain-version times at the main path's shapes (float32):
+    4 x 128^2 for si_step, sia2d_rhs and rkc_interval (s = 25, the RKC
+    row), 16 x 128^2 for sia2d_rhs_vjp (the training phase)."""
+    from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
     from odinn_tpu_torch.ops.cuda.common import derived_scalars
     from odinn_tpu_torch.core.params import PhysicalParameters
 
     PHYS = PhysicalParameters()
-
-    H, B, raw = kernel_inputs(N_G, NX, NY, torch.float32, seed=7)
+    f32 = torch.float32
+    H, B, raw = kernel_inputs(N_G, NX, NY, f32, seed=7)
     derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+    Ht, Bt, rawt = kernel_inputs(N_TRAIN, NX, NY, f32, seed=8)
+    derived_t = derived_scalars(*(rawt[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+    lam = torch.randn(Ht.shape, generator=torch.Generator().manual_seed(9)).to("cuda")
     exps = (5.0, 2.0, 4.0, 2.0)
+    entries = {
+        "si_step": (lambda f: lambda: f(H, H, B, H, derived, DT, 1.0, 6, exps),
+                    si_kernel.si_step, si_kernel.si_step_reference,
+                    si_bound(N_G, NX, NY, 4, 6), ("si_assemble", "si_pcg")),
+        "sia2d_rhs": (lambda f: lambda: f(H, B, raw, PHYS.rho, PHYS.g, PHYS.eta0),
+                      sia_kernel.sia2d_rhs, sia_kernel.sia2d_rhs_reference,
+                      sia_bound(N_G, NX, NY, 4), ("sia2d_rhs_kernel",)),
+        "rkc_interval": (lambda f: lambda: f(H, B, derived, DT, RKC_STAGES, PHYS.eta0, exps),
+                         rkc_kernel.rkc_interval, rkc_kernel.rkc_interval_reference,
+                         rkc_bound(N_G, NX, NY, 4, RKC_STAGES), ("rkc_interval_kernel",)),
+        "sia2d_rhs_vjp": (lambda f: lambda: f(lam, Ht, Bt, derived_t, PHYS.eta0),
+                          sia_kernel.sia2d_rhs_vjp, sia_kernel.sia2d_rhs_vjp_reference,
+                          vjp_bound(N_TRAIN, NX, NY, 4),
+                          ("sia2d_rhs_vjp_kernel", "reduce_partials_kernel")),
+    }
     timing = {}
-
-    def si_call(f):
-        return lambda: f(H, H, B, H, derived, DT, 1.0, 6, exps)
-
-    def sia_call(f):
-        return lambda: f(H, B, raw, PHYS.rho, PHYS.g, PHYS.eta0)
-
-    for name, call, kern, plain, bound, kernel_names in (
-        ("si_step", si_call, si_kernel.si_step, si_kernel.si_step_reference,
-         si_bound(N_G, NX, NY, 4, 6), ("si_assemble", "si_pcg")),
-        ("sia2d_rhs", sia_call, sia_kernel.sia2d_rhs, sia_kernel.sia2d_rhs_reference,
-         sia_bound(N_G, NX, NY, 4), ("sia2d_rhs_kernel",)),
-    ):
+    for name, (call, kern, plain, bound, kernel_names) in entries.items():
         out, ref = call(kern)(), call(plain)()
+        if isinstance(out, tuple):
+            out, ref = out[0], ref[0]
         torch.cuda.synchronize()
-        b_ms, b_by = bound_ms(*bound, torch.float32)
+        b_ms, b_by = bound_ms(*bound, f32)
         timing[name] = {
             # the kernel's own device time, and the wrapper's and the plain
             # version's elapsed time per call on the stream
             "ms": device_ms(call(kern), 50, kernel_names),
             "ms_source": "profiler device time",
             "call_ms": cuda_ms(call(kern), 200),
-            "plain_ms": cuda_ms(call(plain), 50),
-            "plain_device_ms": device_ms(call(plain), 20),
+            "plain_ms": cuda_ms(call(plain), 50 if name != "rkc_interval" else 5),
+            "plain_device_ms": device_ms(call(plain), 20 if name != "rkc_interval" else 2),
         }
         if timing[name]["ms"] == 0.0:   # no device time from the profiler
             timing[name].update(ms=timing[name]["call_ms"], ms_source="cuda events per call")
@@ -291,7 +463,7 @@ def main_path_rows():
     from odinn_tpu_torch.data.synthetic import halfar_glacier, monthly_dummy_climate
     from odinn_tpu_torch.laws.laws import CuffeyPaterson
     from odinn_tpu_torch.models.model import Model, SIA2DModel
-    from odinn_tpu_torch.ops.cuda import si_kernel, sia_kernel
+    from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
     from odinn_tpu_torch.physics.mass_balance import TImodel1
     from odinn_tpu_torch.simulation.prediction import Prediction, forward_batch, run_prediction
     from odinn_tpu_torch.simulation.solver import build_tstops
@@ -307,14 +479,18 @@ def main_path_rows():
     tstops = build_tstops(TSPAN, 1.0 / 12.0)
     n_int = len(tstops) - 1          # 60 monthly intervals
     # launches per row: one si_step per SI step, two per SI2 step, one
-    # sia2d_rhs per SSPRK3 stage (3 stages x 3 substeps): 60, 120 and 540
+    # sia2d_rhs per SSPRK3 stage (3 stages x 3 substeps), one rkc_interval
+    # per RKC step: 60, 120, 540 and 60
+    none = {"si_step": 0, "sia2d_rhs": 0, "rkc_interval": 0, "sia2d_rhs_vjp": 0}
     rows = {
         "SI": (make_params(substeps=1, solver="SI", cg_iters=6),
-               {"si_step": n_int, "sia2d_rhs": 0}),
+               dict(none, si_step=n_int)),
         "SI2": (make_params(substeps=1, solver="SI2", cg_iters=6, cg_iters_predictor=6),
-                {"si_step": 2 * n_int, "sia2d_rhs": 0}),
+                dict(none, si_step=2 * n_int)),
         "SSPRK3@3 compensated": (make_params(substeps=3, solver="SSPRK3", compensated=True),
-                                 {"si_step": 0, "sia2d_rhs": 9 * n_int}),
+                                 dict(none, sia2d_rhs=9 * n_int)),
+        f"RKC-{RKC_STAGES}": (make_params(substeps=1, solver="RKC", rkc_stages=RKC_STAGES),
+                             dict(none, rkc_interval=n_int)),
     }
     n_months = int(round((TSPAN[1] - TSPAN[0]) * 12)) + 2
     temps = np.linspace(-25.0, -13.0, N_G)
@@ -336,7 +512,9 @@ def main_path_rows():
                                            n_value=3.0), mass_balance=TImodel1())
     batch32 = stack_glaciers(glaciers(torch.float32), device="cuda")
     batch64 = stack_glaciers(glaciers(torch.float64), device="cuda")
-    counters = {"si_step": si_kernel.si_step, "sia2d_rhs": sia_kernel.sia2d_rhs}
+    counters = {"si_step": si_kernel.si_step, "sia2d_rhs": sia_kernel.sia2d_rhs,
+                "rkc_interval": rkc_kernel.rkc_interval,
+                "sia2d_rhs_vjp": sia_kernel.sia2d_rhs_vjp}
     launches = {name: 0 for name in counters}
     for name, (params, expected) in rows.items():
         for fn in counters.values():
@@ -373,13 +551,114 @@ def main_path_rows():
                 lambda: forward_batch(None, batch32, model, params, tstops, device="cuda"), 1),
             "kernel_device_ms": device_ms(
                 lambda: forward_batch(None, batch32, model, params, tstops, device="cuda"), 1,
-                ("si_assemble", "si_pcg", "sia2d_rhs_kernel")),
+                ("si_assemble", "si_pcg", "sia2d_rhs_kernel", "rkc_interval_kernel")),
         }
         row["device_idle_share"] = 1.0 - row["device_busy_ms"] / row["ms"]
         emit(row)
         if not err_kernel <= 2.0 * err_plain:
             raise AssertionError(f"{name}: kernel path error {err_kernel} exceeds 2x the "
                                  f"float32 plain path's {err_plain}")
+    return launches
+
+
+def training_phase():
+    """Phase 5: run_inversion of A = NN(T) through the RKC solve at the
+    width of benchmarks/perf_tpu.py's UDE epoch (16 Halfar glaciers, 128^2,
+    float32, 2 years). Returns each kernel's launches in the run."""
+    from odinn_tpu_torch.core.params import (
+        Hyperparameters, Parameters, PhysicalParameters, SimulationParameters,
+        SolverParameters, UDEParameters)
+    from odinn_tpu_torch.data.synthetic import halfar_glacier
+    from odinn_tpu_torch.laws.laws import CuffeyPaterson, LawA, poly_A_paterson_cuffey
+    from odinn_tpu_torch.models.model import Model, SIA2DModel
+    from odinn_tpu_torch.models.nn import NeuralNetwork, default_architecture
+    from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
+    from odinn_tpu_torch.simulation.inversion import (
+        Inversion, batch_transient_loss, run_inversion)
+    from odinn_tpu_torch.simulation.prediction import generate_ground_truth
+    from odinn_tpu_torch.simulation.solver import build_tstops, rkc_stages_for
+
+    phys = PhysicalParameters(min_A=8e-21, max_A=8e-18)
+    temps = np.linspace(-25.0, -13.0, N_TRAIN)
+    glaciers = [halfar_glacier(nx=NX, ny=NY, dx=DX, dy=DX, temp=float(t), rgi_id=f"train-{i}",
+                               device="cuda", dtype=torch.float32)
+                for i, t in enumerate(temps)]
+    # stages for the largest creep the solve can meet: the law's max_A or
+    # the truth's largest A, at the batch's thickest ice
+    h_max = max(float(g.H0.max()) for g in glaciers)
+    a_truth = float(poly_A_paterson_cuffey()(torch.from_numpy(temps)).max())
+    stages = rkc_stages_for(DX, DX, h_max, max(phys.max_A, a_truth), n=3.0, rho=phys.rho,
+                            g=phys.g, step=1.0 / 12.0)
+    params = Parameters(
+        physical=phys,
+        simulation=SimulationParameters(tspan=TRAIN_TSPAN, use_MB=False, use_velocities=False,
+                                        float_dtype="float32"),
+        solver=SolverParameters(step=1.0 / 12.0, substeps=1, solver="RKC", rkc_stages=stages),
+        hyper=Hyperparameters(optimizer=("adam", "lbfgs"), learning_rate=(0.05, 1.0),
+                              epochs=(5, 3), batch_size=N_TRAIN),
+        UDE=UDEParameters(grad="jax"),
+    )
+    tstops = build_tstops(TRAIN_TSPAN, 1.0 / 12.0)
+    n_int = len(tstops) - 1
+    t0 = time.perf_counter()
+    truth = generate_ground_truth(
+        glaciers, params, Model(iceflow=SIA2DModel(A=CuffeyPaterson(), n_value=3.0)), tstops,
+        store=("H",), device="cuda")
+    torch.cuda.synchronize()
+    truth_s = time.perf_counter() - t0
+    model = Model(iceflow=SIA2DModel(A=LawA(NeuralNetwork(default_architecture(1)), params),
+                                     n_value=3.0))
+    inv = Inversion(model=model, glaciers=truth, parameters=params, device="cuda")
+    counters = {"si_step": si_kernel.si_step, "sia2d_rhs": sia_kernel.sia2d_rhs,
+                "rkc_interval": rkc_kernel.rkc_interval,
+                "sia2d_rhs_vjp": sia_kernel.sia2d_rhs_vjp}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    results = run_inversion(inv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    stats = results.stats
+    losses = stats.losses
+    # every forward solve is one rkc_interval per interval, and every
+    # backward rematerialises each interval's stages with one more; each
+    # backward interval pulls back s - 1 stages and f0: s sia2d_rhs_vjp
+    expected = {"si_step": 0, "sia2d_rhs": 0,
+                "rkc_interval": n_int * (stats.solves + stats.gradients),
+                "sia2d_rhs_vjp": n_int * stages * stats.gradients}
+
+    leaves = [layer[k].detach().clone().requires_grad_(True)
+              for layer in inv.theta["A"] for k in ("w", "b")]
+    theta = {"A": [{"w": leaves[2 * i], "b": leaves[2 * i + 1]}
+                   for i in range(len(leaves) // 2)]}
+    opt = torch.optim.Adam(leaves, lr=0.05)
+
+    def adam_epoch():
+        loss = batch_transient_loss(theta, inv.glaciers, model, params, tstops)
+        grads = torch.autograd.grad(loss, leaves)
+        for p, g in zip(leaves, grads):
+            p.grad = g
+        opt.step()
+
+    epoch_ms = row_ms(adam_epoch, reps=3)
+    busy_ms = device_ms(adam_epoch, 1)
+    row = {
+        "phase": "training", "glaciers": N_TRAIN, "grid": [NX, NY], "dtype": "torch.float32",
+        "intervals": n_int, "rkc_stages": stages, "h_max": h_max,
+        "a_for_stages": max(phys.max_A, a_truth), "ground_truth_s": truth_s,
+        "run_inversion_s": train_s, "losses": losses, "final_loss": stats.final_loss,
+        "solves": stats.solves, "gradients": stats.gradients, "launches": launches,
+        "expected_launches": expected, "adam_epoch_ms": epoch_ms,
+        "adam_epoch_device_busy_ms": busy_ms, "adam_epoch_device_idle_share":
+            1.0 - busy_ms / epoch_ms,
+        "time_per_iter_s": stats.time_per_iter,
+    }
+    emit(row)
+    if launches != expected:
+        raise AssertionError(f"training: launches {launches}, expected {expected}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"training: losses not finite or not decreasing: {losses}")
     return launches
 
 
@@ -406,11 +685,20 @@ def main() -> int:
                     for k, v in built.items()}})
 
     check_kernels()
+    check_gradients()
     timing = time_kernels()
     launches = main_path_rows()
+    for name, n in training_phase().items():
+        launches[name] += n
     meta = {
         "si_step": ("odinn_tpu_torch/csrc/si_step.cu", "odinn_tpu/ops/pallas/si_kernel.py:174"),
         "sia2d_rhs": ("odinn_tpu_torch/csrc/sia2d_rhs.cu", "odinn_tpu/ops/pallas/sia_kernel.py:137"),
+        "rkc_interval": ("odinn_tpu_torch/csrc/rkc_interval.cu",
+                         "odinn_tpu/ops/pallas/rkc_kernel.py:166"),
+        # the backward of sia2d_rhs_pallas, and the per-stage pullback of
+        # rkc_interval_pallas's backward
+        "sia2d_rhs_vjp": ("odinn_tpu_torch/csrc/sia2d_rhs_vjp.cu",
+                          "odinn_tpu/ops/pallas/sia_kernel.py:195"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],

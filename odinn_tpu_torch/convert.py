@@ -9,7 +9,14 @@ module imports nothing of it:
   as nested dicts, plus the static ``rgi_id`` (a tuple for a batch), into
   the port's :class:`~odinn_tpu_torch.core.glacier.Glacier`;
 - :func:`theta_from_numpy` turns a θ tree (nested dicts, lists or tuples of
-  arrays) into the same tree of tensors.
+  arrays) into the same tree of tensors;
+- :func:`mlp_from_numpy` turns the JAX package's MLP parameters (the
+  ``init_mlp`` / ``NeuralNetwork.init`` tree: a list of
+  ``{"w": (fan_in, fan_out), "b": (fan_out,)}`` dicts), given as numpy
+  arrays, into the port's, checked against the architecture. The port's
+  ``mlp_apply`` then computes what the JAX package's does:
+  ``theta = {"A": mlp_from_numpy([{k: np.asarray(v) for k, v in layer.items()}
+  for layer in jax_theta["A"]], arch)``.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from odinn_tpu_torch.core.glacier import (
     ThicknessData,
 )
 
-__all__ = ["glacier_from_numpy", "theta_from_numpy"]
+__all__ = ["glacier_from_numpy", "theta_from_numpy", "mlp_from_numpy"]
 
 _NESTED = {
     "thickness_data": ThicknessData,
@@ -91,3 +98,21 @@ def theta_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
         return _tensor(x, dev, dtype)
 
     return conv(tree)
+
+
+def mlp_from_numpy(layers, arch=None, device=None, dtype: Optional[torch.dtype] = None):
+    """The port's MLP parameter list from the JAX package's, as numpy (see
+    the module doc). With ``arch`` (an ``MLP``) the layer count and every
+    weight and bias shape are checked against its widths. ``device`` None
+    means the CUDA card; floating arrays keep their dtype unless ``dtype``
+    is given."""
+    if arch is not None:
+        if len(layers) != len(arch.widths) - 1:
+            raise ValueError(f"{len(layers)} layers for an MLP of widths {arch.widths}")
+        for k, (layer, fi, fo) in enumerate(zip(layers, arch.widths[:-1], arch.widths[1:])):
+            shapes = (np.shape(layer["w"]), np.shape(layer["b"]))
+            if shapes != ((fi, fo), (fo,)):
+                raise ValueError(f"layer {k}: w, b of shapes {shapes}, expected "
+                                 f"{((fi, fo), (fo,))}")
+    return [{"w": t["w"], "b": t["b"]}
+            for t in theta_from_numpy([dict(layer) for layer in layers], device, dtype)]

@@ -29,6 +29,7 @@ __all__ = [
     "pad_glacier",
     "stack_glaciers",
     "loss_normalization",
+    "is_in_glacier",
 ]
 
 
@@ -277,3 +278,16 @@ def loss_normalization(glacier: Glacier) -> torch.Tensor:
         return glacier.npix.to(torch.float64)
     return torch.tensor(float(glacier.H0.shape[-2] * glacier.H0.shape[-1]),
                         dtype=torch.float64, device=glacier.H0.device)
+
+
+def is_in_glacier(H: torch.Tensor, distance: int) -> torch.Tensor:
+    """Mask of cells at least ``distance`` pixels inside the glacier margin:
+    the H > 0 mask eroded by a (2·distance+1)² minimum, with cells beyond
+    the grid's edge counting as inside. Leading axes are a batch."""
+    if distance <= 0:
+        return H > 0.0
+    inside = (H > 0.0).to(H.dtype)
+    flat = inside.reshape(-1, 1, *H.shape[-2:])
+    padded = torch.nn.functional.pad(flat, (distance,) * 4, value=1.0)
+    eroded = -torch.nn.functional.max_pool2d(-padded, 2 * distance + 1, stride=1)
+    return eroded.reshape(H.shape) > 0.5

@@ -106,7 +106,8 @@ class SolverParameters:
 
 @dataclass(frozen=True)
 class Hyperparameters:
-    """Training hyperparameters (the training path is not ported yet)."""
+    """Training hyperparameters; the ``gn_*`` fields serve the
+    Gauss–Newton/LM stages, which come with a later slice."""
 
     optimizer: Union[str, Tuple[str, ...]] = "lbfgs"
     learning_rate: Union[float, Tuple[float, ...]] = 1e-3

@@ -27,11 +27,6 @@ using odinn::Patch;
 using odinn::Scalars;
 
 template <typename T>
-__device__ __forceinline__ T clamp_edge(T ds, T upper, T lower) {
-  return ds > upper ? upper : (ds < lower ? lower : ds);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(256)
 sia2d_rhs_kernel(const T* __restrict__ H, const T* __restrict__ B,
                  const T* __restrict__ table, T* __restrict__ out, int nx,
@@ -51,24 +46,7 @@ sia2d_rhs_kernel(const T* __restrict__ H, const T* __restrict__ B,
                      row[4], row[5], row[6], row[7]};
   Patch<T> p;
   odinn::load_patch(H + off, B + off, ny, i, j, k, p);
-
-  const T dx = k.dx, dy = k.dy;
-  // x-faces: east between rows i and i+1, west between i-1 and i (column j)
-  const T dsx_e = clamp_edge((p.s[2][1] - p.s[1][1]) / dx,
-                             eta0 * p.h[2][1] / dx, -eta0 * p.h[1][1] / dx);
-  const T dsx_w = clamp_edge((p.s[1][1] - p.s[0][1]) / dx,
-                             eta0 * p.h[1][1] / dx, -eta0 * p.h[0][1] / dx);
-  // y-faces: north between columns j and j+1, south between j-1 and j (row i)
-  const T dsy_n = clamp_edge((p.s[1][2] - p.s[1][1]) / dy,
-                             eta0 * p.h[1][2] / dy, -eta0 * p.h[1][1] / dy);
-  const T dsy_s = clamp_edge((p.s[1][1] - p.s[1][0]) / dy,
-                             eta0 * p.h[1][1] / dy, -eta0 * p.h[1][0] / dy);
-  const T fx_e = -(T(0.5) * (p.d[1][0] + p.d[1][1])) * dsx_e;
-  const T fx_w = -(T(0.5) * (p.d[0][0] + p.d[0][1])) * dsx_w;
-  const T fy_n = -(T(0.5) * (p.d[0][1] + p.d[1][1])) * dsy_n;
-  const T fy_s = -(T(0.5) * (p.d[0][0] + p.d[1][0])) * dsy_s;
-  const T div = (fx_e - fx_w) / dx + (fy_n - fy_s) / dy;
-  o[static_cast<long>(i) * ny + j] = -div;
+  o[static_cast<long>(i) * ny + j] = odinn::rhs_cell(p, k, eta0);
 }
 
 template <typename T>

@@ -1,4 +1,5 @@
-// Device helpers shared by the SIA2D kernels (sia2d_rhs.cu, si_step.cu).
+// Device helpers shared by the SIA2D kernels (sia2d_rhs.cu, si_step.cu,
+// rkc_interval.cu, sia2d_rhs_vjp.cu).
 //
 // Planes are (n_g, nx, ny) row-major with y contiguous. The staggered
 // diffusivity D[a][c] lives on the (nx-1, ny-1) grid of cell corners: it is
@@ -33,6 +34,18 @@ __device__ __forceinline__ T pow_pos(T x, T e) {
     return recip ? T(1) / acc : acc;
   }
   return x > T(0) ? exp(e * log(x)) : T(0);
+}
+
+// d/dx pow_pos(x, e), with the conventions autograd gives the plain
+// version: e*x^(e-1) for an integer e (0 for e = 0), e*x^e/x for x > 0 and
+// 0 at x = 0 for any other e.
+template <typename T>
+__device__ __forceinline__ T dpow_pos(T x, T e) {
+  const T r = rint(e);
+  if (r == e && fabs(e) <= T(64)) {
+    return e == T(0) ? T(0) : e * pow_pos(x, e - T(1));
+  }
+  return x > T(0) ? e * exp(e * log(x)) / x : T(0);
 }
 
 // Per-glacier scalars of the derived table row.
@@ -98,6 +111,35 @@ __device__ __forceinline__ void load_patch(const T* __restrict__ H,
                          p.s[a][c + 1], p.s[a + 1][c + 1], k);
     }
   }
+}
+
+template <typename T>
+__device__ __forceinline__ T clamp_edge(T ds, T upper, T lower) {
+  return ds > upper ? upper : (ds < lower ? lower : ds);
+}
+
+// dH/dt at the centre of a loaded patch (an interior cell): the
+// eta0-clamped edge gradients, the fluxes and the negated divergence.
+template <typename T>
+__device__ __forceinline__ T rhs_cell(const Patch<T>& p, const Scalars<T>& k,
+                                      T eta0) {
+  const T dx = k.dx, dy = k.dy;
+  // x-faces: east between rows i and i+1, west between i-1 and i (column j)
+  const T dsx_e = clamp_edge((p.s[2][1] - p.s[1][1]) / dx,
+                             eta0 * p.h[2][1] / dx, -eta0 * p.h[1][1] / dx);
+  const T dsx_w = clamp_edge((p.s[1][1] - p.s[0][1]) / dx,
+                             eta0 * p.h[1][1] / dx, -eta0 * p.h[0][1] / dx);
+  // y-faces: north between columns j and j+1, south between j-1 and j (row i)
+  const T dsy_n = clamp_edge((p.s[1][2] - p.s[1][1]) / dy,
+                             eta0 * p.h[1][2] / dy, -eta0 * p.h[1][1] / dy);
+  const T dsy_s = clamp_edge((p.s[1][1] - p.s[1][0]) / dy,
+                             eta0 * p.h[1][1] / dy, -eta0 * p.h[1][0] / dy);
+  const T fx_e = -(T(0.5) * (p.d[1][0] + p.d[1][1])) * dsx_e;
+  const T fx_w = -(T(0.5) * (p.d[0][0] + p.d[0][1])) * dsx_w;
+  const T fy_n = -(T(0.5) * (p.d[0][1] + p.d[1][1])) * dsy_n;
+  const T fy_s = -(T(0.5) * (p.d[0][0] + p.d[1][0])) * dsy_s;
+  const T div = (fx_e - fx_w) / dx + (fy_n - fy_s) / dy;
+  return -div;
 }
 
 }  // namespace odinn

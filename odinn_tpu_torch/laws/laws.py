@@ -6,12 +6,14 @@ schedule. Trainable state lives in the θ dict under the law's slot key.
 ``0`` → once at simulation start; ``x > 0`` → every x years at tstop
 boundaries.
 
-This module holds the non-learnable laws of the forward path; the NN and
-inversion laws come with the training path.
+This module holds the non-learnable laws of the forward path and the NN
+creep law ``LawA``; the inversion laws and the D-target NN laws come with
+later slices.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Tuple
 
@@ -19,10 +21,12 @@ import numpy as np
 import torch
 
 from odinn_tpu_torch.laws import inputs as law_inputs
+from odinn_tpu_torch.models import nn as nnmod
 from odinn_tpu_torch.ops.stencils import avg
 
 __all__ = [
     "Law",
+    "LawA",
     "ConstantA",
     "CuffeyPaterson",
     "poly_A_paterson_cuffey",
@@ -54,6 +58,51 @@ class Law:
 
     def apply(self, theta, inputs: dict):
         return self.apply_fn(theta, inputs)
+
+
+def LawA(nn: nnmod.NeuralNetwork, params, scalar: bool = True,
+         head: str = "sigmoid", prescale_bounds=None,
+         n_fourier: Optional[int] = None, fourier_scale: float = 1.0) -> Law:
+    """NN law T → A ∈ [minA, maxA], evaluated once at simulation start.
+
+    ``head``: ``"sigmoid"`` maps the network's output linearly onto
+    [min_A, max_A]; ``"log"`` maps it onto [log min_A, log max_A] and
+    exponentiates. ``prescale_bounds`` normalizes the temperature input
+    first; ``n_fourier`` embeds it with that many Fourier frequencies (the
+    MLP's input width must then be 2·n_fourier). θ["A"] is the MLP's
+    parameter tree. With ``scalar`` the input is each glacier's mean
+    temperature and the law gives one A per glacier, which keeps its graph
+    to θ through the fused kernels' table.
+    """
+    min_a, max_a = params.physical.min_A, params.physical.max_A
+    arch = nn.architecture
+    if head not in ("sigmoid", "log"):
+        raise ValueError(f"LawA head must be 'sigmoid' or 'log', got {head!r}")
+    log_head = head == "log"
+
+    def apply_fn(theta, inputs):
+        t_in = inputs["T"] if scalar else inputs["T_grid"]
+        w = theta["A"][0]["w"]
+        x = torch.as_tensor(t_in).to(device=w.device, dtype=w.dtype)[..., None]
+        if prescale_bounds is not None:
+            x = nnmod.prescale(x, prescale_bounds)
+        if n_fourier:
+            x = nnmod.fourier_feature(x, n_freq=n_fourier, scale_ff=fourier_scale)
+        out = nnmod.mlp_apply(arch, theta["A"], x)[..., 0]
+        if log_head:
+            return torch.exp(nnmod.scale(out, (math.log(min_a), math.log(max_a))))
+        return nnmod.scale(out, (min_a, max_a))
+
+    inp = (law_inputs.AvgScalarTemp(),) if scalar else (law_inputs.AvgGriddedTemp(),)
+    return Law(
+        slot="A",
+        apply_fn=apply_fn,
+        inputs=inp,
+        callback_freq=0.0,
+        trainable=True,
+        name="NN_A",
+        init_theta=lambda glaciers, dtype=torch.float64: nn.init(dtype, glaciers.H0.device),
+    )
 
 
 def ConstantA(a_value: float) -> Law:

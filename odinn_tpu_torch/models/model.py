@@ -19,7 +19,7 @@ from odinn_tpu_torch.laws.laws import Law
 from odinn_tpu_torch.physics import targets as targets_mod
 from odinn_tpu_torch.physics.sia2d import SIAValues, ValuesFn, default_values
 
-__all__ = ["SIA2DModel", "Model", "make_values_fn", "resolve_outer_values"]
+__all__ = ["SIA2DModel", "Model", "init_theta", "make_values_fn", "resolve_outer_values"]
 
 
 @dataclass(frozen=True)
@@ -90,6 +90,20 @@ class Model:
     @property
     def trainable_laws(self):
         return {s: l for s, l in self.iceflow.laws.items() if l.trainable}
+
+
+def init_theta(model: Model, glaciers, dtype=torch.float64) -> dict:
+    """The trainable θ dict: one entry per trainable law slot, from each
+    law's ``init_theta(glaciers, dtype)``, on the glaciers' device."""
+    if model.initial_condition is not None:
+        raise NotImplementedError(
+            "odinn_tpu_torch: trainable initial conditions come with a later slice")
+    theta = {}
+    for slot, law in model.trainable_laws.items():
+        if law.init_theta is None:
+            raise ValueError(f"trainable law {law.name} has no init_theta")
+        theta[slot] = law.init_theta(glaciers, dtype)
+    return theta
 
 
 def _glacier_idx(glacier):

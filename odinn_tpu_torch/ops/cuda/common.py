@@ -66,16 +66,12 @@ def shared_exps(derived: torch.Tensor) -> Optional[Tuple[float, float, float, fl
 
 def check_inputs(name: str, planes: Sequence[torch.Tensor], table: torch.Tensor,
                  table_cols: int) -> None:
-    """Raise on what the kernels do not take: gradients, mixed devices or
-    dtypes, a dtype other than float32/float64, a non-contiguous or non-3-D
-    plane, planes of different shapes, nx or ny below 3, a table of the
-    wrong shape."""
+    """Raise on what the kernels do not take: mixed devices or dtypes, a
+    dtype other than float32/float64, a non-contiguous or non-3-D plane,
+    planes of different shapes, nx or ny below 3, a table of the wrong
+    shape. Each wrapper states its own gradient contract."""
     H = planes[0]
     for a in list(planes) + [table]:
-        if a.requires_grad:
-            raise RuntimeError(
-                f"{name}: gradients through the kernel are not supported yet; "
-                "pass tensors that do not require grad")
         if a.device != H.device:
             raise ValueError(f"{name}: all inputs must be on {H.device}, got {a.device}")
     if H.dtype not in (torch.float32, torch.float64):

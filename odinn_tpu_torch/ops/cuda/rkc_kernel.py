@@ -1,0 +1,245 @@
+"""One fused RKC2 step (A target, per-glacier scalar laws) and its pullback.
+
+``rkc_interval`` launches the hand-written CUDA kernel
+``csrc/rkc_interval.cu`` on a CUDA tensor and runs its plain PyTorch
+version, :func:`rkc_interval_reference`, on a CPU tensor. It replaces the
+TPU kernel ``odinn_tpu.ops.pallas.rkc_kernel.rkc_interval_pallas``: all s
+stages of one RKC2 step of length dt in one launch, one thread-block
+cluster per glacier with the stage carries in shared memory, so the step
+reads H and B once and writes H' once.
+
+Differentiable with the contract of the TPU kernel's ``_bwd``: cotangents
+for H and for the creep column (2) of the derived table; B and the other
+columns get none (zero). The backward rematerialises the stage inputs
+y₁ … y_{s−1} with one more launch of the kernel, which then also writes them
+to a buffer, and walks the stages backwards (the recipe of
+``odinn_tpu.inverse.gradient._make_rkc_transpose``): one
+:func:`~odinn_tpu_torch.ops.cuda.sia_kernel.sia2d_rhs_vjp` per stage at
+y_{j−1} and one for f₀ at H, s in all, with the μ, ν, μ̃ and γ̃ combinations
+as PyTorch elementwise code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from odinn_tpu_torch.ops.cuda.build import load_library
+from odinn_tpu_torch.ops.cuda.common import check_inputs, shared_exps
+from odinn_tpu_torch.ops.cuda.sia_kernel import _rhs_math, sia2d_rhs_vjp
+from odinn_tpu_torch.simulation.solver import _rkc2_coeffs
+
+__all__ = ["rkc_interval", "rkc_interval_reference", "rkc_fits", "check_rkc_shape"]
+
+# per-block opt-in shared memory of an H100 (sm_90)
+_SMEM_PER_BLOCK = 232448
+
+
+def _np_dtype(dtype):
+    return np.float32 if dtype == torch.float32 else np.float64
+
+
+def _make_coeff_arrays(s, dtype):
+    """(μ, ν, μ̃, γ̃) of shape (s+1,) and μ̃₁, rounded to ``dtype``."""
+    _, _, mu1_t, mu, nu, mu_t, gam_t, _ = _rkc2_coeffs(s)
+    npt = _np_dtype(dtype)
+    return (mu.astype(npt), nu.astype(npt), mu_t.astype(npt), gam_t.astype(npt),
+            npt(mu1_t))
+
+
+@functools.lru_cache(maxsize=None)
+def _coef_table(s, dtype, device):
+    """The kernel's (5, s+1) coefficient table: rows μ, ν, μ̃, γ̃, μ̃₁ (as
+    ``rkc_kernel._forward`` stacks them), built once per (s, dtype,
+    device)."""
+    mu, nu, mu_t, gam_t, mu1_t = _make_coeff_arrays(s, dtype)
+    table = np.stack([mu, nu, mu_t, gam_t, np.full_like(mu, mu1_t)])
+    return torch.from_numpy(table).to(device)
+
+
+def _stage_weights(s, dtype, dt):
+    """The per-stage products as Python floats holding ``dtype`` values,
+    formed in ``dtype`` as the TPU kernel forms them: μ̃₁·dt, and for
+    j = 2..s the tuples (1 − μⱼ − νⱼ, μⱼ, νⱼ, μ̃ⱼ·dt, γ̃ⱼ·dt)."""
+    mu, nu, mu_t, gam_t, mu1_t = _make_coeff_arrays(s, dtype)
+    npt = _np_dtype(dtype)
+    dtn = npt(dt)
+    stages = {j: (float(npt(1.0) - mu[j] - nu[j]), float(mu[j]), float(nu[j]),
+                  float(mu_t[j] * dtn), float(gam_t[j] * dtn)) for j in range(2, s + 1)}
+    return float(mu1_t * dtn), stages
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = load_library("rkc_interval")
+    for fn in (lib.rkc_interval_f32, lib.rkc_interval_f64):
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_double] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _smem_need(nx, ny, dtype):
+    """Shared memory per block: each of the 8 blocks of a glacier's cluster
+    holds 6 slabs of ⌈nx/8⌉+2 rows of ny values (``smem_bytes`` in
+    ``csrc/rkc_interval.cu``)."""
+    return 6 * (-(-nx // 8) + 2) * ny * torch.empty((), dtype=dtype).element_size()
+
+
+def rkc_fits(nx, ny, dtype) -> bool:
+    """Whether one glacier's (nx, ny) plane of ``dtype`` fits the kernel."""
+    return _smem_need(nx, ny, dtype) <= _SMEM_PER_BLOCK
+
+
+def check_rkc_shape(nx, ny, dtype):
+    """Raise when one glacier's plane does not fit the kernel (the port's
+    counterpart of the TPU kernel's ``unsupported_reason``)."""
+    if not rkc_fits(nx, ny, dtype):
+        need = _smem_need(nx, ny, dtype)
+        raise ValueError(
+            f"rkc_interval: a {nx}x{ny} {dtype} plane needs {need} bytes of shared "
+            f"memory per block of its 8-block cluster, above the limit of "
+            f"{_SMEM_PER_BLOCK}; use the generic RKC stages for this grid")
+
+
+def _interval_math(H, B, row, exps, dt, s, eta0, keep=None):
+    """One RKC2 step of length dt (the TPU kernel's ``_interval_math``);
+    appends y₁ … y_{s−1} to ``keep`` when it is a list."""
+    mu1dt, weights = _stage_weights(s, H.dtype, dt)
+    f0 = _rhs_math(H, B, row, exps, eta0)
+    y_jm1, y_jm2 = H + mu1dt * f0, H
+    for j in range(2, s + 1):
+        if keep is not None:
+            keep.append(y_jm1)
+        a, mu, nu, mutdt, gamdt = weights[j]
+        f_j = _rhs_math(y_jm1, B, row, exps, eta0)
+        y_j = a * H + mu * y_jm1 + nu * y_jm2 + mutdt * f_j + gamdt * f0
+        y_jm1, y_jm2 = y_j, y_jm1
+    return y_jm1
+
+
+def _row(scalars, dtype):
+    """The derived table's (dx, dy, creep, slide) as (n_g, 1, 1) columns."""
+    sc = scalars[:, :4].to(dtype)
+    return tuple(sc[:, k].reshape(-1, 1, 1) for k in range(4))
+
+
+def rkc_interval_reference(H, B, scalars, dt, s, eta0, exps=(5.0, 2.0, 4.0, 2.0)):
+    """Plain PyTorch version of the kernel: H, B of shape (n_g, nx, ny);
+    ``scalars`` the derived (n_g, 8) table, whose first 4 columns are read
+    (cast to H's dtype); ``exps`` = (n+2, n−1, p−q+1, p−1) as numbers."""
+    return _interval_math(H, B, _row(scalars, H.dtype), tuple(float(e) for e in exps), dt, s,
+                          eta0)
+
+
+def _resolve_exps(scalars, exps):
+    if exps is not None:
+        return tuple(float(e) for e in exps)
+    found = shared_exps(scalars)
+    if found is None:
+        raise ValueError(
+            "rkc_interval: the glaciers of the batch have different exponent sets "
+            "(n+2, n−1, p−q+1, p−1); the kernel takes one set per launch")
+    return found
+
+
+def _forward(H, B, scalars, dt, s, eta0, exps, keep_stages=False):
+    """y_s, and with ``keep_stages`` the stage inputs y₁ … y_{s−1} (a
+    sequence of planes), on H's device without autograd."""
+    if H.device.type == "cpu":
+        keep = [] if keep_stages else None
+        out = _interval_math(H, B, _row(scalars, H.dtype), exps, dt, s, eta0, keep)
+        return (out, keep) if keep_stages else out
+    if H.device.type != "cuda":
+        raise ValueError(f"rkc_interval: no kernel for device {H.device}")
+    n_g, nx, ny = H.shape
+    check_rkc_shape(nx, ny, H.dtype)
+    table = scalars[:, :4].to(H.dtype).contiguous()
+    coef = _coef_table(s, H.dtype, H.device)
+    out = torch.empty_like(H)
+    stages = (torch.empty((s - 1,) + tuple(H.shape), dtype=H.dtype, device=H.device)
+              if keep_stages else None)
+    lib = _library()
+    fn = lib.rkc_interval_f32 if H.dtype == torch.float32 else lib.rkc_interval_f64
+    err = fn(H.data_ptr(), B.data_ptr(), table.data_ptr(), coef.data_ptr(), out.data_ptr(),
+             stages.data_ptr() if stages is not None else None, n_g, nx, ny, s,
+             float(dt), float(eta0), *exps, torch.cuda.current_stream(H.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rkc_interval: kernel launch failed with CUDA error {err}")
+    rkc_interval.launches += 1
+    return (out, stages) if keep_stages else out
+
+
+def _transpose(lam, H, B, table, stages, dt, s, eta0):
+    """The pullback of one RKC2 step to (H, creep): ``stages`` holds
+    y₁ … y_{s−1}; ``table`` the derived (n_g, 8) table in H's dtype with the
+    step's exponents."""
+    mu1dt, weights = _stage_weights(s, H.dtype, dt)
+    c = lam
+    pend = torch.zeros_like(lam)
+    cot_y = torch.zeros_like(lam)
+    cot_f0 = torch.zeros_like(lam)
+    dcreep = torch.zeros(H.shape[0], dtype=H.dtype, device=H.device)
+    for j in range(s, 1, -1):
+        a, mu, nu, mutdt, gamdt = weights[j]
+        cot_y.add_(c, alpha=a)
+        cot_f0.add_(c, alpha=gamdt)
+        g, dc = sia2d_rhs_vjp(c * mutdt, stages[j - 2], B, table, eta0)
+        dcreep += dc
+        # the ν route into y_{j−2} is finalised two stages down
+        c, pend = torch.add(pend, c, alpha=mu).add_(g), c * nu
+    cot_y += c + pend
+    cot_f0.add_(c, alpha=mu1dt)
+    g, dc = sia2d_rhs_vjp(cot_f0, H, B, table, eta0)
+    return cot_y + g, dcreep + dc
+
+
+class _RKCInterval(torch.autograd.Function):
+    """The step with the TPU kernel's differentiation contract (module doc)."""
+
+    @staticmethod
+    def forward(ctx, H, B, scalars, dt, s, eta0, exps):
+        ctx.save_for_backward(H, B, scalars)
+        ctx.consts = (dt, s, eta0, exps)
+        return _forward(H, B, scalars, dt, s, eta0, exps)
+
+    @staticmethod
+    def backward(ctx, lam):
+        H, B, scalars = ctx.saved_tensors
+        dt, s, eta0, exps = ctx.consts
+        _, stages = _forward(H, B, scalars, dt, s, eta0, exps, keep_stages=True)
+        n_g = H.shape[0]
+        table = torch.cat([scalars[:, :4].to(H.dtype),
+                           torch.tensor(exps, dtype=H.dtype, device=H.device).expand(n_g, 4)],
+                          dim=1).contiguous()
+        dH, dcreep = _transpose(lam.contiguous(), H, B, table, stages, dt, s, eta0)
+        d_scal = None
+        if ctx.needs_input_grad[2]:
+            d_scal = torch.zeros_like(scalars)
+            d_scal[:, 2] = dcreep.to(scalars.dtype)
+        return (dH if ctx.needs_input_grad[0] else None), None, d_scal, None, None, None, None
+
+
+def rkc_interval(H, B, scalars, dt, s, eta0, exps=None):
+    """One s-stage RKC2 step of length ``dt`` for a batch (see the module
+    doc). H, B: (n_g, nx, ny) float32/float64 planes; ``scalars`` the
+    derived (n_g, 8) table; ``exps`` the batch's shared exponent set
+    (n+2, n−1, p−q+1, p−1), or None to read it from the table, which refuses
+    a batch whose glaciers differ. A CUDA tensor launches the kernel (and
+    raises for a plane larger than it holds, :func:`check_rkc_shape`); a
+    CPU tensor takes :func:`rkc_interval_reference`."""
+    check_inputs("rkc_interval", (H, B), scalars, 8)
+    s = int(s)
+    if s < 2:
+        raise ValueError(f"rkc_interval: RKC2 needs s >= 2 stages, got {s}")
+    exps = _resolve_exps(scalars, exps)
+    dt, eta0 = float(dt), float(eta0)
+    if torch.is_grad_enabled() and (H.requires_grad or scalars.requires_grad):
+        return _RKCInterval.apply(H, B, scalars, dt, s, eta0, exps)
+    return _forward(H, B, scalars, dt, s, eta0, exps)
+
+
+rkc_interval.launches = 0

@@ -91,8 +91,15 @@ def si_step(H, H_D, B, x0, scalars, dt, theta=1.0, cg_iters=6, exps=None):
     (n+2, n−1, p−q+1, p−1) as Python numbers, or None to read it from the
     table, which refuses a batch whose glaciers differ. A CUDA tensor
     launches the kernels; a CPU tensor takes :func:`si_step_reference`.
+    Refuses inputs that require grad: the step has no backward yet.
     """
     check_inputs("si_step", (H, H_D, B, x0), scalars, 8)
+    if any(a.requires_grad for a in (H, H_D, B, x0, scalars)):
+        raise RuntimeError(
+            "si_step: gradients through the SI step are not supported yet; they "
+            "come with the implicit-function adjoint of the SI/SI2 solve (the "
+            "SI-adjoint slice). Train through solver='RKC' or an explicit "
+            "stepper, or pass tensors that do not require grad")
     exps = _resolve_exps(scalars, exps)
     dt, theta, cg_iters = float(dt), float(theta), int(cg_iters)
     if H.device.type == "cpu":

@@ -1,4 +1,5 @@
-"""Fused SIA2D right-hand side (A target, per-glacier scalar laws).
+"""Fused SIA2D right-hand side (A target, per-glacier scalar laws) and its
+pullback.
 
 ``sia2d_rhs`` launches the hand-written CUDA kernel ``csrc/sia2d_rhs.cu`` on
 a CUDA tensor and runs its plain PyTorch version,
@@ -7,6 +8,14 @@ kernel ``odinn_tpu.ops.pallas.sia_kernel.sia2d_rhs_pallas``: one thread per
 cell reads its 3×3 neighbourhood of (H, B), forms the four staggered
 diffusivities around the cell, the η₀-clamped edge fluxes and the negated
 divergence, and writes dH/dt with a zero ring.
+
+``sia2d_rhs`` is differentiable with the contract of the TPU kernel's
+``_bwd``: cotangents for H and for the A column of the raw table; B and the
+other columns get none (zero). Its backward is :func:`sia2d_rhs_vjp`, which
+launches ``csrc/sia2d_rhs_vjp.cu`` on a CUDA tensor (plain version
+:func:`sia2d_rhs_vjp_reference`) and returns the cotangents of H and of the
+derived table's creep column; the creep cotangent is taken back to A through
+:func:`derive_table` by autograd on the host-side table math.
 """
 
 from __future__ import annotations
@@ -20,7 +29,8 @@ from odinn_tpu_torch.ops import stencils as st
 from odinn_tpu_torch.ops.cuda.build import load_library
 from odinn_tpu_torch.ops.cuda.common import check_inputs, derived_scalars, pow_pos
 
-__all__ = ["sia2d_rhs", "sia2d_rhs_reference", "derive_table"]
+__all__ = ["sia2d_rhs", "sia2d_rhs_reference", "sia2d_rhs_vjp", "sia2d_rhs_vjp_reference",
+           "derive_table"]
 
 
 def derive_table(scalars, rho, g):
@@ -40,14 +50,29 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _vjp_library() -> ctypes.CDLL:
+    lib = load_library("sia2d_rhs_vjp")
+    for fn in (lib.sia2d_rhs_vjp_f32, lib.sia2d_rhs_vjp_f64):
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_double,
+                                                                     ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.sia2d_rhs_vjp_partials.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.sia2d_rhs_vjp_partials.restype = ctypes.c_int
+    return lib
+
+
 # The last raw table the wrapper derived, with its derived table: a solve
 # hands the same raw table to every RHS call. It is reused only while that
 # tensor is unchanged (same object, same version counter) and rho, g and the
-# dtype are the same.
+# dtype are the same. A table that requires grad is never kept: it would
+# hold its autograd graph past the solve that built it.
 _last_derived = [None]
 
 
 def _kernel_table(scalars, rho, g, dtype):
+    if scalars.requires_grad:
+        return derive_table(scalars.detach(), rho, g).to(dtype).contiguous()
     key = (scalars._version, float(rho), float(g), dtype)
     hit = _last_derived[0]
     if hit is not None and hit[0] is scalars and hit[1] == key:
@@ -77,12 +102,10 @@ def _rhs_math(H, B, row, exps, eta0):
     return st.pad_inner(-div)
 
 
-def sia2d_rhs_reference(H, B, scalars, rho, g, eta0):
-    """Plain PyTorch version of the kernel: H, B of shape (n_g, nx, ny),
-    ``scalars`` the raw (n_g, 7) table (dx, dy, A, C, n, p, q). Glaciers
-    that share an exponent set run together; exponents are read on the
-    host."""
-    derived = derive_table(scalars, rho, g).to(H.dtype)
+def _rhs_derived(H, B, derived, eta0):
+    """:func:`_rhs_math` over a batch with the derived (n_g, 8) table in H's
+    dtype. Glaciers that share an exponent set run together; exponents are
+    read on the host."""
     groups = {}
     for k, exps in enumerate(derived[:, 4:8].tolist()):
         groups.setdefault(tuple(exps), []).append(k)
@@ -97,12 +120,15 @@ def sia2d_rhs_reference(H, B, scalars, rho, g, eta0):
     return out
 
 
-def sia2d_rhs(H, B, scalars, rho, g, eta0):
-    """dH/dt for a batch: H, B of shape (n_g, nx, ny); ``scalars`` the raw
-    (n_g, 7) table (dx, dy, A, C, n, p, q), derived here (in its own dtype,
-    then cast to H's) into the kernel's 8-column table. A CUDA tensor
-    launches the kernel; a CPU tensor takes :func:`sia2d_rhs_reference`."""
-    check_inputs("sia2d_rhs", (H, B), scalars, 7)
+def sia2d_rhs_reference(H, B, scalars, rho, g, eta0):
+    """Plain PyTorch version of the kernel: H, B of shape (n_g, nx, ny),
+    ``scalars`` the raw (n_g, 7) table (dx, dy, A, C, n, p, q)."""
+    return _rhs_derived(H, B, derive_table(scalars, rho, g).to(H.dtype), eta0)
+
+
+def _launch_rhs(H, B, scalars, rho, g, eta0):
+    """The RHS on H's device without autograd: the kernel on a CUDA tensor,
+    the plain version on a CPU tensor."""
     if H.device.type == "cpu":
         return sia2d_rhs_reference(H, B, scalars, rho, g, eta0)
     if H.device.type != "cuda":
@@ -120,4 +146,91 @@ def sia2d_rhs(H, B, scalars, rho, g, eta0):
     return out
 
 
+def sia2d_rhs_vjp_reference(lam, H, B, derived, eta0):
+    """Plain PyTorch version of the pullback kernel: autograd through the
+    forward's plain version. ``derived`` is the (n_g, 8) table; returns
+    (dH, d_creep) in H's dtype, d_creep of shape (n_g,)."""
+    with torch.enable_grad():
+        h = H.detach().requires_grad_(True)
+        table = derived.detach().to(H.dtype)
+        creep = table[:, 2].clone().requires_grad_(True)
+        table = torch.cat([table[:, :2], creep[:, None], table[:, 3:]], dim=1)
+        out = _rhs_derived(h, B.detach(), table, eta0)
+        dH, dcreep = torch.autograd.grad(out, (h, creep), lam)
+    return dH, dcreep
+
+
+def sia2d_rhs_vjp(lam, H, B, derived, eta0):
+    """(dH, d_creep) = the pullback of dH/dt = f(H) at H of the cotangent
+    ``lam``: lam, H, B of shape (n_g, nx, ny), ``derived`` the (n_g, 8)
+    table (cast to H's dtype). The ring of ``lam`` is ignored (dH/dt is 0
+    there). A CUDA tensor launches the kernel; a CPU tensor takes
+    :func:`sia2d_rhs_vjp_reference`."""
+    check_inputs("sia2d_rhs_vjp", (lam, H, B), derived, 8)
+    if H.device.type == "cpu":
+        return sia2d_rhs_vjp_reference(lam, H, B, derived, eta0)
+    if H.device.type != "cuda":
+        raise ValueError(f"sia2d_rhs_vjp: no kernel for device {H.device}")
+    table = derived.detach().to(H.dtype).contiguous()
+    n_g, nx, ny = H.shape
+    lib = _vjp_library()
+    dH = torch.empty_like(H)
+    partial = torch.empty((n_g, lib.sia2d_rhs_vjp_partials(nx, ny)), dtype=H.dtype,
+                          device=H.device)
+    dcreep = torch.empty((n_g,), dtype=H.dtype, device=H.device)
+    fn = lib.sia2d_rhs_vjp_f32 if H.dtype == torch.float32 else lib.sia2d_rhs_vjp_f64
+    err = fn(lam.data_ptr(), H.data_ptr(), B.data_ptr(), table.data_ptr(), dH.data_ptr(),
+             partial.data_ptr(), dcreep.data_ptr(), n_g, nx, ny, float(eta0),
+             torch.cuda.current_stream(H.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sia2d_rhs_vjp: kernel launch failed with CUDA error {err}")
+    sia2d_rhs_vjp.launches += 1
+    return dH, dcreep
+
+
+def a_cotangent(scalars, dcreep, rho, g):
+    """The cotangent of the raw (n_g, 7) table whose only nonzero column is
+    A, from the cotangent of the derived table's creep column, by autograd
+    through :func:`derive_table`."""
+    with torch.enable_grad():
+        raw = scalars.detach().requires_grad_(True)
+        creep = derive_table(raw, rho, g)[:, 2]
+        (d_raw,) = torch.autograd.grad(creep, raw, dcreep.to(creep.dtype))
+    d_scal = torch.zeros_like(scalars)
+    d_scal[:, 2] = d_raw[:, 2]
+    return d_scal
+
+
+class _RHS(torch.autograd.Function):
+    """The RHS with the TPU kernel's differentiation contract (module doc)."""
+
+    @staticmethod
+    def forward(ctx, H, B, scalars, rho, g, eta0):
+        ctx.save_for_backward(H, B, scalars)
+        ctx.consts = (rho, g, eta0)
+        return _launch_rhs(H, B, scalars, rho, g, eta0)
+
+    @staticmethod
+    def backward(ctx, lam):
+        H, B, scalars = ctx.saved_tensors
+        rho, g, eta0 = ctx.consts
+        derived = derive_table(scalars.detach(), rho, g).to(H.dtype)
+        dH, dcreep = sia2d_rhs_vjp(lam.contiguous(), H, B, derived, eta0)
+        d_scal = a_cotangent(scalars, dcreep, rho, g) if ctx.needs_input_grad[2] else None
+        return (dH if ctx.needs_input_grad[0] else None), None, d_scal, None, None, None
+
+
+def sia2d_rhs(H, B, scalars, rho, g, eta0):
+    """dH/dt for a batch: H, B of shape (n_g, nx, ny); ``scalars`` the raw
+    (n_g, 7) table (dx, dy, A, C, n, p, q), derived here (in its own dtype,
+    then cast to H's) into the kernel's 8-column table. A CUDA tensor
+    launches the kernel; a CPU tensor takes :func:`sia2d_rhs_reference`.
+    Differentiable in H and in the A column (module doc)."""
+    check_inputs("sia2d_rhs", (H, B), scalars, 7)
+    if torch.is_grad_enabled() and (H.requires_grad or scalars.requires_grad):
+        return _RHS.apply(H, B, scalars, rho, g, eta0)
+    return _launch_rhs(H, B, scalars, rho, g, eta0)
+
+
 sia2d_rhs.launches = 0
+sia2d_rhs_vjp.launches = 0

@@ -3,7 +3,7 @@
 Arrays are laid out ``[..., x, y]`` (x second-to-last, y last), so every op
 broadcasts over leading axes: the glacier batch axis is a plain leading
 dimension. Only the forward stencils live here; the transposes used by the
-hand-written adjoints come with the training path.
+hand-written adjoints come with the manual-adjoint slice.
 """
 
 from __future__ import annotations

@@ -16,8 +16,8 @@ For the A target with per-glacier scalar laws on a (n_g, nx, ny) batch the
 whole step is the fused kernel
 :func:`odinn_tpu_torch.ops.cuda.si_kernel.si_step` (its plain version on a
 CPU tensor); every other law configuration takes the unfused path below.
-This slice is forward only: the implicit-function adjoint of the solve
-comes with the training path.
+The solve is forward only: its implicit-function adjoint (SI/SI2 training)
+comes with the SI-adjoint slice.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from odinn_tpu_torch.ops import stencils as st
 from odinn_tpu_torch.ops.cuda import si_kernel
 from odinn_tpu_torch.ops.cuda.common import derived_scalars, shared_exps
 from odinn_tpu_torch.physics.sia2d import scalar_law_table
-from odinn_tpu_torch.simulation.solver import host_tstops
+from odinn_tpu_torch.simulation.solver import host_tstops, substep_dt
 
 __all__ = ["semi_implicit_step", "si2_step", "integrate_semi_implicit"]
 
@@ -112,7 +112,7 @@ def integrate_semi_implicit(
     traj = [H0]
     for i in range(len(ts) - 1):
         t0, t1 = ts[i], ts[i + 1]
-        dt = (t1 - t0) / npt(substeps)
+        dt = substep_dt(t0, t1, substeps)
         for _ in range(substeps):
             ratio = dt / dt_prev if dt_prev > 0 else npt(0.0)
             guess = H + float(ratio) * dH

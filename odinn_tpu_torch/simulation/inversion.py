@@ -1,0 +1,450 @@
+"""Inversion: training the trainable laws (A = NN(T)) through the PDE solve.
+
+``run_inversion`` → ``train_ude``: staged optimizers (Adam/AdamW, then
+LBFGS) over the θ tree, the gradient by autograd through the whole forward
+solve of the stacked glacier batch (``UDEParameters(grad="jax")``), with
+best-iterate tracking. The transient loss is
+Σ_g Σ_τ Δt_τ · ℓ(H_g(t_τ), refs_g(t_τ)) with the glacier axis as a batch
+dimension. On the CUDA card the solve runs through the fused kernels; with
+``solver="RKC"`` every RKC2 step is one ``rkc_interval`` launch and every
+backward stage one ``sia2d_rhs_vjp`` launch.
+
+Adam and AdamW are ``torch.optim.Adam``/``AdamW`` (the update of optax's:
+bias-corrected, eps outside the square root; AdamW with optax's default
+weight decay 1e-4). LBFGS is ``torch.optim.LBFGS`` with its strong-Wolfe
+line search, one iteration per epoch, optax's history of 10 and up to 20
+line-search steps. Not ported
+yet, and refused with the slice that brings them: the hand-written adjoints
+(``grad="discrete"/"continuous"``), Levenberg–Marquardt stages, SI/SI2
+training (the implicit-function adjoint), the adaptive, replay and
+``substeps="auto"`` solves with their instability recovery, per-glacier θ
+laws and saving the result.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from odinn_tpu_torch.core.device import resolve_device
+from odinn_tpu_torch.core.glacier import (
+    loss_normalization, map_tensors, per_glacier_column, stack_glaciers)
+from odinn_tpu_torch.core.params import torch_dtype
+from odinn_tpu_torch.losses.losses import LossContext, LossH, LossV, MultiLoss, term_kind
+from odinn_tpu_torch.models.model import Model, init_theta, make_values_fn, resolve_outer_values
+from odinn_tpu_torch.physics.sia2d import v_from_h
+from odinn_tpu_torch.simulation.observations import thickness_at, velocity_at
+from odinn_tpu_torch.simulation.prediction import forward_batch, forward_glacier
+from odinn_tpu_torch.simulation.results import Results, TrainingStats, create_results
+from odinn_tpu_torch.simulation.solver import build_tstops
+
+__all__ = ["Inversion", "assemble_tstops", "glacier_transient_loss", "batch_transient_loss",
+           "gather_batch", "resolve_accum_chunks", "train_ude", "run_inversion"]
+
+
+def _default_loss():
+    return MultiLoss(terms=(LossH(),), weights=(1.0,))
+
+
+def _host_times(x) -> list:
+    return np.unique(np.asarray(torch.as_tensor(x).detach().cpu(), dtype=float)).tolist()
+
+
+def assemble_tstops(params, batch):
+    """The solver's save grid unioned with every observation time of the
+    batch, so transient losses never interpolate."""
+    extra = []
+    if params.solver.tstops is not None:
+        extra.extend(np.asarray(params.solver.tstops, float).ravel().tolist())
+    td = batch.thickness_data
+    if td is not None and td.t is not None:
+        extra.extend(_host_times(td.t))
+    vd = batch.velocity_data
+    if vd is not None and vd.t is not None:
+        extra.extend(_host_times(vd.t))
+    dd = batch.dhdt_data
+    if dd is not None:
+        extra.extend(_host_times(dd.t1))
+        extra.extend(_host_times(dd.t2))
+    return build_tstops(params.simulation.tspan, params.solver.step,
+                        extra=extra if extra else None)
+
+
+class _LossEnv:
+    """The (transient) loss terms, the context factory and the time-matched
+    observation lookup of one (batched) loss evaluation."""
+
+    def __init__(self, theta, glacier, model, params, tstops):
+        loss_cfg = params.UDE.empirical_loss_function or _default_loss()
+        if not isinstance(loss_cfg, MultiLoss):
+            loss_cfg = MultiLoss(terms=(loss_cfg,), weights=(1.0,))
+        self.ts = np.asarray(torch.as_tensor(tstops).detach().cpu(), dtype=np.float64)
+        self.dts = np.diff(self.ts)
+        self.glacier = glacier
+        self.theta = theta
+        self.normalization = loss_normalization(glacier).to(glacier.H0.device)
+        t0 = float(self.ts[0])
+        outer = resolve_outer_values(model, theta, glacier, t0)
+        vfn = make_values_fn(model, theta, glacier, t0, outer)
+        dx = per_glacier_column(glacier, glacier.dx)
+        dy = per_glacier_column(glacier, glacier.dy)
+
+        def velocity_fn(H, t):
+            return v_from_h(H, glacier.B, dx, dy, vfn, model.target, params.physical)
+
+        self.velocity_fn = velocity_fn
+        pairs = list(zip(loss_cfg.weights, loss_cfg.terms))
+        other = [t_ for _, t_ in pairs if term_kind(t_) != "transient"]
+        if other:
+            raise NotImplementedError(
+                f"odinn_tpu_torch: loss terms of kind {term_kind(other[0])!r} (the "
+                "regularization and time-aggregated losses) come with a later slice")
+        self.transient = pairs
+
+    def make_ctx(self, H_ref=None, V_ref=None, Vx_ref=None, Vy_ref=None):
+        g = self.glacier
+        return LossContext(H_ref=H_ref, V_ref=V_ref, Vx_ref=Vx_ref, Vy_ref=Vy_ref,
+                           velocity_fn=self.velocity_fn, normalization=self.normalization,
+                           theta=self.theta, glacier=g, dx=g.dx, dy=g.dy)
+
+    def obs_at(self, tau, dtype):
+        """References and per-glacier validity gates at save index τ."""
+        t = float(self.ts[tau])
+        h_ref, h_valid = thickness_at(self.glacier.thickness_data, t, dtype)
+        v_ref, vx_ref, vy_ref, v_valid = velocity_at(self.glacier.velocity_data, t, dtype)
+        ctx = self.make_ctx(H_ref=h_ref, V_ref=v_ref, Vx_ref=vx_ref, Vy_ref=vy_ref)
+        return t, ctx, h_valid, v_valid
+
+    @staticmethod
+    def term_valid(term, h_valid, v_valid):
+        """Thickness terms need a matching H observation at this tstop,
+        velocity terms a matching V observation, others both."""
+        if isinstance(term, LossH):
+            return h_valid
+        if isinstance(term, LossV):
+            return v_valid
+        return h_valid * v_valid
+
+
+def glacier_transient_loss(theta, glacier, model, params, tstops):
+    """(loss, trajectory) of a glacier, or of a stacked batch with the
+    (n_g,) per-glacier losses: Σ_τ Δt_τ · Σ_terms w·valid·ℓ(H(t_τ), refs),
+    normalized by each glacier's pixel count."""
+    traj = forward_glacier(theta, glacier, model, params, tstops)
+    env = _LossEnv(theta, glacier, model, params, tstops)
+    total = torch.zeros((), dtype=traj.dtype, device=traj.device)
+    for tau in range(1, len(env.ts)):
+        t, ctx, h_valid, v_valid = env.obs_at(tau, traj.dtype)
+        acc = 0.0
+        for w, term in env.transient:
+            acc = acc + w * env.term_valid(term, h_valid, v_valid) * term(ctx, traj[tau], t)
+        total = total + acc * float(env.dts[tau - 1])
+    return total, traj
+
+
+def batch_transient_loss(theta, batch, model, params, tstops):
+    """Sum of the transient losses over the stacked glacier batch."""
+    losses, _ = glacier_transient_loss(theta, batch, model, params, tstops)
+    return torch.sum(losses)
+
+
+def gather_batch(batch, idx):
+    """Glaciers ``idx`` of a stacked batch: every field with the leading
+    glacier axis is indexed along it."""
+    n_g = batch.H0.shape[0]
+    idx = torch.as_tensor(idx, device=batch.H0.device)
+    return map_tensors(batch, lambda x: x[idx] if x.ndim >= 1 and x.shape[0] == n_g else x)
+
+
+@dataclass
+class Inversion:
+    """A training run: model, glaciers (a stacked batch, or a list stacked
+    on construction) and parameters on ``device`` (None: the CUDA card).
+    θ defaults to ``init_theta`` in ``simulation.float_dtype``."""
+
+    model: Model
+    glaciers: Any
+    parameters: Any
+    results: Optional[Results] = None
+    theta: Any = None
+    device: Optional[Any] = None
+
+    def __post_init__(self):
+        dev = resolve_device(self.device)
+        if isinstance(self.glaciers, (list, tuple)):
+            self.glaciers = stack_glaciers(list(self.glaciers), device=dev)
+        else:
+            self.glaciers = self.glaciers.to(dev)
+        self.device = dev
+        if self.theta is None:
+            dtype = torch_dtype(self.parameters.simulation.float_dtype)
+            self.theta = init_theta(self.model, self.glaciers, dtype)
+
+
+def _stages(hyper) -> Sequence[Tuple[str, float, int]]:
+    """The (optimizer, learning rate, epochs) stages of the hyperparameters."""
+    opts = hyper.optimizer if isinstance(hyper.optimizer, (tuple, list)) else (hyper.optimizer,)
+    eps = hyper.epochs if isinstance(hyper.epochs, (tuple, list)) else (hyper.epochs,)
+    lrs = hyper.learning_rate if isinstance(hyper.learning_rate, (tuple, list)) else (
+        hyper.learning_rate,
+    ) * len(opts)
+    if len(eps) != len(opts):
+        raise ValueError("hyper.epochs and hyper.optimizer stage counts differ")
+    return list(zip(opts, lrs, eps))
+
+
+def resolve_accum_chunks(cfg, n: int) -> int:
+    """hyper.grad_accum_chunks for a batch of ``n`` glaciers: ``"auto"`` is
+    the largest chunk count that keeps chunks at ≥ 64 glaciers."""
+    if cfg == "auto":
+        best = 1
+        for k in range(2, n // 64 + 1):
+            if n % k == 0 and n // k >= 64:
+                best = k
+        return best
+    return int(cfg or 1)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _tree_leaves(tree) -> list:
+    out = []
+    _tree_map(out.append, tree)
+    return out
+
+
+def _make_grad_fn(inversion: Inversion, loss_fn_b, stats: TrainingStats):
+    """``vg(theta, b) -> (loss, grads)`` for params.UDE.grad, with the
+    gradients in θ's leaf order. Chunked accumulation
+    (hyper.grad_accum_chunks) sums the exact per-chunk losses and
+    gradients, bounding the live autograd graph to one chunk."""
+    grad_cfg = inversion.parameters.UDE.grad
+    name = grad_cfg if isinstance(grad_cfg, str) else getattr(grad_cfg, "name", "jax")
+    if name in ("discrete", "continuous"):
+        raise NotImplementedError(
+            f"odinn_tpu_torch: grad={name!r} (the hand-written adjoints) comes with a later "
+            "slice (inverse/vjps.py, inverse/gradient.py); use grad='jax'")
+    if name in ("forward", "dummy"):
+        raise NotImplementedError(
+            f"odinn_tpu_torch: grad={name!r} comes with a later slice; use grad='jax'")
+    if name not in ("jax", "sciml"):
+        raise ValueError(f"unknown adjoint method {name!r}")
+    k_cfg = getattr(inversion.parameters.hyper, "grad_accum_chunks", 1) or 1
+
+    def value_and_grad(theta, b):
+        leaves = _tree_leaves(theta)
+        loss = loss_fn_b(theta, b)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        stats.gradients += 1
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(leaves, grads)]
+
+    def vg(theta, b):
+        n = b.H0.shape[0]
+        k = resolve_accum_chunks(k_cfg, n)
+        if k <= 1:
+            return value_and_grad(theta, b)
+        if n % k != 0:
+            raise ValueError(f"grad_accum_chunks={k} must divide the batch of {n} glaciers")
+        val, grads = None, None
+        for c in range(k):
+            v, g = value_and_grad(theta, gather_batch(b, torch.arange(c * n // k,
+                                                                      (c + 1) * n // k)))
+            val = v if val is None else val + v
+            grads = g if grads is None else [a + x for a, x in zip(grads, g)]
+        return val, grads
+
+    return vg
+
+
+def _record(stats: TrainingStats, val, theta, gnorm, dt):
+    stats.losses.append(val)
+    stats.niter += 1
+    stats.theta = theta
+    if getattr(stats, "_record_theta_hist", False):
+        stats.theta_hist.append(_tree_map(lambda x: x.detach().cpu().numpy().copy(), theta))
+    if not np.isfinite(val):
+        stats.retcode = "NumericalFailure"
+        raise FloatingPointError(
+            f"training loss became non-finite at iteration {stats.niter}. "
+            "The forward solve likely violated the explicit stability limit "
+            "(large creep/diffusivity). Increase solver.substeps / "
+            "solver.rkc_stages (see suggest_substeps / rkc_stages_for), or lower "
+            "the learning rate; the automatic re-sizing and rewind of the JAX "
+            "package come with the tolerance slice.")
+    stats.grad_norm_hist.append(gnorm)
+    stats.time_per_iter.append(dt)
+    if gnorm > 1e7:
+        print(f"[odinn_tpu_torch] WARNING: gradient norm {gnorm:.3e} > 1e7")
+
+
+def _check_trainable(params) -> None:
+    solver = params.solver
+    if solver.adaptive:
+        raise NotImplementedError(
+            "odinn_tpu_torch: training through adaptive or replayed solves comes with "
+            "the tolerance slice; set fixed solver.substeps / rkc_stages")
+    if isinstance(solver.substeps, str):
+        raise NotImplementedError(
+            "odinn_tpu_torch: substeps='auto' (and the instability recovery built on "
+            "it) comes with the tolerance slice; give an integer substep count")
+    if solver.solver in ("SI", "SI2"):
+        raise NotImplementedError(
+            f"odinn_tpu_torch: training through solver={solver.solver!r} needs the "
+            "implicit-function adjoint of the SI/SI2 solve, which comes with the "
+            "SI-adjoint slice; train through solver='RKC' or an explicit stepper")
+
+
+def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
+              record_theta_hist: bool = False) -> Results:
+    """Staged training loop (see the module doc). θ warm-starts across
+    stages; each stage starts from the best iterate so far; the returned θ
+    is the best iterate seen (full-batch losses). ``record_theta_hist`` keeps
+    θ per iteration. Results hold the final forward with the trained θ."""
+    params = inversion.parameters
+    _check_trainable(params)
+    model = inversion.model
+    batch = inversion.glaciers
+    tstops = assemble_tstops(params, batch)
+    stats = TrainingStats()
+    stats._record_theta_hist = record_theta_hist
+    theta = _tree_map(lambda x: x.detach().clone().requires_grad_(True), inversion.theta)
+    leaves = _tree_leaves(theta)
+
+    def loss_fn_b(theta, b):
+        stats.solves += 1
+        return batch_transient_loss(theta, b, model, params, tstops)
+
+    def eval_loss(theta, b) -> float:
+        with torch.no_grad():
+            return float(loss_fn_b(theta, b))
+
+    vg = _make_grad_fn(inversion, loss_fn_b, stats)
+    best = {"val": math.inf, "theta": None}
+
+    def fold_best(val, values):
+        if val < best["val"]:
+            best["val"] = val
+            best["theta"] = [v.detach().clone() for v in values]
+
+    def load(values):
+        with torch.no_grad():
+            for p, v in zip(leaves, values):
+                p.copy_(v)
+
+    def end_stage():
+        """The last iterate's loss joins the best; the next stage starts
+        from the best iterate."""
+        if best["theta"] is None:
+            return
+        fold_best(eval_loss(theta, batch), leaves)
+        load(best["theta"])
+
+    def gnorm_of(grads) -> float:
+        return float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads)))
+
+    n_glaciers = batch.H0.shape[0]
+    bsize = min(params.hyper.batch_size, n_glaciers)
+    minibatching = 0 < bsize < n_glaciers
+    if minibatching:
+        print(f"[odinn_tpu_torch] minibatching {bsize}/{n_glaciers} glaciers per step "
+              f"(set hyper.batch_size >= {n_glaciers} for full-batch)")
+    else:
+        fold_best(eval_loss(theta, batch), leaves)
+    rng = np.random.default_rng(0)
+
+    for opt_name, lr, epochs in _stages(params.hyper):
+        opt_name = opt_name.lower()
+        if opt_name in ("adam", "adamw"):
+            opt = (torch.optim.Adam(leaves, lr=lr) if opt_name == "adam"
+                   else torch.optim.AdamW(leaves, lr=lr, weight_decay=1e-4))
+            for _ in range(epochs):
+                t_start = time.time()
+                if minibatching:
+                    ids = rng.choice(n_glaciers, size=bsize, replace=False)
+                    val, grads = vg(theta, gather_batch(batch, ids))
+                else:
+                    val, grads = vg(theta, batch)
+                    fold_best(float(val), leaves)
+                for p, g in zip(leaves, grads):
+                    p.grad = g
+                opt.step()
+                _record(stats, float(val), theta, gnorm_of(grads), time.time() - t_start)
+                if callback is not None:
+                    callback(stats)
+        elif opt_name in ("lbfgs", "bfgs"):
+            if params.hyper.lbfgs_linesearch not in ("auto", "zoom"):
+                raise ValueError(
+                    "hyper.lbfgs_linesearch: the port's LBFGS line search is "
+                    "torch.optim.LBFGS's strong-Wolfe search ('auto' or 'zoom'), got "
+                    f"{params.hyper.lbfgs_linesearch!r}")
+            # one iteration per epoch; max_eval (torch's default is 5/4 of
+            # max_iter, which leaves the line search no trial) allows the
+            # first evaluation and 20 line-search steps, optax's zoom budget
+            opt = torch.optim.LBFGS(leaves, lr=lr, max_iter=1, max_eval=21, history_size=10,
+                                    line_search_fn="strong_wolfe")
+            evals = []
+
+            def closure():
+                val, grads = vg(theta, batch)
+                for p, g in zip(leaves, grads):
+                    p.grad = g
+                evals.append((float(val), gnorm_of(grads)))
+                return val
+
+            for _ in range(epochs):
+                t_start = time.time()
+                before = [p.detach().clone() for p in leaves]
+                evals.clear()
+                opt.step(closure)
+                val, gnorm = evals[0]          # at θ before the step
+                fold_best(val, before)
+                _record(stats, val, theta, gnorm, time.time() - t_start)
+                if callback is not None:
+                    callback(stats)
+        elif opt_name in ("lm", "gn", "gauss_newton", "gauss-newton"):
+            raise NotImplementedError(
+                "odinn_tpu_torch: Levenberg–Marquardt / Gauss–Newton stages come with the "
+                "second-order trainer slice (inverse/gauss_newton.py)")
+        else:
+            raise ValueError(f"unknown optimizer {opt_name!r}")
+        end_stage()
+
+    if best["theta"] is not None and stats.losses:
+        final_val = eval_loss(theta, batch)
+        if best["val"] < final_val:
+            load(best["theta"])
+        stats.final_loss = min(best["val"], final_val)
+    stats.retcode = "Success"
+    trained = _tree_map(lambda x: x.detach(), theta)
+    stats.theta = trained
+    inversion.theta = trained
+
+    with torch.no_grad():
+        stats.solves += 1
+        trajs = forward_batch(trained, batch, model, params, tstops, device=inversion.device)
+    inversion.results = Results(simulation=create_results(trajs, tstops, glaciers=batch),
+                                stats=stats)
+    return inversion.results
+
+
+def run_inversion(inversion: Inversion, callback=None, path: Optional[str] = None,
+                  file_name: Optional[str] = None) -> Results:
+    """Train (:func:`train_ude`) and return the results. Saving the trained
+    result (``path``/``file_name``) comes with the I/O slice."""
+    if path is not None or file_name is not None:
+        raise NotImplementedError(
+            "odinn_tpu_torch: saving the training result comes with the I/O slice "
+            "(utils/io.py); call run_inversion without path/file_name")
+    return train_ude(inversion, callback=callback)

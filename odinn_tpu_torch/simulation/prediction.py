@@ -1,27 +1,41 @@
-"""Forward simulation: ``forward_batch``, ``Prediction`` and ``run_prediction``.
+"""Forward simulation: ``forward_batch``, ``Prediction``, ``run_prediction``
+and ``generate_ground_truth``.
 
 The whole stacked glacier batch advances at once: the glacier axis is the
 leading dimension of every state tensor, and per-glacier scalars are
 (n_g, 1, 1) columns. Fixed-substep solvers only; the adaptive, replay,
 ``substeps="auto"`` and periodic-law paths come with later slices.
+
+With ``solver="RKC"`` and the fused kernels' law configuration (the A target
+with one value per glacier for every slot, one exponent set for the batch, a
+plane the kernel holds) each substep is one fused RKC2 step,
+:func:`odinn_tpu_torch.ops.cuda.rkc_kernel.rkc_interval`; every other
+configuration runs the generic RKC stages through the RHS.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
 from odinn_tpu_torch.core.device import resolve_device
-from odinn_tpu_torch.core.glacier import Glacier, per_glacier_column, stack_glaciers
+from odinn_tpu_torch.core.glacier import (
+    DhdtData, Glacier, SurfaceVelocityData, ThicknessData, per_glacier_column, stack_glaciers)
 from odinn_tpu_torch.models.model import Model, make_values_fn, resolve_outer_values
+from odinn_tpu_torch.ops.cuda.common import shared_exps
+from odinn_tpu_torch.ops.cuda.rkc_kernel import rkc_fits
+from odinn_tpu_torch.ops.cuda.sia_kernel import derive_table
 from odinn_tpu_torch.physics.mass_balance import mb_timestep
-from odinn_tpu_torch.physics.sia2d import sia2d_rhs, v_from_h
+from odinn_tpu_torch.physics.sia2d import scalar_law_table, sia2d_rhs, v_from_h
 from odinn_tpu_torch.simulation.implicit import integrate_semi_implicit
-from odinn_tpu_torch.simulation.solver import build_tstops, host_tstops, integrate_scan
+from odinn_tpu_torch.simulation.solver import (
+    build_tstops, host_tstops, integrate_scan, make_rkc_interval_step)
 
-__all__ = ["forward_glacier", "forward_batch", "Prediction", "run_prediction"]
+__all__ = ["forward_glacier", "forward_batch", "Prediction", "run_prediction",
+           "generate_ground_truth"]
 
 _METHODS = ("RK4", "SSPRK3", "Euler", "RKC", "SI", "SI2")
 
@@ -43,12 +57,26 @@ def _check_supported(model: Model, params) -> None:
             "give an integer substep count")
     if model.iceflow.periodic_laws:
         raise NotImplementedError(
-            "odinn_tpu_torch: periodic laws (callback_freq > 0) come with the "
-            "training slice")
+            "odinn_tpu_torch: periodic laws (callback_freq > 0) come with a "
+            "later slice")
     if model.initial_condition is not None:
         raise NotImplementedError(
-            "odinn_tpu_torch: trainable initial conditions come with the "
-            "training slice")
+            "odinn_tpu_torch: trainable initial conditions come with a later "
+            "slice (models/initial_condition.py)")
+
+
+def _fused_rkc_stepper(values_fn, target, dx, dy, glacier, H0, phys, s):
+    """The fused RKC2 stepper when the configuration is the kernel's (see the
+    module doc), else None."""
+    table = scalar_law_table(values_fn, target, dx, dy, H0)
+    if table is None or not rkc_fits(H0.shape[-2], H0.shape[-1], H0.dtype):
+        return None
+    derived = derive_table(table, phys.rho, phys.g)
+    exps = shared_exps(derived)
+    if exps is None:
+        return None
+    return make_rkc_interval_step(s, glacier.B.to(H0.dtype).contiguous(), derived,
+                                  phys.eta0, exps)
 
 
 def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=None):
@@ -91,9 +119,14 @@ def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=No
             callback=callback, corrector=method == "SI2",
             cg_iters_predictor=params.solver.cg_iters_predictor,
         )
+    stepper = None
+    if method == "RKC" and params.simulation.use_iceflow and not params.solver.compensated:
+        stepper = _fused_rkc_stepper(values_fn, target, dx, dy, glacier, H0, phys,
+                                     params.solver.rkc_stages)
     return integrate_scan(
         rhs, H0, ts, params.solver.substeps, method=method, callback=callback,
         rkc_stages=params.solver.rkc_stages, compensated=params.solver.compensated,
+        stepper=stepper,
     )
 
 
@@ -149,3 +182,60 @@ def run_prediction(pred: Prediction, tstops=None):
         results.update({"Vx": vx, "Vy": vy, "V": vabs})
     pred.results = results
     return results
+
+
+def generate_ground_truth(
+    glaciers: Sequence[Glacier],
+    params,
+    model: Model,
+    tstops,
+    theta=None,
+    store: Tuple[str, ...] = ("H", "V"),
+    device=None,
+):
+    """Run the forward model on ``device`` (None: the CUDA card) and return
+    new glaciers with synthetic observations attached. ``store`` entries:
+    ``"H"`` thickness at every tstop, ``"V"`` velocities at every tstop,
+    ``"dhdt"`` the mean thickness-change rate over the span, ``"avgV"`` the
+    Δt-weighted mean velocity as one annual product (exclusive with "V")."""
+    if "V" in store and "avgV" in store:
+        raise ValueError(
+            'store cannot contain both "V" and "avgV": they populate the '
+            "same velocity_data slot (time series vs annual product)")
+    need_velocities = ("V" in store) or ("avgV" in store)
+    if need_velocities and not params.simulation.use_velocities:
+        params = params.replace(
+            simulation=dataclasses.replace(params.simulation, use_velocities=True))
+    pred = Prediction(model=model, glaciers=list(glaciers), parameters=params, theta=theta,
+                      device=device)
+    with torch.no_grad():
+        results = run_prediction(pred, tstops=tstops)
+    dev = pred.device
+    t = torch.as_tensor(results["t"], dtype=torch.float64).to(dev)
+    out = []
+    for i, g in enumerate(glaciers):
+        nx, ny = g.nx, g.ny
+        gi = g.to(dev)
+        H_traj = results["H"][i, :, :nx, :ny]
+        if "H" in store:
+            gi = gi.replace(thickness_data=ThicknessData(t=t, H=H_traj))
+        if "V" in store:
+            gi = gi.replace(velocity_data=SurfaceVelocityData(
+                t=t, vx=results["Vx"][i, :, :nx, :ny], vy=results["Vy"][i, :, :nx, :ny],
+                vabs=results["V"][i, :, :nx, :ny]))
+        if "dhdt" in store:
+            t1, t2 = t[0], t[-1]
+            gi = gi.replace(dhdt_data=DhdtData(t1=t1, t2=t2,
+                                               dhdt=(H_traj[-1] - H_traj[0]) / (t2 - t1)))
+        if "avgV" in store:
+            w = torch.diff(t) / torch.sum(torch.diff(t))
+
+            def wavg(f):
+                return torch.tensordot(w.to(f.dtype), f[1:], dims=1)
+
+            gi = gi.replace(velocity_data=SurfaceVelocityData(
+                t=t[-1:], vx=wavg(results["Vx"][i, :, :nx, :ny])[None],
+                vy=wavg(results["Vy"][i, :, :nx, :ny])[None],
+                vabs=wavg(results["V"][i, :, :nx, :ny])[None], date1=t[0], date2=t[-1]))
+        out.append(gi)
+    return out

@@ -7,13 +7,17 @@ interval end. It returns the trajectory saved at the tstops.
 
 Times are handled on the host in the state's dtype: the tstops are cast to
 it before they are differenced, so a float32 solve steps by float32 dt, as
-the JAX package does. Steppers receive dt as a Python number holding that
-value.
+the JAX package does, and dt is the interval times the rounded reciprocal
+of the substep count (:func:`substep_dt`), the product XLA compiles the JAX
+package's division into. Steppers receive dt as a Python number holding
+that value.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
+
+import math
 
 import numpy as np
 import torch
@@ -21,13 +25,41 @@ import torch
 __all__ = [
     "build_tstops",
     "host_tstops",
+    "substep_dt",
+    "suggest_substeps",
+    "rkc_stages_for",
     "integrate_scan",
     "rk4_step",
     "ssprk3_step",
     "euler_step",
     "get_stepper",
     "make_rkc2_step",
+    "make_rkc_interval_step",
 ]
+
+
+def suggest_substeps(
+    dx, dy, h_max, a_max, n: float = 3.0, rho: float = 900.0, g: float = 9.81,
+    step: float = 1.0 / 12.0, slope_max: float = 0.3, safety: float = 2.0,
+) -> int:
+    """Substep count per save interval satisfying the explicit diffusion
+    stability limit dt ≤ dx²/(4·D_max) with
+    D_max = Γ(a_max)·h_max^{n+2}·slope^{n−1}; size it for the largest A the
+    optimizer can reach (params.physical.max_A)."""
+    gamma = 2.0 * a_max * (rho * g) ** n / (n + 2.0)
+    d_max = gamma * float(h_max) ** (n + 2.0) * slope_max ** (n - 1.0)
+    dt_stab = min(float(dx), float(dy)) ** 2 / (4.0 * max(d_max, 1e-30))
+    return max(int(math.ceil(safety * step / dt_stab)), 1)
+
+
+def rkc_stages_for(dx, dy, h_max, a_max, n=3.0, rho=900.0, g=9.81,
+                   step=1.0 / 12.0, slope_max: float = 0.3, safety: float = 1.2) -> int:
+    """Stage count s with 0.65·s² ≥ safety·dt·λ_max for one save interval,
+    the RKC analogue of :func:`suggest_substeps`."""
+    gamma = 2.0 * a_max * (rho * g) ** n / (n + 2.0)
+    d_max = gamma * float(h_max) ** (n + 2.0) * slope_max ** (n - 1.0)
+    lam = 4.0 * d_max / min(float(dx), float(dy)) ** 2
+    return max(int(math.ceil(math.sqrt(safety * step * lam / 0.65))), 2)
 
 
 def build_tstops(tspan, step, extra=None) -> torch.Tensor:
@@ -66,6 +98,15 @@ def host_tstops(tstops, dtype: torch.dtype) -> np.ndarray:
     if isinstance(tstops, torch.Tensor):
         tstops = tstops.detach().cpu().numpy()
     return np.asarray(tstops, dtype=np.float32 if dtype == torch.float32 else np.float64)
+
+
+def substep_dt(t0, t1, substeps: int):
+    """The substep length of the interval [t0, t1] (numpy scalars of the
+    state's dtype): (t1 − t0)·fl(1/substeps) in that dtype, which is what
+    XLA makes of the JAX package's (t1 − t0)/substeps (checked bit for bit
+    for 1–25 substeps in float32 and float64)."""
+    npt = type(t0)
+    return (t1 - t0) * (npt(1.0) / npt(substeps))
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +225,20 @@ def make_rkc2_step(s: int):
     return step
 
 
+def make_rkc_interval_step(s: int, B, table, eta0, exps):
+    """An s-stage RKC2 stepper ``step(f, y, t, dt)`` that ignores ``f`` and
+    takes the whole step as one fused launch,
+    :func:`odinn_tpu_torch.ops.cuda.rkc_kernel.rkc_interval` (its plain
+    version on the CPU): the right-hand side is the fused SIA2D RHS of the
+    derived (n_g, 8) ``table`` with bed ``B``, which does not depend on t."""
+    from odinn_tpu_torch.ops.cuda.rkc_kernel import rkc_interval
+
+    def step(f, y, t, dt):
+        return rkc_interval(y, B, table, dt, s, eta0, exps)
+
+    return step
+
+
 _STEPPERS = {"RK4": rk4_step, "SSPRK3": ssprk3_step, "Euler": euler_step}
 
 
@@ -209,27 +264,33 @@ def integrate_scan(
     callback: Optional[Callable] = None,
     rkc_stages: int = 16,
     compensated: bool = False,
+    stepper: Optional[Callable] = None,
 ):
     """Integrate ``dy/dt = rhs(y, t)`` saving at every tstop.
 
     ``callback(y, t0, t1, interval_idx) -> y`` runs at the end of each save
     interval. ``compensated=True`` (Euler/SSPRK3/RK4) accumulates the state
     with Kahan summation in increment form, callback jumps folded in as
-    increments. Returns the trajectory, shape ``(len(tstops), *y0.shape)``
-    with ``traj[0] = y0``.
+    increments. ``stepper(f, y, t, dt)``, when given, takes each substep in
+    place of ``method``'s (the fused RKC step, :func:`make_rkc_interval_step`).
+    Returns the trajectory, shape ``(len(tstops), *y0.shape)`` with
+    ``traj[0] = y0``.
     """
     ts = host_tstops(tstops, y0.dtype)
     npt = ts.dtype.type
-    if compensated and method not in _INCREMENTS:
+    if compensated and (method not in _INCREMENTS or stepper is not None):
         raise ValueError(
             f"compensated accumulation supports Euler/SSPRK3/RK4, not {method!r}")
-    advance = _INCREMENTS[method] if compensated else get_stepper(method, rkc_stages)
+    if compensated:
+        advance = _INCREMENTS[method]
+    else:
+        advance = stepper if stepper is not None else get_stepper(method, rkc_stages)
 
     y, comp = y0, torch.zeros_like(y0)
     traj = [y0]
     for i in range(len(ts) - 1):
         t0, t1 = ts[i], ts[i + 1]
-        dt = (t1 - t0) / npt(substeps)
+        dt = substep_dt(t0, t1, substeps)
         for k in range(substeps):
             t, h = float(t0 + npt(k) * dt), float(dt)
             if compensated:

@@ -1,7 +1,9 @@
 """The plain versions of odinn_tpu_torch's CUDA kernels against the JAX
 package's Pallas kernels (interpret mode on the CPU) and references, and the
-kernel wrappers' contract on the CPU: a CPU tensor takes the plain version,
-and gradients, mixed exponent sets and unsupported inputs are refused.
+kernel wrappers' contract on the CPU: a CPU tensor takes the plain version;
+``sia2d_rhs`` and ``rkc_interval`` differentiate with the TPU kernels'
+custom-VJP contracts, ``si_step`` refuses gradients, and mixed exponent sets
+and unsupported inputs are refused.
 
 The kernels themselves run only on a CUDA card; ``chip_smoke.py`` holds them
 against these plain versions there. Float64; tolerance 1e-10 relative to
@@ -15,9 +17,11 @@ import pytest
 import torch
 
 from odinn_tpu.ops.pallas.rkc_kernel import derived_scalars as j_derived
+from odinn_tpu.ops.pallas.rkc_kernel import rkc_interval_pallas
+from odinn_tpu.ops.pallas.rkc_kernel import rkc_interval_reference as j_rkc_ref
 from odinn_tpu.ops.pallas.si_kernel import si_step_pallas, si_step_reference as j_si_ref
 from odinn_tpu.ops.pallas.sia_kernel import sia2d_rhs_pallas
-from odinn_tpu_torch.ops.cuda import si_kernel, sia_kernel
+from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
 from odinn_tpu_torch.ops.cuda.common import derived_scalars, pow_pos, shared_exps
 from tests.torch_parity import assert_rel
 
@@ -125,16 +129,145 @@ def test_pow_pos_semantics():
     assert torch.allclose(non_int[1:], x[1:] ** 2.5, rtol=1e-14, atol=0)
 
 
-def test_wrappers_refuse_gradients():
+@pytest.mark.parametrize("case", ["si_step H", "sia2d_rhs H", "sia2d_rhs table",
+                                  "rkc_interval H", "rkc_interval table"])
+def test_wrappers_refuse_gradients(case):
+    """si_step refuses inputs that require grad (its backward comes with the
+    SI-adjoint slice); sia2d_rhs and rkc_interval give gradients for H and
+    for the A (raw table) or creep (derived table) column, zero for the
+    other columns, and none for B."""
+    H, B, raw = _inputs(nx=12, ny=14)
+    t = torch.from_numpy
+    if case == "si_step H":
+        with pytest.raises(RuntimeError, match="gradients.*SI-adjoint slice"):
+            si_kernel.si_step(t(H).requires_grad_(True), t(H), t(B), t(H), _t_table(raw), DT)
+        return
+    wrt_H = case.endswith(" H")
+    kernel = case.split()[0]
+    table = t(raw) if kernel == "sia2d_rhs" else _t_table(raw)
+    Hi = t(H).requires_grad_(wrt_H)
+    table.requires_grad_(not wrt_H)
+    Bi = t(B).requires_grad_(True)
+    if kernel == "sia2d_rhs":
+        out = sia_kernel.sia2d_rhs(Hi, Bi, table, RHO, G, ETA0)
+    else:
+        out = rkc_kernel.rkc_interval(Hi, Bi, table, 0.002, 4, ETA0)
+    (grad,) = torch.autograd.grad((out * out).sum(), [Hi if wrt_H else table])
+    assert torch.isfinite(grad).all()
+    if wrt_H:
+        assert grad.abs().max() > 0.0
+    else:
+        assert (grad[:, 2] != 0.0).all()
+        assert torch.equal(grad[:, [0, 1] + list(range(3, grad.shape[1]))],
+                           torch.zeros_like(grad[:, [0, 1] + list(range(3, grad.shape[1]))]))
+    assert Bi.grad is None
+
+
+def _rkc_args(s):
+    """RKC inputs at a step length stable for s stages."""
+    H, B, raw = _inputs(nx=24, ny=26, seed=5)
+    return H, B, raw, 0.002 * s * s / 4.0
+
+
+@pytest.mark.parametrize("s", [2, 5, 8])
+def test_rkc_interval_reference_matches_jax(s):
+    H, B, raw, dt = _rkc_args(s)
+    jt, tt = _j_table(raw), _t_table(raw)
+    ref = j_rkc_ref(jnp.asarray(H), jnp.asarray(B), jt, dt, s, ETA0)
+    pal = rkc_interval_pallas(jnp.asarray(H), jnp.asarray(B), jt, dt, s, ETA0)
+    t = torch.from_numpy
+    out = rkc_kernel.rkc_interval_reference(t(H), t(B), tt, dt, s, ETA0)
+    assert float((out - t(H)).abs().max()) > 1e-3 * float(np.abs(H).max())
+    assert_rel(out, ref, RTOL, "vs jax rkc_interval_reference")
+    assert_rel(out, pal, RTOL, "vs rkc_interval_pallas (interpret)")
+    assert torch.equal(rkc_kernel.rkc_interval(t(H), t(B), tt, dt, s, ETA0), out)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_sia2d_rhs_vjp_reference_matches_jax(mixed):
+    """The pullback's plain version against jax.vjp through
+    sia2d_rhs_pallas's custom VJP: dH, and dA from d(creep) through the
+    table math (also through the RHS Function), 1e-10."""
+    H, B, raw = _inputs(seed=3)
+    if mixed:
+        raw[1, 4] = raw[1, 5] = 4.0
+    lam = np.random.default_rng(7).standard_normal(H.shape)
+    _, pb = jax.vjp(lambda h, sc: sia2d_rhs_pallas(h, jnp.asarray(B), sc, RHO, G, ETA0),
+                    jnp.asarray(H), jnp.asarray(raw))
+    jdH, jdsc = pb(jnp.asarray(lam))
+    t = torch.from_numpy
+    derived = sia_kernel.derive_table(t(raw), RHO, G)
+    dH, dcreep = sia_kernel.sia2d_rhs_vjp_reference(t(lam), t(H), t(B), derived, ETA0)
+    assert_rel(dH, jdH, RTOL, "dH")
+    dA = sia_kernel.a_cotangent(t(raw), dcreep, RHO, G)
+    assert_rel(dA[:, 2], jdsc[:, 2], RTOL, "dA")
+    assert torch.equal(sia_kernel.sia2d_rhs_vjp(t(lam), t(H), t(B), derived, ETA0)[0], dH)
+    Hg, rawg = t(H).requires_grad_(True), t(raw).requires_grad_(True)
+    gH, graw = torch.autograd.grad(sia_kernel.sia2d_rhs(Hg, t(B), rawg, RHO, G, ETA0),
+                                   (Hg, rawg), t(lam))
+    assert_rel(gH, jdH, RTOL, "Function dH")
+    assert_rel(graw, jdsc, RTOL, "Function d(raw table)")
+
+
+def test_rkc_interval_backward_matches_jax():
+    """The RKC Function's backward (rematerialised stages, stage-by-stage
+    pullback) against jax.vjp of rkc_interval_pallas: dH and d(creep),
+    1e-9."""
+    s = 4
+    H, B, raw = _inputs(n_g=2, nx=16, ny=18, seed=5)
+    dt = 0.002 * s * s / 4.0
+    lam = np.random.default_rng(8).standard_normal(H.shape)
+    jt = _j_table(raw)
+    _, pb = jax.vjp(lambda h, sc: rkc_interval_pallas(h, jnp.asarray(B), sc, dt, s, ETA0),
+                    jnp.asarray(H), jt)
+    jdH, jdsc = pb(jnp.asarray(lam))
+    t = torch.from_numpy
+    Hg, tg = t(H).requires_grad_(True), _t_table(raw).requires_grad_(True)
+    gH, gt = torch.autograd.grad(rkc_kernel.rkc_interval(Hg, t(B), tg, dt, s, ETA0),
+                                 (Hg, tg), t(lam))
+    assert_rel(gH, jdH, 1e-9, "dH")
+    assert_rel(gt[:, 2], jdsc[:, 2], 1e-9, "d(creep)")
+    assert_rel(gt, jdsc, 1e-9, "d(table)")
+
+
+@pytest.mark.parametrize("kernel", ["sia2d_rhs", "rkc_interval"])
+def test_functions_pass_gradcheck(kernel):
+    """torch.autograd.gradcheck of both Functions in float64, on a fully
+    glaciated 8×9 patch (away from the relu kink at H = 0), in H and in a
+    scale factor on A (raw table) or creep (derived table)."""
+    H, B, raw = _inputs(nx=24, ny=26)
+    t = torch.from_numpy
+    Hs = t(H[:2, 8:16, 8:17].copy()).requires_grad_(True)
+    Bs = t(B[:2, 8:16, 8:17].copy())
+    assert float(Hs.detach().min()) > 0.0
+    scale = torch.ones(2, dtype=torch.float64, requires_grad=True)
+    raw2 = t(raw[:2].copy())
+
+    def fn(h, c):
+        if kernel == "sia2d_rhs":
+            table = torch.cat([raw2[:, :2], (c * raw2[:, 2])[:, None], raw2[:, 3:]], dim=1)
+            return sia_kernel.sia2d_rhs(h, Bs, table, RHO, G, ETA0)
+        d = _t_table(raw[:2])
+        table = torch.cat([d[:, :2], (c * d[:, 2])[:, None], d[:, 3:]], dim=1)
+        return rkc_kernel.rkc_interval(h, Bs, table, 0.01, 3, ETA0)
+
+    assert torch.autograd.gradcheck(fn, (Hs, scale), eps=1e-6, atol=1e-5, rtol=1e-4)
+
+
+def test_rkc_interval_checks():
     H, B, raw = _inputs()
     t = torch.from_numpy
-    Hg = t(H).requires_grad_(True)
-    with pytest.raises(RuntimeError, match="gradients"):
-        si_kernel.si_step(Hg, t(H), t(B), t(H), _t_table(raw), DT)
-    with pytest.raises(RuntimeError, match="gradients"):
-        sia_kernel.sia2d_rhs(Hg, t(B), t(raw), RHO, G, ETA0)
-    with pytest.raises(RuntimeError, match="gradients"):
-        sia_kernel.sia2d_rhs(t(H), t(B), t(raw).requires_grad_(True), RHO, G, ETA0)
+    mixed = raw.copy()
+    mixed[1, 4] = mixed[1, 5] = 4.0
+    with pytest.raises(ValueError, match="different exponent sets"):
+        rkc_kernel.rkc_interval(t(H), t(B), _t_table(mixed), DT, 4, ETA0)
+    with pytest.raises(ValueError, match="s >= 2"):
+        rkc_kernel.rkc_interval(t(H), t(B), _t_table(raw), DT, 1, ETA0)
+    assert rkc_kernel.rkc_fits(128, 128, torch.float64)
+    assert rkc_kernel.rkc_fits(256, 256, torch.float32)
+    assert not rkc_kernel.rkc_fits(256, 256, torch.float64)
+    with pytest.raises(ValueError, match="shared memory"):
+        rkc_kernel.check_rkc_shape(512, 512, torch.float32)
 
 
 def test_si_step_refuses_mixed_exponent_sets():

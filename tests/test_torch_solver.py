@@ -64,33 +64,41 @@ def test_integrate_scan_matches(method, compensated):
 
 def test_float32_time_arithmetic_matches():
     """tstops are cast to the state dtype before differencing: in a float32
-    solve dt and the substep times are float32 quantities. Euler on
-    dy/dt = 1 sums dt = (t1 − t0)/substeps formed from float32 tstops with
-    IEEE float32 division, bit for bit; the JAX package's XLA:CPU program
-    multiplies by a rounded reciprocal of the substep count instead, so it
-    agrees to an ulp; differencing the float64 tstops first would give
+    solve dt and the substep times are float32 quantities, and dt is
+    (t1 − t0)·fl32(1/substeps), the reciprocal product XLA compiles the JAX
+    package's division into. Euler on dy/dt = 1 then matches the JAX
+    package bit for bit at every substep count from 1 to 25; IEEE division
+    by the count, or differencing the float64 tstops first, would give
     another trajectory."""
-    y0 = np.zeros((3, 4), dtype=np.float32)
     tspan = (2010.0, 2015.0)
-    ref = jsol.integrate_scan(lambda y, t: jnp.ones_like(y), jnp.asarray(y0),
-                              jsol.build_tstops(tspan, 1 / 12), 3, method="Euler")
-    out = tsol.integrate_scan(lambda y, t: torch.ones_like(y), torch.from_numpy(y0),
-                              tsol.build_tstops(tspan, 1 / 12), 3, method="Euler")
-    assert out.dtype == torch.float32
     ts64 = np.asarray(jsol.build_tstops(tspan, 1 / 12), np.float64)
     ts32 = ts64.astype(np.float32)
-    y32, y64dt = [np.float32(0.0)], [np.float32(0.0)]
+    y0 = np.zeros((3, 4), dtype=np.float32)
+    for k in range(1, 26):
+        ref = jsol.integrate_scan(lambda y, t: jnp.ones_like(y), jnp.asarray(y0),
+                                  jsol.build_tstops(tspan, 1 / 12), k, method="Euler")
+        out = tsol.integrate_scan(lambda y, t: torch.ones_like(y), torch.from_numpy(y0),
+                                  tsol.build_tstops(tspan, 1 / 12), k, method="Euler")
+        assert out.dtype == torch.float32
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref), err_msg=f"substeps={k}")
+    rec = np.float32(1.0) / np.float32(3)
+    y_rec, y_div, y64dt = [np.float32(0.0)], [np.float32(0.0)], [np.float32(0.0)]
     for i in range(len(ts32) - 1):
-        dt32 = (ts32[i + 1] - ts32[i]) / np.float32(3)
+        dt_rec = (ts32[i + 1] - ts32[i]) * rec
+        dt_div = (ts32[i + 1] - ts32[i]) / np.float32(3)
         dt64 = (ts64[i + 1] - ts64[i]) / 3.0      # differenced before the cast
-        a, b = y32[-1], y64dt[-1]
+        a, b, c = y_rec[-1], y_div[-1], y64dt[-1]
         for _ in range(3):
-            a, b = np.float32(a + dt32), np.float32(b + np.float32(dt64))
-        y32.append(a)
-        y64dt.append(b)
-    np.testing.assert_array_equal(out[:, 0, 0].numpy(), np.asarray(y32))
-    assert not np.array_equal(np.asarray(y32), np.asarray(y64dt))
-    assert_rel(out, ref, 2e-7)
+            a, b, c = (np.float32(a + dt_rec), np.float32(b + dt_div),
+                       np.float32(c + np.float32(dt64)))
+        y_rec.append(a)
+        y_div.append(b)
+        y64dt.append(c)
+    out = tsol.integrate_scan(lambda y, t: torch.ones_like(y), torch.from_numpy(y0),
+                              tsol.build_tstops(tspan, 1 / 12), 3, method="Euler")
+    np.testing.assert_array_equal(out[:, 0, 0].numpy(), np.asarray(y_rec))
+    assert not np.array_equal(np.asarray(y_rec), np.asarray(y_div))
+    assert not np.array_equal(np.asarray(y_rec), np.asarray(y64dt))
     # and a stiff nonlinear RHS, compensated SSPRK3, to float32 roundoff
     fj, ft = _linear_rhs(3.0)
     y1 = np.linspace(0.1, 2.0, 12, dtype=np.float32).reshape(3, 4)
@@ -240,3 +248,85 @@ def test_mb_window_index_in_state_dtype():
             assert out.dtype == dtype
             np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
     assert found   # some float32 window index differs from the float64 one
+
+
+@pytest.mark.parametrize("args", [
+    dict(dx=100.0, dy=100.0, h_max=500.0, a_max=8e-18),
+    dict(dx=50.0, dy=80.0, h_max=324.5, a_max=2.4e-18, n=3.0, step=0.25),
+    dict(dx=200.0, dy=200.0, h_max=150.0, a_max=1e-19, n=4.0, slope_max=0.5, safety=1.5),
+])
+def test_stage_and_substep_sizing_match(args):
+    assert tsol.rkc_stages_for(**args) == jsol.rkc_stages_for(**args)
+    assert tsol.suggest_substeps(**args) == jsol.suggest_substeps(**args)
+
+
+def _count_fused_steps(monkeypatch):
+    from odinn_tpu_torch.ops.cuda import rkc_kernel
+
+    steps = []
+    forward = rkc_kernel._forward
+    monkeypatch.setattr(rkc_kernel, "_forward",
+                        lambda *a, **k: steps.append(1) or forward(*a, **k))
+    return steps
+
+
+@pytest.mark.parametrize("use_mb", [False, True])
+def test_fused_rkc_forward_matches_jax(use_mb, monkeypatch):
+    """solver="RKC" with per-glacier scalar laws runs one fused RKC step per
+    substep (rkc_interval, its plain version on the CPU), against the JAX
+    package's generic RKC stages in integrate_scan: 2 glaciers, 24², half a
+    year, 2 substeps of s = 5, with and without monthly mass balance,
+    float64, 1e-10."""
+    import odinn_tpu.simulation.prediction as jpred
+    from odinn_tpu.core.glacier import stack_glaciers as j_stack
+    from odinn_tpu.core.params import (
+        Parameters as JParams, SimulationParameters as JSim, SolverParameters as JSolver)
+    from odinn_tpu.data.synthetic import halfar_glacier as j_halfar, monthly_dummy_climate
+    from odinn_tpu.laws.laws import CuffeyPaterson as JCP
+    from odinn_tpu.models.model import Model as JModel, SIA2DModel as JSM
+    from odinn_tpu.physics.mass_balance import TImodel1 as JTI
+    from odinn_tpu_torch.core.params import (
+        Parameters as TParams, SimulationParameters as TSim, SolverParameters as TSolver)
+    from odinn_tpu_torch.laws.laws import CuffeyPaterson as TCP
+    from odinn_tpu_torch.models.model import Model as TModel, SIA2DModel as TSM
+    from odinn_tpu_torch.physics.mass_balance import TImodel1 as TTI
+    from odinn_tpu_torch.simulation.prediction import forward_batch
+    from tests.torch_parity import carry_glacier
+
+    tspan = (5.0, 5.5)
+    gl = [j_halfar(nx=24, ny=24, dx=150.0, temp=t, rgi_id=f"r{i}",
+                   climate=monthly_dummy_climate(5.0, 12, longterm_temp=t, nx=24, ny=24))
+          for i, t in enumerate((-15.0, -22.0))]
+    jb = j_stack(gl)
+
+    def mk(P, Sim, Solver):
+        return P(simulation=Sim(tspan=tspan, use_MB=use_mb, use_velocities=False),
+                 solver=Solver(step=1.0 / 12.0, substeps=2, solver="RKC", rkc_stages=5))
+
+    ts = jsol.build_tstops(tspan, 1.0 / 12.0)
+    jm = JModel(iceflow=JSM(A=JCP()), mass_balance=JTI() if use_mb else None)
+    ref = jpred.forward_batch(None, jb, jm, mk(JParams, JSim, JSolver), ts)
+    steps = _count_fused_steps(monkeypatch)
+    tm = TModel(iceflow=TSM(A=TCP()), mass_balance=TTI() if use_mb else None)
+    out = forward_batch(None, carry_glacier(jb), tm, mk(TParams, TSim, TSolver),
+                        tsol.build_tstops(tspan, 1.0 / 12.0), device="cpu")
+    assert len(steps) == 6 * 2
+    assert_rel(out, ref, 1e-10)
+
+
+def test_golden_rkc_replay_runs_the_fused_step(monkeypatch):
+    """The golden rkc_noMB trajectory (1 year, 20 substeps of s = 16) replays
+    at 1e-10 through the fused RKC step, one per substep."""
+    from odinn_tpu_torch.core.glacier import stack_glaciers
+    from odinn_tpu_torch.simulation.prediction import forward_batch
+    from tests.test_torch_prediction import _FIXTURE, _golden_cases
+
+    params, glacier, model = _golden_cases()["rkc_noMB"]
+    with np.load(_FIXTURE) as z:
+        ref = z["rkc_noMB_traj"]
+    steps = _count_fused_steps(monkeypatch)
+    traj = forward_batch(None, stack_glaciers([glacier], device="cpu"), model, params,
+                         tsol.build_tstops(params.simulation.tspan, params.solver.step),
+                         device="cpu")
+    assert len(steps) == 12 * 20
+    assert_rel(traj[0], ref, 1e-10)
