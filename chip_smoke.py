@@ -9,12 +9,15 @@ Phases, each printed as one JSON line:
 2. build: the CUDA kernels under ``odinn_tpu_torch/csrc``, one ``nvcc`` per
    source, all started together;
 3. kernel checks: each kernel against its plain PyTorch version on the card,
-   at the main path's 4 x 128^2 and at a ragged 3 x 97 x 131 (the new
-   kernels also at 2 x 10 x 33), in float64 and float32 (``si_step`` in float32 also on its increment out − H;
-   ``rkc_interval`` at s = 8 and 25); the two autograd Functions' gradients
-   (kernel forward, pullback kernel backward) against autograd through the
-   plain versions in float64; ``si_step`` refusing an input that requires
-   grad;
+   at the main path's 4 x 128^2 and at a ragged 3 x 97 x 131 (the RKC and
+   pullback kernels also at 2 x 10 x 33, and ``rkc_interval`` at the
+   training's 16 x 128^2, s = 8), in float64 and float32 (``si_step`` in
+   float32 also on its increment out − H; ``rkc_interval`` at s = 8 and 25;
+   the pullback also in its fused RKC-backward stage mode); the two autograd
+   Functions' gradients (kernel forward, pullback kernel backward) against
+   autograd through the plain versions in float64; ``si_step`` refusing an
+   input that requires grad; the RKC kernel's cluster size and occupancy at
+   4 and 16 glaciers;
 4. main path: the forward prediction of 4 Halfar glaciers, 128^2, float32,
    5 years with monthly saves and monthly mass balance, Cuffey–Paterson A(T),
    n = 3, for the rows SI (PCG-6), SI2 (PCG-6), compensated SSPRK3 at 3
@@ -26,9 +29,12 @@ Phases, each printed as one JSON line:
    glaciers, 128^2, float32, 2 years of monthly Cuffey–Paterson ground
    truth, through the RKC solve, with the launch counters set to 0 just
    before and read just after; the time of one Adam epoch (forward,
-   gradient, update) by CUDA events and its device idle share;
+   gradient, update) by CUDA events, its device idle share and its count
+   of device kernel launches from the profiler;
 6. the ``kernels`` line: per kernel, what it replaces, its launches on the
-   main path, its time, its plain version's time and its bound.
+   main path, its time, its plain version's time and its bound, with the
+   same at the main path's other shapes under ``more`` (``rkc_interval`` at
+   16 x 128^2, s = 8; the pullback's fused RKC-backward stage).
 
 Any failed check raises, so the exit code is not 0. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits with
@@ -40,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -72,10 +79,11 @@ TOL_F32 = 1e-5
 # share of the increment. Measured on an H100: 3.7e-6 to 1.1e-5.
 TOL_F32_INCREMENT = 1e-4
 # float32 rkc_interval, relative to max|reference|: each of the s stages
-# rounds in another order (fused multiply-adds, the corner diffusivities
+# rounds in another order (reciprocal spacings, the corner diffusivities
 # from shared memory), and the Chebyshev recursion carries every stage's
-# roundoff into the next with weights above 1. Measured on an H100: 3.5e-6
-# (s = 8) to 1.9e-5 (s = 25).
+# roundoff into the next with weights above 1. Measured on an H100: 2.1e-7
+# (s = 8) to 2.7e-6 (s = 25); 3.5e-6 to 1.9e-5 when the kernel still
+# contracted multiply-adds.
 TOL_RKC_F32 = 1e-4
 # float64 gradients of the autograd Functions (kernel forward and pullback)
 # against autograd through the plain versions: the same derivative, taken
@@ -118,11 +126,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, names=None) -> float:
-    """Device time per call of ``fn`` from the profiler: the summed time of
-    the CUDA kernels it launched (those whose name contains one of ``names``
-    when given), over ``reps`` calls. 0.0 when the profiler saw no device
-    time."""
+def device_profile(fn, reps: int, names=None):
+    """(device ms, device launches, launches by name) per call of ``fn``
+    from the profiler: the summed time and count of the device activities
+    (kernels, memsets, copies) it launched, those whose name contains one
+    of ``names`` when given, over ``reps`` calls; by name means by the
+    kernel's name without its template arguments. (0.0, 0, {}) when the
+    profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -131,14 +141,21 @@ def device_ms(fn, reps: int, names=None) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    total_us, count, by_name = 0.0, 0, {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
-        if names is None or any(n in e.key for n in names):
+        if us > 0.0 and (names is None or any(n in e.key for n in names)):
             total_us += us
-    return total_us / reps / 1e3
+            count += e.count
+            short = re.sub(r"\(.*\)$", "", e.key.split("<")[0]).removeprefix("void ").strip()
+            by_name[short] = by_name.get(short, 0) + e.count / reps
+    return total_us / reps / 1e3, count / reps, by_name
+
+
+def device_ms(fn, reps: int, names=None) -> float:
+    return device_profile(fn, reps, names)[0]
 
 
 def row_ms(fn, reps: int = 5) -> float:
@@ -223,10 +240,54 @@ def vjp_bound(n_g, nx, ny, itemsize):
     return nbytes, 58 * corners + 2 * 19 * cells + 4 * 12 * cells
 
 
+# the pullback's fused RKC-backward stage: the pullback, plus per cell
+# lam = c·μ̃dt and the four carry updates (9 operations); c, the stage
+# point and B read, c' written, pend, cot_y and cot_f0 read and written
+def stage_bound(n_g, nx, ny, itemsize):
+    nbytes, ops = vjp_bound(n_g, nx, ny, itemsize)
+    cells = n_g * nx * ny
+    return nbytes + 6 * cells * itemsize + n_g * itemsize, ops + 9 * cells
+
+
 def bound_ms(nbytes, ops, dtype):
     peak = PEAK_FP32_OPS_PER_S if dtype == torch.float32 else PEAK_FP64_OPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ptxas_entry(mangled: str) -> str:
+    """A kernel instance's name from its mangled symbol, with its template
+    arguments as tags: float32/float64, Glen (fixed exponents) or runtime
+    exponents, the cells a thread owns (K), the pullback's stage mode."""
+    i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else len(mangled)
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    rest, tags = mangled[i:], []
+    if rest.startswith("I"):
+        tags.append("f64" if rest.startswith("Id") else "f32")
+        tags += [t for key, t in (("GlenExps", "Glen"), ("RuntimeExps", "runtime")) if key in rest]
+        cells = re.search(r"Li(\d+)E", rest)
+        mode = re.search(r"Lb(\d)E", rest)
+        tags += [f"K={cells.group(1)}"] if cells else []
+        tags += [("stage" if mode.group(1) == "1" else "pullback")] if mode else []
+    return name + ("<" + ",".join(tags) + ">" if tags else "")
+
+
+def ptxas_summary(log: str) -> dict:
+    """``nvcc -Xptxas -v`` output as {kernel instance: [its register, spill
+    and stack lines]}."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            entry = ptxas_entry(found.group(1))
+        elif entry and ("registers" in line or "spill" in line):
+            out.setdefault(entry, []).append(line.replace("ptxas info    :", "").strip())
+    return out
 
 
 def rel_err(a, b) -> float:
@@ -277,12 +338,65 @@ def check_kernels():
             if not (torch.isfinite(out).all() and err <= tol):
                 raise AssertionError(f"sia2d_rhs disagrees with its plain version: {row}")
             check_rkc_and_vjp(H, B, derived, shape, dtype, tol)
-    # 10 rows leave three of rkc_interval's 8 cluster blocks without rows
+    # 10 rows leave 3 of rkc_interval's 8 cluster blocks without rows, or 6
+    # of 16 (97 rows: 2 of 16)
     for dtype in (torch.float64, torch.float32):
         H, B, raw = kernel_inputs(2, 10, 33, dtype, seed=45)
         derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
         check_rkc_and_vjp(H, B, derived, (2, 10, 33), dtype,
                           TOL_F64 if dtype == torch.float64 else TOL_F32)
+    # the training's shape: 16 glaciers, s = 8
+    for dtype in (torch.float64, torch.float32):
+        H, B, raw = kernel_inputs(N_TRAIN, NX, NY, dtype, seed=46)
+        derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+        check_rkc(H, B, derived, (N_TRAIN, NX, NY), dtype, (8,))
+    # the runtime-exponent paths: Glen n = 4 for rkc_interval (one set a
+    # launch), n = 3, 4 and 2.5 in one batch for the pullback
+    for dtype in (torch.float64, torch.float32):
+        tol = TOL_F64 if dtype == torch.float64 else TOL_F32
+        H, B, raw = kernel_inputs(3, 97, 131, dtype, seed=47)
+        raw[:, 4] = 4.0
+        raw[:, 2:4] /= PHYS.rho * PHYS.g * 400.0   # D of the same size as at n = 3
+        derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+        check_rkc(H, B, derived, (3, 97, 131), dtype, (8,))
+        raw[:, 4] = torch.tensor([3.0, 4.0, 2.5], dtype=raw.dtype, device=raw.device)
+        derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+        lam = torch.randn(H.shape, generator=torch.Generator().manual_seed(48),
+                          dtype=torch.float64).to("cuda", dtype)
+        dH, dcreep = sia_kernel.sia2d_rhs_vjp(lam, H, B, derived, PHYS.eta0)
+        rH, rcreep = sia_kernel.sia2d_rhs_vjp_reference(lam, H, B, derived, PHYS.eta0)
+        torch.cuda.synchronize()
+        row = {"phase": "check", "kernel": "sia2d_rhs_vjp n=3,4,2.5", "shape": [3, 97, 131],
+               "dtype": str(dtype), "dH_rel_err": rel_err(dH, rH),
+               "dcreep_rel_err": rel_err(dcreep, rcreep), "tol": tol}
+        emit(row)
+        if not (row["dH_rel_err"] <= tol and row["dcreep_rel_err"] <= tol):
+            raise AssertionError(f"sia2d_rhs_vjp disagrees with its plain version: {row}")
+
+
+def check_rkc(H, B, derived, shape, dtype, stage_counts):
+    """rkc_interval against its plain version on the card, at each s in
+    ``stage_counts`` at the stability ratio of the RKC row's monthly step
+    at 25 stages."""
+    from odinn_tpu_torch.core.params import PhysicalParameters
+    from odinn_tpu_torch.ops.cuda import rkc_kernel
+    from odinn_tpu_torch.ops.cuda.common import shared_exps
+
+    PHYS = PhysicalParameters()
+    exps = shared_exps(derived)
+    for s_ in stage_counts:
+        dt = DT * (s_ / RKC_STAGES) ** 2
+        out = rkc_kernel.rkc_interval(H, B, derived, dt, s_, PHYS.eta0)
+        ref = rkc_kernel.rkc_interval_reference(H, B, derived, dt, s_, PHYS.eta0, exps)
+        torch.cuda.synchronize()
+        tol_r = TOL_F64 if dtype == torch.float64 else TOL_RKC_F32
+        row = {"phase": "check", "kernel": f"rkc_interval s={s_}", "shape": list(shape),
+               "exps": list(exps), "dtype": str(dtype), "rel_err": rel_err(out, ref), "tol": tol_r,
+               "increment_rel_err": rel_err(out.double() - H.double(),
+                                            ref.double() - H.double())}
+        emit(row)
+        if not (torch.isfinite(out).all() and row["rel_err"] <= tol_r):
+            raise AssertionError(f"rkc_interval disagrees with its plain version: {row}")
 
 
 def check_rkc_and_vjp(H, B, derived, shape, dtype, tol):
@@ -291,21 +405,7 @@ def check_rkc_and_vjp(H, B, derived, shape, dtype, tol):
     from odinn_tpu_torch.ops.cuda import rkc_kernel, sia_kernel
 
     PHYS = PhysicalParameters()
-    # rkc_interval at s = 8 and 25, each at the stability ratio of the
-    # RKC row's monthly step at 25 stages
-    for s_ in (8, RKC_STAGES):
-        dt = DT * (s_ / RKC_STAGES) ** 2
-        out = rkc_kernel.rkc_interval(H, B, derived, dt, s_, PHYS.eta0)
-        ref = rkc_kernel.rkc_interval_reference(H, B, derived, dt, s_, PHYS.eta0)
-        torch.cuda.synchronize()
-        tol_r = TOL_F64 if dtype == torch.float64 else TOL_RKC_F32
-        row = {"phase": "check", "kernel": f"rkc_interval s={s_}", "shape": list(shape),
-               "dtype": str(dtype), "rel_err": rel_err(out, ref), "tol": tol_r,
-               "increment_rel_err": rel_err(out.double() - H.double(),
-                                            ref.double() - H.double())}
-        emit(row)
-        if not (torch.isfinite(out).all() and row["rel_err"] <= tol_r):
-            raise AssertionError(f"rkc_interval disagrees with its plain version: {row}")
+    check_rkc(H, B, derived, shape, dtype, (8, RKC_STAGES))
     lam = torch.randn(shape, generator=torch.Generator().manual_seed(sum(shape) + 1),
                       dtype=torch.float64).to("cuda", dtype)
     dH, dcreep = sia_kernel.sia2d_rhs_vjp(lam, H, B, derived, PHYS.eta0)
@@ -318,6 +418,46 @@ def check_rkc_and_vjp(H, B, derived, shape, dtype, tol):
     if not (torch.isfinite(dH).all() and torch.isfinite(dcreep).all()
             and row["dH_rel_err"] <= tol and row["dcreep_rel_err"] <= tol):
         raise AssertionError(f"sia2d_rhs_vjp disagrees with its plain version: {row}")
+    # the fused RKC-backward stage (stage 5 of 8, at the point H), first
+    # with zero carries (j = s), then with carries
+    weights = rkc_kernel._stage_weights(8, dtype, DT * (8 / RKC_STAGES) ** 2)[1][5]
+    gen = torch.Generator().manual_seed(sum(shape) + 2)
+    carry = tuple(torch.randn(shape, generator=gen, dtype=torch.float64).to("cuda", dtype)
+                  for _ in range(3)) + (torch.randn(shape[0], generator=gen,
+                                                    dtype=torch.float64).to("cuda", dtype),)
+    for first in (True, False):
+        start = None if first else carry
+        got = rkc_kernel.stage_pullback(
+            lam, None if first else tuple(t.clone() for t in carry), H, B, derived, PHYS.eta0,
+            weights)
+        want = rkc_kernel.stage_pullback_reference(lam, start, H, B, derived, PHYS.eta0, weights)
+        torch.cuda.synchronize()
+        names = ("c", "pend", "cot_y", "cot_f0", "dcreep")
+        errs = {n: rel_err(a, b) for n, a, b in zip(names, (got[0],) + tuple(got[1]),
+                                                    (want[0],) + tuple(want[1]))}
+        row = {"phase": "check", "kernel": "sia2d_rhs_vjp rkc stage", "first": first,
+               "shape": list(shape), "dtype": str(dtype), "rel_err": errs, "tol": tol}
+        emit(row)
+        if not all(e <= tol for e in errs.values()) or not all(
+                torch.isfinite(t).all() for t in (got[0],) + tuple(got[1])):
+            raise AssertionError(f"the fused RKC-backward stage disagrees with its plain "
+                                 f"version: {row}")
+
+
+def cluster_report():
+    """The RKC kernel's cluster size and cudaOccupancyMaxActiveClusters at
+    8 and 16 blocks, for 4 and 16 glaciers of 128^2 in both dtypes."""
+    from odinn_tpu_torch.ops.cuda import rkc_kernel
+
+    plans = {}
+    for dtype in (torch.float32, torch.float64):
+        for n_g in (N_G, N_TRAIN):
+            plan = rkc_kernel.rkc_plan(n_g, NX, NY, dtype)
+            plans[f"{dtype} n_g={n_g}"] = {
+                "cluster": plan.layout.cluster,
+                "max_active_clusters": {str(c): n for c, n in plan.max_active.items()},
+                "layout": plan.layout._asdict()}
+    emit({"phase": "rkc_cluster", "grid": [NX, NY], "plans": plans})
 
 
 def check_gradients():
@@ -396,7 +536,9 @@ def check_gradients():
 def time_kernels():
     """Kernel and plain-version times at the main path's shapes (float32):
     4 x 128^2 for si_step, sia2d_rhs and rkc_interval (s = 25, the RKC
-    row), 16 x 128^2 for sia2d_rhs_vjp (the training phase)."""
+    row), 16 x 128^2 for sia2d_rhs_vjp (the training phase); besides, under
+    ``more``, rkc_interval at 16 x 128^2, s = 8 (the training's launches)
+    and the pullback's fused RKC-backward stage at 16 x 128^2."""
     from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
     from odinn_tpu_torch.ops.cuda.common import derived_scalars
     from odinn_tpu_torch.core.params import PhysicalParameters
@@ -409,44 +551,66 @@ def time_kernels():
     derived_t = derived_scalars(*(rawt[:, k] for k in range(7)), PHYS.rho, PHYS.g)
     lam = torch.randn(Ht.shape, generator=torch.Generator().manual_seed(9)).to("cuda")
     exps = (5.0, 2.0, 4.0, 2.0)
+    s_t = 8
+    dt_t = DT * (s_t / RKC_STAGES) ** 2
+    weights = rkc_kernel._stage_weights(s_t, f32, dt_t)[1][5]
+    gen = torch.Generator().manual_seed(10)
+    carry = tuple(torch.randn(Ht.shape, generator=gen).to("cuda") for _ in range(3)) + (
+        torch.zeros(N_TRAIN, device="cuda"),)
+    table_t = derived_t.to(f32)
+    # name -> (kernel of the kernels line, call, kernel, plain version,
+    # bound, device kernel names, plain-version repetitions)
     entries = {
-        "si_step": (lambda f: lambda: f(H, H, B, H, derived, DT, 1.0, 6, exps),
+        "si_step": ("si_step", lambda f: lambda: f(H, H, B, H, derived, DT, 1.0, 6, exps),
                     si_kernel.si_step, si_kernel.si_step_reference,
-                    si_bound(N_G, NX, NY, 4, 6), ("si_assemble", "si_pcg")),
-        "sia2d_rhs": (lambda f: lambda: f(H, B, raw, PHYS.rho, PHYS.g, PHYS.eta0),
+                    si_bound(N_G, NX, NY, 4, 6), ("si_assemble", "si_pcg"), 50),
+        "sia2d_rhs": ("sia2d_rhs", lambda f: lambda: f(H, B, raw, PHYS.rho, PHYS.g, PHYS.eta0),
                       sia_kernel.sia2d_rhs, sia_kernel.sia2d_rhs_reference,
-                      sia_bound(N_G, NX, NY, 4), ("sia2d_rhs_kernel",)),
-        "rkc_interval": (lambda f: lambda: f(H, B, derived, DT, RKC_STAGES, PHYS.eta0, exps),
+                      sia_bound(N_G, NX, NY, 4), ("sia2d_rhs_kernel",), 50),
+        "rkc_interval": ("rkc_interval",
+                         lambda f: lambda: f(H, B, derived, DT, RKC_STAGES, PHYS.eta0, exps),
                          rkc_kernel.rkc_interval, rkc_kernel.rkc_interval_reference,
-                         rkc_bound(N_G, NX, NY, 4, RKC_STAGES), ("rkc_interval_kernel",)),
-        "sia2d_rhs_vjp": (lambda f: lambda: f(lam, Ht, Bt, derived_t, PHYS.eta0),
+                         rkc_bound(N_G, NX, NY, 4, RKC_STAGES), ("rkc_interval_kernel",), 5),
+        "sia2d_rhs_vjp": ("sia2d_rhs_vjp",
+                          lambda f: lambda: f(lam, Ht, Bt, derived_t, PHYS.eta0),
                           sia_kernel.sia2d_rhs_vjp, sia_kernel.sia2d_rhs_vjp_reference,
-                          vjp_bound(N_TRAIN, NX, NY, 4),
-                          ("sia2d_rhs_vjp_kernel", "reduce_partials_kernel")),
+                          vjp_bound(N_TRAIN, NX, NY, 4), ("sia2d_rhs_vjp_kernel",), 50),
+        f"rkc_interval {N_TRAIN}x{NX}x{NY} s={s_t}": (
+            "rkc_interval", lambda f: lambda: f(Ht, Bt, derived_t, dt_t, s_t, PHYS.eta0, exps),
+            rkc_kernel.rkc_interval, rkc_kernel.rkc_interval_reference,
+            rkc_bound(N_TRAIN, NX, NY, 4, s_t), ("rkc_interval_kernel",), 5),
+        f"sia2d_rhs_vjp rkc stage {N_TRAIN}x{NX}x{NY}": (
+            "sia2d_rhs_vjp",
+            lambda f: lambda: f(lam, carry, Ht, Bt, table_t, PHYS.eta0, weights),
+            rkc_kernel.stage_pullback, rkc_kernel.stage_pullback_reference,
+            stage_bound(N_TRAIN, NX, NY, 4), ("sia2d_rhs_vjp_kernel",), 50),
     }
     timing = {}
-    for name, (call, kern, plain, bound, kernel_names) in entries.items():
-        out, ref = call(kern)(), call(plain)()
+    for name, (kernel, call, kern, plain, bound, kernel_names, plain_reps) in entries.items():
+        # the plain version first: the stage kernel updates its carries in place
+        ref, out = call(plain)(), call(kern)()
         if isinstance(out, tuple):
             out, ref = out[0], ref[0]
         torch.cuda.synchronize()
         b_ms, b_by = bound_ms(*bound, f32)
-        timing[name] = {
+        t = timing[name] = {
+            "kernel": kernel,
             # the kernel's own device time, and the wrapper's and the plain
             # version's elapsed time per call on the stream
             "ms": device_ms(call(kern), 50, kernel_names),
             "ms_source": "profiler device time",
             "call_ms": cuda_ms(call(kern), 200),
-            "plain_ms": cuda_ms(call(plain), 50 if name != "rkc_interval" else 5),
-            "plain_device_ms": device_ms(call(plain), 20 if name != "rkc_interval" else 2),
+            "plain_ms": cuda_ms(call(plain), plain_reps),
+            "plain_device_ms": device_ms(call(plain), max(2, plain_reps // 2)),
         }
-        if timing[name]["ms"] == 0.0:   # no device time from the profiler
-            timing[name].update(ms=timing[name]["call_ms"], ms_source="cuda events per call")
-        timing[name].update({
+        if t["ms"] == 0.0:   # no device time from the profiler
+            t.update(ms=t["call_ms"], ms_source="cuda events per call")
+        t.update({
             "max_abs_err": float((out.double() - ref.double()).abs().max()),
             "bound_ms": b_ms,
             "bound_by": b_by,
         })
+    emit({"phase": "kernel_times", "dtype": "torch.float32", "times": timing})
     return timing
 
 
@@ -561,10 +725,11 @@ def main_path_rows():
     return launches
 
 
-def training_phase():
-    """Phase 5: run_inversion of A = NN(T) through the RKC solve at the
-    width of benchmarks/perf_tpu.py's UDE epoch (16 Halfar glaciers, 128^2,
-    float32, 2 years). Returns each kernel's launches in the run."""
+def training_problem():
+    """The training phase's problem at the width of benchmarks/perf_tpu.py's
+    UDE epoch: 16 Halfar glaciers, 128^2, float32, 2 years of monthly
+    Cuffey–Paterson ground truth, A = NN(T) through the RKC solve. Returns
+    (inversion, model, params, tstops, facts)."""
     from odinn_tpu_torch.core.params import (
         Hyperparameters, Parameters, PhysicalParameters, SimulationParameters,
         SolverParameters, UDEParameters)
@@ -572,9 +737,7 @@ def training_phase():
     from odinn_tpu_torch.laws.laws import CuffeyPaterson, LawA, poly_A_paterson_cuffey
     from odinn_tpu_torch.models.model import Model, SIA2DModel
     from odinn_tpu_torch.models.nn import NeuralNetwork, default_architecture
-    from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
-    from odinn_tpu_torch.simulation.inversion import (
-        Inversion, batch_transient_loss, run_inversion)
+    from odinn_tpu_torch.simulation.inversion import Inversion
     from odinn_tpu_torch.simulation.prediction import generate_ground_truth
     from odinn_tpu_torch.simulation.solver import build_tstops, rkc_stages_for
 
@@ -599,7 +762,6 @@ def training_phase():
         UDE=UDEParameters(grad="jax"),
     )
     tstops = build_tstops(TRAIN_TSPAN, 1.0 / 12.0)
-    n_int = len(tstops) - 1
     t0 = time.perf_counter()
     truth = generate_ground_truth(
         glaciers, params, Model(iceflow=SIA2DModel(A=CuffeyPaterson(), n_value=3.0)), tstops,
@@ -609,6 +771,54 @@ def training_phase():
     model = Model(iceflow=SIA2DModel(A=LawA(NeuralNetwork(default_architecture(1)), params),
                                      n_value=3.0))
     inv = Inversion(model=model, glaciers=truth, parameters=params, device="cuda")
+    facts = {"rkc_stages": stages, "h_max": h_max, "a_for_stages": max(phys.max_A, a_truth),
+             "ground_truth_s": truth_s}
+    return inv, model, params, tstops, facts
+
+
+def adam_epoch_fn(inv, model, params, tstops):
+    """One Adam epoch (forward, gradient, update) on a copy of the
+    inversion's NN parameters."""
+    from odinn_tpu_torch.simulation.inversion import batch_transient_loss
+
+    leaves = [layer[k].detach().clone().requires_grad_(True)
+              for layer in inv.theta["A"] for k in ("w", "b")]
+    theta = {"A": [{"w": leaves[2 * i], "b": leaves[2 * i + 1]}
+                   for i in range(len(leaves) // 2)]}
+    opt = torch.optim.Adam(leaves, lr=0.05)
+
+    def adam_epoch():
+        loss = batch_transient_loss(theta, inv.glaciers, model, params, tstops)
+        grads = torch.autograd.grad(loss, leaves)
+        for p, g in zip(leaves, grads):
+            p.grad = g
+        opt.step()
+
+    return adam_epoch
+
+
+def epoch_profile(adam_epoch):
+    """The epoch's time (CUDA events, median of 3 after a warm-up), device
+    busy time, idle share and device launches, all and by kernel name
+    (profiler, one epoch)."""
+    epoch_ms = row_ms(adam_epoch, reps=3)
+    busy_ms, launches, by_name = device_profile(adam_epoch, 1)
+    return {"adam_epoch_ms": epoch_ms, "adam_epoch_device_busy_ms": busy_ms,
+            "adam_epoch_device_idle_share": 1.0 - busy_ms / epoch_ms,
+            "adam_epoch_device_launches": launches,
+            "adam_epoch_launches_by_kernel": dict(sorted(by_name.items(),
+                                                         key=lambda kv: -kv[1]))}
+
+
+def training_phase():
+    """Phase 5: run_inversion of A = NN(T) through the RKC solve on
+    :func:`training_problem`, then one Adam epoch profiled. Returns each
+    kernel's launches in the run."""
+    from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
+    from odinn_tpu_torch.simulation.inversion import run_inversion
+
+    inv, model, params, tstops, facts = training_problem()
+    n_int, stages = len(tstops) - 1, facts["rkc_stages"]
     counters = {"si_step": si_kernel.si_step, "sia2d_rhs": sia_kernel.sia2d_rhs,
                 "rkc_interval": rkc_kernel.rkc_interval,
                 "sia2d_rhs_vjp": sia_kernel.sia2d_rhs_vjp}
@@ -627,33 +837,13 @@ def training_phase():
     expected = {"si_step": 0, "sia2d_rhs": 0,
                 "rkc_interval": n_int * (stats.solves + stats.gradients),
                 "sia2d_rhs_vjp": n_int * stages * stats.gradients}
-
-    leaves = [layer[k].detach().clone().requires_grad_(True)
-              for layer in inv.theta["A"] for k in ("w", "b")]
-    theta = {"A": [{"w": leaves[2 * i], "b": leaves[2 * i + 1]}
-                   for i in range(len(leaves) // 2)]}
-    opt = torch.optim.Adam(leaves, lr=0.05)
-
-    def adam_epoch():
-        loss = batch_transient_loss(theta, inv.glaciers, model, params, tstops)
-        grads = torch.autograd.grad(loss, leaves)
-        for p, g in zip(leaves, grads):
-            p.grad = g
-        opt.step()
-
-    epoch_ms = row_ms(adam_epoch, reps=3)
-    busy_ms = device_ms(adam_epoch, 1)
-    row = {
+    row = dict({
         "phase": "training", "glaciers": N_TRAIN, "grid": [NX, NY], "dtype": "torch.float32",
-        "intervals": n_int, "rkc_stages": stages, "h_max": h_max,
-        "a_for_stages": max(phys.max_A, a_truth), "ground_truth_s": truth_s,
-        "run_inversion_s": train_s, "losses": losses, "final_loss": stats.final_loss,
-        "solves": stats.solves, "gradients": stats.gradients, "launches": launches,
-        "expected_launches": expected, "adam_epoch_ms": epoch_ms,
-        "adam_epoch_device_busy_ms": busy_ms, "adam_epoch_device_idle_share":
-            1.0 - busy_ms / epoch_ms,
+        "intervals": n_int, "run_inversion_s": train_s, "losses": losses,
+        "final_loss": stats.final_loss, "solves": stats.solves, "gradients": stats.gradients,
+        "launches": launches, "expected_launches": expected,
         "time_per_iter_s": stats.time_per_iter,
-    }
+    }, **facts, **epoch_profile(adam_epoch_fn(inv, model, params, tstops)))
     emit(row)
     if launches != expected:
         raise AssertionError(f"training: launches {launches}, expected {expected}")
@@ -681,11 +871,11 @@ def main() -> int:
     built = build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {k: v[0] for k, v in built.items()},
-          "ptxas": {k: [ln for ln in v[1].splitlines() if "registers" in ln or "spill" in ln]
-                    for k, v in built.items()}})
+          "ptxas": {k: ptxas_summary(v[1]) for k, v in built.items()}})
 
     check_kernels()
     check_gradients()
+    cluster_report()
     timing = time_kernels()
     launches = main_path_rows()
     for name, n in training_phase().items():
@@ -700,13 +890,17 @@ def main() -> int:
         "sia2d_rhs_vjp": ("odinn_tpu_torch/csrc/sia2d_rhs_vjp.cu",
                           "odinn_tpu/ops/pallas/sia_kernel.py:195"),
     }
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "ms_source", "call_ms",
+            "plain_device_ms")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
          "launches": launches[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
          "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
          "library_ms": None, "ms_source": t["ms_source"], "call_ms": t["call_ms"],
-         "plain_device_ms": t["plain_device_ms"]}
-        for name, t in timing.items()
+         "plain_device_ms": t["plain_device_ms"],
+         "more": [dict({"at": other}, **{k: o[k] for k in keys})
+                  for other, o in timing.items() if other != name and o["kernel"] == name]}
+        for name, t in timing.items() if name == t["kernel"]
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -26,6 +26,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "odinn_tpu_torch"
 
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# rkc_interval rounds each product and sum as its plain version does (no
+# fused multiply-add): the Chebyshev recursion carries every stage's
+# rounding into the next, and contracted roundings took the float32 RKC
+# gradient's d(creep) error from 1.1e-3 to 2.9e-3 of max|d(creep)| (PERF.md).
+_SOURCE_FLAGS = {"rkc_interval": ("-fmad=false",)}
 
 
 def _nvcc() -> str:
@@ -45,8 +50,8 @@ def _lib_path(name: str) -> Path:
 
 
 def nvcc_command(name: str, out: Path) -> list:
-    return [_nvcc(), *_NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(out),
-            str(SRC_DIR / f"{name}.cu")]
+    return [_nvcc(), *_NVCC_FLAGS, *_SOURCE_FLAGS.get(name, ()), "-I", str(SRC_DIR), "-o",
+            str(out), str(SRC_DIR / f"{name}.cu")]
 
 
 def _stale(name: str) -> bool:

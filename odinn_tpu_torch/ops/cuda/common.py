@@ -7,7 +7,12 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["derived_scalars", "pow_pos", "shared_exps", "check_inputs"]
+__all__ = ["derived_scalars", "pow_pos", "shared_exps", "check_inputs", "GLEN_EXPS",
+           "uses_glen"]
+
+# The exponent set (n+2, n−1, p−q+1, p−1) of n = 3, p = 3, q = 0: the
+# kernels' compile-time specialisation (GlenExps in csrc/sia_common.cuh).
+GLEN_EXPS = (5.0, 2.0, 4.0, 2.0)
 
 
 def derived_scalars(dx, dy, A, C, n, p, q, rho, g):
@@ -62,6 +67,13 @@ def shared_exps(derived: torch.Tensor) -> Optional[Tuple[float, float, float, fl
     if any(r != rows[0] for r in rows):
         return None
     return tuple(float(e) for e in rows[0])
+
+
+def uses_glen(exps) -> bool:
+    """Whether a launch with the batch's shared exponent set ``exps`` takes
+    the kernels' fixed-multiply specialisation; None (glaciers with
+    different sets) and every other set take the runtime-exponent path."""
+    return exps is not None and tuple(float(e) for e in exps) == GLEN_EXPS
 
 
 def check_inputs(name: str, planes: Sequence[torch.Tensor], table: torch.Tensor,

@@ -5,37 +5,48 @@
 version, :func:`rkc_interval_reference`, on a CPU tensor. It replaces the
 TPU kernel ``odinn_tpu.ops.pallas.rkc_kernel.rkc_interval_pallas``: all s
 stages of one RKC2 step of length dt in one launch, one thread-block
-cluster per glacier with the stage carries in shared memory, so the step
-reads H and B once and writes H' once.
+cluster of 8 or 16 blocks per glacier (:func:`rkc_layout`, chosen by
+occupancy in :func:`rkc_plan`) with the stage carries in registers and
+shared memory, so the step reads H and B once and writes H' once.
 
 Differentiable with the contract of the TPU kernel's ``_bwd``: cotangents
 for H and for the creep column (2) of the derived table; B and the other
 columns get none (zero). The backward rematerialises the stage inputs
 y₁ … y_{s−1} with one more launch of the kernel, which then also writes them
 to a buffer, and walks the stages backwards (the recipe of
-``odinn_tpu.inverse.gradient._make_rkc_transpose``): one
-:func:`~odinn_tpu_torch.ops.cuda.sia_kernel.sia2d_rhs_vjp` per stage at
-y_{j−1} and one for f₀ at H, s in all, with the μ, ν, μ̃ and γ̃ combinations
-as PyTorch elementwise code.
+``odinn_tpu.inverse.gradient._make_rkc_transpose``): one launch of the
+pullback kernel ``csrc/sia2d_rhs_vjp.cu`` in its stage mode per stage
+(:func:`stage_pullback`, which also does the stage's μ, ν, μ̃, γ̃
+combinations; plain version :func:`stage_pullback_reference`), and one
+plain :func:`~odinn_tpu_torch.ops.cuda.sia_kernel.sia2d_rhs_vjp` for f₀: s
+launches in all.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from odinn_tpu_torch.ops.cuda.build import load_library
-from odinn_tpu_torch.ops.cuda.common import check_inputs, shared_exps
-from odinn_tpu_torch.ops.cuda.sia_kernel import _rhs_math, sia2d_rhs_vjp
+from odinn_tpu_torch.ops.cuda.common import GLEN_EXPS, check_inputs, shared_exps, uses_glen
+from odinn_tpu_torch.ops.cuda.sia_kernel import (
+    _rhs_math, _vjp_library, _vjp_scratch, sia2d_rhs_vjp, sia2d_rhs_vjp_reference)
 from odinn_tpu_torch.simulation.solver import _rkc2_coeffs
 
-__all__ = ["rkc_interval", "rkc_interval_reference", "rkc_fits", "check_rkc_shape"]
+__all__ = ["rkc_interval", "rkc_interval_reference", "rkc_fits", "check_rkc_shape",
+           "rkc_layout", "rkc_plan", "stage_pullback", "stage_pullback_reference"]
 
 # per-block opt-in shared memory of an H100 (sm_90)
 _SMEM_PER_BLOCK = 232448
+# csrc/rkc_interval.cu: the cells a thread owns at most, the shared-memory
+# slabs, the cluster sizes
+_MAX_CELLS = 8
+_SLABS = 4
+_CLUSTERS = (8, 16)
 
 
 def _np_dtype(dtype):
@@ -60,6 +71,7 @@ def _coef_table(s, dtype, device):
     return torch.from_numpy(table).to(device)
 
 
+@functools.lru_cache(maxsize=256)
 def _stage_weights(s, dtype, dt):
     """The per-stage products as Python floats holding ``dtype`` values,
     formed in ``dtype`` as the TPU kernel forms them: μ̃₁·dt, and for
@@ -76,33 +88,104 @@ def _stage_weights(s, dtype, dt):
 def _library() -> ctypes.CDLL:
     lib = load_library("rkc_interval")
     for fn in (lib.rkc_interval_f32, lib.rkc_interval_f64):
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_double] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_double] * 2
+                       + [ctypes.c_int] + [ctypes.c_double] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.rkc_interval_occupancy.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    lib.rkc_interval_occupancy.restype = ctypes.c_int
     return lib
 
 
-def _smem_need(nx, ny, dtype):
-    """Shared memory per block: each of the 8 blocks of a glacier's cluster
-    holds 6 slabs of ⌈nx/8⌉+2 rows of ny values (``smem_bytes`` in
-    ``csrc/rkc_interval.cu``)."""
-    return 6 * (-(-nx // 8) + 2) * ny * torch.empty((), dtype=dtype).element_size()
+class RKCLayout(NamedTuple):
+    """How the kernel lays one glacier's (nx, ny) plane on a cluster."""
+
+    cluster: int      # blocks per glacier
+    rows: int         # rows a block owns: ⌈nx / cluster⌉
+    bx: int           # threads along ny (a multiple of 32)
+    by: int           # threads along rows
+    cells: int        # cells a thread owns
+    smem: int         # shared memory per block, bytes
+    idle_blocks: int  # blocks of the cluster that own no row
+
+    @property
+    def fits(self) -> bool:
+        return self.smem <= _SMEM_PER_BLOCK and self.cells <= _MAX_CELLS
+
+
+@functools.lru_cache(maxsize=None)
+def rkc_layout(nx, ny, dtype, cluster) -> RKCLayout:
+    """The layout at a cluster size: rows = ⌈nx/cluster⌉ a block; warps along
+    rows (by = min(rows, 16)) and lanes along ny (bx = 32·min(⌈ny/32⌉,
+    ⌊16/by⌋), so bx·by ≤ 512); each thread owns ⌈ny/bx⌉·⌈rows/by⌉ cells; 4
+    slabs of rows + 2 rows of ny values (B and two stage buffers with their
+    halo rows, and the corner diffusivities)."""
+    rows = -(-nx // cluster)
+    by = min(rows, 16)
+    bx = 32 * max(1, min(-(-ny // 32), 16 // by))
+    cells = -(-ny // bx) * -(-rows // by)
+    smem = _SLABS * (rows + 2) * ny * torch.empty((), dtype=dtype).element_size()
+    return RKCLayout(cluster, rows, bx, by, cells, smem, cluster - -(-nx // rows))
 
 
 def rkc_fits(nx, ny, dtype) -> bool:
-    """Whether one glacier's (nx, ny) plane of ``dtype`` fits the kernel."""
-    return _smem_need(nx, ny, dtype) <= _SMEM_PER_BLOCK
+    """Whether one glacier's (nx, ny) plane of ``dtype`` fits the kernel at
+    some cluster size."""
+    return any(rkc_layout(nx, ny, dtype, c).fits for c in _CLUSTERS)
 
 
 def check_rkc_shape(nx, ny, dtype):
     """Raise when one glacier's plane does not fit the kernel (the port's
     counterpart of the TPU kernel's ``unsupported_reason``)."""
     if not rkc_fits(nx, ny, dtype):
-        need = _smem_need(nx, ny, dtype)
+        need = "; ".join(f"{lay.smem} bytes of shared memory and {lay.cells} cells a thread "
+                         f"at {lay.cluster} blocks" for lay in
+                         (rkc_layout(nx, ny, dtype, c) for c in _CLUSTERS))
         raise ValueError(
-            f"rkc_interval: a {nx}x{ny} {dtype} plane needs {need} bytes of shared "
-            f"memory per block of its 8-block cluster, above the limit of "
-            f"{_SMEM_PER_BLOCK}; use the generic RKC stages for this grid")
+            f"rkc_interval: a {nx}x{ny} {dtype} plane needs {need}, above the limits of "
+            f"{_SMEM_PER_BLOCK} bytes and {_MAX_CELLS} cells; use the generic RKC stages "
+            f"for this grid")
+
+
+class RKCPlan(NamedTuple):
+    layout: RKCLayout          # the chosen cluster size's layout
+    max_active: dict           # cluster size -> cudaOccupancyMaxActiveClusters (0: no fit)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(dtype, nx, ny, n_g, glen, device_index) -> RKCPlan:
+    lib = _library()
+    layouts = {c: rkc_layout(nx, ny, dtype, c) for c in _CLUSTERS}
+    active = {}
+    with torch.cuda.device(device_index):
+        for c, lay in layouts.items():
+            n = ctypes.c_int(0)
+            if lay.fits:
+                err = lib.rkc_interval_occupancy(int(dtype == torch.float64), int(glen), c,
+                                                 lay.bx, lay.by, lay.smem, lay.cells,
+                                                 ctypes.byref(n))
+                if err != 0:
+                    raise RuntimeError(f"rkc_interval: the occupancy query at {c} blocks "
+                                       f"failed with CUDA error {err}")
+            active[c] = n.value
+    big = layouts[16]
+    chosen = big if big.fits and (active[16] >= n_g or not layouts[8].fits) else layouts[8]
+    if active[chosen.cluster] == 0:
+        raise RuntimeError(f"rkc_interval: a cluster of {chosen.cluster} blocks "
+                           f"({chosen.bx}x{chosen.by} threads, {chosen.smem} bytes of shared "
+                           f"memory) cannot be scheduled on this device")
+    return RKCPlan(chosen, active)
+
+
+def rkc_plan(n_g, nx, ny, dtype, exps=GLEN_EXPS, device=None) -> RKCPlan:
+    """The cluster size a launch over n_g glaciers takes on a CUDA device:
+    16 when the occupancy API says all n_g clusters of 16 are resident at
+    once, or when the plane fits only at 16; else 8. A size that cannot be
+    scheduled raises. Cached per (dtype, nx, ny, n_g, exponent path)."""
+    check_rkc_shape(nx, ny, dtype)
+    device = torch.device("cuda") if device is None else torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _plan(dtype, nx, ny, n_g, uses_glen(exps), index)
 
 
 def _interval_math(H, B, row, exps, dt, s, eta0, keep=None):
@@ -156,8 +239,8 @@ def _forward(H, B, scalars, dt, s, eta0, exps, keep_stages=False):
     if H.device.type != "cuda":
         raise ValueError(f"rkc_interval: no kernel for device {H.device}")
     n_g, nx, ny = H.shape
-    check_rkc_shape(nx, ny, H.dtype)
-    table = scalars[:, :4].to(H.dtype).contiguous()
+    lay = rkc_plan(n_g, nx, ny, H.dtype, exps, H.device).layout
+    table = scalars.to(H.dtype).contiguous()
     coef = _coef_table(s, H.dtype, H.device)
     out = torch.empty_like(H)
     stages = (torch.empty((s - 1,) + tuple(H.shape), dtype=H.dtype, device=H.device)
@@ -166,11 +249,62 @@ def _forward(H, B, scalars, dt, s, eta0, exps, keep_stages=False):
     fn = lib.rkc_interval_f32 if H.dtype == torch.float32 else lib.rkc_interval_f64
     err = fn(H.data_ptr(), B.data_ptr(), table.data_ptr(), coef.data_ptr(), out.data_ptr(),
              stages.data_ptr() if stages is not None else None, n_g, nx, ny, s,
-             float(dt), float(eta0), *exps, torch.cuda.current_stream(H.device).cuda_stream)
+             float(dt), float(eta0), int(uses_glen(exps)), *exps, lay.cluster, lay.bx,
+             lay.by, lay.smem, lay.cells, torch.cuda.current_stream(H.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rkc_interval: kernel launch failed with CUDA error {err}")
     rkc_interval.launches += 1
     return (out, stages) if keep_stages else out
+
+
+def stage_pullback_reference(c, carry, Y, B, table, eta0, weights):
+    """Plain version of stage j of the RKC2 backward: ``c`` the cotangent
+    of y_j, ``Y`` = y_{j−1}, ``weights`` = (1 − μⱼ − νⱼ, μⱼ, νⱼ, μ̃ⱼ·dt,
+    γ̃ⱼ·dt), ``table`` the derived (n_g, 8) table in Y's dtype, ``carry`` =
+    (pend, cot_y, cot_f0, d_creep), or None for zeros at the first stage
+    (j = s). Returns (c′, carry′): the pullback of c·μ̃ⱼdt at Y through
+    :func:`sia2d_rhs_vjp_reference` and the stage's combinations."""
+    a, mu, nu, mutdt, gamdt = weights
+    if carry is None:
+        zero = torch.zeros_like(c)
+        carry = (zero, zero, zero, torch.zeros(c.shape[0], dtype=c.dtype, device=c.device))
+    pend, cot_y, cot_f0, dcreep = carry
+    cot_y = torch.add(cot_y, c, alpha=a)
+    cot_f0 = torch.add(cot_f0, c, alpha=gamdt)
+    g, dc = sia2d_rhs_vjp_reference(c * mutdt, Y, B, table, eta0)
+    # the ν route into y_{j−2} is finalised two stages down
+    return torch.add(pend, c, alpha=mu).add_(g), (c * nu, cot_y, cot_f0, dcreep + dc)
+
+
+def stage_pullback(c, carry, Y, B, table, eta0, weights):
+    """Stage j of the RKC2 backward (:func:`stage_pullback_reference`'s
+    contract). A CUDA tensor launches the pullback kernel in its stage mode,
+    one launch counted on ``sia2d_rhs_vjp.launches``, which updates the
+    carries in place and writes c′ to a new buffer (neighbouring cells read
+    c); a CPU tensor takes the plain version."""
+    if Y.device.type == "cpu":
+        return stage_pullback_reference(c, carry, Y, B, table, eta0, weights)
+    if Y.device.type != "cuda":
+        raise ValueError(f"rkc_interval: no kernel for device {Y.device}")
+    n_g, nx, ny = Y.shape
+    first = carry is None
+    if first:
+        carry = (torch.empty_like(Y), torch.empty_like(Y), torch.empty_like(Y),
+                 torch.empty(n_g, dtype=Y.dtype, device=Y.device))
+    pend, cot_y, cot_f0, dcreep = carry
+    c_out = torch.empty_like(Y)
+    table = table.to(Y.dtype).contiguous()
+    partial, counter = _vjp_scratch(Y.device, Y.dtype, n_g, nx, ny)
+    lib = _vjp_library()
+    fn = lib.sia2d_rhs_vjp_stage_f32 if Y.dtype == torch.float32 else lib.sia2d_rhs_vjp_stage_f64
+    err = fn(c.data_ptr(), Y.data_ptr(), B.data_ptr(), table.data_ptr(), c_out.data_ptr(),
+             pend.data_ptr(), cot_y.data_ptr(), cot_f0.data_ptr(), partial.data_ptr(),
+             counter.data_ptr(), dcreep.data_ptr(), n_g, nx, ny, float(eta0), *weights,
+             int(first), torch.cuda.current_stream(Y.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sia2d_rhs_vjp: stage kernel launch failed with CUDA error {err}")
+    sia2d_rhs_vjp.launches += 1
+    return c_out, carry
 
 
 def _transpose(lam, H, B, table, stages, dt, s, eta0):
@@ -178,23 +312,19 @@ def _transpose(lam, H, B, table, stages, dt, s, eta0):
     y₁ … y_{s−1}; ``table`` the derived (n_g, 8) table in H's dtype with the
     step's exponents."""
     mu1dt, weights = _stage_weights(s, H.dtype, dt)
-    c = lam
-    pend = torch.zeros_like(lam)
-    cot_y = torch.zeros_like(lam)
-    cot_f0 = torch.zeros_like(lam)
-    dcreep = torch.zeros(H.shape[0], dtype=H.dtype, device=H.device)
+    c, carry = lam, None
     for j in range(s, 1, -1):
-        a, mu, nu, mutdt, gamdt = weights[j]
-        cot_y.add_(c, alpha=a)
-        cot_f0.add_(c, alpha=gamdt)
-        g, dc = sia2d_rhs_vjp(c * mutdt, stages[j - 2], B, table, eta0)
-        dcreep += dc
-        # the ν route into y_{j−2} is finalised two stages down
-        c, pend = torch.add(pend, c, alpha=mu).add_(g), c * nu
+        c, carry = stage_pullback(c, carry, stages[j - 2], B, table, eta0, weights[j])
+    pend, cot_y, cot_f0, dcreep = carry
     cot_y += c + pend
     cot_f0.add_(c, alpha=mu1dt)
     g, dc = sia2d_rhs_vjp(cot_f0, H, B, table, eta0)
     return cot_y + g, dcreep + dc
+
+
+@functools.lru_cache(maxsize=None)
+def _exps_row(exps, dtype, device):
+    return torch.tensor(exps, dtype=dtype, device=device)
 
 
 class _RKCInterval(torch.autograd.Function):
@@ -213,8 +343,7 @@ class _RKCInterval(torch.autograd.Function):
         _, stages = _forward(H, B, scalars, dt, s, eta0, exps, keep_stages=True)
         n_g = H.shape[0]
         table = torch.cat([scalars[:, :4].to(H.dtype),
-                           torch.tensor(exps, dtype=H.dtype, device=H.device).expand(n_g, 4)],
-                          dim=1).contiguous()
+                           _exps_row(exps, H.dtype, H.device).expand(n_g, 4)], dim=1)
         dH, dcreep = _transpose(lam.contiguous(), H, B, table, stages, dt, s, eta0)
         d_scal = None
         if ctx.needs_input_grad[2]:

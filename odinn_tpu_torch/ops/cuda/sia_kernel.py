@@ -14,8 +14,10 @@ divergence, and writes dH/dt with a zero ring.
 other columns get none (zero). Its backward is :func:`sia2d_rhs_vjp`, which
 launches ``csrc/sia2d_rhs_vjp.cu`` on a CUDA tensor (plain version
 :func:`sia2d_rhs_vjp_reference`) and returns the cotangents of H and of the
-derived table's creep column; the creep cotangent is taken back to A through
-:func:`derive_table` by autograd on the host-side table math.
+derived table's creep column, d(creep) included, in one launch; the creep
+cotangent is taken back to A through :func:`derive_table` by autograd on the
+host-side table math. The same kernel, in its stage mode, is one stage of the
+RKC2 step's backward (``rkc_kernel.stage_pullback``).
 """
 
 from __future__ import annotations
@@ -54,12 +56,33 @@ def _library() -> ctypes.CDLL:
 def _vjp_library() -> ctypes.CDLL:
     lib = load_library("sia2d_rhs_vjp")
     for fn in (lib.sia2d_rhs_vjp_f32, lib.sia2d_rhs_vjp_f64):
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_double,
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_double,
                                                                      ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for fn in (lib.sia2d_rhs_vjp_stage_f32, lib.sia2d_rhs_vjp_stage_f64):
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_double] * 6
+                       + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.sia2d_rhs_vjp_partials.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.sia2d_rhs_vjp_partials.restype = ctypes.c_int
     return lib
+
+
+# Per (device, dtype): the pullback's per-block partials of d(creep) and
+# its per-glacier ticket counters. The counters are zeroed once and every
+# launch leaves them zero; launches on one stream use them in turn.
+_vjp_buffers = {}
+
+
+def _vjp_scratch(device, dtype, n_g, nx, ny):
+    """(partials, counters) for a launch over n_g glaciers of (nx, ny)."""
+    need = n_g * _vjp_library().sia2d_rhs_vjp_partials(nx, ny)
+    buf = _vjp_buffers.get((device, dtype))
+    if buf is None or buf[0].numel() < need or buf[1].numel() < n_g:
+        buf = (torch.empty(need, dtype=dtype, device=device),
+               torch.zeros(n_g, dtype=torch.int32, device=device))
+        _vjp_buffers[(device, dtype)] = buf
+    return buf
 
 
 # The last raw table the wrapper derived, with its derived table: a solve
@@ -164,8 +187,9 @@ def sia2d_rhs_vjp(lam, H, B, derived, eta0):
     """(dH, d_creep) = the pullback of dH/dt = f(H) at H of the cotangent
     ``lam``: lam, H, B of shape (n_g, nx, ny), ``derived`` the (n_g, 8)
     table (cast to H's dtype). The ring of ``lam`` is ignored (dH/dt is 0
-    there). A CUDA tensor launches the kernel; a CPU tensor takes
-    :func:`sia2d_rhs_vjp_reference`."""
+    there). A CUDA tensor launches the kernel, in which each glacier takes
+    the fixed-exponent path when its set is (5, 2, 4, 2); a CPU tensor
+    takes :func:`sia2d_rhs_vjp_reference`."""
     check_inputs("sia2d_rhs_vjp", (lam, H, B), derived, 8)
     if H.device.type == "cpu":
         return sia2d_rhs_vjp_reference(lam, H, B, derived, eta0)
@@ -175,13 +199,12 @@ def sia2d_rhs_vjp(lam, H, B, derived, eta0):
     n_g, nx, ny = H.shape
     lib = _vjp_library()
     dH = torch.empty_like(H)
-    partial = torch.empty((n_g, lib.sia2d_rhs_vjp_partials(nx, ny)), dtype=H.dtype,
-                          device=H.device)
+    partial, counter = _vjp_scratch(H.device, H.dtype, n_g, nx, ny)
     dcreep = torch.empty((n_g,), dtype=H.dtype, device=H.device)
     fn = lib.sia2d_rhs_vjp_f32 if H.dtype == torch.float32 else lib.sia2d_rhs_vjp_f64
     err = fn(lam.data_ptr(), H.data_ptr(), B.data_ptr(), table.data_ptr(), dH.data_ptr(),
-             partial.data_ptr(), dcreep.data_ptr(), n_g, nx, ny, float(eta0),
-             torch.cuda.current_stream(H.device).cuda_stream)
+             partial.data_ptr(), counter.data_ptr(), dcreep.data_ptr(), n_g, nx, ny,
+             float(eta0), torch.cuda.current_stream(H.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sia2d_rhs_vjp: kernel launch failed with CUDA error {err}")
     sia2d_rhs_vjp.launches += 1

@@ -209,11 +209,12 @@ def test_sia2d_rhs_vjp_reference_matches_jax(mixed):
     assert_rel(graw, jdsc, RTOL, "Function d(raw table)")
 
 
-def test_rkc_interval_backward_matches_jax():
+@pytest.mark.parametrize("s", [2, 4, 5, 8])
+def test_rkc_interval_backward_matches_jax(s):
     """The RKC Function's backward (rematerialised stages, stage-by-stage
-    pullback) against jax.vjp of rkc_interval_pallas: dH and d(creep),
-    1e-9."""
-    s = 4
+    pullback through stage_pullback's plain version) against jax.vjp of
+    rkc_interval_pallas: dH and d(creep), 1e-9. s = 2 has one inner stage,
+    s = 5 an odd count."""
     H, B, raw = _inputs(n_g=2, nx=16, ny=18, seed=5)
     dt = 0.002 * s * s / 4.0
     lam = np.random.default_rng(8).standard_normal(H.shape)
@@ -265,9 +266,72 @@ def test_rkc_interval_checks():
         rkc_kernel.rkc_interval(t(H), t(B), _t_table(raw), DT, 1, ETA0)
     assert rkc_kernel.rkc_fits(128, 128, torch.float64)
     assert rkc_kernel.rkc_fits(256, 256, torch.float32)
-    assert not rkc_kernel.rkc_fits(256, 256, torch.float64)
+    assert rkc_kernel.rkc_fits(256, 256, torch.float64)      # at 16 blocks only
+    assert not rkc_kernel.rkc_fits(384, 384, torch.float64)
     with pytest.raises(ValueError, match="shared memory"):
         rkc_kernel.check_rkc_shape(512, 512, torch.float32)
+
+
+# (nx, ny, dtype) -> (rows, bx, by, cells, smem bytes, blocks owning no row)
+# at each cluster size, from csrc/rkc_interval.cu's layout: rows = ⌈nx/C⌉,
+# by = min(rows, 16), bx = 32·min(⌈ny/32⌉, ⌊16/by⌋), 4 slabs of
+# (rows + 2)·ny values
+_LAYOUTS = {
+    8: {(128, 128, torch.float32): (16, 32, 16, 4, 4 * 18 * 128 * 4, 0),
+        (128, 128, torch.float64): (16, 32, 16, 4, 4 * 18 * 128 * 8, 0),
+        (256, 256, torch.float32): (32, 32, 16, 16, 4 * 34 * 256 * 4, 0),
+        (256, 256, torch.float64): (32, 32, 16, 16, 4 * 34 * 256 * 8, 0),
+        (97, 131, torch.float32): (13, 32, 13, 5, 4 * 15 * 131 * 4, 0),
+        (10, 33, torch.float64): (2, 64, 2, 1, 4 * 4 * 33 * 8, 3)},
+    16: {(128, 128, torch.float32): (8, 64, 8, 2, 4 * 10 * 128 * 4, 0),
+         (128, 128, torch.float64): (8, 64, 8, 2, 4 * 10 * 128 * 8, 0),
+         (256, 256, torch.float32): (16, 32, 16, 8, 4 * 18 * 256 * 4, 0),
+         (256, 256, torch.float64): (16, 32, 16, 8, 4 * 18 * 256 * 8, 0),
+         (97, 131, torch.float32): (7, 64, 7, 3, 4 * 9 * 131 * 4, 2),
+         (10, 33, torch.float64): (1, 64, 1, 1, 4 * 3 * 33 * 8, 6)},
+}
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_rkc_layout_arithmetic(cluster):
+    """The RKC kernel's layout per cluster size: rows a block, threads,
+    cells a thread, shared memory, blocks that own no row (10 and 97 rows
+    leave some), and what fits: 256² in float64 and in float32 only at 16
+    blocks (shared memory, cells a thread), 128² at both."""
+    for (nx, ny, dtype), want in _LAYOUTS[cluster].items():
+        lay = rkc_kernel.rkc_layout(nx, ny, dtype, cluster)
+        assert (lay.rows, lay.bx, lay.by, lay.cells, lay.smem, lay.idle_blocks) == want
+        assert lay.cluster == cluster and lay.bx % 32 == 0 and lay.bx * lay.by <= 512
+        # every row is owned, by the first cluster - idle blocks
+        owners = cluster - lay.idle_blocks
+        assert (owners - 1) * lay.rows < nx <= owners * lay.rows
+        big = (nx, ny) == (256, 256)
+        assert lay.fits == (cluster == 16 or not big)
+    assert rkc_kernel.rkc_layout(256, 256, torch.float64, 8).smem > 232448
+    assert rkc_kernel.rkc_layout(256, 256, torch.float32, 8).smem <= 232448
+
+
+def test_exponent_dispatch():
+    """The RKC wrapper's exponent dispatch: (5, 2, 4, 2) takes the kernel's
+    fixed-multiply specialisation; a non-integer set takes the runtime
+    path; a batch whose glaciers differ is refused as before. (The
+    pullback kernel picks the path per glacier from the table itself.)"""
+    from odinn_tpu_torch.ops.cuda.common import GLEN_EXPS, uses_glen
+
+    _, _, raw = _inputs()
+    table = _t_table(raw)
+    assert shared_exps(table) == GLEN_EXPS and uses_glen(shared_exps(table))
+    glen3 = raw.copy()
+    glen3[:, 4] = glen3[:, 5] = 3.5
+    assert not uses_glen(shared_exps(_t_table(glen3)))
+    assert not uses_glen((5.0, 2.0, 4.0, 3.0))
+    mixed = raw.copy()
+    mixed[1, 4] = mixed[1, 5] = 4.0
+    assert shared_exps(_t_table(mixed)) is None and not uses_glen(None)
+    H, B, _ = _inputs()
+    with pytest.raises(ValueError, match="different exponent sets"):
+        rkc_kernel.rkc_interval(torch.from_numpy(H), torch.from_numpy(B), _t_table(mixed), DT,
+                                4, ETA0)
 
 
 def test_si_step_refuses_mixed_exponent_sets():
