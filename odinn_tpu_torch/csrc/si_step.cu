@@ -3,40 +3,481 @@
 //
 // Replaces the TPU kernel odinn_tpu/ops/pallas/si_kernel.py::si_step_pallas
 // (pallas_call in _forward), which ran the whole step for one glacier in one
-// program with ~9 live planes in VMEM. At 128^2 float32 those planes take
-// ~590 KB, more than the 227 KB of shared memory a Hopper block may use, so
-// the step is split in two. Plain PyTorch version:
-// ops/cuda/si_kernel.py::si_step_reference.
+// program with ~9 live planes in VMEM and read (H, H_D, B, x0) once. Plain
+// PyTorch version: ops/cuda/si_kernel.py::si_step_reference.
 //
-// What bounds it on the H100: neither bytes nor flops but latency. Each of
-// the cg_iters iterations needs two whole-plane dot products before the
-// next can start, so every iteration is a chain of block-wide barriers, and
-// at 4 glaciers only 4 of the 132 SMs work on the solve.
+// What bounds it on the H100: neither bytes nor flops but latency. The step
+// reads 4 planes and writes one (0.33 MB at 4 x 128^2 float32, 0.1 us at
+// 3.35 TB/s), but each of the cg_iters iterations needs two whole-plane dot
+// products before the next can start: a chain of barriers across all the
+// threads that hold a glacier.
 //
-// Design:
-//  1. si_assemble: one thread per cell over all glaciers (2-D tiles, the
-//     glacier on blockIdx.z). It forms the staggered D at H_D, writes the
-//     cell's own corner of D, and from the four corners around the cell the
-//     right-hand side b and the inverse Jacobi diagonal.
-//  2. si_pcg: one block of 32x32 threads per glacier runs the whole PCG
-//     recursion. x, r, p and Ap live in a global scratch buffer (at 4 x 128^2
-//     float32 all planes together are ~1.8 MB, resident in the 50 MB L2);
-//     each thread owns a fixed 32-strided set of cells, so an update reads and
-//     writes only its own cells and a barrier is needed only before the
-//     5-point matvec reads its neighbours' p. The dot products are reduced
-//     in registers, then by warp shuffles, then across warps in shared
-//     memory: a fixed order, deterministic, no atomics.
-// The solve stage is its own kernel so that a transpose solve can reuse it.
+// Design (si_step_cluster). One launch a step, one thread-block cluster per
+// glacier, of 16 blocks when the occupancy API says all the batch's
+// clusters of 16 are resident at once (or when the plane fits only at 16),
+// else of 8; the wrapper chooses (ops/cuda/si_kernel.py::si_plan) and
+// launches through cudaLaunchKernelEx. Block `rank` owns rows [rank*rows,
+// rank*rows + rows), rows = ceil(nx / cluster); blocks past the last row own
+// none and only join the barriers and sums. Threads map in 2-D, lanes along
+// the contiguous ny axis and warps along rows, and each thread owns fixed
+// cells (at most K) for the whole step.
+//  - Assembly reads H, H_D, B and x0 straight from device memory, halo rows
+//    included, so it needs no exchange: each corner diffusivity the block's
+//    rows touch is formed once into shared memory, then each thread forms
+//    its cells' four face coefficients, b, the inverse Jacobi diagonal and
+//    the initial residual b - A x0.
+//  - Each thread keeps its cells' x, r, p, inverse diagonal and faces in
+//    registers; Ap and z never leave it. Only M p (p with a zero ring) lives
+//    in shared memory: the block's rows plus one halo row on each side.
+//  - Dot products are deterministic and identical in every block: each
+//    block reduces its partial in a fixed order (registers, warp shuffles,
+//    the warps' partials in shared memory) and stores it into slot `rank` of
+//    every block's slot array with st.async, whose arrival counts its bytes
+//    on the receiving block's mbarrier (complete_tx). A block waits on its
+//    own mbarrier until all the cluster's partials have landed, then sums
+//    the slots in the same fixed order as every other block. Every block
+//    gets bit-identical alpha and beta, so the blocks' iterates stay one
+//    recursion. No atomics.
+//  - The halo rows of p are formed locally. In the r.z round a block also
+//    sends its first and last rows of M z into its neighbours' two halo
+//    rows of z, counted on the same mbarrier; after the round every block
+//    knows the same beta and updates its halo rows of p as their owner
+//    updates them, p = fma(beta, p, z), bit for bit. So p needs no exchange
+//    of its own.
+//  Synchronisation a step: one cluster barrier at the start, split (arrive
+//  first, wait after the assembly): the blocks have started and initialised
+//  their mbarriers before any remote store. After it, no cluster barrier:
+//  2*cg_iters rounds (r0.z0, then p.Ap and r.z an iteration, less the last
+//  iteration's r.z, which no one reads), each one all-to-all exchange of
+//  the partials through two mbarriers, one for the p.Ap rounds and one for
+//  the r.z rounds. A round's data cannot be overtaken by the next round on
+//  the same mbarrier: a block sends round k+1 of one kind only after it has
+//  received every block's round of the other kind in between, which each
+//  block sends only after it has read round k. The two mbarriers sit at the
+//  start of the dynamic shared memory, so si_layout counts every byte a
+//  block holds. The exchange's PTX is in cluster_exchange.cuh, and
+//  profile_exchange.py times one round of it alone: on an H100 80GB HBM3
+//  (700 W) about 1.7 us at 16 blocks, against about 2.4 us for plain remote
+//  stores closed by a cluster barrier (PERF.md).
+//  The PCG is the plain version's, with its guards (denom > 0, rz > 0,
+//  tiny); 1/dx and 1/dy are formed once, and the exponent set (5, 2, 4, 2)
+//  is a specialisation with fixed multiplies (GlenExps), any other set
+//  takes pow_pos at run time (RuntimeExps).
+//
+// The large-plane path (si_assemble + si_pcg), for planes whose layout does
+// not fit a cluster (more than 8 cells a thread or 227 KB of shared memory
+// a block): an assembly kernel over the whole batch (D, b, inverse
+// diagonal into a global scratch buffer; each interior cell forms its four
+// corners with corner_D and the step's exponent set), then one 1024-thread
+// block per glacier running the PCG recursion with its vectors in that
+// buffer (L2 at the sizes it serves) and fixed-order block reductions. The
+// plan takes it by shape alone.
+#include <cooperative_groups.h>
+
+#include "cluster_exchange.cuh"
 #include "sia_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-using odinn::Patch;
-using odinn::Scalars;
+using odinn::GlenExps;
+using odinn::Recip;
+using odinn::RuntimeExps;
+using odinn::cluster_arrive_relaxed;
+using odinn::cluster_wait;
+using odinn::fixed_sum;
+using odinn::mapa;
+using odinn::mbar_init;
+using odinn::mbar_wait;
+using odinn::relu;
+using odinn::share_partial;
+using odinn::smem_u32;
+using odinn::st_async;
+
+// ---------------------------------------------------------------------------
+// The cluster kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxThreads = 512;   // blockDim.x * blockDim.y at most
+constexpr int kMaxCluster = 16;    // blocks a glacier at most
+constexpr int kMaxWarps = kMaxThreads / 32;
+static_assert(kMaxCluster <= 16 && kMaxWarps <= 16, "fixed_sum sums at most 16 partials");
+constexpr int kBarBytes = 16;      // the two mbarriers at the start of the shared memory
+
+// what an own cell does besides its update
+constexpr int kRing = 1;       // on the plane's ring: A is the identity there
+constexpr int kCorner = 2;     // forms the corner below-right of it
+constexpr int kPushUp = 4;     // first row of the block: the upper neighbour's halo
+constexpr int kPushDown = 8;   // last row of the block: the lower neighbour's halo
+constexpr int kInXp = 16;      // the neighbour at row i+1 is interior
+constexpr int kInXm = 32;      // ... at row i-1
+constexpr int kInYp = 64;      // ... at column j+1
+constexpr int kInYm = 128;     // ... at column j-1
+
+// div(D grad u) at an interior cell from its face coefficients (x east,
+// x west, y north, y south) and the 5-point values of u.
+template <typename T>
+__device__ __forceinline__ T div_faces(T xe, T xw, T yn, T ys, T uc, T uxp, T uxm, T uyp,
+                                       T uym, T inv_dx, T inv_dy) {
+  const T fxp = xe * ((uxp - uc) * inv_dx);
+  const T fxm = xw * ((uc - uxm) * inv_dx);
+  const T fyp = yn * ((uyp - uc) * inv_dy);
+  const T fym = ys * ((uc - uym) * inv_dy);
+  return (fxp - fxm) * inv_dx + (fyp - fym) * inv_dy;
+}
+
+// D of the corner whose upper-left cell is device index g of (H_D, B).
+template <typename T, class E>
+__device__ __forceinline__ T corner_at(const T* __restrict__ HD, const T* __restrict__ B,
+                                       long g, int ny, const Recip<T>& k, const E& e) {
+  const T h00 = relu(HD[g]), h01 = relu(HD[g + 1]);
+  const T h10 = relu(HD[g + ny]), h11 = relu(HD[g + ny + 1]);
+  return odinn::corner_D(h00, h10, h01, h11, B[g] + h00, B[g + ny] + h10, B[g + 1] + h01,
+                         B[g + ny + 1] + h11, k, e);
+}
+
+// K: the cells a thread owns at most (2, 4 or 8; si_layout's cells,
+// rounded up).
+template <typename T, class E, int K>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+si_step_cluster(const T* __restrict__ H, const T* __restrict__ HD, const T* __restrict__ B,
+                const T* __restrict__ x0, const T* __restrict__ table, T* __restrict__ out,
+                int nx, int ny, T dt, T coef, T one_minus_theta, int cg_iters, E e) {
+  cg::cluster_group cluster = cg::this_cluster();
+  // dynamic shared memory, as si_layout counts it: the two mbarriers (of
+  // the p.Ap and of the r.z rounds), then the T arrays below
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const unsigned bar_pap = smem_u32(smem_raw), bar_rz = bar_pap + 8;
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    mbar_init(bar_pap);
+    mbar_init(bar_rz);
+    odinn::mbar_init_fence();
+  }
+  cluster_arrive_relaxed();   // this block has started; waited on before the first remote store
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int glacier = blockIdx.x / csize;
+  const int rows = (nx + csize - 1) / csize;
+  const int row0 = rank * rows;
+  const int nrows = max(0, min(rows, nx - row0));
+  const long plane = static_cast<long>(nx) * ny;
+  // device index of slab index 0: slab row li is the plane's row row0-1+li
+  const long gbase = static_cast<long>(glacier) * plane + static_cast<long>(row0 - 1) * ny;
+
+  // M p, rows + 2 rows; the corner D during assembly
+  T* P = reinterpret_cast<T*>(smem_raw + kBarBytes);
+  const int slab = (rows + 2) * ny;
+  T* Zh = P + slab;                        // M z of the halo rows: row 0 above, row 1 below
+  T* slots_pap = Zh + 2 * ny;              // the blocks' partials of p.Ap, by rank
+  T* slots_rz = slots_pap + kMaxCluster;   // ... of r.z
+  // the warps' partials, [2][16] alternating by round: a thread may still
+  // read one round's while the block's other warps, past the round's wait,
+  // write the next round's
+  T* warp_part = slots_rz + kMaxCluster;
+
+  const Recip<T> k = odinn::recip_row(table + 4L * glacier);
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int bx = blockDim.x, by = blockDim.y;
+  const int tid = ty * bx + tx, nthreads = bx * by;
+  const int nwarps = nthreads >> 5;
+  const T tiny = static_cast<T>(1e-300);   // 0 in float32, as in the plain version
+
+  // the thread's own cells: row ty + by*rr, column tx + bx*cc
+  const int cols = (ny + bx - 1) / bx;
+  int sidx[K], flags[K];
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const int rr = q / cols, cc = q - rr * cols;
+    const int lr = ty + by * rr, j = tx + bx * cc;
+    const int gi = row0 + lr;
+    const bool mine = lr < nrows && j < ny;
+    sidx[q] = mine ? (lr + 1) * ny + j : -1;
+    int f = 0;
+    if (gi == 0 || gi == nx - 1 || j == 0 || j == ny - 1) f |= kRing;
+    if (gi <= nx - 2 && j <= ny - 2) f |= kCorner;
+    if (lr == 0 && row0 > 0) f |= kPushUp;
+    if (lr == nrows - 1 && row0 + nrows < nx) f |= kPushDown;
+    if (gi + 1 <= nx - 2) f |= kInXp;
+    if (gi - 1 >= 1) f |= kInXm;
+    if (j + 1 <= ny - 2) f |= kInYp;
+    if (j - 1 >= 1) f |= kInYm;
+    flags[q] = f;
+  }
+  const bool has_up = nrows > 0 && row0 > 0;
+  const bool has_down = nrows > 0 && row0 + nrows < nx;
+  // the neighbours' z halo rows: the upper one's row 1, the lower one's row 0
+  const unsigned up = has_up ? mapa(smem_u32(Zh + ny), rank - 1) : 0u;
+  const unsigned down = has_down ? mapa(smem_u32(Zh), rank + 1) : 0u;
+  const unsigned up_bar = has_up ? mapa(bar_rz, rank - 1) : 0u;
+  const unsigned down_bar = has_down ? mapa(bar_rz, rank + 1) : 0u;
+  const int halo_values = (has_up ? ny : 0) + (has_down ? ny : 0);
+  unsigned par_pap = 0, par_rz = 0;
+  int round = 0;
+  T w[K];   // per own cell: z, or Ap between the matvec and the update
+  // M z of the block's first and last rows into the neighbours' halo rows
+  auto push_z = [&]() {
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      if (sidx[q] < 0) continue;
+      const T zm = (flags[q] & kRing) ? T(0) : w[q];
+      if (flags[q] & kPushUp) st_async(up + (sidx[q] - ny) * sizeof(T), zm, up_bar);
+      if (flags[q] & kPushDown) st_async(down + (sidx[q] - nrows * ny) * sizeof(T), zm, down_bar);
+    }
+  };
+
+  // assembly: the corners the block's rows touch, once each
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    if (sidx[q] >= 0 && (flags[q] & kCorner)) {
+      P[sidx[q]] = corner_at(HD, B, gbase + sidx[q], ny, k, e);
+    }
+  }
+  if (has_up) {   // the corner row above the block
+    for (int j = tid; j < ny - 1; j += nthreads) P[j] = corner_at(HD, B, gbase + j, ny, k, e);
+  }
+  __syncthreads();
+
+  // faces, b, the inverse diagonal, r0 = b - A x0, z0 = r0/diag, p0 = z0
+  T x[K], r[K], p[K], inv[K], fxe[K], fxw[K], fyn[K], fys[K];
+  T acc = T(0);
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    x[q] = r[q] = p[q] = w[q] = fxe[q] = fxw[q] = fyn[q] = fys[q] = T(0);
+    inv[q] = T(1);
+    if (sidx[q] < 0) continue;
+    const int s = sidx[q], f = flags[q];
+    const long g = gbase + s;
+    const T xc = x0[g];
+    T b, ax;
+    if (f & kRing) {
+      b = H[g];
+      ax = xc;
+    } else {
+      const T d00 = P[s - ny - 1], d01 = P[s - ny], d10 = P[s - 1], d11 = P[s];
+      fxe[q] = T(0.5) * (d10 + d11);
+      fxw[q] = T(0.5) * (d00 + d01);
+      fyn[q] = T(0.5) * (d01 + d11);
+      fys[q] = T(0.5) * (d00 + d10);
+      // u = B + ring*H + (1-theta)*M*H on the 5 points
+      auto u = [&](long gg, bool in) {
+        return in ? B[gg] + one_minus_theta * H[gg] : B[gg] + H[gg];
+      };
+      const T div_b = div_faces(fxe[q], fxw[q], fyn[q], fys[q], u(g, true),
+                                u(g + ny, f & kInXp), u(g - ny, f & kInXm),
+                                u(g + 1, f & kInYp), u(g - 1, f & kInYm), k.inv_dx, k.inv_dy);
+      b = H[g] + dt * div_b;
+      const T sx = (fxw[q] + fxe[q]) * (k.inv_dx * k.inv_dx);
+      const T sy = (fys[q] + fyn[q]) * (k.inv_dy * k.inv_dy);
+      inv[q] = T(1) / (T(1) + coef * (sx + sy));
+      // M x0 on the 5 points
+      auto m = [&](long gg, bool in) { return in ? x0[gg] : T(0); };
+      const T div_x = div_faces(fxe[q], fxw[q], fyn[q], fys[q], xc, m(g + ny, f & kInXp),
+                                m(g - ny, f & kInXm), m(g + 1, f & kInYp),
+                                m(g - 1, f & kInYm), k.inv_dx, k.inv_dy);
+      ax = xc - coef * div_x;
+    }
+    x[q] = xc;
+    r[q] = b - ax;
+    w[q] = r[q] * inv[q];   // z0
+    p[q] = w[q];
+    acc += r[q] * w[q];
+  }
+  __syncthreads();   // every thread has read its corners: the slab becomes M p
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    if (sidx[q] >= 0) P[sidx[q]] = (flags[q] & kRing) ? T(0) : p[q];
+  }
+  // r0.z0 and the halo rows of z0, after every block of the cluster has
+  // started (its shared memory may be written)
+  cluster_wait();
+  share_partial(acc, warp_part + 16 * (round++ & 1), slots_rz, bar_rz, halo_values, tid, nwarps,
+                csize, rank);
+  push_z();
+  mbar_wait(bar_rz, par_rz);
+  par_rz ^= 1u;
+  T rz = fixed_sum(slots_rz, csize);
+  if (has_up) {
+    for (int j = tid; j < ny; j += nthreads) P[j] = Zh[j];
+  }
+  if (has_down) {
+    for (int j = tid; j < ny; j += nthreads) P[(nrows + 1) * ny + j] = Zh[ny + j];
+  }
+  __syncthreads();
+
+  for (int it = 0; it < cg_iters; ++it) {
+    // Ap (into w) and p.Ap
+    acc = T(0);
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      if (sidx[q] < 0) continue;
+      const int s = sidx[q];
+      if (flags[q] & kRing) {
+        w[q] = p[q];
+      } else {
+        const T div = div_faces(fxe[q], fxw[q], fyn[q], fys[q], p[q], P[s + ny], P[s - ny],
+                                P[s + 1], P[s - 1], k.inv_dx, k.inv_dy);
+        w[q] = p[q] - coef * div;
+      }
+      acc += p[q] * w[q];
+    }
+    share_partial(acc, warp_part + 16 * (round++ & 1), slots_pap, bar_pap, 0, tid, nwarps,
+                  csize, rank);
+    mbar_wait(bar_pap, par_pap);
+    par_pap ^= 1u;
+    const T denom = fixed_sum(slots_pap, csize);
+    const T alpha = denom > T(0) ? rz / fmax(denom, tiny) : T(0);
+    // x, r, z (into w) and r.z
+    acc = T(0);
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      if (sidx[q] < 0) continue;
+      x[q] = x[q] + alpha * p[q];
+      r[q] = r[q] - alpha * w[q];
+      w[q] = r[q] * inv[q];
+      acc += r[q] * w[q];
+    }
+    if (it == cg_iters - 1) break;   // x is final; no one reads the last r.z
+    share_partial(acc, warp_part + 16 * (round++ & 1), slots_rz, bar_rz, halo_values, tid,
+                  nwarps, csize, rank);
+    push_z();
+    mbar_wait(bar_rz, par_rz);
+    par_rz ^= 1u;
+    const T rz_new = fixed_sum(slots_rz, csize);
+    const T beta = rz > T(0) ? rz_new / fmax(rz, tiny) : T(0);
+    // p = z + beta p: own cells, and the halo rows as their owners form them
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      if (sidx[q] < 0) continue;
+      p[q] = fma(beta, p[q], w[q]);
+      P[sidx[q]] = (flags[q] & kRing) ? T(0) : p[q];
+    }
+    if (has_up) {
+      for (int j = tid; j < ny; j += nthreads) P[j] = fma(beta, P[j], Zh[j]);
+    }
+    if (has_down) {
+      T* h = P + (nrows + 1) * ny;
+      for (int j = tid; j < ny; j += nthreads) h[j] = fma(beta, h[j], Zh[ny + j]);
+    }
+    rz = rz_new;
+    __syncthreads();   // the next matvec reads other threads' p
+  }
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    if (sidx[q] >= 0) out[gbase + sidx[q]] = relu(x[q]);
+  }
+  // every store into this block's shared memory has landed before its last
+  // wait returned, so a block may leave without waiting for its neighbours
+}
+
+// Once per instantiation: all the opt-in shared memory as dynamic (the
+// kernel has no static shared memory), and the non-portable cluster size
+// of 16.
+template <typename T, class E, int K>
+int prepare() {
+  static int state = -1;
+  if (state < 0) {
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(si_step_cluster<T, E, K>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(si_step_cluster<T, E, K>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    state = 0;
+  }
+  return state;
+}
+
+struct Shape {
+  int n_g, cluster, bx, by, smem, cells;
+};
+
+cudaLaunchConfig_t config(const Shape& sh, cudaLaunchAttribute* attr, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(sh.n_g * sh.cluster, 1, 1);
+  cfg.blockDim = dim3(sh.bx, sh.by, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(sh.smem);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = sh.cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename T>
+struct StepArgs {
+  const T *H, *HD, *B, *x0, *table;
+  T* out;
+  int nx, ny, cg_iters;
+  double dt, theta;
+};
+
+template <typename T, class E, int K>
+int launch_k(const StepArgs<T>& a, E e, const Shape& sh, void* stream) {
+  const int ready = prepare<T, E, K>();
+  if (ready != 0) return ready;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(sh, &attr, static_cast<cudaStream_t>(stream));
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, si_step_cluster<T, E, K>, a.H, a.HD, a.B, a.x0, a.table, a.out, a.nx, a.ny,
+      static_cast<T>(a.dt), static_cast<T>(a.theta * a.dt), static_cast<T>(1.0 - a.theta),
+      a.cg_iters, e);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, class E>
+int launch_cells(const StepArgs<T>& a, E e, const Shape& sh, void* stream) {
+  if (sh.cells <= 2) return launch_k<T, E, 2>(a, e, sh, stream);
+  if (sh.cells <= 4) return launch_k<T, E, 4>(a, e, sh, stream);
+  if (sh.cells <= 8) return launch_k<T, E, 8>(a, e, sh, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Call launch(e) with the step's exponent set e: the (5, 2, 4, 2)
+// specialisation when `glen` != 0, else e_* at run time.
+template <typename T, class F>
+int with_exps(int glen, double e_hc, double e_sc, double e_hs, double e_ss, F&& launch) {
+  if (glen) return launch(GlenExps<T>{});
+  return launch(RuntimeExps<T>{static_cast<T>(e_hc), static_cast<T>(e_sc),
+                               static_cast<T>(e_hs), static_cast<T>(e_ss)});
+}
+
+template <typename T, class E, int K>
+int occupancy_k(const Shape& sh, int* active) {
+  const int ready = prepare<T, E, K>();
+  if (ready != 0) return ready;
+  cudaLaunchAttribute attr;
+  Shape one = sh;
+  one.n_g = 1;
+  const cudaLaunchConfig_t cfg = config(one, &attr, nullptr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(active, si_step_cluster<T, E, K>, &cfg));
+}
+
+template <typename T, class E>
+int occupancy(const Shape& sh, int* active) {
+  if (sh.cells <= 2) return occupancy_k<T, E, 2>(sh, active);
+  if (sh.cells <= 4) return occupancy_k<T, E, 4>(sh, active);
+  if (sh.cells <= 8) return occupancy_k<T, E, 8>(sh, active);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// The large-plane path: assembly kernel + one PCG block per glacier
+// ---------------------------------------------------------------------------
 
 // 32 x 32 threads: thread (ty, tx) owns the cells (ty + 32a, tx + 32b).
 constexpr int kTile = 32;
-constexpr int kThreads = kTile * kTile;
+constexpr int kPcgThreads = kTile * kTile;
 
 // Scratch planes, each (n_g, nx, ny).
 enum Plane { kD = 0, kRhs, kInvDiag, kX, kR, kP, kAp, kPlanes };
@@ -46,34 +487,30 @@ struct Faces {
   T xe, xw, yn, ys;   // face diffusivities: x east/west, y north/south
 };
 
-// Face diffusivities of interior cell (i, j) from the corner D plane.
+// Face diffusivities of an interior cell from its four corners
+// d00 = D(i-1, j-1), d01 = D(i-1, j), d10 = D(i, j-1), d11 = D(i, j).
 template <typename T>
-__device__ __forceinline__ Faces<T> faces(const T* __restrict__ D, int ny,
-                                          int i, int j) {
-  const long r0 = static_cast<long>(i - 1) * ny, r1 = static_cast<long>(i) * ny;
-  const T d00 = D[r0 + j - 1], d01 = D[r0 + j];   // D(i-1, j-1), D(i-1, j)
-  const T d10 = D[r1 + j - 1], d11 = D[r1 + j];   // D(i, j-1),   D(i, j)
+__device__ __forceinline__ Faces<T> faces_of(T d00, T d01, T d10, T d11) {
   return {T(0.5) * (d10 + d11), T(0.5) * (d00 + d01), T(0.5) * (d01 + d11),
           T(0.5) * (d00 + d10)};
 }
 
-// div(D grad u) at interior cell (i, j) from the 5-point values of u.
+// Face diffusivities of interior cell (i, j) from the corner D plane.
 template <typename T>
-__device__ __forceinline__ T div_flux(const Faces<T>& f, T uc, T un_x, T us_x,
-                                      T un_y, T us_y, T dx, T dy) {
-  const T fxp = f.xe * ((un_x - uc) / dx);
-  const T fxm = f.xw * ((uc - us_x) / dx);
-  const T fyp = f.yn * ((un_y - uc) / dy);
-  const T fym = f.ys * ((uc - us_y) / dy);
-  return (fxp - fxm) / dx + (fyp - fym) / dy;
+__device__ __forceinline__ Faces<T> faces(const T* __restrict__ D, int ny, int i, int j) {
+  const long r0 = static_cast<long>(i - 1) * ny, r1 = static_cast<long>(i) * ny;
+  return faces_of(D[r0 + j - 1], D[r0 + j], D[r1 + j - 1], D[r1 + j]);
 }
 
-template <typename T>
+// One thread per cell: its own corner D(i, j) into the corner plane, when
+// it has one, and b and the inverse diagonal. An interior cell forms its
+// three other corners itself, as no barrier spans the grid.
+template <typename T, class E>
 __global__ void __launch_bounds__(256)
 si_assemble(const T* __restrict__ H, const T* __restrict__ HD,
             const T* __restrict__ B, const T* __restrict__ table,
             T* __restrict__ work, int n_g, int nx, int ny, T dt, T dt_eff,
-            T one_minus_theta, T e_hc, T e_sc, T e_hs, T e_ss) {
+            T one_minus_theta, E e) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= nx || j >= ny) return;
@@ -81,36 +518,25 @@ si_assemble(const T* __restrict__ H, const T* __restrict__ HD,
   const long batch = plane * n_g;
   const long off = static_cast<long>(blockIdx.z) * plane;
   const long c = static_cast<long>(i) * ny + j;
-  const T* row = table + 4L * blockIdx.z;
-  const Scalars<T> k{row[0], row[1], row[2], row[3], e_hc, e_sc, e_hs, e_ss};
+  const long g = off + c;
+  const Recip<T> k = odinn::recip_row(table + 4L * blockIdx.z);
   const T* h = H + off;
   const T* b = B + off;
-  T* D = work + kD * batch + off;
-  T* rhs = work + kRhs * batch + off;
-  T* inv_diag = work + kInvDiag * batch + off;
+  T* __restrict__ D = work + kD * batch + off;
+  T* __restrict__ rhs = work + kRhs * batch + off;
+  T* __restrict__ inv_diag = work + kInvDiag * batch + off;
 
-  const bool interior = i > 0 && j > 0 && i < nx - 1 && j < ny - 1;
-  if (!interior) {
-    // the cell's own corner, for the ring cells that own one
-    if (i < nx - 1 && j < ny - 1) {
-      const T* hd = HD + off;
-      const long c10 = c + ny;
-      const T h00 = odinn::relu(hd[c]), h10 = odinn::relu(hd[c10]);
-      const T h01 = odinn::relu(hd[c + 1]), h11 = odinn::relu(hd[c10 + 1]);
-      D[c] = odinn::stag_D(h00, h10, h01, h11, b[c] + h00, b[c10] + h10,
-                           b[c + 1] + h01, b[c10 + 1] + h11, k);
-    }
+  const bool own_corner = i < nx - 1 && j < ny - 1;
+  const T d11 = own_corner ? corner_at(HD, B, g, ny, k, e) : T(0);
+  if (own_corner) D[c] = d11;
+  if (i == 0 || j == 0 || i == nx - 1 || j == ny - 1) {
     rhs[c] = h[c];
     inv_diag[c] = T(1);
     return;
   }
-  Patch<T> p;
-  odinn::load_patch(HD + off, b, ny, i, j, k, p);
-  D[c] = p.d[1][1];
-  const Faces<T> f{T(0.5) * (p.d[1][0] + p.d[1][1]),
-                   T(0.5) * (p.d[0][0] + p.d[0][1]),
-                   T(0.5) * (p.d[0][1] + p.d[1][1]),
-                   T(0.5) * (p.d[0][0] + p.d[1][0])};
+  const Faces<T> f = faces_of(corner_at(HD, B, g - ny - 1, ny, k, e),
+                              corner_at(HD, B, g - ny, ny, k, e),
+                              corner_at(HD, B, g - 1, ny, k, e), d11);
   // u = B + ring*H + (1-theta)*interior*H on the 5 points
   auto u = [&](int di, int dj) {
     const int ii = i + di, jj = j + dj;
@@ -118,11 +544,11 @@ si_assemble(const T* __restrict__ H, const T* __restrict__ HD,
     const bool in = ii > 0 && jj > 0 && ii < nx - 1 && jj < ny - 1;
     return in ? b[cc] + one_minus_theta * h[cc] : b[cc] + h[cc];
   };
-  const T div = div_flux(f, u(0, 0), u(1, 0), u(-1, 0), u(0, 1), u(0, -1),
-                         k.dx, k.dy);
+  const T div = div_faces(f.xe, f.xw, f.yn, f.ys, u(0, 0), u(1, 0), u(-1, 0), u(0, 1),
+                          u(0, -1), k.inv_dx, k.inv_dy);
   rhs[c] = h[c] + dt * div;
-  const T sx = (f.xw + f.xe) / (k.dx * k.dx);
-  const T sy = (f.ys + f.yn) / (k.dy * k.dy);
+  const T sx = (f.xw + f.xe) * (k.inv_dx * k.inv_dx);
+  const T sy = (f.ys + f.yn) * (k.inv_dy * k.inv_dy);
   inv_diag[c] = T(1) / (T(1) + dt_eff * (sx + sy));
 }
 
@@ -130,7 +556,7 @@ si_assemble(const T* __restrict__ H, const T* __restrict__ HD,
 // per-warp partials in shared memory. Every thread gets the total.
 template <typename T>
 __device__ __forceinline__ T block_sum(T v, T* sh) {
-  constexpr int kWarps = kThreads / 32;
+  constexpr int kWarps = kPcgThreads / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -152,35 +578,38 @@ __device__ __forceinline__ T block_sum(T v, T* sh) {
 template <typename T>
 __device__ __forceinline__ T matvec(const T* __restrict__ u,
                                     const T* __restrict__ D, int nx, int ny,
-                                    int i, int j, T coef, T dx, T dy) {
+                                    int i, int j, T coef, const Recip<T>& k) {
   const long c = static_cast<long>(i) * ny + j;
   if (i == 0 || j == 0 || i == nx - 1 || j == ny - 1) return u[c];
   auto m = [&](int ii, int jj) {
     const bool in = ii > 0 && jj > 0 && ii < nx - 1 && jj < ny - 1;
     return in ? u[static_cast<long>(ii) * ny + jj] : T(0);
   };
-  const T div = div_flux(faces(D, ny, i, j), u[c], m(i + 1, j), m(i - 1, j),
-                         m(i, j + 1), m(i, j - 1), dx, dy);
+  const Faces<T> f = faces(D, ny, i, j);
+  const T div = div_faces(f.xe, f.xw, f.yn, f.ys, u[c], m(i + 1, j), m(i - 1, j),
+                          m(i, j + 1), m(i, j - 1), k.inv_dx, k.inv_dy);
   return u[c] - coef * div;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPcgThreads)
 si_pcg(const T* __restrict__ x0, const T* __restrict__ table, T* work,
        T* __restrict__ out, int n_g, int nx, int ny, T coef, int cg_iters) {
-  __shared__ T sh[kThreads / 32 + 1];
+  __shared__ T sh[kPcgThreads / 32 + 1];
   const long plane = static_cast<long>(nx) * ny;
   const long batch = plane * n_g;
   const long off = static_cast<long>(blockIdx.x) * plane;
-  const T dx = table[4L * blockIdx.x], dy = table[4L * blockIdx.x + 1];
-  const T* D = work + kD * batch + off;
-  const T* rhs = work + kRhs * batch + off;
-  const T* inv = work + kInvDiag * batch + off;
-  T* x = work + kX * batch + off;
-  T* r = work + kR * batch + off;
-  T* p = work + kP * batch + off;
-  T* Ap = work + kAp * batch + off;
-  const T* xs = x0 + off;
+  const Recip<T> k = odinn::recip_row(table + 4L * blockIdx.x);
+  // the scratch planes are disjoint: restrict views let loads move above
+  // earlier stores to other planes
+  const T* __restrict__ D = work + kD * batch + off;
+  const T* __restrict__ rhs = work + kRhs * batch + off;
+  const T* __restrict__ inv = work + kInvDiag * batch + off;
+  T* __restrict__ x = work + kX * batch + off;
+  T* __restrict__ r = work + kR * batch + off;
+  T* __restrict__ p = work + kP * batch + off;
+  T* __restrict__ Ap = work + kAp * batch + off;
+  const T* __restrict__ xs = x0 + off;
   const T tiny = static_cast<T>(1e-300);   // 0 in float32, as in the reference
 
   const int ty = threadIdx.x / kTile, tx = threadIdx.x % kTile;
@@ -198,7 +627,7 @@ si_pcg(const T* __restrict__ x0, const T* __restrict__ table, T* work,
   // r0 = b - A x0, z0 = r0/diag, p0 = z0
   T acc = T(0);
   FOR_OWN_CELLS({
-    const T rc = rhs[c] - matvec(xs, D, nx, ny, i, j, coef, dx, dy);
+    const T rc = rhs[c] - matvec(xs, D, nx, ny, i, j, coef, k);
     const T zc = rc * inv[c];
     x[c] = xs[c];
     r[c] = rc;
@@ -210,7 +639,7 @@ si_pcg(const T* __restrict__ x0, const T* __restrict__ table, T* work,
   for (int it = 0; it < cg_iters; ++it) {
     acc = T(0);
     FOR_OWN_CELLS({
-      const T a = matvec(p, D, nx, ny, i, j, coef, dx, dy);
+      const T a = matvec(p, D, nx, ny, i, j, coef, k);
       Ap[c] = a;
       acc += p[c] * a;
     })
@@ -229,47 +658,92 @@ si_pcg(const T* __restrict__ x0, const T* __restrict__ table, T* work,
     rz = rz_new;
     __syncthreads();   // the next matvec reads the neighbours' p
   }
-  FOR_OWN_CELLS({ out[off + c] = odinn::relu(x[c]); })
+  FOR_OWN_CELLS({ out[off + c] = relu(x[c]); })
 #undef FOR_OWN_CELLS
 }
 
-template <typename T>
-int launch(const T* H, const T* HD, const T* B, const T* x0, const T* table,
-           T* work, T* out, int n_g, int nx, int ny, double dt, double theta,
-           int cg_iters, double e_hc, double e_sc, double e_hs, double e_ss,
-           void* stream) {
+template <typename T, class E>
+int launch_split(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 block(32, 8);
-  const dim3 grid((ny + block.x - 1) / block.x, (nx + block.y - 1) / block.y,
-                  n_g);
-  si_assemble<T><<<grid, block, 0, s>>>(
-      H, HD, B, table, work, n_g, nx, ny, static_cast<T>(dt),
-      static_cast<T>(theta * dt), static_cast<T>(1.0 - theta),
-      static_cast<T>(e_hc), static_cast<T>(e_sc), static_cast<T>(e_hs),
-      static_cast<T>(e_ss));
+  const dim3 grid((a.ny + block.x - 1) / block.x, (a.nx + block.y - 1) / block.y, n_g);
+  si_assemble<T, E><<<grid, block, 0, s>>>(
+      a.H, a.HD, a.B, a.table, work, n_g, a.nx, a.ny, static_cast<T>(a.dt),
+      static_cast<T>(a.theta * a.dt), static_cast<T>(1.0 - a.theta), e);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  si_pcg<T><<<n_g, kThreads, 0, s>>>(x0, table, work, out, n_g, nx, ny,
-                                     static_cast<T>(theta * dt), cg_iters);
+  si_pcg<T><<<n_g, kPcgThreads, 0, s>>>(a.x0, a.table, work, a.out, n_g, a.nx, a.ny,
+                                        static_cast<T>(a.theta * a.dt), a.cg_iters);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+StepArgs<T> step_args(const T* H, const T* HD, const T* B, const T* x0, const T* table,
+                      T* out, int nx, int ny, double dt, double theta, int cg_iters) {
+  return StepArgs<T>{H, HD, B, x0, table, out, nx, ny, cg_iters, dt, theta};
 }
 
 }  // namespace
 
-extern "C" int si_step_f32(const float* H, const float* HD, const float* B,
-                           const float* x0, const float* table, float* work,
-                           float* out, int n_g, int nx, int ny, double dt,
-                           double theta, int cg_iters, double e_hc, double e_sc,
-                           double e_hs, double e_ss, void* stream) {
-  return launch<float>(H, HD, B, x0, table, work, out, n_g, nx, ny, dt, theta,
-                       cg_iters, e_hc, e_sc, e_hs, e_ss, stream);
+// The cluster kernel. `glen` != 0 takes the (5, 2, 4, 2) specialisation and
+// ignores e_*; `cluster`, `bx`, `by`, `smem` and `cells` are the wrapper's
+// layout (si_layout). `table` is the (n_g, 4) table (dx, dy, creep, slide).
+extern "C" int si_step_cluster_f32(const float* H, const float* HD, const float* B,
+                                   const float* x0, const float* table, float* out, int n_g,
+                                   int nx, int ny, double dt, double theta, int cg_iters,
+                                   int glen, double e_hc, double e_sc, double e_hs,
+                                   double e_ss, int cluster, int bx, int by, int smem,
+                                   int cells, void* stream) {
+  const StepArgs<float> a = step_args(H, HD, B, x0, table, out, nx, ny, dt, theta, cg_iters);
+  const Shape sh{n_g, cluster, bx, by, smem, cells};
+  return with_exps<float>(glen, e_hc, e_sc, e_hs, e_ss,
+                          [&](auto e) { return launch_cells<float>(a, e, sh, stream); });
 }
 
-extern "C" int si_step_f64(const double* H, const double* HD, const double* B,
-                           const double* x0, const double* table, double* work,
-                           double* out, int n_g, int nx, int ny, double dt,
-                           double theta, int cg_iters, double e_hc, double e_sc,
-                           double e_hs, double e_ss, void* stream) {
-  return launch<double>(H, HD, B, x0, table, work, out, n_g, nx, ny, dt, theta,
-                        cg_iters, e_hc, e_sc, e_hs, e_ss, stream);
+extern "C" int si_step_cluster_f64(const double* H, const double* HD, const double* B,
+                                   const double* x0, const double* table, double* out,
+                                   int n_g, int nx, int ny, double dt, double theta,
+                                   int cg_iters, int glen, double e_hc, double e_sc,
+                                   double e_hs, double e_ss, int cluster, int bx, int by,
+                                   int smem, int cells, void* stream) {
+  const StepArgs<double> a = step_args(H, HD, B, x0, table, out, nx, ny, dt, theta, cg_iters);
+  const Shape sh{n_g, cluster, bx, by, smem, cells};
+  return with_exps<double>(glen, e_hc, e_sc, e_hs, e_ss,
+                           [&](auto e) { return launch_cells<double>(a, e, sh, stream); });
+}
+
+// cudaOccupancyMaxActiveClusters for the cluster kernel of that dtype
+// (f64 != 0) and exponent path at one layout, into *active.
+extern "C" int si_step_occupancy(int f64, int glen, int cluster, int bx, int by, int smem,
+                                 int cells, int* active) {
+  const Shape sh{1, cluster, bx, by, smem, cells};
+  if (f64) {
+    return with_exps<double>(glen, 0, 0, 0, 0, [&](auto e) {
+      return occupancy<double, decltype(e)>(sh, active);
+    });
+  }
+  return with_exps<float>(glen, 0, 0, 0, 0,
+                          [&](auto e) { return occupancy<float, decltype(e)>(sh, active); });
+}
+
+// The large-plane path; `work` holds 7 planes of the batch's shape. `glen`
+// and e_* as for the cluster kernel.
+extern "C" int si_step_split_f32(const float* H, const float* HD, const float* B,
+                                 const float* x0, const float* table, float* work, float* out,
+                                 int n_g, int nx, int ny, double dt, double theta,
+                                 int cg_iters, int glen, double e_hc, double e_sc, double e_hs,
+                                 double e_ss, void* stream) {
+  const StepArgs<float> a = step_args(H, HD, B, x0, table, out, nx, ny, dt, theta, cg_iters);
+  return with_exps<float>(glen, e_hc, e_sc, e_hs, e_ss,
+                          [&](auto e) { return launch_split<float>(a, e, work, n_g, stream); });
+}
+
+extern "C" int si_step_split_f64(const double* H, const double* HD, const double* B,
+                                 const double* x0, const double* table, double* work,
+                                 double* out, int n_g, int nx, int ny, double dt, double theta,
+                                 int cg_iters, int glen, double e_hc, double e_sc, double e_hs,
+                                 double e_ss, void* stream) {
+  const StepArgs<double> a = step_args(H, HD, B, x0, table, out, nx, ny, dt, theta, cg_iters);
+  return with_exps<double>(glen, e_hc, e_sc, e_hs, e_ss,
+                           [&](auto e) { return launch_split<double>(a, e, work, n_g, stream); });
 }

@@ -95,12 +95,6 @@ struct RuntimeExps {
   __device__ __forceinline__ T d_ss(T x) const { return dpow_pos(x, e_ss); }
 };
 
-// Per-glacier scalars of the derived table row.
-template <typename T>
-struct Scalars {
-  T dx, dy, creep, slide, e_hc, e_sc, e_hs, e_ss;
-};
-
 // The row's (dx, dy, creep, slide) with the spacings as reciprocals, formed
 // once per glacier so that no stencil divides.
 template <typename T>
@@ -115,25 +109,8 @@ __device__ __forceinline__ Recip<T> recip_row(const T* row) {
 
 // D at the corner whose 2x2 block of relu'd thickness h and surface s is
 // given as h00 = (a, c), h10 = (a+1, c), h01 = (a, c+1), h11 = (a+1, c+1):
-//   D = slide*h̄^e_hs*|∇S|^e_ss + creep*h̄^e_hc*|∇S|^e_sc.
-template <typename T>
-__device__ __forceinline__ T stag_D(T h00, T h10, T h01, T h11, T s00, T s10,
-                                    T s01, T s11, const Scalars<T>& k) {
-  const T dsdx0 = (s10 - s00) / k.dx;   // x-difference at column c
-  const T dsdx1 = (s11 - s01) / k.dx;   // x-difference at column c+1
-  const T dsdy0 = (s01 - s00) / k.dy;   // y-difference at row a
-  const T dsdy1 = (s11 - s10) / k.dy;   // y-difference at row a+1
-  const T gsx = T(0.5) * (dsdx0 + dsdx1);
-  const T gsy = T(0.5) * (dsdy0 + dsdy1);
-  const T sq = gsx * gsx + gsy * gsy;
-  const T grad_s = sq > T(0) ? sqrt(sq) : T(0);
-  const T hbar = T(0.25) * (h00 + h10 + h01 + h11);
-  const T slide = k.slide * pow_pos(hbar, k.e_hs) * pow_pos(grad_s, k.e_ss);
-  const T creep = k.creep * pow_pos(hbar, k.e_hc) * pow_pos(grad_s, k.e_sc);
-  return slide + creep;
-}
-
-// stag_D with reciprocal spacings and the exponent set E.
+//   D = slide*h̄^e_hs*|∇S|^e_ss + creep*h̄^e_hc*|∇S|^e_sc,
+// with reciprocal spacings and the exponent set E.
 template <typename T, class E>
 __device__ __forceinline__ T corner_D(T h00, T h10, T h01, T h11, T s00, T s10,
                                       T s01, T s11, const Recip<T>& k,
@@ -149,75 +126,18 @@ __device__ __forceinline__ T corner_D(T h00, T h10, T h01, T h11, T s00, T s10,
 __device__ __forceinline__ float relu(float h) { return h > 0.0f ? h : 0.0f; }
 __device__ __forceinline__ double relu(double h) { return h > 0.0 ? h : 0.0; }
 
-// The 3x3 neighbourhood of cell (i, j) of a glacier plane: relu'd thickness
-// and surface B + relu(H), and the four corner diffusivities around the
-// cell: d[0][0] = D(i-1, j-1), d[1][0] = D(i, j-1), d[0][1] = D(i-1, j),
-// d[1][1] = D(i, j). Valid for 1 <= i <= nx-2, 1 <= j <= ny-2.
-template <typename T>
-struct Patch {
-  T h[3][3];
-  T s[3][3];
-  T d[2][2];
-};
-
-template <typename T>
-__device__ __forceinline__ void load_patch(const T* __restrict__ H,
-                                           const T* __restrict__ B, int ny,
-                                           int i, int j, const Scalars<T>& k,
-                                           Patch<T>& p) {
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const long idx = static_cast<long>(i - 1 + a) * ny + (j - 1 + c);
-      p.h[a][c] = relu(H[idx]);
-      p.s[a][c] = B[idx] + p.h[a][c];
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      p.d[a][c] = stag_D(p.h[a][c], p.h[a + 1][c], p.h[a][c + 1],
-                         p.h[a + 1][c + 1], p.s[a][c], p.s[a + 1][c],
-                         p.s[a][c + 1], p.s[a + 1][c + 1], k);
-    }
-  }
-}
-
 template <typename T>
 __device__ __forceinline__ T clamp_edge(T ds, T upper, T lower) {
   return ds > upper ? upper : (ds < lower ? lower : ds);
 }
 
-// dH/dt at the centre of a loaded patch (an interior cell): the
-// eta0-clamped edge gradients, the fluxes and the negated divergence.
-template <typename T>
-__device__ __forceinline__ T rhs_cell(const Patch<T>& p, const Scalars<T>& k,
-                                      T eta0) {
-  const T dx = k.dx, dy = k.dy;
-  // x-faces: east between rows i and i+1, west between i-1 and i (column j)
-  const T dsx_e = clamp_edge((p.s[2][1] - p.s[1][1]) / dx,
-                             eta0 * p.h[2][1] / dx, -eta0 * p.h[1][1] / dx);
-  const T dsx_w = clamp_edge((p.s[1][1] - p.s[0][1]) / dx,
-                             eta0 * p.h[1][1] / dx, -eta0 * p.h[0][1] / dx);
-  // y-faces: north between columns j and j+1, south between j-1 and j (row i)
-  const T dsy_n = clamp_edge((p.s[1][2] - p.s[1][1]) / dy,
-                             eta0 * p.h[1][2] / dy, -eta0 * p.h[1][1] / dy);
-  const T dsy_s = clamp_edge((p.s[1][1] - p.s[1][0]) / dy,
-                             eta0 * p.h[1][1] / dy, -eta0 * p.h[1][0] / dy);
-  const T fx_e = -(T(0.5) * (p.d[1][0] + p.d[1][1])) * dsx_e;
-  const T fx_w = -(T(0.5) * (p.d[0][0] + p.d[0][1])) * dsx_w;
-  const T fy_n = -(T(0.5) * (p.d[0][1] + p.d[1][1])) * dsy_n;
-  const T fy_s = -(T(0.5) * (p.d[0][0] + p.d[1][0])) * dsy_s;
-  const T div = (fx_e - fx_w) / dx + (fy_n - fy_s) / dy;
-  return -div;
-}
-
-// rhs_cell with reciprocal spacings, from the cell's 5-point neighbourhood
-// only (rhs_cell reads no other cell of the patch): h, s at the centre c,
-// at rows i+1 (xp) and i-1 (xm), at columns j+1 (yp) and j-1 (ym); d the
-// patch's four corner diffusivities; eta_dx = eta0/dx, eta_dy = eta0/dy.
+// dH/dt at an interior cell (i, j) with reciprocal spacings: the
+// eta0-clamped edge gradients, the fluxes and the negated divergence, from
+// the cell's 5-point neighbourhood: h, s at the centre c, at rows i+1 (xp)
+// and i-1 (xm), at columns j+1 (yp) and j-1 (ym); d the four corner
+// diffusivities around the cell, d[0][0] = D(i-1, j-1), d[1][0] =
+// D(i, j-1), d[0][1] = D(i-1, j), d[1][1] = D(i, j); eta_dx = eta0/dx,
+// eta_dy = eta0/dy.
 template <typename T>
 __device__ __forceinline__ T rhs_cell_recip(T h_c, T h_xp, T h_xm, T h_yp,
                                             T h_ym, T s_c, T s_xp, T s_xm,

@@ -1,18 +1,61 @@
 """What the fused kernels share: the per-glacier derived table, powers with
-the kernels' semantics, and the wrappers' input checks."""
+the kernels' semantics, the wrappers' input checks, and the cluster kernels'
+block shape and cluster choice."""
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ["derived_scalars", "pow_pos", "shared_exps", "check_inputs", "GLEN_EXPS",
-           "uses_glen"]
+           "uses_glen", "block_shape", "pick_cluster", "SMEM_PER_BLOCK"]
 
 # The exponent set (n+2, n−1, p−q+1, p−1) of n = 3, p = 3, q = 0: the
 # kernels' compile-time specialisation (GlenExps in csrc/sia_common.cuh).
 GLEN_EXPS = (5.0, 2.0, 4.0, 2.0)
+
+
+# per-block opt-in shared memory of an H100 (sm_90)
+SMEM_PER_BLOCK = 232448
+
+
+def block_shape(rows: int, ny: int) -> Tuple[int, int, int]:
+    """(bx, by, cells) of a cluster kernel's block over ``rows`` rows of ``ny``
+    cells (csrc/rkc_interval.cu, csrc/si_step.cu): warps along rows
+    (by = min(rows, 16)) and lanes along ny (bx = 32·min(⌈ny/32⌉, ⌊16/by⌋),
+    so bx·by ≤ 512); each thread owns ⌈ny/bx⌉·⌈rows/by⌉ cells."""
+    by = min(rows, 16)
+    bx = 32 * max(1, min(-(-ny // 32), 16 // by))
+    return bx, by, -(-ny // bx) * -(-rows // by)
+
+
+def pick_cluster(name, layouts, occupancy, n_g, device_index):
+    """(layout, {cluster size: resident clusters}) for a cluster kernel's
+    launch over n_g glaciers. ``layouts`` maps the cluster sizes 8 and 16 to
+    layouts (``fits``, ``cluster``, ``bx``, ``by``, ``smem``);
+    ``occupancy(size, layout, byref(int))`` is the kernel's
+    cudaOccupancyMaxActiveClusters query, asked for each layout that fits.
+    16 blocks when all n_g clusters of 16 are resident at once, or when the
+    plane fits only at 16; else 8. A size that cannot be scheduled raises."""
+    active = {}
+    with torch.cuda.device(device_index):
+        for c, lay in layouts.items():
+            n = ctypes.c_int(0)
+            if lay.fits:
+                err = occupancy(c, lay, ctypes.byref(n))
+                if err != 0:
+                    raise RuntimeError(f"{name}: the occupancy query at {c} blocks failed "
+                                       f"with CUDA error {err}")
+            active[c] = n.value
+    big = layouts[16]
+    chosen = big if big.fits and (active[16] >= n_g or not layouts[8].fits) else layouts[8]
+    if active[chosen.cluster] == 0:
+        raise RuntimeError(f"{name}: a cluster of {chosen.cluster} blocks ({chosen.bx}x"
+                           f"{chosen.by} threads, {chosen.smem} bytes of shared memory) "
+                           f"cannot be scheduled on this device")
+    return chosen, active
 
 
 def derived_scalars(dx, dy, A, C, n, p, q, rho, g):

@@ -32,7 +32,9 @@ import numpy as np
 import torch
 
 from odinn_tpu_torch.ops.cuda.build import load_library
-from odinn_tpu_torch.ops.cuda.common import GLEN_EXPS, check_inputs, shared_exps, uses_glen
+from odinn_tpu_torch.ops.cuda.common import (
+    GLEN_EXPS, SMEM_PER_BLOCK, block_shape, check_inputs, pick_cluster, shared_exps,
+    uses_glen)
 from odinn_tpu_torch.ops.cuda.sia_kernel import (
     _rhs_math, _vjp_library, _vjp_scratch, sia2d_rhs_vjp, sia2d_rhs_vjp_reference)
 from odinn_tpu_torch.simulation.solver import _rkc2_coeffs
@@ -40,8 +42,6 @@ from odinn_tpu_torch.simulation.solver import _rkc2_coeffs
 __all__ = ["rkc_interval", "rkc_interval_reference", "rkc_fits", "check_rkc_shape",
            "rkc_layout", "rkc_plan", "stage_pullback", "stage_pullback_reference"]
 
-# per-block opt-in shared memory of an H100 (sm_90)
-_SMEM_PER_BLOCK = 232448
 # csrc/rkc_interval.cu: the cells a thread owns at most, the shared-memory
 # slabs, the cluster sizes
 _MAX_CELLS = 8
@@ -110,7 +110,7 @@ class RKCLayout(NamedTuple):
 
     @property
     def fits(self) -> bool:
-        return self.smem <= _SMEM_PER_BLOCK and self.cells <= _MAX_CELLS
+        return self.smem <= SMEM_PER_BLOCK and self.cells <= _MAX_CELLS
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,9 +121,7 @@ def rkc_layout(nx, ny, dtype, cluster) -> RKCLayout:
     slabs of rows + 2 rows of ny values (B and two stage buffers with their
     halo rows, and the corner diffusivities)."""
     rows = -(-nx // cluster)
-    by = min(rows, 16)
-    bx = 32 * max(1, min(-(-ny // 32), 16 // by))
-    cells = -(-ny // bx) * -(-rows // by)
+    bx, by, cells = block_shape(rows, ny)
     smem = _SLABS * (rows + 2) * ny * torch.empty((), dtype=dtype).element_size()
     return RKCLayout(cluster, rows, bx, by, cells, smem, cluster - -(-nx // rows))
 
@@ -143,7 +141,7 @@ def check_rkc_shape(nx, ny, dtype):
                          (rkc_layout(nx, ny, dtype, c) for c in _CLUSTERS))
         raise ValueError(
             f"rkc_interval: a {nx}x{ny} {dtype} plane needs {need}, above the limits of "
-            f"{_SMEM_PER_BLOCK} bytes and {_MAX_CELLS} cells; use the generic RKC stages "
+            f"{SMEM_PER_BLOCK} bytes and {_MAX_CELLS} cells; use the generic RKC stages "
             f"for this grid")
 
 
@@ -155,26 +153,13 @@ class RKCPlan(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def _plan(dtype, nx, ny, n_g, glen, device_index) -> RKCPlan:
     lib = _library()
+
+    def occupancy(c, lay, active):
+        return lib.rkc_interval_occupancy(int(dtype == torch.float64), int(glen), c, lay.bx,
+                                          lay.by, lay.smem, lay.cells, active)
+
     layouts = {c: rkc_layout(nx, ny, dtype, c) for c in _CLUSTERS}
-    active = {}
-    with torch.cuda.device(device_index):
-        for c, lay in layouts.items():
-            n = ctypes.c_int(0)
-            if lay.fits:
-                err = lib.rkc_interval_occupancy(int(dtype == torch.float64), int(glen), c,
-                                                 lay.bx, lay.by, lay.smem, lay.cells,
-                                                 ctypes.byref(n))
-                if err != 0:
-                    raise RuntimeError(f"rkc_interval: the occupancy query at {c} blocks "
-                                       f"failed with CUDA error {err}")
-            active[c] = n.value
-    big = layouts[16]
-    chosen = big if big.fits and (active[16] >= n_g or not layouts[8].fits) else layouts[8]
-    if active[chosen.cluster] == 0:
-        raise RuntimeError(f"rkc_interval: a cluster of {chosen.cluster} blocks "
-                           f"({chosen.bx}x{chosen.by} threads, {chosen.smem} bytes of shared "
-                           f"memory) cannot be scheduled on this device")
-    return RKCPlan(chosen, active)
+    return RKCPlan(*pick_cluster("rkc_interval", layouts, occupancy, n_g, device_index))
 
 
 def rkc_plan(n_g, nx, ny, dtype, exps=GLEN_EXPS, device=None) -> RKCPlan:

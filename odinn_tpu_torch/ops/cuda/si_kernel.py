@@ -1,6 +1,6 @@
 """Fused semi-implicit θ-step (A target, per-glacier scalar laws).
 
-``si_step`` launches the hand-written CUDA kernels of ``csrc/si_step.cu`` on
+``si_step`` launches the hand-written CUDA kernel of ``csrc/si_step.cu`` on
 a CUDA tensor and runs its plain PyTorch version, :func:`si_step_reference`,
 on a CPU tensor. It replaces the TPU kernel
 ``odinn_tpu.ops.pallas.si_kernel.si_step_pallas``: the frozen staggered
@@ -9,28 +9,45 @@ b = H + dt·M·∇·(D∇(B + ring·H + (1−θ)·M·H)), the Jacobi inverse dia
 ``cg_iters`` preconditioned-CG iterations from ``x0`` on
 A = I − θ·dt·M·∇·(D∇(M·)), and a final relu. M is the interior mask.
 
-On the card the step is two launches: an assembly kernel over the whole
-batch (D, b, inverse diagonal), then one thread block per glacier running
-the PCG recursion with its vectors in a global scratch buffer and
-deterministic block reductions for the dot products.
+On the card the step is one launch: one thread-block cluster of 8 or 16
+blocks per glacier (:func:`si_layout`, chosen by occupancy in
+:func:`si_plan`), with each thread's cells' CG state in registers, p in
+shared memory and the dot products summed across the cluster in a fixed
+order, the blocks' partials exchanged through distributed shared memory and
+counted on mbarriers. A plane whose layout fits no cluster takes the
+large-plane path, chosen by shape alone: an assembly kernel over the batch,
+then one block per glacier with the CG vectors in a global scratch buffer.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from odinn_tpu_torch.ops import si_math
 from odinn_tpu_torch.ops import stencils as st
 from odinn_tpu_torch.ops.cuda.build import load_library
-from odinn_tpu_torch.ops.cuda.common import check_inputs, pow_pos, shared_exps
+from odinn_tpu_torch.ops.cuda.common import (
+    GLEN_EXPS, SMEM_PER_BLOCK, block_shape, check_inputs, pick_cluster, pow_pos, shared_exps,
+    uses_glen)
 
-__all__ = ["si_step", "si_step_reference"]
+__all__ = ["si_step", "si_step_reference", "si_layout", "si_fits", "si_plan"]
 
-# planes of the kernel's scratch buffer: D, b, inv_diag, x, r, p, Ap
+# planes of the large-plane path's scratch buffer: D, b, inv_diag, x, r, p, Ap
 _N_SCRATCH = 7
+# csrc/si_step.cu's cluster kernel: the cells a thread owns at most, the
+# cluster sizes, and the shared memory a block holds besides its slab of
+# rows + 2 rows (two halo rows of z; 64 values: the blocks' partials of the
+# two dot products, two rounds of the warps' partials; two 8-byte mbarriers
+# ahead of them). The kernel has no static shared memory: this is all of it.
+_MAX_CELLS = 8
+_CLUSTERS = (8, 16)
+_EXTRA_ROWS = 2
+_EXTRA_VALUES = 64
+_BAR_BYTES = 16
 
 
 def _frozen_D_scalar(H_D, B, dx, dy, creep, slide, exps):
@@ -49,12 +66,90 @@ def _frozen_D_scalar(H_D, B, dx, dy, creep, slide, exps):
 def _library() -> ctypes.CDLL:
     """The built library, its entry points' signatures declared once."""
     lib = load_library("si_step")
-    for fn in (lib.si_step_f32, lib.si_step_f64):
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                       + [ctypes.c_double] * 2 + [ctypes.c_int] + [ctypes.c_double] * 4
+    for fn in (lib.si_step_cluster_f32, lib.si_step_cluster_f64):
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_double] * 2
+                       + [ctypes.c_int] * 2 + [ctypes.c_double] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    for fn in (lib.si_step_split_f32, lib.si_step_split_f64):
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                       + [ctypes.c_double] * 2 + [ctypes.c_int] * 2 + [ctypes.c_double] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.si_step_occupancy.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    lib.si_step_occupancy.restype = ctypes.c_int
     return lib
+
+
+class SILayout(NamedTuple):
+    """How the cluster kernel lays one glacier's (nx, ny) plane on a cluster."""
+
+    cluster: int      # blocks per glacier
+    rows: int         # rows a block owns: ⌈nx / cluster⌉
+    bx: int           # threads along ny (a multiple of 32)
+    by: int           # threads along rows
+    cells: int        # cells a thread owns
+    smem: int         # shared memory per block, bytes
+    idle_blocks: int  # blocks of the cluster that own no row
+
+    @property
+    def fits(self) -> bool:
+        return self.smem <= SMEM_PER_BLOCK and self.cells <= _MAX_CELLS
+
+
+@functools.lru_cache(maxsize=None)
+def si_layout(nx, ny, dtype, cluster) -> SILayout:
+    """The cluster kernel's layout at a cluster size: rows = ⌈nx/cluster⌉ a
+    block, the threads of :func:`~odinn_tpu_torch.ops.cuda.common.block_shape`,
+    and shared memory for two mbarriers, M·p over rows + 2 rows, two halo
+    rows of z and 64 values."""
+    rows = -(-nx // cluster)
+    bx, by, cells = block_shape(rows, ny)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    smem = _BAR_BYTES + ((rows + 2 + _EXTRA_ROWS) * ny + _EXTRA_VALUES) * itemsize
+    return SILayout(cluster, rows, bx, by, cells, smem, cluster - -(-nx // rows))
+
+
+def si_fits(nx, ny, dtype) -> bool:
+    """Whether one glacier's (nx, ny) plane of ``dtype`` takes the cluster
+    kernel (at some cluster size); any other plane takes the large-plane
+    path."""
+    return any(si_layout(nx, ny, dtype, c).fits for c in _CLUSTERS)
+
+
+class SIPlan(NamedTuple):
+    layout: Optional[SILayout]   # the chosen cluster layout; None: the large-plane path
+    max_active: dict             # cluster size -> cudaOccupancyMaxActiveClusters (0: no fit)
+
+    @property
+    def path(self) -> str:
+        return "large-plane" if self.layout is None else f"cluster of {self.layout.cluster}"
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(dtype, nx, ny, n_g, glen, device_index) -> SIPlan:
+    if not si_fits(nx, ny, dtype):
+        return SIPlan(None, {})
+    lib = _library()
+
+    def occupancy(c, lay, active):
+        return lib.si_step_occupancy(int(dtype == torch.float64), int(glen), c, lay.bx, lay.by,
+                                     lay.smem, lay.cells, active)
+
+    layouts = {c: si_layout(nx, ny, dtype, c) for c in _CLUSTERS}
+    return SIPlan(*pick_cluster("si_step", layouts, occupancy, n_g, device_index))
+
+
+def si_plan(n_g, nx, ny, dtype, exps=GLEN_EXPS, device=None) -> SIPlan:
+    """How a launch over n_g glaciers runs on a CUDA device. A plane that
+    fits a cluster (:func:`si_fits`) takes the cluster kernel, of 16 blocks
+    when the occupancy API says all n_g clusters of 16 are resident at once,
+    or when the plane fits only at 16, else of 8; a size that cannot be
+    scheduled raises. Any other plane takes the large-plane path. Cached per
+    (dtype, nx, ny, n_g, exponent path)."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _plan(dtype, nx, ny, n_g, uses_glen(exps), index)
 
 
 def si_step_reference(H, H_D, B, x0, scalars, dt, theta=1.0, cg_iters=6, exps=None):
@@ -90,7 +185,8 @@ def si_step(H, H_D, B, x0, scalars, dt, theta=1.0, cg_iters=6, exps=None):
     derived (n_g, 8) table; ``exps`` the batch's shared exponent set
     (n+2, n−1, p−q+1, p−1) as Python numbers, or None to read it from the
     table, which refuses a batch whose glaciers differ. A CUDA tensor
-    launches the kernels; a CPU tensor takes :func:`si_step_reference`.
+    launches the kernel (:func:`si_plan` picks the cluster kernel or the
+    large-plane path); a CPU tensor takes :func:`si_step_reference`.
     Refuses inputs that require grad: the step has no backward yet.
     """
     check_inputs("si_step", (H, H_D, B, x0), scalars, 8)
@@ -106,16 +202,31 @@ def si_step(H, H_D, B, x0, scalars, dt, theta=1.0, cg_iters=6, exps=None):
         return si_step_reference(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps)
     if H.device.type != "cuda":
         raise ValueError(f"si_step: no kernel for device {H.device}")
-    table = scalars[:, :4].to(H.dtype).contiguous()
-    work = torch.empty((_N_SCRATCH,) + tuple(H.shape), dtype=H.dtype, device=H.device)
-    out = torch.empty_like(H)
     n_g, nx, ny = H.shape
+    lay = si_plan(n_g, nx, ny, H.dtype, exps, H.device).layout
+    return _launch(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, lay)
+
+
+def _launch(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, lay):
+    """The step on the card with the cluster layout ``lay``, or on the
+    large-plane path when ``lay`` is None; counts the launch."""
+    n_g, nx, ny = H.shape
+    table = scalars[:, :4].to(H.dtype).contiguous()
+    out = torch.empty_like(H)
     lib = _library()
-    fn = lib.si_step_f32 if H.dtype == torch.float32 else lib.si_step_f64
-    err = fn(H.data_ptr(), H_D.data_ptr(), B.data_ptr(), x0.data_ptr(),
-             table.data_ptr(), work.data_ptr(), out.data_ptr(), n_g, nx, ny,
-             dt, theta, cg_iters, *exps,
-             torch.cuda.current_stream(H.device).cuda_stream)
+    f32 = H.dtype == torch.float32
+    stream = torch.cuda.current_stream(H.device).cuda_stream
+    planes = (H.data_ptr(), H_D.data_ptr(), B.data_ptr(), x0.data_ptr(), table.data_ptr())
+    if lay is not None:
+        fn = lib.si_step_cluster_f32 if f32 else lib.si_step_cluster_f64
+        err = fn(*planes, out.data_ptr(), n_g, nx, ny, dt, theta, cg_iters,
+                 int(uses_glen(exps)), *exps, lay.cluster, lay.bx, lay.by, lay.smem,
+                 lay.cells, stream)
+    else:
+        work = torch.empty((_N_SCRATCH,) + tuple(H.shape), dtype=H.dtype, device=H.device)
+        fn = lib.si_step_split_f32 if f32 else lib.si_step_split_f64
+        err = fn(*planes, work.data_ptr(), out.data_ptr(), n_g, nx, ny, dt, theta, cg_iters,
+                 int(uses_glen(exps)), *exps, stream)
     if err != 0:
         raise RuntimeError(f"si_step: kernel launch failed with CUDA error {err}")
     si_step.launches += 1

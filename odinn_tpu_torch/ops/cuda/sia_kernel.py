@@ -4,10 +4,11 @@ pullback.
 ``sia2d_rhs`` launches the hand-written CUDA kernel ``csrc/sia2d_rhs.cu`` on
 a CUDA tensor and runs its plain PyTorch version,
 :func:`sia2d_rhs_reference`, on a CPU tensor. The kernel replaces the TPU
-kernel ``odinn_tpu.ops.pallas.sia_kernel.sia2d_rhs_pallas``: one thread per
-cell reads its 3×3 neighbourhood of (H, B), forms the four staggered
-diffusivities around the cell, the η₀-clamped edge fluxes and the negated
-divergence, and writes dH/dt with a zero ring.
+kernel ``odinn_tpu.ops.pallas.sia_kernel.sia2d_rhs_pallas``: a block loads
+its tile of (relu(H), B + relu(H)) with a one-cell ring into shared memory,
+forms each staggered diffusivity of the tile once, then each cell its
+η₀-clamped edge fluxes and the negated divergence; dH/dt has a zero ring.
+Each glacier takes the fixed-exponent path when its set is (5, 2, 4, 2).
 
 ``sia2d_rhs`` is differentiable with the contract of the TPU kernel's
 ``_bwd``: cotangents for H and for the A column of the raw table; B and the

@@ -61,12 +61,22 @@ def test_derived_table_matches():
     assert_rel(_t_table(raw), _j_table(raw), 1e-14)
 
 
-@pytest.mark.parametrize("theta,hd_scale", [(1.0, 1.0), (0.5, 1.0), (0.5, 0.97), (1.0, 1.03)])
-def test_si_step_reference_matches_jax(theta, hd_scale):
+@pytest.mark.parametrize("theta,hd_scale,n", [(1.0, 1.0, 3.0), (0.5, 1.0, 3.0), (0.5, 0.97, 3.0),
+                                              (1.0, 1.03, 3.0), (1.0, 1.0, 4.0)],
+                         ids=["1.0-1.0", "0.5-1.0", "0.5-0.97", "1.0-1.03", "1.0-1.0-n4"])
+def test_si_step_reference_matches_jax(theta, hd_scale, n):
+    """n = 4 (exponents (6, 3, 4, 2), sliding on glacier 1) is the set the
+    kernel takes at run time (RuntimeExps); n = 3 its fixed-multiply set."""
     H, B, raw = _inputs()
+    if n != 3.0:
+        raw[:, 4] = n
+        raw[:, 2:4] /= RHO * G * 400.0   # D of the same size as at n = 3
     H_D, x0 = hd_scale * H, 0.99 * H
     jt, tt = _j_table(raw), _t_table(raw)
-    args_j = (jnp.asarray(H), jnp.asarray(H_D), jnp.asarray(B), jnp.asarray(x0), jt, DT, theta, 8)
+    exps = tuple(float(e) for e in np.asarray(jt[0, 4:8]))
+    assert (exps == (5.0, 2.0, 4.0, 2.0)) == (n == 3.0) and raw[1, 3] > 0.0
+    args_j = (jnp.asarray(H), jnp.asarray(H_D), jnp.asarray(B), jnp.asarray(x0), jt, DT, theta, 8,
+              exps)
     ref_j = j_si_ref(*args_j)
     pal_j = si_step_pallas(*args_j)
     t = torch.from_numpy
@@ -309,6 +319,84 @@ def test_rkc_layout_arithmetic(cluster):
         assert lay.fits == (cluster == 16 or not big)
     assert rkc_kernel.rkc_layout(256, 256, torch.float64, 8).smem > 232448
     assert rkc_kernel.rkc_layout(256, 256, torch.float32, 8).smem <= 232448
+
+
+# (nx, ny, dtype) -> (rows, bx, by, cells, smem bytes, blocks owning no row)
+# at each cluster size, from csrc/si_step.cu's layout: rows = ⌈nx/C⌉, the
+# threads of rkc_interval's layout, shared memory for two 8-byte mbarriers,
+# M·p over rows + 2 rows, two halo rows of z and 64 values; None: no fit
+# (too many cells)
+_SI_LAYOUTS = {
+    8: {(128, 128, torch.float32): (16, 32, 16, 4, 16 + (20 * 128 + 64) * 4, 0),
+        (128, 128, torch.float64): (16, 32, 16, 4, 16 + (20 * 128 + 64) * 8, 0),
+        (97, 131, torch.float32): (13, 32, 13, 5, 16 + (17 * 131 + 64) * 4, 0),
+        (10, 33, torch.float64): (2, 64, 2, 1, 16 + (6 * 33 + 64) * 8, 3),
+        (256, 256, torch.float64): None,
+        (300, 300, torch.float32): None},
+    16: {(128, 128, torch.float32): (8, 64, 8, 2, 16 + (12 * 128 + 64) * 4, 0),
+         (128, 128, torch.float64): (8, 64, 8, 2, 16 + (12 * 128 + 64) * 8, 0),
+         (97, 131, torch.float32): (7, 64, 7, 3, 16 + (11 * 131 + 64) * 4, 2),
+         (10, 33, torch.float64): (1, 64, 1, 1, 16 + (5 * 33 + 64) * 8, 6),
+         (256, 256, torch.float64): (16, 32, 16, 8, 16 + (20 * 256 + 64) * 8, 0),
+         (300, 300, torch.float32): None},
+}
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_si_layout_arithmetic(cluster):
+    """The SI cluster kernel's layout per cluster size (rows a block,
+    threads, cells a thread, shared memory, blocks that own no row) and
+    what fits; a plane that fits no cluster takes the large-plane path,
+    chosen by shape alone (no device is asked)."""
+    from odinn_tpu_torch.ops.cuda.build import SRC_DIR
+
+    # the mbarrier bytes the layout counts are those the kernel skips
+    source = (SRC_DIR / "si_step.cu").read_text()
+    assert f"constexpr int kBarBytes = {si_kernel._BAR_BYTES};" in source
+    for (nx, ny, dtype), want in _SI_LAYOUTS[cluster].items():
+        lay = si_kernel.si_layout(nx, ny, dtype, cluster)
+        assert lay.cluster == cluster and lay.bx % 32 == 0 and lay.bx * lay.by <= 512
+        assert lay.fits == (want is not None)
+        if want is not None:
+            assert (lay.rows, lay.bx, lay.by, lay.cells, lay.smem, lay.idle_blocks) == want
+            owners = cluster - lay.idle_blocks
+            assert (owners - 1) * lay.rows < nx <= owners * lay.rows
+        else:
+            assert lay.cells > 8
+    for nx, ny, dtype, fits in [(128, 128, torch.float32, True), (256, 256, torch.float64, True),
+                                (128, 512, torch.float32, True), (128, 520, torch.float32, False),
+                                (300, 300, torch.float32, False), (512, 256, torch.float64, False)]:
+        assert si_kernel.si_fits(nx, ny, dtype) == fits
+        if not fits:
+            plan = si_kernel.si_plan(2, nx, ny, dtype, device="cuda:0")
+            assert plan.layout is None and plan.path == "large-plane"
+
+
+def test_pick_cluster():
+    """The cluster choice the RKC and SI plans share, with the occupancy
+    query faked (device -1 selects no device): 16 blocks when all n_g
+    clusters of 16 are resident at once, or when the plane fits only at 16;
+    else 8; a choice that cannot be scheduled, or a failed query, raises."""
+    from odinn_tpu_torch.ops.cuda.common import pick_cluster
+
+    def occupancy(active, err=0):
+        def query(c, lay, n):
+            n._obj.value = active[c]
+            return err
+        return query
+
+    lay = {c: si_kernel.si_layout(128, 128, torch.float32, c) for c in (8, 16)}
+    resident = {8: 15, 16: 7}
+    assert pick_cluster("si_step", lay, occupancy(resident), 4, -1) == (lay[16], resident)
+    assert pick_cluster("si_step", lay, occupancy(resident), 16, -1)[0] == lay[8]
+    only16 = {c: si_kernel.si_layout(256, 256, torch.float64, c) for c in (8, 16)}
+    assert not only16[8].fits and only16[16].fits
+    assert pick_cluster("si_step", only16, occupancy(resident), 16, -1) == (only16[16],
+                                                                          {8: 0, 16: 7})
+    with pytest.raises(RuntimeError, match="cannot be scheduled"):
+        pick_cluster("si_step", lay, occupancy({8: 0, 16: 0}), 4, -1)
+    with pytest.raises(RuntimeError, match="occupancy query at 8 blocks failed"):
+        pick_cluster("rkc_interval", lay, occupancy(resident, err=1), 4, -1)
 
 
 def test_exponent_dispatch():
