@@ -10,19 +10,26 @@ Phases, each printed as one JSON line:
    source, all started together;
 3. kernel checks: each kernel against its plain PyTorch version on the card,
    at the main path's 4 x 128^2 and at a ragged 3 x 97 x 131 (the RKC and
-   pullback kernels also at 2 x 10 x 33, and ``rkc_interval`` at the
-   training's 16 x 128^2, s = 8), in float64 and float32 (``si_step`` in
+   pullback kernels also at 2 x 10 x 33; at the training's 16 x 128^2
+   ``rkc_interval`` at s = 8, and ``si_step``, its transpose-solve mode and
+   ``si_step_vjp`` at PCG-20 on 8-block clusters, the 16th glacier in a
+   second wave), in float64 and float32 (``si_step`` in
    float32 also on its increment out − H, at 6 and, at 4 x 128^2, 30 PCG
    iterations, with two launches on the same inputs bit-identical, and at
    2 x 300^2 on its large-plane path; ``rkc_interval`` at s = 8 and 25; the
    pullback also in its fused RKC-backward stage mode); the runtime-exponent
    paths (n = 4 with sliding for ``si_step``, ``sia2d_rhs`` and
    ``rkc_interval``; n = 3, 4 and 2.5 in one batch for ``sia2d_rhs`` and the
-   pullback); the two autograd Functions' gradients (kernel forward,
-   pullback kernel backward) against autograd through the plain versions in
-   float64; ``si_step`` refusing an
-   input that requires grad; the RKC and SI kernels' cluster size and
-   occupancy at 4 and 16 glaciers;
+   pullback); at each ``si_step`` check also its forward's pre-relu output,
+   its transpose-solve mode and the ``si_step_vjp`` pullback kernel against
+   their plain versions on the same inputs, each with a bitwise repeat; the
+   three autograd Functions' gradients (kernel forward, kernel backward)
+   against their plain backwards in float64 (``si_step`` at PCG-6 and 20,
+   theta = 1 and 1/2, on its large-plane path, and at the SI training's
+   16 x 128^2, PCG-20, in two waves) and in float32 within
+   2x the float32 plain version's own error, with a bitwise repeat of the
+   backward; the RKC and SI kernels' cluster size and occupancy at 4 and 16
+   glaciers;
 4. main path: the forward prediction of 4 Halfar glaciers, 128^2, float32,
    5 years with monthly saves and monthly mass balance, Cuffey–Paterson A(T),
    n = 3, for the rows SI (PCG-6), SI2 (PCG-6), compensated SSPRK3 at 3
@@ -32,19 +39,22 @@ Phases, each printed as one JSON line:
    the row on the unfused path; it is timed with CUDA events, and its
    kernel launches are counted by name by the profiler (a main-path
    ``si_step`` is one ``si_step_cluster`` launch);
-5. training: ``run_inversion`` (Adam then LBFGS) of A = NN(T) on 16 Halfar
-   glaciers, 128^2, float32, 2 years of monthly Cuffey–Paterson ground
-   truth, through the RKC solve, with the launch counters set to 0 just
-   before and read just after; the time of one Adam epoch (forward,
-   gradient, update) by CUDA events, its device idle share and its count
-   of device kernel launches from the profiler;
+5. training, twice: ``run_inversion`` (Adam then LBFGS) of A = NN(T) on 16
+   Halfar glaciers, 128^2, float32, 2 years of monthly Cuffey–Paterson
+   ground truth, through the RKC solve and then through the SI solve at
+   PCG-20 (``benchmarks/perf_tpu.py``'s UDE epoch), with the launch
+   counters set to 0 just before and read just after each; the time of one
+   Adam epoch (forward, gradient, update) by CUDA events, its device idle
+   share and its count of device kernel launches from the profiler;
 6. the ``kernels`` line: per kernel, what it replaces, its launches on the
    main path, its time, its plain version's time and its bound, with the
    same at the main path's other shapes under ``more`` (``si_step`` at 30
-   PCG iterations, and on its large-plane path at 4 x 128^2 and
-   2 x 300^2; ``rkc_interval`` at 16 x 128^2, s = 8; the pullback's fused
-   RKC-backward stage). The ``kernel_times`` line before it also times a
-   one-element PyTorch fill, the card's single-launch floor.
+   PCG iterations, at the SI training's 16 x 128^2, PCG-20 beside 15
+   glaciers, its transpose-solve mode, and on its large-plane path at
+   4 x 128^2 and 2 x 300^2; ``rkc_interval`` at 16 x 128^2, s = 8; each
+   pullback at its other shape and the fused RKC-backward stage). The
+   ``kernel_times`` line before it also times a one-element PyTorch fill,
+   the card's single-launch floor.
 
 Any failed check raises, so the exit code is not 0. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits with
@@ -109,9 +119,10 @@ TOL_GRAD_F64 = 1e-9
 # plain version's own error.
 GRAD_F32_FACTOR = 2.0
 RKC_STAGES = 25                    # the RKC row's stages (benchmarks/perf_tpu.py)
+SI_TRAIN_CG = 20                   # the SI training's PCG iterations (benchmarks/perf_tpu.py)
 # si_step's device kernels: the cluster kernel, the large-plane path's two
 SI_KERNELS = ("si_step_cluster", "si_assemble", "si_pcg")
-PROFILES = 3                       # profiles of an SI row at most (main_path_rows)
+PROFILES = 3                       # profiles of an SI row or a kernel at most (complete_profile)
 N_TRAIN = 16                       # glaciers of the training phase
 TRAIN_TSPAN = (5.0, 7.0)           # 24 monthly intervals
 
@@ -167,6 +178,20 @@ def device_profile(fn, reps: int, names=None):
             short = re.sub(r"\(.*\)$", "", e.key.split("<")[0]).split("::")[-1].strip()
             by_name[short] = by_name.get(short, 0) + e.count / reps
     return total_us / reps / 1e3, count / reps, by_name
+
+
+def complete_profile(fn, reps: int, names, complete):
+    """device_profile of ``fn``, taken again while ``complete`` says its
+    launches by name are short, at most PROFILES times in all: the profiler
+    can lose a device record (on an H100 it once counted 29 of 50 launches
+    of a kernel, and 59 of an SI row's 60 si_step_cluster launches) but
+    never adds one. Returns device_profile's three values and the number of
+    profiles taken."""
+    for attempt in range(1, PROFILES + 1):
+        got = device_profile(fn, reps, names)
+        if complete(got[2]):
+            break
+    return got + (attempt,)
 
 
 def device_ms(fn, reps: int, names=None) -> float:
@@ -244,6 +269,28 @@ def si_bound(n_g, nx, ny, itemsize, cg_iters):
     return nbytes, ops
 
 
+# si_step's transpose-solve mode: si_bound's count with g = gbar*[x > 0]
+# (1 a cell) in place of the final relu, and neither u nor b (15 an
+# interior cell); gbar, x, H_D and B read once, lambda written once.
+def si_transpose_bound(n_g, nx, ny, itemsize, cg_iters):
+    cells, corners, inner = n_g * nx * ny, n_g * (nx - 1) * (ny - 1), n_g * (nx - 2) * (ny - 2)
+    nbytes = 5 * cells * itemsize + n_g * 8 * 8
+    ops = 3 * cells + 32 * corners + 17 * inner + 16 * cells + 23 * cells * cg_iters
+    return nbytes, ops
+
+
+# si_step_vjp: per cell relu(H_D), S, u and w (7); per corner its
+# diffusivity (32), the four face products and D-bar (24), the two
+# partials, Q, PX, PY and the creep and slide terms (24); per cell the
+# four corners' Q, PX and PY (12), the faces and L_D(w) (21) and the three
+# outputs (6). lambda, H, H_D, B and x read once, dH, dH_D and dB written
+# once, and the two per-glacier sums.
+def si_vjp_bound(n_g, nx, ny, itemsize):
+    cells, corners = n_g * nx * ny, n_g * (nx - 1) * (ny - 1)
+    nbytes = 8 * cells * itemsize + n_g * 8 * 8 + 2 * n_g * itemsize
+    return nbytes, 46 * cells + 80 * corners
+
+
 # rkc_interval: per stage the fused RHS of every cell (as sia_bound counts
 # it) and the stage combination (5 multiplies, 4 adds a cell); H and B are
 # read once and H' written once for all s stages.
@@ -280,7 +327,8 @@ def bound_ms(nbytes, ops, dtype):
 def ptxas_entry(mangled: str) -> str:
     """A kernel instance's name from its mangled symbol, with its template
     arguments as tags: float32/float64, Glen (fixed exponents) or runtime
-    exponents, the cells a thread owns (K), the pullback's stage mode."""
+    exponents, the cells a thread owns (K), the pullback's stage mode or
+    the SI kernels' transpose-solve mode."""
     i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else len(mangled)
     name = mangled
     while i < len(mangled) and mangled[i].isdigit():
@@ -295,7 +343,8 @@ def ptxas_entry(mangled: str) -> str:
         cells = re.search(r"Li(\d+)E", rest)
         mode = re.search(r"Lb(\d)E", rest)
         tags += [f"K={cells.group(1)}"] if cells else []
-        tags += [("stage" if mode.group(1) == "1" else "pullback")] if mode else []
+        modes = ("transpose", "forward") if name.startswith("si_") else ("stage", "pullback")
+        tags += [modes[0] if mode.group(1) == "1" else modes[1]] if mode else []
     return name + ("<" + ",".join(tags) + ">" if tags else "")
 
 
@@ -348,11 +397,15 @@ def check_kernels():
         check_rkc_and_vjp(H, B, derived, (2, 10, 33), dtype,
                           TOL_F64 if dtype == torch.float64 else TOL_F32)
         check_si(H, B, derived, (2, 10, 33), dtype, cg_iters=(6,))
-    # the training's shape: 16 glaciers, s = 8
+    # the training's shape: 16 glaciers, s = 8 for rkc_interval; PCG-20
+    # for si_step, its transpose-solve mode and si_step_vjp, where 8-block
+    # clusters leave the 16th glacier to a second wave
     for dtype in (torch.float64, torch.float32):
         H, B, raw = kernel_inputs(N_TRAIN, NX, NY, dtype, seed=46)
         derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
         check_rkc(H, B, derived, (N_TRAIN, NX, NY), dtype, (8,))
+        check_second_wave(dtype)
+        check_si(H, B, derived, (N_TRAIN, NX, NY), dtype, cg_iters=(SI_TRAIN_CG,))
     # the runtime-exponent paths: Glen n = 4 for rkc_interval (one set a
     # launch), n = 3, 4 and 2.5 in one batch for the pullback
     for dtype in (torch.float64, torch.float32):
@@ -381,11 +434,24 @@ def check_kernels():
             raise AssertionError(f"sia2d_rhs_vjp disagrees with its plain version: {row}")
 
 
+def check_second_wave(dtype):
+    """Raises unless si_step's plan at the SI training's 16 x 128^2 is
+    8-block clusters with fewer resident at once than glaciers, so that a
+    check there runs the second-wave path."""
+    from odinn_tpu_torch.ops.cuda import si_kernel
+
+    plan = si_kernel.si_plan(N_TRAIN, NX, NY, dtype)
+    if plan.layout is None or plan.layout.cluster != 8 or plan.max_active[8] >= N_TRAIN:
+        raise AssertionError(f"si_step at {N_TRAIN} x {NX}^2 {dtype}: expected 8-block "
+                             f"clusters in two waves, got {plan}")
+
+
 def check_si(H, B, derived, shape, dtype, cg_iters, tag=""):
     """si_step against its plain version on the card (theta = 1 with
     H_D = H; theta = 0.5 with H_D != H), at each PCG iteration count, with
     the exponent set of the table; float32 also on the increment out - H.
-    Then two launches on the same inputs must agree bit for bit."""
+    Then two launches on the same inputs must agree bit for bit. The
+    backward's two kernels likewise (:func:`check_si_backward`)."""
     from odinn_tpu_torch.ops.cuda import si_kernel
     from odinn_tpu_torch.ops.cuda.common import shared_exps
 
@@ -394,12 +460,11 @@ def check_si(H, B, derived, shape, dtype, cg_iters, tag=""):
     path = si_kernel.si_plan(shape[0], shape[1], shape[2], dtype, exps).path
     for it in cg_iters:
         cases = {
-            f"si_step{tag} theta=1 H_D=H cg_iters={it}":
-                lambda f: f(H, H, B, H, derived, DT, 1.0, it, exps),
-            f"si_step{tag} theta=0.5 H_D!=H cg_iters={it}":
-                lambda f: f(H, 0.97 * H, B, 0.99 * H, derived, DT, 0.5, it, exps),
+            f"si_step{tag} theta=1 H_D=H cg_iters={it}": (H, H, H, 1.0),
+            f"si_step{tag} theta=0.5 H_D!=H cg_iters={it}": (H, 0.97 * H, 0.99 * H, 0.5),
         }
-        for name, call in cases.items():
+        for name, (Hc, H_D, x0, theta) in cases.items():
+            call = lambda f: f(Hc, H_D, B, x0, derived, DT, theta, it, exps)
             out = call(si_kernel.si_step)
             again = call(si_kernel.si_step)
             ref = call(si_kernel.si_step_reference)
@@ -418,6 +483,55 @@ def check_si(H, B, derived, shape, dtype, cg_iters, tag=""):
             if not (torch.isfinite(out).all() and ok):
                 raise AssertionError(f"{name} disagrees with its plain version or with "
                                      f"itself: {row}")
+            check_si_backward(Hc, H_D, B, x0, derived, DT, theta, it, exps, name, shape, dtype)
+
+
+def check_si_backward(H, H_D, B, x0, derived, dt, theta, it, exps, name, shape, dtype):
+    """The forward's pre-relu output x (kept under grad), the transpose-solve
+    mode and the si_step_vjp pullback kernel against their plain versions
+    on the same inputs (the transpose at the plain x, the pullback at the
+    plain lambda, so a relu tie cannot differ), each with a bitwise repeat
+    of its launch. Tolerances as for the forward, each relative to
+    max|reference|; in float32 the per-glacier sums d(creep) and d(slide),
+    which cancel digits over the corners, pass also within GRAD_F32_FACTOR
+    times the float32 plain version's own error against float64."""
+    from odinn_tpu_torch.ops.cuda import si_kernel
+
+    tol = TOL_F64 if dtype == torch.float64 else TOL_F32
+    gbar = torch.randn(shape, generator=torch.Generator().manual_seed(sum(shape) + it),
+                       dtype=torch.float64).to("cuda", dtype)
+    _, x = si_kernel._forward(H, H_D, B, x0, derived, dt, theta, it, exps, keep_x=True)
+    x_ref = si_kernel._si_solve_reference(H, H_D, B, x0, derived, dt, theta, it, exps)
+    lam_args = (gbar, x_ref, H_D, B, derived, dt, theta, it, exps)
+    lam = si_kernel.si_step_transpose(*lam_args)
+    lam_again = si_kernel.si_step_transpose(*lam_args)
+    lam_ref = si_kernel.si_step_transpose_reference(*lam_args)
+    vjp_args = (lam_ref, H, H_D, B, x_ref, derived, dt, theta, exps)
+    got = si_kernel.si_step_vjp(*vjp_args)
+    again = si_kernel.si_step_vjp(*vjp_args)
+    want = si_kernel.si_step_vjp_reference(*vjp_args)
+    torch.cuda.synchronize()
+    names = ("dH", "dH_D", "dB", "dcreep", "dslide")
+    errs = {"x": rel_err(x, x_ref), "lambda": rel_err(lam, lam_ref)}
+    errs.update({k: rel_err(a, b) for k, a, b in zip(names, got, want)})
+    ok = {k: e <= tol for k, e in errs.items()}
+    repeat = {"lambda": bool(torch.equal(lam, lam_again)),
+              "vjp": all(torch.equal(a, b) for a, b in zip(got, again))}
+    row = {"phase": "check", "kernel": f"{name} backward kernels", "shape": list(shape),
+           "dtype": str(dtype), "rel_err": errs, "tol": tol, "bitwise_repeat": repeat}
+    if dtype == torch.float32:
+        want64 = si_kernel.si_step_vjp_reference(*(t.double() for t in vjp_args[:5]),
+                                                 derived.double(), dt, theta, exps)
+        row["vs_f64_plain"] = {}
+        for k, a, b, c in zip(names[3:], got[3:], want[3:], want64[3:]):
+            e_k, e_p = rel_err(a, c), rel_err(b, c)
+            row["vs_f64_plain"][k] = {"kernel": e_k, "f32_plain": e_p}
+            ok[k] = ok[k] or e_k <= GRAD_F32_FACTOR * e_p
+    emit(row)
+    finite = all(torch.isfinite(t).all() for t in (x, lam) + tuple(got))
+    if not (finite and all(ok.values()) and all(repeat.values())):
+        raise AssertionError(f"{name}: the backward's kernels disagree with their plain "
+                             f"versions or with themselves: {row}")
 
 
 def check_rhs(H, B, raw, name, shape, dtype):
@@ -533,9 +647,10 @@ def cluster_report():
 def check_gradients():
     """The autograd Functions on the card (kernel forward, pullback kernel
     backward) against autograd through the plain versions, float64, at the
-    main path's shape; and si_step refusing an input that requires grad."""
+    main path's shape; the RKC Function also in float32; then si_step's
+    (:func:`check_si_gradients`)."""
     from odinn_tpu_torch.core.params import PhysicalParameters
-    from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
+    from odinn_tpu_torch.ops.cuda import rkc_kernel, sia_kernel
     from odinn_tpu_torch.ops.cuda.common import derived_scalars
 
     PHYS = PhysicalParameters()
@@ -593,22 +708,99 @@ def check_gradients():
             and row["d_table_col2_rel_err"]
             <= GRAD_F32_FACTOR * row["f32_plain_d_table_col2_rel_err"]):
         raise AssertionError(f"rkc_interval float32 gradient disagrees: {row}")
-    refused = False
-    try:
-        si_kernel.si_step(H.clone().requires_grad_(True), H, B, H, derived, DT)
-    except RuntimeError as err:
-        refused = "SI-adjoint" in str(err)
-    emit({"phase": "check_grad", "function": "si_step", "refuses_grad": refused})
-    if not refused:
-        raise AssertionError("si_step accepted an input that requires grad")
+    check_si_gradients(H, B, derived, lam)
+
+
+def si_grads(H, H_D, B, x0, table, gbar, theta, it, kernel):
+    """(dH, dH_D, dB, d(creep), d(slide)) of si_step at ``gbar``: through
+    its autograd Function (kernel forward, transpose mode and pullback
+    kernel) or by autograd through its plain version, si_step_reference."""
+    from odinn_tpu_torch.ops.cuda import si_kernel
+
+    step = si_kernel.si_step if kernel else si_kernel.si_step_reference
+    leaves = [t.clone().requires_grad_(True) for t in (H, H_D, B, table)]
+    g = torch.autograd.grad(step(*leaves[:3], x0, leaves[3], DT, theta, it), leaves, gbar)
+    return tuple(g[:3]) + (g[3][:, 2], g[3][:, 3])
+
+
+def check_si_gradients(H, B, derived, gbar):
+    """si_step's gradient on the card (the Function: kernel forward,
+    transpose-solve mode, pullback kernel) against its plain backward on
+    the same card: float64 at 4 x 128^2, PCG-6 and 20, theta = 1 (H_D a
+    separate copy of H) and theta = 1/2 with H_D != H, to TOL_GRAD_F64 on
+    dH, dH_D, dB and the creep and slide columns, with a bitwise repeat of
+    the backward; the same on the large-plane path at 2 x 300^2 and at the
+    SI training's 16 x 128^2, PCG-20, theta = 1 (8-block clusters, the 16th
+    in a second wave); float32
+    (PCG-20, theta = 1/2) within GRAD_F32_FACTOR times the float32 plain
+    backward's own error against float64."""
+    from odinn_tpu_torch.core.params import PhysicalParameters
+    from odinn_tpu_torch.ops.cuda import si_kernel
+    from odinn_tpu_torch.ops.cuda.common import derived_scalars
+
+    PHYS = PhysicalParameters()
+    names = ("dH", "dH_D", "dB", "d_table_col2", "d_table_col3")
+    Hl, Bl, rawl = kernel_inputs(2, 300, 300, torch.float64, seed=14)
+    derived_l = derived_scalars(*(rawl[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+    gbar_l = torch.randn(Hl.shape, generator=torch.Generator().manual_seed(15),
+                         dtype=torch.float64).to("cuda")
+    cases = [((N_G, NX, NY), H, B, derived, gbar, it, theta)
+             for it in (6, SI_TRAIN_CG) for theta in (1.0, 0.5)]
+    cases.append(((2, 300, 300), Hl, Bl, derived_l, gbar_l, 6, 0.5))
+    check_second_wave(torch.float64)
+    Ht, Bt, rawt = kernel_inputs(N_TRAIN, NX, NY, torch.float64, seed=17)
+    derived_t = derived_scalars(*(rawt[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+    gbar_t = torch.randn(Ht.shape, generator=torch.Generator().manual_seed(18),
+                         dtype=torch.float64).to("cuda")
+    cases.append(((N_TRAIN, NX, NY), Ht, Bt, derived_t, gbar_t, SI_TRAIN_CG, 1.0))
+    for shape, Hc, Bc, table, gb, it, theta in cases:
+        H_D, x0 = (Hc.clone(), Hc) if theta == 1.0 else (0.97 * Hc, 0.99 * Hc)
+        gk = si_grads(Hc, H_D, Bc, x0, table, gb, theta, it, True)
+        again = si_grads(Hc, H_D, Bc, x0, table, gb, theta, it, True)
+        gp = si_grads(Hc, H_D, Bc, x0, table, gb, theta, it, False)
+        torch.cuda.synchronize()
+        row = {"phase": "check_grad", "function": f"si_step cg_iters={it} theta={theta}",
+               "shape": list(shape), "path": si_kernel.si_plan(*shape, torch.float64).path,
+               "dtype": "torch.float64",
+               "rel_err": {k: rel_err(a, b) for k, a, b in zip(names, gk, gp)},
+               "tol": TOL_GRAD_F64,
+               "bitwise_repeat": all(torch.equal(a, b) for a, b in zip(gk, again))}
+        emit(row)
+        if not (all(e <= TOL_GRAD_F64 for e in row["rel_err"].values())
+                and row["bitwise_repeat"] and all(torch.isfinite(t).all() for t in gk)):
+            raise AssertionError(f"si_step: gradient disagrees with its plain backward or "
+                                 f"with itself: {row}")
+    # the training dtype: float32 kernels against the float64 plain gradient
+    H_D, x0 = 0.97 * H, 0.99 * H
+    args = (H, H_D, B, x0, derived, gbar, 0.5, SI_TRAIN_CG)
+    as32 = tuple(t.float() for t in args[:4]) + (derived, gbar.float()) + args[6:]
+    gk = si_grads(*as32, True)
+    again = si_grads(*as32, True)
+    gp32 = si_grads(*as32, False)
+    gp = si_grads(*args, False)
+    torch.cuda.synchronize()
+    row = {"phase": "check_grad", "function": f"si_step cg_iters={SI_TRAIN_CG} theta=0.5",
+           "dtype": "torch.float32 vs float64 plain",
+           "rel_err": {k: rel_err(a, b) for k, a, b in zip(names, gk, gp)},
+           "f32_plain_rel_err": {k: rel_err(a, b) for k, a, b in zip(names, gp32, gp)},
+           "factor": GRAD_F32_FACTOR,
+           "bitwise_repeat": all(torch.equal(a, b) for a, b in zip(gk, again))}
+    emit(row)
+    if not (row["bitwise_repeat"] and all(
+            row["rel_err"][k] <= GRAD_F32_FACTOR * row["f32_plain_rel_err"][k] for k in names)):
+        raise AssertionError(f"si_step float32 gradient disagrees: {row}")
 
 
 def time_kernels():
     """Kernel and plain-version times at the main path's shapes (float32):
     4 x 128^2 for si_step, sia2d_rhs and rkc_interval (s = 25, the RKC
-    row), 16 x 128^2 for sia2d_rhs_vjp (the training phase); besides, under
-    ``more``, rkc_interval at 16 x 128^2, s = 8 (the training's launches)
-    and the pullback's fused RKC-backward stage at 16 x 128^2."""
+    row), 16 x 128^2 for sia2d_rhs_vjp and si_step_vjp (the training
+    phases); besides, under ``more``, rkc_interval at 16 x 128^2, s = 8
+    (the RKC training's launches), the pullback's fused RKC-backward stage
+    at 16 x 128^2, si_step and its transpose-solve mode at 4 x 128^2 and at
+    the SI training's 16 x 128^2, PCG-20, and at 15 glaciers, which 8-block
+    clusters hold resident at once (16 run a second wave), and si_step_vjp
+    at 4 x 128^2."""
     from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
     from odinn_tpu_torch.ops.cuda.common import derived_scalars
     from odinn_tpu_torch.core.params import PhysicalParameters
@@ -632,6 +824,18 @@ def time_kernels():
     # bound, device kernel names, plain-version repetitions)
     Hl, Bl, rawl = kernel_inputs(2, 300, 300, f32, seed=13)
     derived_l = derived_scalars(*(rawl[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+    # the SI backward's inputs: the forward's pre-relu x and the transpose
+    # solve's lambda (plain versions), at 4 and 16 glaciers, theta = 1
+    gbar = torch.randn(H.shape, generator=torch.Generator().manual_seed(16)).to("cuda")
+    x4 = si_kernel._si_solve_reference(H, H, B, H, derived, DT, 1.0, 6, exps)
+    lam4 = si_kernel.si_step_transpose_reference(gbar, x4, H, B, derived, DT, 1.0, 6, exps)
+    it_t = SI_TRAIN_CG
+    xt = si_kernel._si_solve_reference(Ht, Ht, Bt, Ht, derived_t, DT, 1.0, it_t, exps)
+    lamt = si_kernel.si_step_transpose_reference(lam, xt, Ht, Bt, derived_t, DT, 1.0, it_t,
+                                                 exps)
+    n15 = N_TRAIN - 1
+    H15, B15, x15, lam15 = (t[:n15].contiguous() for t in (Ht, Bt, xt, lam))
+    derived_15 = derived_t[:n15].contiguous()
     entries = {
         "si_step": ("si_step", lambda f: lambda: f(H, H, B, H, derived, DT, 1.0, 6, exps),
                     si_kernel.si_step, si_kernel.si_step_reference,
@@ -651,6 +855,34 @@ def time_kernels():
             "si_step", lambda f: lambda: f(Hl, Hl, Bl, Hl, derived_l, DT, 1.0, 6, exps),
             si_kernel.si_step, si_kernel.si_step_reference,
             si_bound(2, 300, 300, 4, 6), SI_KERNELS, 10),
+        f"si_step transpose {N_G}x{NX}x{NY} cg_iters=6": (
+            "si_step", lambda f: lambda: f(gbar, x4, H, B, derived, DT, 1.0, 6, exps),
+            si_kernel.si_step_transpose, si_kernel.si_step_transpose_reference,
+            si_transpose_bound(N_G, NX, NY, 4, 6), SI_KERNELS, 50),
+        f"si_step {N_TRAIN}x{NX}x{NY} cg_iters={it_t}": (
+            "si_step", lambda f: lambda: f(Ht, Ht, Bt, Ht, derived_t, DT, 1.0, it_t, exps),
+            si_kernel.si_step, si_kernel.si_step_reference,
+            si_bound(N_TRAIN, NX, NY, 4, it_t), SI_KERNELS, 10),
+        f"si_step transpose {N_TRAIN}x{NX}x{NY} cg_iters={it_t}": (
+            "si_step", lambda f: lambda: f(lam, xt, Ht, Bt, derived_t, DT, 1.0, it_t, exps),
+            si_kernel.si_step_transpose, si_kernel.si_step_transpose_reference,
+            si_transpose_bound(N_TRAIN, NX, NY, 4, it_t), SI_KERNELS, 10),
+        f"si_step {n15}x{NX}x{NY} cg_iters={it_t}": (
+            "si_step", lambda f: lambda: f(H15, H15, B15, H15, derived_15, DT, 1.0, it_t, exps),
+            si_kernel.si_step, si_kernel.si_step_reference,
+            si_bound(n15, NX, NY, 4, it_t), SI_KERNELS, 10),
+        f"si_step transpose {n15}x{NX}x{NY} cg_iters={it_t}": (
+            "si_step", lambda f: lambda: f(lam15, x15, H15, B15, derived_15, DT, 1.0, it_t, exps),
+            si_kernel.si_step_transpose, si_kernel.si_step_transpose_reference,
+            si_transpose_bound(n15, NX, NY, 4, it_t), SI_KERNELS, 10),
+        "si_step_vjp": ("si_step_vjp",
+                        lambda f: lambda: f(lamt, Ht, Ht, Bt, xt, derived_t, DT, 1.0, exps),
+                        si_kernel.si_step_vjp, si_kernel.si_step_vjp_reference,
+                        si_vjp_bound(N_TRAIN, NX, NY, 4), ("si_step_vjp_kernel",), 50),
+        f"si_step_vjp {N_G}x{NX}x{NY}": (
+            "si_step_vjp", lambda f: lambda: f(lam4, H, H, B, x4, derived, DT, 1.0, exps),
+            si_kernel.si_step_vjp, si_kernel.si_step_vjp_reference,
+            si_vjp_bound(N_G, NX, NY, 4), ("si_step_vjp_kernel",), 50),
         "sia2d_rhs": ("sia2d_rhs", lambda f: lambda: f(H, B, raw, PHYS.rho, PHYS.g, PHYS.eta0),
                       sia_kernel.sia2d_rhs, sia_kernel.sia2d_rhs_reference,
                       sia_bound(N_G, NX, NY, 4), ("sia2d_rhs_kernel",), 50),
@@ -680,7 +912,10 @@ def time_kernels():
             out, ref = out[0], ref[0]
         torch.cuda.synchronize()
         b_ms, b_by = bound_ms(*bound, f32)
-        k_ms, _, by_name = device_profile(call(kern), 50, kernel_names)
+        # every call launches each of its device kernels once
+        k_ms, _, by_name, attempt = complete_profile(
+            call(kern), 50, kernel_names,
+            lambda seen: bool(seen) and all(n == 1.0 for n in seen.values()))
         t = timing[name] = {
             "kernel": kernel,
             # the kernel's own device time (and its device launches per call
@@ -688,12 +923,14 @@ def time_kernels():
             # elapsed time per call on the stream
             "ms": k_ms,
             "device_kernels": by_name,
+            "profiles": attempt,
             "ms_source": "profiler device time",
             "call_ms": cuda_ms(call(kern), 200),
             "plain_ms": cuda_ms(call(plain), plain_reps),
             "plain_device_ms": device_ms(call(plain), max(2, plain_reps // 2)),
         }
-        if t["ms"] == 0.0:   # no device time from the profiler
+        if not (by_name and all(n == 1.0 for n in by_name.values())):
+            # no complete device record from the profiler
             t.update(ms=t["call_ms"], ms_source="cuda events per call")
         t.update({
             "max_abs_err": float((out.double() - ref.double()).abs().max()),
@@ -714,6 +951,15 @@ def time_kernels():
 # Main path
 # ---------------------------------------------------------------------------
 
+def kernel_counters():
+    """Each kernel wrapper by name; its ``launches`` counts its launches."""
+    from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
+
+    return {"si_step": si_kernel.si_step, "si_step_transpose": si_kernel.si_step_transpose,
+            "si_step_vjp": si_kernel.si_step_vjp, "sia2d_rhs": sia_kernel.sia2d_rhs,
+            "rkc_interval": rkc_kernel.rkc_interval, "sia2d_rhs_vjp": sia_kernel.sia2d_rhs_vjp}
+
+
 def main_path_rows():
     """Phase 4: the forward prediction rows, through the kernels. Returns
     each kernel's launches summed over the rows."""
@@ -723,7 +969,6 @@ def main_path_rows():
     from odinn_tpu_torch.data.synthetic import halfar_glacier, monthly_dummy_climate
     from odinn_tpu_torch.laws.laws import CuffeyPaterson
     from odinn_tpu_torch.models.model import Model, SIA2DModel
-    from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
     from odinn_tpu_torch.physics.mass_balance import TImodel1
     from odinn_tpu_torch.simulation.prediction import Prediction, forward_batch, run_prediction
     from odinn_tpu_torch.simulation.solver import build_tstops
@@ -741,7 +986,7 @@ def main_path_rows():
     # launches per row: one si_step per SI step, two per SI2 step, one
     # sia2d_rhs per SSPRK3 stage (3 stages x 3 substeps), one rkc_interval
     # per RKC step: 60, 120, 540 and 60
-    none = {"si_step": 0, "sia2d_rhs": 0, "rkc_interval": 0, "sia2d_rhs_vjp": 0}
+    none = {name: 0 for name in kernel_counters()}
     rows = {
         "SI": (make_params(substeps=1, solver="SI", cg_iters=6),
                dict(none, si_step=n_int)),
@@ -772,9 +1017,7 @@ def main_path_rows():
                                            n_value=3.0), mass_balance=TImodel1())
     batch32 = stack_glaciers(glaciers(torch.float32), device="cuda")
     batch64 = stack_glaciers(glaciers(torch.float64), device="cuda")
-    counters = {"si_step": si_kernel.si_step, "sia2d_rhs": sia_kernel.sia2d_rhs,
-                "rkc_interval": rkc_kernel.rkc_interval,
-                "sia2d_rhs_vjp": sia_kernel.sia2d_rhs_vjp}
+    counters = kernel_counters()
     launches = {name: 0 for name in counters}
     for name, (params, expected) in rows.items():
         for fn in counters.values():
@@ -794,9 +1037,8 @@ def main_path_rows():
         plain32 = forward_batch(None, batch32, plain_model, params, tstops, device="cuda")
         plain64 = forward_batch(None, batch64, plain_model, params, tstops, device="cuda")
         torch.cuda.synchronize()
-        for fn in counters.values():
-            if fn.launches != counted[fn.__name__]:
-                raise AssertionError(f"{name}: the plain runs launched a kernel")
+        if {k: fn.launches for k, fn in counters.items()} != counted:
+            raise AssertionError(f"{name}: the plain runs launched a kernel")
         err_kernel = rel_err(H[:, -1], plain64[:, -1])
         err_plain = rel_err(plain32[:, -1], plain64[:, -1])
         row = {
@@ -810,20 +1052,15 @@ def main_path_rows():
             "device_busy_ms": device_ms(
                 lambda: forward_batch(None, batch32, model, params, tstops, device="cuda"), 1),
         }
-        # a main-path si_step is one launch of the cluster kernel. The
-        # profiler can lose a device record (it once counted 59 of an SI
-        # row's 60 si_step_cluster launches on an H100) but never adds one:
-        # a row whose profile shows only si_step_cluster, and fewer of them
-        # than steps, is profiled again, at most PROFILES times in all.
+        # a main-path si_step is one launch of the cluster kernel: a row
+        # whose profile shows only si_step_cluster, and fewer of them than
+        # steps, has lost records
         want = {"si_step_cluster": expected["si_step"]} if expected["si_step"] else None
-        for attempt in range(1, PROFILES + 1):
-            row["kernel_device_ms"], _, row["kernel_launches_by_name"] = device_profile(
-                lambda: forward_batch(None, batch32, model, params, tstops, device="cuda"), 1,
-                SI_KERNELS + ("sia2d_rhs_kernel", "rkc_interval_kernel"))
-            seen = row["kernel_launches_by_name"]
-            if want is None or seen == want or set(seen) != {"si_step_cluster"} or \
-                    seen["si_step_cluster"] > expected["si_step"]:
-                break
+        row["kernel_device_ms"], _, row["kernel_launches_by_name"], attempt = complete_profile(
+            lambda: forward_batch(None, batch32, model, params, tstops, device="cuda"), 1,
+            SI_KERNELS + ("sia2d_rhs_kernel", "rkc_interval_kernel"),
+            lambda seen: not (want and set(seen) == set(want)
+                              and seen["si_step_cluster"] < want["si_step_cluster"]))
         row["profiles"] = attempt
         row["device_idle_share"] = 1.0 - row["device_busy_ms"] / row["ms"]
         emit(row)
@@ -838,11 +1075,13 @@ def main_path_rows():
     return launches
 
 
-def training_problem():
-    """The training phase's problem at the width of benchmarks/perf_tpu.py's
+def training_problem(solver):
+    """A training phase's problem at the width of benchmarks/perf_tpu.py's
     UDE epoch: 16 Halfar glaciers, 128^2, float32, 2 years of monthly
-    Cuffey–Paterson ground truth, A = NN(T) through the RKC solve. Returns
-    (inversion, model, params, tstops, facts)."""
+    Cuffey–Paterson ground truth, A = NN(T), through the RKC solve (s from
+    rkc_stages_for) or, as that epoch does, the SI solve at PCG-20; the
+    ground truth through the same solve. Returns (inversion, model, params,
+    tstops, facts)."""
     from odinn_tpu_torch.core.params import (
         Hyperparameters, Parameters, PhysicalParameters, SimulationParameters,
         SolverParameters, UDEParameters)
@@ -865,11 +1104,13 @@ def training_problem():
     a_truth = float(poly_A_paterson_cuffey()(torch.from_numpy(temps)).max())
     stages = rkc_stages_for(DX, DX, h_max, max(phys.max_A, a_truth), n=3.0, rho=phys.rho,
                             g=phys.g, step=1.0 / 12.0)
+    solver_kw = (dict(solver="RKC", rkc_stages=stages) if solver == "RKC"
+                 else dict(solver=solver, cg_iters=SI_TRAIN_CG))
     params = Parameters(
         physical=phys,
         simulation=SimulationParameters(tspan=TRAIN_TSPAN, use_MB=False, use_velocities=False,
                                         float_dtype="float32"),
-        solver=SolverParameters(step=1.0 / 12.0, substeps=1, solver="RKC", rkc_stages=stages),
+        solver=SolverParameters(step=1.0 / 12.0, substeps=1, **solver_kw),
         hyper=Hyperparameters(optimizer=("adam", "lbfgs"), learning_rate=(0.05, 1.0),
                               epochs=(5, 3), batch_size=N_TRAIN),
         UDE=UDEParameters(grad="jax"),
@@ -884,8 +1125,9 @@ def training_problem():
     model = Model(iceflow=SIA2DModel(A=LawA(NeuralNetwork(default_architecture(1)), params),
                                      n_value=3.0))
     inv = Inversion(model=model, glaciers=truth, parameters=params, device="cuda")
-    facts = {"rkc_stages": stages, "h_max": h_max, "a_for_stages": max(phys.max_A, a_truth),
-             "ground_truth_s": truth_s}
+    facts = ({"rkc_stages": stages, "h_max": h_max, "a_for_stages": max(phys.max_A, a_truth)}
+             if solver == "RKC" else {"cg_iters": SI_TRAIN_CG})
+    facts["ground_truth_s"] = truth_s
     return inv, model, params, tstops, facts
 
 
@@ -923,18 +1165,15 @@ def epoch_profile(adam_epoch):
                                                          key=lambda kv: -kv[1]))}
 
 
-def training_phase():
-    """Phase 5: run_inversion of A = NN(T) through the RKC solve on
-    :func:`training_problem`, then one Adam epoch profiled. Returns each
+def training_phase(solver):
+    """Phase 5: run_inversion of A = NN(T) through the RKC or the SI solve
+    on :func:`training_problem`, then one Adam epoch profiled. Returns each
     kernel's launches in the run."""
-    from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
     from odinn_tpu_torch.simulation.inversion import run_inversion
 
-    inv, model, params, tstops, facts = training_problem()
-    n_int, stages = len(tstops) - 1, facts["rkc_stages"]
-    counters = {"si_step": si_kernel.si_step, "sia2d_rhs": sia_kernel.sia2d_rhs,
-                "rkc_interval": rkc_kernel.rkc_interval,
-                "sia2d_rhs_vjp": sia_kernel.sia2d_rhs_vjp}
+    inv, model, params, tstops, facts = training_problem(solver)
+    n_int = len(tstops) - 1
+    counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -944,14 +1183,23 @@ def training_phase():
     launches = {k: fn.launches for k, fn in counters.items()}
     stats = results.stats
     losses = stats.losses
-    # every forward solve is one rkc_interval per interval, and every
-    # backward rematerialises each interval's stages with one more; each
-    # backward interval pulls back s - 1 stages and f0: s sia2d_rhs_vjp
-    expected = {"si_step": 0, "sia2d_rhs": 0,
-                "rkc_interval": n_int * (stats.solves + stats.gradients),
-                "sia2d_rhs_vjp": n_int * stages * stats.gradients}
+    expected = {name: 0 for name in counters}
+    if solver == "RKC":
+        # every forward solve is one rkc_interval per interval, and every
+        # backward rematerialises each interval's stages with one more; each
+        # backward interval pulls back s - 1 stages and f0: s sia2d_rhs_vjp
+        expected.update(rkc_interval=n_int * (stats.solves + stats.gradients),
+                        sia2d_rhs_vjp=n_int * facts["rkc_stages"] * stats.gradients)
+    else:
+        # every forward solve is one si_step per interval; every backward
+        # one transpose solve and one pullback per interval, nothing
+        # rematerialised
+        expected.update(si_step=n_int * stats.solves,
+                        si_step_transpose=n_int * stats.gradients,
+                        si_step_vjp=n_int * stats.gradients)
     row = dict({
-        "phase": "training", "glaciers": N_TRAIN, "grid": [NX, NY], "dtype": "torch.float32",
+        "phase": "training", "solver": solver, "glaciers": N_TRAIN, "grid": [NX, NY],
+        "dtype": "torch.float32",
         "intervals": n_int, "run_inversion_s": train_s, "losses": losses,
         "final_loss": stats.final_loss, "solves": stats.solves, "gradients": stats.gradients,
         "launches": launches, "expected_launches": expected,
@@ -959,9 +1207,9 @@ def training_phase():
     }, **facts, **epoch_profile(adam_epoch_fn(inv, model, params, tstops)))
     emit(row)
     if launches != expected:
-        raise AssertionError(f"training: launches {launches}, expected {expected}")
+        raise AssertionError(f"training {solver}: launches {launches}, expected {expected}")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-        raise AssertionError(f"training: losses not finite or not decreasing: {losses}")
+        raise AssertionError(f"training {solver}: losses not finite or not decreasing: {losses}")
     return launches
 
 
@@ -991,8 +1239,9 @@ def main() -> int:
     cluster_report()
     timing = time_kernels()
     launches = main_path_rows()
-    for name, n in training_phase().items():
-        launches[name] += n
+    for solver in ("RKC", "SI"):
+        for name, n in training_phase(solver).items():
+            launches[name] += n
     meta = {
         "si_step": ("odinn_tpu_torch/csrc/si_step.cu", "odinn_tpu/ops/pallas/si_kernel.py:174"),
         "sia2d_rhs": ("odinn_tpu_torch/csrc/sia2d_rhs.cu", "odinn_tpu/ops/pallas/sia_kernel.py:137"),
@@ -1002,6 +1251,11 @@ def main() -> int:
         # rkc_interval_pallas's backward
         "sia2d_rhs_vjp": ("odinn_tpu_torch/csrc/sia2d_rhs_vjp.cu",
                           "odinn_tpu/ops/pallas/sia_kernel.py:195"),
+        # the backward of si_step_pallas (_fwd/_bwd), under the production
+        # step's implicit-function contract; its transpose solve is
+        # si_step.cu's transpose mode, under si_step's "more"
+        "si_step_vjp": ("odinn_tpu_torch/csrc/si_step_vjp.cu",
+                        "odinn_tpu/ops/pallas/si_kernel.py:222"),
     }
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "ms_source", "call_ms",
             "plain_device_ms")
@@ -1012,7 +1266,8 @@ def main() -> int:
          "library_ms": None, "ms_source": t["ms_source"], "call_ms": t["call_ms"],
          "plain_device_ms": t["plain_device_ms"],
          "more": [dict({"at": other}, **{k: o[k] for k in keys})
-                  for other, o in timing.items() if other != name and o["kernel"] == name]}
+                  for other, o in timing.items() if other != name and o["kernel"] == name],
+         **({"transpose_launches": launches["si_step_transpose"]} if name == "si_step" else {})}
         for name, t in timing.items() if name == t["kernel"]
     ]})
     print(smi, flush=True)

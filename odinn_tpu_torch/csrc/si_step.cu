@@ -1,5 +1,6 @@
 // Fused semi-implicit theta-step: frozen diffusivity, right-hand side,
-// Jacobi preconditioner and a fixed number of PCG iterations, then relu.
+// Jacobi preconditioner and a fixed number of PCG iterations, then relu; and,
+// as a second mode of the same kernels, the transpose solve of its backward.
 //
 // Replaces the TPU kernel odinn_tpu/ops/pallas/si_kernel.py::si_step_pallas
 // (pallas_call in _forward), which ran the whole step for one glacier in one
@@ -63,6 +64,18 @@
 //  tiny); 1/dx and 1/dy are formed once, and the exponent set (5, 2, 4, 2)
 //  is a specialisation with fixed multiplies (GlenExps), any other set
 //  takes pow_pos at run time (RuntimeExps).
+//
+// The transpose-solve mode (template flag kT; ops/cuda/si_kernel.py::
+// si_step_transpose, plain version si_step_transpose_reference) is the first
+// half of the step's implicit-function adjoint, the gradient JAX gives
+// odinn_tpu/simulation/implicit.py::semi_implicit_step through
+// lax.custom_linear_solve: lambda = PCG(A, g) from the guess g, with
+// g = gbar*[x > 0] formed in the kernel from the output cotangent gbar and
+// the forward's pre-relu solution x (read where the forward reads H and x0).
+// A and the Jacobi preconditioner are symmetric, so it is the forward's
+// recursion on another right-hand side: the same assembly of D at H_D, the
+// faces and the inverse diagonal, the same rounds of the same exchange, and
+// lambda written without relu. Under grad the forward also writes x (xout).
 //
 // The large-plane path (si_assemble + si_pcg), for planes whose layout does
 // not fit a cluster (more than 8 cells a thread or 227 KB of shared memory
@@ -139,11 +152,13 @@ __device__ __forceinline__ T corner_at(const T* __restrict__ HD, const T* __rest
 
 // K: the cells a thread owns at most (2, 4 or 8; si_layout's cells,
 // rounded up).
-template <typename T, class E, int K>
+// kT: the transpose-solve mode (H is gbar, x0 the forward's x).
+template <typename T, class E, int K, bool kT>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 si_step_cluster(const T* __restrict__ H, const T* __restrict__ HD, const T* __restrict__ B,
                 const T* __restrict__ x0, const T* __restrict__ table, T* __restrict__ out,
-                int nx, int ny, T dt, T coef, T one_minus_theta, int cg_iters, E e) {
+                T* __restrict__ xout, int nx, int ny, T dt, T coef, T one_minus_theta,
+                int cg_iters, E e) {
   cg::cluster_group cluster = cg::this_cluster();
   // dynamic shared memory, as si_layout counts it: the two mbarriers (of
   // the p.Ap and of the r.z rounds), then the T arrays below
@@ -238,6 +253,9 @@ si_step_cluster(const T* __restrict__ H, const T* __restrict__ HD, const T* __re
   }
   __syncthreads();
 
+  // the guess at device index gg: x0, or g = gbar*[x > 0] in the transpose
+  // mode, which is also its right-hand side
+  auto guess = [&](long gg) { return kT ? (x0[gg] > T(0) ? H[gg] : T(0)) : x0[gg]; };
   // faces, b, the inverse diagonal, r0 = b - A x0, z0 = r0/diag, p0 = z0
   T x[K], r[K], p[K], inv[K], fxe[K], fxw[K], fyn[K], fys[K];
   T acc = T(0);
@@ -248,10 +266,10 @@ si_step_cluster(const T* __restrict__ H, const T* __restrict__ HD, const T* __re
     if (sidx[q] < 0) continue;
     const int s = sidx[q], f = flags[q];
     const long g = gbase + s;
-    const T xc = x0[g];
+    const T xc = guess(g);
     T b, ax;
     if (f & kRing) {
-      b = H[g];
+      b = kT ? xc : H[g];
       ax = xc;
     } else {
       const T d00 = P[s - ny - 1], d01 = P[s - ny], d10 = P[s - 1], d11 = P[s];
@@ -259,19 +277,23 @@ si_step_cluster(const T* __restrict__ H, const T* __restrict__ HD, const T* __re
       fxw[q] = T(0.5) * (d00 + d01);
       fyn[q] = T(0.5) * (d01 + d11);
       fys[q] = T(0.5) * (d00 + d10);
-      // u = B + ring*H + (1-theta)*M*H on the 5 points
-      auto u = [&](long gg, bool in) {
-        return in ? B[gg] + one_minus_theta * H[gg] : B[gg] + H[gg];
-      };
-      const T div_b = div_faces(fxe[q], fxw[q], fyn[q], fys[q], u(g, true),
-                                u(g + ny, f & kInXp), u(g - ny, f & kInXm),
-                                u(g + 1, f & kInYp), u(g - 1, f & kInYm), k.inv_dx, k.inv_dy);
-      b = H[g] + dt * div_b;
+      if (kT) {
+        b = xc;
+      } else {
+        // u = B + ring*H + (1-theta)*M*H on the 5 points
+        auto u = [&](long gg, bool in) {
+          return in ? B[gg] + one_minus_theta * H[gg] : B[gg] + H[gg];
+        };
+        const T div_b = div_faces(fxe[q], fxw[q], fyn[q], fys[q], u(g, true),
+                                  u(g + ny, f & kInXp), u(g - ny, f & kInXm),
+                                  u(g + 1, f & kInYp), u(g - 1, f & kInYm), k.inv_dx, k.inv_dy);
+        b = H[g] + dt * div_b;
+      }
       const T sx = (fxw[q] + fxe[q]) * (k.inv_dx * k.inv_dx);
       const T sy = (fys[q] + fyn[q]) * (k.inv_dy * k.inv_dy);
       inv[q] = T(1) / (T(1) + coef * (sx + sy));
       // M x0 on the 5 points
-      auto m = [&](long gg, bool in) { return in ? x0[gg] : T(0); };
+      auto m = [&](long gg, bool in) { return in ? guess(gg) : T(0); };
       const T div_x = div_faces(fxe[q], fxw[q], fyn[q], fys[q], xc, m(g + ny, f & kInXp),
                                 m(g - ny, f & kInXm), m(g + 1, f & kInYp),
                                 m(g - 1, f & kInYm), k.inv_dx, k.inv_dy);
@@ -364,7 +386,9 @@ si_step_cluster(const T* __restrict__ H, const T* __restrict__ HD, const T* __re
   }
 #pragma unroll
   for (int q = 0; q < K; ++q) {
-    if (sidx[q] >= 0) out[gbase + sidx[q]] = relu(x[q]);
+    if (sidx[q] < 0) continue;
+    out[gbase + sidx[q]] = kT ? x[q] : relu(x[q]);
+    if (!kT && xout != nullptr) xout[gbase + sidx[q]] = x[q];
   }
   // every store into this block's shared memory has landed before its last
   // wait returned, so a block may leave without waiting for its neighbours
@@ -373,7 +397,7 @@ si_step_cluster(const T* __restrict__ H, const T* __restrict__ HD, const T* __re
 // Once per instantiation: all the opt-in shared memory as dynamic (the
 // kernel has no static shared memory), and the non-portable cluster size
 // of 16.
-template <typename T, class E, int K>
+template <typename T, class E, int K, bool kT>
 int prepare() {
   static int state = -1;
   if (state < 0) {
@@ -382,10 +406,10 @@ int prepare() {
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(si_step_cluster<T, E, K>,
+      err = cudaFuncSetAttribute(si_step_cluster<T, E, K, kT>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(si_step_cluster<T, E, K>,
+      err = cudaFuncSetAttribute(si_step_cluster<T, E, K, kT>,
                                  cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return static_cast<int>(err);
     state = 0;
@@ -412,26 +436,33 @@ cudaLaunchConfig_t config(const Shape& sh, cudaLaunchAttribute* attr, cudaStream
   return cfg;
 }
 
+// In the transpose mode H is gbar and x0 the forward's x (see above).
 template <typename T>
 struct StepArgs {
   const T *H, *HD, *B, *x0, *table;
-  T* out;
-  int nx, ny, cg_iters;
+  T *out, *xout;
+  int nx, ny, cg_iters, transpose;
   double dt, theta;
 };
 
-template <typename T, class E, int K>
-int launch_k(const StepArgs<T>& a, E e, const Shape& sh, void* stream) {
-  const int ready = prepare<T, E, K>();
+template <typename T, class E, int K, bool kT>
+int launch_mode(const StepArgs<T>& a, E e, const Shape& sh, void* stream) {
+  const int ready = prepare<T, E, K, kT>();
   if (ready != 0) return ready;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = config(sh, &attr, static_cast<cudaStream_t>(stream));
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, si_step_cluster<T, E, K>, a.H, a.HD, a.B, a.x0, a.table, a.out, a.nx, a.ny,
-      static_cast<T>(a.dt), static_cast<T>(a.theta * a.dt), static_cast<T>(1.0 - a.theta),
-      a.cg_iters, e);
+      &cfg, si_step_cluster<T, E, K, kT>, a.H, a.HD, a.B, a.x0, a.table, a.out, a.xout, a.nx,
+      a.ny, static_cast<T>(a.dt), static_cast<T>(a.theta * a.dt),
+      static_cast<T>(1.0 - a.theta), a.cg_iters, e);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, class E, int K>
+int launch_k(const StepArgs<T>& a, E e, const Shape& sh, void* stream) {
+  return a.transpose ? launch_mode<T, E, K, true>(a, e, sh, stream)
+                     : launch_mode<T, E, K, false>(a, e, sh, stream);
 }
 
 template <typename T, class E>
@@ -451,16 +482,17 @@ int with_exps(int glen, double e_hc, double e_sc, double e_hs, double e_ss, F&& 
                                static_cast<T>(e_hs), static_cast<T>(e_ss)});
 }
 
+// The forward's instance; the transpose mode launches at the same layout.
 template <typename T, class E, int K>
 int occupancy_k(const Shape& sh, int* active) {
-  const int ready = prepare<T, E, K>();
+  const int ready = prepare<T, E, K, false>();
   if (ready != 0) return ready;
   cudaLaunchAttribute attr;
   Shape one = sh;
   one.n_g = 1;
   const cudaLaunchConfig_t cfg = config(one, &attr, nullptr);
   return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(active, si_step_cluster<T, E, K>, &cfg));
+      cudaOccupancyMaxActiveClusters(active, si_step_cluster<T, E, K, false>, &cfg));
 }
 
 template <typename T, class E>
@@ -504,11 +536,13 @@ __device__ __forceinline__ Faces<T> faces(const T* __restrict__ D, int ny, int i
 
 // One thread per cell: its own corner D(i, j) into the corner plane, when
 // it has one, and b and the inverse diagonal. An interior cell forms its
-// three other corners itself, as no barrier spans the grid.
-template <typename T, class E>
+// three other corners itself, as no barrier spans the grid. In the transpose
+// mode (kT) H is gbar, X the forward's x, and b = gbar*[x > 0], which
+// si_pcg also takes as its guess.
+template <typename T, class E, bool kT>
 __global__ void __launch_bounds__(256)
 si_assemble(const T* __restrict__ H, const T* __restrict__ HD,
-            const T* __restrict__ B, const T* __restrict__ table,
+            const T* __restrict__ B, const T* __restrict__ X, const T* __restrict__ table,
             T* __restrict__ work, int n_g, int nx, int ny, T dt, T dt_eff,
             T one_minus_theta, E e) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
@@ -529,8 +563,9 @@ si_assemble(const T* __restrict__ H, const T* __restrict__ HD,
   const bool own_corner = i < nx - 1 && j < ny - 1;
   const T d11 = own_corner ? corner_at(HD, B, g, ny, k, e) : T(0);
   if (own_corner) D[c] = d11;
+  const T gc = kT ? (X[g] > T(0) ? h[c] : T(0)) : T(0);
   if (i == 0 || j == 0 || i == nx - 1 || j == ny - 1) {
-    rhs[c] = h[c];
+    rhs[c] = kT ? gc : h[c];
     inv_diag[c] = T(1);
     return;
   }
@@ -544,9 +579,13 @@ si_assemble(const T* __restrict__ H, const T* __restrict__ HD,
     const bool in = ii > 0 && jj > 0 && ii < nx - 1 && jj < ny - 1;
     return in ? b[cc] + one_minus_theta * h[cc] : b[cc] + h[cc];
   };
-  const T div = div_faces(f.xe, f.xw, f.yn, f.ys, u(0, 0), u(1, 0), u(-1, 0), u(0, 1),
-                          u(0, -1), k.inv_dx, k.inv_dy);
-  rhs[c] = h[c] + dt * div;
+  if (kT) {
+    rhs[c] = gc;
+  } else {
+    const T div = div_faces(f.xe, f.xw, f.yn, f.ys, u(0, 0), u(1, 0), u(-1, 0), u(0, 1),
+                            u(0, -1), k.inv_dx, k.inv_dy);
+    rhs[c] = h[c] + dt * div;
+  }
   const T sx = (f.xw + f.xe) * (k.inv_dx * k.inv_dx);
   const T sy = (f.ys + f.yn) * (k.inv_dy * k.inv_dy);
   inv_diag[c] = T(1) / (T(1) + dt_eff * (sx + sy));
@@ -591,10 +630,13 @@ __device__ __forceinline__ T matvec(const T* __restrict__ u,
   return u[c] - coef * div;
 }
 
-template <typename T>
+// kT: the transpose mode, which writes x without relu; xout, when given,
+// receives the pre-relu x of the forward.
+template <typename T, bool kT>
 __global__ void __launch_bounds__(kPcgThreads)
 si_pcg(const T* __restrict__ x0, const T* __restrict__ table, T* work,
-       T* __restrict__ out, int n_g, int nx, int ny, T coef, int cg_iters) {
+       T* __restrict__ out, T* __restrict__ xout, int n_g, int nx, int ny, T coef,
+       int cg_iters) {
   __shared__ T sh[kPcgThreads / 32 + 1];
   const long plane = static_cast<long>(nx) * ny;
   const long batch = plane * n_g;
@@ -658,29 +700,41 @@ si_pcg(const T* __restrict__ x0, const T* __restrict__ table, T* work,
     rz = rz_new;
     __syncthreads();   // the next matvec reads the neighbours' p
   }
-  FOR_OWN_CELLS({ out[off + c] = relu(x[c]); })
+  FOR_OWN_CELLS({
+    out[off + c] = kT ? x[c] : relu(x[c]);
+    if (!kT && xout != nullptr) xout[off + c] = x[c];
+  })
 #undef FOR_OWN_CELLS
+}
+
+template <typename T, class E, bool kT>
+int launch_split_mode(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 block(32, 8);
+  const dim3 grid((a.ny + block.x - 1) / block.x, (a.nx + block.y - 1) / block.y, n_g);
+  si_assemble<T, E, kT><<<grid, block, 0, s>>>(
+      a.H, a.HD, a.B, a.x0, a.table, work, n_g, a.nx, a.ny, static_cast<T>(a.dt),
+      static_cast<T>(a.theta * a.dt), static_cast<T>(1.0 - a.theta), e);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the transpose mode's guess is its right-hand side, the assembled b
+  const T* guess = kT ? work + static_cast<long>(kRhs) * n_g * a.nx * a.ny : a.x0;
+  si_pcg<T, kT><<<n_g, kPcgThreads, 0, s>>>(guess, a.table, work, a.out, a.xout, n_g, a.nx,
+                                            a.ny, static_cast<T>(a.theta * a.dt), a.cg_iters);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, class E>
 int launch_split(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(32, 8);
-  const dim3 grid((a.ny + block.x - 1) / block.x, (a.nx + block.y - 1) / block.y, n_g);
-  si_assemble<T, E><<<grid, block, 0, s>>>(
-      a.H, a.HD, a.B, a.table, work, n_g, a.nx, a.ny, static_cast<T>(a.dt),
-      static_cast<T>(a.theta * a.dt), static_cast<T>(1.0 - a.theta), e);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  si_pcg<T><<<n_g, kPcgThreads, 0, s>>>(a.x0, a.table, work, a.out, n_g, a.nx, a.ny,
-                                        static_cast<T>(a.theta * a.dt), a.cg_iters);
-  return static_cast<int>(cudaGetLastError());
+  return a.transpose ? launch_split_mode<T, E, true>(a, e, work, n_g, stream)
+                     : launch_split_mode<T, E, false>(a, e, work, n_g, stream);
 }
 
 template <typename T>
 StepArgs<T> step_args(const T* H, const T* HD, const T* B, const T* x0, const T* table,
-                      T* out, int nx, int ny, double dt, double theta, int cg_iters) {
-  return StepArgs<T>{H, HD, B, x0, table, out, nx, ny, cg_iters, dt, theta};
+                      T* out, T* xout, int nx, int ny, double dt, double theta, int cg_iters,
+                      int transpose) {
+  return StepArgs<T>{H, HD, B, x0, table, out, xout, nx, ny, cg_iters, transpose, dt, theta};
 }
 
 }  // namespace
@@ -688,13 +742,17 @@ StepArgs<T> step_args(const T* H, const T* HD, const T* B, const T* x0, const T*
 // The cluster kernel. `glen` != 0 takes the (5, 2, 4, 2) specialisation and
 // ignores e_*; `cluster`, `bx`, `by`, `smem` and `cells` are the wrapper's
 // layout (si_layout). `table` is the (n_g, 4) table (dx, dy, creep, slide).
+// `xout` (may be null) receives the pre-relu solution; `transpose` != 0 runs
+// the transpose-solve mode, with gbar in H and the forward's x in x0.
 extern "C" int si_step_cluster_f32(const float* H, const float* HD, const float* B,
-                                   const float* x0, const float* table, float* out, int n_g,
-                                   int nx, int ny, double dt, double theta, int cg_iters,
-                                   int glen, double e_hc, double e_sc, double e_hs,
-                                   double e_ss, int cluster, int bx, int by, int smem,
-                                   int cells, void* stream) {
-  const StepArgs<float> a = step_args(H, HD, B, x0, table, out, nx, ny, dt, theta, cg_iters);
+                                   const float* x0, const float* table, float* out,
+                                   float* xout, int n_g, int nx, int ny, double dt,
+                                   double theta, int cg_iters, int transpose, int glen,
+                                   double e_hc, double e_sc, double e_hs, double e_ss,
+                                   int cluster, int bx, int by, int smem, int cells,
+                                   void* stream) {
+  const StepArgs<float> a =
+      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, transpose);
   const Shape sh{n_g, cluster, bx, by, smem, cells};
   return with_exps<float>(glen, e_hc, e_sc, e_hs, e_ss,
                           [&](auto e) { return launch_cells<float>(a, e, sh, stream); });
@@ -702,11 +760,13 @@ extern "C" int si_step_cluster_f32(const float* H, const float* HD, const float*
 
 extern "C" int si_step_cluster_f64(const double* H, const double* HD, const double* B,
                                    const double* x0, const double* table, double* out,
-                                   int n_g, int nx, int ny, double dt, double theta,
-                                   int cg_iters, int glen, double e_hc, double e_sc,
-                                   double e_hs, double e_ss, int cluster, int bx, int by,
-                                   int smem, int cells, void* stream) {
-  const StepArgs<double> a = step_args(H, HD, B, x0, table, out, nx, ny, dt, theta, cg_iters);
+                                   double* xout, int n_g, int nx, int ny, double dt,
+                                   double theta, int cg_iters, int transpose, int glen,
+                                   double e_hc, double e_sc, double e_hs, double e_ss,
+                                   int cluster, int bx, int by, int smem, int cells,
+                                   void* stream) {
+  const StepArgs<double> a =
+      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, transpose);
   const Shape sh{n_g, cluster, bx, by, smem, cells};
   return with_exps<double>(glen, e_hc, e_sc, e_hs, e_ss,
                            [&](auto e) { return launch_cells<double>(a, e, sh, stream); });
@@ -726,24 +786,27 @@ extern "C" int si_step_occupancy(int f64, int glen, int cluster, int bx, int by,
                           [&](auto e) { return occupancy<float, decltype(e)>(sh, active); });
 }
 
-// The large-plane path; `work` holds 7 planes of the batch's shape. `glen`
-// and e_* as for the cluster kernel.
+// The large-plane path; `work` holds 7 planes of the batch's shape. `xout`,
+// `transpose`, `glen` and e_* as for the cluster kernel.
 extern "C" int si_step_split_f32(const float* H, const float* HD, const float* B,
                                  const float* x0, const float* table, float* work, float* out,
-                                 int n_g, int nx, int ny, double dt, double theta,
-                                 int cg_iters, int glen, double e_hc, double e_sc, double e_hs,
-                                 double e_ss, void* stream) {
-  const StepArgs<float> a = step_args(H, HD, B, x0, table, out, nx, ny, dt, theta, cg_iters);
+                                 float* xout, int n_g, int nx, int ny, double dt, double theta,
+                                 int cg_iters, int transpose, int glen, double e_hc,
+                                 double e_sc, double e_hs, double e_ss, void* stream) {
+  const StepArgs<float> a =
+      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, transpose);
   return with_exps<float>(glen, e_hc, e_sc, e_hs, e_ss,
                           [&](auto e) { return launch_split<float>(a, e, work, n_g, stream); });
 }
 
 extern "C" int si_step_split_f64(const double* H, const double* HD, const double* B,
                                  const double* x0, const double* table, double* work,
-                                 double* out, int n_g, int nx, int ny, double dt, double theta,
-                                 int cg_iters, int glen, double e_hc, double e_sc, double e_hs,
-                                 double e_ss, void* stream) {
-  const StepArgs<double> a = step_args(H, HD, B, x0, table, out, nx, ny, dt, theta, cg_iters);
+                                 double* out, double* xout, int n_g, int nx, int ny, double dt,
+                                 double theta, int cg_iters, int transpose, int glen,
+                                 double e_hc, double e_sc, double e_hs, double e_ss,
+                                 void* stream) {
+  const StepArgs<double> a =
+      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, transpose);
   return with_exps<double>(glen, e_hc, e_sc, e_hs, e_ss,
                            [&](auto e) { return launch_split<double>(a, e, work, n_g, stream); });
 }

@@ -10,7 +10,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 __all__ = ["derived_scalars", "pow_pos", "shared_exps", "check_inputs", "GLEN_EXPS",
-           "uses_glen", "block_shape", "pick_cluster", "SMEM_PER_BLOCK"]
+           "uses_glen", "block_shape", "pick_cluster", "ticket_buffers", "SMEM_PER_BLOCK"]
 
 # The exponent set (n+2, n−1, p−q+1, p−1) of n = 3, p = 3, q = 0: the
 # kernels' compile-time specialisation (GlenExps in csrc/sia_common.cuh).
@@ -56,6 +56,20 @@ def pick_cluster(name, layouts, occupancy, n_g, device_index):
                            f"{chosen.by} threads, {chosen.smem} bytes of shared memory) "
                            f"cannot be scheduled on this device")
     return chosen, active
+
+
+def ticket_buffers(cache, device, dtype, n_partials, n_g):
+    """(partials, counters) of a pullback kernel's per-glacier sums:
+    ``n_partials`` values for the blocks' partials and ``n_g`` ticket
+    counters, kept in ``cache`` per (device, dtype) and grown when too
+    small. The counters are zeroed once and every launch leaves them zero;
+    launches on one stream use them in turn."""
+    buf = cache.get((device, dtype))
+    if buf is None or buf[0].numel() < n_partials or buf[1].numel() < n_g:
+        buf = (torch.empty(n_partials, dtype=dtype, device=device),
+               torch.zeros(n_g, dtype=torch.int32, device=device))
+        cache[(device, dtype)] = buf
+    return buf
 
 
 def derived_scalars(dx, dy, A, C, n, p, q, rho, g):

@@ -17,6 +17,22 @@ order, the blocks' partials exchanged through distributed shared memory and
 counted on mbarriers. A plane whose layout fits no cluster takes the
 large-plane path, chosen by shape alone: an assembly kernel over the batch,
 then one block per glacier with the CG vectors in a global scratch buffer.
+
+``si_step`` is differentiable in H, H_D, B and the creep and slide columns
+(2, 3) of the table, with the gradient of the JAX package's production step
+``implicit.semi_implicit_step`` (``lax.custom_linear_solve``), not the TPU
+kernel's ``_bwd``, which differentiates the unrolled PCG: x0, the spacings
+and the Jacobi preconditioner get none. Under grad the forward also keeps
+the pre-relu solution x. The backward (module doc of
+:mod:`odinn_tpu_torch.ops.si_math`) is two launches on the card:
+:func:`si_step_transpose`, the same kernel in its transpose-solve mode
+(λ = PCG(A, g) from g = ḡ·[x > 0], at the forward's layout, so α and β are
+again bit-identical in every block), and :func:`si_step_vjp`, the pullback
+kernel ``csrc/si_step_vjp.cu`` (the residual's cotangents at λ through b and
+the frozen D, down to H, H_D, B, creep and slide). Their plain versions are
+:func:`si_step_transpose_reference` and :func:`si_step_vjp_reference`;
+autograd through :func:`si_step_reference` is the whole plain backward. The
+two contracts agree where PCG has converged (``tests/test_torch_si_adjoint.py``).
 """
 
 from __future__ import annotations
@@ -32,9 +48,10 @@ from odinn_tpu_torch.ops import stencils as st
 from odinn_tpu_torch.ops.cuda.build import load_library
 from odinn_tpu_torch.ops.cuda.common import (
     GLEN_EXPS, SMEM_PER_BLOCK, block_shape, check_inputs, pick_cluster, pow_pos, shared_exps,
-    uses_glen)
+    ticket_buffers, uses_glen)
 
-__all__ = ["si_step", "si_step_reference", "si_layout", "si_fits", "si_plan"]
+__all__ = ["si_step", "si_step_reference", "si_step_transpose", "si_step_transpose_reference",
+           "si_step_vjp", "si_step_vjp_reference", "si_layout", "si_fits", "si_plan"]
 
 # planes of the large-plane path's scratch buffer: D, b, inv_diag, x, r, p, Ap
 _N_SCRATCH = 7
@@ -67,13 +84,13 @@ def _library() -> ctypes.CDLL:
     """The built library, its entry points' signatures declared once."""
     lib = load_library("si_step")
     for fn in (lib.si_step_cluster_f32, lib.si_step_cluster_f64):
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_double] * 2
-                       + [ctypes.c_int] * 2 + [ctypes.c_double] * 4 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_double] * 2
+                       + [ctypes.c_int] * 3 + [ctypes.c_double] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     for fn in (lib.si_step_split_f32, lib.si_step_split_f64):
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                       + [ctypes.c_double] * 2 + [ctypes.c_int] * 2 + [ctypes.c_double] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                       + [ctypes.c_double] * 2 + [ctypes.c_int] * 3 + [ctypes.c_double] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.si_step_occupancy.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
@@ -152,19 +169,78 @@ def si_plan(n_g, nx, ny, dtype, exps=GLEN_EXPS, device=None) -> SIPlan:
     return _plan(dtype, nx, ny, n_g, uses_glen(exps), index)
 
 
+@functools.cache
+def _vjp_library() -> ctypes.CDLL:
+    lib = load_library("si_step_vjp")
+    for fn in (lib.si_step_vjp_f32, lib.si_step_vjp_f64):
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_double] * 2
+                       + [ctypes.c_int] + [ctypes.c_double] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.si_step_vjp_partials.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.si_step_vjp_partials.restype = ctypes.c_int
+    return lib
+
+
+def _row(scalars, dtype):
+    """The derived table's (dx, dy, creep, slide) in ``dtype``, as (n_g, 1, 1)
+    columns cut from the graph."""
+    sc = scalars[:, :4].detach().to(dtype)
+    return tuple(sc[:, k].reshape(-1, 1, 1) for k in range(4))
+
+
+def _si_solve_reference(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps):
+    """The plain version's pre-relu solution x."""
+    dx, dy, creep, slide = _row(scalars, H.dtype)
+    D = _frozen_D_scalar(H_D, B, dx, dy, creep, slide, exps)
+    return si_math.theta_solve_x(H, D, B, x0, dt, theta, cg_iters, dx, dy)
+
+
 def si_step_reference(H, H_D, B, x0, scalars, dt, theta=1.0, cg_iters=6, exps=None):
     """Plain PyTorch version of the kernel on (n_g, nx, ny) planes.
 
     ``scalars``: the derived (n_g, 8) table (first 4 columns used, cast to
     H's dtype); ``exps`` = (n+2, n−1, p−q+1, p−1) as Python numbers, read
     from the table's shared exponent set when None. dt, theta, cg_iters are
-    Python numbers.
+    Python numbers. Differentiable by autograd as ``si_step`` is: the solve
+    is :func:`odinn_tpu_torch.ops.si_math.theta_solve` (the
+    implicit-function adjoint), D is differentiated in H_D, B and the creep
+    and slide columns, and dx, dy get no gradient.
     """
     exps = _resolve_exps(scalars, exps)
-    sc = scalars[:, :4].to(H.dtype)
-    dx, dy, creep, slide = (sc[:, k].reshape(-1, 1, 1) for k in range(4))
+    dx, dy, _, _ = _row(scalars, H.dtype)
+    rates = scalars[:, 2:4].to(H.dtype)
+    creep, slide = (rates[:, k].reshape(-1, 1, 1) for k in range(2))
     D = _frozen_D_scalar(H_D, B, dx, dy, creep, slide, exps)
-    return si_math.theta_step(H, D, B, x0, dt, theta, cg_iters, dx, dy)
+    return si_math.theta_solve(H, D, B, x0, dt, theta, cg_iters, dx, dy)
+
+
+def si_step_transpose_reference(gbar, x, H_D, B, scalars, dt, theta=1.0, cg_iters=6,
+                                exps=None):
+    """Plain version of the transpose-solve mode: λ = ``cg_iters`` Jacobi-PCG
+    iterations on the step's A (D frozen at H_D) from the right-hand side
+    and guess g = ḡ·[x > 0], x the forward's pre-relu solution."""
+    exps = _resolve_exps(scalars, exps)
+    dx, dy, creep, slide = _row(scalars, x.dtype)
+    D = _frozen_D_scalar(H_D, B, dx, dy, creep, slide, exps)
+    return si_math.transpose_solve(gbar, x, D, float(dt), float(theta), int(cg_iters), dx, dy)
+
+
+def si_step_vjp_reference(lam, H, H_D, B, x, scalars, dt, theta=1.0, exps=None):
+    """Plain version of the pullback kernel: (dH, dH_D, dB, d_creep,
+    d_slide), the residual b − A·x's vector-Jacobian product at λ with x
+    fixed (:func:`odinn_tpu_torch.ops.si_math.residual_pullback`), its D
+    cotangent taken on to H_D, B, creep and slide by autograd through the
+    frozen diffusivity. d_creep and d_slide have shape (n_g,)."""
+    exps = _resolve_exps(scalars, exps)
+    dx, dy, creep, slide = _row(scalars, H.dtype)
+    with torch.enable_grad():
+        hd, b = H_D.detach().requires_grad_(True), B.detach().requires_grad_(True)
+        c, s = (v.reshape(-1).clone().requires_grad_(True) for v in (creep, slide))
+        D = _frozen_D_scalar(hd, b, dx, dy, c.reshape(-1, 1, 1), s.reshape(-1, 1, 1), exps)
+        dH, dD, dB = si_math.residual_pullback(lam, H, D.detach(), B, x, float(dt), float(theta),
+                                               dx, dy)
+        dHD, dB_D, dcreep, dslide = torch.autograd.grad(D, (hd, b, c, s), dD)
+    return dH, dHD, dB + dB_D, dcreep, dslide
 
 
 def _resolve_exps(scalars, exps):
@@ -178,6 +254,51 @@ def _resolve_exps(scalars, exps):
     return found
 
 
+def _device_of(name, t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return t.device.type
+
+
+def _forward(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, keep_x=False):
+    """relu(x), and with ``keep_x`` also x, on H's device without autograd."""
+    if _device_of("si_step", H) == "cpu":
+        x = _si_solve_reference(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps)
+        out = st.relu_strict(x)
+        return (out, x) if keep_x else out
+    n_g, nx, ny = H.shape
+    lay = si_plan(n_g, nx, ny, H.dtype, exps, H.device).layout
+    x = torch.empty_like(H) if keep_x else None
+    out = _launch(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, lay, x_out=x)
+    si_step.launches += 1
+    return (out, x) if keep_x else out
+
+
+class _SIStep(torch.autograd.Function):
+    """The step with the implicit-function adjoint (module doc)."""
+
+    @staticmethod
+    def forward(ctx, H, H_D, B, x0, scalars, dt, theta, cg_iters, exps):
+        out, x = _forward(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, keep_x=True)
+        ctx.save_for_backward(H, H_D, B, x, scalars)
+        ctx.consts = (dt, theta, cg_iters, exps)
+        return out
+
+    @staticmethod
+    def backward(ctx, gbar):
+        H, H_D, B, x, scalars = ctx.saved_tensors
+        dt, theta, cg_iters, exps = ctx.consts
+        lam = si_step_transpose(gbar.contiguous(), x, H_D, B, scalars, dt, theta, cg_iters, exps)
+        dH, dHD, dB, dcreep, dslide = si_step_vjp(lam, H, H_D, B, x, scalars, dt, theta, exps)
+        need = ctx.needs_input_grad
+        d_scal = None
+        if need[4]:
+            d_scal = torch.zeros_like(scalars)
+            d_scal[:, 2], d_scal[:, 3] = dcreep, dslide
+        return ((dH if need[0] else None), (dHD if need[1] else None), (dB if need[2] else None),
+                None, d_scal, None, None, None, None)
+
+
 def si_step(H, H_D, B, x0, scalars, dt, theta=1.0, cg_iters=6, exps=None):
     """One fused semi-implicit θ-step for a batch (see the module doc).
 
@@ -187,50 +308,99 @@ def si_step(H, H_D, B, x0, scalars, dt, theta=1.0, cg_iters=6, exps=None):
     table, which refuses a batch whose glaciers differ. A CUDA tensor
     launches the kernel (:func:`si_plan` picks the cluster kernel or the
     large-plane path); a CPU tensor takes :func:`si_step_reference`.
-    Refuses inputs that require grad: the step has no backward yet.
+    Differentiable in H, H_D, B and the table's creep and slide columns by
+    the implicit-function adjoint (module doc); x0 gets no gradient.
     """
     check_inputs("si_step", (H, H_D, B, x0), scalars, 8)
-    if any(a.requires_grad for a in (H, H_D, B, x0, scalars)):
-        raise RuntimeError(
-            "si_step: gradients through the SI step are not supported yet; they "
-            "come with the implicit-function adjoint of the SI/SI2 solve (the "
-            "SI-adjoint slice). Train through solver='RKC' or an explicit "
-            "stepper, or pass tensors that do not require grad")
     exps = _resolve_exps(scalars, exps)
     dt, theta, cg_iters = float(dt), float(theta), int(cg_iters)
-    if H.device.type == "cpu":
-        return si_step_reference(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps)
-    if H.device.type != "cuda":
-        raise ValueError(f"si_step: no kernel for device {H.device}")
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (H, H_D, B, scalars)):
+        return _SIStep.apply(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps)
+    return _forward(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps)
+
+
+def si_step_transpose(gbar, x, H_D, B, scalars, dt, theta=1.0, cg_iters=6, exps=None):
+    """λ, the transpose solve of ``si_step``'s backward
+    (:func:`si_step_transpose_reference`'s contract). A CUDA tensor launches
+    the step's kernel in its transpose-solve mode at the forward's layout,
+    one launch counted on ``si_step_transpose.launches``; a CPU tensor takes
+    the plain version."""
+    check_inputs("si_step_transpose", (gbar, x, H_D, B), scalars, 8)
+    exps = _resolve_exps(scalars, exps)
+    dt, theta, cg_iters = float(dt), float(theta), int(cg_iters)
+    if _device_of("si_step_transpose", x) == "cpu":
+        return si_step_transpose_reference(gbar, x, H_D, B, scalars, dt, theta, cg_iters, exps)
+    n_g, nx, ny = x.shape
+    lay = si_plan(n_g, nx, ny, x.dtype, exps, x.device).layout
+    # the kernel's transpose mode reads ḡ where the forward reads H, and x
+    # where it reads x0
+    lam = _launch(gbar, H_D, B, x, scalars, dt, theta, cg_iters, exps, lay, transpose=True)
+    si_step_transpose.launches += 1
+    return lam
+
+
+# the pullback's partials of d(creep) and d(slide) and its ticket counters
+_vjp_buffers = {}
+
+
+def si_step_vjp(lam, H, H_D, B, x, scalars, dt, theta=1.0, exps=None):
+    """(dH, dH_D, dB, d_creep, d_slide) of ``si_step``'s backward at λ
+    (:func:`si_step_vjp_reference`'s contract). A CUDA tensor launches the
+    pullback kernel ``csrc/si_step_vjp.cu``, one launch counted on
+    ``si_step_vjp.launches``; a CPU tensor takes the plain version."""
+    check_inputs("si_step_vjp", (lam, H, H_D, B, x), scalars, 8)
+    exps = _resolve_exps(scalars, exps)
+    dt, theta = float(dt), float(theta)
+    if _device_of("si_step_vjp", H) == "cpu":
+        return si_step_vjp_reference(lam, H, H_D, B, x, scalars, dt, theta, exps)
     n_g, nx, ny = H.shape
-    lay = si_plan(n_g, nx, ny, H.dtype, exps, H.device).layout
-    return _launch(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, lay)
+    table = scalars[:, :4].detach().to(H.dtype).contiguous()
+    dH, dHD, dB = (torch.empty_like(H) for _ in range(3))
+    dcreep, dslide = (torch.empty(n_g, dtype=H.dtype, device=H.device) for _ in range(2))
+    lib = _vjp_library()
+    partial, counter = ticket_buffers(_vjp_buffers, H.device, H.dtype,
+                                      2 * n_g * lib.si_step_vjp_partials(nx, ny), n_g)
+    fn = lib.si_step_vjp_f32 if H.dtype == torch.float32 else lib.si_step_vjp_f64
+    err = fn(lam.data_ptr(), H.data_ptr(), H_D.data_ptr(), B.data_ptr(), x.data_ptr(),
+             table.data_ptr(), dH.data_ptr(), dHD.data_ptr(), dB.data_ptr(), partial.data_ptr(),
+             counter.data_ptr(), dcreep.data_ptr(), dslide.data_ptr(), n_g, nx, ny, dt, theta,
+             int(uses_glen(exps)), *exps, torch.cuda.current_stream(H.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"si_step_vjp: kernel launch failed with CUDA error {err}")
+    si_step_vjp.launches += 1
+    return dH, dHD, dB, dcreep, dslide
 
 
-def _launch(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, lay):
+def _launch(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, lay, x_out=None,
+            transpose=False):
     """The step on the card with the cluster layout ``lay``, or on the
-    large-plane path when ``lay`` is None; counts the launch."""
+    large-plane path when ``lay`` is None. ``x_out`` receives the pre-relu
+    solution; ``transpose`` runs the transpose-solve mode, which reads ḡ in
+    H's place and x in x0's, and returns λ. Counts nothing: the wrappers
+    count their launches."""
     n_g, nx, ny = H.shape
-    table = scalars[:, :4].to(H.dtype).contiguous()
+    table = scalars[:, :4].detach().to(H.dtype).contiguous()
     out = torch.empty_like(H)
     lib = _library()
     f32 = H.dtype == torch.float32
     stream = torch.cuda.current_stream(H.device).cuda_stream
     planes = (H.data_ptr(), H_D.data_ptr(), B.data_ptr(), x0.data_ptr(), table.data_ptr())
+    xp = x_out.data_ptr() if x_out is not None else None
     if lay is not None:
         fn = lib.si_step_cluster_f32 if f32 else lib.si_step_cluster_f64
-        err = fn(*planes, out.data_ptr(), n_g, nx, ny, dt, theta, cg_iters,
+        err = fn(*planes, out.data_ptr(), xp, n_g, nx, ny, dt, theta, cg_iters, int(transpose),
                  int(uses_glen(exps)), *exps, lay.cluster, lay.bx, lay.by, lay.smem,
                  lay.cells, stream)
     else:
         work = torch.empty((_N_SCRATCH,) + tuple(H.shape), dtype=H.dtype, device=H.device)
         fn = lib.si_step_split_f32 if f32 else lib.si_step_split_f64
-        err = fn(*planes, work.data_ptr(), out.data_ptr(), n_g, nx, ny, dt, theta, cg_iters,
-                 int(uses_glen(exps)), *exps, stream)
+        err = fn(*planes, work.data_ptr(), out.data_ptr(), xp, n_g, nx, ny, dt, theta, cg_iters,
+                 int(transpose), int(uses_glen(exps)), *exps, stream)
     if err != 0:
         raise RuntimeError(f"si_step: kernel launch failed with CUDA error {err}")
-    si_step.launches += 1
     return out
 
 
 si_step.launches = 0
+si_step_transpose.launches = 0
+si_step_vjp.launches = 0

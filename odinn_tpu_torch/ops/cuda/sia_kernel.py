@@ -30,7 +30,7 @@ import torch
 
 from odinn_tpu_torch.ops import stencils as st
 from odinn_tpu_torch.ops.cuda.build import load_library
-from odinn_tpu_torch.ops.cuda.common import check_inputs, derived_scalars, pow_pos
+from odinn_tpu_torch.ops.cuda.common import check_inputs, derived_scalars, pow_pos, ticket_buffers
 
 __all__ = ["sia2d_rhs", "sia2d_rhs_reference", "sia2d_rhs_vjp", "sia2d_rhs_vjp_reference",
            "derive_table"]
@@ -69,21 +69,14 @@ def _vjp_library() -> ctypes.CDLL:
     return lib
 
 
-# Per (device, dtype): the pullback's per-block partials of d(creep) and
-# its per-glacier ticket counters. The counters are zeroed once and every
-# launch leaves them zero; launches on one stream use them in turn.
+# the pullback's partials of d(creep) and its ticket counters
 _vjp_buffers = {}
 
 
 def _vjp_scratch(device, dtype, n_g, nx, ny):
     """(partials, counters) for a launch over n_g glaciers of (nx, ny)."""
     need = n_g * _vjp_library().sia2d_rhs_vjp_partials(nx, ny)
-    buf = _vjp_buffers.get((device, dtype))
-    if buf is None or buf[0].numel() < need or buf[1].numel() < n_g:
-        buf = (torch.empty(need, dtype=dtype, device=device),
-               torch.zeros(n_g, dtype=torch.int32, device=device))
-        _vjp_buffers[(device, dtype)] = buf
-    return buf
+    return ticket_buffers(_vjp_buffers, device, dtype, need, n_g)
 
 
 # The last raw table the wrapper derived, with its derived table: a solve

@@ -1,9 +1,20 @@
-"""The semi-implicit θ-step's linear algebra on ``[..., x, y]`` planes.
+"""The semi-implicit θ-step's linear algebra on ``[..., x, y]`` planes, and
+its implicit-function adjoint.
 
 Shared by the unfused solve (:mod:`odinn_tpu_torch.simulation.implicit`)
-and the fused kernel's plain version
-(:func:`odinn_tpu_torch.ops.cuda.si_kernel.si_step_reference`), which differ
-only in how they form the frozen staggered diffusivity D.
+and the fused kernel's plain versions
+(:mod:`odinn_tpu_torch.ops.cuda.si_kernel`), which differ only in how they
+form the frozen staggered diffusivity D.
+
+The step solves A·x = b with A = I − θ·dt·M·L_D·M and
+b = H + dt·M·L_D(B + ring·H + (1−θ)·M·H), L_D(u) = ∇·(D∇u) on the interior
+and M the interior mask, then returns relu(x). Its gradient is the one
+``lax.custom_linear_solve`` gives the JAX package's ``semi_implicit_step``:
+with g = ḡ·[x > 0], λ = PCG(A, g) warm-started at g (the transpose solve; A
+and the Jacobi preconditioner are symmetric), and the cotangents of H, D and
+B are the vector-Jacobian product at λ of the residual b − A(D)·x with x
+held fixed. The guess x0 and the preconditioner get no gradient, and CG is
+never unrolled.
 """
 
 from __future__ import annotations
@@ -12,7 +23,8 @@ import torch
 
 from odinn_tpu_torch.ops import stencils as st
 
-__all__ = ["div_flux", "dot", "cg", "jacobi_diag", "theta_step"]
+__all__ = ["div_flux", "dot", "cg", "jacobi_diag", "theta_solve_x", "relu_cotangent",
+           "transpose_solve", "residual_pullback", "theta_solve"]
 
 # rounds to 0 in float32: the CG guards then compare against 0
 _TINY = 1e-300
@@ -66,19 +78,91 @@ def jacobi_diag(D, dt, dx, dy, interior):
     return 1.0 + dt * interior * st.pad_inner(sx + sy)
 
 
-def theta_step(H, D, B, x0, dt, theta, cg_iters: int, dx, dy):
-    """relu of ``cg_iters`` Jacobi-PCG iterations from ``x0`` on
-    A = I − θ·dt·M·∇·(D∇(M·)), b = H + dt·M·∇·(D∇(B + ring·H + (1−θ)·M·H)),
-    with M the interior mask and D the frozen staggered diffusivity. B is in
-    H's dtype; dt and theta are Python numbers."""
-    interior = torch.zeros_like(H)
+def _masks(like):
+    interior = torch.zeros_like(like)
     interior[..., 1:-1, 1:-1] = 1.0
-    ring = 1.0 - interior
+    return interior, 1.0 - interior
+
+
+def _operator(D, dt, theta, dx, dy, interior):
+    """(matvec of A, the Jacobi preconditioner)."""
 
     def matvec(u):
         return u - theta * dt * interior * div_flux(interior * u, D, dx, dy)
 
-    b = H + dt * interior * div_flux(B + ring * H + (1.0 - theta) * interior * H, D, dx, dy)
     inv_diag = 1.0 / jacobi_diag(D, theta * dt, dx, dy, interior)
-    x = cg(matvec, b, x0, cg_iters, lambda r: r * inv_diag)
-    return st.relu_strict(x)
+    return matvec, lambda r: r * inv_diag
+
+
+def theta_solve_x(H, D, B, x0, dt, theta, cg_iters: int, dx, dy):
+    """The pre-relu solution x: ``cg_iters`` Jacobi-PCG iterations from
+    ``x0`` on A·x = b (module doc). B is in H's dtype; dt and theta are
+    Python numbers."""
+    interior, ring = _masks(H)
+    matvec, precond = _operator(D, dt, theta, dx, dy, interior)
+    b = H + dt * interior * div_flux(B + ring * H + (1.0 - theta) * interior * H, D, dx, dy)
+    return cg(matvec, b, x0, cg_iters, precond)
+
+
+def relu_cotangent(gbar, x):
+    """ḡ·[x > 0]: relu_strict's pullback, with the tie at x = 0 sent to 0."""
+    return torch.where(x > 0.0, gbar, torch.zeros_like(gbar))
+
+
+def transpose_solve(gbar, x, D, dt, theta, cg_iters: int, dx, dy):
+    """λ = PCG(A, g) from the guess g = ḡ·[x > 0], ``cg_iters`` iterations
+    with the forward's Jacobi preconditioner: the transpose solve of the
+    step's adjoint (A is symmetric)."""
+    interior, _ = _masks(x)
+    matvec, precond = _operator(D, dt, theta, dx, dy, interior)
+    g = relu_cotangent(gbar, x)
+    return cg(matvec, g, g, cg_iters, precond)
+
+
+def residual_pullback(lam, H, D, B, x, dt, theta, dx, dy):
+    """(dH, dD, dB): the vector-Jacobian product at λ of the residual
+    b(H, D, B) − A(D)·x with x fixed. L_D is linear in its argument, so
+    this is λ (b's H term) plus one pullback of ⟨dt·M·λ, L_D(u)⟩ with
+    u = B + ring·H + (1−θ)·M·H + θ·M·x."""
+    dx, dy = (v.detach() if isinstance(v, torch.Tensor) else v for v in (dx, dy))
+    with torch.enable_grad():
+        h, d, b = (t.detach().requires_grad_(True) for t in (H, D, B))
+        interior, ring = _masks(H)
+        u = b + ring * h + (1.0 - theta) * interior * h + theta * interior * x.detach()
+        w = dt * interior * lam.detach()
+        pairing = torch.sum(w * div_flux(u, d, dx, dy))
+        dh, dd, db = torch.autograd.grad(pairing, (h, d, b))
+    return lam + dh, dd, db
+
+
+class _ThetaSolve(torch.autograd.Function):
+    """relu of :func:`theta_solve_x` with the implicit-function adjoint
+    (module doc): the forward keeps x; the backward is one transpose solve
+    and one residual pullback."""
+
+    @staticmethod
+    def forward(ctx, H, D, B, x0, dt, theta, cg_iters, dx, dy):
+        x = theta_solve_x(H, D, B, x0, dt, theta, cg_iters, dx, dy)
+        ctx.save_for_backward(H, D, B, x)
+        ctx.consts = (dt, theta, cg_iters, dx, dy)
+        return st.relu_strict(x)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        H, D, B, x = ctx.saved_tensors
+        dt, theta, cg_iters, dx, dy = ctx.consts
+        dx, dy = (v.detach() if isinstance(v, torch.Tensor) else v for v in (dx, dy))
+        lam = transpose_solve(gbar, x, D, dt, theta, cg_iters, dx, dy)
+        dH, dD, dB = residual_pullback(lam, H, D, B, x, dt, theta, dx, dy)
+        need = ctx.needs_input_grad
+        return ((dH if need[0] else None), (dD if need[1] else None), (dB if need[2] else None),
+                None, None, None, None, None, None)
+
+
+def theta_solve(H, D, B, x0, dt, theta, cg_iters: int, dx, dy):
+    """One θ-step with D frozen: relu of :func:`theta_solve_x`,
+    differentiable in H, D and B by the implicit-function adjoint when one
+    of them requires grad (module doc); x0 gets no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (H, D, B)):
+        return _ThetaSolve.apply(H, D, B, x0, float(dt), float(theta), int(cg_iters), dx, dy)
+    return st.relu_strict(theta_solve_x(H, D, B, x0, dt, theta, cg_iters, dx, dy))

@@ -16,8 +16,14 @@ For the A target with per-glacier scalar laws on a (n_g, nx, ny) batch the
 whole step is the fused kernel
 :func:`odinn_tpu_torch.ops.cuda.si_kernel.si_step` (its plain version on a
 CPU tensor); every other law configuration takes the unfused path below.
-The solve is forward only: its implicit-function adjoint (SI/SI2 training)
-comes with the SI-adjoint slice.
+
+Both paths differentiate the solve as the JAX package's
+``lax.custom_linear_solve`` does, by the implicit-function adjoint: one
+transpose PCG solve on the same symmetric operator, warm-started at the
+cotangent, then one pullback of the residual through b and the frozen D
+(:func:`odinn_tpu_torch.ops.si_math.theta_solve`; on the fused path the
+kernel's own backward). CG is never unrolled, and the warm start x0 gets no
+gradient.
 """
 
 from __future__ import annotations
@@ -79,7 +85,7 @@ def semi_implicit_step(H, B, dx, dy, values_fn, target, phys, dt, cg_iters: int 
                                  cg_iters, exps)
 
     D = _frozen_diffusivity(H_D, B, dx, dy, values_fn, target, phys)
-    return si_math.theta_step(H, D, B.to(H.dtype), guess, dt, theta, cg_iters, dx, dy)
+    return si_math.theta_solve(H, D, B.to(H.dtype), guess, dt, theta, cg_iters, dx, dy)
 
 
 def si2_step(H, B, dx, dy, values_fn, target, phys, dt, cg_iters: int = 30,

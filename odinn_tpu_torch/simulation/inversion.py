@@ -7,7 +7,9 @@ best-iterate tracking. The transient loss is
 Σ_g Σ_τ Δt_τ · ℓ(H_g(t_τ), refs_g(t_τ)) with the glacier axis as a batch
 dimension. On the CUDA card the solve runs through the fused kernels; with
 ``solver="RKC"`` every RKC2 step is one ``rkc_interval`` launch and every
-backward stage one ``sia2d_rhs_vjp`` launch.
+backward stage one ``sia2d_rhs_vjp`` launch; with ``solver="SI"``/``"SI2"``
+every step is one ``si_step`` launch forward and, by the implicit-function
+adjoint, one ``si_step_transpose`` and one ``si_step_vjp`` launch backward.
 
 Adam and AdamW are ``torch.optim.Adam``/``AdamW`` (the update of optax's:
 bias-corrected, eps outside the square root; AdamW with optax's default
@@ -15,8 +17,8 @@ weight decay 1e-4). LBFGS is ``torch.optim.LBFGS`` with its strong-Wolfe
 line search, one iteration per epoch, optax's history of 10 and up to 20
 line-search steps. Not ported
 yet, and refused with the slice that brings them: the hand-written adjoints
-(``grad="discrete"/"continuous"``), Levenberg–Marquardt stages, SI/SI2
-training (the implicit-function adjoint), the adaptive, replay and
+(``grad="discrete"/"continuous"``), Levenberg–Marquardt stages, the
+adaptive, replay and
 ``substeps="auto"`` solves with their instability recovery, per-glacier θ
 laws and saving the result.
 """
@@ -299,11 +301,6 @@ def _check_trainable(params) -> None:
         raise NotImplementedError(
             "odinn_tpu_torch: substeps='auto' (and the instability recovery built on "
             "it) comes with the tolerance slice; give an integer substep count")
-    if solver.solver in ("SI", "SI2"):
-        raise NotImplementedError(
-            f"odinn_tpu_torch: training through solver={solver.solver!r} needs the "
-            "implicit-function adjoint of the SI/SI2 solve, which comes with the "
-            "SI-adjoint slice; train through solver='RKC' or an explicit stepper")
 
 
 def train_ude(inversion: Inversion, callback: Optional[Callable] = None,

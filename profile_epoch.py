@@ -1,11 +1,12 @@
 """Profile one Adam epoch of chip_smoke.py's training phase on one CUDA card.
 
-    python3 profile_epoch.py [ROOT]
+    python3 profile_epoch.py [ROOT [SOLVER]]
 
 ROOT is a checkout of this repository (default: the one that holds this
 script). Its ``odinn_tpu_torch`` is imported and its kernels built, so two
 commits can be compared on one card in one call, in turns: parent, change,
-change, parent. The problem and the epoch are this checkout's
+change, parent. SOLVER is the training's solve, ``RKC`` (default) or
+``SI``. The problem and the epoch are this checkout's
 (``chip_smoke.training_problem``, ``adam_epoch_fn``). Prints one JSON line:
 the root, the card and its power limit, the epoch's time (CUDA events,
 median of 3), device busy time, idle share and device launches, all and by
@@ -29,6 +30,7 @@ def main() -> int:
         print("profile_epoch: no CUDA device available", file=sys.stderr)
         return 2
     root = os.path.abspath(sys.argv[1]) if len(sys.argv) > 1 else HERE
+    solver = sys.argv[2] if len(sys.argv) > 2 else "RKC"
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location("chip_smoke_here",
                                                   os.path.join(HERE, "chip_smoke.py"))
@@ -38,10 +40,11 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     build_all()
-    inv, model, params, tstops, facts = cs.training_problem()
+    inv, model, params, tstops, facts = cs.training_problem(solver)
     row = cs.epoch_profile(cs.adam_epoch_fn(inv, model, params, tstops))
+    facts.pop("ground_truth_s")
     cs.emit(dict({"phase": "epoch_profile", "root": root, "nvidia_smi": cs.nvidia_smi(),
-                  "rkc_stages": facts["rkc_stages"]}, **row))
+                  "solver": solver}, **facts, **row))
     return 0
 
 

@@ -2,8 +2,10 @@
 package's Pallas kernels (interpret mode on the CPU) and references, and the
 kernel wrappers' contract on the CPU: a CPU tensor takes the plain version;
 ``sia2d_rhs`` and ``rkc_interval`` differentiate with the TPU kernels'
-custom-VJP contracts, ``si_step`` refuses gradients, and mixed exponent sets
-and unsupported inputs are refused.
+custom-VJP contracts, ``si_step`` with the production SI step's
+implicit-function adjoint (held to the JAX package in
+``tests/test_torch_si_adjoint.py``), and mixed exponent sets and
+unsupported inputs are refused.
 
 The kernels themselves run only on a CUDA card; ``chip_smoke.py`` holds them
 against these plain versions there. Float64; tolerance 1e-10 relative to
@@ -139,37 +141,39 @@ def test_pow_pos_semantics():
     assert torch.allclose(non_int[1:], x[1:] ** 2.5, rtol=1e-14, atol=0)
 
 
-@pytest.mark.parametrize("case", ["si_step H", "sia2d_rhs H", "sia2d_rhs table",
-                                  "rkc_interval H", "rkc_interval table"])
+@pytest.mark.parametrize("case", ["si_step H", "si_step table", "sia2d_rhs H",
+                                  "sia2d_rhs table", "rkc_interval H", "rkc_interval table"])
 def test_wrappers_refuse_gradients(case):
-    """si_step refuses inputs that require grad (its backward comes with the
-    SI-adjoint slice); sia2d_rhs and rkc_interval give gradients for H and
-    for the A (raw table) or creep (derived table) column, zero for the
-    other columns, and none for B."""
+    """Which inputs each wrapper differentiates. sia2d_rhs and rkc_interval
+    give gradients for H and for the A (raw table) or creep (derived table)
+    column, zero for the other columns, and none for B. si_step gives them
+    for H and for the creep and slide columns (2, 3), zero for the spacings
+    and exponents, and none for x0."""
     H, B, raw = _inputs(nx=12, ny=14)
     t = torch.from_numpy
-    if case == "si_step H":
-        with pytest.raises(RuntimeError, match="gradients.*SI-adjoint slice"):
-            si_kernel.si_step(t(H).requires_grad_(True), t(H), t(B), t(H), _t_table(raw), DT)
-        return
     wrt_H = case.endswith(" H")
     kernel = case.split()[0]
     table = t(raw) if kernel == "sia2d_rhs" else _t_table(raw)
     Hi = t(H).requires_grad_(wrt_H)
     table.requires_grad_(not wrt_H)
     Bi = t(B).requires_grad_(True)
+    x0 = t(0.99 * H).requires_grad_(True)
     if kernel == "sia2d_rhs":
         out = sia_kernel.sia2d_rhs(Hi, Bi, table, RHO, G, ETA0)
+    elif kernel == "si_step":
+        out = si_kernel.si_step(Hi, Hi, Bi, x0, table, DT)
     else:
         out = rkc_kernel.rkc_interval(Hi, Bi, table, 0.002, 4, ETA0)
-    (grad,) = torch.autograd.grad((out * out).sum(), [Hi if wrt_H else table])
-    assert torch.isfinite(grad).all()
+    grad, grad_x0 = torch.autograd.grad((out * out).sum(), [Hi if wrt_H else table, x0],
+                                        allow_unused=True)
+    assert torch.isfinite(grad).all() and grad_x0 is None
+    trained = [2, 3] if kernel == "si_step" else [2]
     if wrt_H:
         assert grad.abs().max() > 0.0
     else:
-        assert (grad[:, 2] != 0.0).all()
-        assert torch.equal(grad[:, [0, 1] + list(range(3, grad.shape[1]))],
-                           torch.zeros_like(grad[:, [0, 1] + list(range(3, grad.shape[1]))]))
+        assert (grad[:, trained] != 0.0).all()
+        rest = [k for k in range(grad.shape[1]) if k not in trained]
+        assert torch.equal(grad[:, rest], torch.zeros_like(grad[:, rest]))
     assert Bi.grad is None
 
 

@@ -1,6 +1,7 @@
 """odinn_tpu_torch's training path against odinn_tpu: the MLP and LawA
 through the parameter converter, the transient loss and its gradient
-through the RKC (fused step) and RK4 solves, Adam against optax, and a
+through the RKC (fused step), RK4 and SI/SI2 (fused step) solves, Adam
+against optax, and a
 smoke inversion with the JAX package's convergence gate. Float64 on the
 CPU; tolerances are stated per test.
 """
@@ -32,7 +33,7 @@ from odinn_tpu_torch.laws.laws import CuffeyPaterson, LawA
 from odinn_tpu_torch.losses.losses import LossH, MultiLoss
 from odinn_tpu_torch.models.model import Model, SIA2DModel, init_theta
 from odinn_tpu_torch.models.nn import MLP, NeuralNetwork, default_architecture, mlp_apply
-from odinn_tpu_torch.ops.cuda import rkc_kernel
+from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel
 from odinn_tpu_torch.simulation.inversion import (
     Inversion, assemble_tstops, batch_transient_loss, run_inversion)
 from odinn_tpu_torch.simulation.prediction import generate_ground_truth
@@ -112,6 +113,9 @@ def _params(P, solver):
 def _solvers(P, method):
     if method == "RKC":
         return P.SolverParameters(step=1.0 / 12.0, substeps=1, solver="RKC", rkc_stages=6)
+    if method in ("SI", "SI2"):
+        return P.SolverParameters(step=1.0 / 12.0, substeps=1, solver=method, cg_iters=10,
+                                  cg_iters_predictor=4)
     return P.SolverParameters(step=1.0 / 12.0, substeps=2, solver="RK4")
 
 
@@ -126,14 +130,16 @@ def truth():
     return j_stack(gl)
 
 
-@pytest.mark.parametrize("method", ["RKC", "RK4"])
+@pytest.mark.parametrize("method", ["RKC", "RK4", "SI", "SI2"])
 def test_batch_transient_loss_value_and_grad_match(truth, method, monkeypatch):
     """Loss and θ-gradient through the whole solve against
     jax.value_and_grad of the JAX package's batch_transient_loss: 2
     glaciers, 24², 4 monthly intervals, RKC at s = 6 (each step one fused
-    RKC step, its backward the stage-by-stage pullback) and RK4 at 2
-    substeps (each RHS the fused RHS, its backward the RHS pullback).
-    Float64, 1e-9 relative."""
+    RKC step, its backward the stage-by-stage pullback), RK4 at 2 substeps
+    (each RHS the fused RHS, its backward the RHS pullback), and SI and SI2
+    at PCG-10 (predictor PCG-4; each solve one fused SI step, its backward
+    one transpose solve and one pullback, the JAX package's
+    implicit-function adjoint). Float64, 1e-9 relative."""
     jp, tp = _params(JP, _solvers(JP, method)), _params(TP, _solvers(TP, method))
     arch = j_arch(1)
     jmodel = JModel(iceflow=JSIA2DModel(A=JLawA(JNeuralNetwork(arch), jp)))
@@ -141,10 +147,14 @@ def test_batch_transient_loss_value_and_grad_match(truth, method, monkeypatch):
     ts = j_tstops(TSPAN, 1.0 / 12.0)
     val_j, grad_j = jax.value_and_grad(lambda th: j_loss(th, truth, jmodel, jp, ts))(jtheta)
 
-    steps = []
+    steps, si_ran = [], []
     forward = rkc_kernel._forward
     monkeypatch.setattr(rkc_kernel, "_forward",
                         lambda *a, **k: steps.append(1) or forward(*a, **k))
+    for name in ("_forward", "si_step_transpose_reference", "si_step_vjp_reference"):
+        real = getattr(si_kernel, name)
+        monkeypatch.setattr(si_kernel, name,
+                            lambda *a, _r=real, _n=name, **k: si_ran.append(_n) or _r(*a, **k))
     batch = carry_glacier(truth)
     tmodel = Model(iceflow=SIA2DModel(A=LawA(NeuralNetwork(default_architecture(1)), tp)))
     ttheta = {"A": _port_mlp(jtheta["A"])}
@@ -153,9 +163,15 @@ def test_batch_transient_loss_value_and_grad_match(truth, method, monkeypatch):
     np.testing.assert_allclose(tstops.numpy(), np.asarray(ts), rtol=0, atol=1e-12)
     val = batch_transient_loss(ttheta, batch, tmodel, tp, tstops)
     grads = torch.autograd.grad(val, leaves)
-    # the fused step ran once per interval forward and once more per
-    # interval to rematerialise the stages in the backward
+    # the fused RKC step ran once per interval forward and once more per
+    # interval to rematerialise the stages in the backward; the fused SI
+    # step once per solve (one a step for SI, two for SI2), and its backward
+    # once per solve: one transpose solve and one pullback, nothing
+    # rematerialised
     assert len(steps) == (8 if method == "RKC" else 0)
+    solves = {"SI": 4, "SI2": 8}.get(method, 0)
+    assert [si_ran.count(n) for n in ("_forward", "si_step_transpose_reference",
+                                      "si_step_vjp_reference")] == [solves] * 3
     assert_rel(val, val_j, 1e-9, "loss")
     jleaves = [np.asarray(layer[k]) for layer in grad_j["A"] for k in ("w", "b")]
     for g, jg in zip(grads, jleaves):
@@ -224,7 +240,7 @@ def test_init_theta_follows_the_law():
     assert inv.theta["A"][0]["w"].dtype == torch.float64   # simulation.float_dtype
 
 
-@pytest.mark.parametrize("what", ["SI", "lm", "discrete", "save", "auto", "initial term"])
+@pytest.mark.parametrize("what", ["forward", "lm", "discrete", "save", "auto", "initial term"])
 def test_unported_training_paths_name_their_slice(what):
     inv = _smoke_inversion(epochs=(1, 1))
     p = inv.parameters
@@ -235,8 +251,8 @@ def test_unported_training_paths_name_their_slice(what):
         inv.parameters = p.replace(UDE=dataclasses.replace(
             p.UDE, empirical_loss_function=MultiLoss(terms=(LossH(), Regularization()),
                                                      weights=(1.0, 0.1))))
-    elif what == "SI":
-        inv.parameters = p.replace(solver=dataclasses.replace(p.solver, solver="SI"))
+    elif what == "forward":
+        inv.parameters = p.replace(UDE=dataclasses.replace(p.UDE, grad="forward"))
     elif what == "lm":
         inv.parameters = p.replace(hyper=dataclasses.replace(
             p.hyper, optimizer=("lm",), learning_rate=(1e-3,), epochs=(1,)))
