@@ -16,20 +16,28 @@ Phases, each printed as one JSON line:
    second wave), in float64 and float32 (``si_step`` in
    float32 also on its increment out − H, at 6 and, at 4 x 128^2, 30 PCG
    iterations, with two launches on the same inputs bit-identical, and at
-   2 x 300^2 on its large-plane path; ``rkc_interval`` at s = 8 and 25; the
+   2 x 300^2 on its large-plane path, there also at n = 4, where float32
+   is held on its increment to 2x the float32 plain version's own error
+   against float64; ``rkc_interval`` at s = 8 and 25; the
    pullback also in its fused RKC-backward stage mode); the runtime-exponent
    paths (n = 4 with sliding for ``si_step``, ``sia2d_rhs`` and
    ``rkc_interval``; n = 3, 4 and 2.5 in one batch for ``sia2d_rhs`` and the
-   pullback); at each ``si_step`` check also its forward's pre-relu output,
-   its transpose-solve mode and the ``si_step_vjp`` pullback kernel against
+   pullback); every ``si_step`` check with the Jacobi preconditioner and
+   without it (plain CG, the manual SI adjoints' solves); at each also its
+   forward's pre-relu output, its transpose-solve mode (and, preconditioned,
+   the ``si_step_vjp`` pullback kernel) against
    their plain versions on the same inputs, each with a bitwise repeat; the
    three autograd Functions' gradients (kernel forward, kernel backward)
    against their plain backwards in float64 (``si_step`` at PCG-6 and 20,
    theta = 1 and 1/2, on its large-plane path, and at the SI training's
    16 x 128^2, PCG-20, in two waves) and in float32 within
    2x the float32 plain version's own error, with a bitwise repeat of the
-   backward; the RKC and SI kernels' cluster size and occupancy at 4 and 16
-   glaciers;
+   backward; the hand-written adjoints' θ-gradients on the card (4 glaciers,
+   128^2, 2 months): the discrete adjoint of Euler, SSPRK3 and RKC against
+   the card's autograd gradient, of SI and SI2 and the continuous adjoint
+   against the same function on the CPU in float64, float64 to 1e-9 and
+   float32 within 2x the float32 plain version's own error; the RKC and SI
+   kernels' cluster size and occupancy at 4 and 16 glaciers;
 4. main path: the forward prediction of 4 Halfar glaciers, 128^2, float32,
    5 years with monthly saves and monthly mass balance, Cuffey–Paterson A(T),
    n = 3, for the rows SI (PCG-6), SI2 (PCG-6), compensated SSPRK3 at 3
@@ -39,18 +47,22 @@ Phases, each printed as one JSON line:
    the row on the unfused path; it is timed with CUDA events, and its
    kernel launches are counted by name by the profiler (a main-path
    ``si_step`` is one ``si_step_cluster`` launch);
-5. training, twice: ``run_inversion`` (Adam then LBFGS) of A = NN(T) on 16
-   Halfar glaciers, 128^2, float32, 2 years of monthly Cuffey–Paterson
-   ground truth, through the RKC solve and then through the SI solve at
-   PCG-20 (``benchmarks/perf_tpu.py``'s UDE epoch), with the launch
+5. training, four times: ``run_inversion`` (Adam then LBFGS) of A = NN(T)
+   on 16 Halfar glaciers, 128^2, float32, 2 years of monthly
+   Cuffey–Paterson ground truth, through the RKC solve and then through the
+   SI solve at PCG-20 (``benchmarks/perf_tpu.py``'s UDE epoch), each by
+   autograd (``grad="jax"``) and by the discrete adjoint, with the launch
    counters set to 0 just before and read just after each; the time of one
    Adam epoch (forward, gradient, update) by CUDA events, its device idle
-   share and its count of device kernel launches from the profiler;
+   share and its count of device kernel launches from the profiler; then
+   one gradient by the continuous adjoint on the SI problem, its time,
+   reverse steps per interval, host reads and launches;
 6. the ``kernels`` line: per kernel, what it replaces, its launches on the
    main path, its time, its plain version's time and its bound, with the
    same at the main path's other shapes under ``more`` (``si_step`` at 30
    PCG iterations, at the SI training's 16 x 128^2, PCG-20 beside 15
-   glaciers, its transpose-solve mode, and on its large-plane path at
+   glaciers, its transpose-solve mode, both modes there without the
+   preconditioner, and on its large-plane path at
    4 x 128^2 and 2 x 300^2; ``rkc_interval`` at 16 x 128^2, s = 8; each
    pullback at its other shape and the fused RKC-backward stage). The
    ``kernel_times`` line before it also times a one-element PyTorch fill,
@@ -261,22 +273,24 @@ def sia_bound(n_g, nx, ny, itemsize):
 # b − A·x0 with z0 and r0·z0 (16); per cell and CG iteration 23: the matvec
 # (4 differences, 4 products, 4 sums), two dot products (2 each) and the
 # x, r, z and p updates (2, 2, 1, 2). H, H_D, B and x0 read once, the
-# output written once.
-def si_bound(n_g, nx, ny, itemsize, cg_iters):
+# output written once. Without the preconditioner neither the inverse
+# diagonal (5 an interior cell) nor z = r/diag (1 a cell and iteration,
+# and z0) is formed.
+def si_bound(n_g, nx, ny, itemsize, cg_iters, precondition=True):
     cells, corners, inner = n_g * nx * ny, n_g * (nx - 1) * (ny - 1), n_g * (nx - 2) * (ny - 2)
     nbytes = 5 * cells * itemsize + n_g * 8 * 8
-    ops = 3 * cells + 32 * corners + 32 * inner + 16 * cells + 23 * cells * cg_iters
+    pre = 1 if precondition else 0
+    ops = (3 * cells + 32 * corners + (27 + 5 * pre) * inner + (15 + pre) * cells
+           + (22 + pre) * cells * cg_iters)
     return nbytes, ops
 
 
 # si_step's transpose-solve mode: si_bound's count with g = gbar*[x > 0]
 # (1 a cell) in place of the final relu, and neither u nor b (15 an
 # interior cell); gbar, x, H_D and B read once, lambda written once.
-def si_transpose_bound(n_g, nx, ny, itemsize, cg_iters):
-    cells, corners, inner = n_g * nx * ny, n_g * (nx - 1) * (ny - 1), n_g * (nx - 2) * (ny - 2)
-    nbytes = 5 * cells * itemsize + n_g * 8 * 8
-    ops = 3 * cells + 32 * corners + 17 * inner + 16 * cells + 23 * cells * cg_iters
-    return nbytes, ops
+def si_transpose_bound(n_g, nx, ny, itemsize, cg_iters, precondition=True):
+    nbytes, ops = si_bound(n_g, nx, ny, itemsize, cg_iters, precondition)
+    return nbytes, ops - 15 * n_g * (nx - 2) * (ny - 2)
 
 
 # si_step_vjp: per cell relu(H_D), S, u and w (7); per corner its
@@ -328,7 +342,8 @@ def ptxas_entry(mangled: str) -> str:
     """A kernel instance's name from its mangled symbol, with its template
     arguments as tags: float32/float64, Glen (fixed exponents) or runtime
     exponents, the cells a thread owns (K), the pullback's stage mode or
-    the SI kernels' transpose-solve mode."""
+    the SI kernels' transpose-solve mode and, for those, Jacobi or plain
+    CG."""
     i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else len(mangled)
     name = mangled
     while i < len(mangled) and mangled[i].isdigit():
@@ -341,10 +356,11 @@ def ptxas_entry(mangled: str) -> str:
         tags.append("f64" if rest.startswith("Id") else "f32")
         tags += [t for key, t in (("GlenExps", "Glen"), ("RuntimeExps", "runtime")) if key in rest]
         cells = re.search(r"Li(\d+)E", rest)
-        mode = re.search(r"Lb(\d)E", rest)
+        flags = re.findall(r"Lb(\d)E", rest)
         tags += [f"K={cells.group(1)}"] if cells else []
-        modes = ("transpose", "forward") if name.startswith("si_") else ("stage", "pullback")
-        tags += [modes[0] if mode.group(1) == "1" else modes[1]] if mode else []
+        names = ([("transpose", "forward"), ("jacobi", "plain-cg")] if name.startswith("si_")
+                 else [("stage", "pullback")])
+        tags += [on if f == "1" else off for f, (on, off) in zip(flags, names)]
     return name + ("<" + ",".join(tags) + ">" if tags else "")
 
 
@@ -389,6 +405,17 @@ def check_kernels():
         if si_kernel.si_plan(*shape, dtype).layout is not None:
             raise AssertionError(f"si_step: {shape} {dtype} should take the large-plane path")
         check_si(H, B, derived, shape, dtype, cg_iters=(6,))
+    # the large-plane path at n = 4 (2 x 300^2, PCG-6): in float32 its
+    # increment is held to GRAD_F32_FACTOR times the float32 plain version's
+    # own increment error against float64 (or to TOL_F32_INCREMENT)
+    for dtype in (torch.float64, torch.float32):
+        shape = (2, 300, 300)
+        H, B, raw = kernel_inputs(*shape, dtype, seed=49)
+        raw[:, 4] = 4.0
+        raw[:, 2:4] /= PHYS.rho * PHYS.g * 400.0   # D of the same size as at n = 3
+        derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+        check_si(H, B, derived, shape, dtype, cg_iters=(6,), tag=" n=4 large-plane",
+                 increment_factor=True)
     # 10 rows leave 3 of rkc_interval's and si_step's 8 cluster blocks
     # without rows, or 6 of 16 (97 rows: 2 of 16)
     for dtype in (torch.float64, torch.float32):
@@ -446,12 +473,16 @@ def check_second_wave(dtype):
                              f"clusters in two waves, got {plan}")
 
 
-def check_si(H, B, derived, shape, dtype, cg_iters, tag=""):
+def check_si(H, B, derived, shape, dtype, cg_iters, tag="", increment_factor=False):
     """si_step against its plain version on the card (theta = 1 with
     H_D = H; theta = 0.5 with H_D != H), at each PCG iteration count, with
-    the exponent set of the table; float32 also on the increment out - H.
-    Then two launches on the same inputs must agree bit for bit. The
-    backward's two kernels likewise (:func:`check_si_backward`)."""
+    the exponent set of the table, with the Jacobi preconditioner and
+    without it (plain CG, the manual SI adjoints' solves); float32 also on
+    the increment out - H, against TOL_F32_INCREMENT, and with
+    ``increment_factor`` alternatively within GRAD_F32_FACTOR times the
+    float32 plain version's own increment error against float64. Then two
+    launches on the same inputs must agree bit for bit. The backward's two
+    kernels likewise (:func:`check_si_backward`)."""
     from odinn_tpu_torch.ops.cuda import si_kernel
     from odinn_tpu_torch.ops.cuda.common import shared_exps
 
@@ -463,49 +494,81 @@ def check_si(H, B, derived, shape, dtype, cg_iters, tag=""):
             f"si_step{tag} theta=1 H_D=H cg_iters={it}": (H, H, H, 1.0),
             f"si_step{tag} theta=0.5 H_D!=H cg_iters={it}": (H, 0.97 * H, 0.99 * H, 0.5),
         }
-        for name, (Hc, H_D, x0, theta) in cases.items():
-            call = lambda f: f(Hc, H_D, B, x0, derived, DT, theta, it, exps)
-            out = call(si_kernel.si_step)
-            again = call(si_kernel.si_step)
-            ref = call(si_kernel.si_step_reference)
-            torch.cuda.synchronize()
-            err = rel_err(out, ref)
-            row = {"phase": "check", "kernel": name, "shape": list(shape), "path": path,
-                   "exps": list(exps), "dtype": str(dtype), "rel_err": err, "tol": tol,
-                   "bitwise_repeat": bool(torch.equal(out, again))}
-            ok = err <= tol and row["bitwise_repeat"]
-            if dtype == torch.float32:
-                h = H.double()
-                row["increment_rel_err"] = rel_err(out.double() - h, ref.double() - h)
-                row["increment_tol"] = TOL_F32_INCREMENT
-                ok = ok and row["increment_rel_err"] <= TOL_F32_INCREMENT
-            emit(row)
-            if not (torch.isfinite(out).all() and ok):
-                raise AssertionError(f"{name} disagrees with its plain version or with "
-                                     f"itself: {row}")
-            check_si_backward(Hc, H_D, B, x0, derived, DT, theta, it, exps, name, shape, dtype)
+        for case, (Hc, H_D, x0, theta) in cases.items():
+            for pre in (True, False):
+                name = case + ("" if pre else " no-precondition")
+                call = lambda f, *a: f(*a, B, x0, derived, DT, theta, it, exps,
+                                       precondition=pre)
+                out = call(si_kernel.si_step, Hc, H_D)
+                again = call(si_kernel.si_step, Hc, H_D)
+                ref = call(si_kernel.si_step_reference, Hc, H_D)
+                torch.cuda.synchronize()
+                err = rel_err(out, ref)
+                row = {"phase": "check", "kernel": name, "shape": list(shape), "path": path,
+                       "exps": list(exps), "dtype": str(dtype), "rel_err": err, "tol": tol,
+                       "bitwise_repeat": bool(torch.equal(out, again))}
+                ok = err <= tol and row["bitwise_repeat"]
+                if dtype == torch.float32:
+                    h = H.double()
+                    ref64 = si_kernel.si_step_reference(
+                        h, H_D.double(), B.double(), x0.double(), derived.double(), DT, theta,
+                        it, exps, precondition=pre)
+                    row["increment_rel_err"] = rel_err(out.double() - h, ref.double() - h)
+                    row["increment_tol"] = TOL_F32_INCREMENT
+                    row["increment_vs_f64_plain"] = {
+                        "kernel": rel_err(out.double() - h, ref64 - h),
+                        "f32_plain": rel_err(ref.double() - h, ref64 - h)}
+                    inc_ok = row["increment_rel_err"] <= TOL_F32_INCREMENT
+                    if increment_factor:
+                        v = row["increment_vs_f64_plain"]
+                        row["increment_factor"] = GRAD_F32_FACTOR
+                        inc_ok = inc_ok or v["kernel"] <= GRAD_F32_FACTOR * v["f32_plain"]
+                    ok = ok and inc_ok
+                emit(row)
+                if not (torch.isfinite(out).all() and ok):
+                    raise AssertionError(f"{name} disagrees with its plain version or with "
+                                         f"itself: {row}")
+                check_si_backward(Hc, H_D, B, x0, derived, DT, theta, it, exps, name, shape,
+                                  dtype, pre)
 
 
-def check_si_backward(H, H_D, B, x0, derived, dt, theta, it, exps, name, shape, dtype):
+def check_si_backward(H, H_D, B, x0, derived, dt, theta, it, exps, name, shape, dtype,
+                      precondition=True):
     """The forward's pre-relu output x (kept under grad), the transpose-solve
     mode and the si_step_vjp pullback kernel against their plain versions
     on the same inputs (the transpose at the plain x, the pullback at the
     plain lambda, so a relu tie cannot differ), each with a bitwise repeat
-    of its launch. Tolerances as for the forward, each relative to
-    max|reference|; in float32 the per-glacier sums d(creep) and d(slide),
-    which cancel digits over the corners, pass also within GRAD_F32_FACTOR
-    times the float32 plain version's own error against float64."""
+    of its launch; without the preconditioner x and the transpose solve
+    only (the pullback has no such mode). Tolerances as for the forward,
+    each relative to max|reference|; in float32 the per-glacier sums
+    d(creep) and d(slide), which cancel digits over the corners, pass also
+    within GRAD_F32_FACTOR times the float32 plain version's own error
+    against float64."""
     from odinn_tpu_torch.ops.cuda import si_kernel
 
     tol = TOL_F64 if dtype == torch.float64 else TOL_F32
     gbar = torch.randn(shape, generator=torch.Generator().manual_seed(sum(shape) + it),
                        dtype=torch.float64).to("cuda", dtype)
-    _, x = si_kernel._forward(H, H_D, B, x0, derived, dt, theta, it, exps, keep_x=True)
-    x_ref = si_kernel._si_solve_reference(H, H_D, B, x0, derived, dt, theta, it, exps)
-    lam_args = (gbar, x_ref, H_D, B, derived, dt, theta, it, exps)
+    _, x = si_kernel._forward(H, H_D, B, x0, derived, dt, theta, it, exps, keep_x=True,
+                              precondition=precondition)
+    x_ref = si_kernel._si_solve_reference(H, H_D, B, x0, derived, dt, theta, it, exps,
+                                          precondition)
+    lam_args = (gbar, x_ref, H_D, B, derived, dt, theta, it, exps, precondition)
     lam = si_kernel.si_step_transpose(*lam_args)
     lam_again = si_kernel.si_step_transpose(*lam_args)
     lam_ref = si_kernel.si_step_transpose_reference(*lam_args)
+    if not precondition:
+        torch.cuda.synchronize()
+        errs = {"x": rel_err(x, x_ref), "lambda": rel_err(lam, lam_ref)}
+        row = {"phase": "check", "kernel": f"{name} backward kernels", "shape": list(shape),
+               "dtype": str(dtype), "rel_err": errs, "tol": tol,
+               "bitwise_repeat": {"lambda": bool(torch.equal(lam, lam_again))}}
+        emit(row)
+        if not (all(e <= tol for e in errs.values()) and row["bitwise_repeat"]["lambda"]
+                and torch.isfinite(x).all() and torch.isfinite(lam).all()):
+            raise AssertionError(f"{name}: the kernels disagree with their plain versions "
+                                 f"or with themselves: {row}")
+        return
     vjp_args = (lam_ref, H, H_D, B, x_ref, derived, dt, theta, exps)
     got = si_kernel.si_step_vjp(*vjp_args)
     again = si_kernel.si_step_vjp(*vjp_args)
@@ -833,6 +896,8 @@ def time_kernels():
     xt = si_kernel._si_solve_reference(Ht, Ht, Bt, Ht, derived_t, DT, 1.0, it_t, exps)
     lamt = si_kernel.si_step_transpose_reference(lam, xt, Ht, Bt, derived_t, DT, 1.0, it_t,
                                                  exps)
+    xt_plain = si_kernel._si_solve_reference(Ht, Ht, Bt, Ht, derived_t, DT, 1.0, it_t, exps,
+                                             precondition=False)
     n15 = N_TRAIN - 1
     H15, B15, x15, lam15 = (t[:n15].contiguous() for t in (Ht, Bt, xt, lam))
     derived_15 = derived_t[:n15].contiguous()
@@ -867,6 +932,17 @@ def time_kernels():
             "si_step", lambda f: lambda: f(lam, xt, Ht, Bt, derived_t, DT, 1.0, it_t, exps),
             si_kernel.si_step_transpose, si_kernel.si_step_transpose_reference,
             si_transpose_bound(N_TRAIN, NX, NY, 4, it_t), SI_KERNELS, 10),
+        # without the preconditioner: the discrete adjoint's SI transposes
+        f"si_step no-precondition {N_TRAIN}x{NX}x{NY} cg_iters={it_t}": (
+            "si_step", lambda f: lambda: f(Ht, Ht, Bt, Ht, derived_t, DT, 1.0, it_t, exps,
+                                           precondition=False),
+            si_kernel.si_step, si_kernel.si_step_reference,
+            si_bound(N_TRAIN, NX, NY, 4, it_t, precondition=False), SI_KERNELS, 10),
+        f"si_step transpose no-precondition {N_TRAIN}x{NX}x{NY} cg_iters={it_t}": (
+            "si_step", lambda f: lambda: f(lam, xt_plain, Ht, Bt, derived_t, DT, 1.0, it_t, exps,
+                                           precondition=False),
+            si_kernel.si_step_transpose, si_kernel.si_step_transpose_reference,
+            si_transpose_bound(N_TRAIN, NX, NY, 4, it_t, precondition=False), SI_KERNELS, 10),
         f"si_step {n15}x{NX}x{NY} cg_iters={it_t}": (
             "si_step", lambda f: lambda: f(H15, H15, B15, H15, derived_15, DT, 1.0, it_t, exps),
             si_kernel.si_step, si_kernel.si_step_reference,
@@ -1075,12 +1151,16 @@ def main_path_rows():
     return launches
 
 
-def training_problem(solver):
+def training_problem(solver, grad="jax", n_g=N_TRAIN, tspan=TRAIN_TSPAN,
+                     dtype=torch.float32):
     """A training phase's problem at the width of benchmarks/perf_tpu.py's
     UDE epoch: 16 Halfar glaciers, 128^2, float32, 2 years of monthly
     Cuffey–Paterson ground truth, A = NN(T), through the RKC solve (s from
-    rkc_stages_for) or, as that epoch does, the SI solve at PCG-20; the
-    ground truth through the same solve. Returns (inversion, model, params,
+    rkc_stages_for) or, as that epoch does, the SI solve at PCG-20 (SI2 at
+    PCG-20 with a PCG-6 predictor; an explicit ``solver`` at the substeps
+    of suggest_substeps); the ground truth through the same solve. ``grad``
+    is the gradient (params.UDE.grad); ``n_g``, ``tspan`` and ``dtype`` cut
+    the problem for the gradient checks. Returns (inversion, model, params,
     tstops, facts)."""
     from odinn_tpu_torch.core.params import (
         Hyperparameters, Parameters, PhysicalParameters, SimulationParameters,
@@ -1093,29 +1173,37 @@ def training_problem(solver):
     from odinn_tpu_torch.simulation.prediction import generate_ground_truth
     from odinn_tpu_torch.simulation.solver import build_tstops, rkc_stages_for
 
+    from odinn_tpu_torch.simulation.solver import suggest_substeps
+
     phys = PhysicalParameters(min_A=8e-21, max_A=8e-18)
-    temps = np.linspace(-25.0, -13.0, N_TRAIN)
+    temps = np.linspace(-25.0, -13.0, n_g)
     glaciers = [halfar_glacier(nx=NX, ny=NY, dx=DX, dy=DX, temp=float(t), rgi_id=f"train-{i}",
-                               device="cuda", dtype=torch.float32)
+                               device="cuda", dtype=dtype)
                 for i, t in enumerate(temps)]
     # stages for the largest creep the solve can meet: the law's max_A or
     # the truth's largest A, at the batch's thickest ice
     h_max = max(float(g.H0.max()) for g in glaciers)
     a_truth = float(poly_A_paterson_cuffey()(torch.from_numpy(temps)).max())
-    stages = rkc_stages_for(DX, DX, h_max, max(phys.max_A, a_truth), n=3.0, rho=phys.rho,
-                            g=phys.g, step=1.0 / 12.0)
-    solver_kw = (dict(solver="RKC", rkc_stages=stages) if solver == "RKC"
-                 else dict(solver=solver, cg_iters=SI_TRAIN_CG))
+    a_max = max(phys.max_A, a_truth)
+    stages = rkc_stages_for(DX, DX, h_max, a_max, n=3.0, rho=phys.rho, g=phys.g,
+                            step=1.0 / 12.0)
+    if solver == "RKC":
+        solver_kw = dict(solver="RKC", rkc_stages=stages, substeps=1)
+    elif solver in ("SI", "SI2"):
+        solver_kw = dict(solver=solver, cg_iters=SI_TRAIN_CG, cg_iters_predictor=6, substeps=1)
+    else:
+        solver_kw = dict(solver=solver, substeps=suggest_substeps(
+            DX, DX, h_max, a_max, n=3.0, rho=phys.rho, g=phys.g, step=1.0 / 12.0))
     params = Parameters(
         physical=phys,
-        simulation=SimulationParameters(tspan=TRAIN_TSPAN, use_MB=False, use_velocities=False,
-                                        float_dtype="float32"),
-        solver=SolverParameters(step=1.0 / 12.0, substeps=1, **solver_kw),
+        simulation=SimulationParameters(tspan=tspan, use_MB=False, use_velocities=False,
+                                        float_dtype=str(dtype).split(".")[-1]),
+        solver=SolverParameters(step=1.0 / 12.0, **solver_kw),
         hyper=Hyperparameters(optimizer=("adam", "lbfgs"), learning_rate=(0.05, 1.0),
-                              epochs=(5, 3), batch_size=N_TRAIN),
-        UDE=UDEParameters(grad="jax"),
+                              epochs=(5, 3), batch_size=n_g),
+        UDE=UDEParameters(grad=grad),
     )
-    tstops = build_tstops(TRAIN_TSPAN, 1.0 / 12.0)
+    tstops = build_tstops(tspan, 1.0 / 12.0)
     t0 = time.perf_counter()
     truth = generate_ground_truth(
         glaciers, params, Model(iceflow=SIA2DModel(A=CuffeyPaterson(), n_value=3.0)), tstops,
@@ -1125,26 +1213,40 @@ def training_problem(solver):
     model = Model(iceflow=SIA2DModel(A=LawA(NeuralNetwork(default_architecture(1)), params),
                                      n_value=3.0))
     inv = Inversion(model=model, glaciers=truth, parameters=params, device="cuda")
-    facts = ({"rkc_stages": stages, "h_max": h_max, "a_for_stages": max(phys.max_A, a_truth)}
-             if solver == "RKC" else {"cg_iters": SI_TRAIN_CG})
+    facts = ({"rkc_stages": stages, "h_max": h_max, "a_for_stages": a_max}
+             if solver == "RKC" else {"cg_iters": SI_TRAIN_CG} if solver in ("SI", "SI2")
+             else {"substeps": params.solver.substeps})
     facts["ground_truth_s"] = truth_s
     return inv, model, params, tstops, facts
 
 
-def adam_epoch_fn(inv, model, params, tstops):
-    """One Adam epoch (forward, gradient, update) on a copy of the
-    inversion's NN parameters."""
-    from odinn_tpu_torch.simulation.inversion import batch_transient_loss
+def grad_fn(inv, params):
+    """The trainer's ``vg(theta, batch) -> (loss, gradient leaves)`` for
+    params.UDE.grad on the inversion's problem, and its TrainingStats."""
+    from odinn_tpu_torch.simulation.inversion import (
+        Inversion, _make_grad_fn, assemble_tstops, batch_transient_loss)
+    from odinn_tpu_torch.simulation.results import TrainingStats
 
+    inv2 = Inversion(model=inv.model, glaciers=inv.glaciers, parameters=params,
+                     theta=inv.theta, device=inv.device)
+    tstops = assemble_tstops(params, inv2.glaciers)
+    stats = TrainingStats()
+    return _make_grad_fn(inv2, lambda th, b: batch_transient_loss(th, b, inv.model, params,
+                                                                   tstops), stats), stats
+
+
+def adam_epoch_fn(inv, model, params, tstops):
+    """One Adam epoch (forward, gradient by params.UDE.grad, update) on a
+    copy of the inversion's NN parameters."""
     leaves = [layer[k].detach().clone().requires_grad_(True)
               for layer in inv.theta["A"] for k in ("w", "b")]
     theta = {"A": [{"w": leaves[2 * i], "b": leaves[2 * i + 1]}
                    for i in range(len(leaves) // 2)]}
     opt = torch.optim.Adam(leaves, lr=0.05)
+    vg, _ = grad_fn(inv, params)
 
     def adam_epoch():
-        loss = batch_transient_loss(theta, inv.glaciers, model, params, tstops)
-        grads = torch.autograd.grad(loss, leaves)
+        _, grads = vg(theta, inv.glaciers)
         for p, g in zip(leaves, grads):
             p.grad = g
         opt.step()
@@ -1153,10 +1255,10 @@ def adam_epoch_fn(inv, model, params, tstops):
 
 
 def epoch_profile(adam_epoch):
-    """The epoch's time (CUDA events, median of 3 after a warm-up), device
+    """The epoch's time (CUDA events, median of 5 after a warm-up), device
     busy time, idle share and device launches, all and by kernel name
     (profiler, one epoch)."""
-    epoch_ms = row_ms(adam_epoch, reps=3)
+    epoch_ms = row_ms(adam_epoch, reps=5)
     busy_ms, launches, by_name = device_profile(adam_epoch, 1)
     return {"adam_epoch_ms": epoch_ms, "adam_epoch_device_busy_ms": busy_ms,
             "adam_epoch_device_idle_share": 1.0 - busy_ms / epoch_ms,
@@ -1165,13 +1267,18 @@ def epoch_profile(adam_epoch):
                                                          key=lambda kv: -kv[1]))}
 
 
-def training_phase(solver):
+def training_phase(solver, grad="jax"):
     """Phase 5: run_inversion of A = NN(T) through the RKC or the SI solve
-    on :func:`training_problem`, then one Adam epoch profiled. Returns each
-    kernel's launches in the run."""
+    on :func:`training_problem`, by autograd (``grad="jax"``) or by the
+    discrete adjoint, then one Adam epoch profiled. Returns each kernel's
+    launches in the run. The discrete adjoint launches what autograd does
+    through RKC (its transpose is the fused step's backward), and through
+    SI one more si_step per interval and gradient (the plain-CG
+    rematerialisation of the pre-relu state), the transpose solve and the
+    pullback without the preconditioner."""
     from odinn_tpu_torch.simulation.inversion import run_inversion
 
-    inv, model, params, tstops, facts = training_problem(solver)
+    inv, model, params, tstops, facts = training_problem(solver, grad)
     n_int = len(tstops) - 1
     counters = kernel_counters()
     for fn in counters.values():
@@ -1192,13 +1299,16 @@ def training_phase(solver):
                         sia2d_rhs_vjp=n_int * facts["rkc_stages"] * stats.gradients)
     else:
         # every forward solve is one si_step per interval; every backward
-        # one transpose solve and one pullback per interval, nothing
-        # rematerialised
-        expected.update(si_step=n_int * stats.solves,
+        # one transpose solve and one pullback per interval, by autograd
+        # nothing rematerialised, by the discrete adjoint the pre-relu
+        # state by one si_step without the preconditioner
+        remat = stats.gradients if grad == "discrete" else 0
+        expected.update(si_step=n_int * (stats.solves + remat),
                         si_step_transpose=n_int * stats.gradients,
                         si_step_vjp=n_int * stats.gradients)
     row = dict({
-        "phase": "training", "solver": solver, "glaciers": N_TRAIN, "grid": [NX, NY],
+        "phase": "training", "solver": solver, "grad": grad, "glaciers": N_TRAIN,
+        "grid": [NX, NY],
         "dtype": "torch.float32",
         "intervals": n_int, "run_inversion_s": train_s, "losses": losses,
         "final_loss": stats.final_loss, "solves": stats.solves, "gradients": stats.gradients,
@@ -1207,10 +1317,134 @@ def training_phase(solver):
     }, **facts, **epoch_profile(adam_epoch_fn(inv, model, params, tstops)))
     emit(row)
     if launches != expected:
-        raise AssertionError(f"training {solver}: launches {launches}, expected {expected}")
+        raise AssertionError(f"training {solver} {grad}: launches {launches}, expected "
+                             f"{expected}")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-        raise AssertionError(f"training {solver}: losses not finite or not decreasing: {losses}")
+        raise AssertionError(f"training {solver} {grad}: losses not finite or not decreasing: "
+                             f"{losses}")
     return launches
+
+
+def continuous_gradient_phase():
+    """One full-width gradient by ContinuousAdjoint(DiscreteVJP) on the SI
+    training's problem (16 x 128^2, float32, 24 intervals): its time (host
+    clock to a synchronise), the reverse steps each glacier took per
+    interval, the step loop's host reads, and its launches, asserted: the
+    forward's si_step per interval, a sia2d_rhs per save (the Hermite
+    slopes of H), and a sia2d_rhs_vjp per pullback (the first slope of each
+    interval, three a reverse step while any glacier steps, two λ slopes
+    per interval, one a quadrature node). Returns the launches."""
+    from odinn_tpu_torch.inverse.adjoint_types import ContinuousAdjoint, DiscreteVJP
+    from odinn_tpu_torch.inverse.gradient import make_adjoint_value_and_grad
+
+    adjoint = ContinuousAdjoint(VJP_method=DiscreteVJP())
+    inv, model, params, tstops, facts = training_problem("SI", adjoint)
+    vg = make_adjoint_value_and_grad(inv, flavor="continuous")
+    vg(inv.theta)   # warm-up
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    loss, grads = vg(inv.theta)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    steps = vg.record["reverse_steps"]           # [interval from the last][glacier]
+    n_int = len(tstops) - 1
+    expected = {name: 0 for name in counters}
+    expected.update(si_step=n_int, sia2d_rhs=n_int + 1,
+                    sia2d_rhs_vjp=sum(1 + 3 * max(s) for s in steps) + 2 * n_int
+                    + adjoint.n_quadrature)
+    flat = torch.cat([g.flatten() for layer in grads["A"] for g in layer.values()])
+    row = {"phase": "continuous_gradient", "solver": "SI", "glaciers": N_TRAIN,
+           "grid": [NX, NY], "dtype": "torch.float32", "intervals": n_int,
+           "adjoint": "ContinuousAdjoint(DiscreteVJP), hermite", "seconds": seconds,
+           "loss": float(loss), "reverse_steps_per_interval_max": [max(s) for s in steps],
+           "reverse_steps_per_interval_min": [min(s) for s in steps],
+           "host_syncs": vg.record["host_syncs"], "launches": launches,
+           "expected_launches": expected}
+    emit(row)
+    if launches != expected:
+        raise AssertionError(f"continuous gradient: launches {launches}, expected {expected}")
+    if not (torch.isfinite(flat).all() and float(flat.abs().max()) > 0.0):
+        raise AssertionError(f"continuous gradient not finite or zero: {row}")
+    return launches
+
+
+def check_adjoint_gradients():
+    """The hand-written adjoints' θ-gradient on the card (4 Halfar glaciers,
+    128^2, 2 monthly intervals, A = NN(T) at its initial θ). Euler, SSPRK3
+    (both at suggest_substeps) and RKC (s of rkc_stages_for): the
+    DiscreteAdjoint(DiscreteVJP) gradient is the exact transpose of the
+    forward, so it is held to the card's autograd gradient (grad="jax") of
+    the same θ, float64 to TOL_GRAD_F64, float32 within GRAD_F32_FACTOR
+    times the float32 plain version's (the same adjoint on the CPU, the
+    kernels' plain versions) own error against the float64 autograd
+    gradient. SI and SI2 (PCG-20) and ContinuousAdjoint(DiscreteVJP) on
+    the SI forward: held to the same function run on the CPU in float64,
+    the same way."""
+    from odinn_tpu_torch.inverse.adjoint_types import (
+        ContinuousAdjoint, DiscreteAdjoint, DiscreteVJP)
+    from odinn_tpu_torch.core.params import UDEParameters
+    from odinn_tpu_torch.simulation.inversion import Inversion
+
+    def gradient(inv, theta, grad, device, dtype):
+        params = inv.parameters.replace(UDE=UDEParameters(grad=grad))
+        on = Inversion(model=inv.model, glaciers=glaciers.to(device, dtype),
+                       parameters=params, device=device,
+                       theta=_tree_to(theta, device, dtype))
+        vg, _ = grad_fn(on, params)
+        th = _tree_to(theta, device, dtype, requires_grad=True)
+        _, grads = vg(th, on.glaciers)
+        return torch.cat([g.detach().double().flatten().cpu() for g in grads])
+
+    def err(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    discrete = DiscreteAdjoint(VJP_method=DiscreteVJP())
+    cases = [("Euler", discrete, "jax"), ("SSPRK3", discrete, "jax"), ("RKC", discrete, "jax"),
+             ("SI", discrete, "cpu"), ("SI2", discrete, "cpu"),
+             ("SI", ContinuousAdjoint(VJP_method=DiscreteVJP()), "cpu")]
+    f32, f64 = torch.float32, torch.float64
+    for solver, adjoint, against in cases:
+        t0 = time.perf_counter()
+        inv, _, params, _, facts = training_problem(solver, "jax", n_g=N_G,
+                                                    tspan=(5.0, 5.0 + 2.0 / 12.0), dtype=f64)
+        # one problem for both dtypes: the float32 data and θ, which float64
+        # holds exactly (a cell that rounds to 0 in float32 would otherwise
+        # leave the loss's mask in one dtype only)
+        glaciers = inv.glaciers.to(dtype=f32)
+        theta = _tree_to(inv.theta, "cuda", f32)
+        k64 = gradient(inv, theta, adjoint, "cuda", f64)
+        k32 = gradient(inv, theta, adjoint, "cuda", f32)
+        p32 = gradient(inv, theta, adjoint, "cpu", f32)
+        ref = (gradient(inv, theta, "jax", "cuda", f64) if against == "jax"
+               else gradient(inv, theta, adjoint, "cpu", f64))
+        # the float32 error is mostly the law's and the loss's own float32
+        # arithmetic, common to the kernels and their plain versions: the
+        # kernels' part shows in the float32 kernel-against-plain gap
+        row = {"phase": "check_adjoint_grad", "solver": solver, "adjoint": type(adjoint).__name__,
+               "against": "card grad='jax' float64" if against == "jax" else "CPU float64",
+               "glaciers": N_G, "grid": [NX, NY], "intervals": 2,
+               "float64_rel_err": err(k64, ref), "tol": TOL_GRAD_F64,
+               "float32_rel_err": err(k32, ref), "f32_plain_rel_err": err(p32, ref),
+               "float32_vs_f32_plain_rel_err": err(k32, p32),
+               "factor": GRAD_F32_FACTOR, "seconds": time.perf_counter() - t0}
+        row.update({k: v for k, v in facts.items() if k != "ground_truth_s"})
+        emit(row)
+        if not (row["float64_rel_err"] <= TOL_GRAD_F64 and torch.isfinite(k32).all()
+                and row["float32_rel_err"] <= GRAD_F32_FACTOR * row["f32_plain_rel_err"]):
+            raise AssertionError(f"{solver} {type(adjoint).__name__}: the adjoint's gradient "
+                                 f"on the card disagrees: {row}")
+
+
+def _tree_to(tree, device, dtype, requires_grad=False):
+    """θ on ``device`` in ``dtype``, a copy (leaves requiring grad when asked)."""
+    from odinn_tpu_torch.simulation.inversion import _tree_map
+
+    return _tree_map(lambda x: x.detach().to(device=device, dtype=dtype).clone()
+                     .requires_grad_(requires_grad), tree)
 
 
 def main() -> int:
@@ -1236,12 +1470,16 @@ def main() -> int:
 
     check_kernels()
     check_gradients()
+    check_adjoint_gradients()
     cluster_report()
     timing = time_kernels()
     launches = main_path_rows()
     for solver in ("RKC", "SI"):
-        for name, n in training_phase(solver).items():
-            launches[name] += n
+        for grad in ("jax", "discrete"):
+            for name, n in training_phase(solver, grad).items():
+                launches[name] += n
+    for name, n in continuous_gradient_phase().items():
+        launches[name] += n
     meta = {
         "si_step": ("odinn_tpu_torch/csrc/si_step.cu", "odinn_tpu/ops/pallas/si_kernel.py:174"),
         "sia2d_rhs": ("odinn_tpu_torch/csrc/sia2d_rhs.cu", "odinn_tpu/ops/pallas/sia_kernel.py:137"),

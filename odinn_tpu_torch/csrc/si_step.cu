@@ -77,6 +77,14 @@
 // faces and the inverse diagonal, the same rounds of the same exchange, and
 // lambda written without relu. Under grad the forward also writes x (xout).
 //
+// Without the preconditioner (template flag kJ false; si_step's and
+// si_step_transpose's precondition=False, plain version si_math.cg with no
+// preconditioner) both modes run plain CG: the inverse diagonal is 1, so z
+// is r and its register copy and the multiply go. This is the solve the
+// hand-written SI/SI2 transposes of odinn_tpu/inverse/gradient.py run
+// (_cg without precond): the rematerialised step from H0 and the adjoint
+// solve from gbar*[x > 0].
+//
 // The large-plane path (si_assemble + si_pcg), for planes whose layout does
 // not fit a cluster (more than 8 cells a thread or 227 KB of shared memory
 // a block): an assembly kernel over the whole batch (D, b, inverse
@@ -153,7 +161,8 @@ __device__ __forceinline__ T corner_at(const T* __restrict__ HD, const T* __rest
 // K: the cells a thread owns at most (2, 4 or 8; si_layout's cells,
 // rounded up).
 // kT: the transpose-solve mode (H is gbar, x0 the forward's x).
-template <typename T, class E, int K, bool kT>
+// kJ: Jacobi-preconditioned CG; without it plain CG (inverse diagonal 1).
+template <typename T, class E, int K, bool kT, bool kJ>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 si_step_cluster(const T* __restrict__ H, const T* __restrict__ HD, const T* __restrict__ B,
                 const T* __restrict__ x0, const T* __restrict__ table, T* __restrict__ out,
@@ -289,9 +298,11 @@ si_step_cluster(const T* __restrict__ H, const T* __restrict__ HD, const T* __re
                                   u(g + 1, f & kInYp), u(g - 1, f & kInYm), k.inv_dx, k.inv_dy);
         b = H[g] + dt * div_b;
       }
-      const T sx = (fxw[q] + fxe[q]) * (k.inv_dx * k.inv_dx);
-      const T sy = (fys[q] + fyn[q]) * (k.inv_dy * k.inv_dy);
-      inv[q] = T(1) / (T(1) + coef * (sx + sy));
+      if (kJ) {
+        const T sx = (fxw[q] + fxe[q]) * (k.inv_dx * k.inv_dx);
+        const T sy = (fys[q] + fyn[q]) * (k.inv_dy * k.inv_dy);
+        inv[q] = T(1) / (T(1) + coef * (sx + sy));
+      }
       // M x0 on the 5 points
       auto m = [&](long gg, bool in) { return in ? guess(gg) : T(0); };
       const T div_x = div_faces(fxe[q], fxw[q], fyn[q], fys[q], xc, m(g + ny, f & kInXp),
@@ -301,7 +312,7 @@ si_step_cluster(const T* __restrict__ H, const T* __restrict__ HD, const T* __re
     }
     x[q] = xc;
     r[q] = b - ax;
-    w[q] = r[q] * inv[q];   // z0
+    w[q] = kJ ? r[q] * inv[q] : r[q];   // z0
     p[q] = w[q];
     acc += r[q] * w[q];
   }
@@ -356,7 +367,7 @@ si_step_cluster(const T* __restrict__ H, const T* __restrict__ HD, const T* __re
       if (sidx[q] < 0) continue;
       x[q] = x[q] + alpha * p[q];
       r[q] = r[q] - alpha * w[q];
-      w[q] = r[q] * inv[q];
+      w[q] = kJ ? r[q] * inv[q] : r[q];
       acc += r[q] * w[q];
     }
     if (it == cg_iters - 1) break;   // x is final; no one reads the last r.z
@@ -397,7 +408,7 @@ si_step_cluster(const T* __restrict__ H, const T* __restrict__ HD, const T* __re
 // Once per instantiation: all the opt-in shared memory as dynamic (the
 // kernel has no static shared memory), and the non-portable cluster size
 // of 16.
-template <typename T, class E, int K, bool kT>
+template <typename T, class E, int K, bool kT, bool kJ>
 int prepare() {
   static int state = -1;
   if (state < 0) {
@@ -406,10 +417,10 @@ int prepare() {
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(si_step_cluster<T, E, K, kT>,
+      err = cudaFuncSetAttribute(si_step_cluster<T, E, K, kT, kJ>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(si_step_cluster<T, E, K, kT>,
+      err = cudaFuncSetAttribute(si_step_cluster<T, E, K, kT, kJ>,
                                  cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return static_cast<int>(err);
     state = 0;
@@ -441,28 +452,34 @@ template <typename T>
 struct StepArgs {
   const T *H, *HD, *B, *x0, *table;
   T *out, *xout;
-  int nx, ny, cg_iters, transpose;
+  int nx, ny, cg_iters, transpose, precondition;
   double dt, theta;
 };
 
-template <typename T, class E, int K, bool kT>
+template <typename T, class E, int K, bool kT, bool kJ>
 int launch_mode(const StepArgs<T>& a, E e, const Shape& sh, void* stream) {
-  const int ready = prepare<T, E, K, kT>();
+  const int ready = prepare<T, E, K, kT, kJ>();
   if (ready != 0) return ready;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = config(sh, &attr, static_cast<cudaStream_t>(stream));
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, si_step_cluster<T, E, K, kT>, a.H, a.HD, a.B, a.x0, a.table, a.out, a.xout, a.nx,
-      a.ny, static_cast<T>(a.dt), static_cast<T>(a.theta * a.dt),
+      &cfg, si_step_cluster<T, E, K, kT, kJ>, a.H, a.HD, a.B, a.x0, a.table, a.out, a.xout,
+      a.nx, a.ny, static_cast<T>(a.dt), static_cast<T>(a.theta * a.dt),
       static_cast<T>(1.0 - a.theta), a.cg_iters, e);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, class E, int K, bool kT>
+int launch_pre(const StepArgs<T>& a, E e, const Shape& sh, void* stream) {
+  return a.precondition ? launch_mode<T, E, K, kT, true>(a, e, sh, stream)
+                        : launch_mode<T, E, K, kT, false>(a, e, sh, stream);
+}
+
 template <typename T, class E, int K>
 int launch_k(const StepArgs<T>& a, E e, const Shape& sh, void* stream) {
-  return a.transpose ? launch_mode<T, E, K, true>(a, e, sh, stream)
-                     : launch_mode<T, E, K, false>(a, e, sh, stream);
+  return a.transpose ? launch_pre<T, E, K, true>(a, e, sh, stream)
+                     : launch_pre<T, E, K, false>(a, e, sh, stream);
 }
 
 template <typename T, class E>
@@ -482,17 +499,18 @@ int with_exps(int glen, double e_hc, double e_sc, double e_hs, double e_ss, F&& 
                                static_cast<T>(e_hs), static_cast<T>(e_ss)});
 }
 
-// The forward's instance; the transpose mode launches at the same layout.
+// The preconditioned forward's instance; the other modes launch at the
+// same layout.
 template <typename T, class E, int K>
 int occupancy_k(const Shape& sh, int* active) {
-  const int ready = prepare<T, E, K, false>();
+  const int ready = prepare<T, E, K, false, true>();
   if (ready != 0) return ready;
   cudaLaunchAttribute attr;
   Shape one = sh;
   one.n_g = 1;
   const cudaLaunchConfig_t cfg = config(one, &attr, nullptr);
   return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(active, si_step_cluster<T, E, K, false>, &cfg));
+      cudaOccupancyMaxActiveClusters(active, si_step_cluster<T, E, K, false, true>, &cfg));
 }
 
 template <typename T, class E>
@@ -538,8 +556,8 @@ __device__ __forceinline__ Faces<T> faces(const T* __restrict__ D, int ny, int i
 // it has one, and b and the inverse diagonal. An interior cell forms its
 // three other corners itself, as no barrier spans the grid. In the transpose
 // mode (kT) H is gbar, X the forward's x, and b = gbar*[x > 0], which
-// si_pcg also takes as its guess.
-template <typename T, class E, bool kT>
+// si_pcg also takes as its guess. Without kJ the inverse diagonal is 1.
+template <typename T, class E, bool kT, bool kJ>
 __global__ void __launch_bounds__(256)
 si_assemble(const T* __restrict__ H, const T* __restrict__ HD,
             const T* __restrict__ B, const T* __restrict__ X, const T* __restrict__ table,
@@ -586,9 +604,13 @@ si_assemble(const T* __restrict__ H, const T* __restrict__ HD,
                             u(0, -1), k.inv_dx, k.inv_dy);
     rhs[c] = h[c] + dt * div;
   }
-  const T sx = (f.xw + f.xe) * (k.inv_dx * k.inv_dx);
-  const T sy = (f.ys + f.yn) * (k.inv_dy * k.inv_dy);
-  inv_diag[c] = T(1) / (T(1) + dt_eff * (sx + sy));
+  if (kJ) {
+    const T sx = (f.xw + f.xe) * (k.inv_dx * k.inv_dx);
+    const T sy = (f.ys + f.yn) * (k.inv_dy * k.inv_dy);
+    inv_diag[c] = T(1) / (T(1) + dt_eff * (sx + sy));
+  } else {
+    inv_diag[c] = T(1);
+  }
 }
 
 // Sum over the block in a fixed order: registers, warp shuffles, then the
@@ -631,8 +653,9 @@ __device__ __forceinline__ T matvec(const T* __restrict__ u,
 }
 
 // kT: the transpose mode, which writes x without relu; xout, when given,
-// receives the pre-relu x of the forward.
-template <typename T, bool kT>
+// receives the pre-relu x of the forward. kJ: Jacobi-preconditioned; without
+// it z is r.
+template <typename T, bool kT, bool kJ>
 __global__ void __launch_bounds__(kPcgThreads)
 si_pcg(const T* __restrict__ x0, const T* __restrict__ table, T* work,
        T* __restrict__ out, T* __restrict__ xout, int n_g, int nx, int ny, T coef,
@@ -670,7 +693,7 @@ si_pcg(const T* __restrict__ x0, const T* __restrict__ table, T* work,
   T acc = T(0);
   FOR_OWN_CELLS({
     const T rc = rhs[c] - matvec(xs, D, nx, ny, i, j, coef, k);
-    const T zc = rc * inv[c];
+    const T zc = kJ ? rc * inv[c] : rc;
     x[c] = xs[c];
     r[c] = rc;
     p[c] = zc;
@@ -692,11 +715,11 @@ si_pcg(const T* __restrict__ x0, const T* __restrict__ table, T* work,
       x[c] = x[c] + alpha * p[c];
       const T rc = r[c] - alpha * Ap[c];
       r[c] = rc;
-      acc += rc * (rc * inv[c]);
+      acc += rc * (kJ ? rc * inv[c] : rc);
     })
     const T rz_new = block_sum(acc, sh);
     const T beta = rz > T(0) ? rz_new / fmax(rz, tiny) : T(0);
-    FOR_OWN_CELLS({ p[c] = r[c] * inv[c] + beta * p[c]; })
+    FOR_OWN_CELLS({ p[c] = (kJ ? r[c] * inv[c] : r[c]) + beta * p[c]; })
     rz = rz_new;
     __syncthreads();   // the next matvec reads the neighbours' p
   }
@@ -707,34 +730,42 @@ si_pcg(const T* __restrict__ x0, const T* __restrict__ table, T* work,
 #undef FOR_OWN_CELLS
 }
 
-template <typename T, class E, bool kT>
+template <typename T, class E, bool kT, bool kJ>
 int launch_split_mode(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 block(32, 8);
   const dim3 grid((a.ny + block.x - 1) / block.x, (a.nx + block.y - 1) / block.y, n_g);
-  si_assemble<T, E, kT><<<grid, block, 0, s>>>(
+  si_assemble<T, E, kT, kJ><<<grid, block, 0, s>>>(
       a.H, a.HD, a.B, a.x0, a.table, work, n_g, a.nx, a.ny, static_cast<T>(a.dt),
       static_cast<T>(a.theta * a.dt), static_cast<T>(1.0 - a.theta), e);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // the transpose mode's guess is its right-hand side, the assembled b
   const T* guess = kT ? work + static_cast<long>(kRhs) * n_g * a.nx * a.ny : a.x0;
-  si_pcg<T, kT><<<n_g, kPcgThreads, 0, s>>>(guess, a.table, work, a.out, a.xout, n_g, a.nx,
-                                            a.ny, static_cast<T>(a.theta * a.dt), a.cg_iters);
+  si_pcg<T, kT, kJ><<<n_g, kPcgThreads, 0, s>>>(guess, a.table, work, a.out, a.xout, n_g,
+                                                a.nx, a.ny, static_cast<T>(a.theta * a.dt),
+                                                a.cg_iters);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, class E, bool kT>
+int launch_split_pre(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
+  return a.precondition ? launch_split_mode<T, E, kT, true>(a, e, work, n_g, stream)
+                        : launch_split_mode<T, E, kT, false>(a, e, work, n_g, stream);
 }
 
 template <typename T, class E>
 int launch_split(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
-  return a.transpose ? launch_split_mode<T, E, true>(a, e, work, n_g, stream)
-                     : launch_split_mode<T, E, false>(a, e, work, n_g, stream);
+  return a.transpose ? launch_split_pre<T, E, true>(a, e, work, n_g, stream)
+                     : launch_split_pre<T, E, false>(a, e, work, n_g, stream);
 }
 
 template <typename T>
 StepArgs<T> step_args(const T* H, const T* HD, const T* B, const T* x0, const T* table,
                       T* out, T* xout, int nx, int ny, double dt, double theta, int cg_iters,
-                      int transpose) {
-  return StepArgs<T>{H, HD, B, x0, table, out, xout, nx, ny, cg_iters, transpose, dt, theta};
+                      int transpose, int precondition) {
+  return StepArgs<T>{H, HD, B, x0, table, out, xout, nx, ny, cg_iters, transpose,
+                     precondition, dt, theta};
 }
 
 }  // namespace
@@ -743,16 +774,18 @@ StepArgs<T> step_args(const T* H, const T* HD, const T* B, const T* x0, const T*
 // ignores e_*; `cluster`, `bx`, `by`, `smem` and `cells` are the wrapper's
 // layout (si_layout). `table` is the (n_g, 4) table (dx, dy, creep, slide).
 // `xout` (may be null) receives the pre-relu solution; `transpose` != 0 runs
-// the transpose-solve mode, with gbar in H and the forward's x in x0.
+// the transpose-solve mode, with gbar in H and the forward's x in x0;
+// `precondition` == 0 runs plain CG in either mode.
 extern "C" int si_step_cluster_f32(const float* H, const float* HD, const float* B,
                                    const float* x0, const float* table, float* out,
                                    float* xout, int n_g, int nx, int ny, double dt,
-                                   double theta, int cg_iters, int transpose, int glen,
-                                   double e_hc, double e_sc, double e_hs, double e_ss,
+                                   double theta, int cg_iters, int transpose, int precondition,
+                                   int glen, double e_hc, double e_sc, double e_hs, double e_ss,
                                    int cluster, int bx, int by, int smem, int cells,
                                    void* stream) {
   const StepArgs<float> a =
-      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, transpose);
+      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, transpose,
+                precondition);
   const Shape sh{n_g, cluster, bx, by, smem, cells};
   return with_exps<float>(glen, e_hc, e_sc, e_hs, e_ss,
                           [&](auto e) { return launch_cells<float>(a, e, sh, stream); });
@@ -761,12 +794,13 @@ extern "C" int si_step_cluster_f32(const float* H, const float* HD, const float*
 extern "C" int si_step_cluster_f64(const double* H, const double* HD, const double* B,
                                    const double* x0, const double* table, double* out,
                                    double* xout, int n_g, int nx, int ny, double dt,
-                                   double theta, int cg_iters, int transpose, int glen,
-                                   double e_hc, double e_sc, double e_hs, double e_ss,
+                                   double theta, int cg_iters, int transpose, int precondition,
+                                   int glen, double e_hc, double e_sc, double e_hs, double e_ss,
                                    int cluster, int bx, int by, int smem, int cells,
                                    void* stream) {
   const StepArgs<double> a =
-      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, transpose);
+      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, transpose,
+                precondition);
   const Shape sh{n_g, cluster, bx, by, smem, cells};
   return with_exps<double>(glen, e_hc, e_sc, e_hs, e_ss,
                            [&](auto e) { return launch_cells<double>(a, e, sh, stream); });
@@ -787,14 +821,16 @@ extern "C" int si_step_occupancy(int f64, int glen, int cluster, int bx, int by,
 }
 
 // The large-plane path; `work` holds 7 planes of the batch's shape. `xout`,
-// `transpose`, `glen` and e_* as for the cluster kernel.
+// `transpose`, `precondition`, `glen` and e_* as for the cluster kernel.
 extern "C" int si_step_split_f32(const float* H, const float* HD, const float* B,
                                  const float* x0, const float* table, float* work, float* out,
                                  float* xout, int n_g, int nx, int ny, double dt, double theta,
-                                 int cg_iters, int transpose, int glen, double e_hc,
-                                 double e_sc, double e_hs, double e_ss, void* stream) {
+                                 int cg_iters, int transpose, int precondition, int glen,
+                                 double e_hc, double e_sc, double e_hs, double e_ss,
+                                 void* stream) {
   const StepArgs<float> a =
-      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, transpose);
+      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, transpose,
+                precondition);
   return with_exps<float>(glen, e_hc, e_sc, e_hs, e_ss,
                           [&](auto e) { return launch_split<float>(a, e, work, n_g, stream); });
 }
@@ -802,11 +838,12 @@ extern "C" int si_step_split_f32(const float* H, const float* HD, const float* B
 extern "C" int si_step_split_f64(const double* H, const double* HD, const double* B,
                                  const double* x0, const double* table, double* work,
                                  double* out, double* xout, int n_g, int nx, int ny, double dt,
-                                 double theta, int cg_iters, int transpose, int glen,
-                                 double e_hc, double e_sc, double e_hs, double e_ss,
+                                 double theta, int cg_iters, int transpose, int precondition,
+                                 int glen, double e_hc, double e_sc, double e_hs, double e_ss,
                                  void* stream) {
   const StepArgs<double> a =
-      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, transpose);
+      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, transpose,
+                precondition);
   return with_exps<double>(glen, e_hc, e_sc, e_hs, e_ss,
                            [&](auto e) { return launch_split<double>(a, e, work, n_g, stream); });
 }

@@ -18,7 +18,7 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["HalfarParameters", "Halfar", "halfar_t0"]
+__all__ = ["HalfarParameters", "Halfar", "halfar_solution", "halfar_velocity", "halfar_t0"]
 
 
 @dataclass(frozen=True)
@@ -64,3 +64,47 @@ def Halfar(p: HalfarParameters):
         return p.H0 * tr ** (-alpha) * core ** (n / (2.0 * n + 1.0))
 
     return halfar_fn, t0
+
+
+def halfar_solution(r, t, h0, r0, A, n, physical, lam: float = 0.0):
+    """The Halfar dome at the radii ``r`` (a tensor) and intrinsic time
+    ``t``: the dome has profile (h₀, r₀) at t = t₀(A, n, h₀, r₀)."""
+    p = HalfarParameters(lam=lam, R0=r0, H0=h0, A=A, n=n, rho=physical.rho, g=physical.g)
+    fn, _ = Halfar(p)
+    return fn(r, torch.zeros_like(r), t)
+
+
+def halfar_velocity(p: HalfarParameters):
+    """``vel_fn(x, y, t) -> (vx, vy)``, the dome's surface velocity on a
+    flat bed:
+
+        V_s = −Γꜛ Hⁿ⁺¹ |∇H|ⁿ⁻¹ ∇H,   Γꜛ = 2A(ρg)ⁿ/(n+1)
+
+    with the radial thickness gradient taken analytically."""
+    t0 = halfar_t0(p)
+    n, lam = p.n, p.lam
+    alpha = (2.0 - (n + 1.0) * lam) / (5.0 * n + 3.0)
+    beta = (1.0 + (2.0 * n + 1.0) * lam) / (5.0 * n + 3.0)
+    gam_up = 2.0 * p.A * (p.rho * p.g) ** n / (n + 1.0)
+
+    def vel_fn(x, y, t):
+        r = torch.sqrt(x ** 2 + y ** 2)
+        tr = t / t0
+        xi = tr ** (-beta) * r / p.R0
+        core = torch.clamp(1.0 - xi ** ((n + 1.0) / n), min=0.0)
+        H = p.H0 * tr ** (-alpha) * core ** (n / (2.0 * n + 1.0))
+        # dH/dr = H₀ tr^{-α} · n/(2n+1) · core^{n/(2n+1)-1} · (−(n+1)/n ξ^{1/n}) · tr^{-β}/R₀
+        eps = 1e-12
+        dHdr = torch.where(
+            (core > 0.0) & (r > 0.0),
+            p.H0 * tr ** (-alpha) * (n / (2.0 * n + 1.0))
+            * torch.clamp(core, min=eps) ** (n / (2.0 * n + 1.0) - 1.0)
+            * (-(n + 1.0) / n) * torch.clamp(xi, min=eps) ** (1.0 / n) * tr ** (-beta) / p.R0,
+            torch.zeros_like(r),
+        )
+        vmag = gam_up * H ** (n + 1.0) * torch.abs(dHdr) ** (n - 1.0)
+        rx = torch.where(r > 0.0, x / torch.clamp(r, min=eps), torch.zeros_like(r))
+        ry = torch.where(r > 0.0, y / torch.clamp(r, min=eps), torch.zeros_like(r))
+        return -vmag * dHdr * rx, -vmag * dHdr * ry
+
+    return vel_fn

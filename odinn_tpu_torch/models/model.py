@@ -83,7 +83,8 @@ class Model:
             if self.iceflow.U is not None or self.iceflow.Y is not None or self.iceflow.max_D is not None:
                 raise NotImplementedError(
                     "odinn_tpu_torch ports the A target only; the D, D_hybrid and "
-                    "capped targets come with the NN laws"
+                    "capped targets come with the laws-and-targets slice (ROADMAP.md, "
+                    "Queue 1 item 4)"
                 )
             object.__setattr__(self, "target", targets_mod.ATarget())
 
@@ -97,7 +98,8 @@ def init_theta(model: Model, glaciers, dtype=torch.float64) -> dict:
     law's ``init_theta(glaciers, dtype)``, on the glaciers' device."""
     if model.initial_condition is not None:
         raise NotImplementedError(
-            "odinn_tpu_torch: trainable initial conditions come with a later slice")
+            "odinn_tpu_torch: trainable initial conditions come with the loss-terms and "
+            "initial-conditions slice (ROADMAP.md, Queue 1 item 3)")
     theta = {}
     for slot, law in model.trainable_laws.items():
         if law.init_theta is None:

@@ -40,7 +40,8 @@ from odinn_tpu_torch.ops.cuda.sia_kernel import (
 from odinn_tpu_torch.simulation.solver import _rkc2_coeffs
 
 __all__ = ["rkc_interval", "rkc_interval_reference", "rkc_fits", "check_rkc_shape",
-           "rkc_layout", "rkc_plan", "stage_pullback", "stage_pullback_reference"]
+           "rkc_layout", "rkc_plan", "stage_pullback", "stage_pullback_reference",
+           "interval_pullback"]
 
 # csrc/rkc_interval.cu: the cells a thread owns at most, the shared-memory
 # slabs, the cluster sizes
@@ -312,6 +313,22 @@ def _exps_row(exps, dtype, device):
     return torch.tensor(exps, dtype=dtype, device=device)
 
 
+def interval_pullback(lam, H, B, scalars, dt, s, eta0, exps=None):
+    """(dH, d_creep): the pullback of one RKC2 step at H of the cotangent
+    ``lam`` to H and to the derived table's creep column ((n_g,)). On the
+    card one more launch of the kernel rematerialises the stage inputs and
+    s launches of the pullback kernel walk the stages back (module doc); on
+    the CPU the plain versions."""
+    check_inputs("rkc_interval", (lam, H, B), scalars, 8)
+    exps = _resolve_exps(scalars, exps)
+    dt, s, eta0 = float(dt), int(s), float(eta0)
+    _, stages = _forward(H, B, scalars, dt, s, eta0, exps, keep_stages=True)
+    n_g = H.shape[0]
+    table = torch.cat([scalars[:, :4].to(H.dtype),
+                       _exps_row(exps, H.dtype, H.device).expand(n_g, 4)], dim=1)
+    return _transpose(lam, H, B, table, stages, dt, s, eta0)
+
+
 class _RKCInterval(torch.autograd.Function):
     """The step with the TPU kernel's differentiation contract (module doc)."""
 
@@ -325,11 +342,7 @@ class _RKCInterval(torch.autograd.Function):
     def backward(ctx, lam):
         H, B, scalars = ctx.saved_tensors
         dt, s, eta0, exps = ctx.consts
-        _, stages = _forward(H, B, scalars, dt, s, eta0, exps, keep_stages=True)
-        n_g = H.shape[0]
-        table = torch.cat([scalars[:, :4].to(H.dtype),
-                           _exps_row(exps, H.dtype, H.device).expand(n_g, 4)], dim=1)
-        dH, dcreep = _transpose(lam.contiguous(), H, B, table, stages, dt, s, eta0)
+        dH, dcreep = interval_pullback(lam.contiguous(), H, B, scalars, dt, s, eta0, exps)
         d_scal = None
         if ctx.needs_input_grad[2]:
             d_scal = torch.zeros_like(scalars)

@@ -33,6 +33,12 @@ the frozen D, down to H, H_D, B, creep and slide). Their plain versions are
 :func:`si_step_transpose_reference` and :func:`si_step_vjp_reference`;
 autograd through :func:`si_step_reference` is the whole plain backward. The
 two contracts agree where PCG has converged (``tests/test_torch_si_adjoint.py``).
+
+``precondition=False`` runs the step and the transpose solve as plain CG
+(the kernels' no-preconditioner mode, plain version ``si_math.cg`` with no
+preconditioner): the solves of the hand-written SI/SI2 transposes,
+:mod:`odinn_tpu_torch.inverse.gradient`, which also read the forward's
+pre-relu solution (``keep_x``).
 """
 
 from __future__ import annotations
@@ -85,12 +91,12 @@ def _library() -> ctypes.CDLL:
     lib = load_library("si_step")
     for fn in (lib.si_step_cluster_f32, lib.si_step_cluster_f64):
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_double] * 2
-                       + [ctypes.c_int] * 3 + [ctypes.c_double] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_int] * 4 + [ctypes.c_double] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     for fn in (lib.si_step_split_f32, lib.si_step_split_f64):
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-                       + [ctypes.c_double] * 2 + [ctypes.c_int] * 3 + [ctypes.c_double] * 4
+                       + [ctypes.c_double] * 2 + [ctypes.c_int] * 4 + [ctypes.c_double] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.si_step_occupancy.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
@@ -188,22 +194,24 @@ def _row(scalars, dtype):
     return tuple(sc[:, k].reshape(-1, 1, 1) for k in range(4))
 
 
-def _si_solve_reference(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps):
+def _si_solve_reference(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, precondition=True):
     """The plain version's pre-relu solution x."""
     dx, dy, creep, slide = _row(scalars, H.dtype)
     D = _frozen_D_scalar(H_D, B, dx, dy, creep, slide, exps)
-    return si_math.theta_solve_x(H, D, B, x0, dt, theta, cg_iters, dx, dy)
+    return si_math.theta_solve_x(H, D, B, x0, dt, theta, cg_iters, dx, dy, precondition)
 
 
-def si_step_reference(H, H_D, B, x0, scalars, dt, theta=1.0, cg_iters=6, exps=None):
+def si_step_reference(H, H_D, B, x0, scalars, dt, theta=1.0, cg_iters=6, exps=None,
+                      precondition=True):
     """Plain PyTorch version of the kernel on (n_g, nx, ny) planes.
 
     ``scalars``: the derived (n_g, 8) table (first 4 columns used, cast to
     H's dtype); ``exps`` = (n+2, n−1, p−q+1, p−1) as Python numbers, read
     from the table's shared exponent set when None. dt, theta, cg_iters are
-    Python numbers. Differentiable by autograd as ``si_step`` is: the solve
-    is :func:`odinn_tpu_torch.ops.si_math.theta_solve` (the
-    implicit-function adjoint), D is differentiated in H_D, B and the creep
+    Python numbers; ``precondition=False`` solves by plain CG.
+    Differentiable by autograd as ``si_step`` is: the solve is
+    :func:`odinn_tpu_torch.ops.si_math.theta_solve` (the implicit-function
+    adjoint), D is differentiated in H_D, B and the creep
     and slide columns, and dx, dy get no gradient.
     """
     exps = _resolve_exps(scalars, exps)
@@ -211,18 +219,20 @@ def si_step_reference(H, H_D, B, x0, scalars, dt, theta=1.0, cg_iters=6, exps=No
     rates = scalars[:, 2:4].to(H.dtype)
     creep, slide = (rates[:, k].reshape(-1, 1, 1) for k in range(2))
     D = _frozen_D_scalar(H_D, B, dx, dy, creep, slide, exps)
-    return si_math.theta_solve(H, D, B, x0, dt, theta, cg_iters, dx, dy)
+    return si_math.theta_solve(H, D, B, x0, dt, theta, cg_iters, dx, dy, precondition)
 
 
 def si_step_transpose_reference(gbar, x, H_D, B, scalars, dt, theta=1.0, cg_iters=6,
-                                exps=None):
+                                exps=None, precondition=True):
     """Plain version of the transpose-solve mode: λ = ``cg_iters`` Jacobi-PCG
-    iterations on the step's A (D frozen at H_D) from the right-hand side
-    and guess g = ḡ·[x > 0], x the forward's pre-relu solution."""
+    iterations (plain CG without ``precondition``) on the step's A (D frozen
+    at H_D) from the right-hand side and guess g = ḡ·[x > 0], x the
+    forward's pre-relu solution."""
     exps = _resolve_exps(scalars, exps)
     dx, dy, creep, slide = _row(scalars, x.dtype)
     D = _frozen_D_scalar(H_D, B, dx, dy, creep, slide, exps)
-    return si_math.transpose_solve(gbar, x, D, float(dt), float(theta), int(cg_iters), dx, dy)
+    return si_math.transpose_solve(gbar, x, D, float(dt), float(theta), int(cg_iters), dx, dy,
+                                   bool(precondition))
 
 
 def si_step_vjp_reference(lam, H, H_D, B, x, scalars, dt, theta=1.0, exps=None):
@@ -260,16 +270,18 @@ def _device_of(name, t):
     return t.device.type
 
 
-def _forward(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, keep_x=False):
+def _forward(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, keep_x=False,
+             precondition=True):
     """relu(x), and with ``keep_x`` also x, on H's device without autograd."""
     if _device_of("si_step", H) == "cpu":
-        x = _si_solve_reference(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps)
+        x = _si_solve_reference(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, precondition)
         out = st.relu_strict(x)
         return (out, x) if keep_x else out
     n_g, nx, ny = H.shape
     lay = si_plan(n_g, nx, ny, H.dtype, exps, H.device).layout
     x = torch.empty_like(H) if keep_x else None
-    out = _launch(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, lay, x_out=x)
+    out = _launch(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, lay, x_out=x,
+                  precondition=precondition)
     si_step.launches += 1
     return (out, x) if keep_x else out
 
@@ -278,17 +290,19 @@ class _SIStep(torch.autograd.Function):
     """The step with the implicit-function adjoint (module doc)."""
 
     @staticmethod
-    def forward(ctx, H, H_D, B, x0, scalars, dt, theta, cg_iters, exps):
-        out, x = _forward(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, keep_x=True)
+    def forward(ctx, H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, precondition):
+        out, x = _forward(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, keep_x=True,
+                          precondition=precondition)
         ctx.save_for_backward(H, H_D, B, x, scalars)
-        ctx.consts = (dt, theta, cg_iters, exps)
+        ctx.consts = (dt, theta, cg_iters, exps, precondition)
         return out
 
     @staticmethod
     def backward(ctx, gbar):
         H, H_D, B, x, scalars = ctx.saved_tensors
-        dt, theta, cg_iters, exps = ctx.consts
-        lam = si_step_transpose(gbar.contiguous(), x, H_D, B, scalars, dt, theta, cg_iters, exps)
+        dt, theta, cg_iters, exps, precondition = ctx.consts
+        lam = si_step_transpose(gbar.contiguous(), x, H_D, B, scalars, dt, theta, cg_iters, exps,
+                                precondition)
         dH, dHD, dB, dcreep, dslide = si_step_vjp(lam, H, H_D, B, x, scalars, dt, theta, exps)
         need = ctx.needs_input_grad
         d_scal = None
@@ -296,10 +310,11 @@ class _SIStep(torch.autograd.Function):
             d_scal = torch.zeros_like(scalars)
             d_scal[:, 2], d_scal[:, 3] = dcreep, dslide
         return ((dH if need[0] else None), (dHD if need[1] else None), (dB if need[2] else None),
-                None, d_scal, None, None, None, None)
+                None, d_scal, None, None, None, None, None)
 
 
-def si_step(H, H_D, B, x0, scalars, dt, theta=1.0, cg_iters=6, exps=None):
+def si_step(H, H_D, B, x0, scalars, dt, theta=1.0, cg_iters=6, exps=None, precondition=True,
+            keep_x=False):
     """One fused semi-implicit θ-step for a batch (see the module doc).
 
     H, H_D, B, x0: (n_g, nx, ny) float32/float64 planes; ``scalars`` the
@@ -310,31 +325,41 @@ def si_step(H, H_D, B, x0, scalars, dt, theta=1.0, cg_iters=6, exps=None):
     large-plane path); a CPU tensor takes :func:`si_step_reference`.
     Differentiable in H, H_D, B and the table's creep and slide columns by
     the implicit-function adjoint (module doc); x0 gets no gradient.
+    ``precondition=False`` solves by plain CG; ``keep_x`` returns
+    (relu(x), x) with the pre-relu solution x, without autograd.
     """
     check_inputs("si_step", (H, H_D, B, x0), scalars, 8)
     exps = _resolve_exps(scalars, exps)
-    dt, theta, cg_iters = float(dt), float(theta), int(cg_iters)
+    dt, theta, cg_iters, precondition = float(dt), float(theta), int(cg_iters), bool(precondition)
+    if keep_x:
+        with torch.no_grad():
+            return _forward(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, keep_x=True,
+                            precondition=precondition)
     if torch.is_grad_enabled() and any(a.requires_grad for a in (H, H_D, B, scalars)):
-        return _SIStep.apply(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps)
-    return _forward(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps)
+        return _SIStep.apply(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, precondition)
+    return _forward(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps,
+                    precondition=precondition)
 
 
-def si_step_transpose(gbar, x, H_D, B, scalars, dt, theta=1.0, cg_iters=6, exps=None):
+def si_step_transpose(gbar, x, H_D, B, scalars, dt, theta=1.0, cg_iters=6, exps=None,
+                      precondition=True):
     """λ, the transpose solve of ``si_step``'s backward
     (:func:`si_step_transpose_reference`'s contract). A CUDA tensor launches
     the step's kernel in its transpose-solve mode at the forward's layout,
     one launch counted on ``si_step_transpose.launches``; a CPU tensor takes
-    the plain version."""
+    the plain version. ``precondition=False`` solves by plain CG."""
     check_inputs("si_step_transpose", (gbar, x, H_D, B), scalars, 8)
     exps = _resolve_exps(scalars, exps)
-    dt, theta, cg_iters = float(dt), float(theta), int(cg_iters)
+    dt, theta, cg_iters, precondition = float(dt), float(theta), int(cg_iters), bool(precondition)
     if _device_of("si_step_transpose", x) == "cpu":
-        return si_step_transpose_reference(gbar, x, H_D, B, scalars, dt, theta, cg_iters, exps)
+        return si_step_transpose_reference(gbar, x, H_D, B, scalars, dt, theta, cg_iters, exps,
+                                           precondition)
     n_g, nx, ny = x.shape
     lay = si_plan(n_g, nx, ny, x.dtype, exps, x.device).layout
     # the kernel's transpose mode reads ḡ where the forward reads H, and x
     # where it reads x0
-    lam = _launch(gbar, H_D, B, x, scalars, dt, theta, cg_iters, exps, lay, transpose=True)
+    lam = _launch(gbar, H_D, B, x, scalars, dt, theta, cg_iters, exps, lay, transpose=True,
+                  precondition=precondition)
     si_step_transpose.launches += 1
     return lam
 
@@ -372,12 +397,13 @@ def si_step_vjp(lam, H, H_D, B, x, scalars, dt, theta=1.0, exps=None):
 
 
 def _launch(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, lay, x_out=None,
-            transpose=False):
+            transpose=False, precondition=True):
     """The step on the card with the cluster layout ``lay``, or on the
     large-plane path when ``lay`` is None. ``x_out`` receives the pre-relu
     solution; ``transpose`` runs the transpose-solve mode, which reads ḡ in
-    H's place and x in x0's, and returns λ. Counts nothing: the wrappers
-    count their launches."""
+    H's place and x in x0's, and returns λ; ``precondition=False`` runs
+    either mode as plain CG. Counts nothing: the wrappers count their
+    launches."""
     n_g, nx, ny = H.shape
     table = scalars[:, :4].detach().to(H.dtype).contiguous()
     out = torch.empty_like(H)
@@ -389,13 +415,13 @@ def _launch(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, lay, x_out=None,
     if lay is not None:
         fn = lib.si_step_cluster_f32 if f32 else lib.si_step_cluster_f64
         err = fn(*planes, out.data_ptr(), xp, n_g, nx, ny, dt, theta, cg_iters, int(transpose),
-                 int(uses_glen(exps)), *exps, lay.cluster, lay.bx, lay.by, lay.smem,
-                 lay.cells, stream)
+                 int(precondition), int(uses_glen(exps)), *exps, lay.cluster, lay.bx, lay.by,
+                 lay.smem, lay.cells, stream)
     else:
         work = torch.empty((_N_SCRATCH,) + tuple(H.shape), dtype=H.dtype, device=H.device)
         fn = lib.si_step_split_f32 if f32 else lib.si_step_split_f64
         err = fn(*planes, work.data_ptr(), out.data_ptr(), xp, n_g, nx, ny, dt, theta, cg_iters,
-                 int(transpose), int(uses_glen(exps)), *exps, stream)
+                 int(transpose), int(precondition), int(uses_glen(exps)), *exps, stream)
     if err != 0:
         raise RuntimeError(f"si_step: kernel launch failed with CUDA error {err}")
     return out

@@ -15,6 +15,11 @@ and the Jacobi preconditioner are symmetric), and the cotangents of H, D and
 B are the vector-Jacobian product at λ of the residual b − A(D)·x with x
 held fixed. The guess x0 and the preconditioner get no gradient, and CG is
 never unrolled.
+
+``precondition=False`` runs both solves as plain CG (no Jacobi
+preconditioner): the solves of the JAX package's hand-written SI/SI2
+transposes (``odinn_tpu.inverse.gradient``), which rematerialise the step
+and solve the adjoint system with ``_cg`` and no preconditioner.
 """
 
 from __future__ import annotations
@@ -84,22 +89,24 @@ def _masks(like):
     return interior, 1.0 - interior
 
 
-def _operator(D, dt, theta, dx, dy, interior):
-    """(matvec of A, the Jacobi preconditioner)."""
+def _operator(D, dt, theta, dx, dy, interior, precondition=True):
+    """(matvec of A, the Jacobi preconditioner or None)."""
 
     def matvec(u):
         return u - theta * dt * interior * div_flux(interior * u, D, dx, dy)
 
+    if not precondition:
+        return matvec, None
     inv_diag = 1.0 / jacobi_diag(D, theta * dt, dx, dy, interior)
     return matvec, lambda r: r * inv_diag
 
 
-def theta_solve_x(H, D, B, x0, dt, theta, cg_iters: int, dx, dy):
-    """The pre-relu solution x: ``cg_iters`` Jacobi-PCG iterations from
-    ``x0`` on A·x = b (module doc). B is in H's dtype; dt and theta are
-    Python numbers."""
+def theta_solve_x(H, D, B, x0, dt, theta, cg_iters: int, dx, dy, precondition=True):
+    """The pre-relu solution x: ``cg_iters`` Jacobi-PCG iterations (plain CG
+    without ``precondition``) from ``x0`` on A·x = b (module doc). B is in
+    H's dtype; dt and theta are Python numbers."""
     interior, ring = _masks(H)
-    matvec, precond = _operator(D, dt, theta, dx, dy, interior)
+    matvec, precond = _operator(D, dt, theta, dx, dy, interior, precondition)
     b = H + dt * interior * div_flux(B + ring * H + (1.0 - theta) * interior * H, D, dx, dy)
     return cg(matvec, b, x0, cg_iters, precond)
 
@@ -109,12 +116,13 @@ def relu_cotangent(gbar, x):
     return torch.where(x > 0.0, gbar, torch.zeros_like(gbar))
 
 
-def transpose_solve(gbar, x, D, dt, theta, cg_iters: int, dx, dy):
+def transpose_solve(gbar, x, D, dt, theta, cg_iters: int, dx, dy, precondition=True):
     """λ = PCG(A, g) from the guess g = ḡ·[x > 0], ``cg_iters`` iterations
-    with the forward's Jacobi preconditioner: the transpose solve of the
-    step's adjoint (A is symmetric)."""
+    with the forward's Jacobi preconditioner (plain CG without
+    ``precondition``): the transpose solve of the step's adjoint (A is
+    symmetric)."""
     interior, _ = _masks(x)
-    matvec, precond = _operator(D, dt, theta, dx, dy, interior)
+    matvec, precond = _operator(D, dt, theta, dx, dy, interior, precondition)
     g = relu_cotangent(gbar, x)
     return cg(matvec, g, g, cg_iters, precond)
 
@@ -141,28 +149,30 @@ class _ThetaSolve(torch.autograd.Function):
     and one residual pullback."""
 
     @staticmethod
-    def forward(ctx, H, D, B, x0, dt, theta, cg_iters, dx, dy):
-        x = theta_solve_x(H, D, B, x0, dt, theta, cg_iters, dx, dy)
+    def forward(ctx, H, D, B, x0, dt, theta, cg_iters, dx, dy, precondition):
+        x = theta_solve_x(H, D, B, x0, dt, theta, cg_iters, dx, dy, precondition)
         ctx.save_for_backward(H, D, B, x)
-        ctx.consts = (dt, theta, cg_iters, dx, dy)
+        ctx.consts = (dt, theta, cg_iters, dx, dy, precondition)
         return st.relu_strict(x)
 
     @staticmethod
     def backward(ctx, gbar):
         H, D, B, x = ctx.saved_tensors
-        dt, theta, cg_iters, dx, dy = ctx.consts
+        dt, theta, cg_iters, dx, dy, precondition = ctx.consts
         dx, dy = (v.detach() if isinstance(v, torch.Tensor) else v for v in (dx, dy))
-        lam = transpose_solve(gbar, x, D, dt, theta, cg_iters, dx, dy)
+        lam = transpose_solve(gbar, x, D, dt, theta, cg_iters, dx, dy, precondition)
         dH, dD, dB = residual_pullback(lam, H, D, B, x, dt, theta, dx, dy)
         need = ctx.needs_input_grad
         return ((dH if need[0] else None), (dD if need[1] else None), (dB if need[2] else None),
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
-def theta_solve(H, D, B, x0, dt, theta, cg_iters: int, dx, dy):
+def theta_solve(H, D, B, x0, dt, theta, cg_iters: int, dx, dy, precondition=True):
     """One θ-step with D frozen: relu of :func:`theta_solve_x`,
     differentiable in H, D and B by the implicit-function adjoint when one
     of them requires grad (module doc); x0 gets no gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (H, D, B)):
-        return _ThetaSolve.apply(H, D, B, x0, float(dt), float(theta), int(cg_iters), dx, dy)
-    return st.relu_strict(theta_solve_x(H, D, B, x0, dt, theta, cg_iters, dx, dy))
+        return _ThetaSolve.apply(H, D, B, x0, float(dt), float(theta), int(cg_iters), dx, dy,
+                                 bool(precondition))
+    return st.relu_strict(theta_solve_x(H, D, B, x0, dt, theta, cg_iters, dx, dy,
+                                        precondition))

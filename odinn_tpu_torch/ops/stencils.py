@@ -2,8 +2,8 @@
 
 Arrays are laid out ``[..., x, y]`` (x second-to-last, y last), so every op
 broadcasts over leading axes: the glacier batch axis is a plain leading
-dimension. Only the forward stencils live here; the transposes used by the
-hand-written adjoints come with the manual-adjoint slice.
+dimension. The ``*_adjoint`` functions are the transposes the hand-written
+adjoints (:mod:`odinn_tpu_torch.inverse.vjps`) are built from.
 """
 
 from __future__ import annotations
@@ -13,7 +13,9 @@ import torch
 __all__ = [
     "diff_x", "diff_y", "avg", "avg_x", "avg_y", "inn", "inn1", "safe_norm",
     "grad_slope", "pad_inner", "relu_strict", "clamp_borders_dx",
-    "clamp_borders_dy",
+    "clamp_borders_dy", "diff_x_adjoint", "diff_y_adjoint", "avg_adjoint",
+    "avg_x_adjoint", "avg_y_adjoint", "clamp_borders_dx_adjoint",
+    "clamp_borders_dy_adjoint",
 ]
 
 
@@ -92,3 +94,60 @@ def clamp_borders_dy(ds, h, eta0, dy):
     upper = eta0 * h[..., 1:-1, 1:] / dy
     lower = -eta0 * h[..., 1:-1, :-1] / dy
     return _clamp(ds, upper, lower)
+
+
+# ---------------------------------------------------------------------------
+# Transposes
+# ---------------------------------------------------------------------------
+
+def _pad(a, x=(0, 0), y=(0, 0)):
+    """Zero-pad the x axis by ``x`` = (before, after) and the y axis by ``y``."""
+    return torch.nn.functional.pad(a, (y[0], y[1], x[0], x[1]))
+
+
+def diff_x_adjoint(i, dx):
+    """Transpose of diff_x(·)/Δx: (nx-1,ny)→(nx,ny)."""
+    return (_pad(i, x=(1, 0)) - _pad(i, x=(0, 1))) / dx
+
+
+def diff_y_adjoint(i, dy):
+    """Transpose of diff_y(·)/Δy: (nx,ny-1)→(nx,ny)."""
+    return (_pad(i, y=(1, 0)) - _pad(i, y=(0, 1))) / dy
+
+
+def avg_adjoint(i):
+    """Transpose of avg: (nx-1,ny-1)→(nx,ny)."""
+    return 0.25 * (_pad(i, (0, 1), (0, 1)) + _pad(i, (1, 0), (0, 1))
+                   + _pad(i, (0, 1), (1, 0)) + _pad(i, (1, 0), (1, 0)))
+
+
+def avg_x_adjoint(i):
+    """Transpose of avg_x: (nx-1,ny)→(nx,ny)."""
+    return 0.5 * (_pad(i, x=(0, 1)) + _pad(i, x=(1, 0)))
+
+
+def avg_y_adjoint(i):
+    """Transpose of avg_y: (nx,ny-1)→(nx,ny)."""
+    return 0.5 * (_pad(i, y=(0, 1)) + _pad(i, y=(1, 0)))
+
+
+def clamp_borders_dx_adjoint(dC, eta0, dx, h, ds):
+    """Transpose of :func:`clamp_borders_dx` in (ds, h): returns (∂ds, ∂h).
+    At an exact tie the cotangent goes to ds, as the where-based forward
+    routes it."""
+    up = eta0 * h[..., 1:, 1:-1] / dx
+    lo = -eta0 * h[..., :-1, 1:-1] / dx
+    d_ds = dC * ((ds <= up) & (ds >= lo))
+    contrib_lo = -(eta0 / dx) * dC * (ds < lo)       # → h[:-1, 1:-1]
+    contrib_up = (eta0 / dx) * dC * (ds > up)        # → h[1:, 1:-1]
+    return d_ds, _pad(contrib_lo, (0, 1), (1, 1)) + _pad(contrib_up, (1, 0), (1, 1))
+
+
+def clamp_borders_dy_adjoint(dC, eta0, dy, h, ds):
+    """Transpose of :func:`clamp_borders_dy` in (ds, h): returns (∂ds, ∂h)."""
+    up = eta0 * h[..., 1:-1, 1:] / dy
+    lo = -eta0 * h[..., 1:-1, :-1] / dy
+    d_ds = dC * ((ds <= up) & (ds >= lo))
+    contrib_lo = -(eta0 / dy) * dC * (ds < lo)       # → h[1:-1, :-1]
+    contrib_up = (eta0 / dy) * dC * (ds > up)        # → h[1:-1, 1:]
+    return d_ds, _pad(contrib_lo, (1, 1), (0, 1)) + _pad(contrib_up, (1, 1), (1, 0))

@@ -59,6 +59,26 @@ class ATarget:
         creep = A * gamma_no_A(n, rho, g) * _pow(hbar, n + 2.0) * _pow(grad_s, n - 1.0)
         return slide + creep
 
+    def d_diffusivity_dH(self, vals, hbar, grad_s, phys):
+        """∂D/∂H̄."""
+        rho, g = phys.rho, phys.g
+        n, A, C, p, q = vals.n, vals.A, vals.C, vals.p, vals.q
+        slide = ((p - q + 1.0) * sliding_prefactor(C, p, q, rho, g) * _pow(hbar, p - q)
+                 * _pow(grad_s, p - 1.0))
+        creep = (A * gamma_no_A(n, rho, g) * (n + 2.0) * _pow(hbar, n + 1.0)
+                 * _pow(grad_s, n - 1.0))
+        return slide + creep
+
+    def d_diffusivity_dgradS(self, vals, hbar, grad_s, phys):
+        """β = ∂D/∂|∇S| / |∇S|, so that ∂D/∂∇Sᵢ = β·∇Sᵢ."""
+        rho, g = phys.rho, phys.g
+        n, A, C, p, q = vals.n, vals.A, vals.C, vals.p, vals.q
+        slide = (sliding_prefactor(C, p, q, rho, g) * (p - 1.0) * _pow(hbar, p - q + 1.0)
+                 * _pow(grad_s, p - 3.0))
+        creep = (A * gamma_no_A(n, rho, g) * (n - 1.0) * _pow(hbar, n + 2.0)
+                 * _pow(grad_s, n - 3.0))
+        return slide + creep
+
     def velocity_up(self, vals, hbar, grad_s, phys):
         """Velocityꜛ: surface-velocity prefactor, V = −Velocityꜛ·∇S."""
         rho, g = phys.rho, phys.g

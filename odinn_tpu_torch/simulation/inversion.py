@@ -1,9 +1,12 @@
 """Inversion: training the trainable laws (A = NN(T)) through the PDE solve.
 
 ``run_inversion`` → ``train_ude``: staged optimizers (Adam/AdamW, then
-LBFGS) over the θ tree, the gradient by autograd through the whole forward
-solve of the stacked glacier batch (``UDEParameters(grad="jax")``), with
-best-iterate tracking. The transient loss is
+LBFGS) over the θ tree, with best-iterate tracking. The gradient is
+autograd through the whole forward solve of the stacked glacier batch
+(``UDEParameters(grad="jax")``), or a hand-written adjoint
+(``grad="discrete"``/``"continuous"`` or a ``DiscreteAdjoint``/
+``ContinuousAdjoint``, :mod:`odinn_tpu_torch.inverse.gradient`), whose
+pullbacks on the card are the same kernels'. The transient loss is
 Σ_g Σ_τ Δt_τ · ℓ(H_g(t_τ), refs_g(t_τ)) with the glacier axis as a batch
 dimension. On the CUDA card the solve runs through the fused kernels; with
 ``solver="RKC"`` every RKC2 step is one ``rkc_interval`` launch and every
@@ -15,12 +18,12 @@ Adam and AdamW are ``torch.optim.Adam``/``AdamW`` (the update of optax's:
 bias-corrected, eps outside the square root; AdamW with optax's default
 weight decay 1e-4). LBFGS is ``torch.optim.LBFGS`` with its strong-Wolfe
 line search, one iteration per epoch, optax's history of 10 and up to 20
-line-search steps. Not ported
-yet, and refused with the slice that brings them: the hand-written adjoints
-(``grad="discrete"/"continuous"``), Levenberg–Marquardt stages, the
-adaptive, replay and
-``substeps="auto"`` solves with their instability recovery, per-glacier θ
-laws and saving the result.
+line-search steps. Not ported yet, and refused with the slice that
+brings them (``ROADMAP.md``, Queue 1): the regularization and
+time-aggregated loss terms (item 3), per-glacier θ laws (item 4), the
+adaptive, replay and ``substeps="auto"`` solves with their instability
+recovery (item 5), Levenberg–Marquardt stages and
+``grad="forward"``/``"dummy"`` (item 6), and saving the result (item 8).
 """
 
 from __future__ import annotations
@@ -105,7 +108,8 @@ class _LossEnv:
         if other:
             raise NotImplementedError(
                 f"odinn_tpu_torch: loss terms of kind {term_kind(other[0])!r} (the "
-                "regularization and time-aggregated losses) come with a later slice")
+                "regularization and time-aggregated losses) come with the loss-terms "
+                "slice (ROADMAP.md, Queue 1 item 3)")
         self.transient = pairs
 
     def make_ctx(self, H_ref=None, V_ref=None, Vx_ref=None, Vy_ref=None):
@@ -228,29 +232,40 @@ def _tree_leaves(tree) -> list:
 
 def _make_grad_fn(inversion: Inversion, loss_fn_b, stats: TrainingStats):
     """``vg(theta, b) -> (loss, grads)`` for params.UDE.grad, with the
-    gradients in θ's leaf order. Chunked accumulation
-    (hyper.grad_accum_chunks) sums the exact per-chunk losses and
-    gradients, bounding the live autograd graph to one chunk."""
+    gradients in θ's leaf order: autograd through the solve, or a
+    hand-written adjoint (one forward solve and one backward sweep each).
+    Chunked accumulation (hyper.grad_accum_chunks) sums the exact per-chunk
+    losses and gradients, bounding the live autograd graph (or the adjoint's
+    trajectory) to one chunk."""
     grad_cfg = inversion.parameters.UDE.grad
     name = grad_cfg if isinstance(grad_cfg, str) else getattr(grad_cfg, "name", "jax")
-    if name in ("discrete", "continuous"):
-        raise NotImplementedError(
-            f"odinn_tpu_torch: grad={name!r} (the hand-written adjoints) comes with a later "
-            "slice (inverse/vjps.py, inverse/gradient.py); use grad='jax'")
     if name in ("forward", "dummy"):
         raise NotImplementedError(
-            f"odinn_tpu_torch: grad={name!r} comes with a later slice; use grad='jax'")
-    if name not in ("jax", "sciml"):
+            f"odinn_tpu_torch: grad={name!r} comes with the second-order trainer and gradient "
+            "modes slice (ROADMAP.md, Queue 1 item 6); use grad='jax', 'discrete' or "
+            "'continuous'")
+    if name not in ("jax", "sciml", "discrete", "continuous"):
         raise ValueError(f"unknown adjoint method {name!r}")
     k_cfg = getattr(inversion.parameters.hyper, "grad_accum_chunks", 1) or 1
 
-    def value_and_grad(theta, b):
-        leaves = _tree_leaves(theta)
-        loss = loss_fn_b(theta, b)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        stats.gradients += 1
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
-                               for p, g in zip(leaves, grads)]
+    if name in ("discrete", "continuous"):
+        from odinn_tpu_torch.inverse.gradient import make_adjoint_value_and_grad
+
+        adjoint_vg = make_adjoint_value_and_grad(inversion, flavor=name)
+
+        def value_and_grad(theta, b):
+            loss, grads = adjoint_vg(theta, b)
+            stats.solves += 1
+            stats.gradients += 1
+            return loss, _tree_leaves(grads)
+    else:
+        def value_and_grad(theta, b):
+            leaves = _tree_leaves(theta)
+            loss = loss_fn_b(theta, b)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            stats.gradients += 1
+            return loss.detach(), [torch.zeros_like(p) if g is None else g
+                                   for p, g in zip(leaves, grads)]
 
     def vg(theta, b):
         n = b.H0.shape[0]
@@ -284,7 +299,7 @@ def _record(stats: TrainingStats, val, theta, gnorm, dt):
             "(large creep/diffusivity). Increase solver.substeps / "
             "solver.rkc_stages (see suggest_substeps / rkc_stages_for), or lower "
             "the learning rate; the automatic re-sizing and rewind of the JAX "
-            "package come with the tolerance slice.")
+            "package come with the tolerance slice (ROADMAP.md, Queue 1 item 5).")
     stats.grad_norm_hist.append(gnorm)
     stats.time_per_iter.append(dt)
     if gnorm > 1e7:
@@ -296,11 +311,13 @@ def _check_trainable(params) -> None:
     if solver.adaptive:
         raise NotImplementedError(
             "odinn_tpu_torch: training through adaptive or replayed solves comes with "
-            "the tolerance slice; set fixed solver.substeps / rkc_stages")
+            "the tolerance slice (ROADMAP.md, Queue 1 item 5); set fixed "
+            "solver.substeps / rkc_stages")
     if isinstance(solver.substeps, str):
         raise NotImplementedError(
             "odinn_tpu_torch: substeps='auto' (and the instability recovery built on "
-            "it) comes with the tolerance slice; give an integer substep count")
+            "it) comes with the tolerance slice (ROADMAP.md, Queue 1 item 5); give an "
+            "integer substep count")
 
 
 def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
@@ -413,7 +430,7 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
         elif opt_name in ("lm", "gn", "gauss_newton", "gauss-newton"):
             raise NotImplementedError(
                 "odinn_tpu_torch: Levenberg–Marquardt / Gauss–Newton stages come with the "
-                "second-order trainer slice (inverse/gauss_newton.py)")
+                "second-order trainer slice (ROADMAP.md, Queue 1 item 6)")
         else:
             raise ValueError(f"unknown optimizer {opt_name!r}")
         end_stage()
@@ -443,5 +460,6 @@ def run_inversion(inversion: Inversion, callback=None, path: Optional[str] = Non
     if path is not None or file_name is not None:
         raise NotImplementedError(
             "odinn_tpu_torch: saving the training result comes with the I/O slice "
-            "(utils/io.py); call run_inversion without path/file_name")
+            "(utils/io.py; ROADMAP.md, Queue 1 item 8); call run_inversion without "
+            "path/file_name")
     return train_ude(inversion, callback=callback)

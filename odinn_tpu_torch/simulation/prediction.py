@@ -50,19 +50,22 @@ def _check_supported(model: Model, params) -> None:
     if solver.adaptive:
         raise NotImplementedError(
             "odinn_tpu_torch: solver.adaptive (error-controlled and replay "
-            "solves) comes with the tolerance slice; use fixed substeps")
+            "solves) comes with the tolerance slice (ROADMAP.md, Queue 1 item 5); "
+            "use fixed substeps")
     if isinstance(solver.substeps, str):
         raise NotImplementedError(
-            "odinn_tpu_torch: substeps='auto' comes with the tolerance slice; "
+            "odinn_tpu_torch: substeps='auto' comes with the tolerance slice "
+            "(ROADMAP.md, Queue 1 item 5); "
             "give an integer substep count")
     if model.iceflow.periodic_laws:
         raise NotImplementedError(
-            "odinn_tpu_torch: periodic laws (callback_freq > 0) come with a "
-            "later slice")
+            "odinn_tpu_torch: periodic laws (callback_freq > 0) come with the "
+            "laws-and-targets slice (ROADMAP.md, Queue 1 item 4)")
     if model.initial_condition is not None:
         raise NotImplementedError(
-            "odinn_tpu_torch: trainable initial conditions come with a later "
-            "slice (models/initial_condition.py)")
+            "odinn_tpu_torch: trainable initial conditions come with the loss-terms "
+            "and initial-conditions slice (models/initial_condition.py; ROADMAP.md, "
+            "Queue 1 item 3)")
 
 
 def _fused_rkc_stepper(values_fn, target, dx, dy, glacier, H0, phys, s):

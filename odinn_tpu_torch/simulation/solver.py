@@ -225,6 +225,22 @@ def make_rkc2_step(s: int):
     return step
 
 
+def _bs32_step(f, y, t, dt, k1):
+    """One embedded Bogacki–Shampine 3(2) step with FSAL: (y3, err, k4).
+    ``t`` and ``dt`` are numbers, or (n_g,) tensors for a (n_g, nx, ny)
+    state whose glaciers each step by their own."""
+
+    def col(a):
+        return a.to(y.dtype).reshape(-1, 1, 1) if isinstance(a, torch.Tensor) else a
+
+    k2 = f(y + col(0.5 * dt) * k1, t + 0.5 * dt)
+    k3 = f(y + col(0.75 * dt) * k2, t + 0.75 * dt)
+    y3 = y + col(dt) * (2.0 * k1 + 3.0 * k2 + 4.0 * k3) / 9.0
+    k4 = f(y3, t + dt)
+    err = col(dt) * (-5.0 * k1 / 72.0 + k2 / 12.0 + k3 / 9.0 - k4 / 8.0)
+    return y3, err, k4
+
+
 def make_rkc_interval_step(s: int, B, table, eta0, exps):
     """An s-stage RKC2 stepper ``step(f, y, t, dt)`` that ignores ``f`` and
     takes the whole step as one fused launch,

@@ -260,6 +260,36 @@ def test_stage_and_substep_sizing_match(args):
     assert tsol.suggest_substeps(**args) == jsol.suggest_substeps(**args)
 
 
+def test_bs32_step_matches():
+    """The embedded BS3(2) step of the continuous adjoint against the JAX
+    package's: with one dt for the batch, and with a dt (and a time) per
+    glacier, each glacier as the JAX step with its own, 1e-12."""
+    rng = np.random.default_rng(9)
+    y, k = rng.standard_normal((3, 5, 6)), rng.uniform(0.5, 2.0, (3, 1, 1))
+
+    def f_t(u, t):
+        t = t.reshape(-1, 1, 1) if isinstance(t, torch.Tensor) else t
+        return -torch.from_numpy(k) * u + torch.sin(u + t)
+
+    def f_j(u, t, kk=jnp.asarray(k)):
+        return -kk * u + jnp.sin(u + t)
+
+    k1_t, k1_j = f_t(torch.from_numpy(y), 0.3), f_j(jnp.asarray(y), 0.3)
+    for a, b in zip(tsol._bs32_step(f_t, torch.from_numpy(y), 0.3, 0.05, k1_t),
+                    jsol._bs32_step(f_j, jnp.asarray(y), 0.3, 0.05, k1_j)):
+        assert_rel(a, b, RTOL)
+    ts, dts = np.array([0.3, 0.5, 0.7]), np.array([0.05, 0.02, 0.1])
+    k1 = f_t(torch.from_numpy(y), torch.from_numpy(ts))
+    got = tsol._bs32_step(f_t, torch.from_numpy(y), torch.from_numpy(ts), torch.from_numpy(dts),
+                          k1)
+    for g in range(3):
+        kg = jnp.asarray(k[g])
+        want = jsol._bs32_step(lambda u, t: f_j(u, t, kg), jnp.asarray(y[g]), ts[g], dts[g],
+                               jnp.asarray(k1[g].numpy()))
+        for a, b in zip(got, want):
+            assert_rel(a[g], b, RTOL)
+
+
 def _count_fused_steps(monkeypatch):
     from odinn_tpu_torch.ops.cuda import rkc_kernel
 

@@ -240,29 +240,47 @@ def test_init_theta_follows_the_law():
     assert inv.theta["A"][0]["w"].dtype == torch.float64   # simulation.float_dtype
 
 
-@pytest.mark.parametrize("what", ["forward", "lm", "discrete", "save", "auto", "initial term"])
+@pytest.mark.parametrize("what", ["forward", "lm", "dummy", "save", "auto", "initial term",
+                                  "discrete initial term", "discrete D target",
+                                  "DummyAdjoint", "continuous initial term"])
 def test_unported_training_paths_name_their_slice(what):
+    """Each training path not ported yet raises, naming the slice (the
+    ROADMAP.md Queue 1 item) that brings it; the hand-written adjoints
+    refuse the same loss terms and targets as autograd does."""
+    from odinn_tpu_torch.inverse.adjoint_types import ContinuousAdjoint, DummyAdjoint
+
     inv = _smoke_inversion(epochs=(1, 1))
     p = inv.parameters
-    if what == "initial term":
-        class Regularization:
-            kind = "initial"
 
-        inv.parameters = p.replace(UDE=dataclasses.replace(
-            p.UDE, empirical_loss_function=MultiLoss(terms=(LossH(), Regularization()),
-                                                     weights=(1.0, 0.1))))
-    elif what == "forward":
-        inv.parameters = p.replace(UDE=dataclasses.replace(p.UDE, grad="forward"))
+    class Regularization:
+        kind = "initial"
+
+    def with_initial_term(grad):
+        return p.replace(UDE=dataclasses.replace(
+            p.UDE, grad=grad, empirical_loss_function=MultiLoss(
+                terms=(LossH(), Regularization()), weights=(1.0, 0.1))))
+
+    if what == "initial term":
+        inv.parameters = with_initial_term("jax")
+    elif what == "discrete initial term":
+        inv.parameters = with_initial_term("discrete")
+    elif what == "continuous initial term":
+        inv.parameters = with_initial_term(ContinuousAdjoint())
+    elif what in ("forward", "dummy"):
+        inv.parameters = p.replace(UDE=dataclasses.replace(p.UDE, grad=what))
+    elif what == "DummyAdjoint":
+        inv.parameters = p.replace(UDE=dataclasses.replace(p.UDE, grad=DummyAdjoint()))
     elif what == "lm":
         inv.parameters = p.replace(hyper=dataclasses.replace(
             p.hyper, optimizer=("lm",), learning_rate=(1e-3,), epochs=(1,)))
-    elif what == "discrete":
-        inv.parameters = p.replace(UDE=dataclasses.replace(p.UDE, grad="discrete"))
     elif what == "auto":
         inv.parameters = p.replace(solver=dataclasses.replace(p.solver, substeps="auto"))
     with pytest.raises(NotImplementedError, match="slice"):
         if what == "save":
             run_inversion(inv, path="results")
+        elif what == "discrete D target":
+            # a capped diffusivity is a D target: refused where the model is built
+            Model(iceflow=SIA2DModel(A=inv.model.iceflow.A, max_D=1.0))
         else:
             run_inversion(inv)
 
