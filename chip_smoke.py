@@ -57,7 +57,24 @@ Phases, each printed as one JSON line:
    share and its count of device kernel launches from the profiler; then
    one gradient by the continuous adjoint on the SI problem, its time,
    reverse steps per interval, host reads and launches;
-6. the ``kernels`` line: per kernel, what it replaces, its launches on the
+6. classical inversion, four times, on the same 16 glaciers, 128^2,
+   float32, 2 years: one tanh-bounded A per glacier (``LawA_inversion``)
+   with a trainable initial thickness H0 (Zang1980 filter, noisy
+   Farinotti start) against the thickness series plus a Tikhonov term on
+   H0, through the SI solve at PCG-20, and one A per glacier against the
+   mean dh/dt and the annual mean-velocity product (``LossDhdt`` +
+   ``LossAvgV``) through the RKC solve, each by autograd and by the
+   discrete adjoint, with the launches asserted as in phase 5, and the H0
+   gradient nonzero; each prints a ``classical_inversion`` line (Adam
+   epoch ms, busy ms, idle share, launches by kernel, losses,
+   ``run_inversion`` seconds). Before the main path, the classical
+   inversions' adjoint gradients on the card (4 x 128^2, 2 months; the
+   discrete adjoint through SI and RKC with θ = {A, IC} and the Tikhonov
+   term, through RKC with the aggregate losses, and the continuous adjoint
+   with the Tikhonov term) are held to the card's autograd (RKC) or the
+   CPU's float64 run (SI, continuous), float64 to 1e-12 per θ leaf and
+   float32 within 2x the float32 plain version's own error;
+7. the ``kernels`` line: per kernel, what it replaces, its launches on the
    main path, its time, its plain version's time and its bound, with the
    same at the main path's other shapes under ``more`` (``si_step`` at 30
    PCG iterations, at the SI training's 16 x 128^2, PCG-20 beside 15
@@ -130,6 +147,11 @@ TOL_GRAD_F64 = 1e-9
 # max|d(creep)|). The kernels are held to this factor times the float32
 # plain version's own error.
 GRAD_F32_FACTOR = 2.0
+# float64 gradients of the classical inversions' adjoints on the card
+# against the card's autograd (RKC) or the CPU's float64 run (SI,
+# continuous), each θ leaf relative to its own max|·|: the same arithmetic
+# on both sides but for the kernels' roundoff.
+TOL_CLASSICAL_F64 = 1e-12
 RKC_STAGES = 25                    # the RKC row's stages (benchmarks/perf_tpu.py)
 SI_TRAIN_CG = 20                   # the SI training's PCG iterations (benchmarks/perf_tpu.py)
 # si_step's device kernels: the cluster kernel, the large-plane path's two
@@ -1152,21 +1174,32 @@ def main_path_rows():
 
 
 def training_problem(solver, grad="jax", n_g=N_TRAIN, tspan=TRAIN_TSPAN,
-                     dtype=torch.float32):
+                     dtype=torch.float32, kind="ude"):
     """A training phase's problem at the width of benchmarks/perf_tpu.py's
     UDE epoch: 16 Halfar glaciers, 128^2, float32, 2 years of monthly
-    Cuffey–Paterson ground truth, A = NN(T), through the RKC solve (s from
+    Cuffey–Paterson ground truth, through the RKC solve (s from
     rkc_stages_for) or, as that epoch does, the SI solve at PCG-20 (SI2 at
     PCG-20 with a PCG-6 predictor; an explicit ``solver`` at the substeps
-    of suggest_substeps); the ground truth through the same solve. ``grad``
-    is the gradient (params.UDE.grad); ``n_g``, ``tspan`` and ``dtype`` cut
-    the problem for the gradient checks. Returns (inversion, model, params,
-    tstops, facts)."""
+    of suggest_substeps); the ground truth through the same solve. ``kind``:
+    "ude" trains A = NN(T) on the thickness series; the classical
+    inversions train one tanh-bounded A per glacier (LawA_inversion), "ic"
+    with a trainable H0 (InitialCondition: Zang1980 filter, Farinotti2019
+    start with correlated noise of 15 m) against the thickness series plus
+    a Tikhonov term on H0 (weight 1e-12), "aggregate" against the mean
+    dh/dt over the span and the annual mean-velocity product (LossDhdt +
+    LossAvgV). ``grad`` is the gradient (params.UDE.grad); ``n_g``,
+    ``tspan`` and ``dtype`` cut the problem for the gradient checks.
+    Returns (inversion, model, params, tstops, facts)."""
     from odinn_tpu_torch.core.params import (
         Hyperparameters, Parameters, PhysicalParameters, SimulationParameters,
         SolverParameters, UDEParameters)
     from odinn_tpu_torch.data.synthetic import halfar_glacier
-    from odinn_tpu_torch.laws.laws import CuffeyPaterson, LawA, poly_A_paterson_cuffey
+    from odinn_tpu_torch.laws.laws import (
+        CuffeyPaterson, LawA, LawA_inversion, poly_A_paterson_cuffey)
+    from odinn_tpu_torch.losses.losses import LossH, MultiLoss
+    from odinn_tpu_torch.losses.regularization import InitialThicknessRegularization
+    from odinn_tpu_torch.losses.time_aggregated import LossAvgV, LossDhdt
+    from odinn_tpu_torch.models.initial_condition import InitialCondition
     from odinn_tpu_torch.models.model import Model, SIA2DModel
     from odinn_tpu_torch.models.nn import NeuralNetwork, default_architecture
     from odinn_tpu_torch.simulation.inversion import Inversion
@@ -1194,24 +1227,34 @@ def training_problem(solver, grad="jax", n_g=N_TRAIN, tspan=TRAIN_TSPAN,
     else:
         solver_kw = dict(solver=solver, substeps=suggest_substeps(
             DX, DX, h_max, a_max, n=3.0, rho=phys.rho, g=phys.g, step=1.0 / 12.0))
+    loss = {"ude": None,
+            "ic": MultiLoss((LossH(), InitialThicknessRegularization()), (1.0, 1e-12)),
+            "aggregate": MultiLoss((LossDhdt(), LossAvgV()), (1.0, 1.0))}[kind]
     params = Parameters(
         physical=phys,
-        simulation=SimulationParameters(tspan=tspan, use_MB=False, use_velocities=False,
+        simulation=SimulationParameters(tspan=tspan, use_MB=False,
+                                        use_velocities=kind == "aggregate",
                                         float_dtype=str(dtype).split(".")[-1]),
         solver=SolverParameters(step=1.0 / 12.0, **solver_kw),
         hyper=Hyperparameters(optimizer=("adam", "lbfgs"), learning_rate=(0.05, 1.0),
                               epochs=(5, 3), batch_size=n_g),
-        UDE=UDEParameters(grad=grad),
+        UDE=UDEParameters(grad=grad, empirical_loss_function=loss),
     )
     tstops = build_tstops(tspan, 1.0 / 12.0)
     t0 = time.perf_counter()
     truth = generate_ground_truth(
         glaciers, params, Model(iceflow=SIA2DModel(A=CuffeyPaterson(), n_value=3.0)), tstops,
-        store=("H",), device="cuda")
+        store=("dhdt", "avgV") if kind == "aggregate" else ("H",), device="cuda")
     torch.cuda.synchronize()
     truth_s = time.perf_counter() - t0
-    model = Model(iceflow=SIA2DModel(A=LawA(NeuralNetwork(default_architecture(1)), params),
-                                     n_value=3.0))
+    if kind == "ude":
+        model = Model(iceflow=SIA2DModel(A=LawA(NeuralNetwork(default_architecture(1)), params),
+                                         n_value=3.0))
+    else:
+        ic = (InitialCondition(filter="Zang1980", init="Farinotti2019Random", noise_sigma=15.0)
+              if kind == "ic" else None)
+        model = Model(iceflow=SIA2DModel(A=LawA_inversion(params, scalar=True), n_value=3.0),
+                      initial_condition=ic)
     inv = Inversion(model=model, glaciers=truth, parameters=params, device="cuda")
     facts = ({"rkc_stages": stages, "h_max": h_max, "a_for_stages": a_max}
              if solver == "RKC" else {"cg_iters": SI_TRAIN_CG} if solver in ("SI", "SI2")
@@ -1237,11 +1280,11 @@ def grad_fn(inv, params):
 
 def adam_epoch_fn(inv, model, params, tstops):
     """One Adam epoch (forward, gradient by params.UDE.grad, update) on a
-    copy of the inversion's NN parameters."""
-    leaves = [layer[k].detach().clone().requires_grad_(True)
-              for layer in inv.theta["A"] for k in ("w", "b")]
-    theta = {"A": [{"w": leaves[2 * i], "b": leaves[2 * i + 1]}
-                   for i in range(len(leaves) // 2)]}
+    copy of the inversion's θ."""
+    from odinn_tpu_torch.simulation.inversion import _tree_leaves
+
+    theta = _tree_to(inv.theta, inv.device, None, requires_grad=True)
+    leaves = _tree_leaves(theta)
     opt = torch.optim.Adam(leaves, lr=0.05)
     vg, _ = grad_fn(inv, params)
 
@@ -1267,18 +1310,20 @@ def epoch_profile(adam_epoch):
                                                          key=lambda kv: -kv[1]))}
 
 
-def training_phase(solver, grad="jax"):
-    """Phase 5: run_inversion of A = NN(T) through the RKC or the SI solve
-    on :func:`training_problem`, by autograd (``grad="jax"``) or by the
-    discrete adjoint, then one Adam epoch profiled. Returns each kernel's
-    launches in the run. The discrete adjoint launches what autograd does
-    through RKC (its transpose is the fused step's backward), and through
-    SI one more si_step per interval and gradient (the plain-CG
-    rematerialisation of the pre-relu state), the transpose solve and the
-    pullback without the preconditioner."""
+def training_phase(solver, grad="jax", kind="ude"):
+    """Phases 5 and 6: run_inversion through the RKC or the SI solve on
+    :func:`training_problem` (``kind`` "ude", or a classical inversion:
+    "ic", "aggregate"), by autograd (``grad="jax"``) or by the discrete
+    adjoint, then one Adam epoch profiled. Returns each kernel's launches
+    in the run. The discrete adjoint launches what autograd does through
+    RKC (its transpose is the fused step's backward), and through SI one
+    more si_step per interval and gradient (the plain-CG rematerialisation
+    of the pre-relu state), the transpose solve and the pullback without
+    the preconditioner. A trainable H0 (the kind "ic") must have trained:
+    its gradient is nonzero and TrainingStats.initial_conditions is set."""
     from odinn_tpu_torch.simulation.inversion import run_inversion
 
-    inv, model, params, tstops, facts = training_problem(solver, grad)
+    inv, model, params, tstops, facts = training_problem(solver, grad, kind=kind)
     n_int = len(tstops) - 1
     counters = kernel_counters()
     for fn in counters.values():
@@ -1307,21 +1352,28 @@ def training_phase(solver, grad="jax"):
                         si_step_transpose=n_int * stats.gradients,
                         si_step_vjp=n_int * stats.gradients)
     row = dict({
-        "phase": "training", "solver": solver, "grad": grad, "glaciers": N_TRAIN,
-        "grid": [NX, NY],
-        "dtype": "torch.float32",
+        "phase": "training" if kind == "ude" else "classical_inversion", "kind": kind,
+        "solver": solver, "grad": grad, "glaciers": N_TRAIN, "grid": [NX, NY],
+        "dtype": "torch.float32", "theta_shapes": {k: list(v.shape) for k, v in
+                                                   inv.theta.items() if kind != "ude"},
         "intervals": n_int, "run_inversion_s": train_s, "losses": losses,
         "final_loss": stats.final_loss, "solves": stats.solves, "gradients": stats.gradients,
         "launches": launches, "expected_launches": expected,
         "time_per_iter_s": stats.time_per_iter,
     }, **facts, **epoch_profile(adam_epoch_fn(inv, model, params, tstops)))
+    if kind == "ic":
+        vg, _ = grad_fn(inv, params)
+        _, grads = vg(_tree_to(inv.theta, "cuda", None, requires_grad=True), inv.glaciers)
+        row["max_abs_dtheta_IC"] = float(grads[list(inv.theta).index("IC")].abs().max())
+        row["initial_conditions_set"] = stats.initial_conditions is not None
     emit(row)
+    what = f"{row['phase']} {kind} {solver} {grad}"
     if launches != expected:
-        raise AssertionError(f"training {solver} {grad}: launches {launches}, expected "
-                             f"{expected}")
+        raise AssertionError(f"{what}: launches {launches}, expected {expected}")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-        raise AssertionError(f"training {solver} {grad}: losses not finite or not decreasing: "
-                             f"{losses}")
+        raise AssertionError(f"{what}: losses not finite or not decreasing: {losses}")
+    if kind == "ic" and not (row["max_abs_dtheta_IC"] > 0.0 and row["initial_conditions_set"]):
+        raise AssertionError(f"{what}: H0 did not train: {row}")
     return launches
 
 
@@ -1439,11 +1491,73 @@ def check_adjoint_gradients():
                                  f"on the card disagrees: {row}")
 
 
+def check_classical_gradients():
+    """The hand-written adjoints' θ-gradient of the classical inversions on
+    the card (4 Halfar glaciers, 128^2, 2 monthly intervals, θ at its
+    start): θ = {A, IC} with the thickness loss and the Tikhonov term on H0
+    through SI and RKC by DiscreteAdjoint(DiscreteVJP), θ = A with the
+    dh/dt and mean-velocity losses through RKC by the same, and
+    ContinuousAdjoint(DiscreteVJP) on the SI forward with θ = {A, IC} and
+    the Tikhonov term. RKC is held to the card's autograd gradient of the
+    same loss (grad="jax"), SI and the continuous adjoint to the same
+    function on the CPU in float64, as check_adjoint_gradients does; each θ
+    leaf on its own: float64 to TOL_CLASSICAL_F64, float32 within
+    GRAD_F32_FACTOR times the float32 plain version's own error."""
+    from odinn_tpu_torch.inverse.adjoint_types import (
+        ContinuousAdjoint, DiscreteAdjoint, DiscreteVJP)
+    from odinn_tpu_torch.simulation.inversion import Inversion
+
+    def gradient(inv, theta, grad, device, dtype):
+        params = inv.parameters.replace(UDE=dataclasses.replace(inv.parameters.UDE, grad=grad))
+        on = Inversion(model=inv.model, glaciers=glaciers.to(device, dtype),
+                       parameters=params, device=device, theta=_tree_to(theta, device, dtype))
+        vg, _ = grad_fn(on, params)
+        _, grads = vg(_tree_to(theta, device, dtype, requires_grad=True), on.glaciers)
+        return [g.detach().double().cpu() for g in grads]
+
+    def err(a, b):
+        return max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(a, b))
+
+    discrete = DiscreteAdjoint(VJP_method=DiscreteVJP())
+    cases = [("SI", "ic", discrete, "cpu"), ("RKC", "ic", discrete, "jax"),
+             ("RKC", "aggregate", discrete, "jax"),
+             ("SI", "ic", ContinuousAdjoint(VJP_method=DiscreteVJP()), "cpu")]
+    f32, f64 = torch.float32, torch.float64
+    for solver, kind, adjoint, against in cases:
+        t0 = time.perf_counter()
+        inv, _, _, _, facts = training_problem(solver, "jax", n_g=N_G,
+                                               tspan=(5.0, 5.0 + 2.0 / 12.0), dtype=f64,
+                                               kind=kind)
+        glaciers = inv.glaciers.to(dtype=f32)
+        theta = _tree_to(inv.theta, "cuda", f32)
+        k64 = gradient(inv, theta, adjoint, "cuda", f64)
+        k32 = gradient(inv, theta, adjoint, "cuda", f32)
+        p32 = gradient(inv, theta, adjoint, "cpu", f32)
+        ref = (gradient(inv, theta, "jax", "cuda", f64) if against == "jax"
+               else gradient(inv, theta, adjoint, "cpu", f64))
+        row = {"phase": "check_classical_grad", "kind": kind, "solver": solver,
+               "adjoint": type(adjoint).__name__, "theta": list(inv.theta),
+               "against": "card grad='jax' float64" if against == "jax" else "CPU float64",
+               "glaciers": N_G, "grid": [NX, NY], "intervals": 2,
+               "float64_rel_err": err(k64, ref), "tol": TOL_CLASSICAL_F64,
+               "float32_rel_err": err(k32, ref), "f32_plain_rel_err": err(p32, ref),
+               "float32_vs_f32_plain_rel_err": err(k32, p32),
+               "factor": GRAD_F32_FACTOR, "seconds": time.perf_counter() - t0}
+        row.update({k: v for k, v in facts.items() if k != "ground_truth_s"})
+        emit(row)
+        if not (row["float64_rel_err"] <= TOL_CLASSICAL_F64
+                and all(torch.isfinite(g).all() and g.abs().max() > 0 for g in k32)
+                and row["float32_rel_err"] <= GRAD_F32_FACTOR * row["f32_plain_rel_err"]):
+            raise AssertionError(f"{kind} {solver} {type(adjoint).__name__}: the classical "
+                                 f"inversion's gradient on the card disagrees: {row}")
+
+
 def _tree_to(tree, device, dtype, requires_grad=False):
-    """θ on ``device`` in ``dtype``, a copy (leaves requiring grad when asked)."""
+    """θ on ``device`` in ``dtype`` (None: its own), a copy (leaves
+    requiring grad when asked)."""
     from odinn_tpu_torch.simulation.inversion import _tree_map
 
-    return _tree_map(lambda x: x.detach().to(device=device, dtype=dtype).clone()
+    return _tree_map(lambda x: x.detach().to(device=device, dtype=dtype or x.dtype).clone()
                      .requires_grad_(requires_grad), tree)
 
 
@@ -1471,6 +1585,7 @@ def main() -> int:
     check_kernels()
     check_gradients()
     check_adjoint_gradients()
+    check_classical_gradients()
     cluster_report()
     timing = time_kernels()
     launches = main_path_rows()
@@ -1480,6 +1595,10 @@ def main() -> int:
                 launches[name] += n
     for name, n in continuous_gradient_phase().items():
         launches[name] += n
+    for solver, problem in (("SI", "ic"), ("RKC", "aggregate")):
+        for grad in ("jax", "discrete"):
+            for name, n in training_phase(solver, grad, problem).items():
+                launches[name] += n
     meta = {
         "si_step": ("odinn_tpu_torch/csrc/si_step.cu", "odinn_tpu/ops/pallas/si_kernel.py:174"),
         "sia2d_rhs": ("odinn_tpu_torch/csrc/sia2d_rhs.cu", "odinn_tpu/ops/pallas/sia_kernel.py:137"),

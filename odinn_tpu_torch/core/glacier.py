@@ -118,7 +118,10 @@ class Glacier:
     """A 2-D glacier, or a stacked batch of them (leading glacier axis).
 
     Grids are laid out ``(nx, ny)`` with x first. ``dx``/``dy`` are
-    per-glacier scalars, so a batch may mix resolutions.
+    per-glacier scalars, so a batch may mix resolutions. ``glacier_ids``
+    holds, for a batch gathered from a larger one, each glacier's index in
+    the original batch, which selects its entries of per-glacier θ; None
+    means 0 … n_g − 1.
     """
 
     H0: Optional[torch.Tensor] = None           # (nx, ny) initial thickness [m]
@@ -136,6 +139,7 @@ class Glacier:
     velocity_data: Optional[SurfaceVelocityData] = None
     dhdt_data: Optional[DhdtData] = None
     npix: Optional[torch.Tensor] = None         # () pre-padding nx·ny
+    glacier_ids: Optional[torch.Tensor] = None  # (n_g,) rows of θ's per-glacier entries
     rgi_id: Any = "synthetic"
 
     @property

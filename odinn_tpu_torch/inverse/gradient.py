@@ -20,10 +20,17 @@ interpolated between the saves (cubic Hermite with Ḣ = f(H, t), or
 linear); dL/dθ is contracted by Gauss–Legendre quadrature over the span.
 
 Both adjoints run the whole stacked batch at once: every pullback covers
-all glaciers, and θ's cotangent is summed over them. The laws are
+all glaciers, and θ's cotangent is summed over them. The loss terms'
+cotangents come from one autograd pass over the saves: the transient
+terms' at each save, the aggregate terms' (a function of the whole
+trajectory) at every save, save 0 included, and the initial-state terms'
+(at t₀, on H₀ and θ) straight into θ. Both sweeps return λ(t₀); with a
+trainable initial condition H₀ = σ(θ_IC), λ(t₀) plus the aggregate
+cotangent at save 0, times σ′(θ_IC), is θ_IC's cotangent. The laws are
 evaluated once, at the first tstop, as the forward solve evaluates them.
 Where the configuration is the fused kernels' (A target, constant
-per-glacier scalar laws of time-free inputs; see
+per-glacier scalar laws of time-free inputs, only A trainable, or A and C
+on the SI transposes; see
 :func:`odinn_tpu_torch.inverse.vjps.fused_table`) the pullbacks are the
 kernels' on the card (their plain versions on the CPU): each explicit
 stage's (dH, dθ) pair is one ``sia2d_rhs_vjp`` launch (an RKC step its
@@ -44,7 +51,7 @@ import torch
 from odinn_tpu_torch.inverse import vjps
 from odinn_tpu_torch.inverse.adjoint_types import (
     ContinuousAdjoint, ContinuousVJP, DiscreteAdjoint, DiscreteVJP)
-from odinn_tpu_torch.losses.losses import MultiLoss, term_kind
+from odinn_tpu_torch.models.model import glacier_index
 from odinn_tpu_torch.ops import si_math
 from odinn_tpu_torch.ops import stencils as st
 from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel
@@ -53,7 +60,7 @@ from odinn_tpu_torch.physics.sia2d import sia2d_rhs
 from odinn_tpu_torch.simulation import solver as solver_mod
 from odinn_tpu_torch.simulation.implicit import (
     _frozen_diffusivity, semi_implicit_step, si2_step)
-from odinn_tpu_torch.simulation.inversion import _LossEnv, _default_loss, assemble_tstops
+from odinn_tpu_torch.simulation.inversion import _LossEnv, assemble_tstops
 from odinn_tpu_torch.simulation.prediction import _METHODS, _mb_every, forward_glacier
 
 __all__ = ["glacier_adjoint_value_and_grad", "make_adjoint_value_and_grad",
@@ -68,29 +75,9 @@ def gauss_legendre_nodes(t0, t1, n):
     return 0.5 * (x + 1.0) * (t1 - t0) + t0, 0.5 * (t1 - t0) * w
 
 
-def _loss_terms(params):
-    loss_cfg = params.UDE.empirical_loss_function or _default_loss()
-    if not isinstance(loss_cfg, MultiLoss):
-        loss_cfg = MultiLoss(terms=(loss_cfg,), weights=(1.0,))
-    return list(zip(loss_cfg.weights, loss_cfg.terms))
-
-
-def _aggregate_loss_fn(theta, glacier, model, params, tstops):
-    """The time-aggregated loss terms as one function of the trajectory:
-    None, as none is ported yet (the trainer refuses them, naming their
-    slice, before an adjoint runs)."""
-    aggregate = [t_ for _, t_ in _loss_terms(params) if term_kind(t_) == "aggregate"]
-    if aggregate:
-        raise NotImplementedError(
-            "odinn_tpu_torch: time-aggregated loss terms come with the loss-terms slice "
-            "(ROADMAP.md, Queue 1 item 3)")
-    return None
-
-
-def _per_tstop_loss_fn(theta, glacier, model, params, tstops):
+def _per_tstop_loss_fn(env):
     """ℓ(H, τ): the per-glacier transient loss at save index τ, Δt-weighted
     as in the total loss; θ enters through the velocity terms."""
-    env = _LossEnv(theta, glacier, model, params, tstops)
 
     def loss_at(H, tau):
         t, ctx, h_valid, v_valid = env.obs_at(tau, H.dtype)
@@ -111,17 +98,19 @@ class _Pullbacks:
     """The RHS and its pullbacks over the batch at θ, with the laws at the
     first tstop, and the accumulated θ cotangent: a θ tree and, on the
     fused route, the per-glacier cotangents of the derived table's creep
-    and slide columns, taken to θ once (:meth:`theta_cotangent`)."""
+    and slide columns, taken to θ once (:meth:`theta_cotangent`).
+    ``slide``: the sweep's pullbacks give the slide cotangent (the SI
+    transposes), so a trainable C may take the fused route."""
 
-    def __init__(self, flavor, theta, glacier, model, params, t_first, H0):
+    def __init__(self, flavor, theta, glacier, model, params, t_first, H0, slide=False):
         self.flavor, self.glacier, self.model, self.params = flavor, glacier, model, params
-        self.t_first, self.H0 = t_first, H0
+        self.t_first, self.H0, self.slide = t_first, H0, slide
         self.theta = vjps.tree_map(lambda x: x.detach(), theta)
         self.phys = params.physical
         self.B = glacier.B.to(H0.dtype).contiguous()
         self.dx, self.dy = vjps._spacings(glacier)
         self.vfn = vjps._values_fn(self.theta, glacier, model, t_first)
-        self.raw = vjps.fused_table(self.theta, glacier, model, params, t_first, H0)
+        self.raw = vjps.fused_table(self.theta, glacier, model, params, t_first, H0, slide)
         self.derived = self.exps = None
         if self.raw is not None:
             self.derived = vjps.derived_table(self.raw, self.phys, H0.dtype)
@@ -153,7 +142,8 @@ class _Pullbacks:
         if self.raw is None:
             return self.tree
         table = vjps.table_to_theta(self.theta, self.glacier, self.model, self.params,
-                                    self.t_first, self.H0, self.d_creep, self.d_slide)
+                                    self.t_first, self.H0, self.d_creep,
+                                    self.d_slide if self.slide else None)
         return _tree_add(self.theta, self.tree, table)
 
     # -- the RHS and its pullbacks --
@@ -436,29 +426,39 @@ def glacier_adjoint_value_and_grad(theta, glacier, model, params, tstops, adjoin
     use_mb = params.simulation.use_MB and model.mass_balance is not None
     k_mb = _mb_every(params) if use_mb else 0
     theta = vjps.tree_map(lambda x: x.detach(), theta)
-    _aggregate_loss_fn(theta, glacier, model, params, tstops)
     with torch.enable_grad():
         th_loss = vjps._requiring_grad(theta)
-        loss_at = _per_tstop_loss_fn(th_loss, glacier, model, params, tstops)
+        env = _LossEnv(th_loss, glacier, model, params, tstops)
+    loss_at = _per_tstop_loss_fn(env)
     loss_leaves = vjps.tree_leaves(th_loss)
 
     with torch.no_grad():
         traj = forward_glacier(theta, glacier, model, params, tstops)
-    dtype, dev = traj.dtype, traj.device
+    dtype = traj.dtype
     ts = solver_mod.host_tstops(tstops, dtype)
     npt = ts.dtype.type
     t_first = float(ts[0])
     n_save = len(ts)
 
-    # the loss and its cotangents at every save, by one autograd pass
-    pb = _Pullbacks(flavor, theta, glacier, model, params, t_first, traj[0])
+    # the loss and its cotangents at every save and in θ, by one autograd pass
+    method = params.solver.solver if params.solver.solver in _METHODS else "RK4"
+    slide = isinstance(adjoint, DiscreteAdjoint) and method in ("SI", "SI2")
+    pb = _Pullbacks(flavor, theta, glacier, model, params, t_first, traj[0], slide)
     with torch.enable_grad():
-        saves = [traj[tau].detach().requires_grad_(True) for tau in range(1, n_save)]
-        losses = sum(loss_at(h, tau) for tau, h in enumerate(saves, start=1))
-        grads = torch.autograd.grad(torch.sum(losses), saves + loss_leaves, allow_unused=True)
+        saves = [traj[tau].detach().requires_grad_(True) for tau in range(n_save)]
+        losses = torch.zeros(traj.shape[1], dtype=dtype, device=traj.device)
+        if env.transient:
+            for tau in range(1, n_save):
+                losses = losses + loss_at(saves[tau], tau)
+        # the initial-state and aggregate terms: one function of the whole
+        # trajectory, its cotangent at every save, save 0 included
+        if env.initial or env.aggregate:
+            losses = losses + env.once_per_solve(torch.stack(saves))
+        grads = ([None] * (n_save + len(loss_leaves)) if not losses.requires_grad else
+                 torch.autograd.grad(torch.sum(losses), saves + loss_leaves, allow_unused=True))
     losses = losses.detach()
-    dl_H = [None] + list(grads[:n_save - 1])
-    theta_grads = grads[n_save - 1:]
+    dl_H = list(grads[:n_save])
+    theta_grads = grads[n_save:]
     if any(g is not None for g in theta_grads):
         pb.add_tree(vjps._unflatten(theta, [torch.zeros_like(p) if g is None else g
                                             for p, g in zip(loss_leaves, theta_grads)]))
@@ -474,16 +474,26 @@ def glacier_adjoint_value_and_grad(theta, glacier, model, params, tstops, adjoin
 
     with torch.no_grad():
         if isinstance(adjoint, DiscreteAdjoint):
-            _discrete(pb, adjoint, traj, ts, npt, params, inject)
+            lam0 = _discrete(pb, adjoint, traj, ts, npt, params, inject)
         elif isinstance(adjoint, ContinuousAdjoint):
-            _continuous(pb, adjoint, traj, solver_mod.host_tstops(tstops, torch.float64),
-                        inject, quad_nodes, record)
+            lam0 = _continuous(pb, adjoint, traj, solver_mod.host_tstops(tstops, torch.float64),
+                               inject, quad_nodes, record)
         else:
             raise TypeError(f"unknown adjoint {adjoint!r}")
-        return losses, pb.theta_cotangent()
+        grads = pb.theta_cotangent()
+        if model.initial_condition is not None and "IC" in theta:
+            # H₀ = σ(θ_IC): λ(t₀), after save 0's own loss cotangent, times σ′
+            if dl_H[0] is not None:
+                lam0 = lam0 + dl_H[0]
+            ids = glacier_index(glacier)
+            d_ic = lam0 * model.initial_condition.evaluate_dH0(theta, ids)
+            grads = dict(grads, IC=grads["IC"].index_add(0, ids, d_ic.to(grads["IC"].dtype)))
+        return losses, grads
 
 
 def _discrete(pb, adjoint, traj, ts, npt, params, inject):
+    """The reverse sweep through the forward's substeps; accumulates θ's
+    cotangent on ``pb`` and returns λ(t₀)."""
     substeps = adjoint.substeps or params.solver.substeps
     method = params.solver.solver if params.solver.solver in _METHODS else "RK4"
     sp = params.solver
@@ -532,11 +542,13 @@ def _discrete(pb, adjoint, traj, ts, npt, params, inject):
             H_sub.append(forward_step(H_sub[-1], float(t0j + npt(s) * dt), float(dt)))
         for s in range(substeps - 1, -1, -1):
             lam = transpose(lam, H_sub[s], float(dt), float(t0j + npt(s) * dt), rhs, pb.pull)
+    return lam
 
 
 def _continuous(pb, adjoint, traj, ts64, inject, quad_nodes, record):
     """The reverse λ solve, one BS3(2) controller per glacier, then the
-    Gauss–Legendre θ contraction; times in float64 (``ts64``)."""
+    Gauss–Legendre θ contraction; times in float64 (``ts64``). Returns
+    λ(t₀)."""
     dev = traj.device
     n_save, n_g = traj.shape[0], traj.shape[1]
     tdev = torch.as_tensor(ts64, device=dev)
@@ -604,6 +616,7 @@ def _continuous(pb, adjoint, traj, ts64, inject, quad_nodes, record):
         lam_q = (_interp(t_vec, tdev, lefts, rights, d_left, d_right) if hermite
                  else _interp(t_vec, tdev, lefts, rights))
         pb.vjp_theta(float(w_q) * lam_q, interp_traj(t_vec))
+    return lam
 
 
 def make_adjoint_value_and_grad(inversion, flavor: str = "continuous") -> Callable:

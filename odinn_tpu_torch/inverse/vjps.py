@@ -17,7 +17,8 @@ the mass balance.
   ``DiscreteVJP``).
 
 Which path: for the A target with per-glacier scalar laws whose values do
-not depend on time (the fused kernels' configuration, :func:`fused_table`),
+not depend on time and only A trainable (the fused kernels' configuration,
+:func:`fused_table`; C too on the SI transposes),
 the discrete pullback of the RHS is the fused RHS's pullback,
 :func:`odinn_tpu_torch.ops.cuda.sia_kernel.sia2d_rhs_vjp`: dH and the
 cotangent of each glacier's creep coefficient in one launch on the card
@@ -91,19 +92,23 @@ def rhs_with_theta(H, theta, glacier, model, params, t):
                      params.physical)
 
 
-def fused_table(theta, glacier, model, params, t, H):
+def fused_table(theta, glacier, model, params, t, H, slide: bool = False):
     """The raw (n_g, 7) table (dx, dy, A, C, n, p, q) of the fused kernels
     when the configuration is theirs (the A target, constant per-glacier
     scalar law values, one (n_g, nx, ny) state) and no law reads a
-    time-dependent input; else None. Only the creep and slide columns may
-    depend on θ."""
-    if not set(model.trainable_laws) <= {"A", "C"}:
+    time-dependent input; else None. Only the creep column may depend on
+    θ, and the slide column too when ``slide`` (a route whose pullback has
+    the slide cotangent: the SI transposes): a trainable C elsewhere, or a
+    trainable n anywhere, takes the tensor code, as the kernels' pullbacks
+    would drop its gradient."""
+    if not set(model.trainable_laws) <= ({"A", "C"} if slide else {"A"}):
         return None
     for law in model.iceflow.laws.values():
         if any(name not in _TIME_FREE_INPUTS for name in law.input_names):
             return None
     dx, dy = _spacings(glacier)
-    return scalar_law_table(_values_fn(theta, glacier, model, t), model.target, dx, dy, H)
+    return scalar_law_table(_values_fn(theta, glacier, model, t), model.target, dx, dy, H,
+                            slide_grad=slide)
 
 
 def table_to_theta(theta, glacier, model, params, t, H, d_creep, d_slide=None):
@@ -114,7 +119,7 @@ def table_to_theta(theta, glacier, model, params, t, H, d_creep, d_slide=None):
     phys = params.physical
     with torch.enable_grad():
         th = _requiring_grad(theta)
-        raw = fused_table(th, glacier, model, params, t, H)
+        raw = fused_table(th, glacier, model, params, t, H, slide=d_slide is not None)
         derived = sia_kernel.derive_table(raw, phys.rho, phys.g)
         pairing = torch.sum(derived[:, 2] * d_creep.to(derived.dtype))
         if d_slide is not None:

@@ -6,9 +6,11 @@ schedule. Trainable state lives in the θ dict under the law's slot key.
 ``0`` → once at simulation start; ``x > 0`` → every x years at tstop
 boundaries.
 
-This module holds the non-learnable laws of the forward path and the NN
-creep law ``LawA``; the inversion laws and the D-target NN laws come with
-later slices.
+This module holds the non-learnable laws of the forward path, the NN creep
+law ``LawA``, the NN sliding law ``LawC`` and the classical-inversion laws
+``LawA_inversion``, ``LawC_inversion`` and ``LawN_inversion`` (one
+tanh-bounded value, or grid, per glacier, selected by the ``glacier_idx``
+input); the D-target NN laws come with a later slice.
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ from odinn_tpu_torch.ops.stencils import avg
 __all__ = [
     "Law",
     "LawA",
+    "LawA_inversion",
+    "LawC",
+    "LawC_inversion",
+    "LawN_inversion",
     "ConstantA",
     "CuffeyPaterson",
     "poly_A_paterson_cuffey",
@@ -102,6 +108,126 @@ def LawA(nn: nnmod.NeuralNetwork, params, scalar: bool = True,
         trainable=True,
         name="NN_A",
         init_theta=lambda glaciers, dtype=torch.float64: nn.init(dtype, glaciers.H0.device),
+    )
+
+
+def _n_glaciers(glaciers) -> int:
+    return len(glaciers) if isinstance(glaciers, (list, tuple)) else glaciers.H0.shape[0]
+
+
+def _device_of(glaciers):
+    first = glaciers[0] if isinstance(glaciers, (list, tuple)) else glaciers
+    return first.H0.device
+
+
+def _per_glacier_init(scalar: bool, grid_shape=None):
+    """θ's initial value for a per-glacier law: zeros of shape (n_g,), or
+    (n_g, nx − 1, ny − 1) on the staggered grid of ``grid_shape`` (default:
+    the largest grid of the glaciers)."""
+
+    def init_theta(glaciers, dtype=torch.float64):
+        n_g, dev = _n_glaciers(glaciers), _device_of(glaciers)
+        if scalar:
+            return torch.zeros((n_g,), dtype=dtype, device=dev)
+        if grid_shape is not None:
+            nx, ny = grid_shape
+        elif isinstance(glaciers, (list, tuple)):
+            nx, ny = max(g.nx for g in glaciers), max(g.ny for g in glaciers)
+        else:
+            nx, ny = glaciers.H0.shape[-2:]
+        return torch.zeros((n_g, nx - 1, ny - 1), dtype=dtype, device=dev)
+
+    return init_theta
+
+
+def _tanh_bounded(lo: float, hi: float, slot: str):
+    """apply_fn of a classical-inversion law: lo + (hi − lo)·(tanh θ + 1)/2
+    of the glaciers' entries of θ[slot]."""
+
+    def apply_fn(theta, inputs):
+        raw = theta[slot][inputs["glacier_idx"]]
+        return lo + (hi - lo) * (torch.tanh(raw) + 1.0) / 2.0
+
+    return apply_fn
+
+
+def LawA_inversion(params, scalar: bool = True, grid_shape=None) -> Law:
+    """Classical-inversion A law: one tanh-bounded A ∈ [min_A, max_A] per
+    glacier, or one per staggered cell (``scalar=False``). θ["A"] has shape
+    (n_glaciers,) or (n_glaciers, nx − 1, ny − 1); a scalar A keeps its
+    graph to θ through the fused kernels' table."""
+    return Law(
+        slot="A",
+        apply_fn=_tanh_bounded(params.physical.min_A, params.physical.max_A, "A"),
+        inputs=(),
+        callback_freq=0.0,
+        trainable=True,
+        name="InvA" if scalar else "InvA_grid",
+        init_theta=_per_glacier_init(scalar, grid_shape),
+    )
+
+
+def LawC(nn: nnmod.NeuralNetwork, params,
+         prescale_bounds: Tuple[Tuple[float, float], ...] = ((0.0, 2000.0), (0.0, 0.05))
+         ) -> Law:
+    """NN sliding law (CPDD, topographic roughness) → C ∈ [min_C, max_C]:
+    per-cell features through one MLP, the sigmoid head mapped linearly onto
+    the bounds, averaged onto the staggered (nx − 1, ny − 1) grid. Its CPDD
+    input depends on time, so the law always takes the generic path."""
+    min_c, max_c = params.physical.min_C, params.physical.max_C
+    arch = nn.architecture
+
+    def apply_fn(theta, inputs):
+        w = theta["C"][0]["w"]
+        rough = torch.as_tensor(inputs["topo_rough"]).to(device=w.device, dtype=w.dtype)
+        cpdd = torch.as_tensor(inputs["CPDD"]).to(device=w.device, dtype=w.dtype)
+        feats = torch.stack([torch.broadcast_to(cpdd, rough.shape), rough], dim=-1)
+        if prescale_bounds is not None:
+            feats = nnmod.prescale(feats, prescale_bounds)
+        out = nnmod.mlp_apply(arch, theta["C"], feats.reshape(-1, 2))[..., 0]
+        return avg(nnmod.scale(out.reshape(rough.shape), (min_c, max_c)))
+
+    return Law(
+        slot="C",
+        apply_fn=apply_fn,
+        inputs=(law_inputs.CPDD(), law_inputs.TopoRough()),
+        callback_freq=0.0,
+        trainable=True,
+        name="NN_C",
+        init_theta=lambda glaciers, dtype=torch.float64: nn.init(dtype, _device_of(glaciers)),
+    )
+
+
+def LawC_inversion(params, scalar: bool = True, grid_shape=None) -> Law:
+    """Classical sliding inversion: one tanh-bounded C ∈ [min_C, max_C] per
+    glacier (or per staggered cell), the C-slot counterpart of
+    :func:`LawA_inversion`. A trainable C takes the fused kernels only on the
+    semi-implicit route, whose backward has the slide cotangent."""
+    return Law(
+        slot="C",
+        apply_fn=_tanh_bounded(params.physical.min_C, params.physical.max_C, "C"),
+        inputs=(),
+        callback_freq=0.0,
+        trainable=True,
+        name="InvC" if scalar else "InvC_grid",
+        init_theta=_per_glacier_init(scalar, grid_shape),
+    )
+
+
+def LawN_inversion(params, bounds: Tuple[float, float] = (1.5, 4.2)) -> Law:
+    """Per-glacier Glen-exponent inversion: one tanh-bounded n per glacier.
+    The fused kernels take the exponents as numbers, so a trainable n (or
+    one that differs between glaciers on the SI and RKC routes) takes the
+    generic path, where the diffusivity's powers are differentiable in n."""
+    lo, hi = bounds
+    return Law(
+        slot="n",
+        apply_fn=_tanh_bounded(lo, hi, "n"),
+        inputs=(),
+        callback_freq=0.0,
+        trainable=True,
+        name="InvN",
+        init_theta=_per_glacier_init(True),
     )
 
 

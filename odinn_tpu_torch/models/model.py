@@ -19,7 +19,8 @@ from odinn_tpu_torch.laws.laws import Law
 from odinn_tpu_torch.physics import targets as targets_mod
 from odinn_tpu_torch.physics.sia2d import SIAValues, ValuesFn, default_values
 
-__all__ = ["SIA2DModel", "Model", "init_theta", "make_values_fn", "resolve_outer_values"]
+__all__ = ["SIA2DModel", "Model", "init_theta", "glacier_index", "initial_thickness",
+           "make_values_fn", "resolve_outer_values"]
 
 
 @dataclass(frozen=True)
@@ -95,23 +96,35 @@ class Model:
 
 def init_theta(model: Model, glaciers, dtype=torch.float64) -> dict:
     """The trainable θ dict: one entry per trainable law slot, from each
-    law's ``init_theta(glaciers, dtype)``, on the glaciers' device."""
-    if model.initial_condition is not None:
-        raise NotImplementedError(
-            "odinn_tpu_torch: trainable initial conditions come with the loss-terms and "
-            "initial-conditions slice (ROADMAP.md, Queue 1 item 3)")
+    law's ``init_theta(glaciers, dtype)``, plus "IC" from the model's
+    initial condition, on the glaciers' device."""
     theta = {}
     for slot, law in model.trainable_laws.items():
         if law.init_theta is None:
             raise ValueError(f"trainable law {law.name} has no init_theta")
         theta[slot] = law.init_theta(glaciers, dtype)
+    if model.initial_condition is not None:
+        theta["IC"] = model.initial_condition.init_theta(glaciers, dtype)
     return theta
 
 
-def _glacier_idx(glacier):
+def glacier_index(glacier):
+    """The rows of per-glacier θ entries that belong to ``glacier``: its
+    ``glacier_ids`` when it was gathered from a larger batch, else
+    0 … n_g − 1 for a batch and 0 for a single glacier."""
+    if glacier.glacier_ids is not None:
+        return glacier.glacier_ids
     if glacier.is_batched:
         return torch.arange(glacier.H0.shape[0], device=glacier.H0.device)
     return torch.tensor(0, device=glacier.H0.device)
+
+
+def initial_thickness(model: Model, theta, glacier):
+    """H₀ of the solve: σ(θ_IC) of the glacier's rows when θ has a trainable
+    initial condition, else the glacier's own H₀."""
+    if model.initial_condition is not None and theta is not None and "IC" in theta:
+        return model.initial_condition.evaluate_H0(theta, glacier_index(glacier))
+    return glacier.H0
 
 
 def resolve_outer_values(model: Model, theta, glacier, t, H=None) -> SIAValues:
@@ -127,7 +140,7 @@ def resolve_outer_values(model: Model, theta, glacier, t, H=None) -> SIAValues:
     for slot, law in model.iceflow.laws.items():
         if law.is_inner:
             continue
-        inputs = {"glacier_idx": _glacier_idx(glacier)}
+        inputs = {"glacier_idx": glacier_index(glacier)}
         for spec in law.inputs:
             inputs[spec.name] = spec.get(glacier, state, t)
         vals = vals.replace(**{slot: per_glacier_column(glacier, law.apply(theta, inputs))})
@@ -151,7 +164,7 @@ def make_values_fn(model: Model, theta, glacier, t, outer_vals: SIAValues) -> Va
         for spec in law.inputs:
             if spec.name not in law_inputs_mod.INNER_INPUTS:
                 static_inputs[spec.name] = spec.get(glacier, glacier.H0, t)
-    idx = _glacier_idx(glacier)
+    idx = glacier_index(glacier)
 
     def resolve_inner(vals, hbar, grad_s):
         for slot, law in inner:

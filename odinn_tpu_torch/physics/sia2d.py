@@ -3,8 +3,9 @@
     ∂H/∂t = −∇·F,     F = −D(H̄, |∇S|) ∇S|_edges (clamped at borders)
 
 A pure function of the state. Law values arrive through a :class:`ValuesFn`;
-when they are per-glacier scalars for the A target (no inner laws), the RHS
-of a (n_g, nx, ny) batch is the fused kernel
+when they are per-glacier scalars for the A target (no inner laws, and no
+gradient wanted through C or the exponents), the RHS of a (n_g, nx, ny)
+batch is the fused kernel
 :func:`odinn_tpu_torch.ops.cuda.sia_kernel.sia2d_rhs` (its plain PyTorch
 version on a CPU tensor); every other law configuration takes the stencil
 chain below on either device.
@@ -97,14 +98,27 @@ def _as_column(v, n_g: int, device) -> Optional[torch.Tensor]:
     return None
 
 
-def scalar_law_table(values_fn, target, dx, dy, H) -> Optional[torch.Tensor]:
+def _carries_grad(v) -> bool:
+    return isinstance(v, torch.Tensor) and v.requires_grad
+
+
+def scalar_law_table(values_fn, target, dx, dy, H, slide_grad: bool = False
+                     ) -> Optional[torch.Tensor]:
     """The raw (n_g, 7) float64 table (dx, dy, A, C, n, p, q) of the fused
     kernels, or None when the configuration is not theirs: the A target,
     constant values, every slot one value per glacier, an (n_g, nx, ny)
-    state. Cached on ``values_fn`` for as long as ``dx``/``dy`` are the same
-    tensors."""
+    state, and no value the kernels' backwards cannot differentiate. The
+    kernels take the exponents as numbers, so an n, p or q that carries a
+    gradient is refused; the explicit RHS and the RKC step pull back to the
+    creep column only, so a C that carries one is refused unless
+    ``slide_grad`` (the semi-implicit step, whose backward has the slide
+    cotangent). Cached on ``values_fn`` for as long as ``dx``/``dy`` are
+    the same tensors."""
     vals = getattr(values_fn, "constant", None)
     if vals is None or type(target) is not ATarget or H.ndim != 3:
+        return None
+    if any(_carries_grad(v) for v in (vals.n, vals.p, vals.q)) or (
+            _carries_grad(vals.C) and not slide_grad):
         return None
     hit = values_fn.cache.get("table")
     if hit is not None and hit[0] is dx and hit[1] is dy and hit[2] == H.device:

@@ -54,7 +54,7 @@ def _frozen_diffusivity(H, B, dx, dy, values_fn, target, phys):
 def _kernel_args(values_fn, target, dx, dy, H, phys):
     """(derived table, shared exponents) for the fused step, or None when
     the configuration is not the kernel's. Cached on ``values_fn``."""
-    raw = scalar_law_table(values_fn, target, dx, dy, H)
+    raw = scalar_law_table(values_fn, target, dx, dy, H, slide_grad=True)
     if raw is None:
         return None
     hit = values_fn.cache.get("si")

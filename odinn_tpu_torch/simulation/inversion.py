@@ -1,4 +1,5 @@
-"""Inversion: training the trainable laws (A = NN(T)) through the PDE solve.
+"""Inversion: training the trainable laws and initial thickness through the
+PDE solve.
 
 ``run_inversion`` → ``train_ude``: staged optimizers (Adam/AdamW, then
 LBFGS) over the θ tree, with best-iterate tracking. The gradient is
@@ -8,19 +9,24 @@ autograd through the whole forward solve of the stacked glacier batch
 ``ContinuousAdjoint``, :mod:`odinn_tpu_torch.inverse.gradient`), whose
 pullbacks on the card are the same kernels'. The transient loss is
 Σ_g Σ_τ Δt_τ · ℓ(H_g(t_τ), refs_g(t_τ)) with the glacier axis as a batch
-dimension. On the CUDA card the solve runs through the fused kernels; with
-``solver="RKC"`` every RKC2 step is one ``rkc_interval`` launch and every
-backward stage one ``sia2d_rhs_vjp`` launch; with ``solver="SI"``/``"SI2"``
-every step is one ``si_step`` launch forward and, by the implicit-function
-adjoint, one ``si_step_transpose`` and one ``si_step_vjp`` launch backward.
+dimension, plus once per solve the "initial" terms (the regularizations of
+``losses/regularization.py``, on H₀ and θ) and the "aggregate" terms (the
+time-aggregated losses of ``losses/time_aggregated.py``, on the whole
+trajectory). A classical inversion trains per-glacier laws
+(``LawA_inversion``, ``LawC_inversion``, ``LawN_inversion``) and, with a
+model ``initial_condition``, H₀ = σ(θ_IC). On the CUDA card the solve runs
+through the fused kernels; with ``solver="RKC"`` every RKC2 step is one
+``rkc_interval`` launch and every backward stage one ``sia2d_rhs_vjp``
+launch; with ``solver="SI"``/``"SI2"`` every step is one ``si_step`` launch
+forward and, by the implicit-function adjoint, one ``si_step_transpose``
+and one ``si_step_vjp`` launch backward.
 
 Adam and AdamW are ``torch.optim.Adam``/``AdamW`` (the update of optax's:
 bias-corrected, eps outside the square root; AdamW with optax's default
 weight decay 1e-4). LBFGS is ``torch.optim.LBFGS`` with its strong-Wolfe
 line search, one iteration per epoch, optax's history of 10 and up to 20
-line-search steps. Not ported yet, and refused with the slice that
-brings them (``ROADMAP.md``, Queue 1): the regularization and
-time-aggregated loss terms (item 3), per-glacier θ laws (item 4), the
+line-search steps. Not ported yet, and refused with the slice that brings them
+(``ROADMAP.md``, Queue 1): periodic laws and the D targets (item 4), the
 adaptive, replay and ``substeps="auto"`` solves with their instability
 recovery (item 5), Levenberg–Marquardt stages and
 ``grad="forward"``/``"dummy"`` (item 6), and saving the result (item 8).
@@ -41,7 +47,8 @@ from odinn_tpu_torch.core.glacier import (
     loss_normalization, map_tensors, per_glacier_column, stack_glaciers)
 from odinn_tpu_torch.core.params import torch_dtype
 from odinn_tpu_torch.losses.losses import LossContext, LossH, LossV, MultiLoss, term_kind
-from odinn_tpu_torch.models.model import Model, init_theta, make_values_fn, resolve_outer_values
+from odinn_tpu_torch.models.model import (
+    Model, glacier_index, init_theta, initial_thickness, make_values_fn, resolve_outer_values)
 from odinn_tpu_torch.physics.sia2d import v_from_h
 from odinn_tpu_torch.simulation.observations import thickness_at, velocity_at
 from odinn_tpu_torch.simulation.prediction import forward_batch, forward_glacier
@@ -81,7 +88,7 @@ def assemble_tstops(params, batch):
 
 
 class _LossEnv:
-    """The (transient) loss terms, the context factory and the time-matched
+    """The loss terms by kind, the context factory and the time-matched
     observation lookup of one (batched) loss evaluation."""
 
     def __init__(self, theta, glacier, model, params, tstops):
@@ -92,6 +99,8 @@ class _LossEnv:
         self.dts = np.diff(self.ts)
         self.glacier = glacier
         self.theta = theta
+        self.model = model
+        self.glacier_idx = glacier_index(glacier)
         self.normalization = loss_normalization(glacier).to(glacier.H0.device)
         t0 = float(self.ts[0])
         outer = resolve_outer_values(model, theta, glacier, t0)
@@ -104,19 +113,42 @@ class _LossEnv:
 
         self.velocity_fn = velocity_fn
         pairs = list(zip(loss_cfg.weights, loss_cfg.terms))
-        other = [t_ for _, t_ in pairs if term_kind(t_) != "transient"]
-        if other:
-            raise NotImplementedError(
-                f"odinn_tpu_torch: loss terms of kind {term_kind(other[0])!r} (the "
-                "regularization and time-aggregated losses) come with the loss-terms "
-                "slice (ROADMAP.md, Queue 1 item 3)")
-        self.transient = pairs
+        kinds = {"transient": [], "initial": [], "aggregate": []}
+        for w, term in pairs:
+            kind = term_kind(term)
+            if kind not in kinds:
+                raise ValueError(f"loss term {term!r} has an unknown kind {kind!r}")
+            kinds[kind].append((w, term))
+        self.transient, self.initial, self.aggregate = kinds.values()
 
     def make_ctx(self, H_ref=None, V_ref=None, Vx_ref=None, Vy_ref=None):
         g = self.glacier
         return LossContext(H_ref=H_ref, V_ref=V_ref, Vx_ref=Vx_ref, Vy_ref=Vy_ref,
                            velocity_fn=self.velocity_fn, normalization=self.normalization,
-                           theta=self.theta, glacier=g, dx=g.dx, dy=g.dy)
+                           theta=self.theta, glacier_idx=self.glacier_idx, glacier=g,
+                           dx=g.dx, dy=g.dy)
+
+    def initial_H(self):
+        """The H₀ the initial-state terms see: σ(θ_IC) or the data's H₀."""
+        return initial_thickness(self.model, self.theta, self.glacier)
+
+    def once_per_solve(self, traj):
+        """The initial-state terms at t₀ and the aggregate terms on the
+        trajectory (T, …, nx, ny): per glacier, weighted, or None when the
+        loss has neither."""
+        total = None
+        if self.initial:
+            ctx, h_init = self.make_ctx(), self.initial_H()
+            for w, term in self.initial:
+                v = w * term(ctx, h_init, float(self.ts[0]))
+                total = v if total is None else total + v
+        if self.aggregate:
+            ctx = self.make_ctx()
+            ts = torch.as_tensor(self.ts).to(traj.device)
+            for w, term in self.aggregate:
+                v = w * term(ctx, traj, ts)
+                total = v if total is None else total + v
+        return total
 
     def obs_at(self, tau, dtype):
         """References and per-glacier validity gates at save index τ."""
@@ -140,16 +172,21 @@ class _LossEnv:
 def glacier_transient_loss(theta, glacier, model, params, tstops):
     """(loss, trajectory) of a glacier, or of a stacked batch with the
     (n_g,) per-glacier losses: Σ_τ Δt_τ · Σ_terms w·valid·ℓ(H(t_τ), refs),
-    normalized by each glacier's pixel count."""
+    normalized by each glacier's pixel count, plus the weighted initial-state
+    terms at t₀ and aggregate terms on the trajectory."""
     traj = forward_glacier(theta, glacier, model, params, tstops)
     env = _LossEnv(theta, glacier, model, params, tstops)
     total = torch.zeros((), dtype=traj.dtype, device=traj.device)
-    for tau in range(1, len(env.ts)):
-        t, ctx, h_valid, v_valid = env.obs_at(tau, traj.dtype)
-        acc = 0.0
-        for w, term in env.transient:
-            acc = acc + w * env.term_valid(term, h_valid, v_valid) * term(ctx, traj[tau], t)
-        total = total + acc * float(env.dts[tau - 1])
+    if env.transient:
+        for tau in range(1, len(env.ts)):
+            t, ctx, h_valid, v_valid = env.obs_at(tau, traj.dtype)
+            acc = 0.0
+            for w, term in env.transient:
+                acc = acc + w * env.term_valid(term, h_valid, v_valid) * term(ctx, traj[tau], t)
+            total = total + acc * float(env.dts[tau - 1])
+    once = env.once_per_solve(traj)
+    if once is not None:
+        total = total + once
     return total, traj
 
 
@@ -161,9 +198,11 @@ def batch_transient_loss(theta, batch, model, params, tstops):
 
 def gather_batch(batch, idx):
     """Glaciers ``idx`` of a stacked batch: every field with the leading
-    glacier axis is indexed along it."""
+    glacier axis is indexed along it, ``glacier_ids`` too, so per-glacier θ
+    entries still resolve to the original glaciers."""
     n_g = batch.H0.shape[0]
     idx = torch.as_tensor(idx, device=batch.H0.device)
+    batch = batch.replace(glacier_ids=glacier_index(batch))
     return map_tensors(batch, lambda x: x[idx] if x.ndim >= 1 and x.shape[0] == n_g else x)
 
 
@@ -443,6 +482,8 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
     stats.retcode = "Success"
     trained = _tree_map(lambda x: x.detach(), theta)
     stats.theta = trained
+    if model.initial_condition is not None and "IC" in trained:
+        stats.initial_conditions = trained["IC"]
     inversion.theta = trained
 
     with torch.no_grad():

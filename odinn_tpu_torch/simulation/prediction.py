@@ -3,8 +3,10 @@ and ``generate_ground_truth``.
 
 The whole stacked glacier batch advances at once: the glacier axis is the
 leading dimension of every state tensor, and per-glacier scalars are
-(n_g, 1, 1) columns. Fixed-substep solvers only; the adaptive, replay,
-``substeps="auto"`` and periodic-law paths come with later slices.
+(n_g, 1, 1) columns. A model with a trainable initial condition starts
+from H₀ = σ(θ_IC) when θ holds "IC". Fixed-substep solvers only; the
+adaptive, replay, ``substeps="auto"`` and periodic-law paths come with
+later slices.
 
 With ``solver="RKC"`` and the fused kernels' law configuration (the A target
 with one value per glacier for every slot, one exponent set for the batch, a
@@ -24,7 +26,8 @@ import torch
 from odinn_tpu_torch.core.device import resolve_device
 from odinn_tpu_torch.core.glacier import (
     DhdtData, Glacier, SurfaceVelocityData, ThicknessData, per_glacier_column, stack_glaciers)
-from odinn_tpu_torch.models.model import Model, make_values_fn, resolve_outer_values
+from odinn_tpu_torch.models.model import (
+    Model, initial_thickness, make_values_fn, resolve_outer_values)
 from odinn_tpu_torch.ops.cuda.common import shared_exps
 from odinn_tpu_torch.ops.cuda.rkc_kernel import rkc_fits
 from odinn_tpu_torch.ops.cuda.sia_kernel import derive_table
@@ -61,11 +64,6 @@ def _check_supported(model: Model, params) -> None:
         raise NotImplementedError(
             "odinn_tpu_torch: periodic laws (callback_freq > 0) come with the "
             "laws-and-targets slice (ROADMAP.md, Queue 1 item 4)")
-    if model.initial_condition is not None:
-        raise NotImplementedError(
-            "odinn_tpu_torch: trainable initial conditions come with the loss-terms "
-            "and initial-conditions slice (models/initial_condition.py; ROADMAP.md, "
-            "Queue 1 item 3)")
 
 
 def _fused_rkc_stepper(values_fn, target, dx, dy, glacier, H0, phys, s):
@@ -86,12 +84,14 @@ def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=No
     """Solve a glacier, or a stacked batch at once, over ``tstops``; returns
     the trajectory (T, …, nx, ny) with the time axis first.
 
-    Outer laws are evaluated at the first tstop, inner laws at every RHS
-    call, and the mass balance is applied at every ``step_MB`` interval end.
+    The solve starts from ``H0``, by default σ(θ_IC) when θ holds a
+    trainable initial condition, else the glacier's H₀. Outer laws are
+    evaluated at the first tstop and that H₀, inner laws at every RHS call,
+    and the mass balance is applied at every ``step_MB`` interval end.
     """
     _check_supported(model, params)
     phys = params.physical
-    H0 = glacier.H0 if H0 is None else H0
+    H0 = initial_thickness(model, theta, glacier) if H0 is None else H0
     ts = host_tstops(tstops, H0.dtype)
     t_first = float(ts[0])
     outer_vals = resolve_outer_values(model, theta, glacier, t_first, H=H0)

@@ -240,32 +240,25 @@ def test_init_theta_follows_the_law():
     assert inv.theta["A"][0]["w"].dtype == torch.float64   # simulation.float_dtype
 
 
-@pytest.mark.parametrize("what", ["forward", "lm", "dummy", "save", "auto", "initial term",
-                                  "discrete initial term", "discrete D target",
-                                  "DummyAdjoint", "continuous initial term"])
+@pytest.mark.parametrize("what", ["forward", "lm", "dummy", "save", "auto", "periodic law",
+                                  "hybrid-D model", "discrete D target",
+                                  "DummyAdjoint", "adaptive"])
 def test_unported_training_paths_name_their_slice(what):
     """Each training path not ported yet raises, naming the slice (the
-    ROADMAP.md Queue 1 item) that brings it; the hand-written adjoints
-    refuse the same loss terms and targets as autograd does."""
-    from odinn_tpu_torch.inverse.adjoint_types import ContinuousAdjoint, DummyAdjoint
+    ROADMAP.md Queue 1 item) that brings it: periodic laws and the D targets
+    (item 4), adaptive and auto-sized solves (item 5), the other gradient
+    modes and LM stages (item 6), saving (item 8)."""
+    from odinn_tpu_torch.inverse.adjoint_types import DummyAdjoint
+    from odinn_tpu_torch.laws.laws import Law
 
     inv = _smoke_inversion(epochs=(1, 1))
     p = inv.parameters
 
-    class Regularization:
-        kind = "initial"
-
-    def with_initial_term(grad):
-        return p.replace(UDE=dataclasses.replace(
-            p.UDE, grad=grad, empirical_loss_function=MultiLoss(
-                terms=(LossH(), Regularization()), weights=(1.0, 0.1))))
-
-    if what == "initial term":
-        inv.parameters = with_initial_term("jax")
-    elif what == "discrete initial term":
-        inv.parameters = with_initial_term("discrete")
-    elif what == "continuous initial term":
-        inv.parameters = with_initial_term(ContinuousAdjoint())
+    if what == "periodic law":
+        law = dataclasses.replace(inv.model.iceflow.A, callback_freq=1.0)
+        inv.model = Model(iceflow=SIA2DModel(A=law))
+    elif what == "adaptive":
+        inv.parameters = p.replace(solver=dataclasses.replace(p.solver, adaptive=True))
     elif what in ("forward", "dummy"):
         inv.parameters = p.replace(UDE=dataclasses.replace(p.UDE, grad=what))
     elif what == "DummyAdjoint":
@@ -281,8 +274,37 @@ def test_unported_training_paths_name_their_slice(what):
         elif what == "discrete D target":
             # a capped diffusivity is a D target: refused where the model is built
             Model(iceflow=SIA2DModel(A=inv.model.iceflow.A, max_D=1.0))
+        elif what == "hybrid-D model":
+            # a Y law (LawY's slot) makes the hybrid-D target
+            y_law = Law(slot="Y", apply_fn=lambda th, inp: inp["Hbar"], callback_freq=None,
+                        trainable=False, name="Y")
+            Model(iceflow=SIA2DModel(A=inv.model.iceflow.A, Y=y_law))
         else:
             run_inversion(inv)
+
+
+@pytest.mark.parametrize("grad", ["jax", "discrete", "continuous"])
+def test_initial_state_terms_now_train(grad):
+    """The loss configurations the port refused until the loss-terms slice
+    (a thickness loss with an initial-state regularization) train by
+    autograd and by both hand-written adjoints: finite losses, one per
+    epoch, the term's share in the loss."""
+    from odinn_tpu_torch.inverse.adjoint_types import ContinuousAdjoint
+    from odinn_tpu_torch.losses.regularization import InitialThicknessRegularization
+
+    inv = _smoke_inversion(optimizer=("adam",), learning_rate=(0.08,), epochs=(2,))
+    p = inv.parameters
+    reg = InitialThicknessRegularization()
+    inv.parameters = p.replace(UDE=dataclasses.replace(
+        p.UDE, grad=ContinuousAdjoint() if grad == "continuous" else grad,
+        empirical_loss_function=MultiLoss(terms=(LossH(), reg), weights=(1.0, 1e3))))
+    stats = run_inversion(inv).stats
+    assert stats.niter == 2 and np.isfinite(stats.losses).all()
+    tstops = assemble_tstops(p, inv.glaciers)
+    plain = float(batch_transient_loss(inv.theta, inv.glaciers, inv.model, p, tstops))
+    with_reg = float(batch_transient_loss(inv.theta, inv.glaciers, inv.model,
+                                          inv.parameters, tstops))
+    assert with_reg > plain > 0.0
 
 
 def test_chunked_gradient_equals_full_batch(truth):
