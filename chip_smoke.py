@@ -74,7 +74,27 @@ Phases, each printed as one JSON line:
    with the Tikhonov term) are held to the card's autograd (RKC) or the
    CPU's float64 run (SI, continuous), float64 to 1e-12 per θ leaf and
    float32 within 2x the float32 plain version's own error;
-7. the ``kernels`` line: per kernel, what it replaces, its launches on the
+7. laws and targets: the forward rows of phase 4 with a periodic
+   per-glacier A law (Cuffey-Paterson A(T) times a factor of the trailing
+   year's mean CPDD, refreshed yearly from the evolving surface) through SI
+   (PCG-6) and RKC-25, with exactly 60 launches of the row's kernel, 4
+   refreshes, the final thickness within 2x the float32 plain run's error
+   and different from the row with the law frozen; ``run_inversion`` of
+   NN(T) times the same factor as one periodic law through SI at PCG-20 by
+   autograd, with the UDE SI training's launches; the hybrid-D (``LawY``)
+   and pure-D (``LawU``) targets trained (Adam 3 epochs) through SI at
+   PCG-20 by autograd and by the discrete adjoint on the generic path,
+   with no kernel launch in the run or the profiled epoch (a
+   ``periodic_training`` and four
+   ``d_target_training`` lines, losses falling); before the main path,
+   their gradients on the card (4 x 128^2, 2 months: Y, U and a capped A
+   by autograd and the discrete adjoint through SI and RKC, the periodic
+   law by autograd) against the CPU float64 run, float64 to 1e-9 and
+   float32 within 2x the float32 plain version's own error, the periodic
+   law's fused gradient also equal to its generic route's; and
+   ``pretrain_law_from_A`` on the card in float64 (8 Fourier frequencies,
+   48 noisy Cuffey-Paterson targets) below 1e-5 max relative error;
+8. the ``kernels`` line: per kernel, what it replaces, its launches on the
    main path, its time, its plain version's time and its bound, with the
    same at the main path's other shapes under ``more`` (``si_step`` at 30
    PCG iterations, at the SI training's 16 x 128^2, PCG-20 beside 15
@@ -159,6 +179,13 @@ SI_KERNELS = ("si_step_cluster", "si_assemble", "si_pcg")
 PROFILES = 3                       # profiles of an SI row or a kernel at most (complete_profile)
 N_TRAIN = 16                       # glaciers of the training phase
 TRAIN_TSPAN = (5.0, 7.0)           # 24 monthly intervals
+PERIODIC_FREQ = 1.0                # the periodic laws' refresh interval, years
+# the capped target's max_D, m^2/yr: the training glaciers' D reaches
+# 2.8e4 (-25 C) to 1.1e5 (-13 C) at their Cuffey-Paterson A, so the cap bites
+CAPPED_MAX_D = 3.0e4
+# our kernels' device names: none may run in a D-target or capped solve
+KERNEL_NAMES = ("si_step_cluster", "si_assemble", "si_pcg", "si_step_vjp_kernel",
+                "sia2d_rhs_kernel", "sia2d_rhs_vjp_kernel", "rkc_interval_kernel")
 
 
 def emit(obj) -> None:
@@ -1058,26 +1085,46 @@ def kernel_counters():
             "rkc_interval": rkc_kernel.rkc_interval, "sia2d_rhs_vjp": sia_kernel.sia2d_rhs_vjp}
 
 
+def bench_params(**solver_kw):
+    """The main path's parameters: 5 years, monthly saves and mass balance,
+    float32, with the row's solver settings."""
+    from odinn_tpu_torch.core.params import (
+        Parameters, PhysicalParameters, SimulationParameters, SolverParameters)
+
+    return Parameters(
+        physical=PhysicalParameters(min_A=8e-21, max_A=8e-18),
+        simulation=SimulationParameters(tspan=TSPAN, use_MB=True, step_MB=1.0 / 12.0,
+                                        use_velocities=False, float_dtype="float32"),
+        solver=SolverParameters(step=1.0 / 12.0, **solver_kw),
+    )
+
+
+def bench_glaciers(dtype, n_g=N_G, tspan=TSPAN, prefix="bench"):
+    """The main path's Halfar glaciers (128^2, on the card), each with a
+    monthly climate from the span's start and its own long-term
+    temperature (-25 to -13 C)."""
+    from odinn_tpu_torch.data.synthetic import halfar_glacier, monthly_dummy_climate
+
+    n_months = int(round((tspan[1] - tspan[0]) * 12)) + 2
+    return [
+        halfar_glacier(nx=NX, ny=NY, dx=DX, dy=DX, temp=float(t), rgi_id=f"{prefix}-{i}",
+                       climate=monthly_dummy_climate(tspan[0], n_months, temp_mean=-4.0,
+                                                     longterm_temp=float(t), nx=NX, ny=NY,
+                                                     device="cuda", dtype=dtype),
+                       device="cuda", dtype=dtype)
+        for i, t in enumerate(np.linspace(-25.0, -13.0, n_g))
+    ]
+
+
 def main_path_rows():
     """Phase 4: the forward prediction rows, through the kernels. Returns
     each kernel's launches summed over the rows."""
     from odinn_tpu_torch.core.glacier import stack_glaciers
-    from odinn_tpu_torch.core.params import (
-        Parameters, PhysicalParameters, SimulationParameters, SolverParameters)
-    from odinn_tpu_torch.data.synthetic import halfar_glacier, monthly_dummy_climate
     from odinn_tpu_torch.laws.laws import CuffeyPaterson
     from odinn_tpu_torch.models.model import Model, SIA2DModel
     from odinn_tpu_torch.physics.mass_balance import TImodel1
     from odinn_tpu_torch.simulation.prediction import Prediction, forward_batch, run_prediction
     from odinn_tpu_torch.simulation.solver import build_tstops
-
-    def make_params(**solver_kw):
-        return Parameters(
-            physical=PhysicalParameters(min_A=8e-21, max_A=8e-18),
-            simulation=SimulationParameters(tspan=TSPAN, use_MB=True, step_MB=1.0 / 12.0,
-                                            use_velocities=False, float_dtype="float32"),
-            solver=SolverParameters(step=1.0 / 12.0, **solver_kw),
-        )
 
     tstops = build_tstops(TSPAN, 1.0 / 12.0)
     n_int = len(tstops) - 1          # 60 monthly intervals
@@ -1086,41 +1133,28 @@ def main_path_rows():
     # per RKC step: 60, 120, 540 and 60
     none = {name: 0 for name in kernel_counters()}
     rows = {
-        "SI": (make_params(substeps=1, solver="SI", cg_iters=6),
+        "SI": (bench_params(substeps=1, solver="SI", cg_iters=6),
                dict(none, si_step=n_int)),
-        "SI2": (make_params(substeps=1, solver="SI2", cg_iters=6, cg_iters_predictor=6),
+        "SI2": (bench_params(substeps=1, solver="SI2", cg_iters=6, cg_iters_predictor=6),
                 dict(none, si_step=2 * n_int)),
-        "SSPRK3@3 compensated": (make_params(substeps=3, solver="SSPRK3", compensated=True),
+        "SSPRK3@3 compensated": (bench_params(substeps=3, solver="SSPRK3", compensated=True),
                                  dict(none, sia2d_rhs=9 * n_int)),
-        f"RKC-{RKC_STAGES}": (make_params(substeps=1, solver="RKC", rkc_stages=RKC_STAGES),
+        f"RKC-{RKC_STAGES}": (bench_params(substeps=1, solver="RKC", rkc_stages=RKC_STAGES),
                              dict(none, rkc_interval=n_int)),
     }
-    n_months = int(round((TSPAN[1] - TSPAN[0]) * 12)) + 2
-    temps = np.linspace(-25.0, -13.0, N_G)
-
-    def glaciers(dtype):
-        return [
-            halfar_glacier(nx=NX, ny=NY, dx=DX, dy=DX, temp=float(t), rgi_id=f"bench-{i}",
-                           climate=monthly_dummy_climate(TSPAN[0], n_months, temp_mean=-4.0,
-                                                         longterm_temp=float(t), nx=NX, ny=NY,
-                                                         device="cuda", dtype=dtype),
-                           device="cuda", dtype=dtype)
-            for i, t in enumerate(temps)
-        ]
-
     model = Model(iceflow=SIA2DModel(A=CuffeyPaterson(), n_value=3.0), mass_balance=TImodel1())
     # the same A(T) law evaluated at every RHS call: its values are no longer
     # constant for the solve, so the solve takes the unfused PyTorch path
     plain_model = Model(iceflow=SIA2DModel(A=dataclasses.replace(CuffeyPaterson(), callback_freq=None),
                                            n_value=3.0), mass_balance=TImodel1())
-    batch32 = stack_glaciers(glaciers(torch.float32), device="cuda")
-    batch64 = stack_glaciers(glaciers(torch.float64), device="cuda")
+    batch32 = stack_glaciers(bench_glaciers(torch.float32), device="cuda")
+    batch64 = stack_glaciers(bench_glaciers(torch.float64), device="cuda")
     counters = kernel_counters()
     launches = {name: 0 for name in counters}
     for name, (params, expected) in rows.items():
         for fn in counters.values():
             fn.launches = 0
-        pred = Prediction(model=model, glaciers=glaciers(torch.float32), parameters=params,
+        pred = Prediction(model=model, glaciers=bench_glaciers(torch.float32), parameters=params,
                           device="cuda")
         H = run_prediction(pred)["H"]
         torch.cuda.synchronize()
@@ -1173,8 +1207,124 @@ def main_path_rows():
     return launches
 
 
+def periodic_a_law(freq=PERIODIC_FREQ, grid=False, nn_law=None, counter=None):
+    """A per-glacier periodic A law, refreshed every ``freq`` years from the
+    evolving surface: A_g = A_0(T_g) * (1 + 0.5 sigma(mean_g CPDD / 1000 - 1)),
+    CPDD over the trailing year, A_0 the Cuffey-Paterson A(T) or, with
+    ``nn_law``, that law's NN(T) (then trainable, its theta the NN's).
+    ``grid`` gives the same value on every staggered cell, which is not the
+    kernels' table: the generic path's version of the same law.
+    ``counter["calls"]``, when given, counts its evaluations."""
+    from odinn_tpu_torch.laws import inputs as law_inputs
+    from odinn_tpu_torch.laws.laws import Law, poly_A_paterson_cuffey
+
+    a_of_t = poly_A_paterson_cuffey()
+
+    def apply_fn(theta, inp):
+        if counter is not None:
+            counter["calls"] += 1
+        base = nn_law.apply(theta, inp) if nn_law is not None else a_of_t(inp["T"])
+        cpdd = inp["CPDD"]
+        factor = 1.0 + 0.5 * torch.sigmoid(cpdd.double().mean(dim=(-2, -1)) / 1000.0 - 1.0)
+        val = base * factor.to(base.dtype)
+        if grid:
+            val = val.reshape(-1, 1, 1) * torch.ones(cpdd[..., 1:, 1:].shape, dtype=val.dtype,
+                                                     device=val.device)
+        return val
+
+    return Law(slot="A", apply_fn=apply_fn,
+               inputs=(law_inputs.AvgScalarTemp(), law_inputs.CPDD(window=1.0)),
+               callback_freq=freq, trainable=nn_law is not None, name="periodicA",
+               init_theta=None if nn_law is None else nn_law.init_theta)
+
+
+def periodic_rows():
+    """Phase 4b: the main path's scenario (4 x 128^2, 5 years, monthly saves
+    and mass balance, float32, n = 3) with a periodic per-glacier A law
+    (``periodic_a_law``, refreshed yearly) through SI (PCG-6) and RKC-25.
+    Each row runs through ``run_prediction`` with the launch counters set
+    to 0 just before and read just after: exactly 60 si_step (SI) or 60
+    rkc_interval (RKC) and no other kernel, and 4 refreshes (the law's
+    evaluations after the first); its final thickness is held to 2x the
+    float32 plain run's own error against the float64 plain run (the law on
+    the staggered grid, the generic path, which launches no kernel) and
+    must differ from the row with the law frozen at the start by more than
+    10x that error. Returns each kernel's launches summed over the rows."""
+    from odinn_tpu_torch.core.glacier import stack_glaciers
+    from odinn_tpu_torch.models.model import Model, SIA2DModel
+    from odinn_tpu_torch.physics.mass_balance import TImodel1
+    from odinn_tpu_torch.simulation.prediction import Prediction, forward_batch, run_prediction
+    from odinn_tpu_torch.simulation.solver import build_tstops
+
+    tstops = build_tstops(TSPAN, 1.0 / 12.0)
+    n_int = len(tstops) - 1
+    none = {name: 0 for name in kernel_counters()}
+    rows = {"SI": (bench_params(substeps=1, solver="SI", cg_iters=6),
+                   dict(none, si_step=n_int)),
+            f"RKC-{RKC_STAGES}": (bench_params(substeps=1, solver="RKC", rkc_stages=RKC_STAGES),
+                                 dict(none, rkc_interval=n_int))}
+    n_refresh = int(round((TSPAN[1] - TSPAN[0]) / PERIODIC_FREQ)) - 1
+
+    def model_of(law):
+        return Model(iceflow=SIA2DModel(A=law, n_value=3.0), mass_balance=TImodel1())
+
+    batch32 = stack_glaciers(bench_glaciers(torch.float32), device="cuda")
+    batch64 = stack_glaciers(bench_glaciers(torch.float64), device="cuda")
+    counters = kernel_counters()
+    launches = {name: 0 for name in counters}
+    for name, (params, expected) in rows.items():
+        evaluations = {"calls": 0}
+        law = periodic_a_law(counter=evaluations)
+        for fn in counters.values():
+            fn.launches = 0
+        pred = Prediction(model=model_of(law), glaciers=bench_glaciers(torch.float32),
+                          parameters=params, device="cuda")
+        H = run_prediction(pred)["H"]
+        torch.cuda.synchronize()
+        counted = {k: fn.launches for k, fn in counters.items()}
+        refreshes = evaluations["calls"] - 1
+        if counted != expected:
+            raise AssertionError(f"periodic {name}: launches {counted}, expected {expected}")
+        if refreshes != n_refresh:
+            raise AssertionError(f"periodic {name}: {refreshes} refreshes, expected {n_refresh}")
+        for k, v in counted.items():
+            launches[k] += v
+        if tuple(H.shape) != (N_G, len(tstops), NX, NY) or not torch.isfinite(H).all():
+            raise AssertionError(f"periodic {name}: trajectory not finite or misshapen")
+        plain = model_of(periodic_a_law(grid=True))
+        plain32 = forward_batch(None, batch32, plain, params, tstops, device="cuda")
+        plain64 = forward_batch(None, batch64, plain, params, tstops, device="cuda")
+        frozen = forward_batch(None, batch32, model_of(periodic_a_law(freq=0.0)), params,
+                               tstops, device="cuda")
+        torch.cuda.synchronize()
+        if {k: fn.launches for k, fn in counters.items()} != dict(
+                none, **{k: 2 * v for k, v in expected.items() if v}):
+            raise AssertionError(f"periodic {name}: the plain runs launched a kernel, or the "
+                                 f"frozen row did not run on the kernels")
+        model = model_of(periodic_a_law())
+        row = {"phase": "periodic_rows", "row": name, "launches": counted,
+               "refreshes": refreshes,
+               "final_H_rel_err_vs_f64_plain": rel_err(H[:, -1], plain64[:, -1]),
+               "f32_plain_final_H_rel_err_vs_f64_plain": rel_err(plain32[:, -1], plain64[:, -1]),
+               "frozen_law_final_H_rel_diff": rel_err(frozen[:, -1], H[:, -1]),
+               "ms": row_ms(lambda: forward_batch(None, batch32, model, params, tstops,
+                                                  device="cuda"))}
+        row["device_busy_ms"] = device_ms(
+            lambda: forward_batch(None, batch32, model, params, tstops, device="cuda"), 1)
+        row["device_idle_share"] = 1.0 - row["device_busy_ms"] / row["ms"]
+        emit(row)
+        err, err_plain = row["final_H_rel_err_vs_f64_plain"], row[
+            "f32_plain_final_H_rel_err_vs_f64_plain"]
+        if not err <= 2.0 * err_plain:
+            raise AssertionError(f"periodic {name}: kernel path error {err} exceeds 2x the "
+                                 f"float32 plain path's {err_plain}")
+        if not row["frozen_law_final_H_rel_diff"] > 10.0 * err_plain:
+            raise AssertionError(f"periodic {name}: the refresh made no difference: {row}")
+    return launches
+
+
 def training_problem(solver, grad="jax", n_g=N_TRAIN, tspan=TRAIN_TSPAN,
-                     dtype=torch.float32, kind="ude"):
+                     dtype=torch.float32, kind="ude", periodic_freq=PERIODIC_FREQ):
     """A training phase's problem at the width of benchmarks/perf_tpu.py's
     UDE epoch: 16 Halfar glaciers, 128^2, float32, 2 years of monthly
     Cuffey–Paterson ground truth, through the RKC solve (s from
@@ -1187,15 +1337,22 @@ def training_problem(solver, grad="jax", n_g=N_TRAIN, tspan=TRAIN_TSPAN,
     start with correlated noise of 15 m) against the thickness series plus
     a Tikhonov term on H0 (weight 1e-12), "aggregate" against the mean
     dh/dt over the span and the annual mean-velocity product (LossDhdt +
-    LossAvgV). ``grad`` is the gradient (params.UDE.grad); ``n_g``,
-    ``tspan`` and ``dtype`` cut the problem for the gradient checks.
-    Returns (inversion, model, params, tstops, facts)."""
+    LossAvgV). The laws-and-targets kinds: "periodic" trains NN(T) times
+    the CPDD factor of ``periodic_a_law`` as one periodic per-glacier A law
+    (refreshed every ``periodic_freq`` years; the glaciers get the main
+    path's monthly climates), "Y" the hybrid-D target (LawY, max_nn 8e-18,
+    prescale ((-25, 0), (0, 500))), "U" the pure-D target (LawU, max_nn
+    2000, prescale ((0, 500), (0, 0.3))), both with default_architecture(2),
+    and "capped" A = NN(T) under the diffusivity cap CAPPED_MAX_D.
+    ``grad`` is the gradient (params.UDE.grad); ``n_g``, ``tspan`` and
+    ``dtype`` cut the problem for the gradient checks. Returns (inversion,
+    model, params, tstops, facts)."""
     from odinn_tpu_torch.core.params import (
         Hyperparameters, Parameters, PhysicalParameters, SimulationParameters,
         SolverParameters, UDEParameters)
     from odinn_tpu_torch.data.synthetic import halfar_glacier
     from odinn_tpu_torch.laws.laws import (
-        CuffeyPaterson, LawA, LawA_inversion, poly_A_paterson_cuffey)
+        CuffeyPaterson, LawA, LawA_inversion, LawU, LawY, poly_A_paterson_cuffey)
     from odinn_tpu_torch.losses.losses import LossH, MultiLoss
     from odinn_tpu_torch.losses.regularization import InitialThicknessRegularization
     from odinn_tpu_torch.losses.time_aggregated import LossAvgV, LossDhdt
@@ -1210,9 +1367,12 @@ def training_problem(solver, grad="jax", n_g=N_TRAIN, tspan=TRAIN_TSPAN,
 
     phys = PhysicalParameters(min_A=8e-21, max_A=8e-18)
     temps = np.linspace(-25.0, -13.0, n_g)
-    glaciers = [halfar_glacier(nx=NX, ny=NY, dx=DX, dy=DX, temp=float(t), rgi_id=f"train-{i}",
-                               device="cuda", dtype=dtype)
-                for i, t in enumerate(temps)]
+    if kind == "periodic":
+        glaciers = bench_glaciers(dtype, n_g, tspan, prefix="train")
+    else:
+        glaciers = [halfar_glacier(nx=NX, ny=NY, dx=DX, dy=DX, temp=float(t),
+                                   rgi_id=f"train-{i}", device="cuda", dtype=dtype)
+                    for i, t in enumerate(temps)]
     # stages for the largest creep the solve can meet: the law's max_A or
     # the truth's largest A, at the batch's thickest ice
     h_max = max(float(g.H0.max()) for g in glaciers)
@@ -1227,17 +1387,19 @@ def training_problem(solver, grad="jax", n_g=N_TRAIN, tspan=TRAIN_TSPAN,
     else:
         solver_kw = dict(solver=solver, substeps=suggest_substeps(
             DX, DX, h_max, a_max, n=3.0, rho=phys.rho, g=phys.g, step=1.0 / 12.0))
-    loss = {"ude": None,
-            "ic": MultiLoss((LossH(), InitialThicknessRegularization()), (1.0, 1e-12)),
-            "aggregate": MultiLoss((LossDhdt(), LossAvgV()), (1.0, 1.0))}[kind]
+    loss = {"ic": MultiLoss((LossH(), InitialThicknessRegularization()), (1.0, 1e-12)),
+            "aggregate": MultiLoss((LossDhdt(), LossAvgV()), (1.0, 1.0))}.get(kind)
     params = Parameters(
         physical=phys,
         simulation=SimulationParameters(tspan=tspan, use_MB=False,
                                         use_velocities=kind == "aggregate",
                                         float_dtype=str(dtype).split(".")[-1]),
         solver=SolverParameters(step=1.0 / 12.0, **solver_kw),
+        # the D targets' generic path is ~10x the kernels' epoch: their
+        # trainings take Adam 3, LBFGS 0, so that the run stays near 300 s
         hyper=Hyperparameters(optimizer=("adam", "lbfgs"), learning_rate=(0.05, 1.0),
-                              epochs=(5, 3), batch_size=n_g),
+                              epochs=(3, 0) if kind in ("Y", "U") else (5, 3),
+                              batch_size=n_g),
         UDE=UDEParameters(grad=grad, empirical_loss_function=loss),
     )
     tstops = build_tstops(tspan, 1.0 / 12.0)
@@ -1247,9 +1409,20 @@ def training_problem(solver, grad="jax", n_g=N_TRAIN, tspan=TRAIN_TSPAN,
         store=("dhdt", "avgV") if kind == "aggregate" else ("H",), device="cuda")
     torch.cuda.synchronize()
     truth_s = time.perf_counter() - t0
-    if kind == "ude":
-        model = Model(iceflow=SIA2DModel(A=LawA(NeuralNetwork(default_architecture(1)), params),
-                                         n_value=3.0))
+    if kind in ("ude", "periodic", "capped"):
+        law = LawA(NeuralNetwork(default_architecture(1)), params)
+        if kind == "periodic":
+            law = periodic_a_law(periodic_freq, nn_law=law)
+        model = Model(iceflow=SIA2DModel(A=law, n_value=3.0,
+                                         max_D=CAPPED_MAX_D if kind == "capped" else None))
+    elif kind == "Y":
+        model = Model(iceflow=SIA2DModel(Y=LawY(
+            NeuralNetwork(default_architecture(2)), params, max_nn=8e-18,
+            prescale_bounds=((-25.0, 0.0), (0.0, 500.0))), n_value=3.0))
+    elif kind == "U":
+        model = Model(iceflow=SIA2DModel(U=LawU(
+            NeuralNetwork(default_architecture(2)), params, max_nn=2000.0,
+            prescale_bounds=((0.0, 500.0), (0.0, 0.3))), n_value=3.0))
     else:
         ic = (InitialCondition(filter="Zang1980", init="Farinotti2019Random", noise_sigma=15.0)
               if kind == "ic" else None)
@@ -1320,7 +1493,10 @@ def training_phase(solver, grad="jax", kind="ude"):
     more si_step per interval and gradient (the plain-CG rematerialisation
     of the pre-relu state), the transpose solve and the pullback without
     the preconditioner. A trainable H0 (the kind "ic") must have trained:
-    its gradient is nonzero and TrainingStats.initial_conditions is set."""
+    its gradient is nonzero and TrainingStats.initial_conditions is set.
+    The periodic law (the kind "periodic", SI) launches what the UDE SI
+    training does; the D targets (kinds "Y", "U") take the generic path:
+    no kernel launch in the run or the profiled epoch."""
     from odinn_tpu_torch.simulation.inversion import run_inversion
 
     inv, model, params, tstops, facts = training_problem(solver, grad, kind=kind)
@@ -1336,13 +1512,14 @@ def training_phase(solver, grad="jax", kind="ude"):
     stats = results.stats
     losses = stats.losses
     expected = {name: 0 for name in counters}
-    if solver == "RKC":
+    generic = kind in ("Y", "U", "capped")     # no kernel: expected stays 0
+    if not generic and solver == "RKC":
         # every forward solve is one rkc_interval per interval, and every
         # backward rematerialises each interval's stages with one more; each
         # backward interval pulls back s - 1 stages and f0: s sia2d_rhs_vjp
         expected.update(rkc_interval=n_int * (stats.solves + stats.gradients),
                         sia2d_rhs_vjp=n_int * facts["rkc_stages"] * stats.gradients)
-    else:
+    elif not generic:
         # every forward solve is one si_step per interval; every backward
         # one transpose solve and one pullback per interval, by autograd
         # nothing rematerialised, by the discrete adjoint the pre-relu
@@ -1351,16 +1528,24 @@ def training_phase(solver, grad="jax", kind="ude"):
         expected.update(si_step=n_int * (stats.solves + remat),
                         si_step_transpose=n_int * stats.gradients,
                         si_step_vjp=n_int * stats.gradients)
+    phase = {"ude": "training", "periodic": "periodic_training", "Y": "d_target_training",
+             "U": "d_target_training"}.get(kind, "classical_inversion")
     row = dict({
-        "phase": "training" if kind == "ude" else "classical_inversion", "kind": kind,
+        "phase": phase, "kind": kind,
         "solver": solver, "grad": grad, "glaciers": N_TRAIN, "grid": [NX, NY],
         "dtype": "torch.float32", "theta_shapes": {k: list(v.shape) for k, v in
-                                                   inv.theta.items() if kind != "ude"},
+                                                   inv.theta.items()
+                                                   if kind in ("ic", "aggregate")},
         "intervals": n_int, "run_inversion_s": train_s, "losses": losses,
         "final_loss": stats.final_loss, "solves": stats.solves, "gradients": stats.gradients,
         "launches": launches, "expected_launches": expected,
         "time_per_iter_s": stats.time_per_iter,
     }, **facts, **epoch_profile(adam_epoch_fn(inv, model, params, tstops)))
+    if generic:
+        # the profiled epoch too: no wrapper count, no kernel on the device
+        row["epoch_launches"] = {k: fn.launches for k, fn in counters.items()}
+        row["epoch_kernels_seen"] = sorted(k for k in row["adam_epoch_launches_by_kernel"]
+                                           if k in KERNEL_NAMES)
     if kind == "ic":
         vg, _ = grad_fn(inv, params)
         _, grads = vg(_tree_to(inv.theta, "cuda", None, requires_grad=True), inv.glaciers)
@@ -1370,6 +1555,8 @@ def training_phase(solver, grad="jax", kind="ude"):
     what = f"{row['phase']} {kind} {solver} {grad}"
     if launches != expected:
         raise AssertionError(f"{what}: launches {launches}, expected {expected}")
+    if generic and (any(row["epoch_launches"].values()) or row["epoch_kernels_seen"]):
+        raise AssertionError(f"{what}: a kernel ran in the profiled epoch: {row}")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"{what}: losses not finite or not decreasing: {losses}")
     if kind == "ic" and not (row["max_abs_dtheta_IC"] > 0.0 and row["initial_conditions_set"]):
@@ -1491,6 +1678,130 @@ def check_adjoint_gradients():
                                  f"on the card disagrees: {row}")
 
 
+def check_law_target_gradients():
+    """The laws-and-targets slice's gradients on the card (4 Halfar
+    glaciers, 128^2, 2 monthly intervals, theta at its start): the hybrid-D
+    (LawY), pure-D (LawU) and capped A (NN(T), CAPPED_MAX_D) targets by
+    autograd and by DiscreteAdjoint(DiscreteVJP), through SI (PCG-20) and
+    RKC, on the generic path (no kernel launch, asserted); and the periodic
+    A law (NN(T) times the CPDD factor, refreshed monthly so that the
+    refresh reaches the second interval) by autograd through SI and RKC, on
+    the kernels. Each is held to the same function run on the CPU in
+    float64, each theta leaf on its own: float64 to TOL_GRAD_F64, float32
+    within GRAD_F32_FACTOR times the float32 plain version's (the same
+    function on the CPU) own error. The periodic law's fused gradient also
+    equals the generic route's (the law on the staggered grid) on the card,
+    float64 to TOL_CLASSICAL_F64."""
+    from odinn_tpu_torch.core.params import UDEParameters
+    from odinn_tpu_torch.inverse.adjoint_types import DiscreteAdjoint, DiscreteVJP
+    from odinn_tpu_torch.laws.laws import LawA
+    from odinn_tpu_torch.models.model import Model, SIA2DModel
+    from odinn_tpu_torch.models.nn import NeuralNetwork, default_architecture
+    from odinn_tpu_torch.simulation.inversion import Inversion
+
+    def gradient(inv, model, theta, grad, device, dtype):
+        params = inv.parameters.replace(UDE=UDEParameters(grad=grad))
+        on = Inversion(model=model, glaciers=glaciers.to(device, dtype), parameters=params,
+                       device=device, theta=_tree_to(theta, device, dtype))
+        vg, _ = grad_fn(on, params)
+        _, grads = vg(_tree_to(theta, device, dtype, requires_grad=True), on.glaciers)
+        return [g.detach().double().cpu() for g in grads]
+
+    def err(a, b):
+        return max(float((x - y).abs().max() / y.abs().max().clamp(min=1e-300))
+                   for x, y in zip(a, b))
+
+    discrete = DiscreteAdjoint(VJP_method=DiscreteVJP())
+    cases = [(kind, solver, grad) for kind in ("Y", "U", "capped") for solver in ("SI", "RKC")
+             for grad in ("jax", discrete)]
+    cases += [("periodic", solver, "jax") for solver in ("SI", "RKC")]
+    f32, f64 = torch.float32, torch.float64
+    counters = kernel_counters()
+    for kind, solver, grad in cases:
+        t0 = time.perf_counter()
+        inv, model, _, _, facts = training_problem(solver, "jax", n_g=N_G,
+                                                   tspan=(5.0, 5.0 + 2.0 / 12.0), dtype=f64,
+                                                   kind=kind, periodic_freq=1.0 / 12.0)
+        glaciers = inv.glaciers.to(dtype=f32)
+        theta = _tree_to(inv.theta, "cuda", f32)
+        for fn in counters.values():
+            fn.launches = 0
+        k64 = gradient(inv, model, theta, grad, "cuda", f64)
+        k32 = gradient(inv, model, theta, grad, "cuda", f32)
+        card_launches = {k: fn.launches for k, fn in counters.items()}
+        p32 = gradient(inv, model, theta, grad, "cpu", f32)
+        ref = gradient(inv, model, theta, grad, "cpu", f64)
+        row = {"phase": "check_law_target_grad", "kind": kind, "solver": solver,
+               "grad": grad if isinstance(grad, str) else type(grad).__name__,
+               "against": "CPU float64", "glaciers": N_G, "grid": [NX, NY], "intervals": 2,
+               "float64_rel_err": err(k64, ref), "tol": TOL_GRAD_F64,
+               "float32_rel_err": err(k32, ref), "f32_plain_rel_err": err(p32, ref),
+               "float32_vs_f32_plain_rel_err": err(k32, p32),
+               "factor": GRAD_F32_FACTOR, "card_launches": card_launches}
+        fused_ok = True
+        if kind == "periodic":
+            generic = Model(iceflow=SIA2DModel(A=periodic_a_law(
+                1.0 / 12.0, grid=True,
+                nn_law=LawA(NeuralNetwork(default_architecture(1)), inv.parameters)),
+                n_value=3.0))
+            g64 = gradient(inv, generic, theta, grad, "cuda", f64)
+            row["fused_vs_generic_float64_rel_err"] = err(k64, g64)
+            row["fused_tol"] = TOL_CLASSICAL_F64
+            fused_ok = (row["fused_vs_generic_float64_rel_err"] <= TOL_CLASSICAL_F64
+                        and any(card_launches.values()))
+        elif any(card_launches.values()):
+            fused_ok = False
+        row["seconds"] = time.perf_counter() - t0
+        row.update({k: v for k, v in facts.items() if k != "ground_truth_s"})
+        emit(row)
+        if not (fused_ok and row["float64_rel_err"] <= TOL_GRAD_F64
+                and all(torch.isfinite(g).all() for g in k32)
+                and max(float(g.abs().max()) for g in k32) > 0.0
+                and row["float32_rel_err"] <= GRAD_F32_FACTOR * row["f32_plain_rel_err"]):
+            raise AssertionError(f"{kind} {solver} {row['grad']}: the gradient on the card "
+                                 f"disagrees or took the wrong route: {row}")
+
+
+def pretraining_phase():
+    """NN pretraining on the card in float64: pretrain_law_from_A with
+    tests/test_features.py's settings (8 Fourier frequencies and one
+    32-wide tanh layer, 48 Cuffey-Paterson targets with 3e-5 relative
+    noise, 300 LM iterations, 2 restarts), its fit read through the law
+    (eval_law) at every 6th target: max relative error < 1e-5."""
+    from odinn_tpu_torch.core.params import Parameters, PhysicalParameters
+    from odinn_tpu_torch.data.synthetic import halfar_glacier
+    from odinn_tpu_torch.laws.laws import LawA, eval_law, poly_A_paterson_cuffey
+    from odinn_tpu_torch.models.nn import MLP, NeuralNetwork
+    from odinn_tpu_torch.models.nn_utils import pretrain_law_from_A
+
+    params = Parameters(physical=PhysicalParameters(min_A=8e-21, max_A=8e-18))
+    temps = np.linspace(-25.0, -14.0, 48)
+    noise = 1.0 + 3e-5 * np.random.default_rng(0).standard_normal(48)
+    A_tgt = poly_A_paterson_cuffey()(torch.from_numpy(temps)).numpy() * noise
+    nf, pb = 8, ((-25.0, 0.0),)
+    nn = NeuralNetwork(MLP((2 * nf, 32, 1), ("tanh", "sigmoid")), seed=666)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    theta = pretrain_law_from_A(nn, params, temps, A_tgt, head="log", prescale_bounds=pb,
+                                n_fourier=nf, iters=300, restarts=2, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    law = LawA(nn, params, head="log", prescale_bounds=pb, n_fourier=nf)
+    g0 = halfar_glacier(nx=16, ny=16, device="cuda")
+    rels = []
+    for t, a in zip(temps[::6], A_tgt[::6]):
+        gi = g0.replace(climate=dataclasses.replace(
+            g0.climate, longterm_temps_scalar=torch.tensor(float(t), dtype=torch.float64,
+                                                           device="cuda")))
+        rels.append(abs(float(eval_law(law, {"A": theta}, gi)) - float(a)) / float(a))
+    row = {"phase": "pretraining", "dtype": "torch.float64", "samples": 48,
+           "fourier_frequencies": nf, "iters": 300, "restarts": 2, "seconds": seconds,
+           "device": str(theta[0]["w"].device), "max_rel_err": max(rels), "tol": 1e-5}
+    emit(row)
+    if not (row["max_rel_err"] < 1e-5 and theta[0]["w"].is_cuda):
+        raise AssertionError(f"pretraining on the card does not interpolate: {row}")
+
+
 def check_classical_gradients():
     """The hand-written adjoints' θ-gradient of the classical inversions on
     the card (4 Halfar glaciers, 128^2, 2 monthly intervals, θ at its
@@ -1586,9 +1897,12 @@ def main() -> int:
     check_gradients()
     check_adjoint_gradients()
     check_classical_gradients()
+    check_law_target_gradients()
     cluster_report()
     timing = time_kernels()
     launches = main_path_rows()
+    for name, n in periodic_rows().items():
+        launches[name] += n
     for solver in ("RKC", "SI"):
         for grad in ("jax", "discrete"):
             for name, n in training_phase(solver, grad).items():
@@ -1599,6 +1913,13 @@ def main() -> int:
         for grad in ("jax", "discrete"):
             for name, n in training_phase(solver, grad, problem).items():
                 launches[name] += n
+    for name, n in training_phase("SI", "jax", "periodic").items():
+        launches[name] += n
+    for target in ("Y", "U"):
+        for grad in ("jax", "discrete"):
+            for name, n in training_phase("SI", grad, target).items():
+                launches[name] += n
+    pretraining_phase()
     meta = {
         "si_step": ("odinn_tpu_torch/csrc/si_step.cu", "odinn_tpu/ops/pallas/si_kernel.py:174"),
         "sia2d_rhs": ("odinn_tpu_torch/csrc/sia2d_rhs.cu", "odinn_tpu/ops/pallas/sia_kernel.py:137"),

@@ -27,7 +27,12 @@ trajectory) at every save, save 0 included, and the initial-state terms'
 (at t₀, on H₀ and θ) straight into θ. Both sweeps return λ(t₀); with a
 trainable initial condition H₀ = σ(θ_IC), λ(t₀) plus the aggregate
 cotangent at save 0, times σ′(θ_IC), is θ_IC's cotangent. The laws are
-evaluated once, at the first tstop, as the forward solve evaluates them.
+evaluated once, at the first tstop, as the forward solve evaluates them;
+so periodic laws, which the forward refreshes from the evolving state, are
+refused (train them with ``grad="jax"``). The D and capped targets take
+the tensor code: their inner laws' values are held fixed in the local
+pullback of D to (H̄, |∇S|), as in the JAX package, while θ's pullback
+goes through them.
 Where the configuration is the fused kernels' (A target, constant
 per-glacier scalar laws of time-free inputs, only A trainable, or A and C
 on the SI transposes; see
@@ -64,7 +69,7 @@ from odinn_tpu_torch.simulation.inversion import _LossEnv, assemble_tstops
 from odinn_tpu_torch.simulation.prediction import _METHODS, _mb_every, forward_glacier
 
 __all__ = ["glacier_adjoint_value_and_grad", "make_adjoint_value_and_grad",
-           "gauss_legendre_nodes"]
+           "gauss_legendre_nodes", "check_adjoint_supported"]
 
 _MAX_INNER = 10_000      # reverse steps of one interval at most
 
@@ -414,6 +419,18 @@ def _interp(t, tdev, lo, hi, d_lo=None, d_hi=None):
             + _col(h01, dtype) * pb_ + _col(h11 * h, dtype) * _gather_time(d_hi, idx))
 
 
+def check_adjoint_supported(model) -> None:
+    """Raise for what the manual adjoints cannot differentiate: periodic
+    laws, whose refresh from the evolving state the sweeps do not follow."""
+    if model.iceflow.periodic_laws:
+        raise NotImplementedError(
+            "the manual adjoints (grad='discrete'/'continuous', DiscreteAdjoint, "
+            "ContinuousAdjoint) do not support periodic laws (callback_freq > 0): "
+            "they evaluate the laws once, at the first tstop, so their gradient is "
+            "not that of a forward solve that refreshes the laws from the evolving "
+            "state; train periodic-law models with grad='jax'")
+
+
 def glacier_adjoint_value_and_grad(theta, glacier, model, params, tstops, adjoint,
                                    quad_nodes=None, record: Optional[dict] = None):
     """(per-glacier losses (n_g,), θ cotangent of their sum) of a stacked
@@ -421,6 +438,7 @@ def glacier_adjoint_value_and_grad(theta, glacier, model, params, tstops, adjoin
     ``record`` (a dict) receives ``reverse_steps`` (per interval, from the
     last, the reverse steps each glacier took) and ``host_syncs`` (the
     step loop's reads of the continue condition)."""
+    check_adjoint_supported(model)
     flavor = adjoint.VJP_method
     mb_flavor = adjoint.MB_VJP
     use_mb = params.simulation.use_MB and model.mass_balance is not None
@@ -627,6 +645,7 @@ def make_adjoint_value_and_grad(inversion, flavor: str = "continuous") -> Callab
     holds the reverse step counts (:func:`glacier_adjoint_value_and_grad`)."""
     params = inversion.parameters
     model = inversion.model
+    check_adjoint_supported(model)
     batch = inversion.glaciers
     tstops = assemble_tstops(params, batch)
     grad_cfg = params.UDE.grad

@@ -180,7 +180,8 @@ def _target_partials(tgt, vals, hbar, grad_s, phys, dtype):
                 tgt.d_diffusivity_dgradS(vals, hbar, grad_s, phys).to(dtype))
     with torch.enable_grad():
         hb, gs = hbar.detach().requires_grad_(True), grad_s.detach().requires_grad_(True)
-        alpha, g = torch.autograd.grad(torch.sum(tgt.diffusivity(vals, hb, gs, phys)), (hb, gs))
+        alpha, g = torch.autograd.grad(torch.sum(tgt.diffusivity(vals, hb, gs, phys)), (hb, gs),
+                                       allow_unused=True, materialize_grads=True)
     safe = torch.where(grad_s > 0.0, grad_s, torch.ones_like(grad_s))
     return alpha, g / safe
 

@@ -1,8 +1,9 @@
 """Law inputs: small frozen dataclasses with ``get(glacier, state, t)``.
 
-The inputs the non-learnable laws of the forward path read: the long-term
-temperatures (scalar and gridded), cumulative positive degree-days and
-topographic roughness. The inner inputs (H̄, |∇S|) come with the NN laws.
+The long-term temperatures (scalar and gridded), cumulative positive
+degree-days and topographic roughness, and the inner inputs H̄ and |∇S|,
+which the RHS passes to inner laws from its own staggered fields (their
+``get`` serves one-shot evaluations, :func:`~odinn_tpu_torch.laws.laws.eval_law`).
 On a stacked batch ``get`` returns one value (or grid) per glacier along the
 leading axis.
 """
@@ -15,7 +16,8 @@ import torch
 
 from odinn_tpu_torch.ops import stencils as st
 
-__all__ = ["AvgScalarTemp", "AvgGriddedTemp", "CPDD", "TopoRough", "INNER_INPUTS"]
+__all__ = ["AvgScalarTemp", "AvgGriddedTemp", "CPDD", "HbarInput", "GradSInput", "TopoRough",
+           "INNER_INPUTS"]
 
 #: input names resolved inside the RHS from the current state
 INNER_INPUTS = ("Hbar", "gradS")
@@ -67,6 +69,28 @@ class CPDD:
         # degree-months → degree-days (×30.44 days/month), positive part only
         pdd = torch.clamp(t2d, min=0.0) * 30.44
         return torch.sum(torch.where(_trail(in_window, 2), pdd, torch.zeros_like(pdd)), dim=-3)
+
+
+@dataclass(frozen=True)
+class HbarInput:
+    """Staggered average ice thickness H̄ (inner input)."""
+
+    name: str = "Hbar"
+
+    def get(self, glacier, state, t):
+        return st.avg(st.relu_strict(state))
+
+
+@dataclass(frozen=True)
+class GradSInput:
+    """Staggered surface-slope magnitude |∇S| (inner input)."""
+
+    name: str = "gradS"
+
+    def get(self, glacier, state, t):
+        s = glacier.B.to(state.dtype) + st.relu_strict(state)
+        sx, sy = st.grad_slope(s, _trail(glacier.dx, 2), _trail(glacier.dy, 2))
+        return st.safe_norm(sx, sy)
 
 
 @dataclass(frozen=True)

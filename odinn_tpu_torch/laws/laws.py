@@ -7,10 +7,11 @@ schedule. Trainable state lives in the θ dict under the law's slot key.
 boundaries.
 
 This module holds the non-learnable laws of the forward path, the NN creep
-law ``LawA``, the NN sliding law ``LawC`` and the classical-inversion laws
+law ``LawA``, the NN sliding law ``LawC``, the classical-inversion laws
 ``LawA_inversion``, ``LawC_inversion`` and ``LawN_inversion`` (one
 tanh-bounded value, or grid, per glacier, selected by the ``glacier_idx``
-input); the D-target NN laws come with a later slice.
+input), and the inner NN laws of the D targets: ``LawY`` (T, H̄) → Y and
+``LawU`` (H̄, |∇S|) → U, evaluated at every RHS call.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ __all__ = [
     "LawC",
     "LawC_inversion",
     "LawN_inversion",
+    "LawY",
+    "LawU",
     "ConstantA",
     "CuffeyPaterson",
     "poly_A_paterson_cuffey",
@@ -228,6 +231,70 @@ def LawN_inversion(params, bounds: Tuple[float, float] = (1.5, 4.2)) -> Law:
         trainable=True,
         name="InvN",
         init_theta=_per_glacier_init(True),
+    )
+
+
+def _per_pixel_mlp(arch, layers, feats, shape, prescale_bounds, max_nn):
+    """The inner laws' per-pixel MLP: (…, 2) features, prescaled, through
+    one (npix, 2) matmul chain, reshaped to ``shape`` and postscaled."""
+    if prescale_bounds is not None:
+        feats = nnmod.prescale(feats, prescale_bounds)
+    out = nnmod.mlp_apply(arch, layers, feats.reshape(-1, 2)).reshape(shape)
+    return nnmod.postscale(out, max_nn) if max_nn is not None else out
+
+
+def LawY(nn: nnmod.NeuralNetwork, params, max_nn: Optional[float] = None,
+         prescale_bounds: Tuple[Tuple[float, float], ...] = ((-25.0, 0.0), (0.0, 500.0))
+         ) -> Law:
+    """NN law (T, H̄) → Y, the hybrid diffusivity (``DHybridTarget``). An
+    inner law: evaluated at every RHS call on the staggered H̄, with each
+    glacier's mean temperature broadcast over its grid; the head is
+    postscaled to (0, max_nn] when ``max_nn`` is given. θ["Y"] is the MLP's
+    parameter tree."""
+    arch = nn.architecture
+
+    def apply_fn(theta, inputs):
+        w = theta["Y"][0]["w"]
+        hbar = inputs["Hbar"]
+        temp = torch.as_tensor(inputs["T"]).to(device=w.device, dtype=w.dtype)
+        temp = temp.reshape(temp.shape + (1,) * (hbar.ndim - temp.ndim))
+        feats = torch.stack([torch.broadcast_to(temp, hbar.shape), hbar.to(w.dtype)], dim=-1)
+        return _per_pixel_mlp(arch, theta["Y"], feats, hbar.shape, prescale_bounds, max_nn)
+
+    return Law(
+        slot="Y",
+        apply_fn=apply_fn,
+        inputs=(law_inputs.AvgScalarTemp(), law_inputs.HbarInput()),
+        callback_freq=None,
+        trainable=True,
+        name="NN_Y",
+        init_theta=lambda glaciers, dtype=torch.float64: nn.init(dtype, _device_of(glaciers)),
+    )
+
+
+def LawU(nn: nnmod.NeuralNetwork, params, max_nn: Optional[float] = 50.0,
+         prescale_bounds: Tuple[Tuple[float, float], ...] = ((0.0, 300.0), (0.0, 0.5))
+         ) -> Law:
+    """NN law (H̄, |∇S|) → U, the diffusive velocity of ``DPureTarget``
+    (D = H̄·U). An inner law, evaluated at every RHS call on the staggered
+    fields; the head is postscaled to (0, max_nn]. θ["U"] is the MLP's
+    parameter tree."""
+    arch = nn.architecture
+
+    def apply_fn(theta, inputs):
+        w = theta["U"][0]["w"]
+        hbar, grad_s = inputs["Hbar"], inputs["gradS"]
+        feats = torch.stack([hbar, grad_s], dim=-1).to(w.dtype)
+        return _per_pixel_mlp(arch, theta["U"], feats, hbar.shape, prescale_bounds, max_nn)
+
+    return Law(
+        slot="U",
+        apply_fn=apply_fn,
+        inputs=(law_inputs.HbarInput(), law_inputs.GradSInput()),
+        callback_freq=None,
+        trainable=True,
+        name="NN_U",
+        init_theta=lambda glaciers, dtype=torch.float64: nn.init(dtype, _device_of(glaciers)),
     )
 
 

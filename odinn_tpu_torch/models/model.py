@@ -20,7 +20,7 @@ from odinn_tpu_torch.physics import targets as targets_mod
 from odinn_tpu_torch.physics.sia2d import SIAValues, ValuesFn, default_values
 
 __all__ = ["SIA2DModel", "Model", "init_theta", "glacier_index", "initial_thickness",
-           "make_values_fn", "resolve_outer_values"]
+           "make_values_fn", "resolve_law", "resolve_outer_values"]
 
 
 @dataclass(frozen=True)
@@ -30,7 +30,9 @@ class SIA2DModel:
     ``n_value`` / ``p_value`` / ``q_value``: when Glen's n (and the sliding
     p, q) are one constant for every glacier, these Python floats make the
     diffusivity powers integer powers (multiplies) and give the fused
-    kernels their static exponents.
+    kernels their static exponents. ``n_H`` / ``n_gradS`` decouple the
+    hybrid-D target's thickness and slope exponents from n; ``max_D``
+    caps the diffusivity smoothly (max_D·tanh(D/max_D)).
     """
 
     A: Optional[Law] = None
@@ -62,8 +64,10 @@ class SIA2DModel:
 class Model:
     """Iceflow + mass balance + trainable components.
 
-    The target is inferred from the laws: the A target unless a U or Y law is
-    present. Only the A target is ported so far.
+    The target is inferred from the laws: a U law gives the pure-D target
+    (D = H̄·U), a Y law the hybrid-D target, otherwise the A target; with
+    ``iceflow.max_D`` the target is wrapped in the smooth cap
+    (``CappedTarget``). U and Y laws are exclusive.
     """
 
     iceflow: SIA2DModel
@@ -81,13 +85,15 @@ class Model:
                     f"assigned to SIA2DModel slot {slot!r}"
                 )
         if self.target is None:
-            if self.iceflow.U is not None or self.iceflow.Y is not None or self.iceflow.max_D is not None:
-                raise NotImplementedError(
-                    "odinn_tpu_torch ports the A target only; the D, D_hybrid and "
-                    "capped targets come with the laws-and-targets slice (ROADMAP.md, "
-                    "Queue 1 item 4)"
-                )
-            object.__setattr__(self, "target", targets_mod.ATarget())
+            if self.iceflow.U is not None:
+                tgt = targets_mod.DPureTarget()
+            elif self.iceflow.Y is not None:
+                tgt = targets_mod.DHybridTarget()
+            else:
+                tgt = targets_mod.ATarget()
+            if self.iceflow.max_D is not None:
+                tgt = targets_mod.CappedTarget(tgt, float(self.iceflow.max_D))
+            object.__setattr__(self, "target", tgt)
 
     @property
     def trainable_laws(self):
@@ -127,6 +133,15 @@ def initial_thickness(model: Model, theta, glacier):
     return glacier.H0
 
 
+def resolve_law(law: Law, theta, glacier, t, H):
+    """One outer law's value for the glacier or stacked batch at time t and
+    state H (a per-glacier value as an (n_g, 1, 1) column)."""
+    inputs = {"glacier_idx": glacier_index(glacier)}
+    for spec in law.inputs:
+        inputs[spec.name] = spec.get(glacier, H, t)
+    return per_glacier_column(glacier, law.apply(theta, inputs))
+
+
 def resolve_outer_values(model: Model, theta, glacier, t, H=None) -> SIAValues:
     """Evaluate every non-inner law (callback_freq ≥ 0) into an SIAValues
     for the glacier or stacked batch, at time t (state ``H``, default H₀)."""
@@ -138,12 +153,8 @@ def resolve_outer_values(model: Model, theta, glacier, t, H=None) -> SIAValues:
         vals = vals.replace(n=nv, p=pv, q=qv)
     state = H if H is not None else glacier.H0
     for slot, law in model.iceflow.laws.items():
-        if law.is_inner:
-            continue
-        inputs = {"glacier_idx": glacier_index(glacier)}
-        for spec in law.inputs:
-            inputs[spec.name] = spec.get(glacier, state, t)
-        vals = vals.replace(**{slot: per_glacier_column(glacier, law.apply(theta, inputs))})
+        if not law.is_inner:
+            vals = vals.replace(**{slot: resolve_law(law, theta, glacier, t, state)})
     if model.iceflow.n_H is not None:
         vals = vals.replace(n_H=float(model.iceflow.n_H))
     if model.iceflow.n_gradS is not None:

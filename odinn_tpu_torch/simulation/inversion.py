@@ -25,10 +25,17 @@ Adam and AdamW are ``torch.optim.Adam``/``AdamW`` (the update of optax's:
 bias-corrected, eps outside the square root; AdamW with optax's default
 weight decay 1e-4). LBFGS is ``torch.optim.LBFGS`` with its strong-Wolfe
 line search, one iteration per epoch, optax's history of 10 and up to 20
-line-search steps. Not ported yet, and refused with the slice that brings them
-(``ROADMAP.md``, Queue 1): periodic laws and the D targets (item 4), the
-adaptive, replay and ``substeps="auto"`` solves with their instability
-recovery (item 5), Levenberg–Marquardt stages and
+line-search steps.
+
+Every target trains: the A target, the hybrid-D (``LawY``) and pure-D
+(``LawU``) targets and the capped target (``SIA2DModel.max_D``), by
+autograd and by the manual adjoints; the D and capped targets take the
+generic path, with no kernel launch. Periodic laws (``callback_freq`` > 0)
+train by autograd only: the manual adjoints refuse them
+(:func:`odinn_tpu_torch.inverse.gradient.check_adjoint_supported`). Not
+ported yet, and refused with the slice that brings them (``ROADMAP.md``,
+Queue 1): the adaptive, replay and ``substeps="auto"`` solves with their
+instability recovery (item 5), Levenberg–Marquardt stages and
 ``grad="forward"``/``"dummy"`` (item 6), and saving the result (item 8).
 """
 

@@ -5,14 +5,23 @@ The whole stacked glacier batch advances at once: the glacier axis is the
 leading dimension of every state tensor, and per-glacier scalars are
 (n_g, 1, 1) columns. A model with a trainable initial condition starts
 from H₀ = σ(θ_IC) when θ holds "IC". Fixed-substep solvers only; the
-adaptive, replay, ``substeps="auto"`` and periodic-law paths come with
-later slices.
+adaptive, replay and ``substeps="auto"`` paths come with a later slice.
 
 With ``solver="RKC"`` and the fused kernels' law configuration (the A target
 with one value per glacier for every slot, one exponent set for the batch, a
 plane the kernel holds) each substep is one fused RKC2 step,
 :func:`odinn_tpu_torch.ops.cuda.rkc_kernel.rkc_interval`; every other
 configuration runs the generic RKC stages through the RHS.
+
+A model with periodic laws (``callback_freq`` > 0) runs the interval loop
+of :func:`forward_glacier`: each such law is re-evaluated every
+round(callback_freq / step) save intervals from the evolving state, after
+the interval's mass balance, and each interval resolves its laws afresh.
+Its substeps are SI steps cold-started at H (``solver="SI"``) or the plain
+explicit steppers, never compensated; where the interval's values are the
+fused kernels' configuration (an A-target model whose periodic laws give
+one value per glacier) an SI step is one ``si_step`` launch and an RKC step
+one ``rkc_interval`` launch, their table rebuilt every interval.
 """
 
 from __future__ import annotations
@@ -27,15 +36,15 @@ from odinn_tpu_torch.core.device import resolve_device
 from odinn_tpu_torch.core.glacier import (
     DhdtData, Glacier, SurfaceVelocityData, ThicknessData, per_glacier_column, stack_glaciers)
 from odinn_tpu_torch.models.model import (
-    Model, initial_thickness, make_values_fn, resolve_outer_values)
+    Model, initial_thickness, make_values_fn, resolve_law, resolve_outer_values)
 from odinn_tpu_torch.ops.cuda.common import shared_exps
 from odinn_tpu_torch.ops.cuda.rkc_kernel import rkc_fits
 from odinn_tpu_torch.ops.cuda.sia_kernel import derive_table
 from odinn_tpu_torch.physics.mass_balance import mb_timestep
 from odinn_tpu_torch.physics.sia2d import scalar_law_table, sia2d_rhs, v_from_h
-from odinn_tpu_torch.simulation.implicit import integrate_semi_implicit
+from odinn_tpu_torch.simulation.implicit import integrate_semi_implicit, semi_implicit_step
 from odinn_tpu_torch.simulation.solver import (
-    build_tstops, host_tstops, integrate_scan, make_rkc_interval_step)
+    build_tstops, get_stepper, host_tstops, integrate_scan, make_rkc_interval_step, substep_dt)
 
 __all__ = ["forward_glacier", "forward_batch", "Prediction", "run_prediction",
            "generate_ground_truth"]
@@ -50,6 +59,11 @@ def _mb_every(params) -> int:
 
 def _check_supported(model: Model, params) -> None:
     solver = params.solver
+    if solver.adaptive and model.iceflow.periodic_laws:
+        raise NotImplementedError(
+            "solver.adaptive does not support periodic laws (callback_freq > 0): "
+            "their values are refreshed on a fixed interval grid; use a "
+            "fixed-substep solver for periodic-law models")
     if solver.adaptive:
         raise NotImplementedError(
             "odinn_tpu_torch: solver.adaptive (error-controlled and replay "
@@ -60,10 +74,12 @@ def _check_supported(model: Model, params) -> None:
             "odinn_tpu_torch: substeps='auto' comes with the tolerance slice "
             "(ROADMAP.md, Queue 1 item 5); "
             "give an integer substep count")
-    if model.iceflow.periodic_laws:
+    if model.iceflow.periodic_laws and solver.solver == "SI2":
         raise NotImplementedError(
-            "odinn_tpu_torch: periodic laws (callback_freq > 0) come with the "
-            "laws-and-targets slice (ROADMAP.md, Queue 1 item 4)")
+            "solver='SI2' does not support periodic laws (callback_freq > 0): "
+            "the periodic-law interval loop drives single steps and does not "
+            "carry the predictor-corrector warm-start state; use solver='SI' "
+            "or an explicit solver for periodic-law models")
 
 
 def _fused_rkc_stepper(values_fn, target, dx, dy, glacier, H0, phys, s):
@@ -86,8 +102,10 @@ def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=No
 
     The solve starts from ``H0``, by default σ(θ_IC) when θ holds a
     trainable initial condition, else the glacier's H₀. Outer laws are
-    evaluated at the first tstop and that H₀, inner laws at every RHS call,
-    and the mass balance is applied at every ``step_MB`` interval end.
+    evaluated at the first tstop and that H₀ (periodic laws again every
+    ``callback_freq`` years, from the state then: the module doc), inner
+    laws at every RHS call, and the mass balance is applied at every
+    ``step_MB`` interval end.
     """
     _check_supported(model, params)
     phys = params.physical
@@ -115,6 +133,9 @@ def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=No
             return mb_timestep(H, glacier, model.mass_balance, tb, step_mb)
 
     method = params.solver.solver if params.solver.solver in _METHODS else "RK4"
+    if model.iceflow.periodic_laws:
+        return _periodic_solve(theta, glacier, model, params, ts, H0, outer_vals, dx, dy,
+                               callback, method)
     if method in ("SI", "SI2"):
         return integrate_semi_implicit(
             H0, glacier.B, dx, dy, values_fn, target, phys, ts,
@@ -131,6 +152,51 @@ def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=No
         rkc_stages=params.solver.rkc_stages, compensated=params.solver.compensated,
         stepper=stepper,
     )
+
+
+def _periodic_solve(theta, glacier, model, params, ts, H0, outer_vals, dx, dy, callback,
+                    method):
+    """The periodic-law interval loop (module doc): the trajectory at the
+    tstops ``ts`` (numpy, the state's dtype) from H0 and the laws' values at
+    the first tstop, ``outer_vals``. A refresh after the last interval would
+    feed no step, so none is made."""
+    phys, sp, target = params.physical, params.solver, model.target
+    periodic = model.iceflow.periodic_laws
+    cadences = {slot: max(int(round(law.callback_freq / sp.step)), 1)
+                for slot, law in periodic.items()}
+    npt = ts.dtype.type
+    H, vals, traj = H0, outer_vals, [H0]
+    n_int = len(ts) - 1
+    for i in range(n_int):
+        t0, t1 = ts[i], ts[i + 1]
+        # a fresh resolver: the kernels' table is cached on it, per interval
+        vfn = make_values_fn(model, theta, glacier, float(t0), vals)
+        dt = substep_dt(t0, t1, sp.substeps)
+        if method == "SI":
+            for _ in range(sp.substeps):
+                H = semi_implicit_step(H, glacier.B, dx, dy, vfn, target, phys, float(dt),
+                                       sp.cg_iters)
+        else:
+            def rhs(Hc, t, vfn=vfn):
+                if not params.simulation.use_iceflow:
+                    return torch.zeros_like(Hc)
+                return sia2d_rhs(Hc, glacier.B, dx, dy, vfn, target, phys)
+
+            step = None
+            if method == "RKC" and params.simulation.use_iceflow:
+                step = _fused_rkc_stepper(vfn, target, dx, dy, glacier, H, phys,
+                                          sp.rkc_stages)
+            step = step or get_stepper(method, sp.rkc_stages)
+            for k in range(sp.substeps):
+                H = step(rhs, H, float(t0 + npt(k) * dt), float(dt))
+        if callback is not None:
+            H = callback(H, t0, t1, i)
+        traj.append(H)
+        if i + 1 < n_int:
+            for slot, law in periodic.items():
+                if (i + 1) % cadences[slot] == 0:
+                    vals = vals.replace(**{slot: resolve_law(law, theta, glacier, float(t1), H)})
+    return torch.stack(traj)
 
 
 def forward_batch(theta, batch: Glacier, model: Model, params, tstops, device=None):

@@ -245,11 +245,15 @@ def test_init_theta_follows_the_law():
                                   "DummyAdjoint", "adaptive"])
 def test_unported_training_paths_name_their_slice(what):
     """Each training path not ported yet raises, naming the slice (the
-    ROADMAP.md Queue 1 item) that brings it: periodic laws and the D targets
-    (item 4), adaptive and auto-sized solves (item 5), the other gradient
-    modes and LM stages (item 6), saving (item 8)."""
+    ROADMAP.md Queue 1 item) that brings it: adaptive and auto-sized solves
+    (item 5), the other gradient modes and LM stages (item 6), saving (item
+    8). The paths item 4 brought now run: a periodic law trains by autograd
+    and the manual adjoints refuse it, naming grad='jax'; a Y law builds
+    the hybrid-D target; a capped (D) target trains by the discrete
+    adjoint."""
     from odinn_tpu_torch.inverse.adjoint_types import DummyAdjoint
     from odinn_tpu_torch.laws.laws import Law
+    from odinn_tpu_torch.physics.targets import CappedTarget, DHybridTarget
 
     inv = _smoke_inversion(epochs=(1, 1))
     p = inv.parameters
@@ -257,7 +261,26 @@ def test_unported_training_paths_name_their_slice(what):
     if what == "periodic law":
         law = dataclasses.replace(inv.model.iceflow.A, callback_freq=1.0)
         inv.model = Model(iceflow=SIA2DModel(A=law))
-    elif what == "adaptive":
+        assert np.isfinite(run_inversion(inv).stats.losses).all()
+        inv.parameters = p.replace(UDE=dataclasses.replace(p.UDE, grad="discrete"))
+        with pytest.raises(NotImplementedError, match="grad='jax'"):
+            run_inversion(inv)
+        return
+    if what == "hybrid-D model":
+        # a Y law (LawY's slot) makes the hybrid-D target
+        y_law = Law(slot="Y", apply_fn=lambda th, inp: inp["Hbar"], callback_freq=None,
+                    trainable=False, name="Y")
+        assert isinstance(Model(iceflow=SIA2DModel(A=inv.model.iceflow.A, Y=y_law)).target,
+                          DHybridTarget)
+        return
+    if what == "discrete D target":
+        # a capped diffusivity trains by the discrete adjoint
+        inv.model = Model(iceflow=SIA2DModel(A=inv.model.iceflow.A, max_D=1e5))
+        assert isinstance(inv.model.target, CappedTarget)
+        inv.parameters = p.replace(UDE=dataclasses.replace(p.UDE, grad="discrete"))
+        assert np.isfinite(run_inversion(inv).stats.losses).all()
+        return
+    if what == "adaptive":
         inv.parameters = p.replace(solver=dataclasses.replace(p.solver, adaptive=True))
     elif what in ("forward", "dummy"):
         inv.parameters = p.replace(UDE=dataclasses.replace(p.UDE, grad=what))
@@ -271,14 +294,6 @@ def test_unported_training_paths_name_their_slice(what):
     with pytest.raises(NotImplementedError, match="slice"):
         if what == "save":
             run_inversion(inv, path="results")
-        elif what == "discrete D target":
-            # a capped diffusivity is a D target: refused where the model is built
-            Model(iceflow=SIA2DModel(A=inv.model.iceflow.A, max_D=1.0))
-        elif what == "hybrid-D model":
-            # a Y law (LawY's slot) makes the hybrid-D target
-            y_law = Law(slot="Y", apply_fn=lambda th, inp: inp["Hbar"], callback_freq=None,
-                        trainable=False, name="Y")
-            Model(iceflow=SIA2DModel(A=inv.model.iceflow.A, Y=y_law))
         else:
             run_inversion(inv)
 
