@@ -108,6 +108,12 @@ Phases, each printed as one JSON line:
 Any failed check raises, so the exit code is not 0. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits with
 code 2 and prints no result.
+
+    python3 chip_smoke.py --f32-attribution
+
+runs phases 1 and 2 and then only :func:`f32_attribution`, which takes the
+float32 gradient check of the hybrid-D target through SI apart, stage by
+stage, on the card and on the CPU.
 """
 
 from __future__ import annotations
@@ -1863,6 +1869,151 @@ def check_classical_gradients():
                                  f"inversion's gradient on the card disagrees: {row}")
 
 
+def f32_attribution(samples=6):
+    """``python3 chip_smoke.py --f32-attribution``: the float32 gradient
+    check of the hybrid-D target through SI by autograd
+    (check_law_target_gradients' Y / SI / jax case: 4 x 128^2, 2 months,
+    the data in float32), taken apart on the card and on the CPU. For
+    ``samples`` starts theta * (1 + j 2^-16), j = 0, 1, ..., each exact in
+    float32, every gradient is held to the CPU float64 gradient at the same
+    theta, per theta leaf: the whole solve in float32 on both devices (and
+    on the CPU again on one thread, another summation order); then each
+    stage in turn in float32 inside a float64 solve ("f32_only"), and in
+    float64 inside a float32 solve ("f64_only"). The stages: the MLP, its
+    postscale head, the hybrid diffusivity's algebra, the frozen-D geometry
+    (H-bar and |grad S| from H), the PCG recursion (its vectors and inner
+    products; the operator in the solve's dtype), its inner products alone,
+    the operator's div(D grad u), the thickness loss, and (f32_only) all of
+    them together. One JSON line per stage and start, then one summary line
+    per stage: the card's error over the CPU's, median and range."""
+    import contextlib
+
+    from odinn_tpu_torch.core.params import UDEParameters
+    from odinn_tpu_torch.losses import losses
+    from odinn_tpu_torch.models import nn as nn_mod
+    from odinn_tpu_torch.ops import si_math
+    from odinn_tpu_torch.ops import stencils as st
+    from odinn_tpu_torch.physics.targets import DHybridTarget
+    from odinn_tpu_torch.simulation import implicit
+    from odinn_tpu_torch.simulation.inversion import Inversion, _tree_map
+
+    f32, f64 = torch.float32, torch.float64
+
+    def caster(dtype):
+        return lambda x: (x.to(dtype) if isinstance(x, torch.Tensor) and x.is_floating_point()
+                          else x)
+
+    orig = {"mlp": nn_mod.mlp_apply, "post": nn_mod.postscale,
+            "diff": DHybridTarget.diffusivity, "cg": si_math.cg, "dot": si_math.dot,
+            "div": si_math.div_flux, "loss": losses.simple_loss}
+
+    def stage_patches(inner, outer):
+        """Each stage computed in ``inner``'s dtype, its results handed on in
+        ``outer``'s."""
+
+        def mlp(arch, params, x):
+            return outer(orig["mlp"](arch, _tree_map(inner, params), inner(x)))
+
+        def diffusivity(self, vals, hbar, grad_s, phys):
+            v = dataclasses.replace(vals, **{f.name: inner(getattr(vals, f.name))
+                                             for f in dataclasses.fields(vals)})
+            return outer(orig["diff"](self, v, inner(hbar), inner(grad_s), phys))
+
+        def geometry(H, B, dx, dy, values_fn, target, phys):
+            Hc = st.relu_strict(inner(H))
+            gsx, gsy = st.grad_slope(inner(B) + Hc, inner(dx), inner(dy))
+            hbar, grad_s = outer(st.avg(Hc)), outer(st.safe_norm(gsx, gsy))
+            return target.diffusivity(values_fn(hbar, grad_s), hbar, grad_s, phys).to(H.dtype)
+
+        def cg(matvec, b, x0, iters, precond=None):
+            pre = None if precond is None else (lambda r: inner(precond(outer(r))))
+            return outer(orig["cg"](lambda u: inner(matvec(outer(u))), inner(b), inner(x0),
+                                    iters, pre))
+
+        return {
+            "mlp": [(nn_mod, "mlp_apply", mlp)],
+            "postscale": [(nn_mod, "postscale", lambda y, m: outer(orig["post"](inner(y), m)))],
+            "hybrid_diffusivity": [(DHybridTarget, "diffusivity", diffusivity)],
+            "frozen_D_geometry": [(implicit, "_frozen_diffusivity", geometry)],
+            "pcg": [(si_math, "cg", cg)],
+            "pcg_dot": [(si_math, "dot", lambda a, b: outer(orig["dot"](inner(a), inner(b))))],
+            "div_flux": [(si_math, "div_flux", lambda u, D, dx, dy: outer(orig["div"](
+                inner(u), inner(D), inner(dx), inner(dy))))],
+            "loss": [(losses, "simple_loss", lambda cfg, a, b, m, n: outer(orig["loss"](
+                cfg, inner(a), inner(b), m, inner(n))))],
+        }
+
+    f32_only = stage_patches(caster(f32), caster(f64))
+    f32_only["all_listed"] = [p for k, v in f32_only.items() if k != "pcg_dot" for p in v]
+    f64_only = stage_patches(caster(f64), caster(f32))
+
+    @contextlib.contextmanager
+    def patched(items):
+        saved = [(obj, name, getattr(obj, name)) for obj, name, _ in items]
+        try:
+            for obj, name, fn in items:
+                setattr(obj, name, fn)
+            yield
+        finally:
+            for obj, name, fn in saved:
+                setattr(obj, name, fn)
+
+    inv, model, _, _, _ = training_problem("SI", "jax", n_g=N_G, tspan=(5.0, 5.0 + 2.0 / 12.0),
+                                           dtype=f64, kind="Y")
+    params = inv.parameters.replace(UDE=UDEParameters(grad="jax"))
+    glaciers = inv.glaciers.to(dtype=f32)   # the data of the check, float32 on both sides
+    names = [f"{slot}[{i}].{k}" for slot in inv.theta for i, layer in enumerate(inv.theta[slot])
+             for k in layer]
+
+    def gradient(theta, device, dtype):
+        on = Inversion(model=model, glaciers=glaciers.to(device, dtype), parameters=params,
+                       device=device, theta=_tree_to(theta, device, dtype))
+        vg, _ = grad_fn(on, params)
+        loss, grads = vg(_tree_to(theta, device, dtype, requires_grad=True), on.glaciers)
+        return float(loss), [g.detach().double().cpu() for g in grads]
+
+    def errs(a, b):
+        return [float((x - y).abs().max() / y.abs().max().clamp(min=1e-300))
+                for x, y in zip(a, b)]
+
+    threads = torch.get_num_threads()
+    runs = [("float32", "all", f32, [])]
+    runs += [(stage, "f32_only", f64, items) for stage, items in f32_only.items()]
+    runs += [(stage, "f64_only", f32, items) for stage, items in f64_only.items()]
+    ratios = {}
+    for j in range(samples):
+        theta = _tree_map(lambda x: (x.double() * (1.0 + j * 2.0 ** -16)).float(), inv.theta)
+        ref_loss, ref = gradient(theta, "cpu", f64)
+        for stage, how, dtype, items in runs:
+            row = {"phase": "f32_attribution", "stage": stage, "how": how, "sample": j,
+                   "leaves": names}
+            with patched(items):
+                for device in ("cuda", "cpu"):
+                    loss, g = gradient(theta, device, dtype)
+                    row[f"{device}_leaf_rel_err"] = errs(g, ref)
+                    row[f"{device}_rel_err"] = max(row[f"{device}_leaf_rel_err"])
+                    row[f"{device}_loss_rel_err"] = abs(loss - ref_loss) / abs(ref_loss)
+            if how == "all":
+                torch.set_num_threads(1)
+                try:
+                    _, g = gradient(theta, "cpu", dtype)
+                finally:
+                    torch.set_num_threads(threads)
+                row["cpu_1thread_leaf_rel_err"] = errs(g, ref)
+                row["cpu_1thread_rel_err"] = max(row["cpu_1thread_leaf_rel_err"])
+            row["card_over_cpu"] = row["cuda_rel_err"] / max(row["cpu_rel_err"], 1e-300)
+            ratios.setdefault((stage, how), []).append(row)
+            emit(row)
+    for (stage, how), rows in ratios.items():
+        r = [row["card_over_cpu"] for row in rows]
+        emit({"phase": "f32_attribution_summary", "stage": stage, "how": how,
+              "samples": len(r), "card_over_cpu_median": statistics.median(r),
+              "card_over_cpu_min": min(r), "card_over_cpu_max": max(r),
+              "cuda_rel_err_median": statistics.median(x["cuda_rel_err"] for x in rows),
+              "cpu_rel_err_median": statistics.median(x["cpu_rel_err"] for x in rows),
+              "cpu_threads": threads, "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+
+
 def _tree_to(tree, device, dtype, requires_grad=False):
     """θ on ``device`` in ``dtype`` (None: its own), a copy (leaves
     requiring grad when asked)."""
@@ -1892,6 +2043,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {k: v[0] for k, v in built.items()},
           "ptxas": {k: ptxas_summary(v[1]) for k, v in built.items()}})
+    if "--f32-attribution" in sys.argv[1:]:
+        f32_attribution()
+        return 0
 
     check_kernels()
     check_gradients()

@@ -119,7 +119,6 @@ class DHybridTarget:
     exponents from Glen's n."""
 
     name: str = "D_hybrid"
-    n_interp_half: int = 75   # kept for API parity; autograd replaces interpolation
 
     def diffusivity(self, vals, hbar, grad_s, phys):
         rho, g = phys.rho, phys.g
@@ -152,15 +151,15 @@ class DPureTarget:
     """Learn the diffusive velocity U = NN(H̄, |∇S|): D = H̄·U."""
 
     name: str = "D"
-    n_interp_half: int = 75
 
     def diffusivity(self, vals, hbar, grad_s, phys):
         return hbar * vals.U
 
     def velocity_up(self, vals, hbar, grad_s, phys):
-        """Velocityꜛ = U / f, f the surface-velocity factor."""
-        f = getattr(phys, "f_surface_velocity_factor", 1.0)
-        return vals.U / f
+        """Velocityꜛ = U / f, f the surface-velocity factor. The reference
+        looks f up on the physical parameters, which hold none (it is a
+        simulation parameter), so f is 1 there and here."""
+        return vals.U
 
 
 @dataclass(frozen=True)

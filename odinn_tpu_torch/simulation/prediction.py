@@ -16,12 +16,14 @@ configuration runs the generic RKC stages through the RHS.
 A model with periodic laws (``callback_freq`` > 0) runs the interval loop
 of :func:`forward_glacier`: each such law is re-evaluated every
 round(callback_freq / step) save intervals from the evolving state, after
-the interval's mass balance, and each interval resolves its laws afresh.
-Its substeps are SI steps cold-started at H (``solver="SI"``) or the plain
-explicit steppers, never compensated; where the interval's values are the
-fused kernels' configuration (an A-target model whose periodic laws give
-one value per glacier) an SI step is one ``si_step`` launch and an RKC step
-one ``rkc_interval`` launch, their table rebuilt every interval.
+the interval's mass balance, and the loop resolves its laws afresh after
+each refresh (at every interval when the model has inner laws, whose
+static inputs are read at the interval start). Its substeps are SI steps
+cold-started at H (``solver="SI"``) or the plain explicit steppers, never
+compensated; where the interval's values are the fused kernels'
+configuration (an A-target model whose periodic laws give one value per
+glacier) an SI step is one ``si_step`` launch and an RKC step one
+``rkc_interval`` launch, their table rebuilt with the resolver.
 """
 
 from __future__ import annotations
@@ -59,16 +61,12 @@ def _mb_every(params) -> int:
 
 def _check_supported(model: Model, params) -> None:
     solver = params.solver
-    if solver.adaptive and model.iceflow.periodic_laws:
-        raise NotImplementedError(
-            "solver.adaptive does not support periodic laws (callback_freq > 0): "
-            "their values are refreshed on a fixed interval grid; use a "
-            "fixed-substep solver for periodic-law models")
     if solver.adaptive:
         raise NotImplementedError(
             "odinn_tpu_torch: solver.adaptive (error-controlled and replay "
-            "solves) comes with the tolerance slice (ROADMAP.md, Queue 1 item 5); "
-            "use fixed substeps")
+            "solves) comes with the tolerance slice (ROADMAP.md, Queue 1 item 5), "
+            "and adaptive does not support periodic laws (callback_freq > 0) in "
+            "any slice: they refresh on the fixed save-interval grid; use fixed substeps")
     if isinstance(solver.substeps, str):
         raise NotImplementedError(
             "odinn_tpu_torch: substeps='auto' comes with the tolerance slice "
@@ -113,15 +111,8 @@ def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=No
     ts = host_tstops(tstops, H0.dtype)
     t_first = float(ts[0])
     outer_vals = resolve_outer_values(model, theta, glacier, t_first, H=H0)
-    values_fn = make_values_fn(model, theta, glacier, t_first, outer_vals)
     target = model.target
     dx, dy = per_glacier_column(glacier, glacier.dx), per_glacier_column(glacier, glacier.dy)
-
-    def rhs(H, t):
-        if not params.simulation.use_iceflow:
-            return torch.zeros_like(H)
-        return sia2d_rhs(H, glacier.B, dx, dy, values_fn, target, phys)
-
     callback = None
     if params.simulation.use_MB and model.mass_balance is not None:
         k = _mb_every(params)
@@ -136,6 +127,7 @@ def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=No
     if model.iceflow.periodic_laws:
         return _periodic_solve(theta, glacier, model, params, ts, H0, outer_vals, dx, dy,
                                callback, method)
+    values_fn = make_values_fn(model, theta, glacier, t_first, outer_vals)
     if method in ("SI", "SI2"):
         return integrate_semi_implicit(
             H0, glacier.B, dx, dy, values_fn, target, phys, ts,
@@ -143,6 +135,12 @@ def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=No
             callback=callback, corrector=method == "SI2",
             cg_iters_predictor=params.solver.cg_iters_predictor,
         )
+
+    def rhs(H, t):
+        if not params.simulation.use_iceflow:
+            return torch.zeros_like(H)
+        return sia2d_rhs(H, glacier.B, dx, dy, values_fn, target, phys)
+
     stepper = None
     if method == "RKC" and params.simulation.use_iceflow and not params.solver.compensated:
         stepper = _fused_rkc_stepper(values_fn, target, dx, dy, glacier, H0, phys,
@@ -165,12 +163,21 @@ def _periodic_solve(theta, glacier, model, params, ts, H0, outer_vals, dx, dy, c
     cadences = {slot: max(int(round(law.callback_freq / sp.step)), 1)
                 for slot, law in periodic.items()}
     npt = ts.dtype.type
-    H, vals, traj = H0, outer_vals, [H0]
+    inner = any(law.is_inner for law in model.iceflow.laws.values())
+    H, vals, traj, vfn = H0, outer_vals, [H0], None
     n_int = len(ts) - 1
     for i in range(n_int):
         t0, t1 = ts[i], ts[i + 1]
-        # a fresh resolver: the kernels' table is cached on it, per interval
-        vfn = make_values_fn(model, theta, glacier, float(t0), vals)
+        if vfn is None or inner:
+            # a fresh resolver (the kernels' table is cached on it) at the
+            # first interval and after each refresh; inner laws read t0
+            vfn = make_values_fn(model, theta, glacier, float(t0), vals)
+            if method != "SI":
+                step = None
+                if method == "RKC" and params.simulation.use_iceflow:
+                    step = _fused_rkc_stepper(vfn, target, dx, dy, glacier, H, phys,
+                                              sp.rkc_stages)
+                step = step or get_stepper(method, sp.rkc_stages)
         dt = substep_dt(t0, t1, sp.substeps)
         if method == "SI":
             for _ in range(sp.substeps):
@@ -182,11 +189,6 @@ def _periodic_solve(theta, glacier, model, params, ts, H0, outer_vals, dx, dy, c
                     return torch.zeros_like(Hc)
                 return sia2d_rhs(Hc, glacier.B, dx, dy, vfn, target, phys)
 
-            step = None
-            if method == "RKC" and params.simulation.use_iceflow:
-                step = _fused_rkc_stepper(vfn, target, dx, dy, glacier, H, phys,
-                                          sp.rkc_stages)
-            step = step or get_stepper(method, sp.rkc_stages)
             for k in range(sp.substeps):
                 H = step(rhs, H, float(t0 + npt(k) * dt), float(dt))
         if callback is not None:
@@ -196,6 +198,7 @@ def _periodic_solve(theta, glacier, model, params, ts, H0, outer_vals, dx, dy, c
             for slot, law in periodic.items():
                 if (i + 1) % cadences[slot] == 0:
                     vals = vals.replace(**{slot: resolve_law(law, theta, glacier, float(t1), H)})
+                    vfn = None
     return torch.stack(traj)
 
 

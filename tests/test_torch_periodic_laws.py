@@ -13,7 +13,7 @@ climate, 6 monthly intervals, the laws refreshed every 2:
   off, against the JAX package's ``forward_glacier`` at 1e-10, compensated
   RK4 too (the loop ignores compensation, as the JAX package's does);
 - a periodic per-glacier A, which the fused kernels take (their table
-  rebuilt each interval; their plain versions on the CPU, counted): the
+  rebuilt after each refresh; their plain versions on the CPU, counted): the
   table route equals the generic route (the same law on the staggered
   grid) and JAX at 1e-10 through SI and RKC, and differs from the law
   frozen at the start;
@@ -173,9 +173,9 @@ def test_gridded_periodic_c_matches_jax(batch, solver, use_mb):
 
 @pytest.mark.parametrize("solver", ["SI", "RKC"])
 def test_periodic_table_route_matches_generic_route(batch, solver, monkeypatch):
-    """Each interval resolves its laws afresh, so the kernels' table follows
-    the refreshed A (a table cached across intervals would drive the next
-    interval with the last one's values)."""
+    """The loop resolves its laws afresh after each refresh, so the kernels'
+    table follows the refreshed A (a table cached across refreshes would
+    drive the next interval with the last one's values)."""
     jb, tb = batch
     jp, tp = _params(JP, solver), _params(TP, solver)
     jm, tm = _a_models()
@@ -193,6 +193,34 @@ def test_periodic_table_route_matches_generic_route(batch, solver, monkeypatch):
     _, frozen = _a_models(callback_freq=0.0)
     f_traj = _t_traj(None, tb, frozen, tp)
     assert float((f_traj[:, -1] - table[:, -1]).abs().max()) > 1e-9 * float(table.abs().max())
+
+
+@pytest.mark.parametrize("inner", [False, True])
+def test_periodic_resolver_is_built_at_the_start_and_after_each_refresh(batch, inner,
+                                                                        monkeypatch):
+    """Without inner laws the interval loop builds its resolver (and with it
+    the kernels' table) at the first interval and after each refresh only;
+    with an inner law, whose static inputs are read at the interval start,
+    at every interval."""
+    import odinn_tpu_torch.simulation.prediction as prediction
+
+    _, tb = batch
+    tp = _params(TP, "RK4", substeps=2)
+    _, tm = _a_models()
+    if inner:
+        y = TL.Law(slot="Y", apply_fn=lambda th, inp: torch.full_like(inp["Hbar"], 1e-18),
+                   inputs=(TI.HbarInput(),), callback_freq=None, trainable=False, name="Y")
+        tm = Model(iceflow=SIA2DModel(A=tm.iceflow.A, Y=y, n_value=3.0))
+    built = []
+    make = prediction.make_values_fn
+    monkeypatch.setattr(prediction, "make_values_fn",
+                        lambda *a, **kw: built.append(a[3]) or make(*a, **kw))
+    traj = _t_traj(None, tb, tm, tp)
+    assert torch.isfinite(traj).all()
+    starts = [float(t) for t in j_tstops(TSPAN, 1.0 / 12.0)[:-1]]
+    # FREQ is 2 intervals: refreshes after intervals 2 and 4 of 6
+    want = starts if inner else [starts[0], starts[2], starts[4]]
+    assert built == pytest.approx(want), built
 
 
 @pytest.fixture(scope="module")
