@@ -103,9 +103,26 @@ Phases, each printed as one JSON line:
    4 x 128^2 and 2 x 300^2; ``rkc_interval`` at 16 x 128^2, s = 8; each
    pullback at its other shape and the fused RKC-backward stage). The
    ``kernel_times`` line before it also times a one-element PyTorch fill,
-   the card's single-launch floor.
+   the card's single-launch floor. It is printed last, after phase 9, and
+   its launches are all phases';
+9. tolerance (the tolerance contract, float32, reltol 1e-4): the main
+   path's scenario through ``run_prediction`` with ``adaptive=True``, whose
+   ``sia2d_rhs`` launches must equal the integrator's RHS evaluations,
+   with its accepted and rejected steps, host reads, time, busy time and
+   idle share, its final H within 2x the float32 unfused replay's error
+   against the float64 replay of its own recorded steps, and its accepted
+   total within 2 % of the float64 unfused row's; ``run_inversion`` of A = NN(T) on the
+   training batch with ``adaptive="replay"`` (``sia2d_rhs`` 3 a sub-step
+   column a solve plus the probes, ``sia2d_rhs_vjp`` 3 a column a
+   gradient) and with ``substeps="auto"`` through RKC (s = 8) and SI,
+   the calibrated substeps (and ``cg_iters``) printed and
+   the launches asserted per substep and probe; the phase's seconds.
+   Before the main path, the replay gradient on the card (4 x 128^2, 2
+   months) against the CPU's float64 run, float64 to 1e-9 per θ leaf and
+   float32 within 2x the CPU's float32 error.
 
-Any failed check raises, so the exit code is not 0. The last line is
+Any failed check raises, so the exit code is not 0. A ``done`` line gives
+the whole run's seconds, build included. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits with
 code 2 and prints no result.
 
@@ -189,6 +206,9 @@ PERIODIC_FREQ = 1.0                # the periodic laws' refresh interval, years
 # the capped target's max_D, m^2/yr: the training glaciers' D reaches
 # 2.8e4 (-25 C) to 1.1e5 (-13 C) at their Cuffey-Paterson A, so the cap bites
 CAPPED_MAX_D = 3.0e4
+# the tolerance phase's reltol: float32's setting (benchmarks/eki_bench.py);
+# below ~1e-5 a float32 error estimate sits under the roundoff floor
+TOL_RELTOL = 1e-4
 # our kernels' device names: none may run in a D-target or capped solve
 KERNEL_NAMES = ("si_step_cluster", "si_assemble", "si_pcg", "si_step_vjp_kernel",
                 "sia2d_rhs_kernel", "sia2d_rhs_vjp_kernel", "rkc_interval_kernel")
@@ -2014,6 +2034,301 @@ def f32_attribution(samples=6):
               "cpu_threads": threads, "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the tolerance contract
+# ---------------------------------------------------------------------------
+
+def _with_solver(params, **kw):
+    return params.replace(solver=dataclasses.replace(params.solver, **kw))
+
+
+def _adaptive_counts():
+    """The adaptive integrator's host counters, set to 0."""
+    from odinn_tpu_torch.simulation.solver import integrate_adaptive
+
+    integrate_adaptive.rhs_evals = integrate_adaptive.host_reads = 0
+    return integrate_adaptive
+
+
+def _leaf_errs(a, b):
+    """Each θ leaf's max|a − b| / max|b|, the worst of them."""
+    return max(float((x - y).abs().max() / y.abs().max().clamp(min=1e-300))
+               for x, y in zip(a, b))
+
+
+def _whole_err(a, b):
+    """max|a − b| / max|b| over all θ leaves together."""
+    a, b = torch.cat([x.flatten() for x in a]), torch.cat([x.flatten() for x in b])
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def check_replay_gradient():
+    """The replay gradient on the card (4 Halfar glaciers, 128^2, 2 monthly
+    intervals, A = NN(T) at its initial θ, adaptive="replay" at reltol
+    TOL_RELTOL): one schedule, recorded on the CPU in float64, replayed by
+    autograd on the card and the CPU in both dtypes; held to the CPU's
+    float64 gradient, float64 to TOL_GRAD_F64 in each θ leaf and float32
+    within GRAD_F32_FACTOR times the CPU's float32 error over the whole θ,
+    as check_adjoint_gradients holds it: here the float32 errors are ~1e-7,
+    one rounding, and a single leaf's ratio of two such draws ranged 0.6 to
+    2.3 over six starts on an H100 (the whole θ's 0.6 to 1.25)."""
+    from odinn_tpu_torch.simulation.inversion import Inversion
+    from odinn_tpu_torch.simulation.prediction import resolve_replay
+
+    t0 = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    inv, model, params, tstops, _ = training_problem("RKC", "jax", n_g=N_G,
+                                                     tspan=(5.0, 5.0 + 2.0 / 12.0), dtype=f64)
+    glaciers = inv.glaciers.to(dtype=f32)   # the check's data, float32 on both sides
+    theta = _tree_to(inv.theta, "cpu", f32)
+    params = resolve_replay(_with_solver(params, adaptive="replay", reltol=TOL_RELTOL),
+                            glaciers.to("cpu", f64), model, _tree_to(theta, "cpu", f64), tstops)
+
+    def gradient(device, dtype):
+        on = Inversion(model=model, glaciers=glaciers.to(device, dtype), parameters=params,
+                       device=device, theta=_tree_to(theta, device, dtype))
+        vg, _ = grad_fn(on, params)
+        _, grads = vg(_tree_to(theta, device, dtype, requires_grad=True), on.glaciers)
+        return [g.detach().double().cpu() for g in grads]
+
+    ref = gradient("cpu", f64)
+    k32, p32 = gradient("cuda", f32), gradient("cpu", f32)
+    row = {"phase": "check_replay_grad", "glaciers": N_G, "grid": [NX, NY], "intervals": 2,
+           "reltol": TOL_RELTOL, "accepted_steps": int(np.count_nonzero(params.solver.replay_dts)),
+           "against": "CPU float64", "float64_rel_err": _leaf_errs(gradient("cuda", f64), ref),
+           "tol": TOL_GRAD_F64, "float32_rel_err": _whole_err(k32, ref),
+           "f32_plain_rel_err": _whole_err(p32, ref),
+           "float32_leaf_rel_err": _leaf_errs(k32, ref),
+           "f32_plain_leaf_rel_err": _leaf_errs(p32, ref),
+           "factor": GRAD_F32_FACTOR, "seconds": time.perf_counter() - t0}
+    emit(row)
+    if not (row["float64_rel_err"] <= TOL_GRAD_F64
+            and row["float32_rel_err"] <= GRAD_F32_FACTOR * row["f32_plain_rel_err"]):
+        raise AssertionError(f"the replay gradient on the card disagrees: {row}")
+
+
+def tolerance_adaptive_row():
+    """Phase 9a: the main path's scenario (4 x 128^2, 5 years, monthly saves
+    and mass balance, Cuffey-Paterson A(T), float32) through run_prediction
+    with adaptive=True at reltol TOL_RELTOL, on the kernels, with the launch
+    counters and the integrator's counters set to 0 just before: the
+    sia2d_rhs launches must equal the integrator's RHS evaluations. The
+    row's accepted steps, recorded by the same solve run again with its
+    statistics (the same trajectory, asserted), replayed in float64 and in
+    float32 on the unfused path: the row's final H within 2x the float32
+    replay's error against the float64 replay. The row's accepted total
+    within 2 % of the float64 unfused adaptive row's: at reltol 1e-4 the
+    float32 state's own rounding (~1e-4 of H over the row) is at the
+    tolerance, so float32 totals are a draw around the float64 one (on an
+    H100, 261 to 271 around 265 for starts H0 (1 + j 2^-20), on either
+    path and device; float64 265 at every start); the float32 unfused
+    row's total is printed beside it. Returns the launches."""
+    from odinn_tpu_torch.core.glacier import stack_glaciers
+    from odinn_tpu_torch.laws.laws import CuffeyPaterson
+    from odinn_tpu_torch.models.model import Model, SIA2DModel
+    from odinn_tpu_torch.physics.mass_balance import TImodel1
+    from odinn_tpu_torch.simulation.prediction import (
+        Prediction, forward_batch, forward_glacier, run_prediction)
+    from odinn_tpu_torch.simulation.solver import build_tstops
+
+    tstops = build_tstops(TSPAN, 1.0 / 12.0)
+    params = bench_params(adaptive=True, reltol=TOL_RELTOL)
+    model = Model(iceflow=SIA2DModel(A=CuffeyPaterson(), n_value=3.0), mass_balance=TImodel1())
+    plain_model = Model(iceflow=SIA2DModel(A=dataclasses.replace(CuffeyPaterson(),
+                                                                 callback_freq=None),
+                                           n_value=3.0), mass_balance=TImodel1())
+    batch32 = stack_glaciers(bench_glaciers(torch.float32), device="cuda")
+    batch64 = stack_glaciers(bench_glaciers(torch.float64), device="cuda")
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    counts = _adaptive_counts()
+    pred = Prediction(model=model, glaciers=bench_glaciers(torch.float32), parameters=params,
+                      device="cuda")
+    t0 = time.perf_counter()
+    H = run_prediction(pred)["H"]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    rhs_evals, host_reads = counts.rhs_evals, counts.host_reads
+    expected = dict({k: 0 for k in counters}, sia2d_rhs=rhs_evals)
+
+    record = {}
+    traj, nacc = forward_glacier(None, batch32, model, params, tstops, _return_stats=True,
+                                 _record=record)
+    _, nacc2, dts = forward_glacier(None, batch32, model, params, tstops, _return_stats=True,
+                                    _return_dts=int(nacc.max()))
+    same = torch.equal(traj.movedim(0, 1), H) and torch.equal(nacc, nacc2)
+    dts = dts.cpu().numpy()
+    replay = _with_solver(params, adaptive="replay", replay_dts=dts)
+    rp64 = forward_batch(None, batch64, plain_model, replay, tstops, device="cuda")
+    rp32 = forward_batch(None, batch32, plain_model, replay, tstops, device="cuda")
+    _, plain_nacc = forward_glacier(None, batch32, plain_model, params, tstops,
+                                    _return_stats=True)
+    _, plain64_nacc = forward_glacier(None, batch64, plain_model, params, tstops,
+                                      _return_stats=True)
+    nacc, trials = nacc.cpu().numpy(), record["trials"].cpu().numpy()
+    total, plain_total, total64 = (int(nacc.sum()), int(plain_nacc.sum()),
+                                   int(plain64_nacc.sum()))
+    row = {"phase": "tolerance_adaptive_row", "glaciers": N_G, "grid": [NX, NY],
+           "dtype": "torch.float32", "reltol": TOL_RELTOL, "intervals": len(tstops) - 1,
+           "launches": launches, "expected_launches": expected, "rhs_evals": rhs_evals,
+           "host_reads": host_reads, "run_prediction_s": seconds,
+           "accepted_total": total, "accepted_per_interval_sum": nacc.sum(axis=0).tolist(),
+           "accepted_per_interval_max": nacc.max(axis=0).tolist(),
+           "accepted_min_per_glacier_interval": int(nacc.min()),
+           "rejected_trials": int((trials - nacc).sum()),
+           "batch_trial_steps": int(trials.max(axis=0).sum()),
+           "plain_accepted_total": plain_total, "f64_plain_accepted_total": total64,
+           "stats_run_is_the_row": same,
+           "final_H_rel_err_vs_f64_replay": rel_err(H[:, -1], rp64[:, -1]),
+           "f32_plain_replay_rel_err_vs_f64_replay": rel_err(rp32[:, -1], rp64[:, -1])}
+    row["ms"] = row_ms(lambda: forward_batch(None, batch32, model, params, tstops,
+                                             device="cuda"))
+    row["plain_ms"] = row_ms(lambda: forward_batch(None, batch32, plain_model, params, tstops,
+                                                   device="cuda"), reps=1)
+    busy, dev_launches, by_name = device_profile(
+        lambda: forward_batch(None, batch32, model, params, tstops, device="cuda"), 1)
+    row.update({"device_busy_ms": busy, "device_idle_share": 1.0 - busy / row["ms"],
+                "device_launches": dev_launches,
+                "kernel_launches_by_name": {k: v for k, v in by_name.items()
+                                            if k in KERNEL_NAMES}})
+    emit(row)
+    if launches != expected:
+        raise AssertionError(f"adaptive row: launches {launches}, expected {expected}")
+    if not same or tuple(H.shape) != (N_G, len(tstops), NX, NY) or not torch.isfinite(H).all():
+        raise AssertionError(f"adaptive row: trajectory misshapen, not finite or not "
+                             f"repeatable: {row}")
+    if not row["final_H_rel_err_vs_f64_replay"] <= 2.0 * row[
+            "f32_plain_replay_rel_err_vs_f64_replay"]:
+        raise AssertionError(f"adaptive row: kernel path error exceeds 2x the float32 "
+                             f"replay's: {row}")
+    if not abs(total - total64) <= 0.02 * total64:
+        raise AssertionError(f"adaptive row: accepted total {total} is more than 2 % from the "
+                             f"float64 row's {total64}")
+    return launches
+
+
+def _segments(stats, snapshots, final):
+    """(substeps, solves, gradients) of each stretch of a training between
+    the stage-end re-sizings of stats.substeps_bumps, from the iteration
+    callback's (solves, gradients) ``snapshots``: a re-sizing follows its
+    stage's last iteration and the stage-end evaluation of the last
+    iterate."""
+    out, done_s, done_g = [], 0, 0
+    for niter, old, _ in stats.substeps_bumps:
+        s, g = snapshots[niter]
+        s += 1
+        out.append((old, s - done_s, g - done_g))
+        done_s, done_g = s, g
+    out.append((final, stats.solves - done_s, stats.gradients - done_g))
+    return out
+
+
+def tolerance_training(mode, solver):
+    """Phases 9b and 9c: run_inversion of A = NN(T) on the training batch
+    (16 x 128^2, float32, 24 intervals; :func:`training_problem`, Adam then
+    LBFGS) by autograd, with adaptive="replay" through the BS3 replay, or
+    substeps="auto" through RKC (s of rkc_stages_for) or SI, at reltol
+    TOL_RELTOL; the launch counters and the integrator's counters set to 0
+    just before. Launches asserted from the code: the probes' RHS
+    evaluations are sia2d_rhs launches (the adaptive integrator's count,
+    and for SI the Richardson probes' si_step: 24 x (2 x substeps - 1) at
+    PCG-64, then 24 x substeps a cg_iters candidate tried); replay: 3
+    sia2d_rhs per sub-step column run (a column some glacier steps in) a
+    solve and 3 sia2d_rhs_vjp a column a gradient; RKC: one rkc_interval a
+    substep per solve and gradient, s sia2d_rhs_vjp a substep per gradient;
+    SI: one si_step a substep per solve, one si_step_transpose and one
+    si_step_vjp a substep per gradient. Losses finite and falling; one
+    Adam epoch profiled. Returns the launches."""
+    from odinn_tpu_torch.simulation import prediction
+    from odinn_tpu_torch.simulation.inversion import run_inversion
+
+    inv, model, params, tstops, facts = training_problem(solver)
+    kw = dict(adaptive="replay") if mode == "replay" else dict(substeps="auto")
+    inv.parameters = _with_solver(params, reltol=TOL_RELTOL, **kw)
+    n_int = len(tstops) - 1
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    counts = _adaptive_counts()
+    snapshots = {}
+    # the sub-step columns each replay runs (a column some glacier steps
+    # in), with and without a gradient: a re-recorded schedule changes them
+    columns = {"solves": 0, "gradients": 0}
+    replay = prediction.integrate_replay
+
+    def counted_replay(rhs, y0, tstops, dts, callback=None):
+        run = int(np.count_nonzero(np.any(np.asarray(dts) != 0, axis=0)))
+        columns["solves"] += run
+        columns["gradients"] += run if torch.is_grad_enabled() else 0
+        return replay(rhs, y0, tstops, dts, callback)
+
+    prediction.integrate_replay = counted_replay
+    t0 = time.perf_counter()
+    try:
+        results = run_inversion(inv, callback=lambda st: snapshots.__setitem__(
+            st.niter, (st.solves, st.gradients)))
+        torch.cuda.synchronize()
+    finally:
+        prediction.integrate_replay = replay
+    train_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    stats, sp = results.stats, inv.parameters.solver
+    expected = dict({k: 0 for k in counters}, sia2d_rhs=counts.rhs_evals)
+    row = {"phase": "tolerance_training", "mode": mode, "solver": solver, "grad": "jax",
+           "glaciers": N_TRAIN, "grid": [NX, NY], "dtype": "torch.float32", "intervals": n_int,
+           "reltol": TOL_RELTOL, "probe_rhs_evals": counts.rhs_evals,
+           "probe_host_reads": counts.host_reads, "substeps_bumps": stats.substeps_bumps}
+    if mode == "replay":
+        dts = sp.replay_dts
+        expected["sia2d_rhs"] += 3 * columns["solves"]
+        expected["sia2d_rhs_vjp"] = 3 * columns["gradients"]
+        row.update({"replay_columns_run": columns, "replay_cap": int(dts.shape[-1]),
+                    "replay_columns_per_solve": int(np.count_nonzero(np.any(dts != 0, axis=0))),
+                    "accepted_total": int(np.count_nonzero(dts))})
+    else:
+        s = facts.get("rkc_stages", 0)
+        per_solve = {"RKC": {"rkc_interval": 1}, "SI": {"si_step": 1}}[solver]
+        per_grad = {"RKC": {"rkc_interval": 1, "sia2d_rhs_vjp": s},
+                    "SI": {"si_step_transpose": 1, "si_step_vjp": 1}}[solver]
+        for n, solves, grads in _segments(stats, snapshots, sp.substeps):
+            for name in set(per_solve) | set(per_grad):
+                expected[name] += n_int * n * (solves * per_solve.get(name, 0)
+                                               + grads * per_grad.get(name, 0))
+        row.update({"substeps": sp.substeps, "rkc_stages": s or None})
+        if solver == "SI":
+            cands = (4, 6, 8, 12, 16, 24, 32, 48)
+            tried = cands.index(sp.cg_iters) + 1 if sp.cg_iters in cands else len(cands)
+            expected["si_step"] += n_int * ((2 * sp.substeps - 1) + sp.substeps * tried)
+            row.update({"cg_iters": sp.cg_iters, "cg_candidates_tried": tried})
+    losses = stats.losses
+    row.update({"run_inversion_s": train_s, "losses": losses, "final_loss": stats.final_loss,
+                "solves": stats.solves, "gradients": stats.gradients, "launches": launches,
+                "expected_launches": expected})
+    row.update(epoch_profile(adam_epoch_fn(inv, model, inv.parameters, tstops)))
+    emit(row)
+    what = f"tolerance training {mode} {solver}"
+    if launches != expected:
+        raise AssertionError(f"{what}: launches {launches}, expected {expected}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{what}: losses not finite or not decreasing: {losses}")
+    return launches
+
+
+def tolerance_phase():
+    """Phase 9: the adaptive row, the replay training and the two
+    substeps="auto" trainings; returns their launches and prints the
+    phase's seconds."""
+    t0 = time.perf_counter()
+    launches = tolerance_adaptive_row()
+    for mode, solver in (("replay", "RKC"), ("auto", "RKC"), ("auto", "SI")):
+        for name, n in tolerance_training(mode, solver).items():
+            launches[name] += n
+    emit({"phase": "tolerance", "seconds": time.perf_counter() - t0, "launches": launches})
+    return launches
+
+
 def _tree_to(tree, device, dtype, requires_grad=False):
     """θ on ``device`` in ``dtype`` (None: its own), a copy (leaves
     requiring grad when asked)."""
@@ -2038,7 +2353,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     built = build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {k: v[0] for k, v in built.items()},
@@ -2052,6 +2367,7 @@ def main() -> int:
     check_adjoint_gradients()
     check_classical_gradients()
     check_law_target_gradients()
+    check_replay_gradient()
     cluster_report()
     timing = time_kernels()
     launches = main_path_rows()
@@ -2074,6 +2390,8 @@ def main() -> int:
             for name, n in training_phase("SI", grad, target).items():
                 launches[name] += n
     pretraining_phase()
+    for name, n in tolerance_phase().items():
+        launches[name] += n
     meta = {
         "si_step": ("odinn_tpu_torch/csrc/si_step.cu", "odinn_tpu/ops/pallas/si_kernel.py:174"),
         "sia2d_rhs": ("odinn_tpu_torch/csrc/sia2d_rhs.cu", "odinn_tpu/ops/pallas/sia_kernel.py:137"),
@@ -2102,6 +2420,7 @@ def main() -> int:
          **({"transpose_launches": launches["si_step_transpose"]} if name == "si_step" else {})}
         for name, t in timing.items() if name == t["kernel"]
     ]})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

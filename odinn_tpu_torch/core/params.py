@@ -81,8 +81,21 @@ class SolverParameters:
     "SI" (semi-implicit, one warm-started Jacobi-PCG solve per step) | "SI2"
     (Crank–Nicolson with a Picard midpoint diffusivity: two solves per step).
     ``compensated`` accumulates Euler/SSPRK3/RK4 states with Kahan
-    summation. The adaptive, replay and ``substeps="auto"`` modes are part of
-    the configuration but the port's solver does not run them yet.
+    summation. ``reltol`` is honoured three ways:
+
+    - ``adaptive=True``: the error-controlled Bogacki–Shampine 3(2)
+      integrator at rtol = atol = reltol, one step-size controller per
+      glacier; forward-only (Prediction, ground truth), so training refuses
+      it.
+    - ``adaptive="replay"``: one such solve per glacier records its accepted
+      steps (``replay_dts``, resolved by ``run_prediction``/``train_ude``
+      through ``prediction.resolve_replay``), which then run as a fixed
+      step sequence: the adaptive trajectory to roundoff, differentiable
+      by autograd with the steps held fixed.
+    - ``substeps="auto"``: probe solves size the fixed substeps from reltol
+      (``prediction.resolve_substeps``): one adaptive BS3(2) probe for the
+      explicit solvers and RKC, Richardson step-halving probes that also
+      size ``cg_iters`` for SI/SI2.
     """
 
     solver: str = "RK4"

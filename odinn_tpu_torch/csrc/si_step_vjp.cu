@@ -31,8 +31,8 @@
 //
 // What bounds it on the H100: bytes. Per cell it reads lambda, H, H_D, B
 // and x and writes three planes, 32 bytes in float32, against ~160
-// operations a cell; at 16 x 128^2 a call moves about 2 MB, so a launch is
-// latency-bound.
+// operations a cell; at 4 x 128^2 a call moves about 2 MB (8 MB at
+// 16 x 128^2), so a launch is latency-bound.
 //
 // Design (as sia2d_rhs_vjp.cu): 32x8 tiles of cells, 256 threads,
 // blockIdx.z the glacier. A block loads relu(H_D), S, u and w of its tile

@@ -32,15 +32,25 @@ Every target trains: the A target, the hybrid-D (``LawY``) and pure-D
 autograd and by the manual adjoints; the D and capped targets take the
 generic path, with no kernel launch. Periodic laws (``callback_freq`` > 0)
 train by autograd only: the manual adjoints refuse them
-(:func:`odinn_tpu_torch.inverse.gradient.check_adjoint_supported`). Not
+(:func:`odinn_tpu_torch.inverse.gradient.check_adjoint_supported`).
+
+The tolerance contract: ``adaptive="replay"`` records the accepted steps of
+one error-controlled forward before training and trains through their
+replay (by autograd only); ``substeps="auto"`` sizes the fixed-step solve
+from probe solves before training, and for an explicit solver probes again
+at every stage's end, raising the substeps when the θ reached needs more.
+A non-finite loss in either mode rewinds to the best finite iterate,
+re-sizes there (at least doubling the substeps, or re-recording the
+schedule with each step split 2^(attempt−1) ways) and reruns the stage, at
+most three times. ``adaptive=True`` is forward-only and refused. Not
 ported yet, and refused with the slice that brings them (``ROADMAP.md``,
-Queue 1): the adaptive, replay and ``substeps="auto"`` solves with their
-instability recovery (item 5), Levenberg–Marquardt stages and
-``grad="forward"``/``"dummy"`` (item 6), and saving the result (item 8).
+Queue 1): Levenberg–Marquardt stages and ``grad="forward"``/``"dummy"``
+(item 6), and saving the result (item 8).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from dataclasses import dataclass
@@ -58,7 +68,8 @@ from odinn_tpu_torch.models.model import (
     Model, glacier_index, init_theta, initial_thickness, make_values_fn, resolve_outer_values)
 from odinn_tpu_torch.physics.sia2d import v_from_h
 from odinn_tpu_torch.simulation.observations import thickness_at, velocity_at
-from odinn_tpu_torch.simulation.prediction import forward_batch, forward_glacier
+from odinn_tpu_torch.simulation.prediction import (
+    calibrate_substeps, forward_batch, forward_glacier, resolve_replay, resolve_substeps)
 from odinn_tpu_torch.simulation.results import Results, TrainingStats, create_results
 from odinn_tpu_torch.simulation.solver import build_tstops
 
@@ -343,27 +354,37 @@ def _record(stats: TrainingStats, val, theta, gnorm, dt):
             f"training loss became non-finite at iteration {stats.niter}. "
             "The forward solve likely violated the explicit stability limit "
             "(large creep/diffusivity). Increase solver.substeps / "
-            "solver.rkc_stages (see suggest_substeps / rkc_stages_for), or lower "
-            "the learning rate; the automatic re-sizing and rewind of the JAX "
-            "package come with the tolerance slice (ROADMAP.md, Queue 1 item 5).")
+            "solver.rkc_stages (see suggest_substeps / rkc_stages_for), set "
+            "SIA2DModel.max_D, or lower the learning rate.")
     stats.grad_norm_hist.append(gnorm)
     stats.time_per_iter.append(dt)
     if gnorm > 1e7:
         print(f"[odinn_tpu_torch] WARNING: gradient norm {gnorm:.3e} > 1e7")
 
 
-def _check_trainable(params) -> None:
-    solver = params.solver
-    if solver.adaptive:
-        raise NotImplementedError(
-            "odinn_tpu_torch: training through adaptive or replayed solves comes with "
-            "the tolerance slice (ROADMAP.md, Queue 1 item 5); set fixed "
-            "solver.substeps / rkc_stages")
-    if isinstance(solver.substeps, str):
-        raise NotImplementedError(
-            "odinn_tpu_torch: substeps='auto' (and the instability recovery built on "
-            "it) comes with the tolerance slice (ROADMAP.md, Queue 1 item 5); give an "
-            "integer substep count")
+def _resolve_tolerance(params, batch, model, theta, tstops):
+    """The training parameters with the replay schedule recorded and
+    ``substeps="auto"`` sized at θ; ``adaptive=True``, and replay under a
+    manual adjoint, are refused."""
+    if params.solver.adaptive == "replay":
+        grad_cfg = params.UDE.grad
+        grad_kind = grad_cfg if isinstance(grad_cfg, str) else getattr(grad_cfg, "name", "jax")
+        if grad_kind not in ("jax", "sciml", "forward", "dummy"):
+            raise ValueError(
+                f"solver.adaptive='replay' replays the BS3(2) stepper, which "
+                f"the manual adjoints do not transpose — use grad='jax' (or "
+                f"'forward'), got grad={grad_kind!r}")
+        params = resolve_replay(params, batch, model, theta, tstops)
+    elif params.solver.adaptive:
+        raise ValueError(
+            "solver.adaptive error-controlled integration is forward-only "
+            "— it serves Prediction/generate_ground_truth. For training, either "
+            "set adaptive='replay' (record the accepted dt schedule once, replay "
+            "it as a fixed differentiable schedule), set fixed "
+            "solver.substeps/rkc_stages/cg_iters, or set substeps='auto' to "
+            "calibrate fixed substeps from solver.reltol via probe solves "
+            "(with adaptive=False).")
+    return resolve_substeps(params, batch, model, theta, tstops)
 
 
 def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
@@ -371,16 +392,26 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
     """Staged training loop (see the module doc). θ warm-starts across
     stages; each stage starts from the best iterate so far; the returned θ
     is the best iterate seen (full-batch losses). ``record_theta_hist`` keeps
-    θ per iteration. Results hold the final forward with the trained θ."""
-    params = inversion.parameters
-    _check_trainable(params)
+    θ per iteration. Results hold the final forward with the trained θ.
+    The resolved parameters (recorded schedule, sized substeps) are left in
+    ``inversion.parameters``; ``stats.substeps_bumps`` lists each re-sizing
+    as (iteration, old, new)."""
     model = inversion.model
     batch = inversion.glaciers
+    params = inversion.parameters
     tstops = assemble_tstops(params, batch)
     stats = TrainingStats()
     stats._record_theta_hist = record_theta_hist
     theta = _tree_map(lambda x: x.detach().clone().requires_grad_(True), inversion.theta)
     leaves = _tree_leaves(theta)
+    substeps_auto = params.solver.substeps == "auto"
+    params = _resolve_tolerance(params, batch, model, theta, tstops)
+    inversion.parameters = params
+    # an explicit solver's sizing is a stability bound that the θ reached
+    # may outgrow (SI and SI2 are unconditionally stable: theirs buys
+    # accuracy only); a replay schedule is held fixed and shares the hazard
+    substeps_guard = substeps_auto and params.solver.solver not in ("SI", "SI2")
+    replay_mode = params.solver.adaptive == "replay"
 
     def loss_fn_b(theta, b):
         stats.solves += 1
@@ -403,13 +434,68 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
             for p, v in zip(leaves, values):
                 p.copy_(v)
 
+    def resize(new_params, bump):
+        """Train on with ``new_params``: the gradient function rebuilt, the
+        re-sizing listed."""
+        nonlocal params, vg
+        params = new_params
+        inversion.parameters = params
+        stats.substeps_bumps.append(bump)
+        vg = _make_grad_fn(inversion, loss_fn_b, stats)
+
+    def recheck_substeps():
+        """The staleness guard: probe at the stage's best iterate, and raise
+        the substeps when it needs more than the current count."""
+        needed = calibrate_substeps(theta, batch, model, params, tstops)
+        cur = int(params.solver.substeps)
+        if needed <= cur:
+            return
+        print(f"[odinn_tpu_torch] substeps='auto' probe went stale: current θ needs "
+              f"{needed} substeps/interval (calibrated {cur} at the initial "
+              f"θ) — re-sizing for the remaining stages")
+        resize(params.replace(solver=dataclasses.replace(params.solver, substeps=needed)),
+               (stats.niter, cur, needed))
+
     def end_stage():
         """The last iterate's loss joins the best; the next stage starts
-        from the best iterate."""
-        if best["theta"] is None:
-            return
-        fold_best(eval_loss(theta, batch), leaves)
+        from the best iterate, and an explicit auto-sized solve is probed
+        there."""
+        if best["theta"] is not None:
+            fold_best(eval_loss(theta, batch), leaves)
+            load(best["theta"])
+        if substeps_guard:
+            recheck_substeps()
+
+    def recover(attempt):
+        """A non-finite loss mid-stage: rewind to the best finite iterate,
+        drop the failed record, and re-size there before the stage reruns."""
         load(best["theta"])
+        n = len(stats.grad_norm_hist)
+        del stats.losses[n:]
+        if record_theta_hist:
+            del stats.theta_hist[n:]
+        stats.niter = n
+        stats.retcode = None
+        if replay_mode:
+            splits = 2 ** (attempt - 1)
+            print("[odinn_tpu_torch] adaptive='replay': non-finite loss mid-stage "
+                  "— rewinding to the best iterate, re-recording the "
+                  f"accepted-dt schedule there (each step split {splits}×), "
+                  "and rerunning the stage")
+            p = params.replace(solver=dataclasses.replace(params.solver, replay_dts=None))
+            p = resolve_replay(p, batch, model, theta, tstops)
+            if splits > 1:
+                dts = np.repeat(p.solver.replay_dts / splits, splits, axis=-1)
+                p = p.replace(solver=dataclasses.replace(p.solver, replay_dts=dts))
+            resize(p, (stats.niter, "replay", f"re-recorded x{splits}"))
+        else:
+            cur = int(params.solver.substeps)
+            needed = max(calibrate_substeps(theta, batch, model, params, tstops), 2 * cur)
+            print(f"[odinn_tpu_torch] substeps='auto': non-finite loss mid-stage — "
+                  f"rewinding to the best iterate, re-sizing {cur} → {needed} "
+                  f"substeps/interval, and rerunning the stage")
+            resize(params.replace(solver=dataclasses.replace(params.solver, substeps=needed)),
+                   (stats.niter, cur, needed))
 
     def gnorm_of(grads) -> float:
         return float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads)))
@@ -424,8 +510,7 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
         fold_best(eval_loss(theta, batch), leaves)
     rng = np.random.default_rng(0)
 
-    for opt_name, lr, epochs in _stages(params.hyper):
-        opt_name = opt_name.lower()
+    def run_stage(opt_name, lr, epochs):
         if opt_name in ("adam", "adamw"):
             opt = (torch.optim.Adam(leaves, lr=lr) if opt_name == "adam"
                    else torch.optim.AdamW(leaves, lr=lr, weight_decay=1e-4))
@@ -480,6 +565,21 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
         else:
             raise ValueError(f"unknown optimizer {opt_name!r}")
         end_stage()
+
+    for opt_name, lr, epochs in _stages(params.hyper):
+        attempts = 0
+        while True:
+            try:
+                run_stage(opt_name.lower(), lr, epochs)
+                break
+            except FloatingPointError:
+                # recoverable only where the trainer owns the sizing and a
+                # finite best iterate exists to rewind to
+                if not (substeps_guard or replay_mode) or best["theta"] is None \
+                        or attempts >= 3:
+                    raise
+                attempts += 1
+                recover(attempts)
 
     if best["theta"] is not None and stats.losses:
         final_val = eval_loss(theta, batch)

@@ -1,11 +1,21 @@
 """Forward simulation: ``forward_batch``, ``Prediction``, ``run_prediction``
-and ``generate_ground_truth``.
+and ``generate_ground_truth``, and the tolerance contract's resolution of
+``substeps="auto"`` and ``adaptive="replay"``.
 
 The whole stacked glacier batch advances at once: the glacier axis is the
 leading dimension of every state tensor, and per-glacier scalars are
 (n_g, 1, 1) columns. A model with a trainable initial condition starts
-from H₀ = σ(θ_IC) when θ holds "IC". Fixed-substep solvers only; the
-adaptive, replay and ``substeps="auto"`` paths come with a later slice.
+from H₀ = σ(θ_IC) when θ holds "IC".
+
+``solver.reltol`` is honoured three ways (``SolverParameters``):
+``adaptive=True`` solves by the error-controlled BS3(2) integrator at
+rtol = atol = reltol, one step-size controller per glacier;
+``adaptive="replay"`` replays the accepted steps one such solve recorded
+(:func:`resolve_replay`) as a fixed, differentiable step sequence; and
+``substeps="auto"`` sizes the fixed-step solvers from probe solves
+(:func:`resolve_substeps`). The BS3 stages evaluate the RHS as the
+explicit steppers do: one ``sia2d_rhs`` launch on the card where the
+fused kernels' law configuration holds.
 
 With ``solver="RKC"`` and the fused kernels' law configuration (the A target
 with one value per glacier for every slot, one exponent set for the batch, a
@@ -29,9 +39,11 @@ glacier) an SI step is one ``si_step`` launch and an RKC step one
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from odinn_tpu_torch.core.device import resolve_device
@@ -46,10 +58,12 @@ from odinn_tpu_torch.physics.mass_balance import mb_timestep
 from odinn_tpu_torch.physics.sia2d import scalar_law_table, sia2d_rhs, v_from_h
 from odinn_tpu_torch.simulation.implicit import integrate_semi_implicit, semi_implicit_step
 from odinn_tpu_torch.simulation.solver import (
-    build_tstops, get_stepper, host_tstops, integrate_scan, make_rkc_interval_step, substep_dt)
+    build_tstops, get_stepper, host_tstops, integrate_adaptive, integrate_replay,
+    integrate_scan, make_rkc_interval_step, substep_dt)
 
-__all__ = ["forward_glacier", "forward_batch", "Prediction", "run_prediction",
-           "generate_ground_truth"]
+__all__ = ["forward_glacier", "forward_batch", "calibrate_substeps",
+           "calibrate_substeps_si", "resolve_substeps", "resolve_replay", "Prediction",
+           "run_prediction", "generate_ground_truth"]
 
 _METHODS = ("RK4", "SSPRK3", "Euler", "RKC", "SI", "SI2")
 
@@ -60,24 +74,44 @@ def _mb_every(params) -> int:
 
 
 def _check_supported(model: Model, params) -> None:
+    """The JAX package's refusals, in its order."""
     solver = params.solver
     if solver.adaptive:
-        raise NotImplementedError(
-            "odinn_tpu_torch: solver.adaptive (error-controlled and replay "
-            "solves) comes with the tolerance slice (ROADMAP.md, Queue 1 item 5), "
-            "and adaptive does not support periodic laws (callback_freq > 0) in "
-            "any slice: they refresh on the fixed save-interval grid; use fixed substeps")
+        if model.iceflow.periodic_laws:
+            raise NotImplementedError(
+                "solver.adaptive does not support periodic laws "
+                "(callback_freq > 0): their values ride the fixed-shape scan "
+                "carry; use a fixed-substep solver for periodic-law models")
+        if solver.adaptive == "replay" and solver.replay_dts is None:
+            raise ValueError(
+                "solver.adaptive='replay' needs the recorded step schedule "
+                "— train_ude/run_prediction resolve it automatically; when "
+                "driving forward_glacier directly, call "
+                "odinn_tpu_torch.simulation.prediction.resolve_replay(params, "
+                "batch, model, theta, tstops) first")
+        return
     if isinstance(solver.substeps, str):
-        raise NotImplementedError(
-            "odinn_tpu_torch: substeps='auto' comes with the tolerance slice "
-            "(ROADMAP.md, Queue 1 item 5); "
-            "give an integer substep count")
+        raise ValueError(
+            "solver.substeps='auto' must be resolved before the solve "
+            "— train_ude/run_prediction do it automatically; when driving "
+            "forward_glacier directly, call "
+            "odinn_tpu_torch.simulation.prediction.resolve_substeps(params, batch, "
+            "model, theta, tstops) first")
     if model.iceflow.periodic_laws and solver.solver == "SI2":
         raise NotImplementedError(
             "solver='SI2' does not support periodic laws (callback_freq > 0): "
             "the periodic-law interval loop drives single steps and does not "
             "carry the predictor-corrector warm-start state; use solver='SI' "
             "or an explicit solver for periodic-law models")
+
+
+def _replay_rows(replay_dts, glacier):
+    """The recorded schedule's rows of ``glacier`` (its ``glacier_ids``
+    when gathered from a larger batch; row 0 for a lone glacier)."""
+    dts = np.asarray(replay_dts)
+    if glacier.glacier_ids is not None:
+        return dts[np.asarray(glacier.glacier_ids.cpu())]
+    return dts if glacier.is_batched else dts[0]
 
 
 def _fused_rkc_stepper(values_fn, target, dx, dy, glacier, H0, phys, s):
@@ -94,7 +128,8 @@ def _fused_rkc_stepper(values_fn, target, dx, dy, glacier, H0, phys, s):
                                   phys.eta0, exps)
 
 
-def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=None):
+def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=None,
+                    _return_stats: bool = False, _return_dts: int = 0, _record=None):
     """Solve a glacier, or a stacked batch at once, over ``tstops``; returns
     the trajectory (T, …, nx, ny) with the time axis first.
 
@@ -104,6 +139,15 @@ def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=No
     ``callback_freq`` years, from the state then: the module doc), inner
     laws at every RHS call, and the mass balance is applied at every
     ``step_MB`` interval end.
+
+    With ``params.solver.adaptive`` the solve is the error-controlled
+    BS3(2) integrator at rtol = atol = ``reltol``; ``_return_stats`` then
+    also returns the (…, intervals) accepted step counts, ``_return_dts=cap``
+    the accepted step record and ``_record`` (a dict) the trial counts
+    (:func:`~odinn_tpu_torch.simulation.solver.integrate_adaptive`). With
+    ``adaptive="replay"`` it replays ``params.solver.replay_dts``, the
+    (glaciers, intervals, cap) record of :func:`resolve_replay`, indexed by
+    the glaciers' rows.
     """
     _check_supported(model, params)
     phys = params.physical
@@ -128,7 +172,8 @@ def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=No
         return _periodic_solve(theta, glacier, model, params, ts, H0, outer_vals, dx, dy,
                                callback, method)
     values_fn = make_values_fn(model, theta, glacier, t_first, outer_vals)
-    if method in ("SI", "SI2"):
+    adaptive = params.solver.adaptive
+    if method in ("SI", "SI2") and not adaptive:
         return integrate_semi_implicit(
             H0, glacier.B, dx, dy, values_fn, target, phys, ts,
             substeps=params.solver.substeps, cg_iters=params.solver.cg_iters,
@@ -141,6 +186,14 @@ def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=No
             return torch.zeros_like(H)
         return sia2d_rhs(H, glacier.B, dx, dy, values_fn, target, phys)
 
+    if adaptive == "replay":
+        return integrate_replay(rhs, H0, ts, _replay_rows(params.solver.replay_dts, glacier),
+                                callback=callback)
+    if adaptive:
+        return integrate_adaptive(rhs, H0, ts, rtol=params.solver.reltol,
+                                  atol=params.solver.reltol, callback=callback,
+                                  return_stats=_return_stats, return_dts=_return_dts,
+                                  record=_record)
     stepper = None
     if method == "RKC" and params.simulation.use_iceflow and not params.solver.compensated:
         stepper = _fused_rkc_stepper(values_fn, target, dx, dy, glacier, H0, phys,
@@ -202,6 +255,140 @@ def _periodic_solve(theta, glacier, model, params, ts, H0, outer_vals, dx, dy, c
     return torch.stack(traj)
 
 
+def _adaptive_probe(theta, batch, model, params, tstops, cap=0):
+    """One adaptive BS3(2) forward of the batch at rtol = atol = reltol
+    without a gradient: its accepted step counts (and, with ``cap``, the
+    step record) as (glaciers, intervals[, cap]) tensors."""
+    p_ad = params.replace(solver=dataclasses.replace(params.solver, adaptive=True))
+    with torch.no_grad():
+        return forward_glacier(theta, batch, model, p_ad, tstops, _return_stats=True,
+                               _return_dts=cap)[1:]
+
+
+def calibrate_substeps(theta, batch, model, params, tstops, safety: float = 1.5):
+    """Size the fixed-step integrators from ``solver.reltol``: one adaptive,
+    error-controlled forward of the batch (BS3(2) at rtol = atol = reltol),
+    and ``ceil(safety × the most steps it accepted in one interval)`` over
+    all glaciers and intervals, at least 1. The explicit steppers of the
+    same order at that uniform step then run within the tolerance's reach;
+    ``safety`` absorbs the uniform-against-adaptive mismatch."""
+    (naccs,) = _adaptive_probe(theta, batch, model, params, tstops)
+    return max(int(math.ceil(float(naccs.max()) * safety)), 1)
+
+
+def calibrate_substeps_si(theta, batch, model, params, tstops,
+                          max_substeps: int = 1024, cg_probe: int = 64,
+                          cg_candidates=(4, 6, 8, 12, 16, 24, 32, 48)):
+    """Size ``substeps`` and ``cg_iters`` of the semi-implicit solvers (SI,
+    SI2) from ``solver.reltol`` by Richardson step-halving; returns
+    ``(substeps, cg_iters, cg_iters_predictor)``.
+
+    The SI steps are unconditionally stable, so their substeps buy accuracy
+    only. With a generous PCG budget (``cg_probe``) the whole forward runs at
+    n and 2n substeps until max |H_n − H_2n| / (reltol + reltol·max(|H_n|,
+    |H_2n|)) over the trajectory is ≤ 1, and 2n is taken. Then ``cg_iters``
+    is the first candidate whose trajectory at those substeps lies within
+    half that scaled distance of the ``cg_probe`` one (``cg_probe`` when
+    none does), and the predictor budget max(cg_iters // 2,
+    ``cg_iters_predictor``) is the one the accepted probe ran with."""
+    reltol = params.solver.reltol
+
+    def run(n, cg):
+        p = params.replace(solver=dataclasses.replace(
+            params.solver, substeps=int(n), cg_iters=int(cg),
+            cg_iters_predictor=max(int(cg) // 2, params.solver.cg_iters_predictor),
+            adaptive=False))
+        with torch.no_grad():
+            return forward_glacier(theta, batch, model, p, tstops)
+
+    def scaled_err(a, b):
+        scale = reltol + reltol * torch.maximum(a.abs(), b.abs())
+        return float(((a - b).abs() / scale).max())
+
+    n = 1
+    traj_n = run(n, cg_probe)
+    while True:
+        traj_2n = run(2 * n, cg_probe)
+        if scaled_err(traj_n, traj_2n) <= 1.0:
+            substeps = 2 * n
+            ref = traj_2n
+            break
+        n *= 2
+        traj_n = traj_2n
+        if 2 * n > max_substeps:
+            raise ValueError(
+                f"calibrate_substeps_si: reltol={reltol:g} not reached at "
+                f"{max_substeps} substeps/interval — the splitting error "
+                "floor of the semi-implicit discretization is above the "
+                "requested tolerance here; loosen reltol or use an explicit "
+                "solver (substeps='auto' with solver='SSPRK3'/'RK4')")
+    cg = cg_probe
+    for c in cg_candidates:
+        if c >= cg_probe:
+            break
+        if scaled_err(run(substeps, c), ref) <= 0.5:
+            cg = c
+            break
+    return substeps, cg, max(int(cg) // 2, params.solver.cg_iters_predictor)
+
+
+def resolve_substeps(params, batch, model, theta, tstops):
+    """``solver.substeps == "auto"`` resolved into a count: by
+    :func:`calibrate_substeps_si` (which also sizes ``cg_iters``) for SI and
+    SI2, by :func:`calibrate_substeps` for the explicit solvers; the
+    parameters unchanged for an integer count."""
+    if params.solver.substeps != "auto":
+        return params
+    if params.solver.solver in ("SI", "SI2"):
+        n, cg, cg_pred = calibrate_substeps_si(theta, batch, model, params, tstops)
+        print(f"[odinn_tpu_torch] substeps='auto' ({params.solver.solver}): "
+              f"calibrated {n} substeps/interval, cg_iters={cg} "
+              f"(predictor {cg_pred}) from reltol={params.solver.reltol:g} "
+              f"(Richardson step-halving)")
+        return params.replace(solver=dataclasses.replace(
+            params.solver, substeps=n, cg_iters=cg, cg_iters_predictor=cg_pred))
+    n = calibrate_substeps(theta, batch, model, params, tstops)
+    print(f"[odinn_tpu_torch] substeps='auto': calibrated {n} substeps/interval "
+          f"from reltol={params.solver.reltol:g} (adaptive BS3(2) probe)")
+    return params.replace(solver=dataclasses.replace(params.solver, substeps=n))
+
+
+def resolve_replay(params, batch, model, theta, tstops):
+    """``solver.adaptive == "replay"`` resolved into a recorded schedule in
+    ``solver.replay_dts``, a (glaciers, intervals, cap) numpy array of the
+    accepted steps in the state's dtype; the parameters unchanged otherwise
+    or when already resolved.
+
+    Two adaptive probes of the batch at rtol = atol = reltol: the first
+    counts the accepted steps per interval to size the record, the second
+    records them. An accept past the record's end, or a record whose steps
+    do not tile each interval to 1e-4·|span| + 1e-9, raises."""
+    if params.solver.adaptive != "replay" or params.solver.replay_dts is not None:
+        return params
+    (naccs,) = _adaptive_probe(theta, batch, model, params, tstops)
+    cap = int(naccs.max())
+    naccs2, dts = _adaptive_probe(theta, batch, model, params, tstops, cap)
+    if int(naccs2.max()) > cap:
+        raise RuntimeError(
+            "resolve_replay: the recording probe accepted more steps than "
+            f"the counting probe sized for (cap {cap}) — re-run; if it "
+            "persists, the two probes disagree on a borderline "
+            "accept/reject and reltol should be nudged")
+    # a lone glacier's record gets the glacier axis of a batch's
+    naccs = naccs.reshape(-1, naccs.shape[-1])
+    dts = dts.cpu().numpy().reshape((-1,) + tuple(dts.shape[-2:]))
+    sums = dts.sum(axis=-1).astype(np.float64)
+    spans = np.diff(np.asarray(torch.as_tensor(tstops).cpu(), dtype=np.float64))[None, :]
+    if not np.all(np.abs(sums - spans) <= 1e-4 * np.abs(spans) + 1e-9):
+        raise RuntimeError(
+            "resolve_replay: recorded dts do not tile the save intervals "
+            f"(max defect {float(np.max(np.abs(sums - spans))):.3e}) — record corrupt")
+    print(f"[odinn_tpu_torch] adaptive='replay': recorded {int(naccs.sum())} accepted steps "
+          f"({naccs.shape[0]} glaciers × {naccs.shape[1]} intervals, "
+          f"cap {cap}/interval) at reltol={params.solver.reltol:g}")
+    return params.replace(solver=dataclasses.replace(params.solver, replay_dts=dts))
+
+
 def forward_batch(theta, batch: Glacier, model: Model, params, tstops, device=None):
     """Forward solve of a stacked batch on ``device`` (None: the CUDA card).
     Returns trajectories of shape (n_glaciers, T, nx, ny)."""
@@ -212,7 +399,10 @@ def forward_batch(theta, batch: Glacier, model: Model, params, tstops, device=No
 @dataclass
 class Prediction:
     """Forward-simulation container: a stacked batch (or a list of glaciers,
-    stacked on construction) on ``device`` (None: the CUDA card)."""
+    stacked on construction) on ``device`` (None: the CUDA card).
+    ``resolved_parameters`` holds the last run's parameters with
+    ``substeps="auto"`` and the replay schedule resolved, for inspection:
+    every run resolves them afresh from ``parameters``."""
 
     model: Model
     glaciers: Any
@@ -220,6 +410,7 @@ class Prediction:
     theta: Any = None
     results: Any = None
     device: Optional[Any] = None
+    resolved_parameters: Any = None
 
     def __post_init__(self):
         dev = resolve_device(self.device)
@@ -233,11 +424,16 @@ class Prediction:
 def run_prediction(pred: Prediction, tstops=None):
     """Run the forward solve; stores the trajectories (and, with
     ``use_velocities``, the surface velocities at every tstop) in
-    ``pred.results``."""
+    ``pred.results``. ``substeps="auto"`` and ``adaptive="replay"`` are
+    resolved for this call only (``pred.resolved_parameters``), at
+    ``pred.theta`` and these tstops."""
     params = pred.parameters
     if tstops is None:
         tstops = build_tstops(params.simulation.tspan, params.solver.step)
     batch = pred.glaciers
+    params = resolve_substeps(params, batch, pred.model, pred.theta, tstops)
+    params = resolve_replay(params, batch, pred.model, pred.theta, tstops)
+    pred.resolved_parameters = params
     trajs = forward_batch(pred.theta, batch, pred.model, params, tstops, device=pred.device)
     results = {"t": tstops, "H": trajs}
     if params.simulation.use_velocities:

@@ -13,7 +13,10 @@ class TrainingStats:
     """Training diagnostics accumulated by the trainer. ``solves`` and
     ``gradients`` count the forward solves of the batch (every loss
     evaluation, with or without a gradient, and the final forward) and the
-    backward passes through them."""
+    backward passes through them. ``substeps_bumps`` lists each re-sizing
+    of an auto-sized or replayed solve as (iteration, old, new): the
+    substep counts, or ``"replay"`` and ``"re-recorded xK"`` for a schedule
+    re-recorded with each step split K ways."""
 
     retcode: Optional[str] = None
     losses: List[float] = field(default_factory=list)
@@ -28,6 +31,7 @@ class TrainingStats:
     final_loss: Optional[float] = None   # loss of the returned (best) iterate
     solves: int = 0
     gradients: int = 0
+    substeps_bumps: List[Any] = field(default_factory=list)
 
 
 @dataclass

@@ -1,9 +1,13 @@
-"""Fixed-step time integrators for the SIA2D solve.
+"""Time integrators for the SIA2D solve.
 
 :func:`integrate_scan` advances the state with a fixed number of substeps
 per save interval (Euler, RK4, SSPRK3 or RKC2), optionally with Kahan-
 compensated accumulation, and runs a callback (mass balance) at every
-interval end. It returns the trajectory saved at the tstops.
+interval end. :func:`integrate_adaptive` is the error-controlled
+Bogacki–Shampine 3(2) forward, one step-size controller per glacier, and
+:func:`integrate_replay` re-runs the accepted steps it recorded as a fixed,
+differentiable step sequence. Each returns the trajectory saved at the
+tstops.
 
 Times are handled on the host in the state's dtype: the tstops are cast to
 it before they are differenced, so a float32 solve steps by float32 dt, as
@@ -29,6 +33,8 @@ __all__ = [
     "suggest_substeps",
     "rkc_stages_for",
     "integrate_scan",
+    "integrate_adaptive",
+    "integrate_replay",
     "rk4_step",
     "ssprk3_step",
     "euler_step",
@@ -225,20 +231,175 @@ def make_rkc2_step(s: int):
     return step
 
 
+def _col(a, y):
+    """A per-glacier tensor (the state's leading shape) as a column that
+    broadcasts over the state's (nx, ny) plane; a number unchanged."""
+    return a.to(y.dtype).reshape(a.shape + (1, 1)) if isinstance(a, torch.Tensor) else a
+
+
 def _bs32_step(f, y, t, dt, k1):
     """One embedded Bogacki–Shampine 3(2) step with FSAL: (y3, err, k4).
-    ``t`` and ``dt`` are numbers, or (n_g,) tensors for a (n_g, nx, ny)
-    state whose glaciers each step by their own."""
-
-    def col(a):
-        return a.to(y.dtype).reshape(-1, 1, 1) if isinstance(a, torch.Tensor) else a
-
-    k2 = f(y + col(0.5 * dt) * k1, t + 0.5 * dt)
-    k3 = f(y + col(0.75 * dt) * k2, t + 0.75 * dt)
-    y3 = y + col(dt) * (2.0 * k1 + 3.0 * k2 + 4.0 * k3) / 9.0
+    ``t`` and ``dt`` are numbers, or tensors of the state's leading shape
+    (one per glacier of a (n_g, nx, ny) state) whose glaciers each step by
+    their own."""
+    k2 = f(y + _col(0.5 * dt, y) * k1, t + 0.5 * dt)
+    k3 = f(y + _col(0.75 * dt, y) * k2, t + 0.75 * dt)
+    y3 = y + _col(dt, y) * (2.0 * k1 + 3.0 * k2 + 4.0 * k3) / 9.0
     k4 = f(y3, t + dt)
-    err = col(dt) * (-5.0 * k1 / 72.0 + k2 / 12.0 + k3 / 9.0 - k4 / 8.0)
+    err = _col(dt, y) * (-5.0 * k1 / 72.0 + k2 / 12.0 + k3 / 9.0 - k4 / 8.0)
     return y3, err, k4
+
+
+def _bs3_step(f, y, t, dt):
+    """The update :func:`_bs32_step` applies on accept, without the
+    embedded pair: its y3 does not involve the FSAL stage, and its k1 is
+    f(y, t), so replaying the accepted steps through this stepper
+    reproduces the adaptive trajectory to roundoff."""
+    k1 = f(y, t)
+    k2 = f(y + _col(0.5 * dt, y) * k1, t + 0.5 * dt)
+    k3 = f(y + _col(0.75 * dt, y) * k2, t + 0.75 * dt)
+    return y + _col(dt, y) * (2.0 * k1 + 3.0 * k2 + 4.0 * k3) / 9.0
+
+
+def integrate_adaptive(
+    rhs: Callable,
+    y0,
+    tstops,
+    rtol: float = 1e-8,
+    atol: float = 1e-8,
+    dt0: Optional[float] = None,
+    max_steps_per_interval: int = 100_000,
+    callback: Optional[Callable] = None,
+    return_stats: bool = False,
+    return_dts: int = 0,
+    record: Optional[dict] = None,
+):
+    """Adaptive BS3(2) integration hitting every tstop exactly.
+
+    Each glacier of the state (its leading axes; a lone (nx, ny) plane is
+    one) has its own time, step, FSAL derivative and counts, and steps
+    while t < t₁ − 1e-12 and its trials in the interval are below
+    ``max_steps_per_interval``. One RHS evaluation serves the whole batch;
+    a glacier that has finished the interval is left bitwise unchanged.
+    The error norm is each glacier's root mean square of
+    err / (atol + rtol·max(|y|, |y3|)) over its plane; a step is accepted
+    at a norm ≤ 1, and the next step is the trial's times
+    clip(0.9·(norm + 1e-16)^(−1/3), 0.2, 5), truncated to land on the
+    interval end. The step carries over from one interval to the next; the
+    first is (t₁ − t₀)/100 of the first interval, or ``dt0``. Times, steps
+    and norms are in the state's dtype. The loop reads one flag from the
+    device per trial step (and one more that ends the interval).
+
+    ``callback(y, t0, t1, interval_idx) -> y`` runs at the end of each save
+    interval (mass balance); the FSAL derivative is then evaluated afresh.
+
+    ``return_stats=True`` also returns the accepted step counts, shape
+    ``(*lead, len(tstops) - 1)``; ``return_dts=cap`` the accepted step
+    lengths, shape ``(*lead, len(tstops) - 1, cap)``, zero past each
+    interval's count, with steps past ``cap`` dropped from the record (not
+    from the solve). ``record``, a dict, receives ``"trials"``: each
+    glacier's trial steps per interval, the shape of the accepted counts.
+
+    ``integrate_adaptive.rhs_evals`` counts the RHS evaluations of the
+    batch and ``integrate_adaptive.host_reads`` the reads of the loop
+    condition, for whoever sets them to 0.
+    """
+    ts = host_tstops(tstops, y0.dtype)
+    npt = ts.dtype.type
+    dev, dtype, lead = y0.device, y0.dtype, y0.shape[:-2]
+    cap = int(return_dts)
+    dt_init = npt(dt0) if dt0 is not None else (ts[1] - ts[0]) / npt(100.0)
+
+    def full(v):
+        return torch.full(lead, float(v), dtype=dtype, device=dev)
+
+    y, t, dt = y0, full(ts[0]), full(dt_init)
+    k1 = rhs(y0, t)
+    integrate_adaptive.rhs_evals += 1
+    traj, naccs, trials, dts = [y0], [], [], []
+    for i in range(len(ts) - 1):
+        t1 = full(ts[i + 1])
+        t_end = t1 - 1e-12
+        it = torch.zeros(lead, dtype=torch.long, device=dev)
+        nacc = torch.zeros_like(it)
+        rec = torch.zeros(lead + (cap,), dtype=dtype, device=dev) if cap else None
+        while True:
+            active = (t < t_end) & (it < max_steps_per_interval)
+            integrate_adaptive.host_reads += 1
+            if not bool(active.any()):
+                break
+            dt_eff = torch.minimum(dt, t1 - t)
+            y3, err, k4 = _bs32_step(rhs, y, t, dt_eff, k1)
+            integrate_adaptive.rhs_evals += 3
+            scale = atol + rtol * torch.maximum(y.abs(), y3.abs())
+            en = torch.sqrt(torch.mean((err / scale) ** 2, dim=(-2, -1)))
+            accept = active & (en <= 1.0)
+            fac = torch.clamp(0.9 * (en + 1e-16) ** (-1.0 / 3.0), 0.2, 5.0)
+            acc = accept.reshape(lead + (1, 1))
+            y = torch.where(acc, y3, y)
+            k1 = torch.where(acc, k4, k1)
+            t = torch.where(accept, t + dt_eff, t)
+            dt = torch.where(active, dt_eff * fac, dt)
+            if rec is not None:
+                # the accepted step at the accepted-count cursor, dropped
+                # past the end of the record
+                at = nacc.clamp(max=cap - 1).unsqueeze(-1)
+                put = (accept & (nacc < cap)).unsqueeze(-1)
+                rec.scatter_(-1, at, torch.where(put, dt_eff.unsqueeze(-1), rec.gather(-1, at)))
+            nacc = nacc + accept.long()
+            it = it + active.long()
+        if callback is not None:
+            y = callback(y, ts[i], ts[i + 1], i)
+            k1 = rhs(y, t1)              # the state jumped: a fresh FSAL derivative
+            integrate_adaptive.rhs_evals += 1
+        traj.append(y)
+        naccs.append(nacc)
+        trials.append(it)
+        if rec is not None:
+            dts.append(rec)
+    traj = torch.stack(traj)
+    if record is not None:
+        record["trials"] = torch.stack(trials, dim=-1)
+    extras = ()
+    if return_stats:
+        extras += (torch.stack(naccs, dim=-1),)
+    if cap:
+        extras += (torch.stack(dts, dim=-2),)
+    return (traj,) + extras if extras else traj
+
+
+integrate_adaptive.rhs_evals = 0
+integrate_adaptive.host_reads = 0
+
+
+def integrate_replay(rhs: Callable, y0, tstops, dts, callback: Optional[Callable] = None):
+    """Replay recorded accepted steps as a fixed, differentiable step
+    sequence: ``dts`` of shape ``(*lead, len(tstops) - 1, cap)`` (numpy or
+    a tensor; the record of :func:`integrate_adaptive`'s ``return_dts``),
+    each glacier stepping by its own column entry through
+    :func:`_bs3_step`. A zero step is the identity for a finite state, so a
+    column that is zero for every glacier is skipped, and the record is
+    read on the host. The trajectory equals the adaptive one to roundoff;
+    its gradient is the exact gradient of that trajectory with the accepted
+    steps held fixed. ``callback`` as in :func:`integrate_scan`."""
+    ts = host_tstops(tstops, y0.dtype)
+    steps = np.asarray(dts.detach().cpu() if isinstance(dts, torch.Tensor) else dts,
+                       dtype=ts.dtype)
+    steps_dev = torch.tensor(steps, device=y0.device)
+    lead = y0.shape[:-2]
+    y, traj = y0, [y0]
+    for i in range(len(ts) - 1):
+        t = torch.full(lead, float(ts[i]), dtype=y0.dtype, device=y0.device)
+        for k in range(steps.shape[-1]):
+            if not steps[..., i, k].any():
+                continue
+            dt = steps_dev[..., i, k]
+            y = _bs3_step(rhs, y, t, dt)
+            t = t + dt
+        if callback is not None:
+            y = callback(y, ts[i], ts[i + 1], i)
+        traj.append(y)
+    return torch.stack(traj)
 
 
 def make_rkc_interval_step(s: int, B, table, eta0, exps):

@@ -154,6 +154,7 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "profile_epoch.py")
     yield os.path.join(REPO, "profile_exchange.py")
+    yield os.path.join(REPO, "profile_tolerance.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
