@@ -36,8 +36,10 @@ Phases, each printed as one JSON line:
    128^2, 2 months): the discrete adjoint of Euler, SSPRK3 and RKC against
    the card's autograd gradient, of SI and SI2 and the continuous adjoint
    against the same function on the CPU in float64, float64 to 1e-9 and
-   float32 within 2x the float32 plain version's own error; the RKC and SI
-   kernels' cluster size and occupancy at 4 and 16 glaciers;
+   float32 within 2x the float32 plain version's own error; the RKC, SI and
+   SI-pullback kernels' cluster size and occupancy at 4 and 16 glaciers (the
+   pullback's also at 2 x 300^2, 3 x 97 x 131 and 2 x 10 x 33, with its
+   tiles);
 4. main path: the forward prediction of 4 Halfar glaciers, 128^2, float32,
    5 years with monthly saves and monthly mass balance, Cuffey–Paterson A(T),
    n = 3, for the rows SI (PCG-6), SI2 (PCG-6), compensated SSPRK3 at 3
@@ -239,13 +241,14 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(fn, reps: int, names=None):
+def device_profile(fn, reps: int, names=None, ms_by_name=False):
     """(device ms, device launches, launches by name) per call of ``fn``
     from the profiler: the summed time and count of the device activities
     (kernels, memsets, copies) it launched, those whose name contains one
-    of ``names`` when given, over ``reps`` calls. (0.0, 0, {}) when the
-    profiler saw no device time. A name is the kernel's own, without its
-    namespaces and template arguments."""
+    of ``names`` when given, over ``reps`` calls; with ``ms_by_name`` also
+    the device ms by name. (0.0, 0, {}) when the profiler saw no device
+    time. A name is the kernel's own, without its namespaces and template
+    arguments."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -254,7 +257,7 @@ def device_profile(fn, reps: int, names=None):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us, count, by_name = 0.0, 0, {}
+    total_us, count, by_name, ms_of = 0.0, 0, {}, {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -264,6 +267,9 @@ def device_profile(fn, reps: int, names=None):
             count += e.count
             short = re.sub(r"\(.*\)$", "", e.key.split("<")[0]).split("::")[-1].strip()
             by_name[short] = by_name.get(short, 0) + e.count / reps
+            ms_of[short] = ms_of.get(short, 0.0) + us / reps / 1e3
+    if ms_by_name:
+        return total_us / reps / 1e3, count / reps, by_name, ms_of
     return total_us / reps / 1e3, count / reps, by_name
 
 
@@ -372,11 +378,12 @@ def si_transpose_bound(n_g, nx, ny, itemsize, cg_iters, precondition=True):
 # diffusivity (32), the four face products and D-bar (24), the two
 # partials, Q, PX, PY and the creep and slide terms (24); per cell the
 # four corners' Q, PX and PY (12), the faces and L_D(w) (21) and the three
-# outputs (6). lambda, H, H_D, B and x read once, dH, dH_D and dB written
-# once, and the two per-glacier sums.
-def si_vjp_bound(n_g, nx, ny, itemsize):
+# outputs (6). Each distinct input plane read once (lambda, H, H_D, B and
+# x: 5 planes, 4 where H_D is H, as in the SI trainings), dH, dH_D and dB
+# written once, and the two per-glacier sums.
+def si_vjp_bound(n_g, nx, ny, itemsize, planes_in=5):
     cells, corners = n_g * nx * ny, n_g * (nx - 1) * (ny - 1)
-    nbytes = 8 * cells * itemsize + n_g * 8 * 8 + 2 * n_g * itemsize
+    nbytes = (planes_in + 3) * cells * itemsize + n_g * 8 * 8 + 2 * n_g * itemsize
     return nbytes, 46 * cells + 80 * corners
 
 
@@ -416,9 +423,9 @@ def bound_ms(nbytes, ops, dtype):
 def ptxas_entry(mangled: str) -> str:
     """A kernel instance's name from its mangled symbol, with its template
     arguments as tags: float32/float64, Glen (fixed exponents) or runtime
-    exponents, the cells a thread owns (K), the pullback's stage mode or
-    the SI kernels' transpose-solve mode and, for those, Jacobi or plain
-    CG."""
+    exponents, the cells a thread owns (K), the pullback's stage mode, the
+    SI kernels' transpose-solve mode and, for those, Jacobi or plain CG, or
+    si_step_vjp's copy route (16-byte or one value a copy)."""
     i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else len(mangled)
     name = mangled
     while i < len(mangled) and mangled[i].isdigit():
@@ -433,7 +440,8 @@ def ptxas_entry(mangled: str) -> str:
         cells = re.search(r"Li(\d+)E", rest)
         flags = re.findall(r"Lb(\d)E", rest)
         tags += [f"K={cells.group(1)}"] if cells else []
-        names = ([("transpose", "forward"), ("jacobi", "plain-cg")] if name.startswith("si_")
+        names = ([("vec16", "scalar")] if name.startswith("si_step_vjp")
+                 else [("transpose", "forward"), ("jacobi", "plain-cg")] if name.startswith("si_")
                  else [("stage", "pullback")])
         tags += [on if f == "1" else off for f, (on, off) in zip(flags, names)]
     return name + ("<" + ",".join(tags) + ">" if tags else "")
@@ -763,16 +771,23 @@ def cluster_report():
     """The RKC and SI kernels' plans: cluster size and
     cudaOccupancyMaxActiveClusters at 8 and 16 blocks, for 4 and 16
     glaciers of 128^2 in both dtypes (and si_step's path at the large-plane
-    check's 300^2)."""
+    check's 300^2); si_step_vjp's also at the other check shapes, with
+    their tiles."""
     from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel
 
     for phase, make_plan in (("rkc_cluster", rkc_kernel.rkc_plan),
-                             ("si_cluster", si_kernel.si_plan)):
+                             ("si_cluster", si_kernel.si_plan),
+                             ("si_vjp_cluster", si_kernel.si_vjp_plan)):
         plans = {}
+        shapes = [(n_g, NX, NY) for n_g in (N_G, N_TRAIN)]
+        if phase == "si_vjp_cluster":
+            shapes += [(2, 300, 300), (3, 97, 131), (2, 10, 33)]
         for dtype in (torch.float32, torch.float64):
-            for n_g in (N_G, N_TRAIN):
-                plan = make_plan(n_g, NX, NY, dtype)
-                plans[f"{dtype} n_g={n_g}"] = {
+            for shape in shapes:
+                plan = make_plan(*shape, dtype)
+                key = (f"n_g={shape[0]}" if shape[1:] == (NX, NY)
+                       else "x".join(map(str, shape)))
+                plans[f"{dtype} {key}"] = {
                     "cluster": plan.layout.cluster,
                     "max_active_clusters": {str(c): n for c, n in plan.max_active.items()},
                     "layout": plan.layout._asdict()}
@@ -1029,11 +1044,12 @@ def time_kernels():
         "si_step_vjp": ("si_step_vjp",
                         lambda f: lambda: f(lamt, Ht, Ht, Bt, xt, derived_t, DT, 1.0, exps),
                         si_kernel.si_step_vjp, si_kernel.si_step_vjp_reference,
-                        si_vjp_bound(N_TRAIN, NX, NY, 4), ("si_step_vjp_kernel",), 50),
+                        si_vjp_bound(N_TRAIN, NX, NY, 4, planes_in=4), ("si_step_vjp_kernel",),
+                        50),
         f"si_step_vjp {N_G}x{NX}x{NY}": (
             "si_step_vjp", lambda f: lambda: f(lam4, H, H, B, x4, derived, DT, 1.0, exps),
             si_kernel.si_step_vjp, si_kernel.si_step_vjp_reference,
-            si_vjp_bound(N_G, NX, NY, 4), ("si_step_vjp_kernel",), 50),
+            si_vjp_bound(N_G, NX, NY, 4, planes_in=4), ("si_step_vjp_kernel",), 50),
         "sia2d_rhs": ("sia2d_rhs", lambda f: lambda: f(H, B, raw, PHYS.rho, PHYS.g, PHYS.eta0),
                       sia_kernel.sia2d_rhs, sia_kernel.sia2d_rhs_reference,
                       sia_bound(N_G, NX, NY, 4), ("sia2d_rhs_kernel",), 50),
@@ -1498,15 +1514,17 @@ def adam_epoch_fn(inv, model, params, tstops):
 
 def epoch_profile(adam_epoch):
     """The epoch's time (CUDA events, median of 5 after a warm-up), device
-    busy time, idle share and device launches, all and by kernel name
-    (profiler, one epoch)."""
+    busy time, idle share and device launches, all and by kernel name, and
+    our kernels' device ms (profiler, one epoch)."""
     epoch_ms = row_ms(adam_epoch, reps=5)
-    busy_ms, launches, by_name = device_profile(adam_epoch, 1)
+    busy_ms, launches, by_name, ms_of = device_profile(adam_epoch, 1, ms_by_name=True)
     return {"adam_epoch_ms": epoch_ms, "adam_epoch_device_busy_ms": busy_ms,
             "adam_epoch_device_idle_share": 1.0 - busy_ms / epoch_ms,
             "adam_epoch_device_launches": launches,
             "adam_epoch_launches_by_kernel": dict(sorted(by_name.items(),
-                                                         key=lambda kv: -kv[1]))}
+                                                         key=lambda kv: -kv[1])),
+            "adam_epoch_kernel_device_ms": {n: ms for n, ms in ms_of.items()
+                                            if n in KERNEL_NAMES}}
 
 
 def training_phase(solver, grad="jax", kind="ude"):

@@ -29,285 +29,638 @@
 //    sum Sbar goes to B and, through relu, to H_D), and d(creep), d(slide)
 //    = sum over corners of Dbar times the two power products.
 //
-// What bounds it on the H100: bytes. Per cell it reads lambda, H, H_D, B
-// and x and writes three planes, 32 bytes in float32, against ~160
-// operations a cell; at 4 x 128^2 a call moves about 2 MB (8 MB at
-// 16 x 128^2), so a launch is latency-bound.
+// What bounds it on the H100: bytes, by count. Per cell it reads lambda, H,
+// H_D, B and x and writes three planes, 32 bytes in float32, against ~160
+// operations a cell: 8 MB at 16 x 128^2 (2.5 us at 3.35 TB/s), 2 MB at
+// 4 x 128^2. At those sizes a launch is a few microseconds, and what it
+// loses is latency and issue: a cluster launch with its barrier and sums
+// costs about 2 us before any work, the tile's bytes arrive over about
+// 2 us, and the arithmetic runs at ~16 warps an SM (a cluster per glacier
+// holds at most 16 blocks, and at 16 glaciers the GPCs hold 16 clusters
+// only at two blocks an SM or more), so each SM works through its ~16 rows
+// with few warps to hide latency (PERF.md; profile_vjp.py).
 //
-// Design (as sia2d_rhs_vjp.cu): 32x8 tiles of cells, 256 threads,
-// blockIdx.z the glacier. A block loads relu(H_D), S, u and w of its tile
-// and a one-cell ring into shared memory once, coalesced. Phase 1: one
-// thread per corner of the tile's 33x9 corner grid forms the corner's D,
-// Dbar and the three numbers a cell takes from it, each corner once per
-// tile that needs it. Phase 2, after one __syncthreads(): each cell gathers
-// its four corners. The exponent set is one per launch, from the host:
-// (5, 2, 4, 2) takes fixed multiplies (GlenExps), any other pow_pos at run
-// time (RuntimeExps). d(creep) and d(slide) in the same launch: each block
-// reduces its own corners in a fixed order (registers, warp shuffles,
-// shared memory), stores the two partials and takes a ticket on its
-// glacier's counter; the last block sums that glacier's partials in block
-// order and resets the counter. No float atomics, so repeated launches are
-// bitwise equal.
+// Design: one thread-block cluster of 8 or 16 blocks per glacier, 256
+// threads a block, chosen by occupancy (ops/cuda/si_kernel.py::si_vjp_plan,
+// si_vjp_layout) and launched through cudaLaunchKernelEx. The plane is cut
+// into tiles of `rows` full-width rows (or, where a row does not fit the
+// shared memory, column chunks of `cols` cells); block `rank` walks tiles
+// rank, rank + cluster, ... Per tile:
+//  - Loads. The block copies its tile and a one-cell ring of lambda, H,
+//    H_D, B and x into shared memory with cp.async, asynchronously: 16-byte
+//    cp.async.cg where a row's byte stride and the planes' addresses are
+//    multiples of 16 (template flag kVec), else one element a copy. Every
+//    copy of the tile is issued before the block waits on any, and where a
+//    block walks more than one tile the copies go into a two-stage ring:
+//    the next tile's copies are issued before this tile computes. Each
+//    input byte is read once, plus the ring rows (1.25x at the 8-row tiles
+//    of 16-block clusters over 128 rows); where H_D is H (the SI
+//    trainings' call) its copy is skipped and H is read in its place.
+//  - Phases, each over all threads in equal shares (within one item), an
+//    item two vertically adjacent rows of one column, which share their
+//    loads and overlap their latencies: (a) each ring cell's u and w, over
+//    the staged planes (x, and H or the uncopied H_D); (b) every corner of
+//    the tile, once, from its cells' relu(H_D), S = B + relu(H_D), u and
+//    w: D, the four
+//    face products, Dbar, and the three numbers a cell takes from it (Q,
+//    PX, PY), with the two power products summed into the thread's
+//    d(creep) and d(slide) for the corners the tile owns (only the corner
+//    row and column shared with the tiles above and to the left are formed
+//    twice); (c) each cell gathers its four corners and stores dH, dH_D and
+//    dB. With the Glen exponents |grad S| enters D only squared, so a
+//    corner takes |grad S|^2 itself, with no square root or division.
+//  - d(creep), d(slide): each block reduces its threads' sums in a fixed
+//    order (warp shuffle trees, then one over the warps' partials) and its
+//    thread 0 stores the two into block 0's slots over distributed shared
+//    memory (st.async, counted on block 0's mbarrier); block 0 waits on its
+//    mbarrier and sums the slots in block order. No global partials, no
+//    fence, no counter; repeated launches are bitwise equal. One split
+//    cluster barrier (arrive at the start, wait before the stores) makes
+//    sure block 0 has started and initialised its mbarrier.
+// The exponent set is one per launch, from the host: (5, 2, 4, 2) takes
+// fixed multiplies (GlenExps), any other pow_pos at run time (RuntimeExps).
+// The table is read in place, in H's dtype or in float64 (cast to H's as
+// the plain version casts it): row g at table + g * table_stride.
+#include <cooperative_groups.h>
+
+#include <type_traits>
+
+#include "cluster_exchange.cuh"
 #include "sia_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using odinn::GlenExps;
 using odinn::Recip;
 using odinn::RuntimeExps;
+using odinn::cluster_arrive_relaxed;
+using odinn::cluster_wait;
+using odinn::mapa;
+using odinn::mbar_init;
+using odinn::mbar_wait;
 using odinn::relu;
+using odinn::smem_u32;
+using odinn::st_async;
 
-constexpr int kTX = 32;            // cells along y (contiguous)
-constexpr int kTY = 8;             // cells along x
-constexpr int kThreads = kTX * kTY;
-constexpr int kRX = kTX + 2;       // the tile with its ring
-constexpr int kRY = kTY + 2;
-constexpr int kCX = kTX + 1;       // the corner grid of the tile
-constexpr int kCY = kTY + 1;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 16;
+static_assert(kWarps <= 32 && kMaxCluster <= 32, "one warp sums the partials");
+// The dynamic shared memory, as si_vjp_layout counts it: the mbarrier
+// (padded to 16 bytes), 2 x 16 slots and 2 x 16 warp partials of T, then
+// `stages` x 5 staged planes of (rows + 2) x pitch values, each 16-byte
+// aligned, then (rows + 1) x (cols + 1) corners of 4 values (D, Q, PX,
+// PY). pitch = cols + 2 * kOff, and shared column m holds the plane's
+// column c0 - kOff + m.
+constexpr int kBarBytes = 16;
+constexpr int kHeadValues = 64;
+constexpr int kPlanes = 5;   // lambda, H, H_D, B, x; after (a) x holds u, and H (or H_D) w
+
+template <typename T>
+constexpr int kOff = 16 / static_cast<int>(sizeof(T));
+
+__host__ __device__ constexpr int align16(int bytes) { return (bytes + 15) & ~15; }
+
+// A corner's D and the three numbers a cell takes from it: Q = Dbar
+// dD/dhbar / 4, PX = Dbar dD/d|gS| gSx/|gS| / (2 dx), PY likewise.
+template <typename T>
+struct alignas(16) Corner {
+  T D, Q, PX, PY;
+};
+// Whether |grad S| enters D only squared (n - 1 = p - 1 = 2, the Glen
+// specialisation): D then takes |grad S|^2 = gSx^2 + gSy^2 itself, and
+// dD/d|grad S| / |grad S| is 2 (slide hbar^e_hs + creep hbar^e_hc), with no
+// square root or division.
+template <class E>
+struct SquaredSlope : std::false_type {};
+template <typename T>
+struct SquaredSlope<GlenExps<T>> : std::true_type {};
 
 template <typename T>
 struct VjpArgs {
   const T *lam, *H, *HD, *B, *x;
-  const T* table;       // (n_g, 4): dx, dy, creep, slide
+  const void* table;    // row g at table + g * table_stride: dx, dy, creep, slide
+  long table_stride;
+  int table_f64;        // the table is float64 (else T)
+  int hd_is_h;          // H_D is H (the same plane): its copy is skipped
   T *dH, *dHD, *dB;
-  T* partial;           // (n_g, 2, blocks per glacier)
-  unsigned* counter;    // (n_g,), zero between launches
   T *dcreep, *dslide;   // (n_g,)
-  int nx, ny;
+  int nx, ny, rows, cols;
   T dt, theta;
 };
 
-// A block's shared memory.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "n"(N)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The glacier's (dx, dy, creep, slide), cast to T, with the spacings as
+// reciprocals.
 template <typename T>
-struct Tile {
-  T sh[kRY][kRX];    // relu(H_D)
-  T ss[kRY][kRX];    // S = B + relu(H_D)
-  T su[kRY][kRX];    // u = B + ring*H + (1-theta)*M*H + theta*M*x
-  T sw[kRY][kRX];    // w = dt*M*lambda
-  T cD[kCY][kCX];    // corner: D
-  T cQ[kCY][kCX];    //   0.25 Dbar dD/dhbar
-  T cPX[kCY][kCX];   //   0.5/dx Dbar dD/d|gS| gSx/|gS|
-  T cPY[kCY][kCX];   //   0.5/dy Dbar dD/d|gS| gSy/|gS|
-  T scratch[2][kWarps];
-  bool last;
+__device__ __forceinline__ Recip<T> table_row(const VjpArgs<T>& p, int g) {
+  if (p.table_f64) {
+    const double* row = static_cast<const double*>(p.table) + p.table_stride * g;
+    return Recip<T>{T(1) / static_cast<T>(row[0]), T(1) / static_cast<T>(row[1]),
+                    static_cast<T>(row[2]), static_cast<T>(row[3])};
+  }
+  return odinn::recip_row(static_cast<const T*>(p.table) + p.table_stride * g);
+}
+
+// The corner formed from the four cells 00 = (a, c), 10 = (a+1, c), 01 =
+// (a, c+1), 11 = (a+1, c+1) with relu(H_D) h, S s, u and w: its D, Q, PX
+// and PY, and its terms of d(creep) and d(slide).
+template <typename T>
+struct CornerTerms {
+  Corner<T> v;
+  T creep, slide;
+};
+template <typename T, class E>
+__device__ __forceinline__ CornerTerms<T> form_corner(T h00, T h10, T h01, T h11, T s00, T s10,
+                                                      T s01, T s11, T u00, T u10, T u01, T u11,
+                                                      T w00, T w10, T w01, T w11,
+                                                      const Recip<T>& k, const E& e) {
+  const T gsx = T(0.5) * ((s10 - s00) * k.inv_dx + (s11 - s01) * k.inv_dx);
+  const T gsy = T(0.5) * ((s01 - s00) * k.inv_dy + (s11 - s10) * k.inv_dy);
+  const T sq = gsx * gsx + gsy * gsy;
+  const T hb = T(0.25) * (h00 + h10 + h01 + h11);
+  const T ph_s = e.hs(hb), ph_c = e.hc(hb);
+  // the two x-faces (columns c, c+1) and the two y-faces (rows a, a+1)
+  // that average this corner
+  auto G = [](T u0, T u1, T w0, T w1, T inv) { return ((u1 - u0) * inv) * ((w1 - w0) * inv); };
+  const T gx = G(u00, u10, w00, w10, k.inv_dx) + G(u01, u11, w01, w11, k.inv_dx);
+  const T gy = G(u00, u01, w00, w01, k.inv_dy) + G(u10, u11, w10, w11, k.inv_dy);
+  const T Db = T(-0.5) * gx - T(0.5) * gy;
+  // |grad S|'s powers, and gg = Dbar dD/d|grad S| / |grad S|
+  T pg_s, pg_c, gg;
+  if (SquaredSlope<E>::value) {
+    pg_s = pg_c = sq;
+    gg = Db * (T(2) * (k.slide * ph_s + k.creep * ph_c));
+  } else {
+    const T gn = sq > T(0) ? sqrt(sq) : T(0);
+    pg_s = e.ss(gn);
+    pg_c = e.sc(gn);
+    const T dD_dgn = k.slide * ph_s * e.d_ss(gn) + k.creep * ph_c * e.d_sc(gn);
+    gg = gn > T(0) ? Db * dD_dgn / gn : T(0);
+  }
+  const T dD_dhb = k.slide * e.d_hs(hb) * pg_s + k.creep * e.d_hc(hb) * pg_c;
+  CornerTerms<T> t;
+  t.v.D = k.slide * ph_s * pg_s + k.creep * ph_c * pg_c;
+  t.v.Q = T(0.25) * (Db * dD_dhb);
+  t.v.PX = T(0.5) * (gg * gsx) * k.inv_dx;
+  t.v.PY = T(0.5) * (gg * gsy) * k.inv_dy;
+  t.creep = Db * (ph_c * pg_c);
+  t.slide = Db * (ph_s * pg_s);
+  return t;
+}
+
+// A cell's ubar = L_D(w) and Sbar from its four corners (00 = upper left
+// ... 11 = lower right), w at the cell (c) and its four neighbours.
+template <typename T>
+struct CellTerms {
+  T ubar, sbar, q;
+};
+template <typename T>
+__device__ __forceinline__ CellTerms<T> gather_cell(const Corner<T>& k00, const Corner<T>& k01,
+                                                    const Corner<T>& k10, const Corner<T>& k11,
+                                                    T wc, T wxp, T wxm, T wyp, T wym,
+                                                    const Recip<T>& k) {
+  CellTerms<T> t;
+  t.q = ((k00.Q + k01.Q) + k10.Q) + k11.Q;
+  t.sbar = (((k00.PX + k00.PY) + (k01.PX - k01.PY)) + (-k10.PX + k10.PY)) + (-k11.PX - k11.PY);
+  const T xe = T(0.5) * (k10.D + k11.D), xw = T(0.5) * (k00.D + k01.D);
+  const T yn = T(0.5) * (k01.D + k11.D), ys = T(0.5) * (k00.D + k10.D);
+  const T fxp = xe * ((wxp - wc) * k.inv_dx);
+  const T fxm = xw * ((wc - wxm) * k.inv_dx);
+  const T fyp = yn * ((wyp - wc) * k.inv_dy);
+  const T fym = ys * ((wc - wym) * k.inv_dy);
+  t.ubar = (fxp - fxm) * k.inv_dx + (fyp - fym) * k.inv_dy;
+  return t;
+}
+
+// The sum of v over a warp's 32 lanes by a fixed shuffle tree, valid in
+// lane 0: the same inputs give the same bits.
+template <typename T>
+__device__ __forceinline__ T warp_tree(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The items start, start + kThreads, ... of a grid `width` wide, walked as
+// (row r, column c) and the index i = r * stride + c, with no division per
+// step.
+struct Walk {
+  int r, c, i, dr, dc, di, w, wrap;
+  __device__ __forceinline__ Walk(int start, int width, int stride) : w(width) {
+    r = start / width;
+    c = start - r * width;
+    i = r * stride + c;
+    dr = kThreads / width;
+    dc = kThreads - dr * width;
+    di = dr * stride + dc;
+    wrap = stride - width;
+  }
+  __device__ __forceinline__ void next() {
+    r += dr;
+    c += dc;
+    i += di;
+    if (c >= w) {
+      c -= w;
+      ++r;
+      i += wrap;
+    }
+  }
 };
 
-// The block's sums of a and b in a fixed order, valid in thread 0.
-template <typename T>
-__device__ __forceinline__ void block_sum2(T& a, T& b, T (*scratch)[kWarps], int tid) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    a += __shfl_down_sync(0xffffffffu, a, o);
-    b += __shfl_down_sync(0xffffffffu, b, o);
-  }
-  if ((tid & 31) == 0) {
-    scratch[0][tid >> 5] = a;
-    scratch[1][tid >> 5] = b;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    a = b = T(0);
-    for (int w = 0; w < kWarps; ++w) {
-      a += scratch[0][w];
-      b += scratch[1][w];
-    }
-  }
+__device__ __forceinline__ bool below(int v, int n) {   // 0 <= v < n
+  return static_cast<unsigned>(v) < static_cast<unsigned>(n);
 }
 
-template <typename T, class E>
-__global__ void __launch_bounds__(kThreads) si_step_vjp_kernel(VjpArgs<T> p, E e) {
-  __shared__ Tile<T> t;
-  const int nx = p.nx, ny = p.ny;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTX + tx;
-  const int i0 = blockIdx.y * kTY, j0 = blockIdx.x * kTX;
-  const int g = blockIdx.z;
+template <typename T, class E, bool kVec>
+__global__ void __launch_bounds__(kThreads, 3) si_step_vjp_kernel(VjpArgs<T> p, E e) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const unsigned bar = smem_u32(smem);
+  T* slots = reinterpret_cast<T*>(smem + kBarBytes);   // [2][kMaxCluster], block 0's
+  T* warp_part = slots + 2 * kMaxCluster;              // [2][kWarps]
+  if (rank == 0 && tid == 0) {
+    mbar_init(bar);
+    odinn::mbar_init_fence();
+    // the phase completes when the cluster's 2 x csize values have landed
+    odinn::mbar_expect(bar, 2 * csize * static_cast<int>(sizeof(T)));
+  }
+  cluster_arrive_relaxed();   // this block has started; waited on before the stores
+
+  constexpr int O = kOff<T>;
+  const int nx = p.nx, ny = p.ny, R = p.rows, C = p.cols;
+  const int pitch = C + 2 * O;
+  const int g = blockIdx.x / csize;
   const long off = static_cast<long>(g) * nx * ny;
-  const Recip<T> k = odinn::recip_row(p.table + 4L * g);
-  const T one_minus_theta = T(1) - p.theta;
+  const int ntc = (ny + C - 1) / C;
+  const int ntiles = ((nx + R - 1) / R) * ntc;
+  const bool two_stages = (ntiles + csize - 1) / csize > 1;
+  const int plane_vals = align16((R + 2) * pitch * static_cast<int>(sizeof(T))) /
+                         static_cast<int>(sizeof(T));
+  T* const staged = reinterpret_cast<T*>(smem + kBarBytes) + kHeadValues;
+  Corner<T>* const corners =
+      reinterpret_cast<Corner<T>*>(staged + (two_stages ? 2 : 1) * kPlanes * plane_vals);
 
-  for (int idx = tid; idx < kRY * kRX; idx += kThreads) {
-    const int r = idx / kRX, c = idx - r * kRX;
-    const int ii = i0 - 1 + r, jj = j0 - 1 + c;
-    const bool in = ii >= 0 && ii < nx && jj >= 0 && jj < ny;
-    const bool interior = ii >= 1 && ii < nx - 1 && jj >= 1 && jj < ny - 1;
-    const long gi = off + static_cast<long>(ii) * ny + jj;
-    const T h = in ? relu(p.HD[gi]) : T(0);
-    t.sh[r][c] = h;
-    t.ss[r][c] = in ? p.B[gi] + h : T(0);
-    T u = T(0);
-    if (interior) {
-      u = p.B[gi] + one_minus_theta * p.H[gi] + p.theta * p.x[gi];
-    } else if (in) {
-      u = p.B[gi] + p.H[gi];
+  // the copies of tile `tile` into stage `s`, one commit group: shared
+  // (kr, m) is the plane's cell (r0 - 1 + kr, c0 - O + m)
+  auto issue = [&](int tile, int s) {
+    const int r0 = (tile / ntc) * R, c0 = (tile % ntc) * C;
+    T* const dst = staged + s * kPlanes * plane_vals;
+    const long base = off + static_cast<long>(r0 - 1) * ny + (c0 - O);
+    auto copy = [&](int kr, int m, int si) {
+      if (!below(r0 - 1 + kr, nx) || !below(c0 - O + m, ny)) return;
+      const long gi = base + static_cast<long>(kr) * ny + m;
+      T* const d = dst + si;
+      if (kVec) {
+        cp_async16(d, p.lam + gi);
+        cp_async16(d + plane_vals, p.H + gi);
+        if (!p.hd_is_h) cp_async16(d + 2 * plane_vals, p.HD + gi);
+        cp_async16(d + 3 * plane_vals, p.B + gi);
+        cp_async16(d + 4 * plane_vals, p.x + gi);
+      } else {
+        cp_async_ca<sizeof(T)>(d, p.lam + gi);
+        cp_async_ca<sizeof(T)>(d + plane_vals, p.H + gi);
+        if (!p.hd_is_h) cp_async_ca<sizeof(T)>(d + 2 * plane_vals, p.HD + gi);
+        cp_async_ca<sizeof(T)>(d + 3 * plane_vals, p.B + gi);
+        cp_async_ca<sizeof(T)>(d + 4 * plane_vals, p.x + gi);
+      }
+    };
+    if (kVec) {   // 16-byte vectors: the tile's rows whole, ring and padding
+      for (Walk it(tid, pitch / O, pitch / O); it.r < R + 2; it.next()) {
+        copy(it.r, it.c * O, it.r * pitch + it.c * O);
+      }
+    } else {      // one value a copy: the tile's columns and its ring
+      for (Walk it(tid, C + 2, pitch); it.r < R + 2; it.next()) {
+        copy(it.r, O - 1 + it.c, it.i + O - 1);
+      }
     }
-    t.su[r][c] = u;
-    t.sw[r][c] = interior ? p.dt * p.lam[gi] : T(0);
-  }
-  __syncthreads();
+    cp_async_commit();
+  };
 
-  // phase 1: grid point (lr, lc) is the corner (i0-1+lr, j0-1+lc), formed
-  // from ring cells (lr..lr+1, lc..lc+1)
   T creep_part = T(0), slide_part = T(0);
-  for (int idx = tid; idx < kCY * kCX; idx += kThreads) {
-    const int lr = idx / kCX, lc = idx - lr * kCX;
-    const int a = i0 - 1 + lr, c = j0 - 1 + lc;
-    T D = T(0), Q = T(0), PX = T(0), PY = T(0);
-    if (a >= 0 && a <= nx - 2 && c >= 0 && c <= ny - 2) {
-      const T h00 = t.sh[lr][lc], h10 = t.sh[lr + 1][lc];
-      const T h01 = t.sh[lr][lc + 1], h11 = t.sh[lr + 1][lc + 1];
-      const T s00 = t.ss[lr][lc], s10 = t.ss[lr + 1][lc];
-      const T s01 = t.ss[lr][lc + 1], s11 = t.ss[lr + 1][lc + 1];
-      const T gsx = T(0.5) * ((s10 - s00) * k.inv_dx + (s11 - s01) * k.inv_dx);
-      const T gsy = T(0.5) * ((s01 - s00) * k.inv_dy + (s11 - s10) * k.inv_dy);
-      const T sq = gsx * gsx + gsy * gsy;
-      const T gn = sq > T(0) ? sqrt(sq) : T(0);
-      const T hb = T(0.25) * (h00 + h10 + h01 + h11);
-      const T ph_s = e.hs(hb), pg_s = e.ss(gn);
-      const T ph_c = e.hc(hb), pg_c = e.sc(gn);
-      D = k.slide * ph_s * pg_s + k.creep * ph_c * pg_c;
-      // the two x-faces (columns c, c+1) and the two y-faces (rows a, a+1)
-      // that average this corner
-      auto G = [&](int r0, int c0, int r1, int c1, T inv) {
-        return ((t.su[r1][c1] - t.su[r0][c0]) * inv) * ((t.sw[r1][c1] - t.sw[r0][c0]) * inv);
-      };
-      const T gx = G(lr, lc, lr + 1, lc, k.inv_dx) + G(lr, lc + 1, lr + 1, lc + 1, k.inv_dx);
-      const T gy = G(lr, lc, lr, lc + 1, k.inv_dy) + G(lr + 1, lc, lr + 1, lc + 1, k.inv_dy);
-      const T Db = T(-0.5) * gx - T(0.5) * gy;
-      if (lr >= 1 && lc >= 1) {   // the tile's own corners
-        creep_part += Db * (ph_c * pg_c);
-        slide_part += Db * (ph_s * pg_s);
-      }
-      const T dD_dhb = k.slide * e.d_hs(hb) * pg_s + k.creep * e.d_hc(hb) * pg_c;
-      const T dD_dgn = k.slide * ph_s * e.d_ss(gn) + k.creep * ph_c * e.d_sc(gn);
-      Q = T(0.25) * (Db * dD_dhb);
-      if (gn > T(0)) {
-        const T gg = Db * dD_dgn / gn;
-        PX = T(0.5) * (gg * gsx) * k.inv_dx;
-        PY = T(0.5) * (gg * gsy) * k.inv_dy;
+  if (rank < ntiles) issue(rank, 0);
+  // read while the first tile's copies are in flight
+  const Recip<T> k = table_row<T>(p, g);
+  const T dt = p.dt, theta = p.theta, one_minus_theta = T(1) - p.theta;
+  int s = 0;
+  for (int tile = rank; tile < ntiles; tile += csize, s ^= 1) {
+    if (tile + csize < ntiles) {
+      issue(tile + csize, s ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int r0 = (tile / ntc) * R, c0 = (tile % ntc) * C;
+    T* const sl = staged + s * kPlanes * plane_vals;   // lambda
+    T* const sH = sl + plane_vals;                     // H
+    T* const sD = sH + plane_vals;                     // H_D
+    T* const sB = sD + plane_vals;                     // B
+    T* const sx = sB + plane_vals;                     // x
+    // relu(H_D) is read from H_D, or from H where H_D is H (its copy was
+    // skipped); (a) writes u over x, and w over the plane it no longer
+    // needs (H, or the H_D never copied)
+    const T* const hsrc = p.hd_is_h ? sH : sD;
+    T* const su = sx;
+    T* const sw = p.hd_is_h ? sD : sH;
+
+    // Each thread takes items of two vertically adjacent rows, which share
+    // loads and overlap their latencies; a second row past the grid is
+    // formed from rows the grid has and discarded.
+
+    // (a) the ring cell (kr, O - 1 + c) of shared memory, the plane's cell
+    // (r0 - 1 + kr, c0 - 1 + c): u = B + ring*H + (1-theta)*M*H + theta*M*x
+    // and w = dt*M*lambda, zero off the plane. Off the plane the staged
+    // values were never copied: they are read and discarded (relu(H_D) and
+    // S are formed where (b) needs them, on the plane).
+    auto transform = [&](int kr, int c, T& u, T& w) {
+      const int gr = r0 - 1 + kr, gc = c0 - 1 + c, si = kr * pitch + O - 1 + c;
+      const bool in = below(gr, nx) && below(gc, ny);
+      const bool interior = below(gr - 1, nx - 2) && below(gc - 1, ny - 2);
+      const T b = sB[si], hh = sH[si], xx = sx[si], lam = sl[si];
+      const T ui = interior ? b + one_minus_theta * hh + theta * xx : b + hh;
+      u = in ? ui : T(0);
+      w = interior ? dt * lam : T(0);
+    };
+    for (Walk it(tid, C + 2, C + 2); it.r < (R + 3) / 2; it.next()) {
+      const int kr = 2 * it.r, kr2 = min(kr + 1, R + 1);
+      T u0, w0, u1, w1;
+      transform(kr, it.c, u0, w0);
+      transform(kr2, it.c, u1, w1);
+      const int si = kr * pitch + O - 1 + it.c;
+      su[si] = u0;
+      sw[si] = w0;
+      if (kr + 1 <= R + 1) {
+        su[si + pitch] = u1;
+        sw[si + pitch] = w1;
       }
     }
-    t.cD[lr][lc] = D;
-    t.cQ[lr][lc] = Q;
-    t.cPX[lr][lc] = PX;
-    t.cPY[lr][lc] = PY;
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // phase 2: cell (i, j) = (i0+ty, j0+tx); its corners are grid points
-  // (ty+ca, tx+cc), and the cell sits at the + end of a corner's slopes
-  // when ca = 0 (x) or cc = 0 (y)
-  const int i = i0 + ty, j = j0 + tx;
-  if (i < nx && j < ny) {
-    T q = T(0), sbar = T(0);
-#pragma unroll
-    for (int ca = 0; ca < 2; ++ca) {
-#pragma unroll
-      for (int cc = 0; cc < 2; ++cc) {
-        q += t.cQ[ty + ca][tx + cc];
-        const T px = t.cPX[ty + ca][tx + cc], py = t.cPY[ty + ca][tx + cc];
-        sbar += (ca == 0 ? px : -px) + (cc == 0 ? py : -py);
+    // (b) corner (lr, lc) is the plane's corner (r0 - 1 + lr, c0 - 1 + lc),
+    // formed from the cells (lr .. lr+1, O-1+lc .. O+lc) in shared memory;
+    // the tile owns those with lr, lc >= 1, and sums their two power
+    // products into the thread's d(creep) and d(slide). Corners off the
+    // plane are formed from the zeros and discarded.
+    for (Walk it(tid, C + 1, C + 1); it.r < (R + 2) / 2; it.next()) {
+      const int lr = 2 * it.r, lc = it.c;
+      const bool second = lr + 1 <= R;
+      // cell rows lr, lr+1, lr+2 (the last clamped to the staged rows)
+      const int i0 = lr * pitch + O - 1 + lc, i1 = i0 + pitch;
+      const int i2 = second ? i1 + pitch : i1;
+      // relu(H_D) and S = B + relu(H_D) of the six cells
+      const T h0a = relu(hsrc[i0]), h0b = relu(hsrc[i0 + 1]), h1a = relu(hsrc[i1]);
+      const T h1b = relu(hsrc[i1 + 1]), h2a = relu(hsrc[i2]), h2b = relu(hsrc[i2 + 1]);
+      const T s0a = sB[i0] + h0a, s0b = sB[i0 + 1] + h0b, s1a = sB[i1] + h1a;
+      const T s1b = sB[i1 + 1] + h1b, s2a = sB[i2] + h2a, s2b = sB[i2 + 1] + h2b;
+      const T u0a = su[i0], u0b = su[i0 + 1], u1a = su[i1], u1b = su[i1 + 1];
+      const T u2a = su[i2], u2b = su[i2 + 1];
+      const T w0a = sw[i0], w0b = sw[i0 + 1], w1a = sw[i1], w1b = sw[i1 + 1];
+      const T w2a = sw[i2], w2b = sw[i2 + 1];
+      const CornerTerms<T> t0 = form_corner(h0a, h1a, h0b, h1b, s0a, s1a, s0b, s1b, u0a, u1a,
+                                            u0b, u1b, w0a, w1a, w0b, w1b, k, e);
+      const CornerTerms<T> t1 = form_corner(h1a, h2a, h1b, h2b, s1a, s2a, s1b, s2b, u1a, u2a,
+                                            u1b, u2b, w1a, w2a, w1b, w2b, k, e);
+      const int a = r0 - 1 + lr, c = c0 - 1 + lc;
+      const bool col_on = below(c, ny - 1), col_own = col_on && lc >= 1;
+      const bool on0 = col_on && below(a, nx - 1), on1 = col_on && below(a + 1, nx - 1);
+      const Corner<T> zero{T(0), T(0), T(0), T(0)};
+      const int ci = lr * (C + 1) + lc;
+      corners[ci] = on0 ? t0.v : zero;
+      if (on0 && col_own && lr >= 1) {
+        creep_part += t0.creep;
+        slide_part += t0.slide;
+      }
+      if (second) {
+        corners[ci + C + 1] = on1 ? t1.v : zero;
+        if (on1 && col_own) {
+          creep_part += t1.creep;
+          slide_part += t1.slide;
+        }
       }
     }
-    const T d00 = t.cD[ty][tx], d01 = t.cD[ty][tx + 1];
-    const T d10 = t.cD[ty + 1][tx], d11 = t.cD[ty + 1][tx + 1];
-    const T xe = T(0.5) * (d10 + d11), xw = T(0.5) * (d00 + d01);
-    const T yn = T(0.5) * (d01 + d11), ys = T(0.5) * (d00 + d10);
-    const T wc = t.sw[ty + 1][tx + 1];
-    const T fxp = xe * ((t.sw[ty + 2][tx + 1] - wc) * k.inv_dx);
-    const T fxm = xw * ((wc - t.sw[ty][tx + 1]) * k.inv_dx);
-    const T fyp = yn * ((t.sw[ty + 1][tx + 2] - wc) * k.inv_dy);
-    const T fym = ys * ((wc - t.sw[ty + 1][tx]) * k.inv_dy);
-    const T ubar = (fxp - fxm) * k.inv_dx + (fyp - fym) * k.inv_dy;
-    const bool ring = i == 0 || j == 0 || i == nx - 1 || j == ny - 1;
-    const long gi = off + static_cast<long>(i) * ny + j;
-    p.dH[gi] = p.lam[gi] + ubar * (ring ? T(1) : one_minus_theta);
-    p.dB[gi] = ubar + sbar;
-    p.dHD[gi] = t.sh[ty + 1][tx + 1] > T(0) ? q + sbar : T(0);
+    __syncthreads();
+
+    // (c) tile cell (li, lj) is the plane's cell (r0 + li, c0 + lj); its
+    // corners are (li + ca, lj + cc), and it sits at the + end of a
+    // corner's slopes when ca = 0 (x) or cc = 0 (y)
+    const long tile_base = off + static_cast<long>(r0) * ny + c0;
+    for (Walk it(tid, C, C); it.r < (R + 1) / 2; it.next()) {
+      const int li = 2 * it.r, lj = it.c;
+      const bool second = li + 1 < R;
+      // corner rows li, li+1, li+2 (the last clamped to the corner rows)
+      const int c0i = li * (C + 1) + lj, c1i = c0i + C + 1;
+      const int c2i = second ? c1i + C + 1 : c1i;
+      const Corner<T> k0a = corners[c0i], k0b = corners[c0i + 1];
+      const Corner<T> k1a = corners[c1i], k1b = corners[c1i + 1];
+      const Corner<T> k2a = corners[c2i], k2b = corners[c2i + 1];
+      // w in column O + lj at rows li .. li+3, and beside the two cells
+      const int si = (li + 1) * pitch + O + lj;
+      const int s3 = second ? si + 2 * pitch : si + pitch;
+      const T wm = sw[si - pitch], wa = sw[si], wb = sw[si + pitch], wp = sw[s3];
+      const T wa_l = sw[si - 1], wa_r = sw[si + 1];
+      const T wb_l = sw[si + pitch - 1], wb_r = sw[si + pitch + 1];
+      const CellTerms<T> ta = gather_cell(k0a, k0b, k1a, k1b, wa, wb, wm, wa_r, wa_l, k);
+      const CellTerms<T> tb = gather_cell(k1a, k1b, k2a, k2b, wb, wp, wa, wb_r, wb_l, k);
+      const int i = r0 + li, j = c0 + lj;
+      if (j >= ny || i >= nx) continue;
+      const bool ring_col = j == 0 || j == ny - 1;
+      const long gi = tile_base + (li * ny + lj);
+      const bool ring_a = ring_col || i == 0 || i == nx - 1;
+      p.dH[gi] = sl[si] + ta.ubar * (ring_a ? T(1) : one_minus_theta);
+      p.dB[gi] = ta.ubar + ta.sbar;
+      p.dHD[gi] = hsrc[si] > T(0) ? ta.q + ta.sbar : T(0);
+      if (second && i + 1 < nx) {
+        const bool ring_b = ring_col || i + 1 == nx - 1;
+        p.dH[gi + ny] = sl[si + pitch] + tb.ubar * (ring_b ? T(1) : one_minus_theta);
+        p.dB[gi + ny] = tb.ubar + tb.sbar;
+        p.dHD[gi + ny] = hsrc[si + pitch] > T(0) ? tb.q + tb.sbar : T(0);
+      }
+    }
+    // every thread is done with this stage and the corner arrays before
+    // the next tile's copies or corners overwrite them
+    __syncthreads();
   }
 
-  // d(creep), d(slide): the block's partials, then the glacier's last block
-  // sums the partials in block order
-  block_sum2(creep_part, slide_part, t.scratch, tid);
-  const unsigned nblk = gridDim.x * gridDim.y;
-  T* partial = p.partial + 2L * g * nblk;
-  if (tid == 0) {
-    const unsigned b = blockIdx.y * gridDim.x + blockIdx.x;
-    partial[b] = creep_part;
-    partial[nblk + b] = slide_part;
-    __threadfence();
-    t.last = atomicAdd(p.counter + g, 1u) == nblk - 1;
+  // d(creep), d(slide): the block's sums in a fixed order (each warp's
+  // shuffle tree, then warp 0's over the warps' partials), into block 0's
+  // slot `rank`; block 0's warp 0 sums the slots in block order, again by a
+  // shuffle tree
+  creep_part = warp_tree(creep_part);
+  slide_part = warp_tree(slide_part);
+  const int lane = tid & 31;
+  if (lane == 0) {
+    warp_part[tid >> 5] = creep_part;
+    warp_part[kWarps + (tid >> 5)] = slide_part;
   }
   __syncthreads();
-  if (!t.last) return;
-  __threadfence();
-  T vc = T(0), vs = T(0);
-  for (unsigned b = tid; b < nblk; b += kThreads) {
-    vc += __ldcg(partial + b);
-    vs += __ldcg(partial + nblk + b);
-  }
-  block_sum2(vc, vs, t.scratch, tid);
-  if (tid == 0) {
-    p.dcreep[g] = vc;
-    p.dslide[g] = vs;
-    p.counter[g] = 0u;
+  cluster_wait();   // every block has started: block 0's mbarrier is armed
+  if (tid < 32) {
+    const T c = warp_tree(lane < kWarps ? warp_part[lane] : T(0));
+    const T sl = warp_tree(lane < kWarps ? warp_part[kWarps + lane] : T(0));
+    if (lane == 0) {
+      const unsigned bar0 = mapa(bar, 0);
+      st_async(mapa(smem_u32(slots + rank), 0), c, bar0);
+      st_async(mapa(smem_u32(slots + kMaxCluster + rank), 0), sl, bar0);
+    }
+    if (rank == 0) {
+      mbar_wait(bar, 0);
+      const T dc = warp_tree(lane < csize ? slots[lane] : T(0));
+      const T ds = warp_tree(lane < csize ? slots[kMaxCluster + lane] : T(0));
+      if (lane == 0) {
+        p.dcreep[g] = dc;
+        p.dslide[g] = ds;
+      }
+    }
   }
 }
 
-template <typename T>
-int pullback(const VjpArgs<T>& a, int n_g, int glen, double e_hc, double e_sc, double e_hs,
-             double e_ss, void* stream) {
-  const dim3 block(kTX, kTY);
-  const dim3 grid((a.ny + kTX - 1) / kTX, (a.nx + kTY - 1) / kTY, n_g);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (glen) {
-    si_step_vjp_kernel<T, GlenExps<T>><<<grid, block, 0, s>>>(a, GlenExps<T>{});
-  } else {
-    si_step_vjp_kernel<T, RuntimeExps<T>><<<grid, block, 0, s>>>(
-        a, RuntimeExps<T>{static_cast<T>(e_hc), static_cast<T>(e_sc), static_cast<T>(e_hs),
-                          static_cast<T>(e_ss)});
+// Once per instantiation: the opt-in shared memory as dynamic (the kernel
+// has no static shared memory), and the non-portable cluster size of 16.
+template <typename T, class E, bool kVec>
+int prepare() {
+  static int state = -1;
+  if (state < 0) {
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(si_step_vjp_kernel<T, E, kVec>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(si_step_vjp_kernel<T, E, kVec>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    state = 0;
   }
+  return state;
+}
+
+cudaLaunchConfig_t config(int n_g, int cluster, int smem, cudaLaunchAttribute* attr,
+                          cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_g * cluster, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename T, class E, bool kVec>
+int launch(const VjpArgs<T>& a, E e, int n_g, int cluster, int smem, void* stream) {
+  const int ready = prepare<T, E, kVec>();
+  if (ready != 0) return ready;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(n_g, cluster, smem, &attr,
+                                        static_cast<cudaStream_t>(stream));
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, si_step_vjp_kernel<T, E, kVec>, a, e);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Call f(e, vec) with the launch's exponent set e (the (5, 2, 4, 2)
+// specialisation when `glen` != 0, else e_* at run time) and copy route.
+template <typename T, class F>
+int dispatch(int glen, int vec, double e_hc, double e_sc, double e_hs, double e_ss, F&& f) {
+  const RuntimeExps<T> rt{static_cast<T>(e_hc), static_cast<T>(e_sc), static_cast<T>(e_hs),
+                          static_cast<T>(e_ss)};
+  if (glen) {
+    return vec ? f(GlenExps<T>{}, std::true_type{}) : f(GlenExps<T>{}, std::false_type{});
+  }
+  return vec ? f(rt, std::true_type{}) : f(rt, std::false_type{});
+}
+
 template <typename T>
-int run(const T* lam, const T* H, const T* HD, const T* B, const T* x, const T* table, T* dH,
-        T* dHD, T* dB, T* partial, unsigned* counter, T* dcreep, T* dslide, int n_g, int nx,
-        int ny, double dt, double theta, int glen, double e_hc, double e_sc, double e_hs,
-        double e_ss, void* stream) {
-  const VjpArgs<T> a{lam, H, HD, B, x, table, dH, dHD, dB, partial, counter, dcreep, dslide,
-                     nx, ny, static_cast<T>(dt), static_cast<T>(theta)};
-  return pullback(a, n_g, glen, e_hc, e_sc, e_hs, e_ss, stream);
+int run(const T* lam, const T* H, const T* HD, const T* B, const T* x, const void* table,
+        long table_stride, int table_f64, T* dH, T* dHD, T* dB, T* dcreep, T* dslide, int n_g, int nx, int ny,
+        double dt, double theta, int glen, double e_hc, double e_sc, double e_hs, double e_ss,
+        int cluster, int rows, int cols, int smem, int vec, void* stream) {
+  const VjpArgs<T> a{lam, H, HD, B, x, table, table_stride, table_f64, HD == H ? 1 : 0,
+                     dH, dHD, dB, dcreep, dslide, nx, ny, rows, cols, static_cast<T>(dt),
+                     static_cast<T>(theta)};
+  return dispatch<T>(glen, vec, e_hc, e_sc, e_hs, e_ss, [&](auto e, auto v) {
+    return launch<T, decltype(e), decltype(v)::value>(a, e, n_g, cluster, smem, stream);
+  });
+}
+
+template <typename T>
+int occupancy(int glen, int vec, int cluster, int smem, int* active) {
+  return dispatch<T>(glen, vec, 0.0, 0.0, 0.0, 0.0, [&](auto e, auto v) {
+    constexpr bool kVec = decltype(v)::value;
+    const int ready = prepare<T, decltype(e), kVec>();
+    if (ready != 0) return ready;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = config(1, cluster, smem, &attr, nullptr);
+    return static_cast<int>(
+        cudaOccupancyMaxActiveClusters(active, si_step_vjp_kernel<T, decltype(e), kVec>, &cfg));
+  });
 }
 
 }  // namespace
 
-// The wrapper allocates `partial` with 2 * si_step_vjp_partials(nx, ny)
-// values per glacier and keeps `counter` (n_g unsigned ints) zeroed once;
-// each launch leaves it zero.
-extern "C" int si_step_vjp_partials(int nx, int ny) {
-  return ((ny + kTX - 1) / kTX) * ((nx + kTY - 1) / kTY);
-}
-
-// `table` is the (n_g, 4) table (dx, dy, creep, slide); `glen` != 0 takes
-// the (5, 2, 4, 2) specialisation and ignores e_*.
+// The pullback. `table` holds row g at table + g * table_stride (dx, dy,
+// creep, slide first), in float64 when `table_f64` != 0, else in the
+// planes' dtype; `glen` != 0 takes the (5, 2, 4, 2) specialisation
+// and ignores e_*; `cluster`, `rows`, `cols` and `smem` are the wrapper's
+// layout (si_vjp_layout); `vec` != 0 takes the 16-byte copies, which need
+// ny * sizeof(T) and every plane's address to be multiples of 16.
 extern "C" int si_step_vjp_f32(const float* lam, const float* H, const float* HD,
-                               const float* B, const float* x, const float* table, float* dH,
-                               float* dHD, float* dB, float* partial, unsigned* counter,
+                               const float* B, const float* x, const void* table,
+                               long table_stride, int table_f64, float* dH, float* dHD, float* dB,
                                float* dcreep, float* dslide, int n_g, int nx, int ny, double dt,
                                double theta, int glen, double e_hc, double e_sc, double e_hs,
-                               double e_ss, void* stream) {
-  return run<float>(lam, H, HD, B, x, table, dH, dHD, dB, partial, counter, dcreep, dslide, n_g,
-                    nx, ny, dt, theta, glen, e_hc, e_sc, e_hs, e_ss, stream);
+                               double e_ss, int cluster, int rows, int cols, int smem, int vec,
+                               void* stream) {
+  return run<float>(lam, H, HD, B, x, table, table_stride, table_f64, dH, dHD, dB, dcreep, dslide, n_g, nx,
+                    ny, dt, theta, glen, e_hc, e_sc, e_hs, e_ss, cluster, rows, cols, smem, vec,
+                    stream);
 }
 
 extern "C" int si_step_vjp_f64(const double* lam, const double* H, const double* HD,
-                               const double* B, const double* x, const double* table,
-                               double* dH, double* dHD, double* dB, double* partial,
-                               unsigned* counter, double* dcreep, double* dslide, int n_g,
-                               int nx, int ny, double dt, double theta, int glen, double e_hc,
-                               double e_sc, double e_hs, double e_ss, void* stream) {
-  return run<double>(lam, H, HD, B, x, table, dH, dHD, dB, partial, counter, dcreep, dslide,
-                     n_g, nx, ny, dt, theta, glen, e_hc, e_sc, e_hs, e_ss, stream);
+                               const double* B, const double* x, const void* table,
+                               long table_stride, int table_f64, double* dH, double* dHD, double* dB,
+                               double* dcreep, double* dslide, int n_g, int nx, int ny,
+                               double dt, double theta, int glen, double e_hc, double e_sc,
+                               double e_hs, double e_ss, int cluster, int rows, int cols,
+                               int smem, int vec, void* stream) {
+  return run<double>(lam, H, HD, B, x, table, table_stride, table_f64, dH, dHD, dB, dcreep, dslide, n_g,
+                     nx, ny, dt, theta, glen, e_hc, e_sc, e_hs, e_ss, cluster, rows, cols, smem,
+                     vec, stream);
+}
+
+// cudaOccupancyMaxActiveClusters for the instance of that dtype, exponent
+// path and copy route at a cluster size and shared memory.
+extern "C" int si_step_vjp_occupancy(int f64, int glen, int vec, int cluster, int smem,
+                                     int* active) {
+  return f64 ? occupancy<double>(glen, vec, cluster, smem, active)
+             : occupancy<float>(glen, vec, cluster, smem, active);
 }

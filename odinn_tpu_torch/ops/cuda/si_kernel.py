@@ -29,7 +29,9 @@ the pre-relu solution x. The backward (module doc of
 (λ = PCG(A, g) from g = ḡ·[x > 0], at the forward's layout, so α and β are
 again bit-identical in every block), and :func:`si_step_vjp`, the pullback
 kernel ``csrc/si_step_vjp.cu`` (the residual's cotangents at λ through b and
-the frozen D, down to H, H_D, B, creep and slide). Their plain versions are
+the frozen D, down to H, H_D, B, creep and slide; one thread-block cluster
+per glacier, tiles of :func:`si_vjp_layout`, cluster size by
+:func:`si_vjp_plan`). Their plain versions are
 :func:`si_step_transpose_reference` and :func:`si_step_vjp_reference`;
 autograd through :func:`si_step_reference` is the whole plain backward. The
 two contracts agree where PCG has converged (``tests/test_torch_si_adjoint.py``).
@@ -54,10 +56,11 @@ from odinn_tpu_torch.ops import stencils as st
 from odinn_tpu_torch.ops.cuda.build import load_library
 from odinn_tpu_torch.ops.cuda.common import (
     GLEN_EXPS, SMEM_PER_BLOCK, block_shape, check_inputs, pick_cluster, pow_pos, shared_exps,
-    ticket_buffers, uses_glen)
+    uses_glen)
 
 __all__ = ["si_step", "si_step_reference", "si_step_transpose", "si_step_transpose_reference",
-           "si_step_vjp", "si_step_vjp_reference", "si_layout", "si_fits", "si_plan"]
+           "si_step_vjp", "si_step_vjp_reference", "si_layout", "si_fits", "si_plan",
+           "si_vjp_layout", "si_vjp_plan"]
 
 # planes of the large-plane path's scratch buffer: D, b, inv_diag, x, r, p, Ap
 _N_SCRATCH = 7
@@ -179,12 +182,134 @@ def si_plan(n_g, nx, ny, dtype, exps=GLEN_EXPS, device=None) -> SIPlan:
 def _vjp_library() -> ctypes.CDLL:
     lib = load_library("si_step_vjp")
     for fn in (lib.si_step_vjp_f32, lib.si_step_vjp_f64):
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_double] * 2
-                       + [ctypes.c_int] + [ctypes.c_double] * 4 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_long, ctypes.c_int]
+                       + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 3 + [ctypes.c_double] * 2 + [ctypes.c_int]
+                       + [ctypes.c_double] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    lib.si_step_vjp_partials.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.si_step_vjp_partials.restype = ctypes.c_int
+    lib.si_step_vjp_occupancy.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.si_step_vjp_occupancy.restype = ctypes.c_int
     return lib
+
+
+# csrc/si_step_vjp.cu: threads a block; its dynamic shared memory (all of
+# it): an 8-byte mbarrier padded to 16 bytes, 64 values (block 0's slots of
+# the blocks' two sums, the warps' partials), ``stages`` × 5 staged planes
+# (λ, H, H_D, B, x) of (rows + 2) × (cols + 2·16/itemsize) values, each
+# 16-byte aligned, and (rows + 1) × (cols + 1) corners of 4 values (D, Q,
+# PX, PY); the per-glacier index is a 32-bit int. The search's bounds:
+# rows a tile and column chunks a row.
+_VJP_THREADS = 256
+_VJP_BAR_BYTES = 16
+_VJP_HEAD_VALUES = 64
+_VJP_PLANES = 5
+_VJP_CORNER_VALUES = 4
+_VJP_MAX_CELLS = 2 ** 31 - 1
+_VJP_MAX_ROWS = 64
+_VJP_MAX_CHUNKS = 64
+
+
+class SIVjpLayout(NamedTuple):
+    """How the pullback kernel cuts one glacier's (nx, ny) plane into tiles
+    for a cluster; block ``rank`` walks tiles rank, rank + cluster, …"""
+
+    cluster: int      # blocks per glacier
+    rows: int         # rows a tile
+    cols: int         # columns a tile (ny: one chunk a row)
+    tiles: int        # tiles of the plane
+    per_block: int    # tiles a block walks at most
+    smem: int         # shared memory per block, bytes
+    cells: int        # cells of the plane
+
+    bx = _VJP_THREADS
+    by = 1
+
+    @property
+    def stages(self) -> int:
+        """Staged copies of the inputs: two, a ring, where a block walks
+        more than one tile."""
+        return 2 if self.per_block > 1 else 1
+
+    @property
+    def fits(self) -> bool:
+        return self.smem <= SMEM_PER_BLOCK and self.cells <= _VJP_MAX_CELLS
+
+
+def _align16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def _vjp_smem(rows, cols, itemsize, stages) -> int:
+    pitch = cols + 2 * (16 // itemsize)
+    return (_VJP_BAR_BYTES + _VJP_HEAD_VALUES * itemsize
+            + stages * _VJP_PLANES * _align16((rows + 2) * pitch * itemsize)
+            + _VJP_CORNER_VALUES * (rows + 1) * (cols + 1) * itemsize)
+
+
+@functools.lru_cache(maxsize=None)
+def si_vjp_layout(nx, ny, dtype, cluster) -> SIVjpLayout:
+    """The pullback kernel's tiles at a cluster size: bands of full rows
+    where some band fits a block's shared memory, else the fewest column
+    chunks (of a multiple of 16 bytes, at most 64 a row) for which one
+    does; of those, rows ≤ 64 a tile, the band height whose blocks stage
+    the fewest rows, per_block × (rows + 2), then the one with fewest
+    tiles. ``fits`` is False where nothing fits, or where the plane has 2³¹
+    cells or more."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // itemsize
+    for chunks in range(1, min(_VJP_MAX_CHUNKS, -(-ny // vec)) + 1):
+        cols = ny if chunks == 1 else -(-(-(-ny // chunks)) // vec) * vec
+        if -(-ny // cols) != chunks:
+            continue
+        best = None
+        for rows in range(1, min(nx, _VJP_MAX_ROWS) + 1):
+            tiles = -(-nx // rows) * chunks
+            per_block = -(-tiles // cluster)
+            smem = _vjp_smem(rows, cols, itemsize, 2 if per_block > 1 else 1)
+            key = (per_block * (rows + 2), tiles)
+            if smem <= SMEM_PER_BLOCK and (best is None or key < best[0]):
+                best = key, SIVjpLayout(cluster, rows, cols, tiles, per_block, smem, nx * ny)
+        if best is not None:
+            return best[1]
+    return SIVjpLayout(cluster, 0, 0, 0, 0, SMEM_PER_BLOCK + 1, nx * ny)
+
+
+class SIVjpPlan(NamedTuple):
+    layout: SIVjpLayout
+    max_active: dict             # cluster size -> cudaOccupancyMaxActiveClusters (0: no fit)
+
+
+def _vjp_layouts(nx, ny, dtype) -> dict:
+    """The layouts at 8 and 16 blocks; raises where neither fits."""
+    layouts = {c: si_vjp_layout(nx, ny, dtype, c) for c in _CLUSTERS}
+    if not any(lay.fits for lay in layouts.values()):
+        raise ValueError(f"si_step_vjp: no cluster layout takes a {nx} x {ny} {dtype} plane "
+                         f"(at most {_VJP_MAX_CELLS} cells)")
+    return layouts
+
+
+@functools.lru_cache(maxsize=None)
+def _vjp_plan(dtype, nx, ny, n_g, glen, vec, device_index) -> SIVjpPlan:
+    layouts = _vjp_layouts(nx, ny, dtype)
+    lib = _vjp_library()
+
+    def occupancy(c, lay, active):
+        return lib.si_step_vjp_occupancy(int(dtype == torch.float64), int(glen), int(vec), c,
+                                         lay.smem, active)
+
+    return SIVjpPlan(*pick_cluster("si_step_vjp", layouts, occupancy, n_g, device_index))
+
+
+def si_vjp_plan(n_g, nx, ny, dtype, exps=GLEN_EXPS, vec=True, device=None) -> SIVjpPlan:
+    """How a pullback launch over n_g glaciers runs on a CUDA device: the
+    layout (:func:`si_vjp_layout`) at 16 blocks when the occupancy API says
+    all n_g clusters of 16 are resident at once, or when the plane fits
+    only at 16, else at 8; a plane that fits neither, or a cluster that
+    cannot be scheduled, raises. ``vec``: the 16-byte copy route. Cached
+    per (dtype, nx, ny, n_g, exponent path, route)."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _vjp_plan(dtype, nx, ny, n_g, uses_glen(exps), bool(vec), index)
 
 
 def _row(scalars, dtype):
@@ -364,32 +489,42 @@ def si_step_transpose(gbar, x, H_D, B, scalars, dt, theta=1.0, cg_iters=6, exps=
     return lam
 
 
-# the pullback's partials of d(creep) and d(slide) and its ticket counters
-_vjp_buffers = {}
+def _vjp_table(scalars, dtype):
+    """The table the pullback kernel reads: ``scalars`` itself (detached,
+    with its row stride) when it is in ``dtype`` or float64 with unit
+    column stride, else a (n_g, 4) copy in ``dtype``."""
+    table = scalars.detach()
+    if table.dtype not in (dtype, torch.float64) or table.stride(1) != 1:
+        table = table[:, :4].to(dtype).contiguous()
+    return table
 
 
 def si_step_vjp(lam, H, H_D, B, x, scalars, dt, theta=1.0, exps=None):
     """(dH, dH_D, dB, d_creep, d_slide) of ``si_step``'s backward at λ
     (:func:`si_step_vjp_reference`'s contract). A CUDA tensor launches the
-    pullback kernel ``csrc/si_step_vjp.cu``, one launch counted on
-    ``si_step_vjp.launches``; a CPU tensor takes the plain version."""
+    pullback kernel ``csrc/si_step_vjp.cu`` (one clustered launch,
+    :func:`si_vjp_plan`), counted on ``si_step_vjp.launches``; a CPU tensor
+    takes the plain version. The kernel reads the table in place when it
+    is in H's dtype or in float64, with its row stride."""
     check_inputs("si_step_vjp", (lam, H, H_D, B, x), scalars, 8)
     exps = _resolve_exps(scalars, exps)
     dt, theta = float(dt), float(theta)
     if _device_of("si_step_vjp", H) == "cpu":
         return si_step_vjp_reference(lam, H, H_D, B, x, scalars, dt, theta, exps)
     n_g, nx, ny = H.shape
-    table = scalars[:, :4].detach().to(H.dtype).contiguous()
+    planes = (lam, H, H_D, B, x)
+    vec = (ny * H.element_size()) % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in planes)
+    lay = si_vjp_plan(n_g, nx, ny, H.dtype, exps, vec, H.device).layout
+    table = _vjp_table(scalars, H.dtype)
     dH, dHD, dB = (torch.empty_like(H) for _ in range(3))
     dcreep, dslide = (torch.empty(n_g, dtype=H.dtype, device=H.device) for _ in range(2))
     lib = _vjp_library()
-    partial, counter = ticket_buffers(_vjp_buffers, H.device, H.dtype,
-                                      2 * n_g * lib.si_step_vjp_partials(nx, ny), n_g)
     fn = lib.si_step_vjp_f32 if H.dtype == torch.float32 else lib.si_step_vjp_f64
-    err = fn(lam.data_ptr(), H.data_ptr(), H_D.data_ptr(), B.data_ptr(), x.data_ptr(),
-             table.data_ptr(), dH.data_ptr(), dHD.data_ptr(), dB.data_ptr(), partial.data_ptr(),
-             counter.data_ptr(), dcreep.data_ptr(), dslide.data_ptr(), n_g, nx, ny, dt, theta,
-             int(uses_glen(exps)), *exps, torch.cuda.current_stream(H.device).cuda_stream)
+    err = fn(*(t.data_ptr() for t in planes), table.data_ptr(), table.stride(0),
+             int(table.dtype == torch.float64),
+             dH.data_ptr(), dHD.data_ptr(), dB.data_ptr(), dcreep.data_ptr(), dslide.data_ptr(),
+             n_g, nx, ny, dt, theta, int(uses_glen(exps)), *exps, lay.cluster, lay.rows,
+             lay.cols, lay.smem, int(vec), torch.cuda.current_stream(H.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"si_step_vjp: kernel launch failed with CUDA error {err}")
     si_step_vjp.launches += 1

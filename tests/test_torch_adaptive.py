@@ -191,11 +191,28 @@ def test_float32_adaptive_matches_jax():
     assert abs(total - j_total) <= 0.02 * j_total, (total, j_total)
 
 
+def _spy(monkeypatch, name):
+    """Calls of odinn_tpu_torch.simulation.prediction.``name`` (looked up
+    there by resolve_substeps) and their results, still computed."""
+    import odinn_tpu_torch.simulation.prediction as tpred
+
+    real, seen = getattr(tpred, name), []
+
+    def spy(*args):
+        seen.append(real(*args))
+        return seen[-1]
+
+    monkeypatch.setattr(tpred, name, spy)
+    return seen
+
+
 @pytest.mark.parametrize("solver,reltol", [("SSPRK3", 1e-4), ("SSPRK3", 1e-7), ("RK4", 1e-5)])
-def test_calibrate_substeps_matches_jax(solver, reltol):
+def test_calibrate_substeps_matches_jax(solver, reltol, monkeypatch):
+    """resolve_substeps sizes the explicit solvers' substeps by
+    calibrate_substeps, once, to JAX's integer."""
     from odinn_tpu.simulation.prediction import calibrate_substeps as j_calibrate
     from odinn_tpu.simulation.solver import build_tstops as j_tstops
-    from odinn_tpu_torch.simulation.prediction import calibrate_substeps, resolve_substeps
+    from odinn_tpu_torch.simulation.prediction import resolve_substeps
     from odinn_tpu_torch.simulation.solver import build_tstops
 
     jb = _jax_batch()
@@ -203,17 +220,19 @@ def test_calibrate_substeps_matches_jax(solver, reltol):
     kw = dict(solver=solver, substeps="auto", reltol=reltol)
     want = j_calibrate(None, jb, jmodel, _params(JP, **kw), j_tstops(TSPAN, 1 / 12))
     tb, ts = carry_glacier(jb), build_tstops(TSPAN, 1 / 12)
-    assert calibrate_substeps(None, tb, tmodel, _params(TP, **kw), ts) == want
+    seen = _spy(monkeypatch, "calibrate_substeps")
     assert resolve_substeps(_params(TP, **kw), tb, tmodel, None, ts).solver.substeps == want
+    assert seen == [want]
 
 
-@pytest.mark.parametrize("solver,reltol", [("SI", 1e-3), ("SI2", 1e-4)])
-def test_calibrate_substeps_si_matches_jax(solver, reltol):
+@pytest.mark.parametrize("solver,reltol", [("SI", 3e-3), ("SI2", 1e-4)])
+def test_calibrate_substeps_si_matches_jax(solver, reltol, monkeypatch):
     """Richardson step-halving sizes substeps, cg_iters and the predictor's
-    budget to JAX's integers."""
+    budget to JAX's integers: calibrate_substeps_si, called once by
+    resolve_substeps, returns them and resolve_substeps sets them."""
     from odinn_tpu.simulation.prediction import calibrate_substeps_si as j_calibrate
     from odinn_tpu.simulation.solver import build_tstops as j_tstops
-    from odinn_tpu_torch.simulation.prediction import calibrate_substeps_si, resolve_substeps
+    from odinn_tpu_torch.simulation.prediction import resolve_substeps
     from odinn_tpu_torch.simulation.solver import build_tstops
 
     jb = _jax_batch(nx=24, temps=TEMPS[:2])
@@ -221,9 +240,9 @@ def test_calibrate_substeps_si_matches_jax(solver, reltol):
     kw = dict(solver=solver, substeps="auto", reltol=reltol)
     want = j_calibrate(None, jb, jmodel, _params(JP, **kw), j_tstops(TSPAN, 1 / 12))
     tb, ts = carry_glacier(jb), build_tstops(TSPAN, 1 / 12)
-    got = calibrate_substeps_si(None, tb, tmodel, _params(TP, **kw), ts)
-    assert got == tuple(want)
+    seen = _spy(monkeypatch, "calibrate_substeps_si")
     p = resolve_substeps(_params(TP, **kw), tb, tmodel, None, ts).solver
+    assert seen == [tuple(want)]
     assert (p.substeps, p.cg_iters, p.cg_iters_predictor) == tuple(want)
 
 
@@ -262,20 +281,22 @@ def test_refusals_match_jax():
 
 
 def test_substeps_auto_staleness_guard_matches_jax():
-    """tests/test_adaptive.py's staleness-guard setting (48², 6 months,
-    SSPRK3 at reltol 1e-3, A from near min_A towards a truth near max_A,
-    Adam 10 + 5 epochs). The first stage outgrows its sizing three times;
-    each time both packages rewind to the best iterate and double the
-    substeps (6 → 12 → 24 → 48) at the same iterations, and the stage's
-    losses agree to 1e-9.
+    """tests/test_adaptive.py's staleness-guard setting, cut to size (32²
+    at the same extent, 3 months, SSPRK3 at reltol 1e-3, A from near min_A
+    towards a truth of 8e-18, Adam 7 + 1 epochs). The first stage outgrows
+    its sizing twice; each time both packages rewind to the best iterate and
+    double the substeps (6 → 12 → 24) at the same iterations, and the
+    stage's losses agree to 1e-9. (The uncut setting, 48², 6 months, a
+    truth of 2e-17 and 10 + 5 epochs, re-sizes three times, to 48, and
+    took ~140 s.)
 
     The second stage's start differs, and the JAX package's is the stale
     one: its stage-end evaluation of the last iterate (and its final one)
     is ``jax.jit`` of the loss function it first traced at 6 substeps,
-    which the jit cache hands back after the re-sizing, so at the last
-    iterate it reads NaN and starts the stage from an earlier iterate. The
-    port evaluates at 48 substeps and starts from the last iterate, whose
-    loss is the lowest of the stage."""
+    which the jit cache hands back after the re-sizing, so it evaluates the
+    last iterate at the old count and may start the stage from an earlier
+    iterate. The port evaluates at 24 substeps and starts from the last
+    iterate, whose loss is the lowest of the stage."""
     import jax.numpy as jnp
 
     from odinn_tpu.core.glacier import stack_glaciers as j_stack
@@ -289,7 +310,7 @@ def test_substeps_auto_staleness_guard_matches_jax():
     from odinn_tpu_torch.models.model import Model, SIA2DModel
     from odinn_tpu_torch.simulation.inversion import Inversion, train_ude
 
-    tspan = (5.0, 5.5)
+    tspan = (5.0, 5.25)
 
     def params(P):
         return P.Parameters(
@@ -298,12 +319,12 @@ def test_substeps_auto_staleness_guard_matches_jax():
             solver=P.SolverParameters(step=1.0 / 12.0, solver="SSPRK3", substeps="auto",
                                       reltol=1e-3),
             hyper=P.Hyperparameters(optimizer=("adam", "adam"), learning_rate=(0.3, 0.1),
-                                    epochs=(10, 5), batch_size=4),
+                                    epochs=(7, 1), batch_size=4),
             UDE=P.UDEParameters(grad="jax"))
 
-    g = j_halfar(nx=48, ny=48, dx=80.0, temp=-15.0, A=8e-19)
+    g = j_halfar(nx=32, ny=32, dx=120.0, temp=-15.0, A=8e-19)
     jp = params(JP)
-    (g_obs,) = j_truth([g], jp, JModel(iceflow=JSIA2DModel(A=JConstantA(2e-17))),
+    (g_obs,) = j_truth([g], jp, JModel(iceflow=JSIA2DModel(A=JConstantA(8e-18))),
                        j_tstops(tspan, 1.0 / 12.0), store=("H",))
     jinv = JInversion(model=JModel(iceflow=JSIA2DModel(A=JLawA_inversion(jp, scalar=True))),
                       glaciers=[g_obs], parameters=jp)
@@ -316,10 +337,10 @@ def test_substeps_auto_staleness_guard_matches_jax():
                     theta={"A": torch.tensor([-2.0], dtype=torch.float64)})
     res = train_ude(inv)
     bumps = res.stats.substeps_bumps
-    assert bumps == jres.stats.substeps_bumps == [(4, 6, 12), (6, 12, 24), (9, 24, 48)]
-    assert inv.parameters.solver.substeps == jinv.parameters.solver.substeps == 48
-    first = 10 + bumps[-1][0]          # the first stage's recorded iterations
+    assert bumps == jres.stats.substeps_bumps == [(3, 6, 12), (6, 12, 24)]
+    assert inv.parameters.solver.substeps == jinv.parameters.solver.substeps == 24
+    first = 7 + bumps[-1][0]           # the first stage's recorded iterations
     assert_rel(np.asarray(res.stats.losses[:first]), np.asarray(jres.stats.losses[:first]),
                1e-9, "first stage's losses")
-    assert np.isfinite(res.stats.losses).all() and len(res.stats.losses) == first + 5
+    assert np.isfinite(res.stats.losses).all() and len(res.stats.losses) == first + 1
     assert res.stats.losses[first] <= min(res.stats.losses[:first])

@@ -155,6 +155,7 @@ def _port_sources():
     yield os.path.join(REPO, "profile_epoch.py")
     yield os.path.join(REPO, "profile_exchange.py")
     yield os.path.join(REPO, "profile_tolerance.py")
+    yield os.path.join(REPO, "profile_vjp.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

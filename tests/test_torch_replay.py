@@ -4,6 +4,8 @@ replay by autograd, ``train_ude`` through it, and the instability recovery
 that re-records the schedule. Float64 on the CPU; tolerances per test.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -45,30 +47,54 @@ def _cp_models():
             tm.Model(iceflow=tm.SIA2DModel(A=tl.CuffeyPaterson(), n_value=3.0)))
 
 
+@functools.cache
+def _jax_schedule():
+    """The JAX package's schedule recorded on _jax_batch() at _params(JP),
+    with that batch and the models; shared by the tests that replay it."""
+    from odinn_tpu.simulation.prediction import resolve_replay as j_resolve
+    from odinn_tpu.simulation.solver import build_tstops as j_tstops
+
+    jb = _jax_batch()
+    jmodel, tmodel = _cp_models()
+    return jb, jmodel, tmodel, j_resolve(_params(JP), jb, jmodel, None, j_tstops(TSPAN, 1 / 12))
+
+
 def _with_schedule(params, dts):
     import dataclasses
 
     return params.replace(solver=dataclasses.replace(params.solver, replay_dts=dts))
 
 
+# Per step, relative: the JAX package's own schedule for this batch moves by
+# up to 1.16e-9 of a step when H0 moves by one ulp (7.4e-10 one ulp down,
+# 6.8e-11 with glacier 0 alone perturbed, 9.9e-10 at H0 (1 + 2^-50)), in
+# glacier 1's intervals 1-2; the port's moves by 1.74e-9 at the same place.
+# The BS3 controller turns the roundoff of its error estimate, a difference
+# of two close solutions, into changes of dt far above eps. The bound is
+# 8.6x the largest self-spread.
+REPLAY_STEP_RTOL = 1e-8
+
+
 def test_resolve_replay_matches_jax():
-    """The recorded schedule: the same cap, the same steps, zero past each
-    interval's count, tiling every interval. The steps agree to 1e-11
-    years: an interval's truncated last step t₁ − t carries the roundoff
-    of the t its earlier steps summed to."""
-    from odinn_tpu.simulation.prediction import resolve_replay as j_resolve
-    from odinn_tpu.simulation.solver import build_tstops as j_tstops
+    """The recorded schedule: the same cap, the same zero pattern and count
+    of steps in every interval, tiling every interval (1e-12), and each
+    step within REPLAY_STEP_RTOL of JAX's, relative to the step. The JAX
+    package against itself, with H0 moved by one ulp, spreads by up to
+    1.16e-9 of a step in this setting (REPLAY_STEP_RTOL's comment), so an
+    absolute 1e-11 (~1.4e-9 of a 7e-3 step) sat at the edge of the two
+    packages' roundoff: the port's 1.74e-9 passed on one machine and failed
+    on another."""
     from odinn_tpu_torch.simulation.prediction import resolve_replay
     from odinn_tpu_torch.simulation.solver import build_tstops
 
-    jb = _jax_batch()
-    jmodel, tmodel = _cp_models()
-    want = np.asarray(j_resolve(_params(JP), jb, jmodel, None,
-                                j_tstops(TSPAN, 1 / 12)).solver.replay_dts)
+    jb, _, tmodel, jp = _jax_schedule()
+    want = np.asarray(jp.solver.replay_dts)
     p = resolve_replay(_params(TP), carry_glacier(jb), tmodel, None, build_tstops(TSPAN, 1 / 12))
     got = p.solver.replay_dts
     assert isinstance(got, np.ndarray) and got.shape == want.shape
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-11)
+    np.testing.assert_array_equal(got == 0, want == 0)
+    np.testing.assert_array_equal((got > 0).sum(axis=-1), (want > 0).sum(axis=-1))
+    np.testing.assert_allclose(got, want, rtol=REPLAY_STEP_RTOL, atol=0)
     spans = np.diff(build_tstops(TSPAN, 1 / 12).numpy())
     np.testing.assert_allclose(got.sum(axis=-1), np.broadcast_to(spans, got.shape[:2]),
                                rtol=1e-12)
@@ -79,8 +105,7 @@ def test_replay_reproduces_the_adaptive_solve():
     """Replaying the recorded steps gives the adaptive trajectory to
     roundoff, in the port as in the JAX package, and the two packages'
     replays of one schedule agree to 1e-10."""
-    from odinn_tpu.simulation.prediction import (
-        forward_glacier as j_fwd, resolve_replay as j_resolve)
+    from odinn_tpu.simulation.prediction import forward_glacier as j_fwd
     from odinn_tpu.simulation.solver import build_tstops as j_tstops
     import jax
     import jax.numpy as jnp
@@ -88,10 +113,8 @@ def test_replay_reproduces_the_adaptive_solve():
     from odinn_tpu_torch.simulation.prediction import forward_glacier
     from odinn_tpu_torch.simulation.solver import build_tstops
 
-    jb = _jax_batch()
-    jmodel, tmodel = _cp_models()
+    jb, jmodel, tmodel, jp = _jax_schedule()
     jts, ts = j_tstops(TSPAN, 1 / 12), build_tstops(TSPAN, 1 / 12)
-    jp = j_resolve(_params(JP), jb, jmodel, None, jts)
     j_traj = jax.vmap(lambda g, i: j_fwd(None, g, i, jmodel, jp, jts))(
         jb, jnp.arange(len(TEMPS)))
     tb = carry_glacier(jb)
@@ -139,18 +162,40 @@ def test_skipped_zero_columns_are_bitwise_the_identity():
     assert torch.equal(skipped, torch.stack(every))
 
 
+@functools.cache
 def _truth(temps=TEMPS, nx=32):
     """Glaciers with a Cuffey-Paterson thickness series (RK4 at 20
-    substeps), stacked, in both packages."""
-    from odinn_tpu.core.glacier import stack_glaciers
-    from odinn_tpu.simulation.prediction import generate_ground_truth as j_truth
-    from odinn_tpu.simulation.solver import build_tstops as j_tstops
+    substeps; the port's, which is the JAX package's to roundoff), stacked,
+    in both packages; computed once, shared by the tests that train on it
+    (none of them changes it)."""
+    import jax.numpy as jnp
 
-    jmodel, _ = _cp_models()
-    p = _params(JP).replace(solver=JP.SolverParameters(solver="RK4", substeps=20))
-    jb = stack_glaciers(j_truth([_single(t, i, nx) for i, t in enumerate(temps)], p, jmodel,
-                                j_tstops(TSPAN, 1 / 12), store=("H",)))
+    from odinn_tpu.core.glacier import ThicknessData as JThicknessData, stack_glaciers
+
+    _, tmodel = _cp_models()
+    p = _params(TP).replace(solver=TP.SolverParameters(solver="RK4", substeps=20))
+    singles = [_single(t, i, nx) for i, t in enumerate(temps)]
+    obs = _flushed_truth([carry_glacier(g) for g in singles], p, tmodel)
+    jb = stack_glaciers([g.replace(thickness_data=JThicknessData(
+        t=jnp.asarray(o.thickness_data.t.numpy()), H=jnp.asarray(o.thickness_data.H.numpy())))
+        for g, o in zip(singles, obs)])
     return jb, carry_glacier(jb)
+
+
+def _flushed_truth(glaciers, params, model):
+    """The port's ground truth with subnormal results flushed to zero, as
+    XLA:CPU computes them: the ice-free cells hold 0 where the port would
+    leave ~1e-320, which the loss's H > 0 mask counts (ROADMAP, "Subnormal
+    numbers")."""
+    from odinn_tpu_torch.simulation.prediction import generate_ground_truth
+    from odinn_tpu_torch.simulation.solver import build_tstops
+
+    assert torch.set_flush_denormal(True)
+    try:
+        return generate_ground_truth(glaciers, params, model, build_tstops(TSPAN, 1 / 12),
+                                     store=("H",), device=CPU)
+    finally:
+        torch.set_flush_denormal(False)
 
 
 def _law_models(kind, jp, tp):
@@ -234,7 +279,7 @@ def _at(tree, path):
 
 
 def test_train_ude_replay_matches_jax():
-    """train_ude with adaptive="replay" (Adam 6 epochs, per-glacier A):
+    """train_ude with adaptive="replay" (Adam 4 epochs, per-glacier A):
     the schedule recorded before training is JAX's, and the losses agree
     at the training parity tests' 1e-9."""
     from odinn_tpu.models.model import init_theta as j_init_theta
@@ -242,7 +287,7 @@ def test_train_ude_replay_matches_jax():
     from odinn_tpu_torch.simulation.inversion import Inversion, train_ude
     from tests.torch_parity import tree_to_port
 
-    hyper = dict(optimizer="adam", learning_rate=5e-2, epochs=6, batch_size=4)
+    hyper = dict(optimizer="adam", learning_rate=5e-2, epochs=4, batch_size=4)
     jp = _params(JP, reltol=1e-5, hyper=JP.Hyperparameters(**hyper))
     tp = _params(TP, reltol=1e-5, hyper=TP.Hyperparameters(**hyper))
     jb, tb = _truth()
@@ -257,28 +302,35 @@ def test_train_ude_replay_matches_jax():
     np.testing.assert_allclose(inv.parameters.solver.replay_dts,
                                np.asarray(jinv.parameters.solver.replay_dts), rtol=0,
                                atol=1e-11)
-    assert len(res.stats.losses) == 6 and res.stats.substeps_bumps == []
+    assert len(res.stats.losses) == 4 and res.stats.substeps_bumps == []
     assert_rel(np.asarray(res.stats.losses), np.asarray(jres.stats.losses), 1e-9, "losses")
     assert res.stats.final_loss < res.stats.losses[0]
 
 
 def test_replay_instability_recovers_or_fails_loudly():
     """tests/test_replay.py's violent setting (reltol 1e-2, A must climb
-    three decades in one Adam stage at learning rate 0.8): the held
-    schedule goes unstable, and each time both packages rewind to the best
-    finite iterate and re-record the schedule there with every step split
-    1, 2 and 4 ways, at the same iterations; the fourth failure raises
-    FloatingPointError. The last schedule tiles every interval, and the
-    losses recorded before the last failure are JAX's."""
+    three decades in one Adam stage at learning rate 0.8), on a 24² grid of
+    the same extent: the held schedule goes unstable, and each time both
+    packages rewind to the best finite iterate and re-record the schedule
+    there with every step split 1, 2 and 4 ways, at the same iterations;
+    the fourth failure raises FloatingPointError. The last schedule tiles
+    every interval, and the losses recorded before the last failure are
+    JAX's. The observations are the port's (its replay of the truth, with
+    subnormals flushed as XLA:CPU flushes them: the JAX package's to
+    ~1e-12), handed to both packages. The JAX package trains in a second
+    thread while the port trains: its time is mostly its compiles, one for
+    each recorded schedule."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import jax.numpy as jnp
 
-    from odinn_tpu.laws.laws import ConstantA as JConstantA
-    from odinn_tpu.models.model import Model as JModel, SIA2DModel as JSIA2DModel
+    from odinn_tpu.core.glacier import ThicknessData as JThicknessData
     from odinn_tpu.simulation.inversion import Inversion as JInversion, train_ude as j_train
-    from odinn_tpu.simulation.prediction import generate_ground_truth as j_truth
     from odinn_tpu.simulation.solver import build_tstops as j_tstops
     from odinn_tpu.core.glacier import stack_glaciers
     from odinn_tpu.data.synthetic import halfar_glacier
+    from odinn_tpu_torch.laws.laws import ConstantA
+    from odinn_tpu_torch.models.model import Model, SIA2DModel
     from odinn_tpu_torch.simulation.inversion import Inversion, train_ude
 
     def params(P):
@@ -288,21 +340,26 @@ def test_replay_instability_recovers_or_fails_loudly():
                                                learning_rate=(0.8, 0.1), epochs=(25, 5),
                                                batch_size=4))
 
-    g = halfar_glacier(nx=40, ny=40, dx=90.0, temp=-15.0, A=8e-19)
+    g = halfar_glacier(nx=24, ny=24, dx=150.0, temp=-15.0, A=8e-19)
     jp, tp = params(JP), params(TP)
-    (g_obs,) = j_truth([g], jp, JModel(iceflow=JSIA2DModel(A=JConstantA(2e-16))),
-                       j_tstops(TSPAN, 1.0 / 12.0), store=("H",))
+    (t_obs,) = _flushed_truth([carry_glacier(g)], tp, Model(iceflow=SIA2DModel(A=ConstantA(2e-16))))
+    td = t_obs.thickness_data
+    g_obs = g.replace(thickness_data=JThicknessData(t=jnp.asarray(td.t.numpy()),
+                                                    H=jnp.asarray(td.H.numpy())))
     jmodel, tmodel = _law_models("per-glacier A", jp, tp)
     jinv = JInversion(model=jmodel, glaciers=[g_obs], parameters=jp)
     jinv.theta = {"A": jnp.asarray([-2.0])}
     seen = {}
-    with pytest.raises(FloatingPointError, match="non-finite"):
-        j_train(jinv, callback=lambda stats: seen.setdefault("jax", stats))
     inv = Inversion(model=tmodel, glaciers=carry_glacier(stack_glaciers([g_obs])),
                     parameters=tp, device=CPU,
                     theta={"A": torch.tensor([-2.0], dtype=torch.float64)})
-    with pytest.raises(FloatingPointError, match="non-finite"):
-        train_ude(inv, callback=lambda stats: seen.setdefault("port", stats))
+    # the JAX package trains in a second thread while the port trains
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        j_run = pool.submit(j_train, jinv, callback=lambda stats: seen.setdefault("jax", stats))
+        with pytest.raises(FloatingPointError, match="non-finite"):
+            train_ude(inv, callback=lambda stats: seen.setdefault("port", stats))
+        with pytest.raises(FloatingPointError, match="non-finite"):
+            j_run.result()
     bumps = seen["port"].substeps_bumps
     assert [b[1:] for b in bumps] == [("replay", "re-recorded x1"), ("replay", "re-recorded x2"),
                                      ("replay", "re-recorded x4")]
