@@ -24,9 +24,16 @@ Phases, each printed as one JSON line:
    ``rkc_interval``; n = 3, 4 and 2.5 in one batch for ``sia2d_rhs`` and the
    pullback); every ``si_step`` check with the Jacobi preconditioner and
    without it (plain CG, the manual SI adjoints' solves); at each also its
-   forward's pre-relu output, its transpose-solve mode (and, preconditioned,
-   the ``si_step_vjp`` pullback kernel) against
-   their plain versions on the same inputs, each with a bitwise repeat; the
+   forward's pre-relu output, its transpose-solve mode, its tangent-solve
+   mode (and, preconditioned, the ``si_step_vjp`` pullback kernel) against
+   their plain versions on the same inputs, each with a bitwise repeat;
+   ``sia2d_rhs_jvp`` at 4 x 128^2 and 16 x 128^2 with n = 3, 4 and 3, 4,
+   2.5 in one batch, its stage mode and the whole RKC2 step's tangent at
+   16 x 128^2, s = 8 (float32 within TOL_F32 or 2x the float32 plain
+   version's own error against float64); the three autograd Functions'
+   tangents on the card (forward mode) against the CPU's float64 run to
+   1e-9, and each tangent's duality with its backward, <u, J v> =
+   <J^T u, v>, to 1e-10 (si_step at PCG-40 from a zero guess); the
    three autograd Functions' gradients (kernel forward, kernel backward)
    against their plain backwards in float64 (``si_step`` at PCG-6 and 20,
    theta = 1 and 1/2, on its large-plane path, and at the SI training's
@@ -97,7 +104,10 @@ Phases, each printed as one JSON line:
    ``pretrain_law_from_A`` on the card in float64 (8 Fourier frequencies,
    48 noisy Cuffey-Paterson targets) below 1e-5 max relative error;
 8. the ``kernels`` line: per kernel, what it replaces, its launches on the
-   main path, its time, its plain version's time and its bound, with the
+   main path, its time, its plain version's time and its bound (with
+   ``sia2d_rhs_jvp``, which replaces ``jax.jvp`` of the production RHS:
+   no TPU kernel has a tangent; ``si_step`` with its transpose and tangent
+   launches), with the
    same at the main path's other shapes under ``more`` (``si_step`` at 30
    PCG iterations, at the SI training's 16 x 128^2, PCG-20 beside 15
    glaciers, its transpose-solve mode, both modes there without the
@@ -105,7 +115,7 @@ Phases, each printed as one JSON line:
    4 x 128^2 and 2 x 300^2; ``rkc_interval`` at 16 x 128^2, s = 8; each
    pullback at its other shape and the fused RKC-backward stage). The
    ``kernel_times`` line before it also times a one-element PyTorch fill,
-   the card's single-launch floor. It is printed last, after phase 9, and
+   the card's single-launch floor. It is printed last, after phase 10, and
    its launches are all phases';
 9. tolerance (the tolerance contract, float32, reltol 1e-4): the main
    path's scenario through ``run_prediction`` with ``adaptive=True``, whose
@@ -121,7 +131,20 @@ Phases, each printed as one JSON line:
    the launches asserted per substep and probe; the phase's seconds.
    Before the main path, the replay gradient on the card (4 x 128^2, 2
    months) against the CPU's float64 run, float64 to 1e-9 per θ leaf and
-   float32 within 2x the CPU's float32 error.
+   float32 within 2x the CPU's float32 error;
+10. second order and forward mode: ``run_inversion`` of A = NN(T) on the
+   training batch by Adam (2 epochs) then 3 Levenberg-Marquardt iterations
+   (gn_cg_iters 8) through SI at PCG-20 and RKC at s = 8, with the LM trace
+   monotone and ``si_step_tangent`` (SI) or ``sia2d_rhs_jvp`` (RKC) launched
+   24 x (s x) the J·v products, and ``lm_train``'s iteration timed and
+   profiled; the gates of tests/test_gauss_newton.py::
+   test_lm_collapses_loss_after_adam on the card (2 x 36^2, RK4 at 15
+   substeps, float64, Adam 30 then LM 15: a gain of 15x, a monotone trace,
+   A within 15 % at both temperatures, every RK4 stage's tangent one
+   ``sia2d_rhs_jvp`` launch); ``grad="forward"`` of the classical
+   per-glacier A through SI and RKC, float64 against the CPU's forward
+   mode and the card's autograd to 1e-9, float32 at full
+   width within 2x the CPU float32 error, with its launches and Adam epoch.
 
 Any failed check raises, so the exit code is not 0. A ``done`` line gives
 the whole run's seconds, build included. The last line is
@@ -213,7 +236,34 @@ CAPPED_MAX_D = 3.0e4
 TOL_RELTOL = 1e-4
 # our kernels' device names: none may run in a D-target or capped solve
 KERNEL_NAMES = ("si_step_cluster", "si_assemble", "si_pcg", "si_step_vjp_kernel",
-                "sia2d_rhs_kernel", "sia2d_rhs_vjp_kernel", "rkc_interval_kernel")
+                "sia2d_rhs_kernel", "sia2d_rhs_vjp_kernel", "rkc_interval_kernel",
+                "sia2d_rhs_jvp_kernel")
+# the LM phase: Adam epochs, LM iterations and CG iterations of the
+# training batch's stage; the Hutchinson probes of lm_train's default
+LM_EPOCHS = (2, 3)
+LM_CG = 8
+LM_PROBES = 8
+# the initial θ of tests/test_gauss_newton.py::test_lm_collapses_loss_after_adam:
+# the JAX package's NeuralNetwork(default_architecture(1, light=True),
+# seed=666) in float64 (its PRNG's draw, which the port's generator does
+# not give; the biases start at zero), layers of (w, b)
+LM_GATE_THETA = (([[0.04867732064351498, -0.047657616765689574, -0.6919204952137169]],
+                  [0.0, 0.0, 0.0]),
+                 ([[-0.3170937381565713], [-1.0111563265851793], [-0.9639318097479094]],
+                  [0.0]))
+# ... and the Rademacher probes of that test's lm_train, the JAX package's
+# draw: its three diagonal estimates (PRNGKey(0), then each refresh's
+# split), eight probes each, as the signs of θ's entries in the JAX tree's
+# leaf order (layer 1's b and w, layer 2's b and w). The estimate from eight
+# probes decides the damping of the small leaves, so whether the stage gains
+# the test's 15x depends on the draw: the gate is held on the test's own.
+LM_GATE_PROBES = (
+    ("+----+++--", "++--+--+++", "-+--++--+-", "-++-+-++++", "++++++++++", "---+++---+",
+     "+++--+--+-", "-+--++--++"),
+    ("-+++-+--+-", "+++---+--+", "+-----+++-", "-+----++--", "-+++++-+++", "-+++-+-+--",
+     "++-+++-+--", "--+------+"),
+    ("+-+--+---+", "---+--+--+", "++++++----", "+---+-++-+", "-+-+-++--+", "+++++++++-",
+     "--++---+--", "+---+-+-++"))
 
 
 def emit(obj) -> None:
@@ -414,6 +464,27 @@ def stage_bound(n_g, nx, ny, itemsize):
     return nbytes + 6 * cells * itemsize + n_g * itemsize, ops + 9 * cells
 
 
+# si_step's tangent-solve mode: the transpose mode's count (the right-hand
+# side read as given, the output masked by x > 0 in place of g's mask);
+# rdot, x0, H_D, B and the forward's x read once, the tangent written once.
+def si_tangent_bound(n_g, nx, ny, itemsize, cg_iters, precondition=True):
+    nbytes, ops = si_transpose_bound(n_g, nx, ny, itemsize, cg_iters, precondition)
+    return nbytes + n_g * nx * ny * itemsize, ops
+
+
+# sia2d_rhs_jvp: per cell relu(H), S and dh (3); per corner its diffusivity
+# (32) and its tangent (28: the slopes' tangents 8, |∇S|'s 5, H̄'s 4, the
+# derivative terms 11); per interior cell the clamped slopes (16) and their
+# tangents (24), the fluxes' tangents (24) and the divergence (6); dH, H and
+# B read once, fdot written once. The stage mode also reads dH0, dY2 and
+# df0 and writes ydot in place of fdot, and combines (9 a cell).
+def jvp_bound(n_g, nx, ny, itemsize, stage=False):
+    cells, corners, inner = n_g * nx * ny, n_g * (nx - 1) * (ny - 1), n_g * (nx - 2) * (ny - 2)
+    planes = 7 if stage else 4
+    nbytes = planes * cells * itemsize + n_g * 8 * 8 + n_g * itemsize
+    return nbytes, (3 + (9 if stage else 0)) * cells + 60 * corners + 70 * inner
+
+
 def bound_ms(nbytes, ops, dtype):
     peak = PEAK_FP32_OPS_PER_S if dtype == torch.float32 else PEAK_FP64_OPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
@@ -423,9 +494,10 @@ def bound_ms(nbytes, ops, dtype):
 def ptxas_entry(mangled: str) -> str:
     """A kernel instance's name from its mangled symbol, with its template
     arguments as tags: float32/float64, Glen (fixed exponents) or runtime
-    exponents, the cells a thread owns (K), the pullback's stage mode, the
-    SI kernels' transpose-solve mode and, for those, Jacobi or plain CG, or
-    si_step_vjp's copy route (16-byte or one value a copy)."""
+    exponents, the cells a thread owns (K), the pullback's and the tangent
+    kernel's stage mode, the SI kernels' mode (forward, transpose or
+    tangent solve) and Jacobi or plain CG, or si_step_vjp's copy route
+    (16-byte or one value a copy)."""
     i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else len(mangled)
     name = mangled
     while i < len(mangled) and mangled[i].isdigit():
@@ -437,11 +509,18 @@ def ptxas_entry(mangled: str) -> str:
     if rest.startswith("I"):
         tags.append("f64" if rest.startswith("Id") else "f32")
         tags += [t for key, t in (("GlenExps", "Glen"), ("RuntimeExps", "runtime")) if key in rest]
-        cells = re.search(r"Li(\d+)E", rest)
+        ints = re.findall(r"Li(\d+)E", rest)
         flags = re.findall(r"Lb(\d)E", rest)
-        tags += [f"K={cells.group(1)}"] if cells else []
+        if name in ("si_step_cluster", "si_assemble", "si_pcg"):
+            # si_step_cluster<T, E, K, kMode, kJ>, si_assemble<T, E, kMode,
+            # kJ>, si_pcg<T, kMode, kJ>
+            k_cells, mode = (ints[0], ints[1]) if name == "si_step_cluster" else (None, ints[0])
+            tags += [f"K={k_cells}"] if k_cells else []
+            tags.append(("forward", "transpose", "tangent")[int(mode)])
+        elif ints:
+            tags.append(f"K={ints[0]}")
         names = ([("vec16", "scalar")] if name.startswith("si_step_vjp")
-                 else [("transpose", "forward"), ("jacobi", "plain-cg")] if name.startswith("si_")
+                 else [("jacobi", "plain-cg")] if name.startswith("si_")
                  else [("stage", "pullback")])
         tags += [on if f == "1" else off for f, (on, off) in zip(flags, names)]
     return name + ("<" + ",".join(tags) + ">" if tags else "")
@@ -480,6 +559,8 @@ def check_kernels():
             check_si(H, B, derived, shape, dtype, cg_iters=(6, 30) if shape[0] == N_G else (6,))
             check_rhs(H, B, raw, "sia2d_rhs", shape, dtype)
             check_rkc_and_vjp(H, B, derived, shape, dtype, tol)
+            if shape[0] == N_G:
+                check_rhs_jvp_sets(H, B, raw, shape, dtype)
     # the large-plane path of si_step: a plane that fits no cluster layout
     for dtype in (torch.float64, torch.float32):
         shape = (2, 300, 300)
@@ -516,6 +597,7 @@ def check_kernels():
         check_rkc(H, B, derived, (N_TRAIN, NX, NY), dtype, (8,))
         check_second_wave(dtype)
         check_si(H, B, derived, (N_TRAIN, NX, NY), dtype, cg_iters=(SI_TRAIN_CG,))
+        check_rhs_jvp_sets(H, B, raw, (N_TRAIN, NX, NY), dtype, stage_s=8)
     # the runtime-exponent paths: Glen n = 4 for rkc_interval (one set a
     # launch), n = 3, 4 and 2.5 in one batch for the pullback
     for dtype in (torch.float64, torch.float32):
@@ -542,6 +624,23 @@ def check_kernels():
         emit(row)
         if not (row["dH_rel_err"] <= tol and row["dcreep_rel_err"] <= tol):
             raise AssertionError(f"sia2d_rhs_vjp disagrees with its plain version: {row}")
+
+
+def check_rhs_jvp_sets(H, B, raw, shape, dtype, stage_s=None):
+    """:func:`check_rhs_jvp` at the exponent sets of check_rhs: n = 3 (the
+    kernel's fixed-multiply path), n = 4 (run time) and n = 3, 4, 2.5 in one
+    batch; the stage mode at n = 3."""
+    from odinn_tpu_torch.core.params import PhysicalParameters
+
+    PHYS = PhysicalParameters()
+    check_rhs_jvp(H, B, raw, "sia2d_rhs_jvp", shape, dtype, stage_s)
+    raw4 = raw.clone()
+    raw4[:, 4] = 4.0
+    raw4[:, 2:4] /= PHYS.rho * PHYS.g * 400.0   # D of the same size as at n = 3
+    check_rhs_jvp(H, B, raw4, "sia2d_rhs_jvp n=4", shape, dtype)
+    raw4[:, 4] = torch.tensor([3.0, 4.0, 2.5], dtype=raw.dtype).repeat(shape[0])[:shape[0]].to(
+        raw.device)
+    check_rhs_jvp(H, B, raw4, "sia2d_rhs_jvp n=3,4,2.5", shape, dtype)
 
 
 def check_second_wave(dtype):
@@ -636,6 +735,8 @@ def check_si_backward(H, H_D, B, x0, derived, dt, theta, it, exps, name, shape, 
                               precondition=precondition)
     x_ref = si_kernel._si_solve_reference(H, H_D, B, x0, derived, dt, theta, it, exps,
                                           precondition)
+    check_si_tangent(x_ref, x0, H_D, B, derived, dt, theta, it, exps, name, shape, dtype,
+                     precondition)
     lam_args = (gbar, x_ref, H_D, B, derived, dt, theta, it, exps, precondition)
     lam = si_kernel.si_step_transpose(*lam_args)
     lam_again = si_kernel.si_step_transpose(*lam_args)
@@ -678,6 +779,117 @@ def check_si_backward(H, H_D, B, x0, derived, dt, theta, it, exps, name, shape, 
     if not (finite and all(ok.values()) and all(repeat.values())):
         raise AssertionError(f"{name}: the backward's kernels disagree with their plain "
                              f"versions or with themselves: {row}")
+
+
+def check_si_tangent(x, x0, H_D, B, derived, dt, theta, it, exps, name, shape, dtype,
+                     precondition=True):
+    """si_step's tangent-solve mode (ẋ = PCG(A, ṙ) from the primal guess
+    x0, masked by the forward's x > 0) against its plain version on the
+    same inputs, with a bitwise repeat; ṙ a random plane. float32 passes
+    within TOL_F32 of max|reference| or within GRAD_F32_FACTOR times the
+    float32 plain version's own error against float64: the solve from x0
+    carries its own rounding."""
+    from odinn_tpu_torch.ops.cuda import si_kernel
+
+    tol = TOL_F64 if dtype == torch.float64 else TOL_F32
+    rdot = torch.randn(shape, generator=torch.Generator().manual_seed(sum(shape) + 3 * it),
+                       dtype=torch.float64).to("cuda", dtype)
+    args = (rdot, x, x0, H_D, B, derived, dt, theta, it, exps, precondition)
+    got = si_kernel.si_step_tangent(*args)
+    again = si_kernel.si_step_tangent(*args)
+    want = si_kernel.si_step_tangent_reference(*args)
+    torch.cuda.synchronize()
+    row = {"phase": "check", "kernel": f"{name} tangent solve", "shape": list(shape),
+           "path": si_kernel.si_plan(*shape, dtype, exps).path, "dtype": str(dtype),
+           "rel_err": rel_err(got, want), "tol": tol,
+           "bitwise_repeat": bool(torch.equal(got, again))}
+    ok = row["rel_err"] <= tol
+    if dtype == torch.float32:
+        want64 = si_kernel.si_step_tangent_reference(*(t.double() for t in args[:5]),
+                                                     derived.double(), *args[6:])
+        row["vs_f64_plain"] = {"kernel": rel_err(got, want64), "f32_plain": rel_err(want, want64),
+                               "factor": GRAD_F32_FACTOR}
+        ok = ok or row["vs_f64_plain"]["kernel"] <= GRAD_F32_FACTOR * row["vs_f64_plain"][
+            "f32_plain"]
+    emit(row)
+    if not (ok and row["bitwise_repeat"] and torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: the tangent-solve mode disagrees with its plain "
+                             f"version or with itself: {row}")
+
+
+def check_rhs_jvp(H, B, raw, name, shape, dtype, stage_s=None):
+    """sia2d_rhs_jvp against its plain version on the card (dH a random
+    plane, d(creep) a tenth of each glacier's creep), with a bitwise repeat;
+    with ``stage_s`` also its stage mode (stage 5 of ``stage_s``, keeping
+    and not keeping fdot) and the whole RKC2 step's tangent
+    (interval_tangent, s + 1 launches) at the RKC training's step. float32
+    passes within TOL_F32 (TOL_RKC_F32 for the step) of max|reference| or
+    within GRAD_F32_FACTOR times the float32 plain version's own error
+    against float64."""
+    from odinn_tpu_torch.core.params import PhysicalParameters
+    from odinn_tpu_torch.ops.cuda import rkc_kernel, sia_kernel
+
+    PHYS = PhysicalParameters()
+    gen = torch.Generator().manual_seed(sum(shape) + 5)
+    planes = [torch.randn(shape, generator=gen, dtype=torch.float64).to("cuda", dtype)
+              for _ in range(4)]
+    derived = sia_kernel.derive_table(raw, PHYS.rho, PHYS.g).to(dtype)
+    d_creep = 0.1 * derived[:, 2]
+    cases = {name: (lambda m, a: m(a[0], a[1], a[2], a[3], a[4], PHYS.eta0),
+                    (planes[0], H, B, derived, d_creep))}
+    if stage_s is not None:
+        dt = DT * (stage_s / RKC_STAGES) ** 2
+        weights = rkc_kernel._stage_weights(stage_s, dtype, dt)[1][5]
+        for keep in (True, False):
+            cases[f"{name} rkc stage keep_f={keep}"] = (
+                lambda m, a, k=keep: m(a[0], a[1], a[2], a[3], a[4], PHYS.eta0,
+                                       stage=(a[5], a[6], a[7], weights), keep_f=k),
+                (planes[0], H, B, derived, d_creep, planes[1], planes[2], planes[3]))
+    for case, (call, args) in cases.items():
+        got = call(sia_kernel.sia2d_rhs_jvp, args)
+        again = call(sia_kernel.sia2d_rhs_jvp, args)
+        want = call(sia_kernel.sia2d_rhs_jvp_reference, args)
+        want64 = call(sia_kernel.sia2d_rhs_jvp_reference, tuple(a.double() for a in args))
+        pick = lambda r: [t for t in (r if isinstance(r, tuple) else (r,)) if t is not None]
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in zip(pick(got), pick(want))]
+        vs64 = [(rel_err(a, c), rel_err(b, c))
+                for a, b, c in zip(pick(got), pick(want), pick(want64))]
+        check_tangent_row(case, shape, dtype, errs, vs64, TOL_F32,
+                          all(torch.equal(a, b) for a, b in zip(pick(got), pick(again))),
+                          n=sorted(set(raw[:, 4].tolist())))
+    if stage_s is not None:
+        dt = DT * (stage_s / RKC_STAGES) ** 2
+        exps = tuple(float(e) for e in derived[0, 4:8].tolist())
+        args = (planes[0], d_creep, H, B, derived, dt, stage_s, PHYS.eta0, exps)
+        got = rkc_kernel.interval_tangent(*args)
+        again = rkc_kernel.interval_tangent(*args)
+        want = rkc_kernel.interval_tangent_reference(*args)
+        want64 = rkc_kernel.interval_tangent_reference(
+            *(a.double() for a in args[:5]), *args[5:])
+        torch.cuda.synchronize()
+        check_tangent_row(f"rkc_interval tangent s={stage_s}", shape, dtype,
+                          [rel_err(got, want)], [(rel_err(got, want64), rel_err(want, want64))],
+                          TOL_RKC_F32, bool(torch.equal(got, again)))
+
+
+def check_tangent_row(name, shape, dtype, errs, vs64, tol32, repeat, **extra):
+    """Emit a tangent kernel's check row; raise unless each output is within
+    TOL_F64 (float64) or tol32 (float32) of max|plain version|, or in
+    float32 within GRAD_F32_FACTOR times the plain version's own error
+    against float64, and the repeat launch was bit-identical."""
+    tol = TOL_F64 if dtype == torch.float64 else tol32
+    row = dict({"phase": "check", "kernel": name, "shape": list(shape), "dtype": str(dtype),
+                "rel_err": errs, "tol": tol, "bitwise_repeat": repeat}, **extra)
+    ok = [e <= tol for e in errs]
+    if dtype == torch.float32:
+        row["vs_f64_plain"] = [{"kernel": k, "f32_plain": p} for k, p in vs64]
+        row["factor"] = GRAD_F32_FACTOR
+        ok = [o or k <= GRAD_F32_FACTOR * p for o, (k, p) in zip(ok, vs64)]
+    emit(row)
+    if not (all(ok) and repeat and all(np.isfinite(errs))):
+        raise AssertionError(f"{name}: the tangent kernel disagrees with its plain version "
+                             f"or with itself: {row}")
 
 
 def check_rhs(H, B, raw, name, shape, dtype):
@@ -944,6 +1156,134 @@ def check_si_gradients(H, B, derived, gbar):
         raise AssertionError(f"si_step float32 gradient disagrees: {row}")
 
 
+TOL_DUALITY = 1e-10
+
+
+def _jvp(fn, primals, tangents):
+    """(output, its tangent) of ``fn`` by forward mode
+    (``torch.autograd.forward_ad``)."""
+    import torch.autograd.forward_ad as fwAD
+
+    with fwAD.dual_level():
+        out = fn(*(fwAD.make_dual(p, t) for p, t in zip(primals, tangents)))
+        primal, tangent = fwAD.unpack_dual(out)
+    return primal, tangent
+
+
+def _tangent_functions():
+    """(name, shape, function of (H, H_D, B, table), the table's kind,
+    the differentiated table columns) of the three autograd Functions'
+    tangent checks: si_step at 4 x 128^2 (PCG-6 and 20, theta = 1 with
+    H_D = H and 1/2 with H_D != H), on its large-plane path (2 x 300^2,
+    PCG-6) and at the SI training's 16 x 128^2 (PCG-20, second wave);
+    sia2d_rhs at 4 x 128^2; rkc_interval at 4 x 128^2, s = 8."""
+    from odinn_tpu_torch.core.params import PhysicalParameters
+    from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
+
+    PHYS = PhysicalParameters()
+    out = []
+    for shape, it, theta in (((N_G, NX, NY), 6, 1.0), ((N_G, NX, NY), SI_TRAIN_CG, 1.0),
+                             ((N_G, NX, NY), 6, 0.5), ((N_G, NX, NY), SI_TRAIN_CG, 0.5),
+                             ((2, 300, 300), 6, 0.5), ((N_TRAIN, NX, NY), SI_TRAIN_CG, 1.0)):
+        def si(h, hd, b, t, it=it, theta=theta):
+            return si_kernel.si_step(h, hd if theta != 1.0 else h, b, 0.99 * h.detach(), t, DT,
+                                     theta, it)
+        out.append((f"si_step cg_iters={it} theta={theta}", shape, si, "derived", (2, 3)))
+    out.append(("sia2d_rhs", (N_G, NX, NY),
+                lambda h, hd, b, t: sia_kernel.sia2d_rhs(h, b, t, PHYS.rho, PHYS.g, PHYS.eta0),
+                "raw", (2,)))
+    dt = DT * (8 / RKC_STAGES) ** 2
+    out.append(("rkc_interval s=8", (N_G, NX, NY),
+                lambda h, hd, b, t: rkc_kernel.rkc_interval(h, b, t, dt, 8, PHYS.eta0),
+                "derived", (2,)))
+    return out
+
+
+def check_tangents():
+    """The three autograd Functions' tangents on the card (kernel forward,
+    the tangent kernels: si_step's tangent-solve mode with ṙ formed by
+    PyTorch ops, sia2d_rhs_jvp, rkc_interval's kept stages and
+    sia2d_rhs_jvp's stage mode) in float64 against the same forward-mode
+    derivative on the CPU (the plain versions), to TOL_GRAD_F64, with a
+    bitwise repeat; the tangents of H, H_D (si_step, theta = 1/2), B
+    (si_step) and the differentiated table columns. Then the duality
+    <u, J v> = <J^T u, v> between each Function's tangent and its backward
+    on the card, to TOL_DUALITY: sia2d_rhs and rkc_interval at 4 x 128^2,
+    si_step at PCG-40 from a zero guess, where the tangent solve and the
+    transpose solve have converged (at fewer iterations they are two
+    contracts; from the primal guess the tangent solve starts a residual of
+    the primal's size, hundreds of times the tangent's, which 40
+    iterations do not remove to 1e-10)."""
+    from odinn_tpu_torch.core.params import PhysicalParameters
+    from odinn_tpu_torch.ops.cuda import si_kernel
+    from odinn_tpu_torch.ops.cuda.common import derived_scalars
+
+    PHYS = PhysicalParameters()
+
+    def inputs(shape, kind, seed):
+        H, B, raw = kernel_inputs(*shape, torch.float64, seed=seed)
+        table = raw if kind == "raw" else derived_scalars(*(raw[:, k] for k in range(7)),
+                                                          PHYS.rho, PHYS.g)
+        gen = torch.Generator().manual_seed(seed + 1)
+        planes = [torch.randn(shape, generator=gen, dtype=torch.float64).to("cuda")
+                  for _ in range(4)]
+        return (H, 0.97 * H, B, table), planes
+
+    def tangents(shape, table, cols, planes):
+        dt = torch.zeros_like(table)
+        for c in cols:
+            dt[:, c] = 0.1 * table[:, c] * planes[3].flatten()[:shape[0]]
+        return (planes[0], planes[1], planes[2], dt)
+
+    for name, shape, fn, kind, cols in _tangent_functions():
+        primals, planes = inputs(shape, kind, seed=sum(shape) + len(name))
+        tans = tangents(shape, primals[3], cols, planes)
+        # the RHS and the RKC step differentiate no bed: its tangent is zero
+        if not name.startswith("si_step"):
+            tans = tans[:2] + (torch.zeros_like(tans[2]),) + tans[3:]
+        _, got = _jvp(fn, primals, tans)
+        _, again = _jvp(fn, primals, tans)
+        _, want = _jvp(fn, tuple(p.cpu() for p in primals), tuple(t.cpu() for t in tans))
+        torch.cuda.synchronize()
+        row = {"phase": "check_tangent", "function": name, "shape": list(shape),
+               "dtype": "torch.float64", "rel_err_vs_cpu": rel_err(got.cpu(), want),
+               "tol": TOL_GRAD_F64, "bitwise_repeat": bool(torch.equal(got, again))}
+        if name.startswith("si_step"):
+            row["path"] = si_kernel.si_plan(*shape, torch.float64).path
+        emit(row)
+        if not (row["rel_err_vs_cpu"] <= TOL_GRAD_F64 and row["bitwise_repeat"]
+                and torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: the card's tangent disagrees with the CPU's or "
+                                 f"with itself: {row}")
+    for name, shape, fn, kind, cols in _tangent_functions():
+        if name.startswith("si_step") and not (shape == (N_G, NX, NY) and "cg_iters=6" in name):
+            continue
+        if name.startswith("si_step"):
+            theta = 1.0 if "theta=1.0" in name else 0.5
+            fn = (lambda h, hd, b, t, theta=theta: si_kernel.si_step(
+                h, hd if theta != 1.0 else h, b, torch.zeros_like(h.detach()), t, DT, theta,
+                40))
+            name = name.replace("cg_iters=6", "cg_iters=40")
+        primals, planes = inputs(shape, kind, seed=sum(shape) + 7 * len(name))
+        tans = tangents(shape, primals[3], cols, planes)
+        if not name.startswith("si_step"):
+            tans = tans[:2] + (torch.zeros_like(tans[2]),) + tans[3:]
+        u = torch.randn(shape, generator=torch.Generator().manual_seed(3),
+                        dtype=torch.float64).to("cuda")
+        _, jv = _jvp(fn, primals, tans)
+        leaves = [p.clone().requires_grad_(True) for p in primals]
+        cot = torch.autograd.grad(fn(*leaves), leaves, u, allow_unused=True)
+        lhs = float(torch.sum(u * jv))
+        rhs = sum(float(torch.sum(c * t)) for c, t in zip(cot, tans) if c is not None)
+        row = {"phase": "check_duality", "function": name, "shape": list(shape),
+               "dtype": "torch.float64", "u_Jv": lhs, "JTu_v": rhs,
+               "rel_err": abs(lhs - rhs) / abs(lhs), "tol": TOL_DUALITY}
+        emit(row)
+        if not row["rel_err"] <= TOL_DUALITY:
+            raise AssertionError(f"{name}: tangent and backward are not each other's "
+                                 f"transpose: {row}")
+
+
 def time_kernels():
     """Kernel and plain-version times at the main path's shapes (float32):
     4 x 128^2 for si_step, sia2d_rhs and rkc_interval (s = 25, the RKC
@@ -988,6 +1328,13 @@ def time_kernels():
                                                  exps)
     xt_plain = si_kernel._si_solve_reference(Ht, Ht, Bt, Ht, derived_t, DT, 1.0, it_t, exps,
                                              precondition=False)
+    # the tangents' inputs: a residual tangent, and the d(creep) of the
+    # sia2d_rhs_jvp calls (a tenth of each glacier's creep)
+    rdot4 = torch.randn(H.shape, generator=torch.Generator().manual_seed(19)).to("cuda")
+    rdott = torch.randn(Ht.shape, generator=torch.Generator().manual_seed(20)).to("cuda")
+    d_creep4, d_creept = 0.1 * derived[:, 2].to(f32), 0.1 * table_t[:, 2]
+    jgen = torch.Generator().manual_seed(21)
+    dY, dH0, dY2, df0 = (torch.randn(Ht.shape, generator=jgen).to("cuda") for _ in range(4))
     n15 = N_TRAIN - 1
     H15, B15, x15, lam15 = (t[:n15].contiguous() for t in (Ht, Bt, xt, lam))
     derived_15 = derived_t[:n15].contiguous()
@@ -1041,6 +1388,29 @@ def time_kernels():
             "si_step", lambda f: lambda: f(lam15, x15, H15, B15, derived_15, DT, 1.0, it_t, exps),
             si_kernel.si_step_transpose, si_kernel.si_step_transpose_reference,
             si_transpose_bound(n15, NX, NY, 4, it_t), SI_KERNELS, 10),
+        f"si_step tangent {N_G}x{NX}x{NY} cg_iters=6": (
+            "si_step", lambda f: lambda: f(rdot4, x4, H, H, B, derived, DT, 1.0, 6, exps),
+            si_kernel.si_step_tangent, si_kernel.si_step_tangent_reference,
+            si_tangent_bound(N_G, NX, NY, 4, 6), SI_KERNELS, 50),
+        f"si_step tangent {N_TRAIN}x{NX}x{NY} cg_iters={it_t}": (
+            "si_step", lambda f: lambda: f(rdott, xt, Ht, Ht, Bt, derived_t, DT, 1.0, it_t, exps),
+            si_kernel.si_step_tangent, si_kernel.si_step_tangent_reference,
+            si_tangent_bound(N_TRAIN, NX, NY, 4, it_t), SI_KERNELS, 10),
+        "sia2d_rhs_jvp": ("sia2d_rhs_jvp",
+                          lambda f: lambda: f(dY, Ht, Bt, table_t, d_creept, PHYS.eta0),
+                          sia_kernel.sia2d_rhs_jvp, sia_kernel.sia2d_rhs_jvp_reference,
+                          jvp_bound(N_TRAIN, NX, NY, 4), ("sia2d_rhs_jvp_kernel",), 50),
+        f"sia2d_rhs_jvp {N_G}x{NX}x{NY}": (
+            "sia2d_rhs_jvp", lambda f: lambda: f(rdot4, H, B, derived.to(f32), d_creep4,
+                                                 PHYS.eta0),
+            sia_kernel.sia2d_rhs_jvp, sia_kernel.sia2d_rhs_jvp_reference,
+            jvp_bound(N_G, NX, NY, 4), ("sia2d_rhs_jvp_kernel",), 50),
+        f"sia2d_rhs_jvp rkc stage {N_TRAIN}x{NX}x{NY}": (
+            "sia2d_rhs_jvp",
+            lambda f: lambda: f(dY, Ht, Bt, table_t, d_creept, PHYS.eta0,
+                                stage=(dH0, dY2, df0, weights), keep_f=False),
+            sia_kernel.sia2d_rhs_jvp, sia_kernel.sia2d_rhs_jvp_reference,
+            jvp_bound(N_TRAIN, NX, NY, 4, stage=True), ("sia2d_rhs_jvp_kernel",), 50),
         "si_step_vjp": ("si_step_vjp",
                         lambda f: lambda: f(lamt, Ht, Ht, Bt, xt, derived_t, DT, 1.0, exps),
                         si_kernel.si_step_vjp, si_kernel.si_step_vjp_reference,
@@ -1123,8 +1493,10 @@ def kernel_counters():
     from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
 
     return {"si_step": si_kernel.si_step, "si_step_transpose": si_kernel.si_step_transpose,
+            "si_step_tangent": si_kernel.si_step_tangent,
             "si_step_vjp": si_kernel.si_step_vjp, "sia2d_rhs": sia_kernel.sia2d_rhs,
-            "rkc_interval": rkc_kernel.rkc_interval, "sia2d_rhs_vjp": sia_kernel.sia2d_rhs_vjp}
+            "rkc_interval": rkc_kernel.rkc_interval, "sia2d_rhs_vjp": sia_kernel.sia2d_rhs_vjp,
+            "sia2d_rhs_jvp": sia_kernel.sia2d_rhs_jvp}
 
 
 def bench_params(**solver_kw):
@@ -1379,7 +1751,8 @@ def training_problem(solver, grad="jax", n_g=N_TRAIN, tspan=TRAIN_TSPAN,
     start with correlated noise of 15 m) against the thickness series plus
     a Tikhonov term on H0 (weight 1e-12), "aggregate" against the mean
     dh/dt over the span and the annual mean-velocity product (LossDhdt +
-    LossAvgV). The laws-and-targets kinds: "periodic" trains NN(T) times
+    LossAvgV), "classical" against the thickness series alone. The
+    laws-and-targets kinds: "periodic" trains NN(T) times
     the CPDD factor of ``periodic_a_law`` as one periodic per-glacier A law
     (refreshed every ``periodic_freq`` years; the glaciers get the main
     path's monthly climates), "Y" the hybrid-D target (LawY, max_nn 8e-18,
@@ -1467,7 +1840,7 @@ def training_problem(solver, grad="jax", n_g=N_TRAIN, tspan=TRAIN_TSPAN,
             prescale_bounds=((0.0, 500.0), (0.0, 0.3))), n_value=3.0))
     else:
         ic = (InitialCondition(filter="Zang1980", init="Farinotti2019Random", noise_sigma=15.0)
-              if kind == "ic" else None)
+              if kind == "ic" else None)   # kinds "ic", "aggregate", "classical"
         model = Model(iceflow=SIA2DModel(A=LawA_inversion(params, scalar=True), n_value=3.0),
                       initial_condition=ic)
     inv = Inversion(model=model, glaciers=truth, parameters=params, device="cuda")
@@ -2056,6 +2429,278 @@ def f32_attribution(samples=6):
 # Phase 9: the tolerance contract
 # ---------------------------------------------------------------------------
 
+def lm_jvps(iters, cg_iters, probes=LM_PROBES, refresh=5, restarts=1, precond=True):
+    """J·v products of ``lm_train``: the probes of each diagonal estimate
+    (one at the start, one every ``refresh`` iterations with the Jacobi
+    preconditioner) and each iteration's CG matvecs (a round's iterations,
+    and one more a restart)."""
+    estimates = 1 + (sum(1 for it in range(1, iters) if it % max(refresh, 1) == 0)
+                     if precond else 0)
+    per_round = max(cg_iters // restarts, 1)
+    return probes * estimates + iters * (restarts * per_round + restarts - 1)
+
+
+def lm_phase(solver):
+    """The LM stage on the training batch (16 x 128^2, float32, 24
+    intervals): A = NN(T) by Adam (LM_EPOCHS[0] epochs), then LM_EPOCHS[1]
+    Levenberg-Marquardt iterations (gn_cg_iters LM_CG, Jacobi-preconditioned,
+    LM_PROBES probes) through SI at PCG-20 or RKC at s = 8. Asserts finite
+    losses, a monotone LM trace, si_step = 24 x solves (SI), and the tangent
+    kernels' launches: si_step_tangent = 24 x J·v products (SI), and
+    sia2d_rhs_jvp = 24 x s x J·v products (RKC: s stage launches a step's
+    tangent). Then times lm_train alone from the trained θ: one call of one
+    iteration (its diagonal estimate, the iteration and the trailing
+    evaluation) with its device busy time, idle share and launches, and one
+    more iteration (two iterations less one). Returns the run's launches."""
+    from odinn_tpu_torch.inverse.gauss_newton import lm_train, make_residual_fn
+    from odinn_tpu_torch.simulation.inversion import run_inversion
+
+    inv, model, params, tstops, facts = training_problem(solver, "jax")
+    params = params.replace(hyper=dataclasses.replace(
+        params.hyper, optimizer=("adam", "lm"), learning_rate=(0.05, 1e-3), epochs=LM_EPOCHS,
+        gn_cg_iters=LM_CG))
+    inv.parameters = params
+    n_int = len(tstops) - 1
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    results = run_inversion(inv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    stats = results.stats
+    losses = stats.losses
+    jvps = lm_jvps(LM_EPOCHS[1], LM_CG)
+    expected = {"si_step_tangent": n_int * jvps if solver == "SI" else 0,
+                "sia2d_rhs_jvp": n_int * facts.get("rkc_stages", 0) * jvps}
+    if solver == "SI":
+        expected["si_step"] = n_int * stats.solves
+    lm_trace = losses[LM_EPOCHS[0]:]
+    resid = make_residual_fn(model, params, tstops)
+    theta = _tree_to(inv.theta, "cuda", None)
+    run = lambda iters: lm_train(theta, inv.glaciers, resid, iters=iters, cg_iters=LM_CG)
+    one_ms, two_ms = row_ms(lambda: run(1), reps=3), row_ms(lambda: run(2), reps=3)
+    busy_ms, dev_launches, by_name = device_profile(lambda: run(1), 1)
+    row = dict({"phase": "lm_training", "solver": solver, "glaciers": N_TRAIN,
+                "grid": [NX, NY], "dtype": "torch.float32", "intervals": n_int,
+                "adam_epochs": LM_EPOCHS[0], "lm_iterations": LM_EPOCHS[1], "gn_cg_iters": LM_CG,
+                "jvps": jvps, "run_inversion_s": train_s, "losses": losses,
+                "lm_trace": lm_trace, "final_loss": stats.final_loss, "solves": stats.solves,
+                "launches": launches, "expected_launches": expected,
+                "lm_train_1_iteration_ms": one_ms, "lm_iteration_ms": two_ms - one_ms,
+                "lm_train_1_iteration_device_busy_ms": busy_ms,
+                "lm_train_1_iteration_device_idle_share": 1.0 - busy_ms / one_ms,
+                "lm_train_1_iteration_device_launches": dev_launches,
+                "lm_train_1_iteration_launches_by_kernel": {
+                    k: v for k, v in by_name.items() if k in KERNEL_NAMES}}, **facts)
+    emit(row)
+    if any(launches[k] != v for k, v in expected.items()):
+        raise AssertionError(f"LM {solver}: launches {launches}, expected {expected}")
+    if not (np.isfinite(losses).all()
+            and all(b <= a for a, b in zip(lm_trace, lm_trace[1:]))):
+        raise AssertionError(f"LM {solver}: losses not finite or LM trace not monotone: "
+                             f"{losses}")
+    return launches
+
+
+def lm_gate_phase(device="cuda"):
+    """tests/test_gauss_newton.py::test_lm_collapses_loss_after_adam on the
+    card: 2 Halfar glaciers of 36^2 (dx 120 m, -15 and -22 C), 12 monthly
+    intervals, RK4 at 15 substeps, float64, A = NN(T) (the light net from
+    the JAX test's initial θ, LM_GATE_THETA), Adam 30 epochs (lr 0.05),
+    then 15 LM iterations (λ0 1e-3) on the JAX test's Rademacher probes
+    (LM_GATE_PROBES, in place of the port's draw for this run). Its
+    gates: the LM stage gains at least 15x over its start, its trace is
+    monotone, and A is within 15 % of Cuffey-Paterson at both
+    temperatures; every RK4 stage's tangent is one sia2d_rhs_jvp launch.
+    Returns the run's launches."""
+    from odinn_tpu_torch.core.params import (
+        Hyperparameters, Parameters, PhysicalParameters, SimulationParameters,
+        SolverParameters, UDEParameters)
+    from odinn_tpu_torch.data.synthetic import halfar_glacier
+    from odinn_tpu_torch.inverse import gauss_newton
+    from odinn_tpu_torch.laws.laws import CuffeyPaterson, LawA, eval_law, poly_A_paterson_cuffey
+    from odinn_tpu_torch.models.model import Model, SIA2DModel
+    from odinn_tpu_torch.models.nn import NeuralNetwork, default_architecture
+    from odinn_tpu_torch.simulation.inversion import Inversion, run_inversion
+    from odinn_tpu_torch.simulation.prediction import generate_ground_truth
+    from odinn_tpu_torch.simulation.solver import build_tstops
+
+    tspan, substeps, epochs = (5.0, 6.0), 15, (30, 15)
+    params = Parameters(
+        physical=PhysicalParameters(min_A=8e-21, max_A=8e-18),
+        simulation=SimulationParameters(tspan=tspan, use_MB=False, test_mode=True,
+                                        float_dtype="float64"),
+        solver=SolverParameters(step=1.0 / 12.0, substeps=substeps),
+        hyper=Hyperparameters(optimizer=("adam", "lm"), learning_rate=(0.05, 1e-3),
+                              epochs=epochs, batch_size=8),
+        UDE=UDEParameters(grad="jax", target="A"))
+    temps = (-15.0, -22.0)
+    glaciers = [halfar_glacier(nx=36, ny=36, dx=120.0, temp=t, rgi_id=f"gn-{i + 1}",
+                               device=device, dtype=torch.float64)
+                for i, t in enumerate(temps)]
+    tstops = build_tstops(tspan, params.solver.step)
+    glaciers = generate_ground_truth(glaciers, params, Model(iceflow=SIA2DModel(
+        A=CuffeyPaterson())), tstops, store=("H",), device=device)
+    model = Model(iceflow=SIA2DModel(A=LawA(NeuralNetwork(default_architecture(1, light=True),
+                                                          seed=666), params)))
+    theta = {"A": [{"w": torch.tensor(w, dtype=torch.float64, device=device),
+                    "b": torch.tensor(b, dtype=torch.float64, device=device)}
+                   for w, b in LM_GATE_THETA]}
+    inv = Inversion(model=model, glaciers=glaciers, parameters=params, theta=theta,
+                    device=device)
+    estimates = []
+
+    def jax_probes(gen, th, n):
+        """The next diagonal estimate's probes of LM_GATE_PROBES."""
+        signs = LM_GATE_PROBES[len(estimates)]
+        estimates.append(n)
+        out = []
+        for probe in signs[:n]:
+            it = iter(1.0 if c == "+" else -1.0 for c in probe)
+            layers = []
+            for layer in th["A"]:
+                b = torch.tensor([next(it) for _ in range(layer["b"].numel())])
+                w = torch.tensor([next(it) for _ in range(layer["w"].numel())])
+                layers.append({"w": w.reshape(layer["w"].shape).to(layer["w"]),
+                               "b": b.reshape(layer["b"].shape).to(layer["b"])})
+            out.append({"A": layers})
+        return out
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    draw = gauss_newton._draw_probes
+    gauss_newton._draw_probes = jax_probes
+    t0 = time.perf_counter()
+    try:
+        res = run_inversion(inv)
+    finally:
+        gauss_newton._draw_probes = draw
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    losses = res.stats.losses
+    lm_start, lm_trace = losses[epochs[0]], losses[epochs[0]:]
+    n_int = len(tstops) - 1
+    jvps = lm_jvps(epochs[1], params.hyper.gn_cg_iters)
+    expected_jvp = n_int * substeps * 4 * jvps
+    a_true = poly_A_paterson_cuffey()
+    a_rel = []
+    for g, temp in enumerate(temps):
+        a_nn = float(eval_law(model.iceflow.A, inv.theta, glaciers[g], glacier_idx=g))
+        a_ref = float(a_true(torch.tensor(temp, dtype=torch.float64)))
+        a_rel.append(abs(a_nn - a_ref) / a_ref)
+    row = {"phase": "lm_gates", "glaciers": 2, "grid": [36, 36], "solver": "RK4",
+           "substeps": substeps, "dtype": "torch.float64", "intervals": n_int,
+           "adam_epochs": epochs[0], "lm_iterations": epochs[1], "seconds": seconds,
+           "lm_start": lm_start, "final_loss": res.stats.final_loss,
+           "gain": lm_start / res.stats.final_loss, "lm_trace": lm_trace,
+           "A_rel_err": dict(zip(map(str, temps), a_rel)), "launches": launches,
+           "expected_sia2d_rhs_jvp": expected_jvp, "jvps": jvps,
+           "diag_estimates": len(estimates)}
+    emit(row)
+    if not (np.isfinite(losses).all() and res.stats.final_loss < lm_start / 15.0):
+        raise AssertionError(f"LM gates: gain below 15x or losses not finite: {row}")
+    if not all(b <= a * (1 + 1e-12) for a, b in zip(lm_trace, lm_trace[1:])):
+        raise AssertionError(f"LM gates: the LM trace is not monotone: {row}")
+    if not all(e < 0.15 for e in a_rel):
+        raise AssertionError(f"LM gates: A not within 15 % of the truth: {row}")
+    if device == "cuda" and launches["sia2d_rhs_jvp"] != expected_jvp:
+        raise AssertionError(f"LM gates: sia2d_rhs_jvp launches {launches['sia2d_rhs_jvp']}, "
+                             f"expected {expected_jvp}")
+    return launches
+
+
+def forward_grad_phase():
+    """grad="forward" of the classical per-glacier A (LawA_inversion, one
+    θ entry a glacier) through SI (PCG-20) and RKC: float64 on a cut
+    problem (4 x 128^2, 2 months), where the card's gradient equals the
+    CPU's forward-mode gradient (plain versions) and the card's grad="jax"
+    gradient to TOL_GRAD_F64 (through SI at PCG-20 forward mode takes the
+    tangent solve and reverse mode the transpose solve, two contracts that
+    meet where PCG has converged, as it has there to well within the
+    tolerance); float32 on the training batch (16 x 128^2, 24 intervals),
+    within GRAD_F32_FACTOR times the CPU float32 forward gradient's error
+    against the card's float64 one at the same data, with the launches
+    (a solve of the kernel per interval and its tangent kernels: 24
+    si_step_tangent, or 24 x (s + 1) for RKC's rkc_interval and 24 x s
+    sia2d_rhs_jvp), and the Adam epoch by forward mode timed and profiled.
+    Returns the launches of the float32 gradients."""
+    from odinn_tpu_torch.simulation.inversion import Inversion
+
+    counters = kernel_counters()
+    total = {k: 0 for k in counters}
+    for solver in ("SI", "RKC"):
+        inv, model, params, tstops, facts = training_problem(
+            solver, "forward", n_g=N_G, tspan=(5.0, 5.0 + 2.0 / 12.0), dtype=torch.float64,
+            kind="classical")
+        theta = _tree_to(inv.theta, "cuda", None)
+        theta["A"] = theta["A"] + 0.3
+        g_card = grad_fn(inv, params)[0](theta, inv.glaciers)[1][0]
+        cpu_inv = Inversion(model=inv.model, glaciers=inv.glaciers.to("cpu"), parameters=params,
+                            theta=_tree_to(theta, "cpu", None), device="cpu")
+        g_cpu = grad_fn(cpu_inv, params)[0](cpu_inv.theta, cpu_inv.glaciers)[1][0]
+        jparams = params.replace(UDE=dataclasses.replace(params.UDE, grad="jax"))
+        g_jax = grad_fn(inv, jparams)[0](_tree_to(theta, "cuda", None, requires_grad=True),
+                                         inv.glaciers)[1][0]
+        torch.cuda.synchronize()
+        row = {"phase": "forward_grad_check", "solver": solver, "glaciers": N_G,
+               "grid": [NX, NY], "dtype": "torch.float64", "intervals": len(tstops) - 1,
+               "rel_err_vs_cpu_forward": rel_err(g_card.cpu(), g_cpu),
+               "rel_err_vs_card_jax": rel_err(g_card, g_jax), "tol": TOL_GRAD_F64}
+        emit(row)
+        ok = (row["rel_err_vs_cpu_forward"] <= TOL_GRAD_F64
+              and row["rel_err_vs_card_jax"] <= TOL_GRAD_F64 and torch.isfinite(g_card).all())
+        if not ok:
+            raise AssertionError(f"grad='forward' {solver}: {row}")
+        # float32 at full width, at the float64 problem's data
+        inv64, model, params, tstops, facts = training_problem(
+            solver, "forward", dtype=torch.float64, kind="classical")
+        theta64 = _tree_to(inv64.theta, "cuda", None)
+        theta64["A"] = theta64["A"] + 0.3
+        params32 = params.replace(simulation=dataclasses.replace(params.simulation,
+                                                                 float_dtype="float32"))
+        inv32 = Inversion(model=inv64.model, glaciers=inv64.glaciers.to(dtype=torch.float32),
+                    parameters=params32, theta=_tree_to(theta64, "cuda", torch.float32),
+                    device="cuda")
+        g64 = grad_fn(inv64, params)[0](theta64, inv64.glaciers)[1][0]
+        for fn in counters.values():
+            fn.launches = 0
+        g32 = grad_fn(inv32, params32)[0](inv32.theta, inv32.glaciers)[1][0]
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        cpu32 = Inversion(model=inv64.model, glaciers=inv32.glaciers.to("cpu"), parameters=params32,
+                    theta=_tree_to(inv32.theta, "cpu", None), device="cpu")
+        g32_cpu = grad_fn(cpu32, params32)[0](cpu32.theta, cpu32.glaciers)[1][0]
+        n_int = len(tstops) - 1
+        s_ = facts.get("rkc_stages", 0)
+        expected = {k: 0 for k in counters}
+        if solver == "SI":
+            expected.update(si_step=n_int, si_step_tangent=n_int)
+        else:
+            expected.update(rkc_interval=n_int * 2, sia2d_rhs_jvp=n_int * s_)
+        for k, v in launches.items():
+            total[k] += v
+        prof = epoch_profile(adam_epoch_fn(inv32, inv32.model, params32, tstops))
+        row = dict({"phase": "forward_grad", "solver": solver, "glaciers": N_TRAIN,
+                    "grid": [NX, NY], "dtype": "torch.float32", "intervals": n_int,
+                    "rel_err_vs_card_f64": rel_err(g32, g64),
+                    "f32_plain_rel_err_vs_card_f64": rel_err(g32_cpu, g64.cpu()),
+                    "factor": GRAD_F32_FACTOR, "launches": launches,
+                    "expected_launches": expected}, **facts, **prof)
+        emit(row)
+        if launches != expected:
+            raise AssertionError(f"grad='forward' {solver}: launches {launches}, "
+                                 f"expected {expected}")
+        if not (torch.isfinite(g32).all() and row["rel_err_vs_card_f64"]
+                <= GRAD_F32_FACTOR * row["f32_plain_rel_err_vs_card_f64"]):
+            raise AssertionError(f"grad='forward' {solver} float32: {row}")
+    return total
+
+
 def _with_solver(params, **kw):
     return params.replace(solver=dataclasses.replace(params.solver, **kw))
 
@@ -2382,6 +3027,7 @@ def main() -> int:
 
     check_kernels()
     check_gradients()
+    check_tangents()
     check_adjoint_gradients()
     check_classical_gradients()
     check_law_target_gradients()
@@ -2410,6 +3056,13 @@ def main() -> int:
     pretraining_phase()
     for name, n in tolerance_phase().items():
         launches[name] += n
+    for solver in ("SI", "RKC"):
+        for name, n in lm_phase(solver).items():
+            launches[name] += n
+    for name, n in lm_gate_phase().items():
+        launches[name] += n
+    for name, n in forward_grad_phase().items():
+        launches[name] += n
     meta = {
         "si_step": ("odinn_tpu_torch/csrc/si_step.cu", "odinn_tpu/ops/pallas/si_kernel.py:174"),
         "sia2d_rhs": ("odinn_tpu_torch/csrc/sia2d_rhs.cu", "odinn_tpu/ops/pallas/sia_kernel.py:137"),
@@ -2424,6 +3077,10 @@ def main() -> int:
         # si_step.cu's transpose mode, under si_step's "more"
         "si_step_vjp": ("odinn_tpu_torch/csrc/si_step_vjp.cu",
                         "odinn_tpu/ops/pallas/si_kernel.py:222"),
+        # no TPU kernel has a tangent: the JAX package takes this one by
+        # jax.jvp of its production RHS (and of make_rkc2_step's stages)
+        "sia2d_rhs_jvp": ("odinn_tpu_torch/csrc/sia2d_rhs_jvp.cu",
+                          "jax.jvp of odinn_tpu/physics/sia2d.py:63 (sia2d_rhs)"),
     }
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "ms_source", "call_ms",
             "plain_device_ms")
@@ -2435,7 +3092,8 @@ def main() -> int:
          "plain_device_ms": t["plain_device_ms"],
          "more": [dict({"at": other}, **{k: o[k] for k in keys})
                   for other, o in timing.items() if other != name and o["kernel"] == name],
-         **({"transpose_launches": launches["si_step_transpose"]} if name == "si_step" else {})}
+         **({"transpose_launches": launches["si_step_transpose"],
+             "tangent_launches": launches["si_step_tangent"]} if name == "si_step" else {})}
         for name, t in timing.items() if name == t["kernel"]
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

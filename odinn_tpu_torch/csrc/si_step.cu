@@ -1,6 +1,7 @@
 // Fused semi-implicit theta-step: frozen diffusivity, right-hand side,
 // Jacobi preconditioner and a fixed number of PCG iterations, then relu; and,
-// as a second mode of the same kernels, the transpose solve of its backward.
+// as two more modes of the same kernels, the transpose solve of its backward
+// and the tangent solve of its forward-mode derivative.
 //
 // Replaces the TPU kernel odinn_tpu/ops/pallas/si_kernel.py::si_step_pallas
 // (pallas_call in _forward), which ran the whole step for one glacier in one
@@ -65,7 +66,7 @@
 //  is a specialisation with fixed multiplies (GlenExps), any other set
 //  takes pow_pos at run time (RuntimeExps).
 //
-// The transpose-solve mode (template flag kT; ops/cuda/si_kernel.py::
+// The transpose-solve mode (kMode kTranspose; ops/cuda/si_kernel.py::
 // si_step_transpose, plain version si_step_transpose_reference) is the first
 // half of the step's implicit-function adjoint, the gradient JAX gives
 // odinn_tpu/simulation/implicit.py::semi_implicit_step through
@@ -77,9 +78,19 @@
 // faces and the inverse diagonal, the same rounds of the same exchange, and
 // lambda written without relu. Under grad the forward also writes x (xout).
 //
-// Without the preconditioner (template flag kJ false; si_step's and
-// si_step_transpose's precondition=False, plain version si_math.cg with no
-// preconditioner) both modes run plain CG: the inverse diagonal is 1, so z
+// The tangent-solve mode (kMode kTangent; ops/cuda/si_kernel.py::
+// si_step_tangent, plain version si_step_tangent_reference) is the jvp JAX
+// gives the same step through lax.custom_linear_solve: xdot = PCG(A, rdot)
+// run by the forward's solve closure, from the forward's guess x0 (not from
+// zero), then xdot*[x > 0] with x the forward's pre-relu solution. The
+// residual's tangent rdot is read where the forward reads H, the guess where
+// it reads x0, and x through xout, which this mode reads instead of writing.
+// The operator, faces, inverse diagonal, layout and exchange rounds are the
+// forward's; only b (rdot as given, ring included) and the output differ.
+//
+// Without the preconditioner (template flag kJ false; precondition=False of
+// si_step, si_step_transpose and si_step_tangent, plain version si_math.cg
+// with no preconditioner) every mode runs plain CG: the inverse diagonal is 1, so z
 // is r and its register copy and the multiply go. This is the solve the
 // hand-written SI/SI2 transposes of odinn_tpu/inverse/gradient.py run
 // (_cg without precond): the rematerialised step from H0 and the adjoint
@@ -126,6 +137,11 @@ constexpr int kMaxWarps = kMaxThreads / 32;
 static_assert(kMaxCluster <= 16 && kMaxWarps <= 16, "fixed_sum sums at most 16 partials");
 constexpr int kBarBytes = 16;      // the two mbarriers at the start of the shared memory
 
+// the kernels' modes (the wrapper's `mode` argument)
+constexpr int kForward = 0;
+constexpr int kTranspose = 1;
+constexpr int kTangent = 2;
+
 // what an own cell does besides its update
 constexpr int kRing = 1;       // on the plane's ring: A is the identity there
 constexpr int kCorner = 2;     // forms the corner below-right of it
@@ -160,9 +176,10 @@ __device__ __forceinline__ T corner_at(const T* __restrict__ HD, const T* __rest
 
 // K: the cells a thread owns at most (2, 4 or 8; si_layout's cells,
 // rounded up).
-// kT: the transpose-solve mode (H is gbar, x0 the forward's x).
+// kMode: kForward; kTranspose (H is gbar, x0 the forward's x); kTangent (H
+// is rdot, x0 the forward's guess, xout the forward's x, read).
 // kJ: Jacobi-preconditioned CG; without it plain CG (inverse diagonal 1).
-template <typename T, class E, int K, bool kT, bool kJ>
+template <typename T, class E, int K, int kMode, bool kJ>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 si_step_cluster(const T* __restrict__ H, const T* __restrict__ HD, const T* __restrict__ B,
                 const T* __restrict__ x0, const T* __restrict__ table, T* __restrict__ out,
@@ -262,6 +279,7 @@ si_step_cluster(const T* __restrict__ H, const T* __restrict__ HD, const T* __re
   }
   __syncthreads();
 
+  constexpr bool kT = kMode == kTranspose;
   // the guess at device index gg: x0, or g = gbar*[x > 0] in the transpose
   // mode, which is also its right-hand side
   auto guess = [&](long gg) { return kT ? (x0[gg] > T(0) ? H[gg] : T(0)) : x0[gg]; };
@@ -288,6 +306,8 @@ si_step_cluster(const T* __restrict__ H, const T* __restrict__ HD, const T* __re
       fys[q] = T(0.5) * (d00 + d10);
       if (kT) {
         b = xc;
+      } else if (kMode == kTangent) {
+        b = H[g];
       } else {
         // u = B + ring*H + (1-theta)*M*H on the 5 points
         auto u = [&](long gg, bool in) {
@@ -398,8 +418,15 @@ si_step_cluster(const T* __restrict__ H, const T* __restrict__ HD, const T* __re
 #pragma unroll
   for (int q = 0; q < K; ++q) {
     if (sidx[q] < 0) continue;
-    out[gbase + sidx[q]] = kT ? x[q] : relu(x[q]);
-    if (!kT && xout != nullptr) xout[gbase + sidx[q]] = x[q];
+    const long g = gbase + sidx[q];
+    if (kMode == kForward) {
+      out[g] = relu(x[q]);
+      if (xout != nullptr) xout[g] = x[q];
+    } else if (kMode == kTangent) {
+      out[g] = xout[g] > T(0) ? x[q] : T(0);
+    } else {
+      out[g] = x[q];
+    }
   }
   // every store into this block's shared memory has landed before its last
   // wait returned, so a block may leave without waiting for its neighbours
@@ -408,7 +435,7 @@ si_step_cluster(const T* __restrict__ H, const T* __restrict__ HD, const T* __re
 // Once per instantiation: all the opt-in shared memory as dynamic (the
 // kernel has no static shared memory), and the non-portable cluster size
 // of 16.
-template <typename T, class E, int K, bool kT, bool kJ>
+template <typename T, class E, int K, int kMode, bool kJ>
 int prepare() {
   static int state = -1;
   if (state < 0) {
@@ -417,10 +444,10 @@ int prepare() {
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(si_step_cluster<T, E, K, kT, kJ>,
+      err = cudaFuncSetAttribute(si_step_cluster<T, E, K, kMode, kJ>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(si_step_cluster<T, E, K, kT, kJ>,
+      err = cudaFuncSetAttribute(si_step_cluster<T, E, K, kMode, kJ>,
                                  cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return static_cast<int>(err);
     state = 0;
@@ -447,39 +474,44 @@ cudaLaunchConfig_t config(const Shape& sh, cudaLaunchAttribute* attr, cudaStream
   return cfg;
 }
 
-// In the transpose mode H is gbar and x0 the forward's x (see above).
+// In the transpose mode H is gbar and x0 the forward's x; in the tangent
+// mode H is rdot and xout the forward's x (see above).
 template <typename T>
 struct StepArgs {
   const T *H, *HD, *B, *x0, *table;
   T *out, *xout;
-  int nx, ny, cg_iters, transpose, precondition;
+  int nx, ny, cg_iters, mode, precondition;
   double dt, theta;
 };
 
-template <typename T, class E, int K, bool kT, bool kJ>
+template <typename T, class E, int K, int kMode, bool kJ>
 int launch_mode(const StepArgs<T>& a, E e, const Shape& sh, void* stream) {
-  const int ready = prepare<T, E, K, kT, kJ>();
+  const int ready = prepare<T, E, K, kMode, kJ>();
   if (ready != 0) return ready;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = config(sh, &attr, static_cast<cudaStream_t>(stream));
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, si_step_cluster<T, E, K, kT, kJ>, a.H, a.HD, a.B, a.x0, a.table, a.out, a.xout,
+      &cfg, si_step_cluster<T, E, K, kMode, kJ>, a.H, a.HD, a.B, a.x0, a.table, a.out, a.xout,
       a.nx, a.ny, static_cast<T>(a.dt), static_cast<T>(a.theta * a.dt),
       static_cast<T>(1.0 - a.theta), a.cg_iters, e);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, class E, int K, bool kT>
+template <typename T, class E, int K, int kMode>
 int launch_pre(const StepArgs<T>& a, E e, const Shape& sh, void* stream) {
-  return a.precondition ? launch_mode<T, E, K, kT, true>(a, e, sh, stream)
-                        : launch_mode<T, E, K, kT, false>(a, e, sh, stream);
+  return a.precondition ? launch_mode<T, E, K, kMode, true>(a, e, sh, stream)
+                        : launch_mode<T, E, K, kMode, false>(a, e, sh, stream);
 }
 
 template <typename T, class E, int K>
 int launch_k(const StepArgs<T>& a, E e, const Shape& sh, void* stream) {
-  return a.transpose ? launch_pre<T, E, K, true>(a, e, sh, stream)
-                     : launch_pre<T, E, K, false>(a, e, sh, stream);
+  switch (a.mode) {
+    case kForward: return launch_pre<T, E, K, kForward>(a, e, sh, stream);
+    case kTranspose: return launch_pre<T, E, K, kTranspose>(a, e, sh, stream);
+    case kTangent: return launch_pre<T, E, K, kTangent>(a, e, sh, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <typename T, class E>
@@ -503,14 +535,14 @@ int with_exps(int glen, double e_hc, double e_sc, double e_hs, double e_ss, F&& 
 // same layout.
 template <typename T, class E, int K>
 int occupancy_k(const Shape& sh, int* active) {
-  const int ready = prepare<T, E, K, false, true>();
+  const int ready = prepare<T, E, K, kForward, true>();
   if (ready != 0) return ready;
   cudaLaunchAttribute attr;
   Shape one = sh;
   one.n_g = 1;
   const cudaLaunchConfig_t cfg = config(one, &attr, nullptr);
   return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(active, si_step_cluster<T, E, K, false, true>, &cfg));
+      cudaOccupancyMaxActiveClusters(active, si_step_cluster<T, E, K, kForward, true>, &cfg));
 }
 
 template <typename T, class E>
@@ -555,9 +587,10 @@ __device__ __forceinline__ Faces<T> faces(const T* __restrict__ D, int ny, int i
 // One thread per cell: its own corner D(i, j) into the corner plane, when
 // it has one, and b and the inverse diagonal. An interior cell forms its
 // three other corners itself, as no barrier spans the grid. In the transpose
-// mode (kT) H is gbar, X the forward's x, and b = gbar*[x > 0], which
-// si_pcg also takes as its guess. Without kJ the inverse diagonal is 1.
-template <typename T, class E, bool kT, bool kJ>
+// mode H is gbar, X the forward's x, and b = gbar*[x > 0], which si_pcg
+// also takes as its guess; in the tangent mode H is rdot, which is b. Without
+// kJ the inverse diagonal is 1.
+template <typename T, class E, int kMode, bool kJ>
 __global__ void __launch_bounds__(256)
 si_assemble(const T* __restrict__ H, const T* __restrict__ HD,
             const T* __restrict__ B, const T* __restrict__ X, const T* __restrict__ table,
@@ -578,6 +611,7 @@ si_assemble(const T* __restrict__ H, const T* __restrict__ HD,
   T* __restrict__ rhs = work + kRhs * batch + off;
   T* __restrict__ inv_diag = work + kInvDiag * batch + off;
 
+  constexpr bool kT = kMode == kTranspose;
   const bool own_corner = i < nx - 1 && j < ny - 1;
   const T d11 = own_corner ? corner_at(HD, B, g, ny, k, e) : T(0);
   if (own_corner) D[c] = d11;
@@ -599,6 +633,8 @@ si_assemble(const T* __restrict__ H, const T* __restrict__ HD,
   };
   if (kT) {
     rhs[c] = gc;
+  } else if (kMode == kTangent) {
+    rhs[c] = h[c];
   } else {
     const T div = div_faces(f.xe, f.xw, f.yn, f.ys, u(0, 0), u(1, 0), u(-1, 0), u(0, 1),
                             u(0, -1), k.inv_dx, k.inv_dy);
@@ -652,10 +688,10 @@ __device__ __forceinline__ T matvec(const T* __restrict__ u,
   return u[c] - coef * div;
 }
 
-// kT: the transpose mode, which writes x without relu; xout, when given,
-// receives the pre-relu x of the forward. kJ: Jacobi-preconditioned; without
-// it z is r.
-template <typename T, bool kT, bool kJ>
+// kMode: the forward writes relu(x) and, when xout is given, the pre-relu
+// x; the transpose mode writes x; the tangent mode x*[xout > 0], xout the
+// forward's x. kJ: Jacobi-preconditioned; without it z is r.
+template <typename T, int kMode, bool kJ>
 __global__ void __launch_bounds__(kPcgThreads)
 si_pcg(const T* __restrict__ x0, const T* __restrict__ table, T* work,
        T* __restrict__ out, T* __restrict__ xout, int n_g, int nx, int ny, T coef,
@@ -724,48 +760,59 @@ si_pcg(const T* __restrict__ x0, const T* __restrict__ table, T* work,
     __syncthreads();   // the next matvec reads the neighbours' p
   }
   FOR_OWN_CELLS({
-    out[off + c] = kT ? x[c] : relu(x[c]);
-    if (!kT && xout != nullptr) xout[off + c] = x[c];
+    if (kMode == kForward) {
+      out[off + c] = relu(x[c]);
+      if (xout != nullptr) xout[off + c] = x[c];
+    } else if (kMode == kTangent) {
+      out[off + c] = xout[off + c] > T(0) ? x[c] : T(0);
+    } else {
+      out[off + c] = x[c];
+    }
   })
 #undef FOR_OWN_CELLS
 }
 
-template <typename T, class E, bool kT, bool kJ>
+template <typename T, class E, int kMode, bool kJ>
 int launch_split_mode(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 block(32, 8);
   const dim3 grid((a.ny + block.x - 1) / block.x, (a.nx + block.y - 1) / block.y, n_g);
-  si_assemble<T, E, kT, kJ><<<grid, block, 0, s>>>(
+  si_assemble<T, E, kMode, kJ><<<grid, block, 0, s>>>(
       a.H, a.HD, a.B, a.x0, a.table, work, n_g, a.nx, a.ny, static_cast<T>(a.dt),
       static_cast<T>(a.theta * a.dt), static_cast<T>(1.0 - a.theta), e);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // the transpose mode's guess is its right-hand side, the assembled b
-  const T* guess = kT ? work + static_cast<long>(kRhs) * n_g * a.nx * a.ny : a.x0;
-  si_pcg<T, kT, kJ><<<n_g, kPcgThreads, 0, s>>>(guess, a.table, work, a.out, a.xout, n_g,
+  const T* guess =
+      kMode == kTranspose ? work + static_cast<long>(kRhs) * n_g * a.nx * a.ny : a.x0;
+  si_pcg<T, kMode, kJ><<<n_g, kPcgThreads, 0, s>>>(guess, a.table, work, a.out, a.xout, n_g,
                                                 a.nx, a.ny, static_cast<T>(a.theta * a.dt),
                                                 a.cg_iters);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, class E, bool kT>
+template <typename T, class E, int kMode>
 int launch_split_pre(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
-  return a.precondition ? launch_split_mode<T, E, kT, true>(a, e, work, n_g, stream)
-                        : launch_split_mode<T, E, kT, false>(a, e, work, n_g, stream);
+  return a.precondition ? launch_split_mode<T, E, kMode, true>(a, e, work, n_g, stream)
+                        : launch_split_mode<T, E, kMode, false>(a, e, work, n_g, stream);
 }
 
 template <typename T, class E>
 int launch_split(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
-  return a.transpose ? launch_split_pre<T, E, true>(a, e, work, n_g, stream)
-                     : launch_split_pre<T, E, false>(a, e, work, n_g, stream);
+  switch (a.mode) {
+    case kForward: return launch_split_pre<T, E, kForward>(a, e, work, n_g, stream);
+    case kTranspose: return launch_split_pre<T, E, kTranspose>(a, e, work, n_g, stream);
+    case kTangent: return launch_split_pre<T, E, kTangent>(a, e, work, n_g, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <typename T>
 StepArgs<T> step_args(const T* H, const T* HD, const T* B, const T* x0, const T* table,
                       T* out, T* xout, int nx, int ny, double dt, double theta, int cg_iters,
-                      int transpose, int precondition) {
-  return StepArgs<T>{H, HD, B, x0, table, out, xout, nx, ny, cg_iters, transpose,
-                     precondition, dt, theta};
+                      int mode, int precondition) {
+  return StepArgs<T>{H, HD, B, x0, table, out, xout, nx, ny, cg_iters, mode, precondition, dt,
+                     theta};
 }
 
 }  // namespace
@@ -773,18 +820,19 @@ StepArgs<T> step_args(const T* H, const T* HD, const T* B, const T* x0, const T*
 // The cluster kernel. `glen` != 0 takes the (5, 2, 4, 2) specialisation and
 // ignores e_*; `cluster`, `bx`, `by`, `smem` and `cells` are the wrapper's
 // layout (si_layout). `table` is the (n_g, 4) table (dx, dy, creep, slide).
-// `xout` (may be null) receives the pre-relu solution; `transpose` != 0 runs
-// the transpose-solve mode, with gbar in H and the forward's x in x0;
-// `precondition` == 0 runs plain CG in either mode.
+// `xout` (may be null) receives the pre-relu solution; `mode` 1 runs the
+// transpose-solve mode, with gbar in H and the forward's x in x0; `mode` 2
+// the tangent-solve mode, with rdot in H, the forward's guess in x0 and its x
+// in xout (read); `precondition` == 0 runs plain CG in any mode.
 extern "C" int si_step_cluster_f32(const float* H, const float* HD, const float* B,
                                    const float* x0, const float* table, float* out,
                                    float* xout, int n_g, int nx, int ny, double dt,
-                                   double theta, int cg_iters, int transpose, int precondition,
+                                   double theta, int cg_iters, int mode, int precondition,
                                    int glen, double e_hc, double e_sc, double e_hs, double e_ss,
                                    int cluster, int bx, int by, int smem, int cells,
                                    void* stream) {
   const StepArgs<float> a =
-      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, transpose,
+      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, mode,
                 precondition);
   const Shape sh{n_g, cluster, bx, by, smem, cells};
   return with_exps<float>(glen, e_hc, e_sc, e_hs, e_ss,
@@ -794,12 +842,12 @@ extern "C" int si_step_cluster_f32(const float* H, const float* HD, const float*
 extern "C" int si_step_cluster_f64(const double* H, const double* HD, const double* B,
                                    const double* x0, const double* table, double* out,
                                    double* xout, int n_g, int nx, int ny, double dt,
-                                   double theta, int cg_iters, int transpose, int precondition,
+                                   double theta, int cg_iters, int mode, int precondition,
                                    int glen, double e_hc, double e_sc, double e_hs, double e_ss,
                                    int cluster, int bx, int by, int smem, int cells,
                                    void* stream) {
   const StepArgs<double> a =
-      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, transpose,
+      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, mode,
                 precondition);
   const Shape sh{n_g, cluster, bx, by, smem, cells};
   return with_exps<double>(glen, e_hc, e_sc, e_hs, e_ss,
@@ -821,15 +869,15 @@ extern "C" int si_step_occupancy(int f64, int glen, int cluster, int bx, int by,
 }
 
 // The large-plane path; `work` holds 7 planes of the batch's shape. `xout`,
-// `transpose`, `precondition`, `glen` and e_* as for the cluster kernel.
+// `mode`, `precondition`, `glen` and e_* as for the cluster kernel.
 extern "C" int si_step_split_f32(const float* H, const float* HD, const float* B,
                                  const float* x0, const float* table, float* work, float* out,
                                  float* xout, int n_g, int nx, int ny, double dt, double theta,
-                                 int cg_iters, int transpose, int precondition, int glen,
+                                 int cg_iters, int mode, int precondition, int glen,
                                  double e_hc, double e_sc, double e_hs, double e_ss,
                                  void* stream) {
   const StepArgs<float> a =
-      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, transpose,
+      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, mode,
                 precondition);
   return with_exps<float>(glen, e_hc, e_sc, e_hs, e_ss,
                           [&](auto e) { return launch_split<float>(a, e, work, n_g, stream); });
@@ -838,11 +886,11 @@ extern "C" int si_step_split_f32(const float* H, const float* HD, const float* B
 extern "C" int si_step_split_f64(const double* H, const double* HD, const double* B,
                                  const double* x0, const double* table, double* work,
                                  double* out, double* xout, int n_g, int nx, int ny, double dt,
-                                 double theta, int cg_iters, int transpose, int precondition,
+                                 double theta, int cg_iters, int mode, int precondition,
                                  int glen, double e_hc, double e_sc, double e_hs, double e_ss,
                                  void* stream) {
   const StepArgs<double> a =
-      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, transpose,
+      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, mode,
                 precondition);
   return with_exps<double>(glen, e_hc, e_sc, e_hs, e_ss,
                            [&](auto e) { return launch_split<double>(a, e, work, n_g, stream); });

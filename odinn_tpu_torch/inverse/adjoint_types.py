@@ -4,8 +4,9 @@ Adjoint methods: :class:`JaxAdjoint` (reverse-mode autograd through the
 solve, ``grad="jax"``), :class:`DiscreteAdjoint` (the exact stage-level
 transpose of the forward integrator), :class:`ContinuousAdjoint` (the
 reverse-time λ solve and a Gauss–Legendre θ contraction) and
-:class:`DummyAdjoint` (a random or user gradient for pipeline testing,
-refused by the trainer until the gradient-modes slice). VJP flavors:
+:class:`DummyAdjoint` (a random gradient for pipeline testing: the
+trainer takes it, or ``grad="dummy"``, as the JAX package does, and as
+there ``grad_fn`` is not read). VJP flavors:
 :class:`DiscreteVJP` (hand-written stencil transposes),
 :class:`ContinuousVJP` (differentiate-then-discretize), :class:`AutoVJP`
 (autograd of the RHS) and :class:`NoVJP` (zero).

@@ -421,7 +421,10 @@ def _interp(t, tdev, lo, hi, d_lo=None, d_hi=None):
 
 def check_adjoint_supported(model) -> None:
     """Raise for what the manual adjoints cannot differentiate: periodic
-    laws, whose refresh from the evolving state the sweeps do not follow."""
+    laws, whose refresh from the evolving state the sweeps do not follow.
+    Only the manual adjoints ask: autograd, forward mode (``grad="forward"``)
+    and the dummy gradient (``grad="dummy"``, :class:`DummyAdjoint`) take
+    every model the JAX package's take, periodic laws included."""
     if model.iceflow.periodic_laws:
         raise NotImplementedError(
             "the manual adjoints (grad='discrete'/'continuous', DiscreteAdjoint, "

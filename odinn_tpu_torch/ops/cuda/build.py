@@ -30,7 +30,9 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # fused multiply-add): the Chebyshev recursion carries every stage's
 # rounding into the next, and contracted roundings took the float32 RKC
 # gradient's d(creep) error from 1.1e-3 to 2.9e-3 of max|d(creep)| (PERF.md).
-_SOURCE_FLAGS = {"rkc_interval": ("-fmad=false",)}
+# sia2d_rhs_jvp's stage mode carries the RKC tangent through the same
+# recursion, so it rounds the same way.
+_SOURCE_FLAGS = {"rkc_interval": ("-fmad=false",), "sia2d_rhs_jvp": ("-fmad=false",)}
 
 
 def _nvcc() -> str:

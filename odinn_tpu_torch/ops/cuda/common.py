@@ -1,6 +1,13 @@
 """What the fused kernels share: the per-glacier derived table, powers with
-the kernels' semantics, the wrappers' input checks, and the cluster kernels'
-block shape and cluster choice."""
+the kernels' semantics and their derivatives, the wrappers' input checks
+and forward-mode tangent checks, and the cluster kernels' block shape and
+cluster choice.
+
+Forward mode runs through ``torch.autograd.forward_ad``: a wrapper hands any
+input that carries a tangent (at the current dual level) to its
+``autograd.Function``, whose ``jvp`` is the kernel's tangent rule. A tangent
+on an input that the kernel's contract does not differentiate raises
+(:func:`refuse_tangent`); none is ever dropped."""
 
 from __future__ import annotations
 
@@ -8,9 +15,68 @@ import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
-__all__ = ["derived_scalars", "pow_pos", "shared_exps", "check_inputs", "GLEN_EXPS",
-           "uses_glen", "block_shape", "pick_cluster", "ticket_buffers", "SMEM_PER_BLOCK"]
+from odinn_tpu_torch.ops import stencils as st
+
+__all__ = ["derived_scalars", "pow_pos", "dpow_pos", "shared_exps", "check_inputs", "GLEN_EXPS",
+           "uses_glen", "block_shape", "pick_cluster", "ticket_buffers", "SMEM_PER_BLOCK",
+           "tangent_of", "has_tangent", "refuse_tangent", "needs_function",
+           "diffusivity_tangent", "storage_key"]
+
+
+def tangent_of(t) -> Optional[torch.Tensor]:
+    """The forward-mode tangent of ``t`` at the current dual level, or None."""
+    if not isinstance(t, torch.Tensor):
+        return None
+    return fwAD.unpack_dual(t).tangent
+
+
+def has_tangent(*tensors) -> bool:
+    return any(tangent_of(t) is not None for t in tensors)
+
+
+def needs_function(*tensors) -> bool:
+    """Whether a call must go through its autograd Function: an input that
+    requires grad (with grad enabled) or carries a tangent."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in tensors):
+        return True
+    return has_tangent(*tensors)
+
+
+def storage_key(t: torch.Tensor):
+    """What identifies a tensor's values while a reference to it is held:
+    its memory (address, shape, strides, dtype, device) and its version
+    counter, which views share and every in-place write bumps."""
+    return (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device, t._version)
+
+
+# the last tangent found zero where a contract does not differentiate: the
+# RHS of a solve sees its table's tangent once a call, and the check reads
+# the device, so a tangent already checked (the same memory and version,
+# through any view) is not read again; holding it keeps its memory from
+# being reused
+_checked = [None]
+
+
+def refuse_tangent(name: str, what: str, tangent, cols=None) -> None:
+    """Raise when ``tangent`` (columns ``cols`` of a table, or the whole
+    tensor) is nonzero: an input the kernel's contract does not
+    differentiate. A None tangent passes. Reads the device."""
+    if tangent is None:
+        return
+    key = (storage_key(tangent), None if cols is None else tuple(cols))
+    hit = _checked[0]
+    if hit is not None and hit[1] == key:
+        return
+    part = tangent if cols is None else tangent[:, list(cols)]
+    if bool(torch.any(part != 0)):
+        raise NotImplementedError(
+            f"{name}: a forward-mode tangent on {what}, which the kernel does not "
+            f"differentiate; route this configuration to the generic tensor path")
+    _checked[0] = (tangent, key)
+
 
 # The exponent set (n+2, n−1, p−q+1, p−1) of n = 3, p = 3, q = 0: the
 # kernels' compile-time specialisation (GlenExps in csrc/sia_common.cuh).
@@ -114,6 +180,48 @@ def pow_pos(x, e: float):
         return _int_pow(x, int(e))
     pos = x > 0.0
     return torch.exp(e * torch.log(torch.where(pos, x, torch.ones_like(x)))) * pos
+
+
+def dpow_pos(x, e: float):
+    """d/dx :func:`pow_pos` with the conventions forward-mode AD gives it:
+    e·x^(e−1) for an integer-valued e (0 for e = 0), e·xᵉ/x for x > 0 and 0
+    at x = 0 for any other e (``dpow_pos`` in csrc/sia_common.cuh)."""
+    e = float(e)
+    if e.is_integer():
+        return torch.zeros_like(x) if e == 0.0 else e * pow_pos(x, e - 1.0)
+    pos = x > 0.0
+    safe = torch.where(pos, x, torch.ones_like(x))
+    return e * torch.exp(e * torch.log(safe)) / safe * pos
+
+
+def diffusivity_tangent(h, dh, S, dS, dx, dy, creep, d_creep, slide, d_slide, exps):
+    """(D, Ḋ) on the corner grid: D = creep·h̄^e_hc·|∇S|^e_sc +
+    slide·h̄^e_hs·|∇S|^e_ss from the relu'd thickness h and the surface S,
+    and its tangent from theirs (dh, dS) and the rates' (d_creep,
+    d_slide); a None tangent is zero. ``exps`` = (e_hc, e_sc, e_hs, e_ss) as
+    numbers, the rates (n_g, 1, 1) columns."""
+    e_hc, e_sc, e_hs, e_ss = exps
+    gsx, gsy = st.grad_slope(S, dx, dy)
+    gn = st.safe_norm(gsx, gsy)
+    hbar = st.avg(h)
+    ph_c, pg_c = pow_pos(hbar, e_hc), pow_pos(gn, e_sc)
+    ph_s, pg_s = pow_pos(hbar, e_hs), pow_pos(gn, e_ss)
+    D = creep * ph_c * pg_c + slide * ph_s * pg_s
+    dD = torch.zeros_like(D)
+    if dh is not None or dS is not None:
+        dS = torch.zeros_like(S) if dS is None else dS
+        dgx, dgy = st.grad_slope(dS, dx, dy)
+        pos = gn > 0.0
+        dgn = torch.where(pos, (gsx * dgx + gsy * dgy) / torch.where(pos, gn, torch.ones_like(gn)),
+                          torch.zeros_like(gn))
+        dhb = st.avg(dh) if dh is not None else torch.zeros_like(hbar)
+        dD = (creep * (dpow_pos(hbar, e_hc) * dhb * pg_c + ph_c * dpow_pos(gn, e_sc) * dgn)
+              + slide * (dpow_pos(hbar, e_hs) * dhb * pg_s + ph_s * dpow_pos(gn, e_ss) * dgn))
+    if d_creep is not None:
+        dD = dD + d_creep * ph_c * pg_c
+    if d_slide is not None:
+        dD = dD + d_slide * ph_s * pg_s
+    return D, dD
 
 
 def shared_exps(derived: torch.Tensor) -> Optional[Tuple[float, float, float, float]]:

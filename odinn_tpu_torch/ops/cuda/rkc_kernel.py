@@ -20,6 +20,16 @@ pullback kernel ``csrc/sia2d_rhs_vjp.cu`` in its stage mode per stage
 combinations; plain version :func:`stage_pullback_reference`), and one
 plain :func:`~odinn_tpu_torch.ops.cuda.sia_kernel.sia2d_rhs_vjp` for f₀: s
 launches in all.
+
+Its tangent (forward mode through ``torch.autograd.forward_ad``, the same
+contract: H and the creep column) is built the way the backward is
+(:func:`interval_tangent`): one launch of the kernel that keeps the stage
+inputs, then the stages in order, each one launch of the tangent kernel
+``csrc/sia2d_rhs_jvp.cu`` in its stage mode, which applies the stage's
+combination (:func:`_stage_weights`) to J(y_{j−1})·ẏ_{j−1} and the creep
+term: s + 1 launches in all. Plain version :func:`interval_tangent_reference`.
+A tangent on B or on another column of the table raises. The TPU kernel
+has no tangent; JAX takes it by ``jax.jvp`` of ``solver.make_rkc2_step``.
 """
 
 from __future__ import annotations
@@ -33,15 +43,19 @@ import torch
 
 from odinn_tpu_torch.ops.cuda.build import load_library
 from odinn_tpu_torch.ops.cuda.common import (
-    GLEN_EXPS, SMEM_PER_BLOCK, block_shape, check_inputs, pick_cluster, shared_exps,
-    uses_glen)
+    GLEN_EXPS, SMEM_PER_BLOCK, block_shape, check_inputs, has_tangent, needs_function,
+    pick_cluster, refuse_tangent, shared_exps, uses_glen)
 from odinn_tpu_torch.ops.cuda.sia_kernel import (
-    _rhs_math, _vjp_library, _vjp_scratch, sia2d_rhs_vjp, sia2d_rhs_vjp_reference)
+    _rhs_math, _vjp_library, _vjp_scratch, sia2d_rhs_jvp, sia2d_rhs_jvp_reference, sia2d_rhs_vjp,
+    sia2d_rhs_vjp_reference)
 from odinn_tpu_torch.simulation.solver import _rkc2_coeffs
 
 __all__ = ["rkc_interval", "rkc_interval_reference", "rkc_fits", "check_rkc_shape",
            "rkc_layout", "rkc_plan", "stage_pullback", "stage_pullback_reference",
-           "interval_pullback"]
+           "interval_pullback", "interval_tangent", "interval_tangent_reference"]
+
+# the derived table's columns the step does not differentiate: all but creep
+_FIXED_COLS = (0, 1, 3, 4, 5, 6, 7)
 
 # csrc/rkc_interval.cu: the cells a thread owns at most, the shared-memory
 # slabs, the cluster sizes
@@ -224,6 +238,9 @@ def _forward(H, B, scalars, dt, s, eta0, exps, keep_stages=False):
         return (out, keep) if keep_stages else out
     if H.device.type != "cuda":
         raise ValueError(f"rkc_interval: no kernel for device {H.device}")
+    if has_tangent(H, B, scalars):
+        raise NotImplementedError("rkc_interval: a forward-mode tangent reached the kernel "
+                                  "launch; call rkc_interval")
     n_g, nx, ny = H.shape
     lay = rkc_plan(n_g, nx, ny, H.dtype, exps, H.device).layout
     table = scalars.to(H.dtype).contiguous()
@@ -272,6 +289,8 @@ def stage_pullback(c, carry, Y, B, table, eta0, weights):
         return stage_pullback_reference(c, carry, Y, B, table, eta0, weights)
     if Y.device.type != "cuda":
         raise ValueError(f"rkc_interval: no kernel for device {Y.device}")
+    if has_tangent(c, Y, B, table, *(carry or ())):
+        raise NotImplementedError("rkc_interval: the pullback takes no forward-mode tangent")
     n_g, nx, ny = Y.shape
     first = carry is None
     if first:
@@ -313,6 +332,56 @@ def _exps_row(exps, dtype, device):
     return torch.tensor(exps, dtype=dtype, device=device)
 
 
+def _kernel_rows(scalars, exps, dtype):
+    """The derived table in ``dtype`` with the step's exponent set in its
+    exponent columns, as the pullback and tangent kernels read it."""
+    n_g = scalars.shape[0]
+    return torch.cat([scalars[:, :4].detach().to(dtype),
+                      _exps_row(exps, dtype, scalars.device).expand(n_g, 4)], dim=1)
+
+
+def _stage_tangents(dH, d_creep, H, B, table, stages, dt, s, eta0, jvp):
+    """ẏ_s of one RKC2 step from y₀ = H and the stage inputs ``stages`` =
+    y₁ … y_{s−1}: stage 1 (ẏ₁ = Ḣ + μ̃₁dt·ḟ₀, keeping ḟ₀) and stages 2 … s,
+    each one call of ``jvp`` (:func:`~odinn_tpu_torch.ops.cuda.sia_kernel.
+    sia2d_rhs_jvp` or its plain version) in its stage mode."""
+    mu1dt, weights = _stage_weights(s, H.dtype, dt)
+    y_jm1, f0 = jvp(dH, H, B, table, d_creep, eta0,
+                    stage=(dH, dH, dH, (1.0, 0.0, 0.0, mu1dt, 0.0)))
+    y_jm2 = dH
+    for j in range(2, s + 1):
+        y_j, _ = jvp(y_jm1, stages[j - 2], B, table, d_creep, eta0,
+                     stage=(dH, y_jm2, f0, weights[j]), keep_f=False)
+        y_jm1, y_jm2 = y_j, y_jm1
+    return y_jm1
+
+
+def interval_tangent_reference(dH, d_creep, H, B, scalars, dt, s, eta0, exps=None):
+    """Plain version of :func:`interval_tangent`: the forward's stage inputs
+    by :func:`_interval_math`, the stages by
+    :func:`~odinn_tpu_torch.ops.cuda.sia_kernel.sia2d_rhs_jvp_reference`."""
+    exps = _resolve_exps(scalars, exps)
+    dt, s, eta0 = float(dt), int(s), float(eta0)
+    keep = []
+    _interval_math(H, B, _row(scalars, H.dtype), exps, dt, s, eta0, keep)
+    table = _kernel_rows(scalars, exps, H.dtype)
+    return _stage_tangents(dH, d_creep, H, B, table, keep, dt, s, eta0, sia2d_rhs_jvp_reference)
+
+
+def interval_tangent(dH, d_creep, H, B, scalars, dt, s, eta0, exps=None):
+    """ẏ_s, the tangent of one RKC2 step at H in H (``dH``) and the derived
+    table's creep column (``d_creep``, (n_g,) or None). On the card one
+    launch of the kernel keeps the stage inputs and s launches of the
+    tangent kernel's stage mode walk the stages (module doc); on the CPU
+    the plain versions."""
+    check_inputs("rkc_interval", (dH, H, B), scalars, 8)
+    exps = _resolve_exps(scalars, exps)
+    dt, s, eta0 = float(dt), int(s), float(eta0)
+    _, stages = _forward(H, B, scalars, dt, s, eta0, exps, keep_stages=True)
+    table = _kernel_rows(scalars, exps, H.dtype)
+    return _stage_tangents(dH, d_creep, H, B, table, stages, dt, s, eta0, sia2d_rhs_jvp)
+
+
 def interval_pullback(lam, H, B, scalars, dt, s, eta0, exps=None):
     """(dH, d_creep): the pullback of one RKC2 step at H of the cotangent
     ``lam`` to H and to the derived table's creep column ((n_g,)). On the
@@ -323,23 +392,37 @@ def interval_pullback(lam, H, B, scalars, dt, s, eta0, exps=None):
     exps = _resolve_exps(scalars, exps)
     dt, s, eta0 = float(dt), int(s), float(eta0)
     _, stages = _forward(H, B, scalars, dt, s, eta0, exps, keep_stages=True)
-    n_g = H.shape[0]
-    table = torch.cat([scalars[:, :4].to(H.dtype),
-                       _exps_row(exps, H.dtype, H.device).expand(n_g, 4)], dim=1)
-    return _transpose(lam, H, B, table, stages, dt, s, eta0)
+    return _transpose(lam, H, B, _kernel_rows(scalars, exps, H.dtype), stages, dt, s, eta0)
 
 
 class _RKCInterval(torch.autograd.Function):
-    """The step with the TPU kernel's differentiation contract (module doc)."""
+    """The step with the TPU kernel's differentiation contract, backward and
+    tangent (module doc)."""
 
     @staticmethod
     def forward(ctx, H, B, scalars, dt, s, eta0, exps):
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(H, B, scalars)
+        # the jvp cannot read saved_tensors
+        ctx.primals = (H, B, scalars)
         ctx.consts = (dt, s, eta0, exps)
         return _forward(H, B, scalars, dt, s, eta0, exps)
 
     @staticmethod
+    def jvp(ctx, dH, dB, dscalars, *_):
+        H, B, scalars = ctx.primals
+        dt, s, eta0, exps = ctx.consts
+        refuse_tangent("rkc_interval", "the bed B", dB)
+        refuse_tangent("rkc_interval", "a column of the table other than creep", dscalars,
+                       _FIXED_COLS)
+        d_creep = None if dscalars is None else dscalars[:, 2]
+        dH = torch.zeros_like(H) if dH is None else dH.contiguous()
+        return interval_tangent(dH, d_creep, H, B, scalars, dt, s, eta0, exps)
+
+    @staticmethod
     def backward(ctx, lam):
+        if lam is None:        # grads are not materialised (for the jvp's Nones)
+            return (None,) * 7
         H, B, scalars = ctx.saved_tensors
         dt, s, eta0, exps = ctx.consts
         dH, dcreep = interval_pullback(lam.contiguous(), H, B, scalars, dt, s, eta0, exps)
@@ -357,14 +440,15 @@ def rkc_interval(H, B, scalars, dt, s, eta0, exps=None):
     (n+2, n−1, p−q+1, p−1), or None to read it from the table, which refuses
     a batch whose glaciers differ. A CUDA tensor launches the kernel (and
     raises for a plane larger than it holds, :func:`check_rkc_shape`); a
-    CPU tensor takes :func:`rkc_interval_reference`."""
+    CPU tensor takes :func:`rkc_interval_reference`. Differentiable in H and
+    the creep column, in reverse and in forward mode (module doc)."""
     check_inputs("rkc_interval", (H, B), scalars, 8)
     s = int(s)
     if s < 2:
         raise ValueError(f"rkc_interval: RKC2 needs s >= 2 stages, got {s}")
     exps = _resolve_exps(scalars, exps)
     dt, eta0 = float(dt), float(eta0)
-    if torch.is_grad_enabled() and (H.requires_grad or scalars.requires_grad):
+    if needs_function(H, scalars) or has_tangent(B):
         return _RKCInterval.apply(H, B, scalars, dt, s, eta0, exps)
     return _forward(H, B, scalars, dt, s, eta0, exps)
 

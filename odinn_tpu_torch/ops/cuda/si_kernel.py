@@ -36,6 +36,18 @@ per glacier, tiles of :func:`si_vjp_layout`, cluster size by
 autograd through :func:`si_step_reference` is the whole plain backward. The
 two contracts agree where PCG has converged (``tests/test_torch_si_adjoint.py``).
 
+Its tangent (forward mode through ``torch.autograd.forward_ad``; module doc
+of :mod:`odinn_tpu_torch.ops.cuda.common`) is ``lax.custom_linear_solve``'s,
+as :mod:`odinn_tpu_torch.ops.si_math` states it: the residual's tangent ṙ,
+formed by PyTorch ops (:func:`si_step_residual_tangent`: Ḋ from the
+tangents of H_D, B and the creep and slide columns, then
+``si_math.residual_tangent``), then :func:`si_step_tangent`, the kernel in
+its tangent-solve mode at the forward's layout (ẋ = PCG(A, ṙ) from the
+primal guess x0, masked by the forward's x > 0; one launch counted on
+``si_step_tangent.launches``; plain version :func:`si_step_tangent_reference`).
+A tangent on the spacings or the exponent columns raises; x0's is ignored,
+as JAX ignores the guess's.
+
 ``precondition=False`` runs the step and the transpose solve as plain CG
 (the kernels' no-preconditioner mode, plain version ``si_math.cg`` with no
 preconditioner): the solves of the hand-written SI/SI2 transposes,
@@ -55,12 +67,20 @@ from odinn_tpu_torch.ops import si_math
 from odinn_tpu_torch.ops import stencils as st
 from odinn_tpu_torch.ops.cuda.build import load_library
 from odinn_tpu_torch.ops.cuda.common import (
-    GLEN_EXPS, SMEM_PER_BLOCK, block_shape, check_inputs, pick_cluster, pow_pos, shared_exps,
-    uses_glen)
+    GLEN_EXPS, SMEM_PER_BLOCK, block_shape, check_inputs, diffusivity_tangent, has_tangent,
+    needs_function, pick_cluster, pow_pos, refuse_tangent, shared_exps, uses_glen)
 
 __all__ = ["si_step", "si_step_reference", "si_step_transpose", "si_step_transpose_reference",
-           "si_step_vjp", "si_step_vjp_reference", "si_layout", "si_fits", "si_plan",
-           "si_vjp_layout", "si_vjp_plan"]
+           "si_step_vjp", "si_step_vjp_reference", "si_step_tangent", "si_step_tangent_reference",
+           "si_step_residual_tangent", "si_layout", "si_fits", "si_plan", "si_vjp_layout",
+           "si_vjp_plan"]
+
+# the kernel's modes (csrc/si_step.cu): the step, the transpose solve of its
+# backward, the tangent solve of its jvp
+_FORWARD, _TRANSPOSE, _TANGENT = 0, 1, 2
+# the derived table's columns the step differentiates: creep and slide
+_RATE_COLS = (2, 3)
+_FIXED_COLS = (0, 1, 4, 5, 6, 7)
 
 # planes of the large-plane path's scratch buffer: D, b, inv_diag, x, r, p, Ap
 _N_SCRATCH = 7
@@ -360,6 +380,39 @@ def si_step_transpose_reference(gbar, x, H_D, B, scalars, dt, theta=1.0, cg_iter
                                    bool(precondition))
 
 
+def si_step_residual_tangent(dH, dHD, dB, dscalars, H, H_D, B, x, scalars, dt, theta=1.0,
+                             exps=None):
+    """ṙ, the tangent of the step's residual b − A·x with x fixed
+    (:func:`odinn_tpu_torch.ops.si_math.residual_tangent`), with Ḋ from the
+    tangents of H_D, B and the table's creep and slide columns; a None
+    tangent is zero. PyTorch ops, on the card too."""
+    exps = _resolve_exps(scalars, exps)
+    dx, dy, creep, slide = _row(scalars, H.dtype)
+    d_creep = d_slide = None
+    if dscalars is not None:
+        rates = dscalars[:, 2:4].to(H.dtype)
+        d_creep, d_slide = (rates[:, k].reshape(-1, 1, 1) for k in range(2))
+    pos = H_D > 0.0
+    h = torch.where(pos, H_D, torch.zeros_like(H_D))
+    dh = None if dHD is None else torch.where(pos, dHD, torch.zeros_like(dHD))
+    dS = dh if dB is None else (dB if dh is None else dB + dh)
+    D, dD = diffusivity_tangent(h, dh, B + h, dS, dx, dy, creep, d_creep, slide, d_slide, exps)
+    return si_math.residual_tangent(dH, dD, dB, H, D, B, x, float(dt), float(theta), dx, dy)
+
+
+def si_step_tangent_reference(rdot, x, x0, H_D, B, scalars, dt, theta=1.0, cg_iters=6,
+                              exps=None, precondition=True):
+    """Plain version of the tangent-solve mode: ẋ·[x > 0], ẋ = ``cg_iters``
+    Jacobi-PCG iterations (plain CG without ``precondition``) on the step's
+    A (D frozen at H_D) from the primal guess x0 on the right-hand side ṙ,
+    x the forward's pre-relu solution."""
+    exps = _resolve_exps(scalars, exps)
+    dx, dy, creep, slide = _row(scalars, x.dtype)
+    D = _frozen_D_scalar(H_D, B, dx, dy, creep, slide, exps)
+    return si_math.tangent_solve(rdot, x, x0, D, float(dt), float(theta), int(cg_iters), dx, dy,
+                                 bool(precondition))
+
+
 def si_step_vjp_reference(lam, H, H_D, B, x, scalars, dt, theta=1.0, exps=None):
     """Plain version of the pullback kernel: (dH, dH_D, dB, d_creep,
     d_slide), the residual b − A·x's vector-Jacobian product at λ with x
@@ -402,6 +455,9 @@ def _forward(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, keep_x=False,
         x = _si_solve_reference(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, precondition)
         out = st.relu_strict(x)
         return (out, x) if keep_x else out
+    # x0's tangent is dropped by the contract (as custom_linear_solve drops
+    # the guess's): no other input may carry one here
+    _refuse_all("si_step", H, H_D, B, scalars)
     n_g, nx, ny = H.shape
     lay = si_plan(n_g, nx, ny, H.dtype, exps, H.device).layout
     x = torch.empty_like(H) if keep_x else None
@@ -412,18 +468,35 @@ def _forward(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, keep_x=False,
 
 
 class _SIStep(torch.autograd.Function):
-    """The step with the implicit-function adjoint (module doc)."""
+    """The step with the implicit-function adjoint and its tangent (module
+    doc)."""
 
     @staticmethod
     def forward(ctx, H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, precondition):
+        ctx.set_materialize_grads(False)
         out, x = _forward(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, keep_x=True,
                           precondition=precondition)
         ctx.save_for_backward(H, H_D, B, x, scalars)
+        # the jvp cannot read saved_tensors
+        ctx.primals = (H, H_D, B, x0, x, scalars)
         ctx.consts = (dt, theta, cg_iters, exps, precondition)
         return out
 
     @staticmethod
+    def jvp(ctx, dH, dHD, dB, _dx0, dscalars, *_):
+        H, H_D, B, x0, x, scalars = ctx.primals
+        dt, theta, cg_iters, exps, precondition = ctx.consts
+        refuse_tangent("si_step", "the spacings or exponent columns of the table", dscalars,
+                       _FIXED_COLS)
+        rdot = si_step_residual_tangent(dH, dHD, dB, dscalars, H, H_D, B, x, scalars, dt, theta,
+                                        exps)
+        return si_step_tangent(rdot.contiguous(), x, x0, H_D, B, scalars, dt, theta, cg_iters,
+                               exps, precondition)
+
+    @staticmethod
     def backward(ctx, gbar):
+        if gbar is None:       # grads are not materialised (for the jvp's Nones)
+            return (None,) * 10
         H, H_D, B, x, scalars = ctx.saved_tensors
         dt, theta, cg_iters, exps, precondition = ctx.consts
         lam = si_step_transpose(gbar.contiguous(), x, H_D, B, scalars, dt, theta, cg_iters, exps,
@@ -449,18 +522,21 @@ def si_step(H, H_D, B, x0, scalars, dt, theta=1.0, cg_iters=6, exps=None, precon
     launches the kernel (:func:`si_plan` picks the cluster kernel or the
     large-plane path); a CPU tensor takes :func:`si_step_reference`.
     Differentiable in H, H_D, B and the table's creep and slide columns by
-    the implicit-function adjoint (module doc); x0 gets no gradient.
-    ``precondition=False`` solves by plain CG; ``keep_x`` returns
-    (relu(x), x) with the pre-relu solution x, without autograd.
+    the implicit-function adjoint, and in forward mode by its tangent
+    (module doc); x0 gets neither. ``precondition=False`` solves by plain
+    CG; ``keep_x`` returns (relu(x), x) with the pre-relu solution x,
+    without autograd, and refuses an input that carries a tangent.
     """
     check_inputs("si_step", (H, H_D, B, x0), scalars, 8)
     exps = _resolve_exps(scalars, exps)
     dt, theta, cg_iters, precondition = float(dt), float(theta), int(cg_iters), bool(precondition)
     if keep_x:
+        if has_tangent(H, H_D, B, scalars):
+            raise NotImplementedError("si_step: keep_x takes no forward-mode tangent")
         with torch.no_grad():
             return _forward(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, keep_x=True,
                             precondition=precondition)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in (H, H_D, B, scalars)):
+    if needs_function(H, H_D, B, scalars):
         return _SIStep.apply(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, precondition)
     return _forward(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps,
                     precondition=precondition)
@@ -483,10 +559,44 @@ def si_step_transpose(gbar, x, H_D, B, scalars, dt, theta=1.0, cg_iters=6, exps=
     lay = si_plan(n_g, nx, ny, x.dtype, exps, x.device).layout
     # the kernel's transpose mode reads ḡ where the forward reads H, and x
     # where it reads x0
-    lam = _launch(gbar, H_D, B, x, scalars, dt, theta, cg_iters, exps, lay, transpose=True,
+    _refuse_all("si_step_transpose", gbar, x, H_D, B, scalars)
+    lam = _launch(gbar, H_D, B, x, scalars, dt, theta, cg_iters, exps, lay, mode=_TRANSPOSE,
                   precondition=precondition)
     si_step_transpose.launches += 1
     return lam
+
+
+def si_step_tangent(rdot, x, x0, H_D, B, scalars, dt, theta=1.0, cg_iters=6, exps=None,
+                    precondition=True):
+    """ẋ·[x > 0], the tangent solve of ``si_step``'s jvp
+    (:func:`si_step_tangent_reference`'s contract). A CUDA tensor launches
+    the step's kernel in its tangent-solve mode at the forward's layout, one
+    launch counted on ``si_step_tangent.launches``; a CPU tensor takes the
+    plain version. ``precondition=False`` solves by plain CG."""
+    check_inputs("si_step_tangent", (rdot, x, x0, H_D, B), scalars, 8)
+    exps = _resolve_exps(scalars, exps)
+    dt, theta, cg_iters, precondition = float(dt), float(theta), int(cg_iters), bool(precondition)
+    if _device_of("si_step_tangent", x) == "cpu":
+        return si_step_tangent_reference(rdot, x, x0, H_D, B, scalars, dt, theta, cg_iters, exps,
+                                         precondition)
+    _refuse_all("si_step_tangent", rdot, x, x0, H_D, B, scalars)
+    n_g, nx, ny = x.shape
+    lay = si_plan(n_g, nx, ny, x.dtype, exps, x.device).layout
+    # the kernel's tangent mode reads ṙ where the forward reads H, and the
+    # forward's x (its mask) through the pointer the forward writes x to
+    out = _launch(rdot, H_D, B, x0, scalars, dt, theta, cg_iters, exps, lay, x_out=x,
+                  mode=_TANGENT, precondition=precondition)
+    si_step_tangent.launches += 1
+    return out
+
+
+def _refuse_all(name, *tensors):
+    """A kernel launch reads data pointers: an input that carries a
+    forward-mode tangent would lose it, so it raises (the Functions hand
+    the kernels primals only)."""
+    if has_tangent(*tensors):
+        raise NotImplementedError(f"{name}: a forward-mode tangent reached the kernel launch; "
+                                  f"differentiate through si_step")
 
 
 def _vjp_table(scalars, dtype):
@@ -511,6 +621,7 @@ def si_step_vjp(lam, H, H_D, B, x, scalars, dt, theta=1.0, exps=None):
     dt, theta = float(dt), float(theta)
     if _device_of("si_step_vjp", H) == "cpu":
         return si_step_vjp_reference(lam, H, H_D, B, x, scalars, dt, theta, exps)
+    _refuse_all("si_step_vjp", lam, H, H_D, B, x, scalars)
     n_g, nx, ny = H.shape
     planes = (lam, H, H_D, B, x)
     vec = (ny * H.element_size()) % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in planes)
@@ -532,13 +643,15 @@ def si_step_vjp(lam, H, H_D, B, x, scalars, dt, theta=1.0, exps=None):
 
 
 def _launch(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, lay, x_out=None,
-            transpose=False, precondition=True):
+            mode=_FORWARD, precondition=True):
     """The step on the card with the cluster layout ``lay``, or on the
     large-plane path when ``lay`` is None. ``x_out`` receives the pre-relu
-    solution; ``transpose`` runs the transpose-solve mode, which reads ḡ in
-    H's place and x in x0's, and returns λ; ``precondition=False`` runs
-    either mode as plain CG. Counts nothing: the wrappers count their
-    launches."""
+    solution; ``mode`` _TRANSPOSE runs the transpose-solve mode, which reads
+    ḡ in H's place and x in x0's, and returns λ; _TANGENT the tangent-solve
+    mode, which reads ṙ in H's place, the primal guess in x0's and the
+    forward's x in ``x_out``'s, and returns ẋ·[x > 0];
+    ``precondition=False`` runs any mode as plain CG. Counts nothing: the
+    wrappers count their launches."""
     n_g, nx, ny = H.shape
     table = scalars[:, :4].detach().to(H.dtype).contiguous()
     out = torch.empty_like(H)
@@ -549,14 +662,14 @@ def _launch(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, lay, x_out=None,
     xp = x_out.data_ptr() if x_out is not None else None
     if lay is not None:
         fn = lib.si_step_cluster_f32 if f32 else lib.si_step_cluster_f64
-        err = fn(*planes, out.data_ptr(), xp, n_g, nx, ny, dt, theta, cg_iters, int(transpose),
+        err = fn(*planes, out.data_ptr(), xp, n_g, nx, ny, dt, theta, cg_iters, mode,
                  int(precondition), int(uses_glen(exps)), *exps, lay.cluster, lay.bx, lay.by,
                  lay.smem, lay.cells, stream)
     else:
         work = torch.empty((_N_SCRATCH,) + tuple(H.shape), dtype=H.dtype, device=H.device)
         fn = lib.si_step_split_f32 if f32 else lib.si_step_split_f64
         err = fn(*planes, work.data_ptr(), out.data_ptr(), xp, n_g, nx, ny, dt, theta, cg_iters,
-                 int(transpose), int(precondition), int(uses_glen(exps)), *exps, stream)
+                 mode, int(precondition), int(uses_glen(exps)), *exps, stream)
     if err != 0:
         raise RuntimeError(f"si_step: kernel launch failed with CUDA error {err}")
     return out
@@ -564,4 +677,5 @@ def _launch(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, lay, x_out=None,
 
 si_step.launches = 0
 si_step_transpose.launches = 0
+si_step_tangent.launches = 0
 si_step_vjp.launches = 0

@@ -16,6 +16,15 @@ B are the vector-Jacobian product at λ of the residual b − A(D)·x with x
 held fixed. The guess x0 and the preconditioner get no gradient, and CG is
 never unrolled.
 
+Its tangent (forward mode, ``torch.autograd.forward_ad``) is the one
+``lax.custom_linear_solve``'s jvp gives: ẋ = PCG(A, ṙ) with the forward's
+``solve`` closure, ``cg_iters`` Jacobi-PCG iterations started from the
+primal guess x0 (not from zero or from ṙ), where ṙ is the tangent of the
+residual b(H, D, B) − A(D)·x with x fixed (:func:`residual_tangent`);
+then ẋ·[x > 0]. The guess gets no tangent. At a low ``cg_iters`` this is
+not the derivative of the unrolled PCG, and a solve started from H can give
+a tangent far from the converged one: JAX's is the reference.
+
 ``precondition=False`` runs both solves as plain CG (no Jacobi
 preconditioner): the solves of the JAX package's hand-written SI/SI2
 transposes (``odinn_tpu.inverse.gradient``), which rematerialise the step
@@ -27,9 +36,11 @@ from __future__ import annotations
 import torch
 
 from odinn_tpu_torch.ops import stencils as st
+from odinn_tpu_torch.ops.cuda.common import needs_function
 
 __all__ = ["div_flux", "dot", "cg", "jacobi_diag", "theta_solve_x", "relu_cotangent",
-           "transpose_solve", "residual_pullback", "theta_solve"]
+           "transpose_solve", "residual_pullback", "residual_tangent", "tangent_solve",
+           "theta_solve"]
 
 # rounds to 0 in float32: the CG guards then compare against 0
 _TINY = 1e-300
@@ -143,20 +154,60 @@ def residual_pullback(lam, H, D, B, x, dt, theta, dx, dy):
     return lam + dh, dd, db
 
 
+def residual_tangent(dH, dD, dB, H, D, B, x, dt, theta, dx, dy):
+    """ṙ, the tangent of the residual b(H, D, B) − A(D)·x with x fixed:
+    Ḣ + dt·M·∇·(Ḋ∇(B + ring·H + (1−θ)·M·H + θ·M·x))
+    + dt·M·∇·(D∇(Ḃ + ring·Ḣ + (1−θ)·M·Ḣ)). A None tangent is zero."""
+    interior, ring = _masks(x)
+    r = torch.zeros_like(x) if dH is None else dH
+    if dD is not None:
+        u = B + ring * H + (1.0 - theta) * interior * H + theta * interior * x
+        r = r + dt * interior * div_flux(u, dD, dx, dy)
+    if dH is not None or dB is not None:
+        du = torch.zeros_like(x) if dB is None else dB
+        if dH is not None:
+            du = du + ring * dH + (1.0 - theta) * interior * dH
+        r = r + dt * interior * div_flux(du, D, dx, dy)
+    return r
+
+
+def tangent_solve(rdot, x, x0, D, dt, theta, cg_iters: int, dx, dy, precondition=True):
+    """ẋ·[x > 0] with ẋ = ``cg_iters`` Jacobi-PCG iterations (plain CG
+    without ``precondition``) on the step's A from the primal guess x0 on
+    the right-hand side ṙ: the tangent solve of ``lax.custom_linear_solve``
+    (module doc), x the forward's pre-relu solution."""
+    interior, _ = _masks(x)
+    matvec, precond = _operator(D, dt, theta, dx, dy, interior, precondition)
+    return relu_cotangent(cg(matvec, rdot, x0, cg_iters, precond), x)
+
+
 class _ThetaSolve(torch.autograd.Function):
     """relu of :func:`theta_solve_x` with the implicit-function adjoint
-    (module doc): the forward keeps x; the backward is one transpose solve
-    and one residual pullback."""
+    and tangent (module doc): the forward keeps x; the backward is one
+    transpose solve and one residual pullback, the jvp one residual tangent
+    and one tangent solve."""
 
     @staticmethod
     def forward(ctx, H, D, B, x0, dt, theta, cg_iters, dx, dy, precondition):
+        ctx.set_materialize_grads(False)
         x = theta_solve_x(H, D, B, x0, dt, theta, cg_iters, dx, dy, precondition)
         ctx.save_for_backward(H, D, B, x)
+        # the jvp cannot read saved_tensors
+        ctx.primals = (H, D, B, x0, x)
         ctx.consts = (dt, theta, cg_iters, dx, dy, precondition)
         return st.relu_strict(x)
 
     @staticmethod
+    def jvp(ctx, dH, dD, dB, *_):
+        H, D, B, x0, x = ctx.primals
+        dt, theta, cg_iters, dx, dy, precondition = ctx.consts
+        rdot = residual_tangent(dH, dD, dB, H, D, B, x, dt, theta, dx, dy)
+        return tangent_solve(rdot, x, x0, D, dt, theta, cg_iters, dx, dy, precondition)
+
+    @staticmethod
     def backward(ctx, gbar):
+        if gbar is None:       # grads are not materialised (for the jvp's Nones)
+            return (None,) * 10
         H, D, B, x = ctx.saved_tensors
         dt, theta, cg_iters, dx, dy, precondition = ctx.consts
         dx, dy = (v.detach() if isinstance(v, torch.Tensor) else v for v in (dx, dy))
@@ -170,8 +221,9 @@ class _ThetaSolve(torch.autograd.Function):
 def theta_solve(H, D, B, x0, dt, theta, cg_iters: int, dx, dy, precondition=True):
     """One θ-step with D frozen: relu of :func:`theta_solve_x`,
     differentiable in H, D and B by the implicit-function adjoint when one
-    of them requires grad (module doc); x0 gets no gradient."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (H, D, B)):
+    of them requires grad, and by its tangent when one carries a
+    forward-mode tangent (module doc); x0 gets neither."""
+    if needs_function(H, D, B):
         return _ThetaSolve.apply(H, D, B, x0, float(dt), float(theta), int(cg_iters), dx, dy,
                                  bool(precondition))
     return st.relu_strict(theta_solve_x(H, D, B, x0, dt, theta, cg_iters, dx, dy,

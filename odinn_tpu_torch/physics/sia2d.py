@@ -22,6 +22,7 @@ import torch
 from odinn_tpu_torch.core.glacier import per_glacier_column
 from odinn_tpu_torch.ops import stencils as st
 from odinn_tpu_torch.ops.cuda import sia_kernel
+from odinn_tpu_torch.ops.cuda.common import has_tangent
 from odinn_tpu_torch.physics.targets import ATarget
 
 __all__ = [
@@ -99,7 +100,9 @@ def _as_column(v, n_g: int, device) -> Optional[torch.Tensor]:
 
 
 def _carries_grad(v) -> bool:
-    return isinstance(v, torch.Tensor) and v.requires_grad
+    """Whether ``v`` is differentiated: it requires grad or carries a
+    forward-mode tangent."""
+    return isinstance(v, torch.Tensor) and (v.requires_grad or has_tangent(v))
 
 
 def scalar_law_table(values_fn, target, dx, dy, H, slide_grad: bool = False
@@ -109,7 +112,7 @@ def scalar_law_table(values_fn, target, dx, dy, H, slide_grad: bool = False
     constant values, every slot one value per glacier, an (n_g, nx, ny)
     state, and no value the kernels' backwards cannot differentiate. The
     kernels take the exponents as numbers, so an n, p or q that carries a
-    gradient is refused; the explicit RHS and the RKC step pull back to the
+    gradient or a forward-mode tangent is refused; the explicit RHS and the RKC step pull back to the
     creep column only, so a C that carries one is refused unless
     ``slide_grad`` (the semi-implicit step, whose backward has the slide
     cotangent). Cached on ``values_fn`` for as long as ``dx``/``dy`` are

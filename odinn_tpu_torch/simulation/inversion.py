@@ -1,13 +1,20 @@
 """Inversion: training the trainable laws and initial thickness through the
 PDE solve.
 
-``run_inversion`` → ``train_ude``: staged optimizers (Adam/AdamW, then
-LBFGS) over the θ tree, with best-iterate tracking. The gradient is
-autograd through the whole forward solve of the stacked glacier batch
-(``UDEParameters(grad="jax")``), or a hand-written adjoint
+``run_inversion`` → ``train_ude``: staged optimizers (Adam/AdamW, LBFGS,
+and Levenberg–Marquardt stages ``"lm"``/``"gn"``/``"gauss_newton"``/
+``"gauss-newton"``, :mod:`odinn_tpu_torch.inverse.gauss_newton`) over the θ
+tree, with best-iterate tracking. The gradient is autograd through the
+whole forward solve of the stacked glacier batch
+(``UDEParameters(grad="jax")``), a hand-written adjoint
 (``grad="discrete"``/``"continuous"`` or a ``DiscreteAdjoint``/
 ``ContinuousAdjoint``, :mod:`odinn_tpu_torch.inverse.gradient`), whose
-pullbacks on the card are the same kernels'. The transient loss is
+pullbacks on the card are the same kernels', forward mode
+(``grad="forward"``: one ``torch.autograd.forward_ad`` solve per θ leaf,
+for per-glacier scalar θ; on the card through the kernels' tangent rules),
+or a random gradient (``grad="dummy"``/``DummyAdjoint``, for testing the
+pipeline: normal draws from a ``torch.Generator`` seeded 0 at every call,
+not JAX's numbers). The transient loss is
 Σ_g Σ_τ Δt_τ · ℓ(H_g(t_τ), refs_g(t_τ)) with the glacier axis as a batch
 dimension, plus once per solve the "initial" terms (the regularizations of
 ``losses/regularization.py``, on H₀ and θ) and the "aggregate" terms (the
@@ -43,9 +50,8 @@ A non-finite loss in either mode rewinds to the best finite iterate,
 re-sizes there (at least doubling the substeps, or re-recording the
 schedule with each step split 2^(attempt−1) ways) and reruns the stage, at
 most three times. ``adaptive=True`` is forward-only and refused. Not
-ported yet, and refused with the slice that brings them (``ROADMAP.md``,
-Queue 1): Levenberg–Marquardt stages and ``grad="forward"``/``"dummy"``
-(item 6), and saving the result (item 8).
+ported yet, and refused with the slice that brings it (``ROADMAP.md``,
+Queue 1 item 8): saving the result.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from odinn_tpu_torch.core.device import resolve_device
 from odinn_tpu_torch.core.glacier import (
@@ -73,8 +80,9 @@ from odinn_tpu_torch.simulation.prediction import (
 from odinn_tpu_torch.simulation.results import Results, TrainingStats, create_results
 from odinn_tpu_torch.simulation.solver import build_tstops
 
-__all__ = ["Inversion", "assemble_tstops", "glacier_transient_loss", "batch_transient_loss",
-           "gather_batch", "resolve_accum_chunks", "train_ude", "run_inversion"]
+__all__ = ["Inversion", "assemble_tstops", "glacier_transient_loss", "glacier_residuals",
+           "batch_transient_loss", "gather_batch", "resolve_accum_chunks", "train_ude",
+           "run_inversion"]
 
 
 def _default_loss():
@@ -208,6 +216,73 @@ def glacier_transient_loss(theta, glacier, model, params, tstops):
     return total, traj
 
 
+def _rows(r, batched: bool):
+    """A residual block flattened per glacier: (n_g, −1) for a batch."""
+    return r.reshape(r.shape[0], -1) if batched else r.reshape(-1)
+
+
+def _per_glacier(c, like):
+    """A per-glacier factor (a number or an (n_g,) tensor) shaped to
+    broadcast over a batch's block ``like``."""
+    if isinstance(c, torch.Tensor) and c.ndim == 1:
+        return c.reshape(c.shape + (1,) * (like.ndim - 1))
+    return c
+
+
+def glacier_residuals(theta, glacier, model, params, tstops):
+    """The least-squares residuals r with Σr² == :func:`glacier_transient_loss`:
+    (n_g, R) for a stacked batch, one row per glacier, or (R,) for a lone
+    glacier. Every configured term must have ``.residuals`` (LossH, LossV,
+    LossHV over L2Sum/LogSum, LossDhdt, LossAvgV, the Tikhonov family);
+    others raise with a remedy. Transient blocks carry √(w·Δt_τ·valid),
+    initial and aggregate blocks √w; a transient block's rows run over the
+    tstops, then the grid, as the JAX package ravels them."""
+    traj = forward_glacier(theta, glacier, model, params, tstops)
+    env = _LossEnv(theta, glacier, model, params, tstops)
+    batched = glacier.is_batched
+
+    def check(term):
+        if not hasattr(term, "residuals"):
+            raise NotImplementedError(
+                f"Gauss-Newton training needs a least-squares residual form for "
+                f"{term!r} (no .residuals method); use grad='jax' with "
+                f"Adam/LBFGS for this loss")
+
+    pieces = []
+    if env.transient:
+        for _, term in env.transient:
+            check(term)
+        per_t = []
+        for tau in range(1, len(env.ts)):
+            t, ctx, h_valid, v_valid = env.obs_at(tau, traj.dtype)
+            blocks = []
+            for w, term in env.transient:
+                valid = env.term_valid(term, h_valid, v_valid)
+                c = torch.sqrt(torch.as_tensor(w * float(env.dts[tau - 1]) * valid,
+                                               dtype=traj.dtype, device=traj.device))
+                blocks.extend(_per_glacier(c, r) * r for r in term.residuals(ctx, traj[tau], t))
+            per_t.append(blocks)
+        for b in range(len(per_t[0]) if per_t else 0):
+            stacked = torch.stack([blocks[b] for blocks in per_t], dim=1 if batched else 0)
+            pieces.append(_rows(stacked, batched))
+    for kind, terms in (("initial", env.initial), ("aggregate", env.aggregate)):
+        if not terms:
+            continue
+        ctx = env.make_ctx()
+        for w, term in terms:
+            check(term)
+            sw = torch.sqrt(torch.as_tensor(w, dtype=traj.dtype))
+            if kind == "initial":
+                rs = term.residuals(ctx, env.initial_H(), float(env.ts[0]))
+            else:
+                rs = term.residuals(ctx, traj, torch.as_tensor(env.ts).to(traj.device))
+            pieces.extend(_rows(sw * r, batched) for r in rs)
+    if not pieces:
+        shape = (traj.shape[1], 0) if batched else (0,)
+        return torch.zeros(shape, dtype=traj.dtype, device=traj.device)
+    return torch.cat(pieces, dim=-1)
+
+
 def batch_transient_loss(theta, batch, model, params, tstops):
     """Sum of the transient losses over the stacked glacier batch."""
     losses, _ = glacier_transient_loss(theta, batch, model, params, tstops)
@@ -287,24 +362,79 @@ def _tree_leaves(tree) -> list:
     return out
 
 
+def _forward_mode_grad(theta, b, model, params, tstops):
+    """(loss, gradients in θ's leaf order) by forward mode: each glacier's
+    loss depends on its own θ entries only (per-glacier laws route by
+    glacier index), so one dual solve per θ leaf, with tangent 1 on every
+    glacier at once, reads the gradient off the per-glacier losses'
+    tangents; a batch row adds into its glacier's entry (``glacier_ids``
+    under minibatching)."""
+    leaves = _tree_leaves(theta)
+    for x in leaves:
+        if x.ndim != 1:
+            raise ValueError(
+                "grad='forward' requires per-glacier SCALAR θ leaves of shape "
+                f"(n_glaciers,), got {tuple(x.shape)}: it reads the gradient off "
+                "per-glacier loss tangents, which only resolves one component per "
+                "glacier per leaf. Use classical inversion laws (LawA_inversion/"
+                "LawC_inversion/LawN_inversion); gridded or NN θ needs a reverse-mode "
+                "path (grad='jax'/'discrete'/'continuous').")
+    idxs = glacier_index(b)
+    val, grads = None, []
+    for l, x in enumerate(leaves):
+        with fwAD.dual_level(), torch.no_grad():
+            duals = [fwAD.make_dual(p.detach(), torch.ones_like(p) if i == l else
+                                    torch.zeros_like(p)) for i, p in enumerate(leaves)]
+            it = iter(duals)
+            losses, _ = glacier_transient_loss(_tree_map(lambda _: next(it), theta), b, model,
+                                               params, tstops)
+            primal, tangent = fwAD.unpack_dual(losses)
+        if val is None:
+            val = torch.sum(primal)
+        jv = torch.zeros_like(primal) if tangent is None else tangent
+        grads.append(torch.zeros_like(x).index_add(0, idxs.to(x.device), jv.to(x.dtype)))
+    return val, grads
+
+
+def _dummy_grad(theta):
+    """Normal draws in θ's leaf order from a ``torch.Generator`` seeded 0
+    (the same at every call), drawn on the host and moved to each leaf."""
+    gen = torch.Generator().manual_seed(0)
+    return [torch.randn(tuple(x.shape), generator=gen, dtype=torch.float64).to(
+        dtype=x.dtype, device=x.device) for x in _tree_leaves(theta)]
+
+
 def _make_grad_fn(inversion: Inversion, loss_fn_b, stats: TrainingStats):
     """``vg(theta, b) -> (loss, grads)`` for params.UDE.grad, with the
-    gradients in θ's leaf order: autograd through the solve, or a
-    hand-written adjoint (one forward solve and one backward sweep each).
-    Chunked accumulation (hyper.grad_accum_chunks) sums the exact per-chunk
-    losses and gradients, bounding the live autograd graph (or the adjoint's
-    trajectory) to one chunk."""
+    gradients in θ's leaf order: autograd through the solve, a hand-written
+    adjoint (one forward solve and one backward sweep each), forward mode
+    (one dual solve per θ leaf) or the dummy gradient. Chunked accumulation
+    (hyper.grad_accum_chunks) sums the exact per-chunk losses and gradients,
+    bounding the live autograd graph (or the adjoint's trajectory) to one
+    chunk."""
     grad_cfg = inversion.parameters.UDE.grad
     name = grad_cfg if isinstance(grad_cfg, str) else getattr(grad_cfg, "name", "jax")
-    if name in ("forward", "dummy"):
-        raise NotImplementedError(
-            f"odinn_tpu_torch: grad={name!r} comes with the second-order trainer and gradient "
-            "modes slice (ROADMAP.md, Queue 1 item 6); use grad='jax', 'discrete' or "
-            "'continuous'")
-    if name not in ("jax", "sciml", "discrete", "continuous"):
+    if name not in ("jax", "sciml", "discrete", "continuous", "forward", "dummy"):
         raise ValueError(f"unknown adjoint method {name!r}")
     k_cfg = getattr(inversion.parameters.hyper, "grad_accum_chunks", 1) or 1
 
+    if name == "forward":
+        params = inversion.parameters
+        tstops = assemble_tstops(params, inversion.glaciers)
+
+        def forward_vg(theta, b):
+            val, grads = _forward_mode_grad(theta, b, inversion.model, params, tstops)
+            stats.solves += len(grads)
+            return val, grads
+
+        return forward_vg
+    if name == "dummy":
+        def dummy_vg(theta, b):
+            with torch.no_grad():
+                val = loss_fn_b(theta, b)
+            return val, _dummy_grad(theta)
+
+        return dummy_vg
     if name in ("discrete", "continuous"):
         from odinn_tpu_torch.inverse.gradient import make_adjoint_value_and_grad
 
@@ -510,6 +640,59 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
         fold_best(eval_loss(theta, batch), leaves)
     rng = np.random.default_rng(0)
 
+    def run_lm_stage(lr, epochs):
+        """Matrix-free Levenberg–Marquardt on the least-squares loss
+        (:mod:`odinn_tpu_torch.inverse.gauss_newton`): ``lr`` is the
+        initial damping λ, ``epochs`` the iteration count. Full batch only.
+        With ``hyper.gn_glacier_norm`` each glacier's rows are weighted by
+        its inverse loss at the stage start, and the recorded losses are
+        re-priced as the true loss."""
+        from odinn_tpu_torch.inverse.gauss_newton import lm_train, make_residual_fn
+
+        if minibatching:
+            raise ValueError("Gauss-Newton stages require full-batch training "
+                             f"(hyper.batch_size >= {n_glaciers})")
+        base = make_residual_fn(model, params, tstops)
+
+        def resid(th, b):
+            stats.solves += 1
+            return base(th, b)
+
+        glacier_norm = params.hyper.gn_glacier_norm
+        if glacier_norm:
+            with torch.no_grad():
+                r0 = resid(theta, batch)
+            L_g = torch.sum(r0 * r0, dim=tuple(range(1, r0.ndim)))
+            sqrt_w = torch.sqrt(1.0 / (L_g + 0.01 * torch.mean(L_g)))
+            sqrt_w = sqrt_w.reshape((-1,) + (1,) * (r0.ndim - 1))
+            unweighted = resid
+
+            def resid(th, b):
+                return unweighted(th, b) * sqrt_w
+
+        t_stage, n_before = time.time(), stats.niter
+
+        def rec(v, th, gn):
+            if glacier_norm:
+                v = eval_loss(th, batch)
+            _record(stats, v, th, gn, 0.0)
+            if callback is not None:
+                callback(stats)
+
+        trained, lm_losses = lm_train(theta, batch, resid, iters=epochs,
+                                      cg_iters=params.hyper.gn_cg_iters, init_damping=lr,
+                                      record=rec, precond=params.hyper.gn_precond,
+                                      cg_restarts=params.hyper.gn_cg_restarts)
+        # rec() recorded 0.0 a record; each gets the stage's mean wall time
+        n_rec = stats.niter - n_before
+        if n_rec > 0:
+            stats.time_per_iter[-n_rec:] = [(time.time() - t_stage) / n_rec] * n_rec
+        load(_tree_leaves(trained))
+        # the accept rule is monotone: the returned θ is the stage's best;
+        # normalized losses are not comparable, end_stage prices it then
+        if not glacier_norm:
+            fold_best(min(lm_losses), leaves)
+
     def run_stage(opt_name, lr, epochs):
         if opt_name in ("adam", "adamw"):
             opt = (torch.optim.Adam(leaves, lr=lr) if opt_name == "adam"
@@ -559,9 +742,7 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
                 if callback is not None:
                     callback(stats)
         elif opt_name in ("lm", "gn", "gauss_newton", "gauss-newton"):
-            raise NotImplementedError(
-                "odinn_tpu_torch: Levenberg–Marquardt / Gauss–Newton stages come with the "
-                "second-order trainer slice (ROADMAP.md, Queue 1 item 6)")
+            run_lm_stage(lr, epochs)
         else:
             raise ValueError(f"unknown optimizer {opt_name!r}")
         end_stage()

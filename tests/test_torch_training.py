@@ -245,13 +245,15 @@ def test_init_theta_follows_the_law():
                                   "DummyAdjoint", "adaptive"])
 def test_unported_training_paths_name_their_slice(what):
     """Each training path not ported yet raises, naming the slice (the
-    ROADMAP.md Queue 1 item) that brings it: the other gradient modes and
-    LM stages (item 6), saving (item 8). The paths items 4 and 5 brought
-    now run: a periodic law trains by autograd and the manual adjoints
-    refuse it, naming grad='jax'; a Y law builds the hybrid-D target; a
-    capped (D) target trains by the discrete adjoint; substeps="auto" is
-    sized before training; and adaptive=True is refused as the JAX package
-    refuses it, forward-only."""
+    ROADMAP.md Queue 1 item) that brings it: saving (item 8). The paths
+    items 4–6 brought now run: a periodic law trains by autograd and the
+    manual adjoints refuse it, naming grad='jax'; a Y law builds the
+    hybrid-D target; a capped (D) target trains by the discrete adjoint;
+    substeps="auto" is sized before training; adaptive=True is refused as
+    the JAX package refuses it, forward-only; an LM stage and the dummy
+    gradient (grad="dummy" or a DummyAdjoint) train; and grad="forward"
+    refuses this NN θ as the JAX package does, naming per-glacier scalar
+    θ."""
     from odinn_tpu_torch.inverse.adjoint_types import DummyAdjoint
     from odinn_tpu_torch.laws.laws import Law
     from odinn_tpu_torch.physics.targets import CappedTarget, DHybridTarget
@@ -291,18 +293,23 @@ def test_unported_training_paths_name_their_slice(what):
         assert np.isfinite(run_inversion(inv).stats.losses).all()
         assert isinstance(inv.parameters.solver.substeps, int)
         return
-    if what in ("forward", "dummy"):
+    if what == "forward":
         inv.parameters = p.replace(UDE=dataclasses.replace(p.UDE, grad=what))
-    elif what == "DummyAdjoint":
-        inv.parameters = p.replace(UDE=dataclasses.replace(p.UDE, grad=DummyAdjoint()))
-    elif what == "lm":
-        inv.parameters = p.replace(hyper=dataclasses.replace(
-            p.hyper, optimizer=("lm",), learning_rate=(1e-3,), epochs=(1,)))
-    with pytest.raises(NotImplementedError, match="slice"):
-        if what == "save":
-            run_inversion(inv, path="results")
-        else:
+        with pytest.raises(ValueError, match="per-glacier SCALAR"):
             run_inversion(inv)
+        return
+    if what in ("dummy", "DummyAdjoint", "lm"):
+        if what == "dummy":
+            inv.parameters = p.replace(UDE=dataclasses.replace(p.UDE, grad=what))
+        elif what == "DummyAdjoint":
+            inv.parameters = p.replace(UDE=dataclasses.replace(p.UDE, grad=DummyAdjoint()))
+        else:
+            inv.parameters = p.replace(hyper=dataclasses.replace(
+                p.hyper, optimizer=("lm",), learning_rate=(1e-3,), epochs=(1,)))
+        assert np.isfinite(run_inversion(inv).stats.losses).all()
+        return
+    with pytest.raises(NotImplementedError, match="slice"):
+        run_inversion(inv, path="results")
 
 
 @pytest.mark.parametrize("grad", ["jax", "discrete", "continuous"])
