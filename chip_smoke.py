@@ -115,7 +115,7 @@ Phases, each printed as one JSON line:
    4 x 128^2 and 2 x 300^2; ``rkc_interval`` at 16 x 128^2, s = 8; each
    pullback at its other shape and the fused RKC-backward stage). The
    ``kernel_times`` line before it also times a one-element PyTorch fill,
-   the card's single-launch floor. It is printed last, after phase 10, and
+   the card's single-launch floor. It is printed last, after phase 11, and
    its launches are all phases';
 9. tolerance (the tolerance contract, float32, reltol 1e-4): the main
    path's scenario through ``run_prediction`` with ``adaptive=True``, whose
@@ -144,7 +144,33 @@ Phases, each printed as one JSON line:
    ``sia2d_rhs_jvp`` launch); ``grad="forward"`` of the classical
    per-glacier A through SI and RKC, float64 against the CPU's forward
    mode and the card's autograd to 1e-9, float32 at full
-   width within 2x the CPU float32 error, with its launches and Adam epoch.
+   width within 2x the CPU float32 error, with its launches and Adam epoch;
+11. ensembles, EKI and UQ, the member axis folded into the kernels'
+   glacier axis (``simulation/ensemble.py``'s ``fold_members``): phase 5's
+   SI training problem from 8 restarts (``multistart_train``: 128 planes a
+   launch; one folded Adam epoch launching si_step 24 forward and 24
+   transpose and si_step_vjp 24, timed and profiled beside phase 5's
+   single-start epoch; 4 Adam epochs with restart 0 equal to a
+   single-start ``run_inversion`` from θ0 within 1e-5, every restart's
+   loss falling; again with ``refine_top_k=2`` and 2 LBFGS iterations);
+   ``eki_train`` on benchmarks/eki_bench.py's section 1 (16 glaciers, 64^2,
+   SI PCG-12, 32 members, 15 iterations: si_step 6 a residual batch for
+   all 512 planes, and the reference's A gate, max relative error <= 1e-3
+   and min <= 1e-4) and section 3 (the adaptive forward, 4 glaciers, 32^2,
+   8 members, 10 iterations: sia2d_rhs once an RHS evaluation of the
+   folded integrator, the misfit falling); ``laplace_uncertainty`` of the
+   classical SI problem per glacier (si_step_tangent 24 a θ leaf, every A
+   with its std) and dense of A = NN(T) (p = 83, prior_std 0.5:
+   si_step_tangent, si_step_transpose and si_step_vjp 24 x p each, a
+   cov_band over 16 temperatures), and both curvature paths on 4 x 128^2,
+   2 months, held to the CPU's float64 run (JᵀJ and θ stds to 1e-9; float32
+   stds within 2x the CPU float32 error). Each line carries its seconds,
+   busy time where profiled, launches and ``max_memory_allocated``. Before
+   the main path, si_step (forward, transpose, tangent and si_step_vjp) is
+   checked at the folded 128 x 128^2 (PCG-20) and 512 x 64^2 (PCG-12),
+   whose plans run many waves of clusters (asserted; ``cluster_report``
+   prints them), against its plain versions with a bitwise repeat, in both
+   dtypes; ``kernel_times`` times those and ``sia2d_rhs`` at 32 x 32^2.
 
 Any failed check raises, so the exit code is not 0. A ``done`` line gives
 the whole run's seconds, build included. The last line is
@@ -264,6 +290,32 @@ LM_GATE_PROBES = (
      "++-+++-+--", "--+------+"),
     ("+-+--+---+", "---+--+--+", "++++++----", "+---+-++-+", "-+-+-++--+", "+++++++++-",
      "--++---+--", "+---+-+-++"))
+
+
+# phase 11: the multistart restarts (128 planes a launch at 16 glaciers),
+# Adam epochs and LBFGS iterations of the top 2; EKI's problem
+# (benchmarks/eki_bench.py: sections 1 and 3) and the Adam epochs before
+# the per-glacier posterior
+MS_RESTARTS = 8
+MS_EPOCHS = 4
+MS_LBFGS = 2
+EKI_TSPAN = (5.0, 5.5)             # 6 monthly intervals
+EKI_GLACIERS, EKI_NX, EKI_CG, EKI_MEMBERS, EKI_ITERS = 16, 64, 12, 32, 15
+EKI_A_GLACIERS, EKI_A_NX, EKI_A_MEMBERS, EKI_A_ITERS = 4, 32, 8, 10
+UQ_ADAM = 5
+# restart 0 of the folded multistart against the single start, float32
+# losses: the same per-glacier arithmetic (each glacier's cluster is
+# independent of the launch's other glaciers), summed over the member's
+# glaciers in another order
+TOL_RESTART0 = 1e-5
+# the folded batches of phase 11 as si_step sees them: (planes, nx, ny,
+# PCG iterations)
+FOLDED_SI = ((MS_RESTARTS * N_TRAIN, NX, NY, SI_TRAIN_CG),
+             (EKI_MEMBERS * EKI_GLACIERS, EKI_NX, EKI_NX, EKI_CG))
+FOLDED_SI_SHAPES = [f[:3] for f in FOLDED_SI]
+# the posterior's float64 JᵀJ and θ std on the card against the CPU's: the
+# kernels' roundoff through 2 steps' tangent solves and pullbacks
+TOL_UQ_F64 = 1e-9
 
 
 def emit(obj) -> None:
@@ -598,6 +650,16 @@ def check_kernels():
         check_second_wave(dtype)
         check_si(H, B, derived, (N_TRAIN, NX, NY), dtype, cg_iters=(SI_TRAIN_CG,))
         check_rhs_jvp_sets(H, B, raw, (N_TRAIN, NX, NY), dtype, stage_s=8)
+    # phase 11's folded batches: multistart's 8 restarts x 16 glaciers at
+    # PCG-20 and EKI's 32 members x 16 glaciers of 64^2 at PCG-12, in many
+    # waves of clusters (each glacier's cluster is independent: the bitwise
+    # repeat shows that the waves' order changes no glacier's arithmetic)
+    for dtype in (torch.float64, torch.float32):
+        for n_g, nx, ny, it in FOLDED_SI:
+            check_waves(n_g, nx, ny, dtype)
+            H, B, raw = kernel_inputs(n_g, nx, ny, dtype, seed=50 + nx)
+            derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+            check_si(H, B, derived, (n_g, nx, ny), dtype, cg_iters=(it,))
     # the runtime-exponent paths: Glen n = 4 for rkc_interval (one set a
     # launch), n = 3, 4 and 2.5 in one batch for the pullback
     for dtype in (torch.float64, torch.float32):
@@ -653,6 +715,19 @@ def check_second_wave(dtype):
     if plan.layout is None or plan.layout.cluster != 8 or plan.max_active[8] >= N_TRAIN:
         raise AssertionError(f"si_step at {N_TRAIN} x {NX}^2 {dtype}: expected 8-block "
                              f"clusters in two waves, got {plan}")
+
+
+def check_waves(n_g, nx, ny, dtype):
+    """Raises unless si_step's and si_step_vjp's plans schedule n_g glaciers
+    of (nx, ny) as cluster launches with fewer clusters resident at once
+    than glaciers (several waves)."""
+    from odinn_tpu_torch.ops.cuda import si_kernel
+
+    for name, plan in (("si_step", si_kernel.si_plan(n_g, nx, ny, dtype)),
+                       ("si_step_vjp", si_kernel.si_vjp_plan(n_g, nx, ny, dtype))):
+        if plan.layout is None or plan.max_active[plan.layout.cluster] >= n_g:
+            raise AssertionError(f"{name} at {n_g} x {nx} x {ny} {dtype}: expected cluster "
+                                 f"launches in several waves, got {plan}")
 
 
 def check_si(H, B, derived, shape, dtype, cg_iters, tag="", increment_factor=False):
@@ -983,8 +1058,9 @@ def cluster_report():
     """The RKC and SI kernels' plans: cluster size and
     cudaOccupancyMaxActiveClusters at 8 and 16 blocks, for 4 and 16
     glaciers of 128^2 in both dtypes (and si_step's path at the large-plane
-    check's 300^2); si_step_vjp's also at the other check shapes, with
-    their tiles."""
+    check's 300^2); si_step's and si_step_vjp's also at phase 11's folded
+    batches (128 x 128^2, 512 x 64^2), si_step_vjp's at the other check
+    shapes, with their tiles."""
     from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel
 
     for phase, make_plan in (("rkc_cluster", rkc_kernel.rkc_plan),
@@ -992,6 +1068,8 @@ def cluster_report():
                              ("si_vjp_cluster", si_kernel.si_vjp_plan)):
         plans = {}
         shapes = [(n_g, NX, NY) for n_g in (N_G, N_TRAIN)]
+        if phase != "rkc_cluster":
+            shapes += FOLDED_SI_SHAPES
         if phase == "si_vjp_cluster":
             shapes += [(2, 300, 300), (3, 97, 131), (2, 10, 33)]
         for dtype in (torch.float32, torch.float64):
@@ -1293,7 +1371,9 @@ def time_kernels():
     at 16 x 128^2, si_step and its transpose-solve mode at 4 x 128^2 and at
     the SI training's 16 x 128^2, PCG-20, and at 15 glaciers, which 8-block
     clusters hold resident at once (16 run a second wave), and si_step_vjp
-    at 4 x 128^2."""
+    at 4 x 128^2; and phase 11's folded batches: si_step, its transpose and
+    si_step_vjp at 128 x 128^2 (PCG-20), si_step at 512 x 64^2 (PCG-12),
+    sia2d_rhs at 32 x 32^2."""
     from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
     from odinn_tpu_torch.ops.cuda.common import derived_scalars
     from odinn_tpu_torch.core.params import PhysicalParameters
@@ -1337,6 +1417,19 @@ def time_kernels():
     dY, dH0, dY2, df0 = (torch.randn(Ht.shape, generator=jgen).to("cuda") for _ in range(4))
     n15 = N_TRAIN - 1
     H15, B15, x15, lam15 = (t[:n15].contiguous() for t in (Ht, Bt, xt, lam))
+    # phase 11's folded batches: si_step, its transpose and the pullback at
+    # multistart's 128 x 128^2, PCG-20; si_step at EKI's 512 x 64^2, PCG-12;
+    # sia2d_rhs at the adaptive EKI's 32 x 32^2
+    (n_m, _, _, it_m), (n_e, nx_e, _, it_e) = FOLDED_SI
+    Hm, Bm, rawm = kernel_inputs(n_m, NX, NY, f32, seed=22)
+    derived_m = derived_scalars(*(rawm[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+    gm = torch.randn(Hm.shape, generator=torch.Generator().manual_seed(23)).to("cuda")
+    xm = si_kernel._si_solve_reference(Hm, Hm, Bm, Hm, derived_m, DT, 1.0, it_m, exps)
+    lamm = si_kernel.si_step_transpose_reference(gm, xm, Hm, Bm, derived_m, DT, 1.0, it_m, exps)
+    He, Be, rawe = kernel_inputs(n_e, nx_e, nx_e, f32, seed=24)
+    derived_e = derived_scalars(*(rawe[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+    n_s = EKI_A_MEMBERS * EKI_A_GLACIERS
+    Hs, Bs, raws = kernel_inputs(n_s, EKI_A_NX, EKI_A_NX, f32, seed=25)
     derived_15 = derived_t[:n15].contiguous()
     entries = {
         "si_step": ("si_step", lambda f: lambda: f(H, H, B, H, derived, DT, 1.0, 6, exps),
@@ -1440,6 +1533,26 @@ def time_kernels():
             lambda f: lambda: f(lam, carry, Ht, Bt, table_t, PHYS.eta0, weights),
             rkc_kernel.stage_pullback, rkc_kernel.stage_pullback_reference,
             stage_bound(N_TRAIN, NX, NY, 4), ("sia2d_rhs_vjp_kernel",), 50),
+        f"si_step {n_m}x{NX}x{NY} cg_iters={it_m}": (
+            "si_step", lambda f: lambda: f(Hm, Hm, Bm, Hm, derived_m, DT, 1.0, it_m, exps),
+            si_kernel.si_step, si_kernel.si_step_reference,
+            si_bound(n_m, NX, NY, 4, it_m), SI_KERNELS, 3),
+        f"si_step transpose {n_m}x{NX}x{NY} cg_iters={it_m}": (
+            "si_step", lambda f: lambda: f(gm, xm, Hm, Bm, derived_m, DT, 1.0, it_m, exps),
+            si_kernel.si_step_transpose, si_kernel.si_step_transpose_reference,
+            si_transpose_bound(n_m, NX, NY, 4, it_m), SI_KERNELS, 3),
+        f"si_step_vjp {n_m}x{NX}x{NY}": (
+            "si_step_vjp", lambda f: lambda: f(lamm, Hm, Hm, Bm, xm, derived_m, DT, 1.0, exps),
+            si_kernel.si_step_vjp, si_kernel.si_step_vjp_reference,
+            si_vjp_bound(n_m, NX, NY, 4, planes_in=4), ("si_step_vjp_kernel",), 5),
+        f"si_step {n_e}x{nx_e}x{nx_e} cg_iters={it_e}": (
+            "si_step", lambda f: lambda: f(He, He, Be, He, derived_e, DT, 1.0, it_e, exps),
+            si_kernel.si_step, si_kernel.si_step_reference,
+            si_bound(n_e, nx_e, nx_e, 4, it_e), SI_KERNELS, 3),
+        f"sia2d_rhs {n_s}x{EKI_A_NX}x{EKI_A_NX}": (
+            "sia2d_rhs", lambda f: lambda: f(Hs, Bs, raws, PHYS.rho, PHYS.g, PHYS.eta0),
+            sia_kernel.sia2d_rhs, sia_kernel.sia2d_rhs_reference,
+            sia_bound(n_s, EKI_A_NX, EKI_A_NX, 4), ("sia2d_rhs_kernel",), 50),
     }
     timing = {}
     for name, (kernel, call, kern, plain, bound, kernel_names, plain_reps) in entries.items():
@@ -2992,6 +3105,473 @@ def tolerance_phase():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: ensembles, EKI and UQ, the member axis folded into the kernels'
+# glacier axis
+# ---------------------------------------------------------------------------
+
+def _reset(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _read(counters):
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def _add(total, launches):
+    for k, v in launches.items():
+        total[k] += v
+
+
+def _peak_reset():
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def run_profile(fn, seconds):
+    """The profiler's reading of one more call of ``fn`` (after a warm-up
+    call): device busy ms, idle share against ``seconds`` (the counted
+    run's time on the host clock, to a synchronise), device launches and
+    launches by kernel name."""
+    busy, launches, by_name = device_profile(fn, 1)
+    return {"device_busy_ms": busy, "device_idle_share": 1.0 - busy / (1e3 * seconds),
+            "device_launches": launches,
+            "launches_by_kernel": dict(sorted(by_name.items(), key=lambda kv: -kv[1]))}
+
+
+def multistart_epoch_fn(inv, params, tstops, n):
+    """One Adam epoch of ``n`` restarts (init_restarts of the inversion's θ)
+    on the folded batch: the per-member losses, the gradient of their sum
+    (one backward through the kernels over n x G planes) and the update."""
+    from odinn_tpu_torch.simulation.ensemble import fold_members, folded_losses, init_restarts
+    from odinn_tpu_torch.utils.flatten import tree_leaves, tree_map
+
+    stack = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                     init_restarts(inv.theta, n, 0.5, seed=0))
+    leaves = tree_leaves(stack)
+    fold = fold_members(inv.model, inv.glaciers, params, n)
+    opt = torch.optim.Adam(leaves, lr=0.05)
+
+    def epoch():
+        per = folded_losses(stack, fold, tstops)
+        for p, g in zip(leaves, torch.autograd.grad(per.sum(), leaves)):
+            p.grad = g
+        opt.step()
+
+    return epoch
+
+
+def multistart_phase():
+    """Phase 11, multistart: phase 5's SI training problem (A = NN(T), 16 x
+    128^2, float32, PCG-20, 24 intervals) trained from MS_RESTARTS restarts
+    of init_restarts, all folded into one batch of 128 glaciers: one folded
+    Adam epoch with its launches asserted (si_step 24 forward and 24
+    transpose, si_step_vjp 24, as phase 5's single-start epoch) and
+    profiled beside phase 5's single-start epoch; multistart_train with
+    MS_EPOCHS Adam epochs (si_step 24 x (epochs + 1), transpose and
+    si_step_vjp 24 x epochs), restart 0's losses held to a single-start
+    run_inversion from θ0 to TOL_RESTART0, every restart's loss falling;
+    then again with refine_top_k=2 and MS_LBFGS LBFGS iterations, the
+    best loss no worse than restart 0's."""
+    from odinn_tpu_torch.simulation.ensemble import multistart_train
+    from odinn_tpu_torch.simulation.inversion import Inversion, run_inversion
+
+    counters = kernel_counters()
+    total = {k: 0 for k in counters}
+    inv, model, params, tstops, facts = training_problem("SI", "jax")
+    n_int = len(tstops) - 1
+    adam = params.replace(hyper=dataclasses.replace(
+        params.hyper, optimizer=("adam",), learning_rate=(0.05,), epochs=(MS_EPOCHS,)))
+    refine = params.replace(hyper=dataclasses.replace(
+        params.hyper, optimizer=("adam", "lbfgs"), learning_rate=(0.05, 1.0),
+        epochs=(MS_EPOCHS, MS_LBFGS)))
+    theta0 = _tree_to(inv.theta, "cuda", None)
+
+    # one folded epoch: launches, then time and profile beside a single start
+    epoch = multistart_epoch_fn(inv, adam, tstops, MS_RESTARTS)
+    _peak_reset()
+    _reset(counters)
+    epoch()
+    torch.cuda.synchronize()
+    epoch_launches = _read(counters)
+    _add(total, epoch_launches)
+    epoch_expected = dict({k: 0 for k in counters}, si_step=n_int, si_step_transpose=n_int,
+                          si_step_vjp=n_int)
+    folded = epoch_profile(epoch)
+    epoch_peak = torch.cuda.max_memory_allocated()
+    single = epoch_profile(adam_epoch_fn(inv, model, adam, tstops))
+
+    # the single start from θ0, then the restarts
+    ref = Inversion(model=model, glaciers=inv.glaciers, parameters=adam,
+                    theta=_tree_to(theta0, "cuda", None), device="cuda")
+    ref_losses = run_inversion(ref).stats.losses
+    runs = {}
+    for name, p, k in (("adam", adam, None), ("refine", refine, 2)):
+        def run(p=p, k=k):
+            ms_inv = Inversion(model=model, glaciers=inv.glaciers, parameters=p,
+                               theta=_tree_to(theta0, "cuda", None), device="cuda")
+            return multistart_train(ms_inv, n_restarts=MS_RESTARTS, seed=0, refine_top_k=k)
+
+        _peak_reset()
+        _reset(counters)
+        t0 = time.perf_counter()
+        ms = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs[name] = (ms, seconds, _read(counters), torch.cuda.max_memory_allocated(),
+                      run_profile(run, seconds))
+        _add(total, runs[name][2])
+    ms, seconds, launches, peak, prof = runs["adam"]
+    expected = dict({k: 0 for k in counters}, si_step=n_int * (MS_EPOCHS + 1),
+                    si_step_transpose=n_int * MS_EPOCHS, si_step_vjp=n_int * MS_EPOCHS)
+    r0_err = float(np.max(np.abs(ms.losses[0] - np.asarray(ref_losses)) / np.abs(ref_losses)))
+    msr, seconds_r, launches_r, peak_r, prof_r = runs["refine"]
+    row = dict({
+        "phase": "multistart", "solver": "SI", "cg_iters": SI_TRAIN_CG, "glaciers": N_TRAIN,
+        "restarts": MS_RESTARTS, "planes_per_launch": MS_RESTARTS * N_TRAIN, "grid": [NX, NY],
+        "dtype": "torch.float32", "intervals": n_int, "adam_epochs": MS_EPOCHS,
+        "epoch_launches": epoch_launches, "epoch_expected_launches": epoch_expected,
+        "epoch_max_memory_allocated": epoch_peak,
+        "single_start": {k: single[k] for k in ("adam_epoch_ms", "adam_epoch_device_busy_ms",
+                                                "adam_epoch_device_idle_share",
+                                                "adam_epoch_device_launches")},
+        "ratio_epoch_ms": folded["adam_epoch_ms"] / single["adam_epoch_ms"],
+        "ratio_busy_ms": folded["adam_epoch_device_busy_ms"]
+        / single["adam_epoch_device_busy_ms"],
+        "multistart_train_s": seconds, "multistart_train_profile": prof,
+        "launches": launches, "expected_launches": expected,
+        "max_memory_allocated": peak, "losses": ms.losses.tolist(),
+        "final_losses": ms.final_losses.tolist(), "best_idx": ms.best_idx,
+        "best_loss": ms.best_loss, "single_start_losses": ref_losses,
+        "restart0_rel_err": r0_err, "restart0_tol": TOL_RESTART0,
+        "refine": {"multistart_train_s": seconds_r, "profile": prof_r, "launches": launches_r,
+                   "max_memory_allocated": peak_r, "refined_idxs": list(map(int, msr.refined_idxs)),
+                   "refined_losses": msr.refined_losses.tolist(), "best_idx": msr.best_idx,
+                   "best_loss": msr.best_loss, "lbfgs_iterations": MS_LBFGS},
+    }, **folded)
+    emit(row)
+    if epoch_launches != epoch_expected or launches != expected:
+        raise AssertionError(f"multistart: launches {epoch_launches} / {launches}, expected "
+                             f"{epoch_expected} / {expected}")
+    if not (np.isfinite(ms.losses).all() and np.all(ms.losses[:, -1] < ms.losses[:, 0])):
+        raise AssertionError(f"multistart: a restart's loss did not fall: {ms.losses}")
+    if not r0_err <= TOL_RESTART0:
+        raise AssertionError(f"multistart: restart 0 is not the single start: {r0_err}")
+    if not (ms.best_loss <= ms.final_losses[0] and msr.best_loss <= msr.final_losses[0]
+            and np.isfinite(msr.refined_losses).all()
+            and launches_r["si_step_transpose"] == launches_r["si_step_vjp"] > 0):
+        raise AssertionError(f"multistart with refinement: {row['refine']}")
+    return total
+
+
+def eki_problem(n_g, nx, temps, solver_kw, prefix):
+    """benchmarks/ensemble_bench.py's problem, float32 on the card: Halfar
+    glaciers (dx 100 m) with Cuffey–Paterson ground truth of H over 6
+    monthly intervals through the same solve, and one tanh-bounded A per
+    glacier (LawA_inversion)."""
+    from odinn_tpu_torch.core.params import (
+        Parameters, PhysicalParameters, SimulationParameters, SolverParameters)
+    from odinn_tpu_torch.data.synthetic import halfar_glacier
+    from odinn_tpu_torch.laws.laws import CuffeyPaterson, LawA_inversion
+    from odinn_tpu_torch.models.model import Model, SIA2DModel
+    from odinn_tpu_torch.simulation.inversion import Inversion
+    from odinn_tpu_torch.simulation.prediction import generate_ground_truth
+    from odinn_tpu_torch.simulation.solver import build_tstops
+
+    params = Parameters(
+        physical=PhysicalParameters(min_A=8e-21, max_A=8e-18),
+        simulation=SimulationParameters(tspan=EKI_TSPAN, use_MB=False, use_velocities=False,
+                                        float_dtype="float32"),
+        solver=SolverParameters(step=1.0 / 12.0, **solver_kw))
+    glaciers = [halfar_glacier(nx=nx, ny=nx, dx=100.0, dy=100.0, temp=float(t),
+                               rgi_id=f"{prefix}-{i}", device="cuda", dtype=torch.float32)
+                for i, t in enumerate(temps)]
+    truth = generate_ground_truth(
+        glaciers, params, Model(iceflow=SIA2DModel(A=CuffeyPaterson(), n_value=3.0)),
+        build_tstops(EKI_TSPAN, 1.0 / 12.0), store=("H",), device="cuda")
+    model = Model(iceflow=SIA2DModel(A=LawA_inversion(params, scalar=True), n_value=3.0))
+    return Inversion(model=model, glaciers=truth, parameters=params, device="cuda")
+
+
+def _a_rel_errs(theta, params, temps):
+    """Each glacier's recovered A against the Cuffey–Paterson truth."""
+    from odinn_tpu_torch.laws.laws import poly_A_paterson_cuffey
+
+    phys = params.physical
+    raw = theta["A"].detach().double().cpu()
+    a = phys.min_A + (phys.max_A - phys.min_A) * (torch.tanh(raw) + 1.0) / 2.0
+    truth = poly_A_paterson_cuffey()(torch.as_tensor(np.asarray(temps, float)))
+    return (a - truth).abs() / truth
+
+
+def eki_phase():
+    """Phase 11, EKI: eki_bench.py section 1 (16 glaciers, 64^2, float32,
+    SI PCG-12, 6 months, EKI_MEMBERS members, EKI_ITERS iterations,
+    init_scale 0.5, seed 0) with si_step launched 6 x (iterations + 1) for
+    the residual batches and 6 for the mean member (one launch a step for
+    all 512 planes), and the reference's accuracy gate on the recovered A
+    (max relative error <= 1e-3, min <= 1e-4); then section 3 (4 glaciers,
+    32^2, RK4 at 15 substeps with adaptive=True, reltol 1e-4, 8 members, 10
+    iterations, seed 1) with sia2d_rhs launched once per RHS evaluation of
+    the folded integrator and the best misfit below the initial ensemble's
+    best."""
+    from odinn_tpu_torch.ops.cuda import si_kernel
+    from odinn_tpu_torch.simulation.eki import eki_train
+
+    counters = kernel_counters()
+    total = {k: 0 for k in counters}
+    temps = np.linspace(-25.0, -14.0, EKI_GLACIERS)
+    inv = eki_problem(EKI_GLACIERS, EKI_NX, temps,
+                      dict(solver="SI", cg_iters=EKI_CG, substeps=1), "eki")
+    n_int = int(round((EKI_TSPAN[1] - EKI_TSPAN[0]) * 12))
+    plan = si_kernel.si_plan(EKI_MEMBERS * EKI_GLACIERS, EKI_NX, EKI_NX, torch.float32)
+    theta0 = _tree_to(inv.theta, "cuda", None)
+
+    def run():
+        inv.theta = _tree_to(theta0, "cuda", None)
+        return eki_train(inv, n_ensemble=EKI_MEMBERS, n_iters=EKI_ITERS, init_scale=0.5,
+                         seed=0)
+
+    _peak_reset()
+    _reset(counters)
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read(counters)
+    peak = torch.cuda.max_memory_allocated()
+    _add(total, launches)
+    expected = dict({k: 0 for k in counters}, si_step=n_int * (res.n_iters + 1) + n_int)
+    errs = _a_rel_errs(res.best_theta, inv.parameters, temps)
+    best = np.nanmin(res.misfits, axis=1)
+    row = {"phase": "eki", "solver": "SI", "cg_iters": EKI_CG, "glaciers": EKI_GLACIERS,
+           "members": EKI_MEMBERS, "planes_per_launch": EKI_MEMBERS * EKI_GLACIERS,
+           "si_plan": plan.path, "grid": [EKI_NX, EKI_NX], "dtype": "torch.float32",
+           "intervals": n_int, "iterations": res.n_iters, "seconds": seconds,
+           "seconds_per_iteration": seconds / max(res.n_iters, 1),
+           "best_misfit_per_iteration": best.tolist(),
+           "collapse": float(res.best_loss / best[0]), "best_loss": res.best_loss,
+           "mean_loss": res.mean_loss, "A_rel_err_max": float(errs.max()),
+           "A_rel_err_min": float(errs.min()), "gate": {"max": 1e-3, "min": 1e-4},
+           "max_memory_allocated": peak, "launches": launches, "expected_launches": expected,
+           **run_profile(run, seconds)}
+    emit(row)
+    if launches != expected:
+        raise AssertionError(f"eki: launches {launches}, expected {expected}")
+    if not (row["A_rel_err_max"] <= 1e-3 and row["A_rel_err_min"] <= 1e-4):
+        raise AssertionError(f"eki: the recovered A misses the reference's gate: {row}")
+
+    temps_a = np.linspace(-25.0, -14.0, EKI_A_GLACIERS)
+    inv = eki_problem(EKI_A_GLACIERS, EKI_A_NX, temps_a,
+                      dict(solver="RK4", substeps=15, adaptive=True, reltol=TOL_RELTOL), "ekia")
+    theta0 = _tree_to(inv.theta, "cuda", None)
+
+    def run():
+        inv.theta = _tree_to(theta0, "cuda", None)
+        return eki_train(inv, n_ensemble=EKI_A_MEMBERS, n_iters=EKI_A_ITERS, seed=1)
+
+    integ = _adaptive_counts()
+    _peak_reset()
+    _reset(counters)
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read(counters)
+    rhs_evals, host_reads = integ.rhs_evals, integ.host_reads
+    peak = torch.cuda.max_memory_allocated()
+    _add(total, launches)
+    expected = dict({k: 0 for k in counters}, sia2d_rhs=rhs_evals)
+    best = np.nanmin(res.misfits, axis=1)
+    row = {"phase": "eki_adaptive", "solver": "RK4 adaptive BS3(2)", "reltol": TOL_RELTOL,
+           "glaciers": EKI_A_GLACIERS, "members": EKI_A_MEMBERS,
+           "controllers": EKI_A_MEMBERS * EKI_A_GLACIERS, "grid": [EKI_A_NX, EKI_A_NX],
+           "dtype": "torch.float32", "iterations": res.n_iters, "seconds": seconds,
+           "seconds_per_iteration": seconds / max(res.n_iters, 1),
+           "best_misfit_per_iteration": best.tolist(),
+           "collapse": float(res.best_loss / best[0]),
+           "A_rel_err_max": float(_a_rel_errs(res.best_theta, inv.parameters, temps_a).max()),
+           "rhs_evals": rhs_evals, "host_reads": host_reads, "max_memory_allocated": peak,
+           "launches": launches, "expected_launches": expected, **run_profile(run, seconds)}
+    emit(row)
+    if launches != expected or rhs_evals == 0:
+        raise AssertionError(f"eki_adaptive: launches {launches}, expected {expected}")
+    if not (np.isfinite(res.best_loss) and res.best_loss < best[0]):
+        raise AssertionError(f"eki_adaptive: the misfit did not fall: {row}")
+    return total
+
+
+def _capture_jtj():
+    """Spy on uncertainty._finish_dense: the raw JᵀJ of each posterior."""
+    from odinn_tpu_torch.inverse import uncertainty
+
+    seen, real = [], uncertainty._finish_dense
+
+    def spy(theta, p, sigma2, prior_precision, JtJ64):
+        seen.append(np.array(JtJ64, np.float64))
+        return real(theta, p, sigma2, prior_precision, JtJ64)
+
+    uncertainty._finish_dense = spy
+    return seen, lambda: setattr(uncertainty, "_finish_dense", real)
+
+
+def uq_phase():
+    """Phase 11, UQ: (a) the per-glacier posterior of phase 6's classical SI
+    problem without H0 (16 x 128^2, float32, PCG-20) after UQ_ADAM Adam
+    epochs, si_step_tangent launched 24 x θ leaves, every A and its std
+    through the tanh bound; (b) the dense posterior of phase 5's A = NN(T)
+    (p = 83) on the same batch, prior_std 0.5, si_step_tangent,
+    si_step_transpose and si_step_vjp 24 x p each, its build time and a
+    cov_band of A over 16 temperatures; (c) on 4 x 128^2, 2 months, the
+    card's dense JᵀJ (the light NN, p = 10) and per-glacier JᵀJ against the
+    CPU's float64 run to TOL_UQ_F64, and their float32 θ stds within
+    GRAD_F32_FACTOR times the CPU float32 run's error against float64."""
+    from odinn_tpu_torch.inverse.uncertainty import laplace_uncertainty
+    from odinn_tpu_torch.laws.laws import LawA, eval_law
+    from odinn_tpu_torch.models.model import Model, SIA2DModel
+    from odinn_tpu_torch.models.nn import NeuralNetwork, default_architecture
+    from odinn_tpu_torch.simulation.inversion import Inversion, run_inversion
+    from odinn_tpu_torch.inverse import gauss_newton as gn
+    from odinn_tpu_torch.utils.flatten import theta_size, theta_to_vector, tree_leaves
+
+    counters = kernel_counters()
+    total = {k: 0 for k in counters}
+    # (a) per glacier, after Adam
+    inv, model, params, tstops, _ = training_problem("SI", "jax", kind="classical")
+    n_int = len(tstops) - 1
+    inv.parameters = params.replace(hyper=dataclasses.replace(
+        params.hyper, optimizer=("adam",), learning_rate=(0.05,), epochs=(UQ_ADAM,)))
+    run_inversion(inv)
+    _peak_reset()
+    _reset(counters)
+    t0 = time.perf_counter()
+    post = laplace_uncertainty(inv, structure="per_glacier")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read(counters)
+    peak = torch.cuda.max_memory_allocated()
+    _add(total, launches)
+    law = model.iceflow.A
+    a_std = [post.std(lambda th, g=g: eval_law(law, th, None, glacier_idx=g))
+             for g in range(N_TRAIN)]
+    n_leaves = len(inv.theta)
+    expected = dict({k: 0 for k in counters}, si_step=n_int * (1 + n_leaves),
+                    si_step_tangent=n_int * n_leaves)
+    row = {"phase": "uq_per_glacier", "solver": "SI", "cg_iters": SI_TRAIN_CG,
+           "glaciers": N_TRAIN, "grid": [NX, NY], "dtype": "torch.float32",
+           "intervals": n_int, "adam_epochs": UQ_ADAM, "theta_leaves": n_leaves,
+           "sigma2": post.sigma2, "build_s": seconds, "A": [float(q) for q, _ in a_std],
+           "A_std": [s for _, s in a_std], "max_memory_allocated": peak, "launches": launches,
+           "expected_launches": expected,
+           **run_profile(lambda: laplace_uncertainty(inv, structure="per_glacier"), seconds)}
+    emit(row)
+    if launches != expected or not all(np.isfinite(s) and s > 0 for _, s in a_std):
+        raise AssertionError(f"uq_per_glacier: {row}")
+
+    # (b) dense, the NN law
+    inv, model, params, tstops, _ = training_problem("SI", "jax")
+    p = theta_size(inv.theta)
+    _peak_reset()
+    _reset(counters)
+    t0 = time.perf_counter()
+    post = laplace_uncertainty(inv, prior_std=0.5)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read(counters)
+    peak = torch.cuda.max_memory_allocated()
+    _add(total, launches)
+    # one column of the build, J e_0 and its pullback, timed and profiled
+    resid = gn.make_residual_fn(model, params, tstops)
+    _, pull = gn.linearize(resid, inv.theta, inv.glaciers)
+    e0 = theta_to_vector(inv.theta)[1](torch.eye(p, dtype=torch.float32, device="cuda")[0])
+    column = lambda: pull(gn.jvp(resid, inv.theta, inv.glaciers, e0))  # noqa: E731
+    column_ms = row_ms(column, reps=3)
+    column_prof = run_profile(column, column_ms / 1e3)
+    del pull
+    temps = torch.linspace(-25.0, -13.0, 16, dtype=torch.float32, device="cuda")
+    law = model.iceflow.A
+    vals, C = post.cov_band(lambda th: law.apply(th, {"T": temps,
+                                                      "glacier_idx": torch.tensor(0)}))
+    expected = dict({k: 0 for k in counters}, si_step=n_int * (2 + p),
+                    si_step_tangent=n_int * p, si_step_transpose=n_int * p,
+                    si_step_vjp=n_int * p)
+    row = {"phase": "uq_dense", "solver": "SI", "cg_iters": SI_TRAIN_CG, "glaciers": N_TRAIN,
+           "grid": [NX, NY], "dtype": "torch.float32", "intervals": n_int, "p": p,
+           "prior_std": 0.5, "sigma2": post.sigma2, "build_s": seconds,
+           "max_memory_allocated": peak, "column_ms": column_ms,
+           "column_profile": column_prof,
+           "temperatures": temps.tolist(), "A": vals.tolist(),
+           "A_std": np.sqrt(np.maximum(np.diag(C), 0.0)).tolist(),
+           "A_corr_neighbours": [float(C[i, i + 1] / np.sqrt(C[i, i] * C[i + 1, i + 1]))
+                                 for i in range(15)],
+           "launches": launches, "expected_launches": expected}
+    emit(row)
+    if launches != expected or not np.isfinite(C).all():
+        raise AssertionError(f"uq_dense: {row}")
+
+    # (c) held against the CPU: float64, then float32, at one σ²
+    rows = {}
+    for structure in ("dense", "per_glacier"):
+        kind = "ude" if structure == "dense" else "classical"
+        inv64, model, params, tstops, _ = training_problem(
+            "SI", "jax", n_g=N_G, tspan=(5.0, 5.0 + 2.0 / 12.0), dtype=torch.float64, kind=kind)
+        if structure == "dense":
+            model = Model(iceflow=SIA2DModel(A=LawA(NeuralNetwork(default_architecture(
+                1, light=True)), params), n_value=3.0))
+            theta = _tree_to(Inversion(model=model, glaciers=inv64.glaciers, parameters=params,
+                                       device="cuda").theta, "cuda", None)
+            kw = dict(prior_std=0.5)
+        else:
+            theta = _tree_to(inv64.theta, "cuda", None)
+            theta["A"] = theta["A"] + 0.3
+            kw = dict(structure="per_glacier")
+        out, sigma2 = {}, None
+        for where, dtype in (("cpu", torch.float64), ("card", torch.float64),
+                             ("card", torch.float32), ("cpu", torch.float32)):
+            dev = "cuda" if where == "card" else "cpu"
+            p_ = params.replace(simulation=dataclasses.replace(
+                params.simulation, float_dtype=str(dtype).split(".")[-1]))
+            inv_ = Inversion(model=model, glaciers=inv64.glaciers.to(dev, dtype), parameters=p_,
+                             theta=_tree_to(theta, dev, dtype), device=dev)
+            seen, restore = _capture_jtj()
+            try:
+                post = laplace_uncertainty(inv_, sigma2=sigma2, **kw)
+            finally:
+                restore()
+            sigma2 = post.sigma2          # the CPU float64 run's, for all four
+            out[f"{where} {dtype}"] = (seen[0], np.concatenate(
+                [np.ravel(x) for x in tree_leaves(post.theta_std())]))
+        ref_jtj, ref_std = out["cpu torch.float64"]
+        jtj_err = float(np.abs(out["card torch.float64"][0] - ref_jtj).max()
+                        / np.abs(ref_jtj).max())
+        std_err = {k: float(np.abs(v[1] - ref_std).max() / np.abs(ref_std).max())
+                   for k, v in out.items() if k != "cpu torch.float64"}
+        rows[structure] = {"p": int(ref_jtj.shape[0]), "sigma2": sigma2,
+                           "jtj_rel_err_f64": jtj_err, "std_rel_err_vs_cpu_f64": std_err}
+    row = {"phase": "uq_check", "glaciers": N_G, "grid": [NX, NY], "intervals": 2,
+           "tol_f64": TOL_UQ_F64, "factor_f32": GRAD_F32_FACTOR, "paths": rows}
+    emit(row)
+    for r in rows.values():
+        e = r["std_rel_err_vs_cpu_f64"]
+        if not (r["jtj_rel_err_f64"] <= TOL_UQ_F64 and e["card torch.float64"] <= TOL_UQ_F64
+                and e["card torch.float32"] <= GRAD_F32_FACTOR * e["cpu torch.float32"]):
+            raise AssertionError(f"uq_check: the card's posterior disagrees with the CPU's: "
+                                 f"{row}")
+    return total
+
+
+def ensemble_phase():
+    """Phase 11: multistart, EKI (fixed step and adaptive) and UQ; returns
+    their launches and prints the phase's seconds."""
+    t0 = time.perf_counter()
+    launches = multistart_phase()
+    for part in (eki_phase, uq_phase):
+        _add(launches, part())
+    emit({"phase": "ensembles", "seconds": time.perf_counter() - t0, "launches": launches})
+    return launches
+
+
 def _tree_to(tree, device, dtype, requires_grad=False):
     """θ on ``device`` in ``dtype`` (None: its own), a copy (leaves
     requiring grad when asked)."""
@@ -3062,6 +3642,8 @@ def main() -> int:
     for name, n in lm_gate_phase().items():
         launches[name] += n
     for name, n in forward_grad_phase().items():
+        launches[name] += n
+    for name, n in ensemble_phase().items():
         launches[name] += n
     meta = {
         "si_step": ("odinn_tpu_torch/csrc/si_step.cu", "odinn_tpu/ops/pallas/si_kernel.py:174"),

@@ -27,34 +27,14 @@ from typing import Tuple
 import torch
 import torch.autograd.forward_ad as fwAD
 
+from odinn_tpu_torch.utils.flatten import tree_leaves as _leaves
+from odinn_tpu_torch.utils.flatten import tree_map as _tmap
+from odinn_tpu_torch.utils.flatten import tree_unflatten as _unflatten
+
 __all__ = ["make_residual_fn", "lm_train", "diag_estimate", "linearize", "jvp"]
 
 # rounds to 0 in float32: the CG guards then compare against 0
 _TINY = 1e-300
-
-
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
-
-
-def _tmap(fn, *trees):
-    """``fn`` over the leaves of trees of one structure (dicts, lists,
-    tuples of tensors)."""
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: _tmap(fn, *(t[k] for t in trees)) for k in t0}
-    if isinstance(t0, (list, tuple)):
-        return type(t0)(_tmap(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
-
-
-def _unflatten(tree, leaves):
-    it = iter(leaves)
-    return _tmap(lambda _: next(it), tree)
 
 
 def _tree_dot(a, b):
@@ -140,7 +120,8 @@ def jvp(resid, theta, batch, v):
 
 def _draw_probes(gen, theta, n: int) -> list:
     """``n`` Rademacher θ trees (entries ±1 in each leaf's dtype) from the
-    generator ``gen``, drawn on the host and moved to each leaf's device."""
+    generator ``gen``, drawn on the host and moved to each leaf's device,
+    leaf by leaf in θ's own entry order (``tree_map``'s)."""
     def one(leaf):
         bits = torch.randint(0, 2, tuple(leaf.shape), generator=gen)
         return (2 * bits - 1).to(dtype=leaf.dtype, device=leaf.device)

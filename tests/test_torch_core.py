@@ -176,3 +176,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                     bad.append(f"{os.path.relpath(path, REPO)}:{node.lineno} imports {name}")
     assert not bad, "\n".join(bad)
     assert sum(1 for _ in _port_sources()) > 20
+    scanned = set(_port_sources())
+    for module in ("utils/flatten.py", "parallel/mesh.py", "simulation/ensemble.py",
+                   "simulation/eki.py", "inverse/uncertainty.py"):
+        assert os.path.join(REPO, "odinn_tpu_torch", module) in scanned, module
