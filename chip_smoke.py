@@ -115,7 +115,7 @@ Phases, each printed as one JSON line:
    4 x 128^2 and 2 x 300^2; ``rkc_interval`` at 16 x 128^2, s = 8; each
    pullback at its other shape and the fused RKC-backward stage). The
    ``kernel_times`` line before it also times a one-element PyTorch fill,
-   the card's single-launch floor. It is printed last, after phase 11, and
+   the card's single-launch floor. It is printed last, after phase 12, and
    its launches are all phases';
 9. tolerance (the tolerance contract, float32, reltol 1e-4): the main
    path's scenario through ``run_prediction`` with ``adaptive=True``, whose
@@ -170,7 +170,26 @@ Phases, each printed as one JSON line:
    checked at the folded 128 x 128^2 (PCG-20) and 512 x 64^2 (PCG-12),
    whose plans run many waves of clusters (asserted; ``cluster_report``
    prints them), against its plain versions with a bitwise repeat, in both
-   dtypes; ``kernel_times`` times those and ``sia2d_rhs`` at 32 x 32^2.
+   dtypes; ``kernel_times`` times those and ``sia2d_rhs`` at 32 x 32^2;
+12. data, I/O and the MLP mass balance (``data_io``), in a temporary
+   directory: 16 synthetic .npz glaciers of 256^2 (the npz route, which
+   needs no h5py) loaded by ``initialize_glaciers`` onto the
+   card in float32 at grid_scaling_factor 2 (16 x 128^2), each with a
+   2-frame velocity cube on its own 64^2 grid regridded on the card, held
+   to the same load on the CPU in float64 (1e-6 of each field's max); an
+   MLP mass balance (4-16-16-1) written by ``save_model`` and read back on
+   the card by ``load_model``, its ``mb_timestep`` at 16 x 128^2 held to the
+   CPU's float64 value (float64 1e-12, float32 within 2x the CPU float32
+   error); Cuffey–Paterson ground truth with it through SI at PCG-20 over
+   24 months, and a float64 cut (2 x 128^2, 6 months) held to the CPU's
+   trajectory to 1e-12; ``run_inversion(path=...)`` of A = NN(T) by
+   autograd, Adam 5, with a ``TrainingLogger``, the phase-5 launches
+   asserted, the loss falling and one ``train_log.jsonl`` record an
+   iteration; ``load_inversion_file`` on the card (θ bitwise), its sidecar's
+   retcode, a ``run_prediction`` from the reloaded θ bitwise equal to the
+   trained forward, the results file and a checkpoint round-tripped
+   exactly; one Adam epoch's peak memory by ``aot_step_memory`` beside
+   ``live_hbm_gib``, its time, busy time, idle share and launches.
 
 Any failed check raises, so the exit code is not 0. A ``done`` line gives
 the whole run's seconds, build included. The last line is
@@ -316,6 +335,27 @@ FOLDED_SI_SHAPES = [f[:3] for f in FOLDED_SI]
 # the posterior's float64 JᵀJ and θ std on the card against the CPU's: the
 # kernels' roundoff through 2 steps' tangent solves and pullbacks
 TOL_UQ_F64 = 1e-9
+
+# phase 12: the data path. generate_synthetic_rgi_dir's glaciers at 256^2,
+# loaded at grid_scaling_factor 2 (the SI training's 16 x 128^2), each
+# with a 2-frame velocity cube on its own 64^2 grid; the MLP mass balance's
+# widths; 2 years of training; the float64 trajectory cut held to the
+# CPU's (2 glaciers, 6 months)
+DATA_N, DATA_NX, DATA_K, DATA_CUBE = 16, 256, 2, 64
+DATA_TSPAN = (2010.0, 2012.0)
+DATA_CUT_G, DATA_CUT_TSPAN = 2, (2010.0, 2010.5)
+DATA_EPOCHS = 5
+MB_WIDTHS = (4, 16, 16, 1)
+MB_ACTIVATIONS = ("softplus", "tanh", "identity")
+# the MLP's last layer is scaled by this, so its monthly MB stays within
+# MB_LIMIT metres on the loaded glaciers
+MB_SCALE, MB_LIMIT = 4.0, 5.0
+# the card's float32 load against the CPU's float64 one, relative to each
+# field's max|.|: the load runs in float64 and casts last, so float32
+# rounding; the float64 MB step and trajectory on the card against the
+# CPU's: the kernels' roundoff
+TOL_LOAD_F32 = 1e-6
+TOL_DATA_F64 = 1e-12
 
 
 def emit(obj) -> None:
@@ -3572,6 +3612,299 @@ def ensemble_phase():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: data, I/O and the MLP mass balance
+# ---------------------------------------------------------------------------
+
+def _container_fields(obj, prefix=""):
+    """Every tensor field of a (nested) container dataclass by dotted name."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            out[prefix + f.name] = v
+        elif dataclasses.is_dataclass(v):
+            out.update(_container_fields(v, f"{prefix}{f.name}."))
+    return out
+
+
+def _max_field_err(cards, cpus):
+    """The largest max|card - cpu| / max|cpu| over every field of two lists
+    of glaciers, with the field it was found in."""
+    worst = (0.0, None)
+    for g_card, g_cpu in zip(cards, cpus):
+        ref = _container_fields(g_cpu)
+        got = _container_fields(g_card)
+        if set(got) != set(ref):
+            raise AssertionError(f"data_io: fields differ: {sorted(set(got) ^ set(ref))}")
+        for k, r in ref.items():
+            r = r.double()
+            scale = float(r.abs().max()) or 1.0
+            err = float((got[k].cpu().double() - r).abs().max()) / scale
+            worst = max(worst, (err, f"{g_cpu.rgi_id}.{k}"), key=lambda e: e[0])
+    return worst
+
+
+def _data_cube(npz_path):
+    """A 2-frame velocity cube on its own DATA_CUBE^2 grid spanning the
+    glacier file's full-resolution footprint, with smooth fields (CPU,
+    float64, not aligned with the glacier's grid)."""
+    from odinn_tpu_torch.core.glacier import SurfaceVelocityData
+
+    with np.load(npz_path) as z:
+        cx, cy = z["coords_x"], z["coords_y"]
+    x = np.linspace(cx[0], cx[-1], DATA_CUBE)
+    y = np.linspace(cy[0], cy[-1], DATA_CUBE)
+    X, Y = np.meshgrid((x - x[0]) / (x[-1] - x[0]), (y - y[0]) / (y[-1] - y[0]), indexing="ij")
+    vx = np.stack([(20.0 + 5.0 * f) * (1.0 + 0.5 * np.sin(2 * np.pi * X) * np.cos(np.pi * Y))
+                   for f in range(2)])
+    vy = np.stack([(8.0 + 2.0 * f) * np.cos(2 * np.pi * Y) * (1.0 + X) for f in range(2)])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))   # noqa: E731
+    return SurfaceVelocityData(t=t(np.array([2010.5, 2011.5])), vx=t(vx), vy=t(vy),
+                               vabs=t(np.sqrt(vx**2 + vy**2)), x=t(x), y=t(y),
+                               is_grid_glacier_aligned=False)
+
+
+def data_params(tspan=DATA_TSPAN, dtype="float32"):
+    """Phase 12's parameters: grid_scaling_factor DATA_K, monthly MLP mass
+    balance, SI at PCG-20, Adam DATA_EPOCHS epochs (LBFGS none) by
+    autograd."""
+    from odinn_tpu_torch.core.params import (
+        Hyperparameters, Parameters, PhysicalParameters, SimulationParameters,
+        SolverParameters, UDEParameters)
+
+    return Parameters(
+        physical=PhysicalParameters(min_A=8e-21, max_A=8e-18),
+        simulation=SimulationParameters(tspan=tspan, use_MB=True, step_MB=1.0 / 12.0,
+                                        use_velocities=False, grid_scaling_factor=DATA_K,
+                                        float_dtype=dtype),
+        solver=SolverParameters(step=1.0 / 12.0, solver="SI", cg_iters=SI_TRAIN_CG,
+                                cg_iters_predictor=6, substeps=1),
+        hyper=Hyperparameters(optimizer=("adam",), learning_rate=(0.05,),
+                              epochs=(DATA_EPOCHS,), batch_size=DATA_N),
+        UDE=UDEParameters(grad="jax"),
+    )
+
+
+def data_io_phase():
+    """Phase 12: the real-data path on the card, in a temporary directory.
+    Writes DATA_N synthetic .npz glaciers (DATA_NX^2), loads them with
+    initialize_glaciers onto the card in float32 at grid_scaling_factor
+    DATA_K (16 x 128^2), each with a velocity cube on its own grid
+    regridded on the card, held to the same load on the CPU in float64;
+    writes an MLP mass balance with save_model and reads it back with
+    load_model on the card, its mb_timestep held to the CPU's float64 one
+    (float64 to TOL_DATA_F64, float32 within 2x the CPU float32 error);
+    makes Cuffey–Paterson ground truth with the MLP mass balance through SI
+    at PCG-20 over 24 months (and a float64 cut, DATA_CUT_G glaciers over 6
+    months, held to the CPU's trajectory to TOL_DATA_F64); trains A = NN(T)
+    by autograd, Adam DATA_EPOCHS epochs, through run_inversion(path=...)
+    with a TrainingLogger, its launches asserted as phase 5's; reloads θ
+    (bitwise), its sidecar and a run_prediction from it (bitwise equal to
+    the trained forward), round-trips the results file and a checkpoint;
+    and measures one Adam epoch's peak memory with aot_step_memory beside
+    live_hbm_gib and profiles it. Returns each kernel's launches."""
+    import tempfile
+
+    from odinn_tpu_torch.core.glacier import stack_glaciers
+    from odinn_tpu_torch.data.rgi import generate_synthetic_rgi_dir, initialize_glaciers
+    from odinn_tpu_torch.laws.laws import CuffeyPaterson, LawA
+    from odinn_tpu_torch.models.mb_machine import CustomMLP, load_model, save_model
+    from odinn_tpu_torch.models.model import Model, SIA2DModel
+    from odinn_tpu_torch.models.nn import MLP, NeuralNetwork, default_architecture, init_mlp
+    from odinn_tpu_torch.physics.mass_balance import mb_timestep
+    from odinn_tpu_torch.simulation.inversion import Inversion, _tree_leaves, run_inversion
+    from odinn_tpu_torch.simulation.prediction import (
+        Prediction, forward_batch, generate_ground_truth, run_prediction)
+    from odinn_tpu_torch.simulation.solver import build_tstops
+    from odinn_tpu_torch.utils import io
+    from odinn_tpu_torch.utils.logging import TrainingLogger
+    from odinn_tpu_torch.utils.memory import aot_step_memory, live_hbm_gib
+
+    t_phase = time.perf_counter()
+    counters = kernel_counters()
+    total = {k: 0 for k in counters}
+    seconds = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    def counted(fn):
+        _reset(counters)
+        out = fn()
+        torch.cuda.synchronize()
+        launches = _read(counters)
+        _add(total, launches)
+        return out, launches
+
+    params = data_params()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1-2. write the glaciers, load them onto the card and on the CPU
+        ids = timed("write", lambda: generate_synthetic_rgi_dir(
+            tmp, n=DATA_N, nx=DATA_NX, ny=DATA_NX, seed=0))
+        cubes = {rid: _data_cube(os.path.join(tmp, f"{rid}.npz")) for rid in ids}
+        glaciers = timed("load", lambda: initialize_glaciers(
+            ids, params, prepro_dir=tmp, velocity_datacubes=cubes, device="cuda",
+            dtype=torch.float32))
+        cpu64 = timed("load_cpu_float64", lambda: initialize_glaciers(
+            ids, params, prepro_dir=tmp, velocity_datacubes=cubes, device="cpu"))
+        load_err, load_where = _max_field_err(glaciers, cpu64)
+        vd = glaciers[0].velocity_data
+        cube_ok = (all(g.velocity_data.is_grid_glacier_aligned for g in glaciers)
+                   and tuple(vd.vx.shape) == (2, DATA_NX // DATA_K, DATA_NX // DATA_K)
+                   and vd.vx.device.type == "cuda" and float(vd.vx.min()) > 0.0)
+
+        # 3. the MLP mass balance: written, read back on the card
+        arch = MLP(MB_WIDTHS, MB_ACTIVATIONS)
+        layers = init_mlp(arch, torch.Generator().manual_seed(0), dtype=torch.float64)
+        layers[-1] = {k: MB_SCALE * v for k, v in layers[-1].items()}
+        save_model(os.path.join(tmp, "mlp"), CustomMLP(arch, layers))
+        mlp = {(dev, dt): load_model(os.path.join(tmp, "mlp"), device=dev, dtype=dt)
+               for dev in ("cuda", "cpu") for dt in (torch.float32, torch.float64)}
+        b64 = stack_glaciers(cpu64, device="cpu")
+        batches = {("cpu", torch.float64): b64, ("cuda", torch.float64): b64.to("cuda"),
+                   ("cpu", torch.float32): b64.to(dtype=torch.float32),
+                   ("cuda", torch.float32): stack_glaciers(glaciers, device="cuda")}
+        t_mb, step = DATA_TSPAN[0] + 7.0 / 12.0, 1.0 / 12.0
+        mb_out = {}
+        for key, b in batches.items():
+            mb_out[key] = mb_timestep(b.H0, b, mlp[key], t_mb, step).cpu().double()
+        ref = mb_out[("cpu", torch.float64)]
+        scale = float(ref.abs().max())
+        mb_err = {f"{dev}_{str(dt).split('.')[-1]}": float((v - ref).abs().max()) / scale
+                  for (dev, dt), v in mb_out.items()}
+        mb_field = mlp[("cpu", torch.float64)].compute_mb_field(b64.climate, b64.S, t_mb, step)
+        mb_max = float(mb_field.abs().max())
+        mb_moved = float((ref - b64.H0).abs().max())
+
+        # 4. ground truth with the MLP mass balance; the float64 cut
+        tstops = build_tstops(DATA_TSPAN, 1.0 / 12.0)
+        n_int = len(tstops) - 1
+        truth_model = Model(iceflow=SIA2DModel(A=CuffeyPaterson(), n_value=3.0),
+                            mass_balance=mlp[("cuda", torch.float32)])
+        truth, truth_launches = counted(lambda: timed("ground_truth", lambda: generate_ground_truth(
+            glaciers, params, truth_model, tstops, store=("H",), device="cuda")))
+        p64 = data_params(DATA_CUT_TSPAN, "float64")
+        ts64 = build_tstops(DATA_CUT_TSPAN, 1.0 / 12.0)
+
+        def cut(dev):
+            m = Model(iceflow=SIA2DModel(A=CuffeyPaterson(), n_value=3.0),
+                      mass_balance=mlp[(dev, torch.float64)])
+            with torch.no_grad():
+                return forward_batch(None, stack_glaciers(cpu64[:DATA_CUT_G], device=dev), m,
+                                     p64, ts64, device=dev).cpu()
+
+        traj_card, cut_launches = counted(lambda: timed("cut_float64_card", lambda: cut("cuda")))
+        traj_cpu = timed("cut_float64_cpu", lambda: cut("cpu"))
+        traj_err = float((traj_card - traj_cpu).abs().max()) / float(traj_cpu.abs().max())
+
+        # 5. train A = NN(T) through the SI kernels, saving the result
+        model = Model(iceflow=SIA2DModel(A=LawA(NeuralNetwork(default_architecture(1)), params),
+                                         n_value=3.0),
+                      mass_balance=mlp[("cuda", torch.float32)])
+        inv = Inversion(model=model, glaciers=truth, parameters=params, device="cuda")
+        logger = TrainingLogger(os.path.join(tmp, "log"), use_tensorboard=False,
+                                print_every=DATA_EPOCHS, total_iters=DATA_EPOCHS)
+        results, launches = counted(lambda: timed("run_inversion", lambda: run_inversion(
+            inv, callback=logger.callback, path=tmp, file_name="training_result.pt")))
+        logger.close()
+        stats = results.stats
+        expected = dict({k: 0 for k in counters}, si_step=n_int * stats.solves,
+                        si_step_transpose=n_int * stats.gradients,
+                        si_step_vjp=n_int * stats.gradients)
+        with open(os.path.join(tmp, "log", "train_log.jsonl")) as f:
+            log_records = [json.loads(line) for line in f]
+
+        # 6. reload and check
+        back = timed("reload", lambda: io.load_inversion_file(
+            os.path.join(tmp, "training_result.pt"), device="cuda"))
+        theta_equal = all(a.device.type == "cuda" and torch.equal(a, b) for a, b in
+                          zip(_tree_leaves(back.theta), _tree_leaves(inv.theta)))
+        pred = Prediction(model=model, glaciers=inv.glaciers, parameters=inv.parameters,
+                          theta=back.theta, device="cuda")
+        again, pred_launches = counted(lambda: timed("run_prediction", lambda: run_prediction(
+            pred, tstops=results.simulation["t"])))
+        prediction_equal = torch.equal(again["H"], results.simulation["H"])
+        io.save_results_file(os.path.join(tmp, "results.npz"), results.simulation)
+        res_back = io.load_results_file(os.path.join(tmp, "results.npz"))
+        results_equal = (np.array_equal(res_back["H"], results.simulation["H"].cpu().numpy())
+                         and np.array_equal(res_back["t"],
+                                            torch.as_tensor(results.simulation["t"]).numpy()))
+        state = {"theta": inv.theta, "losses": stats.losses, "step": stats.niter}
+        io.save_checkpoint(os.path.join(tmp, "ckpt"), stats.niter, state)
+        restored = io.restore_checkpoint(os.path.join(tmp, "ckpt"), device="cuda")
+        checkpoint_equal = (restored["step"] == stats.niter and restored["losses"] == stats.losses
+                            and all(torch.equal(a, b) for a, b in
+                                    zip(_tree_leaves(restored["theta"]),
+                                        _tree_leaves(inv.theta))))
+
+        # 7. one Adam epoch: its peak memory, launches and profile
+        epoch = adam_epoch_fn(inv, model, params, results.simulation["t"])
+        (_, mem), epoch_launches = counted(lambda: aot_step_memory(epoch))
+        live = live_hbm_gib()
+        prof = epoch_profile(epoch)
+    epoch_expected = dict({k: 0 for k in counters}, si_step=n_int, si_step_transpose=n_int,
+                          si_step_vjp=n_int)
+    row = dict({
+        "phase": "data_io", "glaciers": DATA_N, "file_grid": [DATA_NX, DATA_NX],
+        "grid_scaling_factor": DATA_K, "grid": list(glaciers[0].H0.shape),
+        "cube_grid": [DATA_CUBE, DATA_CUBE], "dtype": "torch.float32", "intervals": n_int,
+        "cg_iters": SI_TRAIN_CG, "mlp_widths": list(MB_WIDTHS),
+        "seconds": seconds, "load_max_rel_err": load_err, "load_worst_field": load_where,
+        "load_tol": TOL_LOAD_F32, "cube_regridded": cube_ok,
+        "mb_step_rel_err": mb_err, "mb_max_abs_m": mb_max, "mb_moved_h_m": mb_moved,
+        "cut_float64_rel_err": traj_err, "cut_tol": TOL_DATA_F64,
+        "ground_truth_launches": truth_launches, "cut_launches": cut_launches,
+        "losses": stats.losses, "final_loss": stats.final_loss, "solves": stats.solves,
+        "gradients": stats.gradients, "launches": launches, "expected_launches": expected,
+        "log_records": len(log_records), "meta": back.params_meta,
+        "theta_reload_bitwise": theta_equal, "prediction_bitwise": prediction_equal,
+        "prediction_launches": pred_launches, "results_file_equal": results_equal,
+        "checkpoint_equal": checkpoint_equal, "epoch_launches": epoch_launches,
+        "epoch_expected_launches": epoch_expected, "epoch_memory": mem,
+        "epoch_max_memory_allocated": mem["peak_bytes"], "live_hbm_gib": live,
+        "phase_seconds": time.perf_counter() - t_phase,
+    }, **prof)
+    emit(row)
+    fails = []
+    if not load_err <= TOL_LOAD_F32:
+        fails.append(f"the card's load is {load_err} from the CPU's at {load_where}")
+    if not cube_ok:
+        fails.append("a velocity cube was not regridded onto the glacier on the card")
+    if not (mb_err["cuda_float64"] <= TOL_DATA_F64
+            and mb_err["cuda_float32"] <= GRAD_F32_FACTOR * mb_err["cpu_float32"]):
+        fails.append(f"mb_timestep: {mb_err}")
+    if not (0.0 < mb_max <= MB_LIMIT and mb_moved > 0.0):
+        fails.append(f"the MLP mass balance reaches {mb_max} m (moves H by {mb_moved} m)")
+    if not traj_err <= TOL_DATA_F64:
+        fails.append(f"the float64 trajectory is {traj_err} from the CPU's")
+    if truth_launches != dict({k: 0 for k in counters}, si_step=n_int) or cut_launches != dict(
+            {k: 0 for k in counters}, si_step=len(ts64) - 1):
+        fails.append(f"forward launches {truth_launches} / {cut_launches}")
+    if launches != expected or epoch_launches != epoch_expected:
+        fails.append(f"launches {launches} / {epoch_launches}, expected {expected} / "
+                     f"{epoch_expected}")
+    losses = stats.losses
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fails.append(f"losses not finite or not falling: {losses}")
+    if not (len(log_records) == stats.niter == DATA_EPOCHS
+            and [r["iter"] for r in log_records] == list(range(1, DATA_EPOCHS + 1))):
+        fails.append(f"train_log.jsonl holds {len(log_records)} records for {stats.niter}")
+    meta = back.params_meta or {}
+    if not (meta.get("retcode") == "Success" and meta.get("niter") == stats.niter):
+        fails.append(f"the sidecar: {meta}")
+    if not (theta_equal and prediction_equal and results_equal and checkpoint_equal):
+        fails.append("a reload or round trip is not exact")
+    if pred_launches != dict({k: 0 for k in counters}, si_step=n_int):
+        fails.append(f"run_prediction launches {pred_launches}")
+    if fails:
+        raise AssertionError("data_io: " + "; ".join(fails))
+    return total
+
 def _tree_to(tree, device, dtype, requires_grad=False):
     """θ on ``device`` in ``dtype`` (None: its own), a copy (leaves
     requiring grad when asked)."""
@@ -3644,6 +3977,8 @@ def main() -> int:
     for name, n in forward_grad_phase().items():
         launches[name] += n
     for name, n in ensemble_phase().items():
+        launches[name] += n
+    for name, n in data_io_phase().items():
         launches[name] += n
     meta = {
         "si_step": ("odinn_tpu_torch/csrc/si_step.cu", "odinn_tpu/ops/pallas/si_kernel.py:174"),

@@ -17,6 +17,8 @@ module imports nothing of it:
   ``mlp_apply`` then computes what the JAX package's does:
   ``theta = {"A": mlp_from_numpy([{k: np.asarray(v) for k, v in layer.items()}
   for layer in jax_theta["A"]], arch)``.
+
+:func:`to_numpy` goes the other way, for the files the port writes.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from odinn_tpu_torch.core.glacier import (
     ThicknessData,
 )
 
-__all__ = ["glacier_from_numpy", "theta_from_numpy", "mlp_from_numpy"]
+__all__ = ["glacier_from_numpy", "theta_from_numpy", "mlp_from_numpy", "to_numpy"]
 
 _NESTED = {
     "thickness_data": ThicknessData,
@@ -116,3 +118,11 @@ def mlp_from_numpy(layers, arch=None, device=None, dtype: Optional[torch.dtype] 
                                  f"{((fi, fo), (fo,))}")
     return [{"w": t["w"], "b": t["b"]}
             for t in theta_from_numpy([dict(layer) for layer in layers], device, dtype)]
+
+
+def to_numpy(x) -> np.ndarray:
+    """A tensor (on any device, detached) or anything numpy takes, as a
+    numpy array of its own dtype."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

@@ -22,6 +22,7 @@ __all__ = [
     "Climate2D",
     "ThicknessData",
     "SurfaceVelocityData",
+    "regrid_velocity_data",
     "DhdtData",
     "Glacier",
     "map_tensors",
@@ -102,6 +103,56 @@ class SurfaceVelocityData:
     date1: Optional[torch.Tensor] = None
     date2: Optional[torch.Tensor] = None
     is_grid_glacier_aligned: bool = True
+
+
+def _linear_taps(c: torch.Tensor, src: torch.Tensor):
+    """Fractional indices of the points ``c`` on the uniform grid ``src``,
+    as (lower index, upper index, weight of the upper, inside): the upper
+    index is clamped to the grid, so a point on the last node reads no
+    element past the edge (its upper weight is 0)."""
+    frac = (c - src[0]) / (src[1] - src[0])
+    n = src.shape[0]
+    inside = (frac >= 0.0) & (frac <= n - 1.0)
+    base = torch.floor(frac)
+    lo = base.clamp(0, n - 1).to(torch.long)
+    hi = (lo + 1).clamp(max=n - 1)
+    return lo, hi, frac - base, inside
+
+
+def regrid_velocity_data(vd: SurfaceVelocityData, glacier) -> SurfaceVelocityData:
+    """Bilinearly regrid a velocity datacube onto the glacier grid (one
+    glacier, ``coords_x``/``coords_y`` of its cell centers). Cells outside
+    the datacube's footprint get 0, which the V_ref > 0 loss masks drop.
+
+    A plain gather: the four neighbours of every glacier cell, for all
+    frames of ``vx``, ``vy`` and ``vabs`` in one pass, on the cube's
+    device in its dtype. Inside the footprint this is
+    ``map_coordinates(order=1, mode="constant")``."""
+    if vd.is_grid_glacier_aligned:
+        return vd
+    if vd.x is None or vd.y is None:
+        raise ValueError("regridding requires the datacube x/y coordinates")
+    gx = glacier.coords_x.to(device=vd.x.device, dtype=vd.x.dtype)
+    gy = glacier.coords_y.to(device=vd.y.device, dtype=vd.y.dtype)
+    x0, x1, wx, in_x = _linear_taps(gx, vd.x)
+    y0, y1, wy, in_y = _linear_taps(gy, vd.y)
+    fields = [f for f in (vd.vx, vd.vy, vd.vabs) if f is not None]
+    stack = torch.cat(fields)                       # (frames of every field, nx_src, ny_src)
+    wx, wy = wx.to(stack.dtype)[:, None], wy.to(stack.dtype)[None, :]
+    x0, x1, y0, y1 = x0[:, None], x1[:, None], y0[None, :], y1[None, :]
+    out = ((1.0 - wx) * (1.0 - wy) * stack[:, x0, y0] + (1.0 - wx) * wy * stack[:, x0, y1]
+           + wx * (1.0 - wy) * stack[:, x1, y0] + wx * wy * stack[:, x1, y1])
+    out = out * (in_x[:, None] & in_y[None, :]).to(stack.dtype)
+    parts = iter(out.split([f.shape[0] for f in fields]))
+    return dataclasses.replace(
+        vd,
+        vx=next(parts) if vd.vx is not None else None,
+        vy=next(parts) if vd.vy is not None else None,
+        vabs=next(parts) if vd.vabs is not None else None,
+        x=glacier.coords_x,
+        y=glacier.coords_y,
+        is_grid_glacier_aligned=True,
+    )
 
 
 @dataclass(frozen=True)

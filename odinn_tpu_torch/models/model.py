@@ -71,7 +71,7 @@ class Model:
     """
 
     iceflow: SIA2DModel
-    mass_balance: Any = None                 # TImodel1 | None
+    mass_balance: Any = None                 # TImodel1 | CustomMLP (mb_machine) | None
     initial_condition: Any = None
     target: Any = None                       # inferred if None
 

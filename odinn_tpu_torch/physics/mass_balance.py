@@ -1,4 +1,5 @@
-"""Surface mass balance: the temperature-index model.
+"""Surface mass balance: the temperature-index model, and the step that
+applies it or an MLP model (``models.mb_machine.CustomMLP``).
 
 - the monthly climate is downscaled to the glacier surface with a lapse-rate
   gradient: T₂D(m) = T_ref(m) + ∇T(m)·(S − ref_hgt)
@@ -79,11 +80,16 @@ def apply_mb_mask(H, MB):
     return H + mb_eff, mb_eff
 
 
-def mb_timestep(H, glacier, mb: TImodel1, t, step):
+def mb_timestep(H, glacier, mb, t, step):
     """The MB step at time t over the window (t−step, t]; returns the new
-    thickness in H's dtype."""
+    thickness in H's dtype. ``mb`` is a ``TImodel1`` or an MLP model with
+    ``compute_mb_field`` (``models.mb_machine.CustomMLP``), whose MB comes
+    in its parameters' dtype and is cast to H's here."""
     H_pos = torch.where(H > 0.0, H, torch.zeros_like(H))
     S = glacier.B.to(H.dtype) + H_pos
-    MB = compute_mb(mb, glacier.climate, S, t, step).to(H.dtype)
+    if hasattr(mb, "compute_mb_field"):
+        MB = mb.compute_mb_field(glacier.climate, S, t, step).to(H.dtype)
+    else:
+        MB = compute_mb(mb, glacier.climate, S, t, step).to(H.dtype)
     H_new, _ = apply_mb_mask(H_pos, MB)
     return H_new

@@ -49,15 +49,17 @@ at every stage's end, raising the substeps when the θ reached needs more.
 A non-finite loss in either mode rewinds to the best finite iterate,
 re-sizes there (at least doubling the substeps, or re-recording the
 schedule with each step split 2^(attempt−1) ways) and reruns the stage, at
-most three times. ``adaptive=True`` is forward-only and refused. Not
-ported yet, and refused with the slice that brings it (``ROADMAP.md``,
-Queue 1 item 8): saving the result.
+most three times. ``adaptive=True`` is forward-only and refused.
+
+``run_inversion(path=…, file_name=…)`` saves the trained result
+(:mod:`odinn_tpu_torch.utils.io`); ``load_inversion_file`` reads it back.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Sequence, Tuple
@@ -79,6 +81,7 @@ from odinn_tpu_torch.simulation.prediction import (
     calibrate_substeps, forward_batch, forward_glacier, resolve_replay, resolve_substeps)
 from odinn_tpu_torch.simulation.results import Results, TrainingStats, create_results
 from odinn_tpu_torch.simulation.solver import build_tstops
+from odinn_tpu_torch.utils.io import TrainingResult, save_inversion_file
 
 __all__ = ["Inversion", "assemble_tstops", "glacier_transient_loss", "glacier_residuals",
            "batch_transient_loss", "gather_batch", "resolve_accum_chunks", "train_ude",
@@ -784,11 +787,19 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
 
 def run_inversion(inversion: Inversion, callback=None, path: Optional[str] = None,
                   file_name: Optional[str] = None) -> Results:
-    """Train (:func:`train_ude`) and return the results. Saving the trained
-    result (``path``/``file_name``) comes with the I/O slice."""
+    """Train (:func:`train_ude`) and return the results. With ``path`` or
+    ``file_name`` set, the trained result is saved as a
+    :class:`~odinn_tpu_torch.utils.io.TrainingResult` (θ, the gradient-norm
+    and loss histories, and ``niter``/``final_loss``/``retcode`` in the
+    ``.meta.json`` sidecar) at ``path/file_name``, by default
+    ``./training_result.pt``."""
+    results = train_ude(inversion, callback=callback)
     if path is not None or file_name is not None:
-        raise NotImplementedError(
-            "odinn_tpu_torch: saving the training result comes with the I/O slice "
-            "(utils/io.py; ROADMAP.md, Queue 1 item 8); call run_inversion without "
-            "path/file_name")
-    return train_ude(inversion, callback=callback)
+        stats = results.stats
+        save_inversion_file(os.path.join(path or ".", file_name or "training_result.pt"),
+                            TrainingResult(theta=stats.theta, grad_norm_hist=stats.grad_norm_hist,
+                                           losses=stats.losses,
+                                           params_meta={"niter": stats.niter,
+                                                        "final_loss": stats.final_loss,
+                                                        "retcode": stats.retcode}))
+    return results

@@ -7,6 +7,8 @@ CPU; tolerances are stated per test.
 """
 
 import dataclasses
+import os
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -244,9 +246,10 @@ def test_init_theta_follows_the_law():
                                   "hybrid-D model", "discrete D target",
                                   "DummyAdjoint", "adaptive"])
 def test_unported_training_paths_name_their_slice(what):
-    """Each training path not ported yet raises, naming the slice (the
-    ROADMAP.md Queue 1 item) that brings it: saving (item 8). The paths
-    items 4–6 brought now run: a periodic law trains by autograd and the
+    """The training paths that once raised, naming the slice (the
+    ROADMAP.md Queue 1 item) that brought them, now run: saving (item 8)
+    writes the result, which reloads to the trained θ with the run's
+    metadata; a periodic law trains by autograd and the
     manual adjoints refuse it, naming grad='jax'; a Y law builds the
     hybrid-D target; a capped (D) target trains by the discrete adjoint;
     substeps="auto" is sized before training; adaptive=True is refused as
@@ -308,8 +311,17 @@ def test_unported_training_paths_name_their_slice(what):
                 p.hyper, optimizer=("lm",), learning_rate=(1e-3,), epochs=(1,)))
         assert np.isfinite(run_inversion(inv).stats.losses).all()
         return
-    with pytest.raises(NotImplementedError, match="slice"):
-        run_inversion(inv, path="results")
+    assert what == "save"
+    from odinn_tpu_torch.utils.io import load_inversion_file
+
+    with tempfile.TemporaryDirectory() as tmp:
+        results = run_inversion(inv, path=tmp, file_name="smoke.pt")
+        back = load_inversion_file(os.path.join(tmp, "smoke.pt"), device=CPU)
+    for a, b in zip(jax.tree.leaves(back.theta), jax.tree.leaves(inv.theta)):
+        assert torch.equal(a, b)
+    assert back.params_meta == {"niter": 2, "final_loss": results.stats.final_loss,
+                                "retcode": "Success"}
+    np.testing.assert_array_equal(back.losses.numpy(), results.stats.losses)
 
 
 @pytest.mark.parametrize("grad", ["jax", "discrete", "continuous"])
