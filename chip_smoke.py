@@ -115,8 +115,8 @@ Phases, each printed as one JSON line:
    4 x 128^2 and 2 x 300^2; ``rkc_interval`` at 16 x 128^2, s = 8; each
    pullback at its other shape and the fused RKC-backward stage). The
    ``kernel_times`` line before it also times a one-element PyTorch fill,
-   the card's single-launch floor. It is printed last, after phase 12, and
-   its launches are all phases';
+   the card's single-launch floor. It is printed last, after phase 13, and
+   its launches are all phases' (phase 13's ranks' too);
 9. tolerance (the tolerance contract, float32, reltol 1e-4): the main
    path's scenario through ``run_prediction`` with ``adaptive=True``, whose
    ``sia2d_rhs`` launches must equal the integrator's RHS evaluations,
@@ -139,7 +139,8 @@ Phases, each printed as one JSON line:
    24 x (s x) the J·v products, and ``lm_train``'s iteration timed and
    profiled; the gates of tests/test_gauss_newton.py::
    test_lm_collapses_loss_after_adam on the card (2 x 36^2, RK4 at 15
-   substeps, float64, Adam 30 then LM 15: a gain of 15x, a monotone trace,
+   substeps, float64, Adam 30 then 8 of the test's 15 LM iterations,
+   LM_GATE_EPOCHS: a gain of 15x, a monotone trace,
    A within 15 % at both temperatures, every RK4 stage's tangent one
    ``sia2d_rhs_jvp`` launch); ``grad="forward"`` of the classical
    per-glacier A through SI and RKC, float64 against the CPU's forward
@@ -189,10 +190,26 @@ Phases, each printed as one JSON line:
    retcode, a ``run_prediction`` from the reloaded θ bitwise equal to the
    trained forward, the results file and a checkpoint round-tripped
    exactly; one Adam epoch's peak memory by ``aot_step_memory`` beside
-   ``live_hbm_gib``, its time, busy time, idle share and launches.
+   ``live_hbm_gib``, its time, busy time, idle share and launches;
+13. scale-out (``scale_out``): the glacier axis over two gloo ranks that
+   share the card (``launch_local_workers`` starts them as ``python -m
+   chip_smoke RANK 2 PORT 1 --scale-out-worker DIR`` after the build, so
+   they run no nvcc): phase 5's SI training by Adam 3 then one LM
+   iteration (λ0 1e6, accepted), a float64 cut (4 x 128^2, 6 months, Adam
+   2 then LM 2 from λ0 1e5: one step rejected, one accepted),
+   ``multistart_train`` of 4 restarts and EKI on phase 11's section 1, each
+   first in this process and then on the ranks, each rank on its 8 of the
+   16 glaciers (2 restarts, 16 members); the float64 cut equal to the
+   single process to 1e-12 (losses) and 1e-10 (θ per leaf, gathered
+   trajectories), float32 Adam losses and trajectories and the multi-start
+   curves to 1e-5, both LM stages' losses falling in this process and on
+   both ranks, θ bitwise the same on both ranks after every iteration,
+   each rank's launches asserted, EKI's A gate on both, one rank's Adam
+   epoch timed and profiled on each; before the main path ``si_step`` is
+   checked at a rank's 8 x 128^2 (one wave of clusters) and timed there.
 
 Any failed check raises, so the exit code is not 0. A ``done`` line gives
-the whole run's seconds, build included. The last line is
+the whole run's seconds, build included, and each phase's. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits with
 code 2 and prints no result.
 
@@ -288,6 +305,13 @@ KERNEL_NAMES = ("si_step_cluster", "si_assemble", "si_pcg", "si_step_vjp_kernel"
 LM_EPOCHS = (2, 3)
 LM_CG = 8
 LM_PROBES = 8
+# the LM gates' Adam epochs and LM iterations: the test's 30 Adam epochs,
+# then 8 of its 15 LM iterations, the depth cut that keeps the whole run
+# inside its time limit (the gates are host-bound: 351-456 s at 15). On the
+# card the 15-iteration trace passed the 15x gain at the 7th iteration
+# (15.66x) and stood at 1.2e4x after the 8th; the 8 iterations draw the
+# first two of the test's three probe sets
+LM_GATE_EPOCHS = (30, 8)
 # the initial θ of tests/test_gauss_newton.py::test_lm_collapses_loss_after_adam:
 # the JAX package's NeuralNetwork(default_architecture(1, light=True),
 # seed=666) in float64 (its PRNG's draw, which the port's generator does
@@ -356,6 +380,34 @@ MB_SCALE, MB_LIMIT = 4.0, 5.0
 # CPU's: the kernels' roundoff
 TOL_LOAD_F32 = 1e-6
 TOL_DATA_F64 = 1e-12
+
+# phase 13: the glacier axis over SCALE_OUT_RANKS gloo ranks sharing the
+# card. At full width (phase 5's SI problem) Adam then one LM iteration; the
+# float64 cut (SCALE_OUT_CUT_G glaciers, 6 months) Adam 2 then LM 2 with 2
+# CG iterations, below CG's convergence (~3 on these problems: A(T) over the
+# glaciers' temperatures spans ~3 directions), since iterations past it
+# divide roundoff by roundoff and turn the reduction order's last bits into
+# ~1e-7 of θ. The LM stages start at a damping whose step is accepted: from
+# the Adam iterate the 8-probe Hutchinson estimate of the net's first and
+# last weight leaves comes out at its floor (1e-7 of the mean), so λ·diag
+# bounds nothing there, the step moves those weights by ~10-20 and the loss
+# rises at λ0 up to 1e4 (1e-3 in phases 10 and 11). The full width at 1e6
+# accepts its step (23.9 -> 13.1 in a CPU float32 run); the cut at 1e5
+# rejects its first and accepts its second at 1e6 (0.832 -> 0.526 in a CPU
+# float64 run), so the ranks take both branches of the accept rule.
+# multistart_train over SCALE_OUT_RESTARTS restarts (2 a rank)
+SCALE_OUT_RANKS = 2
+SCALE_OUT_EPOCHS, SCALE_OUT_DAMPING = (3, 1), 1e6
+SCALE_OUT_CUT_G, SCALE_OUT_CUT_TSPAN, SCALE_OUT_CUT_EPOCHS = 4, (5.0, 5.5), (2, 2)
+SCALE_OUT_CUT_CG, SCALE_OUT_CUT_DAMPING = 2, 1e5
+SCALE_OUT_RESTARTS, SCALE_OUT_MS_EPOCHS = 4, 2
+SCALE_OUT_TIMEOUT = 420.0
+# the ranks' runs against the single process's: the float64 cut's losses
+# and θ (per leaf) and trajectories; float32 losses of the Adam stage,
+# trajectories and multi-start curves: the same arithmetic per glacier,
+# summed over the glaciers in another order
+TOL_SCALE_OUT_LOSS_F64, TOL_SCALE_OUT_F64 = 1e-12, 1e-10
+TOL_SCALE_OUT_F32 = 1e-5
 
 
 def emit(obj) -> None:
@@ -689,6 +741,11 @@ def check_kernels():
         check_rkc(H, B, derived, (N_TRAIN, NX, NY), dtype, (8,))
         check_second_wave(dtype)
         check_si(H, B, derived, (N_TRAIN, NX, NY), dtype, cg_iters=(SI_TRAIN_CG,))
+        # phase 13's share of a rank: the first half of the glaciers, one wave
+        n_r = N_TRAIN // SCALE_OUT_RANKS
+        check_one_wave(n_r, dtype)
+        check_si(H[:n_r].contiguous(), B[:n_r].contiguous(), derived[:n_r].contiguous(),
+                 (n_r, NX, NY), dtype, cg_iters=(SI_TRAIN_CG,))
         check_rhs_jvp_sets(H, B, raw, (N_TRAIN, NX, NY), dtype, stage_s=8)
     # phase 11's folded batches: multistart's 8 restarts x 16 glaciers at
     # PCG-20 and EKI's 32 members x 16 glaciers of 64^2 at PCG-12, in many
@@ -755,6 +812,17 @@ def check_second_wave(dtype):
     if plan.layout is None or plan.layout.cluster != 8 or plan.max_active[8] >= N_TRAIN:
         raise AssertionError(f"si_step at {N_TRAIN} x {NX}^2 {dtype}: expected 8-block "
                              f"clusters in two waves, got {plan}")
+
+
+def check_one_wave(n_g, dtype):
+    """Raises unless si_step's plan at n_g x 128^2 is 8-block clusters all
+    resident at once (one wave)."""
+    from odinn_tpu_torch.ops.cuda import si_kernel
+
+    plan = si_kernel.si_plan(n_g, NX, NY, dtype)
+    if plan.layout is None or plan.layout.cluster != 8 or plan.max_active[8] < n_g:
+        raise AssertionError(f"si_step at {n_g} x {NX}^2 {dtype}: expected 8-block "
+                             f"clusters in one wave, got {plan}")
 
 
 def check_waves(n_g, nx, ny, dtype):
@@ -1411,7 +1479,8 @@ def time_kernels():
     at 16 x 128^2, si_step and its transpose-solve mode at 4 x 128^2 and at
     the SI training's 16 x 128^2, PCG-20, and at 15 glaciers, which 8-block
     clusters hold resident at once (16 run a second wave), and si_step_vjp
-    at 4 x 128^2; and phase 11's folded batches: si_step, its transpose and
+    at 4 x 128^2; si_step, its transpose and si_step_vjp at phase 13's
+    per-rank 8 x 128^2, PCG-20; and phase 11's folded batches: si_step, its transpose and
     si_step_vjp at 128 x 128^2 (PCG-20), si_step at 512 x 64^2 (PCG-12),
     sia2d_rhs at 32 x 32^2."""
     from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
@@ -1457,6 +1526,10 @@ def time_kernels():
     dY, dH0, dY2, df0 = (torch.randn(Ht.shape, generator=jgen).to("cuda") for _ in range(4))
     n15 = N_TRAIN - 1
     H15, B15, x15, lam15 = (t[:n15].contiguous() for t in (Ht, Bt, xt, lam))
+    # phase 13's per-rank share: the first 8 glaciers, one wave of clusters
+    n8 = N_TRAIN // SCALE_OUT_RANKS
+    H8, B8, x8, lam8, lamt8 = (t[:n8].contiguous() for t in (Ht, Bt, xt, lam, lamt))
+    derived_8 = derived_t[:n8].contiguous()
     # phase 11's folded batches: si_step, its transpose and the pullback at
     # multistart's 128 x 128^2, PCG-20; si_step at EKI's 512 x 64^2, PCG-12;
     # sia2d_rhs at the adaptive EKI's 32 x 32^2
@@ -1521,6 +1594,18 @@ def time_kernels():
             "si_step", lambda f: lambda: f(lam15, x15, H15, B15, derived_15, DT, 1.0, it_t, exps),
             si_kernel.si_step_transpose, si_kernel.si_step_transpose_reference,
             si_transpose_bound(n15, NX, NY, 4, it_t), SI_KERNELS, 10),
+        f"si_step {n8}x{NX}x{NY} cg_iters={it_t}": (
+            "si_step", lambda f: lambda: f(H8, H8, B8, H8, derived_8, DT, 1.0, it_t, exps),
+            si_kernel.si_step, si_kernel.si_step_reference,
+            si_bound(n8, NX, NY, 4, it_t), SI_KERNELS, 10),
+        f"si_step transpose {n8}x{NX}x{NY} cg_iters={it_t}": (
+            "si_step", lambda f: lambda: f(lam8, x8, H8, B8, derived_8, DT, 1.0, it_t, exps),
+            si_kernel.si_step_transpose, si_kernel.si_step_transpose_reference,
+            si_transpose_bound(n8, NX, NY, 4, it_t), SI_KERNELS, 10),
+        f"si_step_vjp {n8}x{NX}x{NY}": (
+            "si_step_vjp", lambda f: lambda: f(lamt8, H8, H8, B8, x8, derived_8, DT, 1.0, exps),
+            si_kernel.si_step_vjp, si_kernel.si_step_vjp_reference,
+            si_vjp_bound(n8, NX, NY, 4, planes_in=4), ("si_step_vjp_kernel",), 50),
         f"si_step tangent {N_G}x{NX}x{NY} cg_iters=6": (
             "si_step", lambda f: lambda: f(rdot4, x4, H, H, B, derived, DT, 1.0, 6, exps),
             si_kernel.si_step_tangent, si_kernel.si_step_tangent_reference,
@@ -2004,9 +2089,10 @@ def training_problem(solver, grad="jax", n_g=N_TRAIN, tspan=TRAIN_TSPAN,
     return inv, model, params, tstops, facts
 
 
-def grad_fn(inv, params):
+def grad_fn(inv, params, mesh=None):
     """The trainer's ``vg(theta, batch) -> (loss, gradient leaves)`` for
-    params.UDE.grad on the inversion's problem, and its TrainingStats."""
+    params.UDE.grad on the inversion's problem (summed over the ranks of
+    ``mesh``), and its TrainingStats."""
     from odinn_tpu_torch.simulation.inversion import (
         Inversion, _make_grad_fn, assemble_tstops, batch_transient_loss)
     from odinn_tpu_torch.simulation.results import TrainingStats
@@ -2016,21 +2102,24 @@ def grad_fn(inv, params):
     tstops = assemble_tstops(params, inv2.glaciers)
     stats = TrainingStats()
     return _make_grad_fn(inv2, lambda th, b: batch_transient_loss(th, b, inv.model, params,
-                                                                   tstops), stats), stats
+                                                                   tstops), stats, mesh), stats
 
 
-def adam_epoch_fn(inv, model, params, tstops):
+def adam_epoch_fn(inv, model, params, tstops, mesh=None):
     """One Adam epoch (forward, gradient by params.UDE.grad, update) on a
-    copy of the inversion's θ."""
+    copy of the inversion's θ; on a ``mesh``, over this rank's glaciers
+    with the loss and gradient summed over the ranks."""
+    from odinn_tpu_torch.parallel.mesh import shard_inversion
     from odinn_tpu_torch.simulation.inversion import _tree_leaves
 
-    theta = _tree_to(inv.theta, inv.device, None, requires_grad=True)
+    theta0, glaciers, _ = shard_inversion(inv.theta, inv.glaciers, mesh)
+    theta = _tree_to(theta0, inv.device, None, requires_grad=True)
     leaves = _tree_leaves(theta)
     opt = torch.optim.Adam(leaves, lr=0.05)
-    vg, _ = grad_fn(inv, params)
+    vg, _ = grad_fn(inv, params, mesh)
 
     def adam_epoch():
-        _, grads = vg(theta, inv.glaciers)
+        _, grads = vg(theta, glaciers)
         for p, g in zip(leaves, grads):
             p.grad = g
         opt.step()
@@ -2661,8 +2750,9 @@ def lm_gate_phase(device="cuda"):
     """tests/test_gauss_newton.py::test_lm_collapses_loss_after_adam on the
     card: 2 Halfar glaciers of 36^2 (dx 120 m, -15 and -22 C), 12 monthly
     intervals, RK4 at 15 substeps, float64, A = NN(T) (the light net from
-    the JAX test's initial θ, LM_GATE_THETA), Adam 30 epochs (lr 0.05),
-    then 15 LM iterations (λ0 1e-3) on the JAX test's Rademacher probes
+    the JAX test's initial θ, LM_GATE_THETA), Adam LM_GATE_EPOCHS[0] epochs
+    (lr 0.05), then LM_GATE_EPOCHS[1] LM iterations (λ0 1e-3) on the JAX
+    test's Rademacher probes
     (LM_GATE_PROBES, in place of the port's draw for this run). Its
     gates: the LM stage gains at least 15x over its start, its trace is
     monotone, and A is within 15 % of Cuffey-Paterson at both
@@ -2680,7 +2770,7 @@ def lm_gate_phase(device="cuda"):
     from odinn_tpu_torch.simulation.prediction import generate_ground_truth
     from odinn_tpu_torch.simulation.solver import build_tstops
 
-    tspan, substeps, epochs = (5.0, 6.0), 15, (30, 15)
+    tspan, substeps, epochs = (5.0, 6.0), 15, LM_GATE_EPOCHS
     params = Parameters(
         physical=PhysicalParameters(min_A=8e-21, max_A=8e-18),
         simulation=SimulationParameters(tspan=tspan, use_MB=False, test_mode=True,
@@ -3905,6 +3995,280 @@ def data_io_phase():
         raise AssertionError("data_io: " + "; ".join(fails))
     return total
 
+def _leaves_np(tree):
+    from odinn_tpu_torch.simulation.inversion import _tree_leaves
+
+    return [x.detach().double().cpu().numpy() for x in _tree_leaves(tree)]
+
+
+def _np_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-300)
+
+
+def scale_out_runs(mesh):
+    """Phase 13's runs, in one process (``mesh`` None) or as this rank of
+    the job's mesh, each with the launch counters set to 0 just before and
+    read just after: ``train_ude`` of phase 5's SI problem (A = NN(T),
+    16 x 128^2, float32, PCG-20, 24 intervals) by Adam SCALE_OUT_EPOCHS[0]
+    then SCALE_OUT_EPOCHS[1] LM iterations (gn_cg_iters LM_CG, λ0
+    SCALE_OUT_DAMPING) and of its float64 cut (SCALE_OUT_CUT_G glaciers, 6
+    months, Adam 2 then LM 2 at SCALE_OUT_CUT_CG CG iterations, λ0
+    SCALE_OUT_CUT_DAMPING), θ compared bitwise with rank 0's after
+    every iteration; one Adam epoch of the full width timed and profiled;
+    ``multistart_train`` of the full width from SCALE_OUT_RESTARTS restarts
+    (SCALE_OUT_MS_EPOCHS Adam epochs); ``eki_train`` on phase 11's section
+    1. Returns numpy and numbers only."""
+    from odinn_tpu_torch.parallel.mesh import mesh_size, replicate, shard_inversion
+    from odinn_tpu_torch.simulation.eki import eki_train
+    from odinn_tpu_torch.simulation.ensemble import multistart_train
+    from odinn_tpu_torch.simulation.inversion import Inversion, _tree_leaves, train_ude
+
+    counters = kernel_counters()
+    out = {"ranks": mesh_size(mesh)}
+    same = []
+
+    def same_on_every_rank(stats):
+        if mesh is not None:
+            from0 = _tree_leaves(replicate(stats.theta, mesh))
+            same.append(all(torch.equal(a, b) for a, b in zip(_tree_leaves(stats.theta), from0)))
+
+    for name, kw, epochs, cg, damping in (
+            ("full", {}, SCALE_OUT_EPOCHS, LM_CG, SCALE_OUT_DAMPING),
+            ("cut", dict(n_g=SCALE_OUT_CUT_G, tspan=SCALE_OUT_CUT_TSPAN, dtype=torch.float64),
+             SCALE_OUT_CUT_EPOCHS, SCALE_OUT_CUT_CG, SCALE_OUT_CUT_DAMPING)):
+        inv, model, params, tstops, _ = training_problem("SI", "jax", **kw)
+        params = params.replace(hyper=dataclasses.replace(
+            params.hyper, optimizer=("adam", "lm"), learning_rate=(0.05, damping), epochs=epochs,
+            gn_cg_iters=cg))
+        inv.parameters = params
+        theta0 = _tree_to(inv.theta, "cuda", None)
+        local = shard_inversion(inv.theta, inv.glaciers, mesh)[1]
+        torch.cuda.synchronize()
+        _reset(counters)
+        t0 = time.perf_counter()
+        res = train_ude(inv, callback=same_on_every_rank, mesh=mesh)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        stats = res.stats
+        out[name] = {"seconds": seconds, "launches": _read(counters), "solves": stats.solves,
+                     "gradients": stats.gradients, "jvps": lm_jvps(epochs[1], cg),
+                     "lm_iterations": epochs[1],
+                     "intervals": len(tstops) - 1, "glaciers_per_rank": local.H0.shape[0],
+                     "losses": list(stats.losses), "adam_epochs": epochs[0],
+                     "theta": _leaves_np(inv.theta),
+                     "H": res.simulation["H"].detach().double().cpu().numpy()}
+        if name == "full":
+            full = (inv, model, params, tstops, theta0)
+    out["theta_same_every_iteration"] = bool(all(same)) if mesh is not None else None
+    out["bitwise_checks"] = len(same)
+
+    inv, model, params, tstops, theta0 = full
+    inv.theta = _tree_to(theta0, "cuda", None)
+    out["epoch"] = epoch_profile(adam_epoch_fn(inv, model, params, tstops, mesh))
+
+    adam = params.replace(hyper=dataclasses.replace(
+        params.hyper, optimizer=("adam",), learning_rate=(0.05,),
+        epochs=(SCALE_OUT_MS_EPOCHS,)))
+    ms_inv = Inversion(model=model, glaciers=inv.glaciers, parameters=adam,
+                       theta=_tree_to(theta0, "cuda", None), device="cuda")
+    _reset(counters)
+    t0 = time.perf_counter()
+    ms = multistart_train(ms_inv, n_restarts=SCALE_OUT_RESTARTS, seed=0, mesh=mesh)
+    torch.cuda.synchronize()
+    out["multistart"] = {"seconds": time.perf_counter() - t0, "launches": _read(counters),
+                         "losses": ms.losses, "final_losses": ms.final_losses,
+                         "best_idx": ms.best_idx, "intervals": len(tstops) - 1}
+
+    temps = np.linspace(-25.0, -14.0, EKI_GLACIERS)
+    eki_inv = eki_problem(EKI_GLACIERS, EKI_NX, temps,
+                          dict(solver="SI", cg_iters=EKI_CG, substeps=1), "eki")
+    _reset(counters)
+    t0 = time.perf_counter()
+    er = eki_train(eki_inv, n_ensemble=EKI_MEMBERS, n_iters=EKI_ITERS, init_scale=0.5, seed=0,
+                   mesh=mesh)
+    torch.cuda.synchronize()
+    errs = _a_rel_errs(er.best_theta, eki_inv.parameters, temps)
+    out["eki"] = {"seconds": time.perf_counter() - t0, "launches": _read(counters),
+                  "iterations": er.n_iters, "misfits": er.misfits,
+                  "A_rel_err_max": float(errs.max()), "A_rel_err_min": float(errs.min()),
+                  "intervals": int(round((EKI_TSPAN[1] - EKI_TSPAN[0]) * 12))}
+    return out
+
+
+def scale_out_worker(argv) -> int:
+    """One rank of phase 13 (``python -m chip_smoke RANK N PORT 1
+    --scale-out-worker DIR``, as ``launch_local_workers`` starts it): joins
+    the gloo job on the card, runs :func:`scale_out_runs` on the job's mesh
+    and writes what it measured to DIR/rank<RANK>.pkl."""
+    import pickle
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from odinn_tpu_torch.parallel.multiprocess import global_mesh, init_distributed
+
+    rank, n, port, devs = int(argv[0]), int(argv[1]), argv[2], int(argv[3])
+    out_dir = argv[argv.index("--scale-out-worker") + 1]
+    init_distributed(f"localhost:{port}", n, rank, devices_per_process=devs)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = scale_out_runs(global_mesh())
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(out, fh)
+    dist.destroy_process_group()
+    return 0
+
+
+def _lm_falls(losses, adam_epochs) -> bool:
+    """Finite losses whose LM stage (the records after the Adam epochs)
+    never rises and ends below its start."""
+    trace = losses[adam_epochs:]
+    return bool(np.isfinite(losses).all() and trace[-1] < trace[0]
+                and all(b <= a for a, b in zip(trace, trace[1:])))
+
+
+def scale_out_phase():
+    """Phase 13: the glacier axis split over SCALE_OUT_RANKS gloo ranks
+    that share the card. The kernels are built (phase 2), so the ranks load
+    them and run no nvcc. The single-process runs of
+    :func:`scale_out_runs` in this process, then the same runs in the job
+    (``launch_local_workers``, its own timeout; a rank's failure fails the
+    run). Checks: the float64 cut's losses and θ (per leaf) and gathered
+    trajectories equal to the single process's to
+    TOL_SCALE_OUT_LOSS_F64 and TOL_SCALE_OUT_F64 (the cut's LM stage
+    rejects one step and accepts one, so θ after it holds the all-reduced
+    Jᵀr, JᵀJ·v and Σr²); the float32 Adam losses and trajectories to
+    TOL_SCALE_OUT_F32; both runs' LM stages falling, in the single process
+    and on every rank; θ bitwise the same on every rank after every
+    iteration and at the end;
+    per rank, si_step = 24 x solves, si_step_transpose = si_step_vjp = 24 x
+    (Adam gradients + LM pullbacks: one an LM iteration and one a J·v
+    product) and si_step_tangent = 24 x J·v products, on 8 of the 16
+    glaciers; multistart_train's loss curves and final losses (2 restarts
+    a rank, 32 planes a launch) to TOL_SCALE_OUT_F32 of the single
+    process's fold, with its launches; eki_train (16 members a rank) meeting
+    phase 11's A gate, with its launches. Prints one ``scale_out`` line.
+    Returns the launches of the single-process runs and of every rank."""
+    import pickle
+    import tempfile
+
+    from odinn_tpu_torch.parallel.multiprocess import launch_local_workers
+
+    counters = kernel_counters()
+    total = {k: 0 for k in counters}
+    t0 = time.perf_counter()
+    ref = scale_out_runs(None)
+    single_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        t1 = time.perf_counter()
+        launch_local_workers(SCALE_OUT_RANKS, 1, ["--scale-out-worker", d],
+                             timeout=SCALE_OUT_TIMEOUT, module="chip_smoke")
+        job_s = time.perf_counter() - t1
+        ranks = []
+        for r in range(SCALE_OUT_RANKS):
+            with open(os.path.join(d, f"rank{r}.pkl"), "rb") as fh:
+                ranks.append(pickle.load(fh))
+    for run in (ref, *ranks):
+        for key in ("full", "cut", "multistart", "eki"):
+            _add(total, run[key]["launches"])
+
+    fails, per_rank = [], []
+    for run, adam in (("full", SCALE_OUT_EPOCHS[0]), ("cut", SCALE_OUT_CUT_EPOCHS[0])):
+        if not _lm_falls(ref[run]["losses"], adam):
+            fails.append(f"the single process's {run} LM stage did not fall: "
+                         f"{ref[run]['losses']}")
+    for r, out in enumerate(ranks):
+        errs = {
+            "cut_losses": _np_rel(out["cut"]["losses"], ref["cut"]["losses"]),
+            "cut_theta": max(_np_rel(a, b) for a, b in zip(out["cut"]["theta"],
+                                                           ref["cut"]["theta"])),
+            "cut_trajectories": _np_rel(out["cut"]["H"], ref["cut"]["H"]),
+            "full_adam_losses": _np_rel(out["full"]["losses"][:SCALE_OUT_EPOCHS[0]],
+                                        ref["full"]["losses"][:SCALE_OUT_EPOCHS[0]]),
+            "full_losses": _np_rel(out["full"]["losses"], ref["full"]["losses"]),
+            "full_theta": max(_np_rel(a, b) for a, b in zip(out["full"]["theta"],
+                                                            ref["full"]["theta"])),
+            "full_trajectories": _np_rel(out["full"]["H"], ref["full"]["H"]),
+            "multistart_losses": _np_rel(out["multistart"]["losses"],
+                                         ref["multistart"]["losses"]),
+            "multistart_final": _np_rel(out["multistart"]["final_losses"],
+                                        ref["multistart"]["final_losses"]),
+            "eki_misfits": _np_rel(out["eki"]["misfits"], ref["eki"]["misfits"]),
+        }
+        theta_equal = all(np.array_equal(a, b) for run in ("full", "cut")
+                          for a, b in zip(out[run]["theta"], ranks[0][run]["theta"]))
+        expected = {}
+        for run in ("full", "cut"):
+            # LM pulls back through the same backward: Jᵀr once an
+            # iteration and Jᵀ(J·v) once a J·v product
+            o, n_int = out[run], out[run]["intervals"]
+            pullbacks = o["gradients"] + o["jvps"] + o["lm_iterations"]
+            expected[run] = dict({k: 0 for k in counters}, si_step=n_int * o["solves"],
+                                 si_step_transpose=n_int * pullbacks,
+                                 si_step_vjp=n_int * pullbacks,
+                                 si_step_tangent=n_int * o["jvps"])
+        n_int = out["multistart"]["intervals"]
+        expected["multistart"] = dict(
+            {k: 0 for k in counters}, si_step=n_int * (SCALE_OUT_MS_EPOCHS + 1),
+            si_step_transpose=n_int * SCALE_OUT_MS_EPOCHS, si_step_vjp=n_int * SCALE_OUT_MS_EPOCHS)
+        n_int = out["eki"]["intervals"]
+        expected["eki"] = dict({k: 0 for k in counters},
+                               si_step=n_int * (out["eki"]["iterations"] + 1) + n_int)
+        lm_trace = out["full"]["losses"][SCALE_OUT_EPOCHS[0]:]
+        row = {"rank": r, "errors": errs, "theta_equal_to_rank0": theta_equal,
+               "theta_same_every_iteration": out["theta_same_every_iteration"],
+               "bitwise_checks": out["bitwise_checks"],
+               "glaciers_per_rank": out["full"]["glaciers_per_rank"],
+               "launches": {k: out[k]["launches"] for k in expected},
+               "expected_launches": expected,
+               "seconds": {k: out[k]["seconds"] for k in ("full", "cut", "multistart", "eki")},
+               "full_losses": out["full"]["losses"], "lm_trace": lm_trace,
+               "cut_losses": out["cut"]["losses"],
+               "eki_A_rel_err": [out["eki"]["A_rel_err_max"], out["eki"]["A_rel_err_min"]],
+               **out["epoch"]}
+        per_rank.append(row)
+        if not (errs["cut_losses"] <= TOL_SCALE_OUT_LOSS_F64
+                and errs["cut_theta"] <= TOL_SCALE_OUT_F64
+                and errs["cut_trajectories"] <= TOL_SCALE_OUT_F64
+                and errs["full_adam_losses"] <= TOL_SCALE_OUT_F32
+                and errs["full_trajectories"] <= TOL_SCALE_OUT_F32
+                and errs["multistart_losses"] <= TOL_SCALE_OUT_F32
+                and errs["multistart_final"] <= TOL_SCALE_OUT_F32):
+            fails.append(f"rank {r} disagrees with the single process: {errs}")
+        if not (theta_equal and out["theta_same_every_iteration"] and out["bitwise_checks"] > 0):
+            fails.append(f"rank {r}: θ differs between the ranks")
+        if row["launches"] != expected:
+            fails.append(f"rank {r}: launches {row['launches']}, expected {expected}")
+        if row["glaciers_per_rank"] != N_TRAIN // SCALE_OUT_RANKS:
+            fails.append(f"rank {r}: {row['glaciers_per_rank']} glaciers")
+        for run, adam in (("full", SCALE_OUT_EPOCHS[0]), ("cut", SCALE_OUT_CUT_EPOCHS[0])):
+            if not _lm_falls(out[run]["losses"], adam):
+                fails.append(f"rank {r}: the {run} run's LM stage did not fall: "
+                             f"{out[run]['losses']}")
+        if not (row["eki_A_rel_err"][0] <= 1e-3 and row["eki_A_rel_err"][1] <= 1e-4):
+            fails.append(f"rank {r}: EKI misses the A gate: {row['eki_A_rel_err']}")
+    row = {"phase": "scale_out", "backend": "gloo", "ranks": SCALE_OUT_RANKS,
+           "device": torch.cuda.get_device_name(0), "seconds": time.perf_counter() - t0,
+           "single_process_s": single_s, "job_s": job_s,
+           "single_process": {"seconds": {k: ref[k]["seconds"] for k in
+                                          ("full", "cut", "multistart", "eki")},
+                              "launches": {k: ref[k]["launches"] for k in
+                                           ("full", "cut", "multistart", "eki")},
+                              "full_losses": ref["full"]["losses"],
+                              "cut_losses": ref["cut"]["losses"],
+                              "eki_A_rel_err": [ref["eki"]["A_rel_err_max"],
+                                                ref["eki"]["A_rel_err_min"]],
+                              **ref["epoch"]},
+           "per_rank": per_rank,
+           "tolerances": {"f64_losses": TOL_SCALE_OUT_LOSS_F64, "f64": TOL_SCALE_OUT_F64,
+                          "f32": TOL_SCALE_OUT_F32}}
+    emit(row)
+    if fails:
+        raise AssertionError("scale_out: " + "; ".join(fails))
+    return total
+
+
 def _tree_to(tree, device, dtype, requires_grad=False):
     """θ on ``device`` in ``dtype`` (None: its own), a copy (leaves
     requiring grad when asked)."""
@@ -3918,6 +4282,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if "--scale-out-worker" in sys.argv:
+        return scale_out_worker(sys.argv[1:])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from odinn_tpu_torch.ops.cuda.build import build_all
 
@@ -3931,6 +4297,8 @@ def main() -> int:
 
     t_start = t0 = time.perf_counter()
     built = build_all()
+    # each phase's wall seconds, for the run's time limit (the done line)
+    marks = [("build", time.perf_counter())]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {k: v[0] for k, v in built.items()},
           "ptxas": {k: ptxas_summary(v[1]) for k, v in built.items()}})
@@ -3946,10 +4314,13 @@ def main() -> int:
     check_law_target_gradients()
     check_replay_gradient()
     cluster_report()
+    marks.append(("checks", time.perf_counter()))
     timing = time_kernels()
+    marks.append(("kernel_times", time.perf_counter()))
     launches = main_path_rows()
     for name, n in periodic_rows().items():
         launches[name] += n
+    marks.append(("rows", time.perf_counter()))
     for solver in ("RKC", "SI"):
         for grad in ("jax", "discrete"):
             for name, n in training_phase(solver, grad).items():
@@ -3967,19 +4338,29 @@ def main() -> int:
             for name, n in training_phase("SI", grad, target).items():
                 launches[name] += n
     pretraining_phase()
+    marks.append(("trainings", time.perf_counter()))
     for name, n in tolerance_phase().items():
         launches[name] += n
+    marks.append(("tolerance", time.perf_counter()))
     for solver in ("SI", "RKC"):
         for name, n in lm_phase(solver).items():
             launches[name] += n
+    marks.append(("lm", time.perf_counter()))
     for name, n in lm_gate_phase().items():
         launches[name] += n
+    marks.append(("lm_gates", time.perf_counter()))
     for name, n in forward_grad_phase().items():
         launches[name] += n
+    marks.append(("forward_grad", time.perf_counter()))
     for name, n in ensemble_phase().items():
         launches[name] += n
+    marks.append(("ensembles", time.perf_counter()))
     for name, n in data_io_phase().items():
         launches[name] += n
+    marks.append(("data_io", time.perf_counter()))
+    for name, n in scale_out_phase().items():
+        launches[name] += n
+    marks.append(("scale_out", time.perf_counter()))
     meta = {
         "si_step": ("odinn_tpu_torch/csrc/si_step.cu", "odinn_tpu/ops/pallas/si_kernel.py:174"),
         "sia2d_rhs": ("odinn_tpu_torch/csrc/sia2d_rhs.cu", "odinn_tpu/ops/pallas/sia_kernel.py:137"),
@@ -4013,7 +4394,9 @@ def main() -> int:
              "tangent_launches": launches["si_step_tangent"]} if name == "si_step" else {})}
         for name, t in timing.items() if name == t["kernel"]
     ]})
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "phase_seconds": dict([("build", marks[0][1] - t_start)] + [
+              (name, t - prev) for (name, t), (_, prev) in zip(marks[1:], marks)])})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -6,3 +6,25 @@ hand-written CUDA kernels (``csrc/``, built at first use into
 ``odinn_tpu`` under the same names. Entry points run on the CUDA card unless
 they are given ``device="cpu"``.
 """
+
+from odinn_tpu_torch.core.glacier import (
+    Climate2D,
+    DhdtData,
+    DummyClimate2D,
+    Glacier,
+    SurfaceVelocityData,
+    ThicknessData,
+    is_in_glacier,
+    stack_glaciers,
+)
+from odinn_tpu_torch.core.params import (
+    Hyperparameters,
+    InversionParameters,
+    Parameters,
+    PhysicalParameters,
+    SimulationParameters,
+    SolverParameters,
+    UDEParameters,
+)
+
+__version__ = "0.1.0"

@@ -81,6 +81,14 @@ class Climate2D:
     avg_scalar_temp = DummyClimate2D.avg_scalar_temp
     avg_gridded_temp = DummyClimate2D.avg_gridded_temp
 
+    def month_index(self, t):
+        """Index of the month that holds float-year time ``t``, clamped to
+        the series (a long tensor; per glacier for a batch)."""
+        t_start = torch.as_tensor(self.t_start)
+        idx = torch.floor((torch.as_tensor(t, dtype=t_start.dtype, device=t_start.device)
+                           - t_start) * 12.0 + 1e-9).to(torch.long)
+        return torch.clamp(idx, 0, self.temp.shape[-1] - 1)
+
 
 @dataclass(frozen=True)
 class ThicknessData:

@@ -17,7 +17,10 @@ in θ space (:func:`_cg_tree`), and the damping follows the classic λ ÷3 /
 iteration gives the loss trace.
 
 Scope: every least-squares-shaped objective (``.residuals`` on the loss
-terms; :func:`make_residual_fn`).
+terms; :func:`make_residual_fn`). On a mesh each rank passes its own
+glaciers and an ``allreduce`` (:func:`lm_train`): every θ-space pullback
+and every Σr² is summed over the ranks, so all of them take the same
+steps; J·v stays on each rank's glaciers.
 """
 
 from __future__ import annotations
@@ -151,7 +154,7 @@ def diag_estimate(theta, batch, resid, pullback, probes):
 def lm_train(theta, batch, resid, iters: int = 15, cg_iters: int = 8,
              init_damping: float = 1e-3, record=None, precond: bool = True,
              diag_probes: int = 8, precond_refresh: int = 5, cg_restarts: int = 1,
-             seed: int = 0) -> Tuple:
+             seed: int = 0, allreduce=None) -> Tuple:
     """The Levenberg–Marquardt loop; returns (θ, losses).
 
     Each iteration linearises r at θ once (:func:`linearize`), forms
@@ -167,12 +170,27 @@ def lm_train(theta, batch, resid, iters: int = 15, cg_iters: int = 8,
     ``precond_refresh`` iterations, which also scales the damping (λ·diag
     instead of λ·I). Without it the damping is λ·(mean diag)·I from one
     estimate. ``cg_restarts``: see :func:`_cg_tree`.
+
+    ``allreduce``: for a ``batch`` that is one rank's block of the glacier
+    axis, a function that sums a list of tensors over the ranks
+    (``parallel.mesh.allreduce_sum``); every pullback Jᵀu and every Σr²
+    goes through it.
     """
     gen = torch.Generator().manual_seed(int(seed))
     theta = _tmap(lambda x: x.detach(), theta)
+    total = (lambda ts: ts) if allreduce is None else allreduce
+
+    def sq(r):
+        return total([torch.sum(r * r)])[0]
+
+    def linearized(th):
+        r, pb = linearize(resid, th, batch)
+        if allreduce is None:
+            return r, pb
+        return r, lambda u: _unflatten(th, total(_leaves(pb(u))))
 
     def step(theta, lam, diag, r, pb):
-        loss = torch.sum(r * r)
+        loss = sq(r)
         g = pb(r)
 
         def gnvp(v):
@@ -184,12 +202,12 @@ def lm_train(theta, batch, resid, iters: int = 15, cg_iters: int = 8,
         cand = _tmap(torch.add, theta, delta)
         with torch.no_grad():
             r_new = resid(cand, batch)
-        accept = torch.sum(r_new * r_new) < loss
+        accept = sq(r_new) < loss
         theta_out = _tmap(lambda c, t: torch.where(accept, c, t), cand, theta)
         lam_out = torch.where(accept, lam / 3.0, lam * 10.0)
         return theta_out, lam_out, loss, torch.sqrt(_tree_dot(g, g))
 
-    r, pb = linearize(resid, theta, batch)
+    r, pb = linearized(theta)
     diag, md = diag_estimate(theta, batch, resid, pb,
                              _draw_probes(gen, theta, max(diag_probes, 1)))
     if not precond:
@@ -199,7 +217,7 @@ def lm_train(theta, batch, resid, iters: int = 15, cg_iters: int = 8,
     losses = []
     for it in range(iters):
         if it > 0:
-            r, pb = linearize(resid, theta, batch)
+            r, pb = linearized(theta)
             if precond and it % max(precond_refresh, 1) == 0:
                 diag, _ = diag_estimate(theta, batch, resid, pb,
                                         _draw_probes(gen, theta, max(diag_probes, 1)))
@@ -210,7 +228,7 @@ def lm_train(theta, batch, resid, iters: int = 15, cg_iters: int = 8,
         if record is not None:
             record(loss_f, theta, gnorm_f)
     with torch.no_grad():
-        r_fin = float(torch.sum(resid(theta, batch) ** 2))
+        r_fin = float(sq(resid(theta, batch)))
     losses.append(r_fin)
     if record is not None:
         record(r_fin, theta, 0.0)

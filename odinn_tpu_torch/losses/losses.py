@@ -26,6 +26,7 @@ __all__ = [
     "LossContext",
     "simple_loss",
     "simple_residual",
+    "backward_simple_loss",
     "loss_uses_velocity",
     "term_kind",
 ]
@@ -71,6 +72,23 @@ def simple_residual(cfg, a, b, mask, normalization):
     if isinstance(cfg, LogSum):
         return w * torch.log((torch.clamp(a, min=0.0) + cfg.eps)
                              / (torch.clamp(b, min=0.0) + cfg.eps))
+    raise TypeError(f"unknown simple loss {cfg!r}")
+
+
+def backward_simple_loss(cfg, a, b, mask, normalization):
+    """∂ :func:`simple_loss` / ∂a, per cell (the reference's
+    ``backward_loss``); a batch's ``normalization`` is a (n_g,) tensor
+    broadcast over the grid."""
+    m = mask.to(a.dtype)
+    if isinstance(normalization, torch.Tensor) and normalization.ndim == 1:
+        normalization = normalization[:, None, None]
+    if isinstance(cfg, L2Sum):
+        return 2.0 * m * (a - b) / normalization
+    if isinstance(cfg, LogSum):
+        ap = torch.clamp(a, min=0.0) + cfg.eps
+        bp = torch.clamp(b, min=0.0) + cfg.eps
+        grad = 2.0 * m * torch.log(ap / bp) / ap / normalization
+        return grad * (a > 0.0)
     raise TypeError(f"unknown simple loss {cfg!r}")
 
 

@@ -59,6 +59,14 @@ class SIA2DModel:
             if l.callback_freq is not None and l.callback_freq > 0
         }
 
+    @property
+    def Y_is_provided(self) -> bool:
+        return self.Y is not None
+
+    @property
+    def U_is_provided(self) -> bool:
+        return self.U is not None
+
 
 @dataclass(frozen=True)
 class Model:

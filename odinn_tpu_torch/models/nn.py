@@ -27,6 +27,7 @@ __all__ = [
     "prescale",
     "postscale",
     "fourier_feature",
+    "predict_A_bar",
 ]
 
 # the JAX package's activations: softplus is log(1 + eˣ) as logaddexp(x, 0)
@@ -133,3 +134,12 @@ def fourier_feature(x, n_freq: int = 4, scale_ff: float = 1.0):
     xf = x[..., None, :] * freqs[:, None]
     feats = torch.cat([torch.sin(xf), torch.cos(xf)], dim=-1)
     return feats.reshape(*x.shape[:-1], -1)
+
+
+def predict_A_bar(arch: MLP, params, temp, lims: Tuple[float, float]):
+    """A(T) = scale(NN(T), lims): the network's output for the
+    temperatures ``temp`` (a number or a tensor) mapped onto
+    [min_A, max_A], in the parameters' dtype and on their device."""
+    w = params[0]["w"]
+    t = torch.atleast_1d(torch.as_tensor(temp, dtype=w.dtype, device=w.device))[..., None]
+    return scale(mlp_apply(arch, params, t)[..., 0], lims)

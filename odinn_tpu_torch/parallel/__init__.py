@@ -1,1 +1,2 @@
-"""Scale-out (``mesh``: the registered mesh, single device only)."""
+"""Scale-out: the glacier axis over the ranks of a torch.distributed job
+(``mesh``), one process per device (``multiprocess``, ``mp_worker``)."""

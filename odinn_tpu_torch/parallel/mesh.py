@@ -1,47 +1,112 @@
-"""The registered scale-out mesh, single device only.
+"""Scale-out: the glacier axis split over the ranks of a torch.distributed job.
 
-The JAX package registers a 1-D device mesh here
-(``odinn_tpu.parallel.mesh.set_active_mesh``) that multi-start training and
-ensemble Kalman inversion read to shard their member axis. The port runs
-on one card: no mesh (``None``) or a mesh of one device behaves as in the
-JAX package, where nothing is sharded; a mesh of more devices is refused
-until the parallel layouts are ported (``ROADMAP.md``, Queue 1 item 9).
-A mesh is anything with a ``size`` (the JAX package's ``Mesh`` has one),
-or a sequence of devices.
+The JAX package shards the stacked glacier batch over a 1-D device mesh
+axis ``"glaciers"`` and lets XLA insert the gradient ``psum``, or pins it
+by hand (``make_shard_map_value_and_grad``). The port follows PyTorch's
+idiom and that explicit variant:
+
+- one process per device, joined by ``torch.distributed``
+  (:mod:`odinn_tpu_torch.parallel.multiprocess`); the mesh is a 1-D
+  ``DeviceMesh`` named ``("glaciers",)`` over every rank of the job
+  (:func:`make_mesh`);
+- every rank holds the whole inversion and solves its own contiguous block
+  of the glacier axis (:func:`shard_glacier_axis`, through
+  ``gather_batch``, so ``glacier_ids`` stay global and per-glacier θ rows
+  still resolve), launching the kernels on its own glaciers only;
+- the loss and the θ gradient are summed over the ranks by one explicit
+  ``all_reduce`` a step (:func:`allreduce_sum`). θ stays whole on every
+  rank: a per-glacier row's gradient is zero on the ranks that do not hold
+  its glacier, so the sum is exact, and every host decision reads the same
+  reduced numbers on every rank.
+
+Collectives run over gloo on host buffers: they move θ-sized vectors (a few
+kB) and the final gathers, which go to the host anyway, and gloo, unlike
+NCCL, allows two ranks on one card. A mesh of one device, or None, runs as
+no mesh. A mesh with a ``"rows"`` dimension (grid-row sharding,
+``odinn_tpu.parallel.spatial``) is refused until ``ROADMAP.md`` Queue 1
+item 10. A mesh is a ``DeviceMesh``, or, for one device, a sequence of one
+device (or anything with a ``size`` of 1).
 """
 
 from __future__ import annotations
 
 from typing import Any, Optional
 
-__all__ = ["set_active_mesh", "active_mesh", "mesh_size", "check_single_device"]
+import torch
+
+from odinn_tpu_torch.utils.flatten import tree_leaves, tree_map, tree_unflatten
+
+__all__ = [
+    "GLACIER_AXIS",
+    "make_mesh",
+    "mesh_size",
+    "mesh_rank",
+    "glacier_mesh",
+    "shard_glacier_axis",
+    "replicate",
+    "shard_theta",
+    "allreduce_sum",
+    "gather_rows",
+    "make_shard_map_value_and_grad",
+    "pad_batch_to",
+    "shard_inversion",
+    "set_active_mesh",
+    "active_mesh",
+]
+
+GLACIER_AXIS = "glaciers"
+ROWS_AXIS = "rows"
 
 _ACTIVE_MESH: Optional[Any] = None
 
 
 def mesh_size(mesh) -> int:
-    """The devices of ``mesh``: its ``size``, or its length."""
+    """The devices of ``mesh``: a ``DeviceMesh``'s ``size()``, a JAX-style
+    ``size`` attribute, or a sequence's length; 1 for None."""
     if mesh is None:
         return 1
     size = getattr(mesh, "size", None)
+    if callable(size):
+        size = size()
     return int(size) if size is not None else len(mesh)
 
 
-def check_single_device(mesh, what: str = "odinn_tpu_torch") -> None:
-    """Raises for a mesh of more than one device."""
-    n = mesh_size(mesh)
-    if n > 1:
+def mesh_rank(mesh) -> int:
+    """This process's index along the mesh's glacier axis (0 without one)."""
+    if mesh_size(mesh) <= 1:
+        return 0
+    return int(mesh.get_local_rank(GLACIER_AXIS))
+
+
+def glacier_mesh(mesh, what: str = "odinn_tpu_torch"):
+    """``mesh`` as the trainers take it: None for no mesh or one of one
+    device, else the ``DeviceMesh``. A ``"rows"`` dimension raises
+    ``NotImplementedError``; a sequence of several devices raises
+    ``TypeError`` (a mesh of several devices spans the ranks of a job)."""
+    if mesh is None:
+        return None
+    names = getattr(mesh, "mesh_dim_names", None) or ()
+    if ROWS_AXIS in names:
         raise NotImplementedError(
-            f"{what}: a mesh of {n} devices shards work across cards, which "
-            "comes with the parallel layouts (ROADMAP.md, Queue 1 item 9); "
-            "the port runs on one card: pass mesh=None")
+            f"{what}: a mesh with a {ROWS_AXIS!r} dimension shards each glacier's grid "
+            "rows (parallel/spatial.py), which comes with ROADMAP.md Queue 1 item 10; "
+            f"use a 1-D mesh over the {GLACIER_AXIS!r} axis (make_mesh)")
+    n = mesh_size(mesh)
+    if n <= 1:
+        return None
+    if not hasattr(mesh, "get_group"):
+        raise TypeError(
+            f"{what}: a mesh of {n} devices is a DeviceMesh over the ranks of a "
+            "torch.distributed job, one process per device: call init_distributed "
+            "in each process, then make_mesh()")
+    return mesh
 
 
 def set_active_mesh(mesh):
-    """Register (or clear, with None) the process-wide mesh; a mesh of more
-    than one device is refused."""
+    """Register (or clear, with None) the process-wide mesh that
+    ``train_ude``, ``multistart_train`` and ``eki_train`` take by default."""
     global _ACTIVE_MESH
-    check_single_device(mesh, "set_active_mesh")
+    glacier_mesh(mesh, "set_active_mesh")
     _ACTIVE_MESH = mesh
     return mesh
 
@@ -49,3 +114,236 @@ def set_active_mesh(mesh):
 def active_mesh():
     """The mesh registered by :func:`set_active_mesh`, if any."""
     return _ACTIVE_MESH
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def make_mesh(n_devices: Optional[int] = None):
+    """The 1-D ``DeviceMesh`` ``("glaciers",)`` over the job's ranks, or
+    None for a job of one rank (no mesh). Raises ``ValueError`` when the
+    job has fewer than ``n_devices`` ranks, and when it has more: one
+    process drives one device, so a mesh spans every rank of its job."""
+    world = _world_size()
+    n = world if n_devices is None else int(n_devices)
+    if n > world:
+        raise ValueError(f"mesh needs {n} devices, have {world} ranks in the "
+                         "torch.distributed job (one process per device)")
+    if n <= 1:
+        return None
+    if n < world:
+        raise ValueError(f"mesh of {n} devices in a job of {world} ranks: a mesh spans "
+                         "every rank (one process per device); start the job with "
+                         f"{n} processes")
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh("cpu", (n,), mesh_dim_names=(GLACIER_AXIS,))
+
+
+def _group(mesh):
+    return mesh.get_group(GLACIER_AXIS)
+
+
+def _flat_host(tensors):
+    """The tensors raveled into one host buffer of their promoted dtype."""
+    dtype = tensors[0].dtype
+    for t in tensors[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return torch.cat([t.detach().reshape(-1).to(device="cpu", dtype=dtype) for t in tensors])
+
+
+def _unflat(flat, like):
+    out, i = [], 0
+    for t in like:
+        n = t.numel()
+        out.append(flat[i:i + n].reshape(t.shape).to(device=t.device, dtype=t.dtype))
+        i += n
+    return out
+
+
+def allreduce_sum(tensors, mesh) -> list:
+    """Each tensor summed over the mesh's ranks, on its own device and in
+    its own dtype: one ``all_reduce`` of one host buffer in the promoted
+    dtype. Every rank gets the same numbers."""
+    import torch.distributed as dist
+
+    tensors = list(tensors)
+    flat = _flat_host(tensors)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=_group(mesh))
+    return _unflat(flat, tensors)
+
+
+def gather_rows(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The ranks' blocks of ``x`` (equal shapes) concatenated along axis 0
+    in rank order, on ``x``'s device: an ``all_gather`` of host copies over
+    the mesh's ranks (None: every rank of the job)."""
+    import torch.distributed as dist
+
+    group = None if mesh is None else _group(mesh)
+    host = x.detach().to("cpu").contiguous()
+    parts = [torch.empty_like(host) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, host, group=group)
+    return torch.cat(parts).to(x.device)
+
+
+def replicate(tree, mesh):
+    """``tree`` (θ, optimizer state) as rank 0 holds it, on every rank: one
+    broadcast of one host buffer; each leaf keeps its device and dtype."""
+    import torch.distributed as dist
+
+    mesh = glacier_mesh(mesh, "replicate")
+    if mesh is None:
+        return tree
+    leaves = tree_leaves(tree)
+    flat = _flat_host(leaves)
+    group = _group(mesh)
+    dist.broadcast(flat, src=dist.get_global_rank(group, 0), group=group)
+    return tree_unflatten(tree, _unflat(flat, leaves))
+
+
+def _block(n: int, mesh):
+    size = mesh_size(mesh)
+    if n % size != 0:
+        raise ValueError(f"a glacier axis of {n} does not split over {size} ranks: pad it "
+                         "to a multiple first (pad_batch_to)")
+    k = n // size
+    r = mesh_rank(mesh)
+    return r * k, (r + 1) * k
+
+
+def shard_glacier_axis(batch, mesh):
+    """This rank's contiguous block of the stacked batch's glacier axis
+    (``gather_batch``: ``glacier_ids`` stay the batch's own indices). The
+    glacier count must divide by the mesh size (:func:`pad_batch_to`)."""
+    from odinn_tpu_torch.simulation.inversion import gather_batch
+
+    mesh = glacier_mesh(mesh, "shard_glacier_axis")
+    if mesh is None:
+        return batch
+    lo, hi = _block(batch.H0.shape[0], mesh)
+    return gather_batch(batch, torch.arange(lo, hi))
+
+
+def _is_per_glacier(key, x, keys, n_g, size) -> bool:
+    return (key in keys and isinstance(x, torch.Tensor) and x.ndim >= 1
+            and (n_g is None or x.shape[0] == n_g) and x.shape[0] % size == 0)
+
+
+def _per_key(theta, fn):
+    """``fn(key, leaf)`` over a θ dict's leaves, keyed by their top-level
+    slot (a non-dict θ has no slot)."""
+    if isinstance(theta, dict):
+        return {k: tree_map(lambda x, k=k: fn(k, x), v) for k, v in theta.items()}
+    return tree_map(lambda x: fn(None, x), theta)
+
+
+def shard_theta(theta, mesh, per_glacier_keys=("IC",)):
+    """θ with this rank's rows of its per-glacier entries (those under
+    ``per_glacier_keys`` whose leading axis divides by the mesh size);
+    shared entries are left whole."""
+    mesh = glacier_mesh(mesh, "shard_theta")
+    if mesh is None:
+        return theta
+    size = mesh_size(mesh)
+
+    def place(key, x):
+        if _is_per_glacier(key, x, per_glacier_keys, None, size):
+            lo, hi = _block(x.shape[0], mesh)
+            return x[lo:hi]
+        return x
+
+    return _per_key(theta, place)
+
+
+def make_shard_map_value_and_grad(model, params, tstops, mesh, per_glacier_keys=("IC", "A")):
+    """The explicit-collective step: ``value_and_grad(theta, batch)`` →
+    (loss, gradient tree). Each rank takes its block of the glacier axis
+    and of θ's per-glacier entries (under ``per_glacier_keys``, leading
+    axis = the glacier count), computes its loss and gradient by autograd
+    with shard-local glacier indices, and sums the loss and the shared
+    entries' gradients over the ranks in one ``all_reduce``; the
+    per-glacier entries' gradients stay local, this rank's rows."""
+    from odinn_tpu_torch.simulation.inversion import batch_transient_loss
+
+    mesh = glacier_mesh(mesh, "make_shard_map_value_and_grad")
+    size = mesh_size(mesh)
+
+    def value_and_grad(theta, batch):
+        n_g = batch.H0.shape[0]
+        local = shard_glacier_axis(batch, mesh).replace(glacier_ids=None)
+
+        def per_glacier(key, x):
+            return size > 1 and _is_per_glacier(key, x, per_glacier_keys, n_g, size)
+
+        def place(key, x):
+            x = x.detach()
+            if per_glacier(key, x):
+                lo, hi = _block(n_g, mesh)
+                x = x[lo:hi]
+            return x.clone().requires_grad_(True)
+
+        th = _per_key(theta, place)
+        sharded = tree_leaves(_per_key(theta, per_glacier))
+        leaves = tree_leaves(th)
+        loss = batch_transient_loss(th, local, model, params, tstops)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        if size > 1:
+            shared = [i for i, s in enumerate(sharded) if not s]
+            summed = allreduce_sum([loss.detach()] + [grads[i] for i in shared], mesh)
+            loss = summed[0]
+            for i, g in zip(shared, summed[1:]):
+                grads[i] = g
+        return loss.detach(), tree_unflatten(th, grads)
+
+    return value_and_grad
+
+
+def pad_batch_to(batch, n: int):
+    """The glacier axis padded to a multiple of ``n`` by repeating the last
+    glacier with its thickness and velocity observations and its mask
+    zeroed, so the padded lanes add exactly zero loss and gradient; their
+    ``glacier_ids`` point at the last glacier's θ rows. Returns
+    (padded batch, original glacier count)."""
+    from odinn_tpu_torch.simulation.inversion import gather_batch
+
+    b = batch.H0.shape[0]
+    if b % n == 0:
+        return batch, b
+    pad = n - b % n
+    idx = torch.cat([torch.arange(b), torch.full((pad,), b - 1, dtype=torch.long)])
+    padded = gather_batch(batch, idx)
+
+    def zero_padded(x):
+        if x is None or x.ndim < 1 or x.shape[0] != b + pad:
+            return x
+        x = x.clone()
+        x[b:] = 0.0
+        return x
+
+    td, vd = padded.thickness_data, padded.velocity_data
+    if td is not None:
+        padded = padded.replace(thickness_data=td.__class__(t=td.t, H=zero_padded(td.H)))
+    if vd is not None:
+        import dataclasses
+
+        padded = padded.replace(velocity_data=dataclasses.replace(
+            vd, vx=zero_padded(vd.vx), vy=zero_padded(vd.vy), vabs=zero_padded(vd.vabs)))
+    return padded.replace(mask=zero_padded(padded.mask)), b
+
+
+def shard_inversion(theta, batch, mesh):
+    """An inversion's (θ, glacier batch) placed for training on ``mesh``:
+    the glacier axis padded to a multiple of the mesh size
+    (:func:`pad_batch_to`), this rank's block of it, and θ whole, as rank 0
+    holds it (:func:`replicate`). Returns ``(theta, local batch,
+    original glacier count)``. A mesh with a ``"rows"`` dimension raises
+    ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 10)."""
+    mesh = glacier_mesh(mesh, "shard_inversion")
+    if mesh is None:
+        return theta, batch, batch.H0.shape[0]
+    padded, n_orig = pad_batch_to(batch, mesh_size(mesh))
+    return replicate(theta, mesh), shard_glacier_axis(padded, mesh), n_orig

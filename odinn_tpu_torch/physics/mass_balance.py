@@ -19,7 +19,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-__all__ = ["TImodel1", "compute_mb", "apply_mb_mask", "mb_timestep"]
+__all__ = ["TImodel1", "downscale_2d_climate", "compute_mb", "apply_mb_mask", "mb_timestep",
+           "validate_model_simulation_compatibility"]
 
 _DAYS_PER_MONTH = 30.44
 
@@ -45,6 +46,14 @@ def _shifted_time(t, step, dtype: torch.dtype) -> float:
     if isinstance(t, torch.Tensor):
         t = t.item()
     return float(npt(t) - npt(step))
+
+
+def downscale_2d_climate(climate, S):
+    """The monthly reference-height temperatures downscaled to the surface
+    ``S``: T₂D(m) = T_ref(m) + ∇T(m)·(S − ref_hgt), shaped (n_months, nx,
+    ny), or (n_g, n_months, nx, ny) for a batch."""
+    return _trail(climate.temp, 2) + _trail(climate.gradient, 2) * (
+        S.unsqueeze(-3) - _trail(torch.as_tensor(climate.ref_hgt), 3))
 
 
 def compute_mb(mb: TImodel1, climate, S, t, step):
@@ -93,3 +102,14 @@ def mb_timestep(H, glacier, mb, t, step):
         MB = compute_mb(mb, glacier.climate, S, t, step).to(H.dtype)
     H_new, _ = apply_mb_mask(H_pos, MB)
     return H_new
+
+
+def validate_model_simulation_compatibility(model, params) -> None:
+    """Raises when ``simulation.use_MB`` asks for a mass balance the model
+    lacks; warns when the model's mass balance will be ignored."""
+    if params.simulation.use_MB and model.mass_balance is None:
+        raise ValueError("use_MB=True but the model has no mass-balance component")
+    if not params.simulation.use_MB and model.mass_balance is not None:
+        import warnings
+
+        warnings.warn("mass-balance model provided but use_MB=False; it will be ignored")

@@ -27,6 +27,12 @@ identity:
 in PyTorch on the residuals' device and dtype. The iteration preserves the
 affine span of the initial ensemble (the subspace property), so J should
 exceed the effective parameter dimension.
+
+On a mesh of several ranks (:mod:`odinn_tpu_torch.parallel.mesh`) whose
+size divides J, each rank folds and solves its own block of members; the
+residual rows are gathered, so the Kalman step (and ``perturb_obs``'s
+draw, made for the whole ensemble from one seeded generator) runs the
+same on every rank. Otherwise every rank evaluates every member.
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from odinn_tpu_torch.parallel.mesh import active_mesh, check_single_device
+from odinn_tpu_torch.parallel.mesh import (
+    active_mesh, gather_rows, glacier_mesh, mesh_rank, mesh_size, replicate)
 from odinn_tpu_torch.simulation.ensemble import (
     fold_members, folded_residuals, init_restarts, stack_thetas)
 from odinn_tpu_torch.simulation.inversion import assemble_tstops
@@ -101,8 +108,9 @@ def eki_train(
     classical EKI estimator) for the write-back.
     ``tol``: optional early stop when the relative drop of the best misfit
     over one iteration falls below it.
-    ``mesh``: None or a mesh of one device (the registered mesh by
-    default); more devices are refused (``parallel/mesh.py``).
+    ``mesh``: the registered mesh by default; over several ranks each
+    evaluates its block of members when J divides by the mesh size
+    (module doc).
 
     Every configured loss term must expose ``.residuals`` (the same contract
     as LM training); terms without one raise with a remedy. One host read
@@ -138,15 +146,26 @@ def eki_train(
             f"dimension (d={d}): updates stay in the initial ensemble's "
             f"affine span. Raise n_ensemble or init_scale coverage if the "
             f"fit stalls.", stacklevel=2)
-    check_single_device(active_mesh() if mesh is None else mesh, "eki_train")
+    mesh = glacier_mesh(active_mesh() if mesh is None else mesh, "eki_train")
 
     J = n_ensemble
-    fold = fold_members(model, batch, params, J)
+    # this rank's block of members, or all of them when they do not split
+    split = mesh is not None and J % mesh_size(mesh) == 0
+    n_local = J // mesh_size(mesh) if split else J
+    lo = mesh_rank(mesh) * n_local if split else 0
+    if mesh is not None:
+        Th = replicate(Th, mesh)
+    fold = fold_members(model, batch, params, n_local)
 
-    def residuals_of(Th, fold):
+    def residuals_of(Th, fold, members=None):
+        rows = Th if members is None else Th[members]
         with torch.no_grad():
-            R = folded_residuals(rows_to_stack(Th, like), fold, tstops)   # (J, m)
+            R = folded_residuals(rows_to_stack(rows, like), fold, tstops)  # (rows, m)
+        if members is not None:
+            R = gather_rows(R, mesh)
         return R, torch.sum(R * R, dim=1)
+
+    members = slice(lo, lo + n_local) if split else None
 
     gen = torch.Generator().manual_seed(int(seed) + 1)
 
@@ -169,12 +188,12 @@ def eki_train(
         S = torch.linalg.solve(C + gamma * torch.eye(J, dtype=R.dtype, device=R.device), M)
         return Th + (S.T @ Ta.to(S.dtype)).to(Th.dtype)
 
-    R, misfit = residuals_of(Th, fold)
+    R, misfit = residuals_of(Th, fold, members)
     history = [misfit.double().cpu().numpy()]
     n_done = 0
     for k in range(n_iters):
         Th = kalman_step(Th, R)
-        R, misfit = residuals_of(Th, fold)
+        R, misfit = residuals_of(Th, fold, members)
         history.append(misfit.double().cpu().numpy())
         n_done = k + 1
         if tol is not None and len(history) >= 2:

@@ -38,6 +38,16 @@ the best k surviving restarts one after the other (LBFGS through
 ``train_ude``'s strong-Wolfe ``torch.optim.LBFGS`` stage, LM through
 ``lm_train``), with the final winner selected after refinement. The folded
 Adam stages train by autograd (``grad="jax"``).
+
+On a mesh of several ranks (:mod:`odinn_tpu_torch.parallel.mesh`) whose
+size divides the restart count, each rank folds its own block of restarts
+into its kernels' glacier axis and trains it (restarts are independent:
+nothing is summed across ranks); the loss curves, final losses and θ
+stacks are then gathered, so every rank returns the whole
+``MultistartResult``. Otherwise every rank runs every restart, as the JAX
+package's unsharded fallback does. The refinement splits each survivor's
+glacier axis over the mesh (``train_ude(…, mesh=…)``, ``lm_train``'s
+``allreduce``).
 """
 
 from __future__ import annotations
@@ -53,7 +63,9 @@ from odinn_tpu_torch.core.glacier import map_tensors
 from odinn_tpu_torch.inverse.gauss_newton import lm_train, make_residual_fn
 from odinn_tpu_torch.losses.losses import MultiLoss, term_kind
 from odinn_tpu_torch.models.model import Model, glacier_index
-from odinn_tpu_torch.parallel.mesh import active_mesh, check_single_device
+from odinn_tpu_torch.parallel.mesh import (
+    active_mesh, allreduce_sum, gather_rows, glacier_mesh, mesh_rank, mesh_size, replicate,
+    shard_inversion)
 from odinn_tpu_torch.simulation.inversion import (
     Inversion, _stages, assemble_tstops, gather_batch, glacier_residuals,
     glacier_transient_loss, resolve_accum_chunks, train_ude)
@@ -287,8 +299,9 @@ def multistart_train(
 
     ``thetas``: optional explicit θ stack (leading restart axis) or list of
     θ trees; by default :func:`init_restarts` jitters the inversion's own θ.
-    ``mesh``: None or a mesh of one device (the registered mesh by
-    default); more devices are refused (``parallel/mesh.py``).
+    ``mesh``: the registered mesh by default; over several ranks each
+    trains its block of restarts when their count divides by the mesh size
+    (module doc).
     ``refine_top_k``: with trailing curvature stages (LBFGS/LM) configured,
     carry the best k post-Adam restarts through them, one after the other,
     and select the winner AFTER refinement.
@@ -328,13 +341,25 @@ def multistart_train(
         raise NotImplementedError(
             f"multistart_train's Adam stages train the folded restarts by autograd "
             f"(grad='jax'); got grad={grad_kind!r}")
-    check_single_device(active_mesh() if mesh is None else mesh, "multistart_train")
+    mesh = glacier_mesh(active_mesh() if mesh is None else mesh, "multistart_train")
 
     if thetas is None:
         thetas = init_restarts(inversion.theta, n_restarts, init_scale, seed)
     elif isinstance(thetas, (list, tuple)):
         thetas = stack_thetas(thetas)
     n_restarts = int(tree_leaves(thetas)[0].shape[0])
+    # this rank's block of restarts, or all of them when they do not split
+    split = mesh is not None and n_restarts % mesh_size(mesh) == 0
+    n_local = n_restarts // mesh_size(mesh) if split else n_restarts
+    if mesh is not None:
+        thetas = replicate(thetas, mesh)
+    if split:
+        lo = mesh_rank(mesh) * n_local
+        thetas = tree_map(lambda x: x[lo:lo + n_local], thetas)
+
+    def gathered(x):
+        return gather_rows(x, mesh) if split else x
+
     thetas = tree_map(lambda x: x.detach().clone().requires_grad_(True), thetas)
     leaves = tree_leaves(thetas)
 
@@ -346,7 +371,7 @@ def multistart_train(
     subs = [batch] if k_chunks <= 1 else [
         gather_batch(batch, torch.arange(c * n_g // k_chunks, (c + 1) * n_g // k_chunks))
         for c in range(k_chunks)]
-    folds = [fold_members(model, b, params, n_restarts) for b in subs]
+    folds = [fold_members(model, b, params, n_local) for b in subs]
 
     def value_and_grad():
         vals, grads = None, None
@@ -373,11 +398,12 @@ def multistart_train(
             opt.step()
             curves.append(vals)
     del folds
-    thetas = tree_map(lambda x: x.detach(), thetas)
+    final = gathered(torch.as_tensor(final_of(thetas, n_local)))
+    final = np.asarray(final, np.float64)
+    thetas = tree_map(lambda x: gathered(x.detach()), thetas)
     # one host read of the loss curves at the end
-    losses = (torch.stack(curves, dim=1).double().cpu().numpy() if curves
+    losses = (gathered(torch.stack(curves, dim=1)).double().cpu().numpy() if curves
               else np.zeros((n_restarts, 0)))
-    final = final_of(thetas, n_restarts)
     best = select_best(final)
 
     refined_idxs = refined_final = None
@@ -386,7 +412,7 @@ def multistart_train(
         order = np.argsort(np.where(np.isfinite(final), final, np.inf), kind="stable")
         refined_idxs = order[:k]
         top = tree_map(lambda x: x[torch.as_tensor(refined_idxs, device=x.device)], thetas)
-        top = _refine(top, refine_stages, inversion, tstops)
+        top = _refine(top, refine_stages, inversion, tstops, mesh)
         refined_final = final_of(top, k)
         j = select_best(refined_final)
         # refinement is warm-started from the Adam iterate but its last step
@@ -417,11 +443,12 @@ def multistart_train(
     )
 
 
-def _refine(top, refine_stages, inversion, tstops):
+def _refine(top, refine_stages, inversion, tstops, mesh=None):
     """Run the trailing curvature stages on the top-k restart stack, one
     survivor after the other: LBFGS as ``train_ude``'s LBFGS stage on the
     full batch (it returns the stage's best iterate), LM as ``lm_train``
-    (its damping accept/reject loop reads the host each iteration)."""
+    (its damping accept/reject loop reads the host each iteration); on a
+    ``mesh`` each survivor's glacier axis is split over the ranks."""
     params = inversion.parameters
     batch = inversion.glaciers
     hyper = params.hyper
@@ -437,13 +464,16 @@ def _refine(top, refine_stages, inversion, tstops):
                     batch_size=max(int(hyper.batch_size), n_g)))
                 inv_j = Inversion(model=inversion.model, glaciers=batch, parameters=p_j,
                                   theta=th_j, device=inversion.device)
-                train_ude(inv_j)
+                train_ude(inv_j, mesh=mesh)
                 th_j = inv_j.theta
             else:  # lm / gn
                 resid = make_residual_fn(inversion.model, params, tstops)
-                th_j, _ = lm_train(th_j, batch, resid, iters=int(epochs),
+                th_j, local, _ = shard_inversion(th_j, batch, mesh)
+                th_j, _ = lm_train(th_j, local, resid, iters=int(epochs),
                                    cg_iters=hyper.gn_cg_iters, init_damping=lr,
-                                   precond=hyper.gn_precond, cg_restarts=hyper.gn_cg_restarts)
+                                   precond=hyper.gn_precond, cg_restarts=hyper.gn_cg_restarts,
+                                   allreduce=None if mesh is None else (
+                                       lambda ts: allreduce_sum(ts, mesh)))
             outs.append(th_j)
         top = stack_thetas(outs)
     return top

@@ -53,6 +53,18 @@ most three times. ``adaptive=True`` is forward-only and refused.
 
 ``run_inversion(path=…, file_name=…)`` saves the trained result
 (:mod:`odinn_tpu_torch.utils.io`); ``load_inversion_file`` reads it back.
+
+Scale-out: with a mesh (``train_ude(…, mesh=…)``, or one registered by
+``set_active_mesh`` / ``api.enable_multiprocessing``) over the ranks of a
+``torch.distributed`` job, each rank solves its own block of the glacier
+axis (:mod:`odinn_tpu_torch.parallel.mesh`) and the loss and every gradient
+leaf are summed over the ranks by one ``all_reduce`` a step (``grad="dummy"``'s
+draw excepted: every rank draws the same one). θ stays whole on every
+rank, and every host decision (the best iterate, the non-finite check and
+the gradient norm, LBFGS's line search, the re-sizings) reads reduced
+values, so the ranks take the same steps. The tolerance is resolved on the
+whole batch; the final trajectories are gathered, so every rank returns
+the same ``Results``.
 """
 
 from __future__ import annotations
@@ -75,6 +87,9 @@ from odinn_tpu_torch.core.params import torch_dtype
 from odinn_tpu_torch.losses.losses import LossContext, LossH, LossV, MultiLoss, term_kind
 from odinn_tpu_torch.models.model import (
     Model, glacier_index, init_theta, initial_thickness, make_values_fn, resolve_outer_values)
+from odinn_tpu_torch.parallel.mesh import (
+    active_mesh, allreduce_sum, gather_rows, glacier_mesh, mesh_rank, mesh_size, pad_batch_to,
+    shard_inversion)
 from odinn_tpu_torch.physics.sia2d import v_from_h
 from odinn_tpu_torch.simulation.observations import thickness_at, velocity_at
 from odinn_tpu_torch.simulation.prediction import (
@@ -407,14 +422,31 @@ def _dummy_grad(theta):
         dtype=x.dtype, device=x.device) for x in _tree_leaves(theta)]
 
 
-def _make_grad_fn(inversion: Inversion, loss_fn_b, stats: TrainingStats):
+def _reduced(vg, mesh, grads_too: bool = True):
+    """``vg`` with its loss, and its gradients when ``grads_too``, summed
+    over the mesh's ranks in one ``all_reduce`` (no mesh: ``vg``)."""
+    if mesh is None:
+        return vg
+
+    def reduced_vg(theta, b):
+        val, grads = vg(theta, b)
+        if not grads_too:
+            return allreduce_sum([val], mesh)[0], grads
+        out = allreduce_sum([val, *grads], mesh)
+        return out[0], out[1:]
+
+    return reduced_vg
+
+
+def _make_grad_fn(inversion: Inversion, loss_fn_b, stats: TrainingStats, mesh=None):
     """``vg(theta, b) -> (loss, grads)`` for params.UDE.grad, with the
     gradients in θ's leaf order: autograd through the solve, a hand-written
     adjoint (one forward solve and one backward sweep each), forward mode
     (one dual solve per θ leaf) or the dummy gradient. Chunked accumulation
     (hyper.grad_accum_chunks) sums the exact per-chunk losses and gradients,
     bounding the live autograd graph (or the adjoint's trajectory) to one
-    chunk."""
+    chunk. With a ``mesh`` the loss and gradients are summed over its ranks
+    (the dummy draw is not: every rank draws the same)."""
     grad_cfg = inversion.parameters.UDE.grad
     name = grad_cfg if isinstance(grad_cfg, str) else getattr(grad_cfg, "name", "jax")
     if name not in ("jax", "sciml", "discrete", "continuous", "forward", "dummy"):
@@ -430,14 +462,14 @@ def _make_grad_fn(inversion: Inversion, loss_fn_b, stats: TrainingStats):
             stats.solves += len(grads)
             return val, grads
 
-        return forward_vg
+        return _reduced(forward_vg, mesh)
     if name == "dummy":
         def dummy_vg(theta, b):
             with torch.no_grad():
                 val = loss_fn_b(theta, b)
             return val, _dummy_grad(theta)
 
-        return dummy_vg
+        return _reduced(dummy_vg, mesh, grads_too=False)
     if name in ("discrete", "continuous"):
         from odinn_tpu_torch.inverse.gradient import make_adjoint_value_and_grad
 
@@ -472,7 +504,7 @@ def _make_grad_fn(inversion: Inversion, loss_fn_b, stats: TrainingStats):
             grads = g if grads is None else [a + x for a, x in zip(grads, g)]
         return val, grads
 
-    return vg
+    return _reduced(vg, mesh)
 
 
 def _record(stats: TrainingStats, val, theta, gnorm, dt):
@@ -521,21 +553,26 @@ def _resolve_tolerance(params, batch, model, theta, tstops):
 
 
 def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
-              record_theta_hist: bool = False) -> Results:
+              record_theta_hist: bool = False, mesh=None) -> Results:
     """Staged training loop (see the module doc). θ warm-starts across
     stages; each stage starts from the best iterate so far; the returned θ
     is the best iterate seen (full-batch losses). ``record_theta_hist`` keeps
     θ per iteration. Results hold the final forward with the trained θ.
     The resolved parameters (recorded schedule, sized substeps) are left in
     ``inversion.parameters``; ``stats.substeps_bumps`` lists each re-sizing
-    as (iteration, old, new)."""
+    as (iteration, old, new). ``mesh`` (default: the registered
+    ``active_mesh()``) splits the glacier axis over a job's ranks (module
+    doc); a mesh with a ``"rows"`` dimension raises."""
     model = inversion.model
     batch = inversion.glaciers
     params = inversion.parameters
     tstops = assemble_tstops(params, batch)
     stats = TrainingStats()
     stats._record_theta_hist = record_theta_hist
-    theta = _tree_map(lambda x: x.detach().clone().requires_grad_(True), inversion.theta)
+    mesh = glacier_mesh(active_mesh() if mesh is None else mesh, "train_ude")
+    # this rank's glaciers (padded to a multiple of the mesh), θ as rank 0 has it
+    theta0, local, n_results = shard_inversion(inversion.theta, batch, mesh)
+    theta = _tree_map(lambda x: x.detach().clone().requires_grad_(True), theta0)
     leaves = _tree_leaves(theta)
     substeps_auto = params.solver.substeps == "auto"
     params = _resolve_tolerance(params, batch, model, theta, tstops)
@@ -552,9 +589,10 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
 
     def eval_loss(theta, b) -> float:
         with torch.no_grad():
-            return float(loss_fn_b(theta, b))
+            val = loss_fn_b(theta, b)
+        return float(val if mesh is None else allreduce_sum([val], mesh)[0])
 
-    vg = _make_grad_fn(inversion, loss_fn_b, stats)
+    vg = _make_grad_fn(inversion, loss_fn_b, stats, mesh)
     best = {"val": math.inf, "theta": None}
 
     def fold_best(val, values):
@@ -574,7 +612,7 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
         params = new_params
         inversion.parameters = params
         stats.substeps_bumps.append(bump)
-        vg = _make_grad_fn(inversion, loss_fn_b, stats)
+        vg = _make_grad_fn(inversion, loss_fn_b, stats, mesh)
 
     def recheck_substeps():
         """The staleness guard: probe at the stage's best iterate, and raise
@@ -594,7 +632,7 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
         from the best iterate, and an explicit auto-sized solve is probed
         there."""
         if best["theta"] is not None:
-            fold_best(eval_loss(theta, batch), leaves)
+            fold_best(eval_loss(theta, local), leaves)
             load(best["theta"])
         if substeps_guard:
             recheck_substeps()
@@ -633,15 +671,30 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
     def gnorm_of(grads) -> float:
         return float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads)))
 
-    n_glaciers = batch.H0.shape[0]
+    # the whole (padded) batch that minibatches draw from
+    padded = batch if mesh is None else pad_batch_to(batch, mesh_size(mesh))[0]
+    n_glaciers = padded.H0.shape[0]
     bsize = min(params.hyper.batch_size, n_glaciers)
-    minibatching = 0 < bsize < n_glaciers
+    # a batch size that covers the glaciers stays full-batch under padding
+    minibatching = 0 < bsize < n_results
     if minibatching:
         print(f"[odinn_tpu_torch] minibatching {bsize}/{n_glaciers} glaciers per step "
-              f"(set hyper.batch_size >= {n_glaciers} for full-batch)")
+              f"(set hyper.batch_size >= {n_results} for full-batch)")
+        if mesh is not None and bsize % mesh_size(mesh) != 0:
+            raise ValueError(
+                f"hyper.batch_size={bsize} must be a multiple of the mesh's "
+                f"glacier-axis size {mesh_size(mesh)} (glacier-axis sharding)")
     else:
-        fold_best(eval_loss(theta, batch), leaves)
+        fold_best(eval_loss(theta, local), leaves)
     rng = np.random.default_rng(0)
+
+    def draw_minibatch():
+        """The same ids on every rank; each rank takes its block of them."""
+        ids = rng.choice(n_glaciers, size=bsize, replace=False)
+        if mesh is not None:
+            k = bsize // mesh_size(mesh)
+            ids = ids[mesh_rank(mesh) * k:(mesh_rank(mesh) + 1) * k]
+        return gather_batch(padded, ids)
 
     def run_lm_stage(lr, epochs):
         """Matrix-free Levenberg–Marquardt on the least-squares loss
@@ -664,9 +717,11 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
         glacier_norm = params.hyper.gn_glacier_norm
         if glacier_norm:
             with torch.no_grad():
-                r0 = resid(theta, batch)
+                r0 = resid(theta, local)
             L_g = torch.sum(r0 * r0, dim=tuple(range(1, r0.ndim)))
-            sqrt_w = torch.sqrt(1.0 / (L_g + 0.01 * torch.mean(L_g)))
+            mean_L = torch.mean(L_g) if mesh is None else (
+                allreduce_sum([torch.sum(L_g)], mesh)[0] / n_glaciers)
+            sqrt_w = torch.sqrt(1.0 / (L_g + 0.01 * mean_L))
             sqrt_w = sqrt_w.reshape((-1,) + (1,) * (r0.ndim - 1))
             unweighted = resid
 
@@ -677,15 +732,17 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
 
         def rec(v, th, gn):
             if glacier_norm:
-                v = eval_loss(th, batch)
+                v = eval_loss(th, local)
             _record(stats, v, th, gn, 0.0)
             if callback is not None:
                 callback(stats)
 
-        trained, lm_losses = lm_train(theta, batch, resid, iters=epochs,
+        trained, lm_losses = lm_train(theta, local, resid, iters=epochs,
                                       cg_iters=params.hyper.gn_cg_iters, init_damping=lr,
                                       record=rec, precond=params.hyper.gn_precond,
-                                      cg_restarts=params.hyper.gn_cg_restarts)
+                                      cg_restarts=params.hyper.gn_cg_restarts,
+                                      allreduce=None if mesh is None else (
+                                          lambda ts: allreduce_sum(ts, mesh)))
         # rec() recorded 0.0 a record; each gets the stage's mean wall time
         n_rec = stats.niter - n_before
         if n_rec > 0:
@@ -703,10 +760,9 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
             for _ in range(epochs):
                 t_start = time.time()
                 if minibatching:
-                    ids = rng.choice(n_glaciers, size=bsize, replace=False)
-                    val, grads = vg(theta, gather_batch(batch, ids))
+                    val, grads = vg(theta, draw_minibatch())
                 else:
-                    val, grads = vg(theta, batch)
+                    val, grads = vg(theta, local)
                     fold_best(float(val), leaves)
                 for p, g in zip(leaves, grads):
                     p.grad = g
@@ -728,7 +784,7 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
             evals = []
 
             def closure():
-                val, grads = vg(theta, batch)
+                val, grads = vg(theta, local)
                 for p, g in zip(leaves, grads):
                     p.grad = g
                 evals.append((float(val), gnorm_of(grads)))
@@ -766,7 +822,7 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
                 recover(attempts)
 
     if best["theta"] is not None and stats.losses:
-        final_val = eval_loss(theta, batch)
+        final_val = eval_loss(theta, local)
         if best["val"] < final_val:
             load(best["theta"])
         stats.final_loss = min(best["val"], final_val)
@@ -779,21 +835,24 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
 
     with torch.no_grad():
         stats.solves += 1
-        trajs = forward_batch(trained, batch, model, params, tstops, device=inversion.device)
+        trajs = forward_batch(trained, local, model, params, tstops, device=inversion.device)
+    if mesh is not None:
+        trajs = gather_rows(trajs, mesh)[:n_results]
     inversion.results = Results(simulation=create_results(trajs, tstops, glaciers=batch),
                                 stats=stats)
     return inversion.results
 
 
 def run_inversion(inversion: Inversion, callback=None, path: Optional[str] = None,
-                  file_name: Optional[str] = None) -> Results:
-    """Train (:func:`train_ude`) and return the results. With ``path`` or
+                  file_name: Optional[str] = None, mesh=None) -> Results:
+    """Train (:func:`train_ude`, on ``mesh``: by default the registered
+    mesh) and return the results. With ``path`` or
     ``file_name`` set, the trained result is saved as a
     :class:`~odinn_tpu_torch.utils.io.TrainingResult` (θ, the gradient-norm
     and loss histories, and ``niter``/``final_loss``/``retcode`` in the
     ``.meta.json`` sidecar) at ``path/file_name``, by default
     ``./training_result.pt``."""
-    results = train_ude(inversion, callback=callback)
+    results = train_ude(inversion, callback=callback, mesh=mesh)
     if path is not None or file_name is not None:
         stats = results.stats
         save_inversion_file(os.path.join(path or ".", file_name or "training_result.pt"),

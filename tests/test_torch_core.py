@@ -154,6 +154,7 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "profile_epoch.py")
     yield os.path.join(REPO, "profile_exchange.py")
+    yield os.path.join(REPO, "profile_lm_step.py")
     yield os.path.join(REPO, "profile_tolerance.py")
     yield os.path.join(REPO, "profile_vjp.py")
 
@@ -180,5 +181,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for module in ("utils/flatten.py", "parallel/mesh.py", "simulation/ensemble.py",
                    "simulation/eki.py", "inverse/uncertainty.py", "data/rgi.py",
                    "data/netcdf.py", "models/mb_machine.py", "utils/io.py", "utils/memory.py",
-                   "utils/logging.py", "utils/plotting.py", "utils/time_utils.py"):
+                   "utils/logging.py", "utils/plotting.py", "utils/time_utils.py", "api.py",
+                   "parallel/multiprocess.py", "parallel/mp_worker.py"):
         assert os.path.join(REPO, "odinn_tpu_torch", module) in scanned, module

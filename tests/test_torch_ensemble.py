@@ -265,21 +265,47 @@ def test_grad_accum_chunks_fold_each_chunk(truth):
     assert_rel(stack_to_rows(runs[1].thetas), stack_to_rows(runs[0].thetas), 1e-12, "final θ")
 
 
-def test_mesh_of_two_devices_refused(truth):
-    """A mesh of more than one device names Queue 1 item 9; None and a mesh
-    of one device run."""
+@pytest.fixture(scope="module")
+def mesh_runs(truth, tmp_path_factory):
+    """``multistart_train`` and ``eki_train`` in a 2-rank gloo job on the
+    CPU (``tests/torch_mesh_ranks.py``'s "ensemble" scenario), each beside
+    the same run in one process: each rank's record."""
+    import os
+    import pickle
+
+    from odinn_tpu_torch.parallel.multiprocess import launch_local_workers
+    from tests.torch_parity import jax_to_numpy_fields
+
+    jb, _ = truth
+    d = tmp_path_factory.mktemp("ensemble_ranks")
+    with open(d / "in.pkl", "wb") as fh:
+        pickle.dump({"batch": jax_to_numpy_fields(jb), "rgi_id": jb.rgi_id}, fh)
+    launch_local_workers(2, 1, ["ensemble", d / "in.pkl", d], timeout=120.0,
+                         module="tests.torch_mesh_ranks")
+    outs = []
+    for r in range(2):
+        with open(os.path.join(d, f"rank{r}.pkl"), "rb") as fh:
+            outs.append(pickle.load(fh))
+    return outs
+
+
+def test_mesh_of_two_devices_refused(truth, mesh_runs):
+    """A mesh of two ranks (a 2-rank gloo job on the CPU) no longer refuses:
+    ``multistart_train`` with 4 restarts (2 a rank) and with 3 (every rank
+    runs all 3), its LBFGS and LM refinement with the glacier axis split
+    (1e-10), and ``eki_train`` with 4 members (2 a rank, perturbed
+    observations) and with 3 equal the single process's runs on both ranks
+    (1e-12), EKI's ensemble bitwise the same on both ranks. None and a mesh
+    of one device run as no mesh; a list of two devices is no mesh."""
     from odinn_tpu_torch.parallel import mesh as tmesh
-    from odinn_tpu_torch.simulation.eki import eki_train
 
     _, tb = truth
     tp = _params(TP, epochs=(1,))
     model = _models("A", _params(JP), tp)[1]
     inv = tinv.Inversion(model=model, glaciers=tb, parameters=tp, device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tens.multistart_train(inv, n_restarts=2, mesh=["cuda:0", "cuda:1"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        eki_train(inv, n_ensemble=2, n_iters=1, mesh=["cuda:0", "cuda:1"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tmesh.set_active_mesh(["cuda:0", "cuda:1"])
     assert tmesh.active_mesh() is None
     assert tmesh.set_active_mesh(["cuda:0"]) == ["cuda:0"]
@@ -288,3 +314,27 @@ def test_mesh_of_two_devices_refused(truth):
     finally:
         tmesh.set_active_mesh(None)
     assert ms.losses.shape == (2, 1)
+
+    for out in mesh_runs:
+        for n in (4, 3):
+            single, mesh = out[f"multistart_{n}"]["single"], out[f"multistart_{n}"]["mesh"]
+            assert mesh["losses"].shape == single["losses"].shape == (n, 3)
+            assert_rel(mesh["losses"], single["losses"], 1e-12, "loss curves")
+            assert_rel(mesh["final"], single["final"], 1e-12, "final losses")
+            assert mesh["best"] == single["best"]
+            for a, b in zip(mesh["thetas"] + mesh["best_theta"],
+                            single["thetas"] + single["best_theta"]):
+                assert_rel(a, b, 1e-12, "θ")
+        single, mesh = out["multistart_refine"]["single"], out["multistart_refine"]["mesh"]
+        assert mesh["best"] == single["best"]
+        assert_rel(mesh["refined"], single["refined"], 1e-10, "refined losses")
+        for a, b in zip(mesh["best_theta"], single["best_theta"]):
+            assert_rel(a, b, 1e-10, "refined θ")
+        for j in (4, 3):
+            single, mesh = out[f"eki_{j}"]["single"], out[f"eki_{j}"]["mesh"]
+            assert mesh["misfits"].shape == single["misfits"].shape == (3, j)
+            assert_rel(mesh["misfits"], single["misfits"], 1e-12, "misfits")
+            for a, b in zip(mesh["thetas"], single["thetas"]):
+                assert_rel(a, b, 1e-12, "ensemble")
+            assert mesh["best"] == single["best"] and mesh["same_on_every_rank"]
+            assert_rel(mesh["mean_loss"], single["mean_loss"], 1e-12, "mean loss")
