@@ -207,6 +207,28 @@ Phases, each printed as one JSON line:
    each rank's launches asserted, EKI's A gate on both, one rank's Adam
    epoch timed and profiled on each; before the main path ``si_step`` is
    checked at a rank's 8 x 128^2 (one wave of clusters) and timed there.
+14. grid-row sharding (``spatial``): ``launch_local_workers`` starts
+   ``python -m chip_smoke RANK N PORT 1 --spatial-worker DIR full|cut``
+   twice. "full": phase 5's SI training (16 x 128^2, float32, PCG-20, 24
+   months) by Adam 3 on a (1 x 2) ``("glaciers", "rows")`` mesh of two ranks
+   sharing the card, each on 16 x 64 rows; its losses and gathered
+   trajectories equal to the single process's to 1e-5 and θ bitwise the
+   same on both ranks after every iteration; one rank's Adam epoch timed
+   and profiled with its row-group collectives and their wall seconds.
+   "cut": phase 13's float64 cut (4 x 128^2), cut to 3 months, at PCG-6 on a
+   (2 x 2) mesh of four ranks (Adam 2 then LM 2 from λ0 1e5, the discrete
+   adjoint's gradient at θ0, and forward RK4 and RKC-25 rows over 12
+   months), held to the single process at 1e-10 (the rows at 1e-12). Each
+   rank's launches asserted: si_assemble once a step of every forward,
+   transpose and tangent solve, si_rows_apply (iterations + 1) and
+   si_rows_update (iterations) times each, si_step_vjp once a step of each
+   pullback, no si_step; sia2d_rhs and rkc_interval on the RK4 and RKC rows.
+   Before the main path, si_assemble alone (three modes) and the row PCG's
+   kernels are checked at a rank's 16 x 66 x 128 slab against their plain
+   versions, with and without the Jacobi preconditioner, in both dtypes,
+   bitwise on a repeat, and the row-sharded step with a row group of one
+   against si_step at 16 x 128^2, PCG-20; ``time_kernels`` times them
+   there, and sia2d_rhs and rkc_interval at the cut's slabs.
 
 Any failed check raises, so the exit code is not 0. A ``done`` line gives
 the whole run's seconds, build included, and each phase's. The last line is
@@ -299,7 +321,7 @@ TOL_RELTOL = 1e-4
 # our kernels' device names: none may run in a D-target or capped solve
 KERNEL_NAMES = ("si_step_cluster", "si_assemble", "si_pcg", "si_step_vjp_kernel",
                 "sia2d_rhs_kernel", "sia2d_rhs_vjp_kernel", "rkc_interval_kernel",
-                "sia2d_rhs_jvp_kernel")
+                "sia2d_rhs_jvp_kernel", "si_rows_apply", "si_rows_update")
 # the LM phase: Adam epochs, LM iterations and CG iterations of the
 # training batch's stage; the Hutchinson probes of lm_train's default
 LM_EPOCHS = (2, 3)
@@ -408,6 +430,26 @@ SCALE_OUT_TIMEOUT = 420.0
 # summed over the glaciers in another order
 TOL_SCALE_OUT_LOSS_F64, TOL_SCALE_OUT_F64 = 1e-12, 1e-10
 TOL_SCALE_OUT_F32 = 1e-5
+# phase 14 (spatial), grid-row sharding: the full width on a (1 x 2) mesh,
+# two ranks sharing the card, each 16 x 64 rows of the 128^2 planes (Adam
+# SPATIAL_EPOCHS by autograd); the float64 cut on a (2 x 2) mesh, four ranks:
+# phase 13's cut (4 x 128^2, Adam 2 then LM 2 from λ0 1e5) over
+# SPATIAL_CUT_TSPAN at SI PCG-SPATIAL_CUT_CG, the discrete adjoint's gradient
+# at θ0, and forward RK4 (SPATIAL_RK4_SUBSTEPS) and RKC-25 rows over
+# SPATIAL_ROW_TSPAN, held to the single process at TOL_SPATIAL_F64 and
+# TOL_SPATIAL_ROWS_F64 (the full width's Adam losses and trajectories at
+# TOL_SCALE_OUT_F32); the row kernels at a rank's slab (SPATIAL_SLAB: 64 own
+# rows + 2 ghost rows)
+SPATIAL_FULL, SPATIAL_CUT = (1, 2), (2, 2)
+SPATIAL_EPOCHS, SPATIAL_CUT_CG = 3, 6
+# the float64 cut's depth cut: 3 months, not phase 13's 6, at which the
+# cut's job took 35.5 s and the phase 116.5 s on an H100 80GB HBM3
+# (PERF.md §6), against the phase's ~60 s
+SPATIAL_CUT_TSPAN = (5.0, 5.25)
+SPATIAL_ROW_TSPAN, SPATIAL_RK4_SUBSTEPS = (5.0, 6.0), 3
+SPATIAL_TIMEOUT = 420.0
+SPATIAL_SLAB = (N_TRAIN, NX // 2 + 2, NY)
+TOL_SPATIAL_F64, TOL_SPATIAL_ROWS_F64 = 1e-10, 1e-12
 
 
 def emit(obj) -> None:
@@ -451,6 +493,13 @@ def device_profile(fn, reps: int, names=None, ms_by_name=False):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    ms, count, by_name, ms_of = _profile_sums(prof, reps, names)
+    return (ms, count, by_name, ms_of) if ms_by_name else (ms, count, by_name)
+
+
+def _profile_sums(prof, reps=1, names=None):
+    """(device ms, device launches, launches by name, device ms by name)
+    per call of a profile over ``reps`` calls (:func:`device_profile`)."""
     total_us, count, by_name, ms_of = 0.0, 0, {}, {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -462,9 +511,7 @@ def device_profile(fn, reps: int, names=None, ms_by_name=False):
             short = re.sub(r"\(.*\)$", "", e.key.split("<")[0]).split("::")[-1].strip()
             by_name[short] = by_name.get(short, 0) + e.count / reps
             ms_of[short] = ms_of.get(short, 0.0) + us / reps / 1e3
-    if ms_by_name:
-        return total_us / reps / 1e3, count / reps, by_name, ms_of
-    return total_us / reps / 1e3, count / reps, by_name
+    return total_us / reps / 1e3, count / reps, by_name, ms_of
 
 
 def complete_profile(fn, reps: int, names, complete):
@@ -629,6 +676,31 @@ def jvp_bound(n_g, nx, ny, itemsize, stage=False):
     return nbytes, (3 + (9 if stage else 0)) * cells + 60 * corners + 70 * inner
 
 
+# phase 14's row kernels on a slab of n_g x nx x ny with ``own`` rows:
+# si_rows_apply forms p = z + β·p on the slab (2 a cell), then the matvec on
+# the own rows with each face coefficient formed from D's corners (8) and
+# the matvec of si_bound (12), and the partial p·Ap (2); z, p, D read and p
+# written on the slab, Ap written on the own rows. si_rows_update: x, r and
+# z updates (2, 2, 1) and the partial r·z (2) a cell; x, r, p, Ap and the
+# inverse diagonal read, x, r and z written, on the own rows. si_assemble
+# alone: relu(H_D) and S (2 a cell), the corners (32), and per interior cell
+# the faces, u, b and the Jacobi diagonal (32, as si_bound counts them); H,
+# H_D and B read, D, b and the inverse diagonal written.
+def rows_apply_bound(n_g, nx, ny, own, itemsize):
+    slab, cells = n_g * nx * ny, n_g * own * ny
+    return (4 * slab + cells) * itemsize + 3 * n_g * itemsize, 2 * slab + 22 * cells
+
+
+def rows_update_bound(n_g, nx, ny, own, itemsize):
+    cells = n_g * own * ny
+    return 8 * cells * itemsize + 2 * n_g * itemsize, 7 * cells
+
+
+def assemble_bound(n_g, nx, ny, itemsize):
+    cells, corners, inner = n_g * nx * ny, n_g * (nx - 1) * (ny - 1), n_g * (nx - 2) * (ny - 2)
+    return 6 * cells * itemsize + n_g * 4 * itemsize, 2 * cells + 32 * corners + 32 * inner
+
+
 def bound_ms(nbytes, ops, dtype):
     peak = PEAK_FP32_OPS_PER_S if dtype == torch.float32 else PEAK_FP64_OPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
@@ -783,6 +855,139 @@ def check_kernels():
         emit(row)
         if not (row["dH_rel_err"] <= tol and row["dcreep_rel_err"] <= tol):
             raise AssertionError(f"sia2d_rhs_vjp disagrees with its plain version: {row}")
+    # phase 14's row kernels at a rank's slab, and the row-sharded step
+    # with a row group of one against si_step
+    check_rows_kernels()
+    check_rows_step()
+
+
+def check_rows_kernels():
+    """Phase 14's kernels at a rank's slab (SPATIAL_SLAB: the top rank's 64
+    own rows and 2 ghost rows below), float64 and float32, with and without
+    the Jacobi preconditioner: si_assemble alone in its three modes (D's
+    corners, b and the inverse diagonal) against its plain version, then,
+    from the plain assembly, the row PCG's start (si_rows_apply, start
+    mode), two iterations of si_rows_apply and si_rows_update (the p planes
+    swapped between them) against their plain versions (each partial and
+    the x, r, z, p and Ap planes on the own rows), and the kernels' sequence
+    run twice, bitwise the same."""
+    from odinn_tpu_torch.core.params import PhysicalParameters
+    from odinn_tpu_torch.ops import si_math
+    from odinn_tpu_torch.ops.cuda import si_kernel
+    from odinn_tpu_torch.ops.cuda.common import derived_scalars, shared_exps
+
+    PHYS = PhysicalParameters()
+    shape = SPATIAL_SLAB
+    r0, r1 = 0, NX // 2
+    own = slice(r0, r1)
+    P, P2 = si_math.ROWS_P, si_math.ROWS_P2
+    for dtype in (torch.float64, torch.float32):
+        tol = TOL_F64 if dtype == torch.float64 else TOL_F32
+        H, B, raw = kernel_inputs(*shape, dtype, seed=61)
+        derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+        exps = shared_exps(derived)
+        table = derived[:, :4].to(dtype).contiguous()
+        gen = torch.Generator().manual_seed(62)
+        g = torch.randn(shape, generator=gen, dtype=torch.float64).to("cuda", dtype)
+        x_fwd = H - 20.0
+        beta = (0.3 + 0.1 * torch.rand(shape[0], generator=gen, dtype=torch.float64)).to(
+            "cuda", dtype)
+        alpha = (0.2 * torch.rand(shape[0], generator=gen, dtype=torch.float64)).to(
+            "cuda", dtype)
+        for mode, name in ((si_math.FORWARD, "forward"), (si_math.TRANSPOSE, "transpose"),
+                           (si_math.TANGENT, "tangent")):
+            rhs_in = H if mode == si_math.FORWARD else g
+            for pre in (True, False):
+                def assembled(fn):
+                    work = torch.zeros((si_math.ROWS_PLANES,) + shape, dtype=dtype,
+                                       device="cuda")
+                    fn(work, rhs_in, H, B, x_fwd, derived, DT, 1.0, mode, pre, exps)
+                    return work
+
+                ref_work = assembled(si_kernel.si_assemble_reference)
+                ker_work = assembled(si_kernel.si_assemble)
+
+                def pcg(apply, update):
+                    work = ref_work.clone()
+                    x0 = (1.01 * H).contiguous()
+                    parts = [apply(work, x0, None, P2, P, r0, r1, table, DT, True, pre)]
+                    parts.append(apply(work, None, beta, P2, P, r0, r1, table, DT, False, pre))
+                    parts.append(update(work, alpha, P, r0, r1, pre))
+                    parts.append(apply(work, None, 0.5 * beta, P, P2, r0, r1, table, DT, False,
+                                       pre))
+                    parts.append(update(work, 0.5 * alpha, P2, r0, r1, pre))
+                    return work, parts
+
+                kw, kp = pcg(si_kernel.si_rows_apply, si_kernel.si_rows_update)
+                kw2, kp2 = pcg(si_kernel.si_rows_apply, si_kernel.si_rows_update)
+                rw, rp = pcg(si_kernel.si_rows_apply_reference, si_kernel.si_rows_update_reference)
+                torch.cuda.synchronize()
+                errs = {
+                    "D": rel_err(ker_work[si_math.ROWS_D][..., :-1, :-1],
+                                 ref_work[si_math.ROWS_D][..., :-1, :-1]),
+                    "b": rel_err(ker_work[si_math.ROWS_RHS], ref_work[si_math.ROWS_RHS]),
+                    "inv_diag": rel_err(ker_work[si_math.ROWS_INV], ref_work[si_math.ROWS_INV]),
+                    "partials": max(rel_err(a, b) for a, b in zip(kp, rp)),
+                }
+                for plane, label in ((si_math.ROWS_X, "x"), (si_math.ROWS_R, "r"),
+                                     (si_math.ROWS_Z, "z"), (P, "p"), (P2, "p2"),
+                                     (si_math.ROWS_AP, "Ap")):
+                    errs[label] = rel_err(kw[plane][..., own, :], rw[plane][..., own, :])
+                row = {"phase": "check", "kernel": f"si_rows {name}"
+                       + ("" if pre else " no-precondition"), "shape": list(shape),
+                       "own_rows": [r0, r1], "dtype": str(dtype), "rel_errs": errs, "tol": tol,
+                       "bitwise_repeat": bool(torch.equal(kw, kw2) and all(
+                           torch.equal(a, b) for a, b in zip(kp, kp2)))}
+                emit(row)
+                if not (max(errs.values()) <= tol and row["bitwise_repeat"]
+                        and all(torch.isfinite(t).all() for t in kp)):
+                    raise AssertionError(f"si_rows disagrees with its plain version or with "
+                                         f"itself: {row}")
+
+
+def check_rows_step():
+    """The whole row-sharded SI step with a row group of one (the slab is
+    the plane: si_assemble, then the row PCG) against si_step's cluster
+    kernel at the SI training's 16 x 128^2, PCG-20, θ = 1 and ½: float64
+    within TOL_F64; float32 within TOL_F32 of si_step or within
+    GRAD_F32_FACTOR times si_step's own error against the float64 plain
+    version."""
+    from odinn_tpu_torch.core.params import PhysicalParameters
+    from odinn_tpu_torch.ops.cuda import si_kernel
+    from odinn_tpu_torch.ops.cuda.common import derived_scalars, shared_exps
+    from odinn_tpu_torch.parallel.spatial import RowShard
+
+    PHYS = PhysicalParameters()
+    shard = RowShard(lo=0, hi=NX, nx=NX, halo=2)
+    for dtype in (torch.float64, torch.float32):
+        H, B, raw = kernel_inputs(N_TRAIN, NX, NY, dtype, seed=63)
+        derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+        exps = shared_exps(derived)
+        for theta in (1.0, 0.5):
+            H_D = H if theta == 1.0 else 0.97 * H
+            x0 = 0.99 * H
+            args = (H, H_D, B, x0, derived, DT, theta, SI_TRAIN_CG, exps)
+            rows = si_kernel.si_rows_step(shard, *args)
+            again = si_kernel.si_rows_step(shard, *args)
+            cluster = si_kernel.si_step(*args)
+            plain64 = si_kernel.si_step_reference(
+                *(t.double() for t in (H, H_D, B, x0)), derived.double(), DT, theta,
+                SI_TRAIN_CG, exps)
+            torch.cuda.synchronize()
+            row = {"phase": "check", "kernel": f"si_rows_step group of 1 theta={theta}",
+                   "shape": [N_TRAIN, NX, NY], "cg_iters": SI_TRAIN_CG, "dtype": str(dtype),
+                   "rel_err_vs_si_step": rel_err(rows, cluster),
+                   "rows_vs_f64_plain": rel_err(rows, plain64),
+                   "si_step_vs_f64_plain": rel_err(cluster, plain64),
+                   "bitwise_repeat": bool(torch.equal(rows, again))}
+            if dtype == torch.float64:
+                ok = row["rel_err_vs_si_step"] <= TOL_F64
+            else:
+                ok = (row["rel_err_vs_si_step"] <= TOL_F32 or row["rows_vs_f64_plain"]
+                      <= GRAD_F32_FACTOR * row["si_step_vs_f64_plain"])
+            emit(row)
+            if not (ok and row["bitwise_repeat"] and torch.isfinite(rows).all()):
+                raise AssertionError(f"the row-sharded step disagrees with si_step: {row}")
 
 
 def check_rhs_jvp_sets(H, B, raw, shape, dtype, stage_s=None):
@@ -1482,7 +1687,10 @@ def time_kernels():
     at 4 x 128^2; si_step, its transpose and si_step_vjp at phase 13's
     per-rank 8 x 128^2, PCG-20; and phase 11's folded batches: si_step, its transpose and
     si_step_vjp at 128 x 128^2 (PCG-20), si_step at 512 x 64^2 (PCG-12),
-    sia2d_rhs at 32 x 32^2."""
+    sia2d_rhs at 32 x 32^2; and phase 14's: si_rows_apply and
+    si_rows_update (rows of their own), si_assemble alone and si_step_vjp
+    at a rank's 16 x 66 x 128 slab, sia2d_rhs at 2 x 65 x 128 and
+    rkc_interval (s = 25) at 2 x 89 x 128."""
     from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
     from odinn_tpu_torch.ops.cuda.common import derived_scalars
     from odinn_tpu_torch.core.params import PhysicalParameters
@@ -1679,6 +1887,68 @@ def time_kernels():
             sia_kernel.sia2d_rhs, sia_kernel.sia2d_rhs_reference,
             sia_bound(n_s, EKI_A_NX, EKI_A_NX, 4), ("sia2d_rhs_kernel",), 50),
     }
+    # phase 14's kernels at a rank's slab (SPATIAL_SLAB; the top rank's 64
+    # own rows), each on its own scratch prepared alike: si_rows_apply (an
+    # iteration) and si_rows_update, si_assemble alone, the pullback, the RK4
+    # row's RHS at the (2 x 2) cut's 2 x (64 + 1) x 128 and its RKC-25 step
+    # at 2 x (64 + 25) x 128
+    from odinn_tpu_torch.ops import si_math
+
+    n_r, nx_r, _ = SPATIAL_SLAB
+    own_r = NX // 2
+    Hr, Br, rawr = kernel_inputs(*SPATIAL_SLAB, f32, seed=64)
+    derived_r = derived_scalars(*(rawr[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+    table_r = derived_r[:, :4].to(f32).contiguous()
+    base = torch.zeros((si_math.ROWS_PLANES,) + SPATIAL_SLAB, dtype=f32, device="cuda")
+    si_kernel.si_assemble_reference(base, Hr, Hr, Br, Hr, derived_r, DT, 1.0, 0, True, exps)
+    si_kernel.si_rows_apply_reference(base, (1.01 * Hr).contiguous(), None, si_math.ROWS_P2,
+                                      si_math.ROWS_P, 0, own_r, table_r, DT, True)
+    rgen = torch.Generator().manual_seed(65)
+    beta_r = (0.3 * torch.rand(n_r, generator=rgen, dtype=torch.float64)).to("cuda", f32)
+    alpha_r = (0.2 * torch.rand(n_r, generator=rgen, dtype=torch.float64)).to("cuda", f32)
+    rows_work = {si_kernel.si_rows_apply: base.clone(),
+                 si_kernel.si_rows_apply_reference: base.clone(),
+                 si_kernel.si_rows_update: base.clone(),
+                 si_kernel.si_rows_update_reference: base.clone(),
+                 si_kernel.si_assemble: base.clone(),
+                 si_kernel.si_assemble_reference: base.clone()}
+    lam_r = torch.randn(SPATIAL_SLAB, generator=rgen).to("cuda")
+    x_r = si_kernel._si_solve_reference(Hr, Hr, Br, Hr, derived_r, DT, 1.0, it_t, exps)
+    H2, B2, raw2 = (t[:2].contiguous() for t in kernel_inputs(2, NX // 2 + 25, NY, f32,
+                                                                 seed=66))
+    derived2 = derived_scalars(*(raw2[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+    H65, B65 = H2[:, :NX // 2 + 1].contiguous(), B2[:, :NX // 2 + 1].contiguous()
+    slab_tag = "x".join(map(str, SPATIAL_SLAB))
+    entries.update({
+        "si_rows_apply": (
+            "si_rows_apply", lambda f: lambda: f(rows_work[f], None, beta_r, si_math.ROWS_P2,
+                                                 si_math.ROWS_P, 0, own_r, table_r, DT, False),
+            si_kernel.si_rows_apply, si_kernel.si_rows_apply_reference,
+            rows_apply_bound(n_r, nx_r, NY, own_r, 4), ("si_rows_apply",), 50),
+        "si_rows_update": (
+            "si_rows_update", lambda f: lambda: f(rows_work[f], alpha_r, si_math.ROWS_P, 0,
+                                                  own_r),
+            si_kernel.si_rows_update, si_kernel.si_rows_update_reference,
+            rows_update_bound(n_r, nx_r, NY, own_r, 4), ("si_rows_update",), 50),
+        f"si_assemble {slab_tag}": (
+            "si_step", lambda f: lambda: (f(rows_work[f], Hr, Hr, Br, Hr, derived_r, DT, 1.0, 0,
+                                            True, exps), rows_work[f][si_math.ROWS_RHS])[1],
+            si_kernel.si_assemble, si_kernel.si_assemble_reference,
+            assemble_bound(n_r, nx_r, NY, 4), ("si_assemble",), 50),
+        f"si_step_vjp {slab_tag}": (
+            "si_step_vjp", lambda f: lambda: f(lam_r, Hr, Hr, Br, x_r, derived_r, DT, 1.0, exps),
+            si_kernel.si_step_vjp, si_kernel.si_step_vjp_reference,
+            si_vjp_bound(n_r, nx_r, NY, 4, planes_in=4), ("si_step_vjp_kernel",), 50),
+        f"sia2d_rhs 2x{NX // 2 + 1}x{NY}": (
+            "sia2d_rhs", lambda f: lambda: f(H65, B65, raw2, PHYS.rho, PHYS.g, PHYS.eta0),
+            sia_kernel.sia2d_rhs, sia_kernel.sia2d_rhs_reference,
+            sia_bound(2, NX // 2 + 1, NY, 4), ("sia2d_rhs_kernel",), 50),
+        f"rkc_interval 2x{NX // 2 + 25}x{NY} s={RKC_STAGES}": (
+            "rkc_interval", lambda f: lambda: f(H2, B2, derived2, DT, RKC_STAGES, PHYS.eta0,
+                                                exps),
+            rkc_kernel.rkc_interval, rkc_kernel.rkc_interval_reference,
+            rkc_bound(2, NX // 2 + 25, NY, 4, RKC_STAGES), ("rkc_interval_kernel",), 5),
+    })
     timing = {}
     for name, (kernel, call, kern, plain, bound, kernel_names, plain_reps) in entries.items():
         # the plain version first: the stage kernel updates its carries in place
@@ -1734,7 +2004,8 @@ def kernel_counters():
             "si_step_tangent": si_kernel.si_step_tangent,
             "si_step_vjp": si_kernel.si_step_vjp, "sia2d_rhs": sia_kernel.sia2d_rhs,
             "rkc_interval": rkc_kernel.rkc_interval, "sia2d_rhs_vjp": sia_kernel.sia2d_rhs_vjp,
-            "sia2d_rhs_jvp": sia_kernel.sia2d_rhs_jvp}
+            "sia2d_rhs_jvp": sia_kernel.sia2d_rhs_jvp, "si_assemble": si_kernel.si_assemble,
+            "si_rows_apply": si_kernel.si_rows_apply, "si_rows_update": si_kernel.si_rows_update}
 
 
 def bench_params(**solver_kw):
@@ -4269,6 +4540,310 @@ def scale_out_phase():
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: grid-row sharding
+# ---------------------------------------------------------------------------
+
+def spatial_epoch_profile(adam_epoch):
+    """One rank's Adam epoch, right after the training it repeats (so no
+    warm-up): its time by CUDA events with the row-group collectives it
+    makes and their wall seconds, then one more epoch under the profiler
+    for its device busy time, idle share and our kernels' device ms. Two
+    epochs: at ~3.7 s an epoch on a card that two ranks share, the phase
+    affords no more."""
+    from odinn_tpu_torch.parallel import spatial
+
+    spatial.EXCHANGES.update(calls=0, seconds=0.0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    adam_epoch()
+    end.record()
+    end.synchronize()
+    epoch_ms = start.elapsed_time(end)
+    exchanges = dict(spatial.EXCHANGES)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        adam_epoch()
+        torch.cuda.synchronize()
+    busy_ms, launches, _, ms_of = _profile_sums(prof)
+    return {"adam_epoch_ms": epoch_ms, "adam_epoch_device_busy_ms": busy_ms,
+            "adam_epoch_device_idle_share": 1.0 - busy_ms / epoch_ms,
+            "adam_epoch_collectives": exchanges["calls"],
+            "adam_epoch_collective_s": exchanges["seconds"],
+            "adam_epoch_device_launches": launches,
+            "adam_epoch_kernel_device_ms": {n: ms for n, ms in ms_of.items()
+                                            if n in KERNEL_NAMES}}
+
+
+def spatial_runs(mesh, which):
+    """Phase 14's runs of ``which``, in one process (``mesh`` None) or as
+    this rank of the job's 2-D mesh, each with the launch counters and the
+    collective count set to 0 just before and read just after. "full":
+    ``train_ude`` of phase 5's SI problem (A = NN(T), 16 x 128^2, float32,
+    PCG-20, 24 intervals) by Adam SPATIAL_EPOCHS, θ compared bitwise with
+    rank 0's after every iteration, and one Adam epoch profiled. "cut":
+    phase 13's float64 cut over SPATIAL_CUT_TSPAN at PCG-SPATIAL_CUT_CG (Adam
+    2 then LM 2 from λ0 1e5, by autograd), the discrete adjoint's loss and
+    gradient at θ0, and
+    forward RK4 and RKC-25 rows of its glaciers over SPATIAL_ROW_TSPAN
+    (Cuffey–Paterson A). Returns numpy and numbers only."""
+    from odinn_tpu_torch.laws.laws import CuffeyPaterson
+    from odinn_tpu_torch.models.model import Model, SIA2DModel
+    from odinn_tpu_torch.parallel import spatial
+    from odinn_tpu_torch.parallel.mesh import gather_rows, replicate, shard_inversion
+    from odinn_tpu_torch.simulation.inversion import _tree_leaves, train_ude
+    from odinn_tpu_torch.simulation.prediction import forward_batch
+    from odinn_tpu_torch.simulation.solver import build_tstops
+
+    counters = kernel_counters()
+    out = {}
+    same = []
+
+    def same_on_every_rank(stats):
+        if mesh is not None:
+            from0 = _tree_leaves(replicate(stats.theta, mesh))
+            same.append(all(torch.equal(a, b) for a, b in zip(_tree_leaves(stats.theta), from0)))
+
+    def start():
+        torch.cuda.synchronize()
+        _reset(counters)
+        spatial.EXCHANGES.update(calls=0, seconds=0.0)
+        return time.perf_counter()
+
+    def finish(t0, **rec):
+        torch.cuda.synchronize()
+        return dict(rec, seconds=time.perf_counter() - t0, launches=_read(counters),
+                    collectives=spatial.EXCHANGES["calls"],
+                    collective_s=spatial.EXCHANGES["seconds"])
+
+    if which == "full":
+        inv, model, params, tstops, _ = training_problem("SI", "jax")
+        params = params.replace(hyper=dataclasses.replace(
+            params.hyper, optimizer=("adam",), learning_rate=(0.05,), epochs=(SPATIAL_EPOCHS,)))
+        cg, lm_iters, jvps = SI_TRAIN_CG, 0, 0
+    else:
+        inv, model, params, tstops, _ = training_problem(
+            "SI", "jax", n_g=SCALE_OUT_CUT_G, tspan=SPATIAL_CUT_TSPAN, dtype=torch.float64)
+        params = params.replace(
+            solver=dataclasses.replace(params.solver, cg_iters=SPATIAL_CUT_CG),
+            hyper=dataclasses.replace(params.hyper, optimizer=("adam", "lm"),
+                                      learning_rate=(0.05, SCALE_OUT_CUT_DAMPING),
+                                      epochs=SCALE_OUT_CUT_EPOCHS, gn_cg_iters=SCALE_OUT_CUT_CG))
+        cg, lm_iters = SPATIAL_CUT_CG, SCALE_OUT_CUT_EPOCHS[1]
+        jvps = lm_jvps(lm_iters, SCALE_OUT_CUT_CG)
+    inv.parameters = params
+    theta0 = _tree_to(inv.theta, "cuda", None)
+    local = shard_inversion(inv.theta, inv.glaciers, mesh)[1]
+    t0 = start()
+    res = train_ude(inv, callback=same_on_every_rank, mesh=mesh)
+    stats = res.stats
+    out["train"] = finish(t0, solves=stats.solves, gradients=stats.gradients, jvps=jvps,
+                          lm_iterations=lm_iters, cg_iters=cg, intervals=len(tstops) - 1,
+                          glaciers_per_rank=local.H0.shape[0], rows_per_rank=local.H0.shape[-2],
+                          losses=list(stats.losses), theta=_leaves_np(inv.theta),
+                          H=res.simulation["H"].detach().double().cpu().numpy())
+    out["theta_same_every_iteration"] = bool(all(same)) if mesh is not None else None
+    out["bitwise_checks"] = len(same)
+    if which == "full":
+        inv.theta = _tree_to(theta0, "cuda", None)
+        out["epoch"] = spatial_epoch_profile(adam_epoch_fn(inv, model, params, tstops, mesh))
+        return out
+
+    # the discrete adjoint's loss and gradient at θ0
+    pd = params.replace(UDE=dataclasses.replace(params.UDE, grad="discrete"))
+    inv.theta = _tree_to(theta0, "cuda", None)
+    vg, gstats = grad_fn(inv, pd, mesh)
+    theta = _tree_to(theta0, "cuda", None)
+    t0 = start()
+    val, grads = vg(theta, local)
+    out["discrete"] = finish(t0, loss=float(val), solves=gstats.solves,
+                             gradients=gstats.gradients, cg_iters=cg,
+                             intervals=len(tstops) - 1,
+                             grads=[g.detach().double().cpu().numpy() for g in grads])
+
+    # forward rows through the explicit and RKC kernels on the row slabs
+    truth = Model(iceflow=SIA2DModel(A=CuffeyPaterson(), n_value=3.0))
+    ts = build_tstops(SPATIAL_ROW_TSPAN, 1.0 / 12.0)
+    batch = inv.glaciers
+    rows_local = batch if mesh is None else spatial.shard_spatial(batch, mesh, halo=RKC_STAGES)
+    for name, solver_kw in (("RK4", dict(solver="RK4", substeps=SPATIAL_RK4_SUBSTEPS)),
+                            (f"RKC-{RKC_STAGES}", dict(solver="RKC", rkc_stages=RKC_STAGES,
+                                                       substeps=1))):
+        p = params.replace(
+            simulation=dataclasses.replace(params.simulation, tspan=SPATIAL_ROW_TSPAN),
+            solver=dataclasses.replace(params.solver, **solver_kw))
+        t0 = start()
+        with torch.no_grad():
+            H = forward_batch(None, rows_local, truth, p, ts, device="cuda")
+            if mesh is not None:
+                H = gather_rows(H, mesh, nx=NX)
+        out[name] = finish(t0, intervals=len(ts) - 1, substeps=p.solver.substeps,
+                           H=H.detach().double().cpu().numpy())
+    return out
+
+
+def spatial_worker(argv) -> int:
+    """One rank of phase 14 (``python -m chip_smoke RANK N PORT 1
+    --spatial-worker DIR full|cut``, as ``launch_local_workers`` starts
+    it): joins the gloo job on the card, builds the run's 2-D mesh
+    (SPATIAL_FULL or SPATIAL_CUT), runs :func:`spatial_runs` on it and
+    writes what it measured to DIR/rank<RANK>.pkl."""
+    import pickle
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from odinn_tpu_torch.parallel.multiprocess import init_distributed
+    from odinn_tpu_torch.parallel.spatial import make_mesh_2d
+
+    rank, n, port, devs = int(argv[0]), int(argv[1]), argv[2], int(argv[3])
+    i = argv.index("--spatial-worker")
+    out_dir, which = argv[i + 1], argv[i + 2]
+    init_distributed(f"localhost:{port}", n, rank, devices_per_process=devs)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh_2d(*(SPATIAL_FULL if which == "full" else SPATIAL_CUT))
+    out = spatial_runs(mesh, which)
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(out, fh)
+    dist.destroy_process_group()
+    return 0
+
+
+def _rows_expected(counters, n_int, cg, solves, pullbacks, tangents):
+    """A rank's launches: one si_assemble a step of each forward, transpose
+    and tangent solve, then the row PCG (si_rows_apply once more than its
+    iterations, si_rows_update once an iteration), and si_step_vjp once a
+    step of each pullback; no si_step_cluster."""
+    assemble = n_int * (solves + pullbacks + tangents)
+    return dict({k: 0 for k in counters}, si_assemble=assemble,
+                si_rows_apply=(cg + 1) * assemble, si_rows_update=cg * assemble,
+                si_step_vjp=n_int * pullbacks)
+
+
+def spatial_phase():
+    """Phase 14: grid-row sharding on gloo ranks that share the card. The
+    single-process runs of :func:`spatial_runs` in this process, then the
+    full width on a SPATIAL_FULL mesh (two ranks, 16 x 64 rows each) and the
+    float64 cut on a SPATIAL_CUT mesh (four ranks, 2 glaciers x 64 rows
+    each), each a job of its own (``launch_local_workers``). Checks: the
+    full width's Adam losses and gathered trajectories equal to the single
+    process's to TOL_SCALE_OUT_F32; the cut's losses, θ (per leaf) and
+    trajectories, and the discrete adjoint's loss and gradient (per leaf),
+    to TOL_SPATIAL_F64; the RK4 and RKC-25 rows' gathered trajectories to
+    TOL_SPATIAL_ROWS_F64; θ bitwise the same on every rank after every
+    iteration and at the end; per rank the launches of
+    :func:`_rows_expected` for the trainings and the discrete gradient (its
+    rematerialising and transpose solves by plain CG: three solves a step),
+    sia2d_rhs = 4 x substeps x intervals for RK4 and rkc_interval = one a
+    step for RKC; none of si_step. Prints one ``spatial`` line. Returns the
+    launches of the single-process runs and of every rank."""
+    import pickle
+    import tempfile
+
+    from odinn_tpu_torch.parallel.multiprocess import launch_local_workers
+
+    counters = kernel_counters()
+    total = {k: 0 for k in counters}
+    t0 = time.perf_counter()
+    ref = {which: spatial_runs(None, which) for which in ("full", "cut")}
+    single_s = time.perf_counter() - t0
+    ranks, job_s = {}, {}
+    for which, shape in (("full", SPATIAL_FULL), ("cut", SPATIAL_CUT)):
+        with tempfile.TemporaryDirectory() as d:
+            t1 = time.perf_counter()
+            n = shape[0] * shape[1]
+            launch_local_workers(n, 1, ["--spatial-worker", d, which], timeout=SPATIAL_TIMEOUT,
+                                 module="chip_smoke")
+            job_s[which] = time.perf_counter() - t1
+            ranks[which] = []
+            for r in range(n):
+                with open(os.path.join(d, f"rank{r}.pkl"), "rb") as fh:
+                    ranks[which].append(pickle.load(fh))
+    runs_of = {"full": ("train",), "cut": ("train", "discrete", "RK4", f"RKC-{RKC_STAGES}")}
+    for which, keys in runs_of.items():
+        for run in [ref[which]] + ranks[which]:
+            for key in keys:
+                _add(total, run[key]["launches"])
+
+    fails, per_rank = [], []
+    for which, keys in runs_of.items():
+        for r, out in enumerate(ranks[which]):
+            rf = ref[which]
+            tr, tref = out["train"], rf["train"]
+            if which == "full":
+                errs = {"losses": _np_rel(tr["losses"], tref["losses"]),
+                        "trajectories": _np_rel(tr["H"], tref["H"]),
+                        "theta_vs_single": max(_np_rel(a, b) for a, b in zip(tr["theta"],
+                                                                             tref["theta"]))}
+                ok = (errs["losses"] <= TOL_SCALE_OUT_F32
+                      and errs["trajectories"] <= TOL_SCALE_OUT_F32)
+            else:
+                dis, dref = out["discrete"], rf["discrete"]
+                errs = {"losses": _np_rel(tr["losses"], tref["losses"]),
+                        "theta": max(_np_rel(a, b) for a, b in zip(tr["theta"], tref["theta"])),
+                        "trajectories": _np_rel(tr["H"], tref["H"]),
+                        "discrete_loss": _np_rel(dis["loss"], dref["loss"]),
+                        "discrete_grad": max(_np_rel(a, b) for a, b in zip(dis["grads"],
+                                                                           dref["grads"]))}
+                for row_name in keys[2:]:
+                    errs[row_name] = _np_rel(out[row_name]["H"], rf[row_name]["H"])
+                ok = (max(errs[k] for k in ("losses", "theta", "trajectories", "discrete_loss",
+                                            "discrete_grad")) <= TOL_SPATIAL_F64
+                      and max(errs[k] for k in keys[2:]) <= TOL_SPATIAL_ROWS_F64)
+            if not ok:
+                fails.append(f"{which} rank {r} disagrees with the single process: {errs}")
+            theta_equal = all(np.array_equal(a, b) for a, b in
+                              zip(tr["theta"], ranks[which][0]["train"]["theta"]))
+            if not (theta_equal and out["theta_same_every_iteration"]
+                    and out["bitwise_checks"] > 0):
+                fails.append(f"{which} rank {r}: θ differs between the ranks")
+            n_int = tr["intervals"]
+            pullbacks = tr["gradients"] + tr["jvps"] + tr["lm_iterations"]
+            expected = {"train": _rows_expected(counters, n_int, tr["cg_iters"], tr["solves"],
+                                                pullbacks, tr["jvps"])}
+            if which == "cut":
+                dis = out["discrete"]
+                # the forward solve and each step's rematerialising solve,
+                # and each step's transpose solve and pullback
+                expected["discrete"] = _rows_expected(counters, n_int, dis["cg_iters"],
+                                                      2 * dis["solves"], dis["gradients"], 0)
+                rk4 = out["RK4"]
+                expected["RK4"] = dict({k: 0 for k in counters},
+                                       sia2d_rhs=4 * rk4["substeps"] * rk4["intervals"])
+                expected[keys[3]] = dict({k: 0 for k in counters},
+                                         rkc_interval=out[keys[3]]["intervals"])
+            launches = {k: out[k]["launches"] for k in expected}
+            if launches != expected:
+                fails.append(f"{which} rank {r}: launches {launches}, expected {expected}")
+            row = {"mesh": list(SPATIAL_FULL if which == "full" else SPATIAL_CUT), "rank": r,
+                   "errors": errs, "theta_equal_to_rank0": theta_equal,
+                   "theta_same_every_iteration": out["theta_same_every_iteration"],
+                   "bitwise_checks": out["bitwise_checks"],
+                   "glaciers_per_rank": tr["glaciers_per_rank"],
+                   "rows_per_rank": tr["rows_per_rank"],
+                   "launches": launches, "expected_launches": expected,
+                   "seconds": {k: out[k]["seconds"] for k in keys},
+                   "collectives": {k: out[k]["collectives"] for k in keys},
+                   "collective_s": {k: out[k]["collective_s"] for k in keys},
+                   "losses": tr["losses"], **out.get("epoch", {})}
+            per_rank.append(row)
+    line = {"phase": "spatial", "backend": "gloo", "device": torch.cuda.get_device_name(0),
+            "seconds": time.perf_counter() - t0, "single_process_s": single_s, "job_s": job_s,
+            "single_process": {w: {"seconds": {k: ref[w][k]["seconds"] for k in keys},
+                                   "losses": ref[w]["train"]["losses"],
+                                   "launches": {k: ref[w][k]["launches"] for k in keys},
+                                   **ref[w].get("epoch", {})}
+                               for w, keys in runs_of.items()},
+            "per_rank": per_rank,
+            "tolerances": {"f32": TOL_SCALE_OUT_F32, "f64": TOL_SPATIAL_F64,
+                           "f64_rows": TOL_SPATIAL_ROWS_F64}}
+    emit(line)
+    if fails:
+        raise AssertionError("spatial: " + "; ".join(fails))
+    return total
+
+
 def _tree_to(tree, device, dtype, requires_grad=False):
     """θ on ``device`` in ``dtype`` (None: its own), a copy (leaves
     requiring grad when asked)."""
@@ -4284,6 +4859,8 @@ def main() -> int:
         return 2
     if "--scale-out-worker" in sys.argv:
         return scale_out_worker(sys.argv[1:])
+    if "--spatial-worker" in sys.argv:
+        return spatial_worker(sys.argv[1:])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from odinn_tpu_torch.ops.cuda.build import build_all
 
@@ -4361,6 +4938,9 @@ def main() -> int:
     for name, n in scale_out_phase().items():
         launches[name] += n
     marks.append(("scale_out", time.perf_counter()))
+    for name, n in spatial_phase().items():
+        launches[name] += n
+    marks.append(("spatial", time.perf_counter()))
     meta = {
         "si_step": ("odinn_tpu_torch/csrc/si_step.cu", "odinn_tpu/ops/pallas/si_kernel.py:174"),
         "sia2d_rhs": ("odinn_tpu_torch/csrc/sia2d_rhs.cu", "odinn_tpu/ops/pallas/sia_kernel.py:137"),
@@ -4379,6 +4959,12 @@ def main() -> int:
         # jax.jvp of its production RHS (and of make_rkc2_step's stages)
         "sia2d_rhs_jvp": ("odinn_tpu_torch/csrc/sia2d_rhs_jvp.cu",
                           "jax.jvp of odinn_tpu/physics/sia2d.py:63 (sia2d_rhs)"),
+        # the PCG of si_step_pallas, split at its two reductions for the
+        # rows axis (its assembly is si_step.cu's si_assemble, under si_step)
+        "si_rows_apply": ("odinn_tpu_torch/csrc/si_rows.cu",
+                          "odinn_tpu/ops/pallas/si_kernel.py:174"),
+        "si_rows_update": ("odinn_tpu_torch/csrc/si_rows.cu",
+                           "odinn_tpu/ops/pallas/si_kernel.py:174"),
     }
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "ms_source", "call_ms",
             "plain_device_ms")
@@ -4391,7 +4977,8 @@ def main() -> int:
          "more": [dict({"at": other}, **{k: o[k] for k in keys})
                   for other, o in timing.items() if other != name and o["kernel"] == name],
          **({"transpose_launches": launches["si_step_transpose"],
-             "tangent_launches": launches["si_step_tangent"]} if name == "si_step" else {})}
+             "tangent_launches": launches["si_step_tangent"],
+             "assemble_launches": launches["si_assemble"]} if name == "si_step" else {})}
         for name, t in timing.items() if name == t["kernel"]
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

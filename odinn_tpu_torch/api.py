@@ -16,8 +16,9 @@ Inversion); ``SciMLSensitivityAdjoint`` is :class:`JaxAdjoint` (autograd
 through the solve) and ``EnzymeVJP`` :class:`AutoVJP`; ``∂`` is spelled
 ``d`` in the VJP names. :func:`enable_multiprocessing` registers a mesh
 over the ranks of a ``torch.distributed`` job, one process per device
-(:mod:`odinn_tpu_torch.parallel`); grid-row sharding (``rows > 1``,
-``make_mesh_2d``) waits for ``ROADMAP.md`` Queue 1 item 10.
+(:mod:`odinn_tpu_torch.parallel`); with ``rows > 1`` a 2-D
+``("glaciers", "rows")`` mesh (``make_mesh_2d``) whose row ranks share
+each glacier's grid (:mod:`odinn_tpu_torch.parallel.spatial`).
 """
 
 from __future__ import annotations
@@ -239,6 +240,7 @@ from odinn_tpu_torch.parallel.mesh import (
     shard_glacier_axis,
 )
 from odinn_tpu_torch.parallel.multiprocess import gather_to_host, global_mesh, init_distributed
+from odinn_tpu_torch.parallel.spatial import make_mesh_2d
 from odinn_tpu_torch.simulation.region_inversion import region_split_inversion
 
 # uncertainty, multi-start training and ensemble Kalman inversion ------------
@@ -257,19 +259,27 @@ def enable_multiprocessing(params=None, workers: Optional[int] = None, rows: int
     so that later ``run``/``train_ude`` calls split the glacier axis over
     it. ``workers`` (default ``params.simulation.workers``) beyond the
     job's ranks warns and is clamped; a job of one rank registers no mesh
-    (None). Returns the mesh. ``rows > 1`` (grid-row sharding) raises
-    ``NotImplementedError`` until ``ROADMAP.md`` Queue 1 item 10."""
+    (None). Returns the mesh. ``rows > 1``: a 2-D mesh whose ``rows`` ranks
+    share each glacier's grid (:func:`make_mesh_2d`), the glacier groups
+    clamped as the 1-D path clamps its workers; ``rows`` beyond the job's
+    ranks raises ``ValueError``, as does a glacier dimension that leaves
+    ranks over."""
     import warnings
 
     from odinn_tpu_torch.parallel.mesh import _world_size
 
-    if rows > 1:
-        raise NotImplementedError(
-            f"enable_multiprocessing(rows={rows}): grid-row sharding "
-            "(parallel/spatial.py, make_mesh_2d) comes with ROADMAP.md Queue 1 item 10; "
-            "use rows=1 for the glacier axis")
     n = workers or (params.simulation.workers if params is not None else None)
     world = _world_size()
+    if rows > 1:
+        max_g = world // rows
+        if max_g < 1:
+            raise ValueError(f"rows={rows} exceeds the {world} visible devices (ranks of the "
+                             "torch.distributed job)")
+        if n is not None and n > max_g:
+            warnings.warn(f"requested {n} glacier-axis workers × {rows} rows but only {world} "
+                          f"devices are visible; clamping the glacier axis to {max_g}")
+            n = max_g
+        return set_active_mesh(make_mesh_2d(n_glaciers=n, n_rows=rows))
     if n is not None and n > world:
         warnings.warn(f"requested {n} workers but the torch.distributed job has {world} "
                       "ranks (one process per device); sharding over the available mesh")

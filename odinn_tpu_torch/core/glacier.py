@@ -180,7 +180,8 @@ class Glacier:
     per-glacier scalars, so a batch may mix resolutions. ``glacier_ids``
     holds, for a batch gathered from a larger one, each glacier's index in
     the original batch, which selects its entries of per-glacier θ; None
-    means 0 … n_g − 1.
+    means 0 … n_g − 1. ``row_shard`` is set on a rank's block of grid rows
+    (``parallel.spatial.RowShard``): its grids are then the own rows.
     """
 
     H0: Optional[torch.Tensor] = None           # (nx, ny) initial thickness [m]
@@ -200,6 +201,7 @@ class Glacier:
     npix: Optional[torch.Tensor] = None         # () pre-padding nx·ny
     glacier_ids: Optional[torch.Tensor] = None  # (n_g,) rows of θ's per-glacier entries
     rgi_id: Any = "synthetic"
+    row_shard: Any = None                       # parallel.spatial.RowShard, or None
 
     @property
     def nx(self) -> int:

@@ -96,6 +96,10 @@
 // (_cg without precond): the rematerialised step from H0 and the adjoint
 // solve from gbar*[x > 0].
 //
+// The row-sharded step (ops/cuda/si_kernel.py::si_rows_step) launches
+// si_assemble alone on a rank's slab of rows (si_assemble_f32/f64 below),
+// then the PCG of csrc/si_rows.cu with the host's exchanges between.
+//
 // The large-plane path (si_assemble + si_pcg), for planes whose layout does
 // not fit a cluster (more than 8 cells a thread or 227 KB of shared memory
 // a block): an assembly kernel over the whole batch (D, b, inverse
@@ -791,6 +795,35 @@ int launch_split_mode(const StepArgs<T>& a, E e, T* work, int n_g, void* stream)
   return static_cast<int>(cudaGetLastError());
 }
 
+// The assembly alone (the row-sharded step's, ops/cuda/si_kernel.py::
+// si_assemble): D, b and the inverse diagonal into `work`, the first three
+// planes of a scratch of the Plane layout.
+template <typename T, class E, int kMode, bool kJ>
+int launch_assemble_mode(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
+  const dim3 block(32, 8);
+  const dim3 grid((a.ny + block.x - 1) / block.x, (a.nx + block.y - 1) / block.y, n_g);
+  si_assemble<T, E, kMode, kJ><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      a.H, a.HD, a.B, a.x0, a.table, work, n_g, a.nx, a.ny, static_cast<T>(a.dt),
+      static_cast<T>(a.theta * a.dt), static_cast<T>(1.0 - a.theta), e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, class E, int kMode>
+int launch_assemble_pre(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
+  return a.precondition ? launch_assemble_mode<T, E, kMode, true>(a, e, work, n_g, stream)
+                        : launch_assemble_mode<T, E, kMode, false>(a, e, work, n_g, stream);
+}
+
+template <typename T, class E>
+int launch_assemble(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
+  switch (a.mode) {
+    case kForward: return launch_assemble_pre<T, E, kForward>(a, e, work, n_g, stream);
+    case kTranspose: return launch_assemble_pre<T, E, kTranspose>(a, e, work, n_g, stream);
+    case kTangent: return launch_assemble_pre<T, E, kTangent>(a, e, work, n_g, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename T, class E, int kMode>
 int launch_split_pre(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
   return a.precondition ? launch_split_mode<T, E, kMode, true>(a, e, work, n_g, stream)
@@ -894,4 +927,34 @@ extern "C" int si_step_split_f64(const double* H, const double* HD, const double
                 precondition);
   return with_exps<double>(glen, e_hc, e_sc, e_hs, e_ss,
                            [&](auto e) { return launch_split<double>(a, e, work, n_g, stream); });
+}
+
+// The assembly alone into `work` (planes of the batch's shape, the Plane
+// layout's D, b and inverse diagonal written): the row-sharded step's
+// first launch. `X` is the forward's x in the transpose mode (b =
+// H*[X > 0]) and unread otherwise; `mode`, `precondition`, `glen` and e_*
+// as for the cluster kernel.
+extern "C" int si_assemble_f32(const float* H, const float* HD, const float* B, const float* X,
+                               const float* table, float* work, int n_g, int nx, int ny,
+                               double dt, double theta, int mode, int precondition, int glen,
+                               double e_hc, double e_sc, double e_hs, double e_ss,
+                               void* stream) {
+  const StepArgs<float> a =
+      step_args<float>(H, HD, B, X, table, nullptr, nullptr, nx, ny, dt, theta, 0, mode,
+                     precondition);
+  return with_exps<float>(glen, e_hc, e_sc, e_hs, e_ss,
+                          [&](auto e) { return launch_assemble<float>(a, e, work, n_g, stream); });
+}
+
+extern "C" int si_assemble_f64(const double* H, const double* HD, const double* B,
+                               const double* X, const double* table, double* work, int n_g,
+                               int nx, int ny, double dt, double theta, int mode,
+                               int precondition, int glen, double e_hc, double e_sc,
+                               double e_hs, double e_ss, void* stream) {
+  const StepArgs<double> a =
+      step_args<double>(H, HD, B, X, table, nullptr, nullptr, nx, ny, dt, theta, 0, mode,
+                     precondition);
+  return with_exps<double>(glen, e_hc, e_sc, e_hs, e_ss, [&](auto e) {
+    return launch_assemble<double>(a, e, work, n_g, stream);
+  });
 }

@@ -44,10 +44,20 @@ transpose is ``si_step`` and ``si_step_transpose`` without the
 preconditioner and one ``si_step_vjp``, and the creep and slide
 cotangents are summed per glacier and taken to θ through the law once a
 gradient.
+
+On a row-sharded batch (``glacier.row_shard``) the discrete adjoint runs on
+the rank's own rows: each RHS evaluation and each stage pullback takes the
+slab of one ghost row (λ zero on the ghost rows, the ghost rows'
+cotangents sent back to their owners), a fused RKC step and its pullback
+the slab of ``s``, and the SI/SI2 transposes the slab of two with their
+plain-CG solves split at the reductions (``si_math.rows_cg``); θ's
+cotangent is this rank's partial, which the trainer sums over the mesh.
+The continuous adjoint is refused there (``ROADMAP.md`` Queue 1 item 11).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import numpy as np
@@ -110,6 +120,7 @@ class _Pullbacks:
     def __init__(self, flavor, theta, glacier, model, params, t_first, H0, slide=False):
         self.flavor, self.glacier, self.model, self.params = flavor, glacier, model, params
         self.t_first, self.H0, self.slide = t_first, H0, slide
+        self.shard = glacier.row_shard
         self.theta = vjps.tree_map(lambda x: x.detach(), theta)
         self.phys = params.physical
         self.B = glacier.B.to(H0.dtype).contiguous()
@@ -158,7 +169,19 @@ class _Pullbacks:
 
     def rhs(self, H, t=None):
         return sia2d_rhs(H, self.glacier.B, self.dx, self.dy, self.vfn, self.model.target,
-                         self.phys)
+                         self.phys, shard=self.shard)
+
+    @contextlib.contextmanager
+    def on_slab(self, h):
+        """The pullbacks' bed (and the glacier they read it from) on the row
+        shard's slab of halo ``h`` for the duration."""
+        glacier, B = self.glacier, self.B
+        self.B = self.shard.bed(h, B.dtype)
+        self.glacier = glacier.replace(B=self.shard.bed(h), row_shard=None)
+        try:
+            yield
+        finally:
+            self.glacier, self.B = glacier, B
 
     def _fused_vjp(self, lam, H):
         return vjps.fused_pullback(lam, H, self.B, self.derived, self.phys.eta0)
@@ -196,7 +219,16 @@ class _Pullbacks:
 
     def pull(self, lam, H, t=None):
         """λᵀ∂f/∂H at H; accumulates λᵀ∂f/∂θ. On the fused route of the
-        discrete flavor both are one pullback launch."""
+        discrete flavor both are one pullback launch. On a row shard: on
+        the slab of halo 1, λ zero on its ghost rows (module doc)."""
+        sh = self.shard
+        if sh is None:
+            return self._pull(lam, H, t)
+        with self.on_slab(1):
+            dH = self._pull(sh.pad(lam, 1), sh.exchange(H, 1), t)
+        return sh.halo_transpose(dH, 1)
+
+    def _pull(self, lam, H, t=None):
         if isinstance(self.flavor, DiscreteVJP) and self.fused:
             dH, d_creep = self._fused_vjp(lam, H)
             self.add_table(d_creep)
@@ -282,10 +314,13 @@ def _fused_rkc_transpose(pb, s):
     (``rkc_kernel.interval_pullback``)."""
 
     def transpose(lam, H0, dt, t, rhs, pull):
-        dH, d_creep = rkc_kernel.interval_pullback(lam.contiguous(), H0.contiguous(), pb.B,
+        sh, B = pb.shard, pb.B
+        if sh is not None:        # on the slab of halo s (module doc)
+            lam, H0, B = sh.pad(lam, s), sh.exchange(H0, s), sh.bed(s, H0.dtype)
+        dH, d_creep = rkc_kernel.interval_pullback(lam.contiguous(), H0.contiguous(), B,
                                                    pb.derived, dt, s, pb.phys.eta0, pb.exps)
         pb.add_table(d_creep)
-        return dH
+        return dH if sh is None else sh.halo_transpose(dH, s)
 
     return transpose
 
@@ -304,6 +339,19 @@ def _make_si_transpose(pb, cg_iters):
 
     def fused(lam, H0, dt, t, rhs, pull):
         d, e = pb.derived, pb.exps
+        sh = pb.shard
+        if sh is not None:
+            H_s = sh.exchange(H0, 2).contiguous()
+            B_s = sh.bed(2, H0.dtype)
+            w = si_kernel.rows_step_x(sh, H_s, H_s, B_s, H_s, d, dt, 1.0, cg_iters, e,
+                                      precondition=False)
+            mu = si_kernel.rows_step_transpose(sh, lam, w, H_s, B_s, d, dt, 1.0, cg_iters, e,
+                                               precondition=False)
+            dH, dH_D, _, d_creep, d_slide = si_kernel.si_step_vjp(
+                sh.pad(mu, 2).contiguous(), H_s, H_s, B_s, sh.exchange(w, 2).contiguous(), d, dt,
+                1.0, e)
+            pb.add_table(d_creep, d_slide)
+            return sh.halo_transpose(dH + dH_D, 2)
         _, w = si_kernel.si_step(H0, H0, pb.B, H0, d, dt, 1.0, cg_iters, e,
                                  precondition=False, keep_x=True)
         mu = si_kernel.si_step_transpose(lam.contiguous(), w, H0, pb.B, d, dt, 1.0, cg_iters, e,
@@ -324,22 +372,37 @@ def _generic_theta_pull(pb, lam, H, H_D, dt, theta, iters, x0):
     H_D for the cotangent λ on relu(w), w = CG(A(D(H_D)), b(H), x0); θ's
     part is accumulated."""
     th, vfn_th = pb._theta_values()
+    sh = pb.shard
+    B = pb.B
+    if sh is not None:
+        H, H_D, x0 = sh.exchange(torch.stack([H, H_D, x0]), 2).unbind(0)
+        B = sh.bed(2, H.dtype)
     with torch.enable_grad():
         hd = H_D.detach().requires_grad_(True)
-        D = _frozen_diffusivity(hd, pb.glacier.B, pb.dx, pb.dy, vfn_th, pb.model.target,
-                                pb.phys)
+        D = _frozen_diffusivity(hd, B, pb.dx, pb.dy, vfn_th, pb.model.target, pb.phys)
     Dc = D.detach()
-    w = si_math.theta_solve_x(H, Dc, pb.B, x0, dt, theta, iters, pb.dx, pb.dy,
-                              precondition=False)
-    mu = si_math.transpose_solve(lam, w, Dc, dt, theta, iters, pb.dx, pb.dy, precondition=False)
-    dH, cot_D, _ = si_math.residual_pullback(mu, H, Dc, pb.B, w, dt, theta, pb.dx, pb.dy)
+    if sh is None:
+        w = si_math.theta_solve_x(H, Dc, B, x0, dt, theta, iters, pb.dx, pb.dy,
+                                  precondition=False)
+        mu = si_math.transpose_solve(lam, w, Dc, dt, theta, iters, pb.dx, pb.dy,
+                                     precondition=False)
+    else:
+        w = si_math.rows_theta_x(sh, H, Dc, B, x0, dt, theta, iters, pb.dx, pb.dy,
+                                 precondition=False)
+        mu = sh.pad(si_math.rows_transpose_solve(sh, lam, w, Dc, B, dt, theta, iters, pb.dx,
+                                                 pb.dy, precondition=False), 2)
+        w = sh.exchange(w, 2)
+    dH, cot_D, _ = si_math.residual_pullback(mu, H, Dc, B, w, dt, theta, pb.dx, pb.dy)
     leaves = vjps.tree_leaves(th)
     with torch.enable_grad():
         grads = torch.autograd.grad(D, [hd] + leaves, cot_D, allow_unused=True,
                                     retain_graph=True)
     pb.add_tree(vjps._unflatten(th, [torch.zeros_like(p) if g is None else g
                                      for p, g in zip(leaves, grads[1:])]))
-    return dH, (torch.zeros_like(H) if grads[0] is None else grads[0])
+    dH_D = torch.zeros_like(H) if grads[0] is None else grads[0]
+    if sh is not None:
+        return sh.halo_transpose(dH, 2), sh.halo_transpose(dH_D, 2)
+    return dH, dH_D
 
 
 def _make_si2_transpose(pb, cg, cg_p):
@@ -351,7 +414,35 @@ def _make_si2_transpose(pb, cg, cg_p):
     chain rule), half straight into H₀."""
     ts = 0.5
 
+    def fused_rows(lam, H0, dt):
+        d, e, sh = pb.derived, pb.exps, pb.shard
+        B = sh.bed(2, H0.dtype)
+        H0_s = sh.exchange(H0, 2).contiguous()
+        w1 = si_kernel.rows_step_x(sh, H0_s, H0_s, B, H0_s, d, dt, ts, cg_p, e,
+                                   precondition=False)
+        H_pred = st.relu_strict(w1)
+        H_mid = 0.5 * (H0 + H_pred)
+        mid_s, pred_s = sh.exchange(torch.stack([H_mid, H_pred]), 2).unbind(0)
+        mid_s, pred_s = mid_s.contiguous(), pred_s.contiguous()
+        w2 = si_kernel.rows_step_x(sh, H0_s, mid_s, B, pred_s, d, dt, ts, cg, e,
+                                   precondition=False)
+        mu2 = si_kernel.rows_step_transpose(sh, lam, w2, mid_s, B, d, dt, ts, cg, e,
+                                            precondition=False)
+        dH_a, dH_mid, _, dc2, ds2 = si_kernel.si_step_vjp(
+            sh.pad(mu2, 2).contiguous(), H0_s, mid_s, B, sh.exchange(w2, 2).contiguous(), d, dt,
+            ts, e)
+        dH_a, dH_mid = sh.halo_transpose(dH_a, 2), sh.halo_transpose(dH_mid, 2)
+        mu1 = si_kernel.rows_step_transpose(sh, 0.5 * dH_mid, w1, H0_s, B, d, dt, ts, cg_p, e,
+                                            precondition=False)
+        dH_b, dH_c, _, dc1, ds1 = si_kernel.si_step_vjp(
+            sh.pad(mu1, 2).contiguous(), H0_s, H0_s, B, sh.exchange(w1, 2).contiguous(), d, dt,
+            ts, e)
+        pb.add_table(dc2 + dc1, ds2 + ds1)
+        return dH_a + 0.5 * dH_mid + sh.halo_transpose(dH_b + dH_c, 2)
+
     def fused(lam, H0, dt, t, rhs, pull):
+        if pb.shard is not None:
+            return fused_rows(lam, H0, dt)
         d, e, B = pb.derived, pb.exps, pb.B
         H_pred, w1 = si_kernel.si_step(H0, H0, B, H0, d, dt, ts, cg_p, e, precondition=False,
                                        keep_x=True)
@@ -368,11 +459,19 @@ def _make_si2_transpose(pb, cg, cg_p):
         return dH_a + 0.5 * dH_mid + dH_b + dH_c
 
     def generic(lam, H0, dt, t, rhs, pull):
-        B = pb.B
+        sh = pb.shard
         with torch.no_grad():
-            D1 = _frozen_diffusivity(H0, B, pb.dx, pb.dy, pb.vfn, pb.model.target, pb.phys)
-            w1 = si_math.theta_solve_x(H0, D1, B, H0, dt, ts, cg_p, pb.dx, pb.dy,
-                                       precondition=False)
+            if sh is None:
+                D1 = _frozen_diffusivity(H0, pb.B, pb.dx, pb.dy, pb.vfn, pb.model.target,
+                                         pb.phys)
+                w1 = si_math.theta_solve_x(H0, D1, pb.B, H0, dt, ts, cg_p, pb.dx, pb.dy,
+                                           precondition=False)
+            else:
+                B, H0_s = sh.bed(2, H0.dtype), sh.exchange(H0, 2)
+                D1 = _frozen_diffusivity(H0_s, B, pb.dx, pb.dy, pb.vfn, pb.model.target,
+                                         pb.phys)
+                w1 = si_math.rows_theta_x(sh, H0_s, D1, B, H0_s, dt, ts, cg_p, pb.dx, pb.dy,
+                                          precondition=False)
         H_pred = st.relu_strict(w1)
         H_mid = 0.5 * (H0 + H_pred)
         dH_a, dH_mid = _generic_theta_pull(pb, lam, H0, H_mid, dt, ts, cg, x0=H_pred)
@@ -442,6 +541,11 @@ def glacier_adjoint_value_and_grad(theta, glacier, model, params, tstops, adjoin
     last, the reverse steps each glacier took) and ``host_syncs`` (the
     step loop's reads of the continue condition)."""
     check_adjoint_supported(model)
+    if isinstance(adjoint, ContinuousAdjoint) and glacier.row_shard is not None:
+        from odinn_tpu_torch.parallel.spatial import refuse_rows
+
+        refuse_rows("the continuous adjoint (its quadrature loop reads host values)",
+                    glacier.row_shard)
     flavor = adjoint.VJP_method
     mb_flavor = adjoint.MB_VJP
     use_mb = params.simulation.use_MB and model.mass_balance is not None
@@ -507,7 +611,14 @@ def glacier_adjoint_value_and_grad(theta, glacier, model, params, tstops, adjoin
             if dl_H[0] is not None:
                 lam0 = lam0 + dl_H[0]
             ids = glacier_index(glacier)
-            d_ic = lam0 * model.initial_condition.evaluate_dH0(theta, ids)
+            d_ic = model.initial_condition.evaluate_dH0(theta, ids)
+            if glacier.row_shard is not None:      # θ_IC is whole: this rank's rows of it
+                full = torch.zeros_like(d_ic)
+                full[..., glacier.row_shard.lo:glacier.row_shard.hi, :] = (
+                    lam0 * glacier.row_shard.rows_of(d_ic))
+                d_ic = full
+            else:
+                d_ic = lam0 * d_ic
             grads = dict(grads, IC=grads["IC"].index_add(0, ids, d_ic.to(grads["IC"].dtype)))
         return losses, grads
 
@@ -519,13 +630,20 @@ def _discrete(pb, adjoint, traj, ts, npt, params, inject):
     method = params.solver.solver if params.solver.solver in _METHODS else "RK4"
     sp = params.solver
     rhs = pb.rhs
+    slab_rows = traj.shape[-2] + (0 if pb.shard is None else sum(pb.shard.extent(sp.rkc_stages)))
     fused_rkc = (method == "RKC" and isinstance(pb.flavor, DiscreteVJP) and pb.fused
                  and pb.exps is not None
-                 and rkc_kernel.rkc_fits(traj.shape[-2], traj.shape[-1], traj.dtype))
+                 and rkc_kernel.rkc_fits(slab_rows, traj.shape[-1], traj.dtype))
+    s_rkc = sp.rkc_stages
     if method == "RKC" and fused_rkc:
-        transpose = _fused_rkc_transpose(pb, sp.rkc_stages)
-        rkc_step = lambda f, H, t, dt: rkc_kernel.rkc_interval(
-            H, pb.B, pb.derived, dt, sp.rkc_stages, pb.phys.eta0, pb.exps)
+        transpose = _fused_rkc_transpose(pb, s_rkc)
+        if pb.shard is None:
+            rkc_step = lambda f, H, t, dt: rkc_kernel.rkc_interval(
+                H, pb.B, pb.derived, dt, s_rkc, pb.phys.eta0, pb.exps)
+        else:
+            sh, B_s = pb.shard, pb.shard.bed(s_rkc, traj.dtype)
+            rkc_step = lambda f, H, t, dt: sh.crop(rkc_kernel.rkc_interval(
+                sh.exchange(H, s_rkc), B_s, pb.derived, dt, s_rkc, pb.phys.eta0, pb.exps), s_rkc)
     elif method == "RKC":
         transpose = _make_rkc_transpose(sp.rkc_stages)
         rkc_step = solver_mod.make_rkc2_step(sp.rkc_stages)
@@ -549,7 +667,7 @@ def _discrete(pb, adjoint, traj, ts, npt, params, inject):
             step = semi_implicit_step if method == "SI" else si2_step
             kw = {} if method == "SI" else {"cg_iters_predictor": sp.cg_iters_predictor}
             return step(H, pb.glacier.B, pb.dx, pb.dy, pb.vfn, pb.model.target, pb.phys, dt,
-                        sp.cg_iters, **kw)
+                        sp.cg_iters, shard=pb.shard, **kw)
         return H + dt * rhs(H, t)
 
     lam = torch.zeros_like(traj[0])

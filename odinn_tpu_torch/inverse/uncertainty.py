@@ -318,7 +318,16 @@ def laplace_posterior(
     appropriate when p ≪ N; a warning is emitted when p ≥ N_eff and no
     prior is given. ``structure="per_glacier"``: every θ leaf a
     per-glacier vector (G,), one J·v per leaf (see the module doc).
+    A row-sharded batch, or a registered mesh with a ``"rows"`` dimension,
+    raises ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 11; the JAX
+    package does not shard the posterior either).
     """
+    from odinn_tpu_torch.parallel.mesh import active_mesh
+    from odinn_tpu_torch.parallel.spatial import refuse_rows
+
+    refuse_rows("laplace_posterior", active_mesh())
+    if getattr(batch, "row_shard", None) is not None:
+        refuse_rows("laplace_posterior", batch.row_shard)
     flat, unravel = theta_to_vector(theta)
     p = int(flat.numel())
     dt_ = flat.dtype

@@ -5,6 +5,13 @@ Every loss sums over the last two (grid) axes, so one call on a stacked
 batch with a (n_g,) normalization gives the (n_g,) per-glacier losses, and
 on one glacier a number. Masking multiplies by the mask, so shapes are
 fixed. Autograd supplies every backward.
+
+On a row-sharded batch (``ctx.glacier.row_shard``) every grid sum is a
+partial over the rank's own rows, which the trainer's all-reduce adds up;
+where a nonlinearity follows a grid sum (the velocity loss's speed scale)
+the sum is taken over the row group first (``parallel.spatial.rows_sum``),
+and the thickness loss's erosion mask is formed on the reference's static
+slab.
 """
 
 from __future__ import annotations
@@ -101,13 +108,13 @@ class LossH:
     def __call__(self, ctx, H_pred, t):
         if ctx.H_ref is None:
             return torch.zeros((), dtype=H_pred.dtype, device=H_pred.device)
-        mask = is_in_glacier(ctx.H_ref, self.loss.distance)
+        mask = ctx.ref_mask(self.loss.distance)
         return simple_loss(self.loss, H_pred, ctx.H_ref, mask, ctx.normalization)
 
     def residuals(self, ctx, H_pred, t):
         if ctx.H_ref is None:
             return ()
-        mask = is_in_glacier(ctx.H_ref, self.loss.distance)
+        mask = ctx.ref_mask(self.loss.distance)
         return (simple_residual(self.loss, H_pred, ctx.H_ref, mask, ctx.normalization),)
 
 
@@ -138,10 +145,13 @@ class LossV:
         return l
 
     def _speed_scale(self, ctx, mask, dtype):
+        from odinn_tpu_torch.parallel.spatial import row_shard_of, rows_sum
+
         m = mask.to(dtype)
+        shard = row_shard_of(ctx.glacier)
         mean_speed = torch.sqrt(
-            torch.sum(m * (ctx.Vx_ref ** 2 + ctx.Vy_ref ** 2), dim=_GRID)
-            / torch.clamp(torch.sum(m, dim=_GRID), min=1.0))
+            rows_sum(torch.sum(m * (ctx.Vx_ref ** 2 + ctx.Vy_ref ** 2), dim=_GRID), shard)
+            / torch.clamp(rows_sum(torch.sum(m, dim=_GRID), shard), min=1.0))
         return torch.clamp(mean_speed, min=1e-12)
 
     def residuals(self, ctx, H_pred, t):
@@ -222,6 +232,17 @@ class LossContext:
     glacier: Any = None
     dx: Any = None
     dy: Any = None
+    H_ref_ext: Any = None     # H_ref on a row shard's static slab
+
+    def ref_mask(self, distance: int):
+        """The cells at least ``distance`` pixels inside the reference
+        thickness's margin (``is_in_glacier``); on a row shard, eroded on the
+        reference's static slab, then cut to the own rows."""
+        if self.H_ref_ext is None:
+            return is_in_glacier(self.H_ref, distance)
+        from odinn_tpu_torch.parallel.spatial import in_glacier
+
+        return in_glacier(self.H_ref_ext, distance, self.glacier.row_shard, static=True)
 
 
 def term_kind(term) -> str:

@@ -14,6 +14,13 @@ Each term has a ``kind``: "initial" terms are evaluated once per solve,
 last two (grid) axes, giving one value per glacier; the spacings may be
 per-glacier (n_g,) tensors, which broadcast as (n_g, 1, 1) columns.
 Autograd supplies every backward.
+
+On a row-sharded batch (``ctx.glacier.row_shard``) the Laplacian of a grid
+field takes one ghost row on each side, and an erosion mask of the state
+its distance in ghost rows (``parallel.spatial``); their grid sums are
+own-row partials. A term that reads θ alone (``reads_grid = False``,
+``RheologyRegularization``) is whole on every rank of a row group, and the
+trainer counts it on row rank 0 only.
 """
 
 from __future__ import annotations
@@ -24,7 +31,6 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from odinn_tpu_torch.core.glacier import is_in_glacier
 
 __all__ = [
     "laplacian",
@@ -65,20 +71,33 @@ def laplacian_vjp(lam, a, dx, dy):
     return out
 
 
+def _laplacian_on(a, dx, dy, shard):
+    """∇²a, on a row shard through the slab of halo 1."""
+    if shard is None:
+        return laplacian(a, dx, dy)
+    return shard.crop(laplacian(shard.halo_rows(a, 1), dx, dy), 1)
+
+
 @dataclass(frozen=True)
 class TikhonovRegularization:
-    """Σ_mask (∇²a)²."""
+    """Σ_mask (∇²a)²; ``shard``: the row shard ``a``'s rows belong to."""
 
     distance: int = 3
 
-    def __call__(self, a, dx, dy, mask):
+    def __call__(self, a, dx, dy, mask, shard=None):
         m = mask.to(a.dtype)
-        return torch.sum(m * laplacian(a, dx, dy) ** 2, dim=_GRID)
+        return torch.sum(m * _laplacian_on(a, dx, dy, shard) ** 2, dim=_GRID)
 
-    def residual(self, a, dx, dy, mask):
+    def residual(self, a, dx, dy, mask, shard=None):
         """√m·∇²a: Σ_grid r² equals :meth:`__call__`."""
         m = mask.to(a.dtype)
-        return torch.sqrt(m) * laplacian(a, dx, dy)
+        return torch.sqrt(m) * _laplacian_on(a, dx, dy, shard)
+
+
+def _shard(ctx):
+    from odinn_tpu_torch.parallel.spatial import row_shard_of
+
+    return row_shard_of(ctx.glacier)
 
 
 def _everywhere(a):
@@ -96,10 +115,10 @@ class InitialThicknessRegularization:
     kind: str = "initial"
 
     def __call__(self, ctx, H_pred, t):
-        return self.reg(H_pred, ctx.dx, ctx.dy, _everywhere(H_pred))
+        return self.reg(H_pred, ctx.dx, ctx.dy, _everywhere(H_pred), _shard(ctx))
 
     def residuals(self, ctx, H_pred, t):
-        return (self.reg.residual(H_pred, ctx.dx, ctx.dy, _everywhere(H_pred)),)
+        return (self.reg.residual(H_pred, ctx.dx, ctx.dy, _everywhere(H_pred), _shard(ctx)),)
 
 
 @dataclass(frozen=True)
@@ -114,16 +133,18 @@ class VelocityRegularization:
     def _speed_and_mask(self, ctx, H_pred, t):
         if self.components != "abs":
             raise NotImplementedError(f"VelocityRegularization components {self.components}")
+        from odinn_tpu_torch.parallel.spatial import in_glacier
+
         _, _, v = ctx.velocity_fn(H_pred, t)
-        return v, is_in_glacier(H_pred, self.distance) & (v > 0.0)
+        return v, in_glacier(H_pred, self.distance, _shard(ctx)) & (v > 0.0)
 
     def __call__(self, ctx, H_pred, t):
         v, mask = self._speed_and_mask(ctx, H_pred, t)
-        return self.reg(v, ctx.dx, ctx.dy, mask)
+        return self.reg(v, ctx.dx, ctx.dy, mask, _shard(ctx))
 
     def residuals(self, ctx, H_pred, t):
         v, mask = self._speed_and_mask(ctx, H_pred, t)
-        return (self.reg.residual(v, ctx.dx, ctx.dy, mask),)
+        return (self.reg.residual(v, ctx.dx, ctx.dy, mask, _shard(ctx)),)
 
 
 @dataclass(frozen=True)
@@ -136,6 +157,7 @@ class RheologyRegularization:
     min_A: float = 8.5e-20
     max_A: float = 8e-17
     kind: str = "initial"
+    reads_grid = False        # θ's whole grid: counted once over a row group
 
     def _rheology(self, ctx):
         raw = ctx.theta["A"][ctx.glacier_idx]

@@ -10,7 +10,10 @@ whole saved trajectory (T, …, nx, ny), time first, and the tstops. On a
 stacked batch the observation dates are (n_g,) tensors, one per glacier,
 and each glacier reads its own saves. Each loss assembles (pred, ref, mask)
 in one helper shared by ``__call__`` and ``residuals``, so the loss and its
-residual form cannot drift apart. Autograd supplies every backward.
+residual form cannot drift apart. Autograd supplies every backward. On a
+row-sharded batch the sums are own-row partials, the dh/dt mask's erosion
+takes its distance in ghost rows of the state, and the velocity diagnostic
+its one ghost row (``parallel.spatial``).
 """
 
 from __future__ import annotations
@@ -20,7 +23,6 @@ from typing import Any
 
 import torch
 
-from odinn_tpu_torch.core.glacier import is_in_glacier
 from odinn_tpu_torch.losses.losses import L2Sum, simple_loss, simple_residual
 
 __all__ = ["LossDhdt", "LossAvgV"]
@@ -72,7 +74,9 @@ class LossDhdt:
         span = dd.t2 - dd.t1
         span = _grid(span, traj.dtype) if span.ndim else span.to(traj.dtype)
         pred = (h2 - h1) / span
-        return pred, dd.dhdt, is_in_glacier(h2, self.loss.distance)
+        from odinn_tpu_torch.parallel.spatial import in_glacier, row_shard_of
+
+        return pred, dd.dhdt, in_glacier(h2, self.loss.distance, row_shard_of(ctx.glacier))
 
     def __call__(self, ctx, traj, tstops):
         pm = self._pred(ctx, traj, tstops)

@@ -135,9 +135,12 @@ def glacier_index(glacier):
 
 def initial_thickness(model: Model, theta, glacier):
     """H₀ of the solve: σ(θ_IC) of the glacier's rows when θ has a trainable
-    initial condition, else the glacier's own H₀."""
+    initial condition (on a row-sharded batch, whose θ is whole, of its own
+    grid rows), else the glacier's own H₀."""
     if model.initial_condition is not None and theta is not None and "IC" in theta:
-        return model.initial_condition.evaluate_H0(theta, glacier_index(glacier))
+        H0 = model.initial_condition.evaluate_H0(theta, glacier_index(glacier))
+        shard = getattr(glacier, "row_shard", None)
+        return H0 if shard is None else shard.rows_of(H0)
     return glacier.H0
 
 

@@ -53,6 +53,24 @@ as JAX ignores the guess's.
 preconditioner): the solves of the hand-written SI/SI2 transposes,
 :mod:`odinn_tpu_torch.inverse.gradient`, which also read the forward's
 pre-relu solution (``keep_x``).
+
+On a row shard (``parallel.spatial.RowShard``; :func:`si_rows_step`) the
+step runs on the slab of the own rows plus two ghost rows on each side:
+:func:`si_assemble`, the large-plane path's assembly kernel alone (its
+C entry ``si_assemble_*`` of ``csrc/si_step.cu``, unchanged), into a
+scratch of ``si_math.ROWS_PLANES`` planes, then the PCG split at its two
+reductions (``si_math.rows_cg``) on the kernels of ``csrc/si_rows.cu``:
+:func:`si_rows_apply` (A·p on the own rows after p = z + β·p on the whole
+slab, and each glacier's partial p·Ap; in its start mode r = b − A·x0,
+z and the partial r·z) and :func:`si_rows_update` (x += α·p, r −= α·Ap,
+z = M⁻¹r and the partial r·z). One block a glacier sums its partials in a
+fixed order, so a rerun is bitwise the same. Their plain versions,
+:func:`si_rows_apply_reference` and :func:`si_rows_update_reference`, are
+built from ``si_math``'s pieces. The backward is the transpose solve by the
+same PCG (its b = ḡ·[x > 0] formed on the own rows and exchanged, so the
+assembly runs in its tangent mode, b as given) and :func:`si_step_vjp`,
+unchanged, on the slab with λ zero on the ghost rows; the tangent is the
+residual's tangent on the slab and the tangent solve.
 """
 
 from __future__ import annotations
@@ -73,7 +91,9 @@ from odinn_tpu_torch.ops.cuda.common import (
 __all__ = ["si_step", "si_step_reference", "si_step_transpose", "si_step_transpose_reference",
            "si_step_vjp", "si_step_vjp_reference", "si_step_tangent", "si_step_tangent_reference",
            "si_step_residual_tangent", "si_layout", "si_fits", "si_plan", "si_vjp_layout",
-           "si_vjp_plan"]
+           "si_vjp_plan", "si_assemble", "si_assemble_reference", "si_rows_apply",
+           "si_rows_apply_reference", "si_rows_update", "si_rows_update_reference",
+           "rows_step_x", "rows_step_transpose", "si_rows_step"]
 
 # the kernel's modes (csrc/si_step.cu): the step, the transpose solve of its
 # backward, the tangent solve of its jvp
@@ -124,6 +144,23 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.si_step_occupancy.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
     lib.si_step_occupancy.restype = ctypes.c_int
+    for fn in (lib.si_assemble_f32, lib.si_assemble_f64):
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_double] * 2
+                       + [ctypes.c_int] * 3 + [ctypes.c_double] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _rows_library() -> ctypes.CDLL:
+    lib = load_library("si_rows")
+    for fn in (lib.si_rows_apply_f32, lib.si_rows_apply_f64):
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_double]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+        fn.restype = ctypes.c_int
+    for fn in (lib.si_rows_update_f32, lib.si_rows_update_f64):
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -675,6 +712,253 @@ def _launch(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, lay, x_out=None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The row-sharded step (module doc)
+# ---------------------------------------------------------------------------
+
+def si_assemble_reference(work, H, H_D, B, X, scalars, dt, theta, mode, precondition=True,
+                          exps=None):
+    """Plain version of :func:`si_assemble`: D at H_D, b and the inverse
+    Jacobi diagonal into ``work`` (``si_math.rows_assemble``)."""
+    exps = _resolve_exps(scalars, exps)
+    dx, dy, creep, slide = _row(scalars, H.dtype)
+    D = _frozen_D_scalar(H_D, B, dx, dy, creep, slide, exps)
+    si_math.rows_assemble(work, H, D, B, float(dt), float(theta), int(mode), bool(precondition),
+                          dx, dy, X)
+
+
+def si_assemble(work, H, H_D, B, X, scalars, dt, theta=1.0, mode=si_math.FORWARD,
+                precondition=True, exps=None):
+    """The step's assembly alone on (n_g, nx, ny) planes into the scratch
+    ``work`` (``si_math.ROWS_PLANES`` planes of that shape): D's corners,
+    b of ``mode`` (the step's; ḡ·[X > 0] with ḡ in H; H as given) and the
+    inverse Jacobi diagonal. A CUDA tensor launches the large-plane path's
+    assembly kernel (``csrc/si_step.cu``), counted on
+    ``si_assemble.launches``; a CPU tensor takes
+    :func:`si_assemble_reference`."""
+    check_inputs("si_assemble", (H, H_D, B, X), scalars, 8)
+    exps = _resolve_exps(scalars, exps)
+    if _device_of("si_assemble", H) == "cpu":
+        return si_assemble_reference(work, H, H_D, B, X, scalars, dt, theta, mode, precondition,
+                                     exps)
+    _refuse_all("si_assemble", H, H_D, B, X, scalars)
+    if work.shape[1:] != H.shape or not work.is_contiguous() or work.dtype != H.dtype:
+        raise ValueError("si_assemble: the scratch must be contiguous planes of H's shape")
+    n_g, nx, ny = H.shape
+    table = scalars[:, :4].detach().to(H.dtype).contiguous()
+    lib = _library()
+    fn = lib.si_assemble_f32 if H.dtype == torch.float32 else lib.si_assemble_f64
+    err = fn(H.data_ptr(), H_D.data_ptr(), B.data_ptr(), X.data_ptr(), table.data_ptr(),
+             work.data_ptr(), n_g, nx, ny, float(dt), float(theta), int(mode), int(precondition),
+             int(uses_glen(exps)), *exps, torch.cuda.current_stream(H.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"si_assemble: kernel launch failed with CUDA error {err}")
+    si_assemble.launches += 1
+
+
+def _spacings_of(table, dtype):
+    return tuple(table[:, k].to(dtype).reshape(-1, 1, 1) for k in range(2))
+
+
+def si_rows_apply_reference(work, x0, beta, src, dst, r0, r1, table, coef, init,
+                            precondition=True):
+    """Plain version of :func:`si_rows_apply` on the scratch ``work``."""
+    dx, dy = _spacings_of(table, work.dtype)
+    D = work[si_math.ROWS_D][..., :-1, :-1]
+    interior, _ = si_math._masks(work[si_math.ROWS_X])
+
+    def matvec(u):
+        return u - coef * interior * si_math.div_flux(interior * u, D, dx, dy)
+
+    own = slice(r0, r1)
+    if init:
+        work[si_math.ROWS_X].copy_(x0)
+        r = work[si_math.ROWS_RHS] - matvec(x0)
+        z = r * work[si_math.ROWS_INV] if precondition else r
+        work[si_math.ROWS_R][..., own, :] = r[..., own, :]
+        work[si_math.ROWS_Z][..., own, :] = z[..., own, :]
+        return si_math.dot(r[..., own, :], z[..., own, :]).reshape(-1)
+    p = work[si_math.ROWS_Z] + beta.reshape(-1, 1, 1) * work[src]
+    work[dst] = p
+    Ap = matvec(p)
+    work[si_math.ROWS_AP][..., own, :] = Ap[..., own, :]
+    return si_math.dot(p[..., own, :], Ap[..., own, :]).reshape(-1)
+
+
+def si_rows_update_reference(work, alpha, p_plane, r0, r1, precondition=True):
+    """Plain version of :func:`si_rows_update` on the scratch ``work``."""
+    own = slice(r0, r1)
+    a = alpha.reshape(-1, 1, 1)
+    x, r = work[si_math.ROWS_X][..., own, :], work[si_math.ROWS_R][..., own, :]
+    p, Ap = work[p_plane][..., own, :], work[si_math.ROWS_AP][..., own, :]
+    x_new = x + a * p
+    r_new = r - a * Ap
+    z = r_new * work[si_math.ROWS_INV][..., own, :] if precondition else r_new
+    work[si_math.ROWS_X][..., own, :] = x_new
+    work[si_math.ROWS_R][..., own, :] = r_new
+    work[si_math.ROWS_Z][..., own, :] = z
+    return si_math.dot(r_new, z).reshape(-1)
+
+
+def _rows_args(name, work, table, r0, r1):
+    if work.ndim != 4 or work.shape[0] != si_math.ROWS_PLANES or not work.is_contiguous():
+        raise ValueError(f"{name}: the scratch is {si_math.ROWS_PLANES} contiguous planes")
+    if work.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: float32 or float64, got {work.dtype}")
+    _, n_g, nx, ny = work.shape
+    if not 0 <= r0 < r1 <= nx:
+        raise ValueError(f"{name}: own rows [{r0}, {r1}) outside a plane of {nx} rows")
+    return n_g, nx, ny, table.detach().to(work.dtype).contiguous()
+
+
+def si_rows_apply(work, x0, beta, src, dst, r0, r1, table, coef, init, precondition=True):
+    """One half of a row-sharded PCG iteration on the scratch ``work``
+    (module doc): p[dst] = z + β·p[src] on the whole slab, then Ap = A·p
+    on the own rows [r0, r1) and each glacier's partial p·Ap; with
+    ``init``, x = x0, r = b − A·x0, z = M⁻¹r (r without
+    ``precondition``) and the partial r·z. ``table`` holds each glacier's
+    (dx, dy) in its first columns, ``coef`` is θ·dt. Returns the (n_g,)
+    partials on ``work``'s device. A CUDA scratch launches
+    ``csrc/si_rows.cu``, counted on ``si_rows_apply.launches``; a CPU one
+    takes :func:`si_rows_apply_reference`."""
+    n_g, nx, ny, table = _rows_args("si_rows_apply", work, table, r0, r1)
+    if work.device.type == "cpu":
+        return si_rows_apply_reference(work, x0, beta, src, dst, r0, r1, table, coef, init,
+                                       precondition)
+    partial = torch.empty(n_g, dtype=work.dtype, device=work.device)
+    if init:
+        x0 = x0.contiguous()
+        if x0.shape != work.shape[1:] or x0.dtype != work.dtype:
+            raise ValueError("si_rows_apply: x0 must be a plane of the scratch's shape")
+        beta_ptr, x0_ptr = None, x0.data_ptr()
+    else:
+        beta = beta.to(device=work.device, dtype=work.dtype).contiguous()
+        beta_ptr, x0_ptr = beta.data_ptr(), None
+    lib = _rows_library()
+    fn = lib.si_rows_apply_f32 if work.dtype == torch.float32 else lib.si_rows_apply_f64
+    err = fn(work.data_ptr(), x0_ptr, table.data_ptr(), beta_ptr, int(src), int(dst), n_g, nx, ny,
+             int(r0), int(r1), float(coef), int(bool(init)), int(bool(precondition)),
+             partial.data_ptr(), torch.cuda.current_stream(work.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"si_rows_apply: kernel launch failed with CUDA error {err}")
+    si_rows_apply.launches += 1
+    return partial
+
+
+def si_rows_update(work, alpha, p_plane, r0, r1, precondition=True):
+    """The other half (module doc): x += α·p, r −= α·Ap, z = M⁻¹r on the
+    own rows [r0, r1) with p the plane ``p_plane``, and each glacier's
+    partial r·z. A CUDA scratch launches ``csrc/si_rows.cu``, counted on
+    ``si_rows_update.launches``; a CPU one takes
+    :func:`si_rows_update_reference`."""
+    n_g, nx, ny, _ = _rows_args("si_rows_update", work, alpha.new_zeros(1, 2), r0, r1)
+    if work.device.type == "cpu":
+        return si_rows_update_reference(work, alpha, p_plane, r0, r1, precondition)
+    alpha = alpha.to(device=work.device, dtype=work.dtype).contiguous()
+    partial = torch.empty(n_g, dtype=work.dtype, device=work.device)
+    lib = _rows_library()
+    fn = lib.si_rows_update_f32 if work.dtype == torch.float32 else lib.si_rows_update_f64
+    err = fn(work.data_ptr(), alpha.data_ptr(), int(p_plane), n_g, nx, ny, int(r0), int(r1),
+             int(bool(precondition)), partial.data_ptr(),
+             torch.cuda.current_stream(work.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"si_rows_update: kernel launch failed with CUDA error {err}")
+    si_rows_update.launches += 1
+    return partial
+
+
+def _rows_table(scalars, dtype):
+    return scalars[:, :4].detach().to(dtype).contiguous()
+
+
+def rows_step_x(shard, H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, precondition=True):
+    """The own rows of the step's pre-relu x on a row shard, from the slabs
+    (halo 2) H, H_D, B and x0: :func:`si_assemble`, then the row PCG."""
+    return si_math.rows_solve(
+        shard, lambda w: si_assemble(w, H, H_D, B, H, scalars, dt, theta, si_math.FORWARD,
+                                     precondition, exps),
+        x0, _rows_table(scalars, H.dtype), float(theta) * float(dt), cg_iters, precondition)
+
+
+def rows_step_transpose(shard, gbar, x, H_D, B, scalars, dt, theta, cg_iters, exps,
+                        precondition=True):
+    """The own rows of λ, the step's transpose solve on a row shard, for
+    the own-row cotangent ``gbar`` and pre-relu x (module doc)."""
+    g = shard.exchange(si_math.relu_cotangent(gbar, x), si_math.ROWS_HALO).contiguous()
+    return si_math.rows_solve(
+        shard, lambda w: si_assemble(w, g, H_D, B, g, scalars, dt, theta, si_math.TANGENT,
+                                     precondition, exps),
+        g, _rows_table(scalars, g.dtype), float(theta) * float(dt), cg_iters, precondition)
+
+
+class _RowsSIStep(torch.autograd.Function):
+    """:class:`_SIStep` on a row shard: slab inputs (halo 2), own-row
+    output; slab cotangents and own-row tangents (module doc)."""
+
+    @staticmethod
+    def forward(ctx, H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, precondition, shard):
+        ctx.set_materialize_grads(False)
+        x = rows_step_x(shard, H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, precondition)
+        ctx.save_for_backward(H, H_D, B, x, scalars)
+        ctx.primals = (H, H_D, B, x0, x, scalars)
+        ctx.consts = (dt, theta, cg_iters, exps, precondition, shard)
+        return st.relu_strict(x)
+
+    @staticmethod
+    def jvp(ctx, dH, dHD, dB, _dx0, dscalars, *_):
+        H, H_D, B, x0, x, scalars = ctx.primals
+        dt, theta, cg_iters, exps, precondition, shard = ctx.consts
+        refuse_tangent("si_step", "the spacings or exponent columns of the table", dscalars,
+                       _FIXED_COLS)
+        x_s = shard.exchange(x, si_math.ROWS_HALO)
+        rdot = si_step_residual_tangent(dH, dHD, dB, dscalars, H, H_D, B, x_s, scalars, dt, theta,
+                                        exps).contiguous()
+        xd = si_math.rows_solve(
+            shard, lambda w: si_assemble(w, rdot, H_D, B, rdot, scalars, dt, theta,
+                                         si_math.TANGENT, precondition, exps),
+            x0, _rows_table(scalars, x.dtype), theta * dt, cg_iters, precondition)
+        return si_math.relu_cotangent(xd, x)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        H, H_D, B, x, scalars = ctx.saved_tensors
+        dt, theta, cg_iters, exps, precondition, shard = ctx.consts
+        if gbar is None:       # every rank joins the exchanges
+            gbar = torch.zeros_like(x)
+        lam = rows_step_transpose(shard, gbar, x, H_D, B, scalars, dt, theta, cg_iters, exps,
+                                  precondition)
+        x_s = shard.exchange(x, si_math.ROWS_HALO).contiguous()
+        dH, dHD, dB, dcreep, dslide = si_step_vjp(shard.pad(lam, si_math.ROWS_HALO).contiguous(),
+                                                  H, H_D, B, x_s, scalars, dt, theta, exps)
+        need = ctx.needs_input_grad
+        d_scal = None
+        if need[4]:
+            d_scal = torch.zeros_like(scalars)
+            d_scal[:, 2], d_scal[:, 3] = dcreep, dslide
+        return ((dH if need[0] else None), (dHD if need[1] else None), (dB if need[2] else None),
+                None, d_scal, None, None, None, None, None, None)
+
+
+def si_rows_step(shard, H, H_D, B, x0, scalars, dt, theta=1.0, cg_iters=6, exps=None,
+                 precondition=True):
+    """:func:`si_step` on a row shard (module doc): H, H_D, B and x0 on the
+    slab of halo 2, the own rows of relu(x) out; differentiable as
+    ``si_step`` is."""
+    H, H_D, B, x0 = (t.contiguous() for t in (H, H_D, B, x0))
+    check_inputs("si_rows_step", (H, H_D, B, x0), scalars, 8)
+    exps = _resolve_exps(scalars, exps)
+    dt, theta, cg_iters, precondition = float(dt), float(theta), int(cg_iters), bool(precondition)
+    if needs_function(H, H_D, B, scalars):
+        return _RowsSIStep.apply(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, precondition,
+                                 shard)
+    with torch.no_grad():
+        return st.relu_strict(rows_step_x(shard, H, H_D, B, x0, scalars, dt, theta, cg_iters,
+                                          exps, precondition))
+
+
+si_assemble.launches = 0
+si_rows_apply.launches = 0
+si_rows_update.launches = 0
 si_step.launches = 0
 si_step_transpose.launches = 0
 si_step_tangent.launches = 0

@@ -22,10 +22,13 @@ idiom and that explicit variant:
 Collectives run over gloo on host buffers: they move θ-sized vectors (a few
 kB) and the final gathers, which go to the host anyway, and gloo, unlike
 NCCL, allows two ranks on one card. A mesh of one device, or None, runs as
-no mesh. A mesh with a ``"rows"`` dimension (grid-row sharding,
-``odinn_tpu.parallel.spatial``) is refused until ``ROADMAP.md`` Queue 1
-item 10. A mesh is a ``DeviceMesh``, or, for one device, a sequence of one
-device (or anything with a ``size`` of 1).
+no mesh. A 2-D mesh ``("glaciers", "rows")`` also splits each glacier's
+grid rows (:mod:`odinn_tpu_torch.parallel.spatial`): :func:`mesh_size`,
+:func:`mesh_rank` and the glacier padding then read its glacier dimension,
+:func:`shard_inversion` dispatches to the spatial placement, and
+:func:`allreduce_sum` and :func:`replicate` span every rank of the mesh. A
+mesh is a ``DeviceMesh``, or, for one device, a sequence of one device (or
+anything with a ``size`` of 1).
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ from odinn_tpu_torch.utils.flatten import tree_leaves, tree_map, tree_unflatten
 __all__ = [
     "GLACIER_AXIS",
     "make_mesh",
+    "has_rows",
+    "mesh_devices",
+    "mesh_flat_rank",
     "mesh_size",
     "mesh_rank",
     "glacier_mesh",
@@ -60,7 +66,12 @@ ROWS_AXIS = "rows"
 _ACTIVE_MESH: Optional[Any] = None
 
 
-def mesh_size(mesh) -> int:
+def has_rows(mesh) -> bool:
+    """Whether ``mesh`` has a ``"rows"`` dimension (grid-row sharding)."""
+    return ROWS_AXIS in (getattr(mesh, "mesh_dim_names", None) or ())
+
+
+def mesh_devices(mesh) -> int:
     """The devices of ``mesh``: a ``DeviceMesh``'s ``size()``, a JAX-style
     ``size`` attribute, or a sequence's length; 1 for None."""
     if mesh is None:
@@ -71,27 +82,39 @@ def mesh_size(mesh) -> int:
     return int(size) if size is not None else len(mesh)
 
 
+def mesh_size(mesh) -> int:
+    """The size of the mesh's glacier dimension: every device of a 1-D
+    mesh, the glacier groups of a ``("glaciers", "rows")`` mesh; 1 for None."""
+    if has_rows(mesh):
+        return int(mesh.size(mesh.mesh_dim_names.index(GLACIER_AXIS)))
+    return mesh_devices(mesh)
+
+
 def mesh_rank(mesh) -> int:
     """This process's index along the mesh's glacier axis (0 without one)."""
-    if mesh_size(mesh) <= 1:
+    if mesh_devices(mesh) <= 1:
         return 0
     return int(mesh.get_local_rank(GLACIER_AXIS))
 
 
+def mesh_flat_rank(mesh) -> int:
+    """This process's index among every rank of the mesh, rows the minor
+    dimension of a 2-D one (0 without a mesh)."""
+    if mesh_devices(mesh) <= 1:
+        return 0
+    import torch.distributed as dist
+
+    return dist.get_rank()
+
+
 def glacier_mesh(mesh, what: str = "odinn_tpu_torch"):
     """``mesh`` as the trainers take it: None for no mesh or one of one
-    device, else the ``DeviceMesh``. A ``"rows"`` dimension raises
-    ``NotImplementedError``; a sequence of several devices raises
-    ``TypeError`` (a mesh of several devices spans the ranks of a job)."""
+    device, else the ``DeviceMesh`` (1-D, or 2-D with a ``"rows"``
+    dimension). A sequence of several devices raises ``TypeError`` (a mesh
+    of several devices spans the ranks of a job)."""
     if mesh is None:
         return None
-    names = getattr(mesh, "mesh_dim_names", None) or ()
-    if ROWS_AXIS in names:
-        raise NotImplementedError(
-            f"{what}: a mesh with a {ROWS_AXIS!r} dimension shards each glacier's grid "
-            "rows (parallel/spatial.py), which comes with ROADMAP.md Queue 1 item 10; "
-            f"use a 1-D mesh over the {GLACIER_AXIS!r} axis (make_mesh)")
-    n = mesh_size(mesh)
+    n = mesh_devices(mesh)
     if n <= 1:
         return None
     if not hasattr(mesh, "get_group"):
@@ -147,6 +170,13 @@ def _group(mesh):
     return mesh.get_group(GLACIER_AXIS)
 
 
+def _mesh_group(mesh):
+    """The process group of every rank of ``mesh``: its glacier group for a
+    1-D mesh; for a 2-D one the job's (a mesh spans every rank of its job,
+    as :func:`make_mesh` and ``make_mesh_2d`` build it)."""
+    return None if has_rows(mesh) else _group(mesh)
+
+
 def _flat_host(tensors):
     """The tensors raveled into one host buffer of their promoted dtype."""
     dtype = tensors[0].dtype
@@ -165,23 +195,31 @@ def _unflat(flat, like):
 
 
 def allreduce_sum(tensors, mesh) -> list:
-    """Each tensor summed over the mesh's ranks, on its own device and in
-    its own dtype: one ``all_reduce`` of one host buffer in the promoted
-    dtype. Every rank gets the same numbers."""
+    """Each tensor summed over every rank of the mesh (both dimensions of a
+    2-D one), on its own device and in its own dtype: one ``all_reduce`` of
+    one host buffer in the promoted dtype. Every rank gets the same
+    numbers."""
     import torch.distributed as dist
 
     tensors = list(tensors)
     flat = _flat_host(tensors)
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=_group(mesh))
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=_mesh_group(mesh))
     return _unflat(flat, tensors)
 
 
-def gather_rows(x: torch.Tensor, mesh=None) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, mesh=None, nx: Optional[int] = None) -> torch.Tensor:
     """The ranks' blocks of ``x`` (equal shapes) concatenated along axis 0
     in rank order, on ``x``'s device: an ``all_gather`` of host copies over
-    the mesh's ranks (None: every rank of the job)."""
+    the mesh's ranks (None: every rank of the job). On a 2-D mesh ``x`` is
+    a (glaciers, …, rows, ny) block: joined along the rows dimension first,
+    cropped to the first ``nx`` rows (the unpadded grid; default all), then
+    along the glacier dimension (``spatial.gather_grid``)."""
     import torch.distributed as dist
 
+    if has_rows(mesh):
+        from odinn_tpu_torch.parallel.spatial import gather_grid
+
+        return gather_grid(x, mesh, x.shape[-2] * mesh.size(1) if nx is None else nx)
     group = None if mesh is None else _group(mesh)
     host = x.detach().to("cpu").contiguous()
     parts = [torch.empty_like(host) for _ in range(dist.get_world_size(group))]
@@ -199,8 +237,8 @@ def replicate(tree, mesh):
         return tree
     leaves = tree_leaves(tree)
     flat = _flat_host(leaves)
-    group = _group(mesh)
-    dist.broadcast(flat, src=dist.get_global_rank(group, 0), group=group)
+    group = _mesh_group(mesh)
+    dist.broadcast(flat, src=0 if group is None else dist.get_global_rank(group, 0), group=group)
     return tree_unflatten(tree, _unflat(flat, leaves))
 
 
@@ -269,6 +307,10 @@ def make_shard_map_value_and_grad(model, params, tstops, mesh, per_glacier_keys=
     from odinn_tpu_torch.simulation.inversion import batch_transient_loss
 
     mesh = glacier_mesh(mesh, "make_shard_map_value_and_grad")
+    if has_rows(mesh):
+        from odinn_tpu_torch.parallel.spatial import refuse_rows
+
+        refuse_rows("make_shard_map_value_and_grad (the per-glacier gradient blocks)", mesh)
     size = mesh_size(mesh)
 
     def value_and_grad(theta, batch):
@@ -335,15 +377,21 @@ def pad_batch_to(batch, n: int):
     return padded.replace(mask=zero_padded(padded.mask)), b
 
 
-def shard_inversion(theta, batch, mesh):
+def shard_inversion(theta, batch, mesh, halo: Optional[int] = None):
     """An inversion's (θ, glacier batch) placed for training on ``mesh``:
     the glacier axis padded to a multiple of the mesh size
     (:func:`pad_batch_to`), this rank's block of it, and θ whole, as rank 0
     holds it (:func:`replicate`). Returns ``(theta, local batch,
-    original glacier count)``. A mesh with a ``"rows"`` dimension raises
-    ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 10)."""
+    original glacier count)``. A mesh with a ``"rows"`` dimension takes the
+    spatial placement (``spatial.shard_inversion_spatial``), its static
+    slabs with ``halo`` ghost rows (default ``spatial.DEFAULT_HALO``)."""
     mesh = glacier_mesh(mesh, "shard_inversion")
     if mesh is None:
         return theta, batch, batch.H0.shape[0]
+    if has_rows(mesh):
+        from odinn_tpu_torch.parallel.spatial import DEFAULT_HALO, shard_inversion_spatial
+
+        return shard_inversion_spatial(theta, batch, mesh,
+                                       DEFAULT_HALO if halo is None else halo)
     padded, n_orig = pad_batch_to(batch, mesh_size(mesh))
     return replicate(theta, mesh), shard_glacier_axis(padded, mesh), n_orig

@@ -9,6 +9,11 @@ batch is the fused kernel
 :func:`odinn_tpu_torch.ops.cuda.sia_kernel.sia2d_rhs` (its plain PyTorch
 version on a CPU tensor); every other law configuration takes the stencil
 chain below on either device.
+
+On a row-sharded batch (``shard``, a ``parallel.spatial.RowShard``) each
+function takes the own rows of H: it extends them by one ghost row on each
+side (``RowHalo``), runs the unchanged computation on that slab with the
+bed's slab, and returns the own rows.
 """
 
 from __future__ import annotations
@@ -136,8 +141,18 @@ def scalar_law_table(values_fn, target, dx, dy, H, slide_grad: bool = False
     return table
 
 
-def sia2d_rhs_generic(H, B, dx, dy, values_fn, target, phys):
+def _slab(fn, H, dx, dy, values_fn, target, phys, shard):
+    """``fn`` on the own rows of H through the slab of halo 1 (module doc)."""
+    out = fn(shard.halo_rows(H, 1), shard.bed(1), dx, dy, values_fn, target, phys)
+    if isinstance(out, tuple):
+        return tuple(shard.crop(o, 1) for o in out)
+    return shard.crop(out, 1)
+
+
+def sia2d_rhs_generic(H, B, dx, dy, values_fn, target, phys, shard=None):
     """The unfused stencil chain of :func:`sia2d_rhs` (any law configuration)."""
+    if shard is not None:
+        return _slab(sia2d_rhs_generic, H, dx, dy, values_fn, target, phys, shard)
     H = st.relu_strict(H)
     # solve dtype = state dtype: neither the bed nor float64 law values
     # (CuffeyPaterson's table fit) may promote a float32 solve
@@ -163,13 +178,16 @@ def sia2d_rhs_generic(H, B, dx, dy, values_fn, target, phys):
     return st.pad_inner(-div)
 
 
-def sia2d_rhs(H, B, dx, dy, values_fn, target, phys):
+def sia2d_rhs(H, B, dx, dy, values_fn, target, phys, shard=None):
     """dH/dt of the SIA2D equation for a glacier or a (n_g, nx, ny) batch.
 
     Steps: clamp H ≥ 0 and S = B + H; staggered gradients, |∇S| and H̄; law
     values; D from the target; η₀-clamped edge gradients; fluxes and the
-    negated interior divergence, with a zero ring.
+    negated interior divergence, with a zero ring. ``shard``: the module
+    doc's row shard.
     """
+    if shard is not None:
+        return _slab(sia2d_rhs, H, dx, dy, values_fn, target, phys, shard)
     table = scalar_law_table(values_fn, target, dx, dy, H)
     if table is not None:
         return sia_kernel.sia2d_rhs(H, B.to(H.dtype), table, phys.rho, phys.g,
@@ -177,9 +195,16 @@ def sia2d_rhs(H, B, dx, dy, values_fn, target, phys):
     return sia2d_rhs_generic(H, B, dx, dy, values_fn, target, phys)
 
 
-def surface_velocity(H, B, dx, dy, values_fn, target, phys):
+def surface_velocity(H, B, dx, dy, values_fn, target, phys, shard=None):
     """Staggered surface velocity (Vx, Vy, |V|) on the (nx−1, ny−1) grid:
-    V = −Velocityꜛ(H̄, |∇S|)·∇S."""
+    V = −Velocityꜛ(H̄, |∇S|)·∇S. On a row shard: the staggered rows between
+    an own row and the next, one fewer on the last row block."""
+    if shard is not None:
+        out = surface_velocity(shard.halo_rows(H, 1), shard.bed(1), dx, dy, values_fn, target,
+                               phys)
+        t, _ = shard.extent(1)
+        n = min(shard.hi, shard.nx - 1) - shard.lo
+        return tuple(o[..., t:t + n, :] for o in out)
     H = st.relu_strict(H)
     S = B.to(H.dtype) + H
     gsx, gsy = st.grad_slope(S, dx, dy)
@@ -199,8 +224,10 @@ def _to_centers(a):
     return st.avg(a)
 
 
-def v_from_h(H, B, dx, dy, values_fn, target, phys):
+def v_from_h(H, B, dx, dy, values_fn, target, phys, shard=None):
     """Cell-centered (nx, ny) surface velocity (Vx, Vy, |V|)."""
+    if shard is not None:
+        return _slab(v_from_h, H, dx, dy, values_fn, target, phys, shard)
     vx_s, vy_s, _ = surface_velocity(H, B, dx, dy, values_fn, target, phys)
     vx, vy = _to_centers(vx_s), _to_centers(vy_s)
     return vx, vy, st.safe_norm(vx, vy)

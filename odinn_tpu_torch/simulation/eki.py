@@ -28,8 +28,10 @@ in PyTorch on the residuals' device and dtype. The iteration preserves the
 affine span of the initial ensemble (the subspace property), so J should
 exceed the effective parameter dimension.
 
-On a mesh of several ranks (:mod:`odinn_tpu_torch.parallel.mesh`) whose
-size divides J, each rank folds and solves its own block of members; the
+On a mesh of several ranks (:mod:`odinn_tpu_torch.parallel.mesh`; every
+rank of a 2-D one, whose rows do not split the members' batch, as in the
+JAX package) whose size divides J, each rank folds and solves its own block
+of members; the
 residual rows are gathered, so the Kalman step (and ``perturb_obs``'s
 draw, made for the whole ensemble from one seeded generator) runs the
 same on every rank. Otherwise every rank evaluates every member.
@@ -44,7 +46,7 @@ import numpy as np
 import torch
 
 from odinn_tpu_torch.parallel.mesh import (
-    active_mesh, gather_rows, glacier_mesh, mesh_rank, mesh_size, replicate)
+    active_mesh, gather_rows, glacier_mesh, mesh_devices, mesh_flat_rank, replicate)
 from odinn_tpu_torch.simulation.ensemble import (
     fold_members, folded_residuals, init_restarts, stack_thetas)
 from odinn_tpu_torch.simulation.inversion import assemble_tstops
@@ -150,9 +152,9 @@ def eki_train(
 
     J = n_ensemble
     # this rank's block of members, or all of them when they do not split
-    split = mesh is not None and J % mesh_size(mesh) == 0
-    n_local = J // mesh_size(mesh) if split else J
-    lo = mesh_rank(mesh) * n_local if split else 0
+    split = mesh is not None and J % mesh_devices(mesh) == 0
+    n_local = J // mesh_devices(mesh) if split else J
+    lo = mesh_flat_rank(mesh) * n_local if split else 0
     if mesh is not None:
         Th = replicate(Th, mesh)
     fold = fold_members(model, batch, params, n_local)
@@ -162,7 +164,7 @@ def eki_train(
         with torch.no_grad():
             R = folded_residuals(rows_to_stack(rows, like), fold, tstops)  # (rows, m)
         if members is not None:
-            R = gather_rows(R, mesh)
+            R = gather_rows(R)
         return R, torch.sum(R * R, dim=1)
 
     members = slice(lo, lo + n_local) if split else None

@@ -39,15 +39,17 @@ the best k surviving restarts one after the other (LBFGS through
 ``lm_train``), with the final winner selected after refinement. The folded
 Adam stages train by autograd (``grad="jax"``).
 
-On a mesh of several ranks (:mod:`odinn_tpu_torch.parallel.mesh`) whose
-size divides the restart count, each rank folds its own block of restarts
+On a mesh of several ranks (:mod:`odinn_tpu_torch.parallel.mesh`; every
+rank of a 2-D ``("glaciers", "rows")`` one, whose rows do not split the
+restarts' batch, as in the JAX package) whose size divides the restart
+count, each rank folds its own block of restarts
 into its kernels' glacier axis and trains it (restarts are independent:
 nothing is summed across ranks); the loss curves, final losses and θ
 stacks are then gathered, so every rank returns the whole
 ``MultistartResult``. Otherwise every rank runs every restart, as the JAX
 package's unsharded fallback does. The refinement splits each survivor's
 glacier axis over the mesh (``train_ude(…, mesh=…)``, ``lm_train``'s
-``allreduce``).
+``allreduce``), and on a 2-D mesh its grid rows too.
 """
 
 from __future__ import annotations
@@ -64,8 +66,8 @@ from odinn_tpu_torch.inverse.gauss_newton import lm_train, make_residual_fn
 from odinn_tpu_torch.losses.losses import MultiLoss, term_kind
 from odinn_tpu_torch.models.model import Model, glacier_index
 from odinn_tpu_torch.parallel.mesh import (
-    active_mesh, allreduce_sum, gather_rows, glacier_mesh, mesh_rank, mesh_size, replicate,
-    shard_inversion)
+    active_mesh, allreduce_sum, gather_rows, glacier_mesh, has_rows, mesh_devices,
+    mesh_flat_rank, replicate, shard_inversion)
 from odinn_tpu_torch.simulation.inversion import (
     Inversion, _stages, assemble_tstops, gather_batch, glacier_residuals,
     glacier_transient_loss, resolve_accum_chunks, train_ude)
@@ -349,16 +351,16 @@ def multistart_train(
         thetas = stack_thetas(thetas)
     n_restarts = int(tree_leaves(thetas)[0].shape[0])
     # this rank's block of restarts, or all of them when they do not split
-    split = mesh is not None and n_restarts % mesh_size(mesh) == 0
-    n_local = n_restarts // mesh_size(mesh) if split else n_restarts
+    split = mesh is not None and n_restarts % mesh_devices(mesh) == 0
+    n_local = n_restarts // mesh_devices(mesh) if split else n_restarts
     if mesh is not None:
         thetas = replicate(thetas, mesh)
     if split:
-        lo = mesh_rank(mesh) * n_local
+        lo = mesh_flat_rank(mesh) * n_local
         thetas = tree_map(lambda x: x[lo:lo + n_local], thetas)
 
     def gathered(x):
-        return gather_rows(x, mesh) if split else x
+        return gather_rows(x) if split else x
 
     thetas = tree_map(lambda x: x.detach().clone().requires_grad_(True), thetas)
     leaves = tree_leaves(thetas)
@@ -468,7 +470,12 @@ def _refine(top, refine_stages, inversion, tstops, mesh=None):
                 th_j = inv_j.theta
             else:  # lm / gn
                 resid = make_residual_fn(inversion.model, params, tstops)
-                th_j, local, _ = shard_inversion(th_j, batch, mesh)
+                halo = None
+                if has_rows(mesh):
+                    from odinn_tpu_torch.parallel.spatial import static_halo
+
+                    halo = static_halo(params)
+                th_j, local, _ = shard_inversion(th_j, batch, mesh, halo=halo)
                 th_j, _ = lm_train(th_j, local, resid, iters=int(epochs),
                                    cg_iters=hyper.gn_cg_iters, init_damping=lr,
                                    precond=hyper.gn_precond, cg_restarts=hyper.gn_cg_restarts,

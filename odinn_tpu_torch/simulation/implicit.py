@@ -24,6 +24,12 @@ cotangent, then one pullback of the residual through b and the frozen D
 (:func:`odinn_tpu_torch.ops.si_math.theta_solve`; on the fused path the
 kernel's own backward). CG is never unrolled, and the warm start x0 gets no
 gradient.
+
+On a row-sharded batch (``shard``, a ``parallel.spatial.RowShard``) a step
+takes the own rows of H: H, the frozen state and the guess get two ghost
+rows in one exchange, and the step runs on that slab with the PCG split at
+its reductions (``si_rows_step`` on the fused path,
+``si_math.rows_theta_solve`` on the unfused one).
 """
 
 from __future__ import annotations
@@ -67,17 +73,35 @@ def _kernel_args(values_fn, target, dx, dy, H, phys):
     return args
 
 
+def _rows_step(H, H_D, guess, dx, dy, values_fn, target, phys, dt, cg_iters, theta, shard,
+               precondition=True):
+    """One step on a row shard (module doc)."""
+    H_s, HD_s, x0_s = shard.halo_rows(torch.stack([H, H_D, guess]), si_math.ROWS_HALO).unbind(0)
+    B_s = shard.bed(si_math.ROWS_HALO, H.dtype)
+    args = _kernel_args(values_fn, target, dx, dy, H, phys)
+    if args is not None:
+        derived, exps = args
+        return si_kernel.si_rows_step(shard, H_s, HD_s, B_s, x0_s, derived, dt, theta, cg_iters,
+                                      exps, precondition)
+    D = _frozen_diffusivity(HD_s, B_s, dx, dy, values_fn, target, phys)
+    return si_math.rows_theta_solve(shard, H_s, D, B_s, x0_s, dt, theta, cg_iters, dx, dy,
+                                    precondition)
+
+
 def semi_implicit_step(H, B, dx, dy, values_fn, target, phys, dt, cg_iters: int = 30,
-                       x0=None, theta: float = 1.0, H_star=None):
+                       x0=None, theta: float = 1.0, H_star=None, shard=None):
     """One θ-scheme semi-implicit step of length ``dt`` (a Python number).
 
     A = I − θ·dt·M·L·M with M the interior mask;
     b = H + dt·M·∇·(D∇(B + ring·H + (1−θ)·M·H)). CG warm-starts at ``x0``
     (default H). ``H_star`` is the state the diffusivity is frozen at
-    (default H).
+    (default H). ``shard``: the module doc's row shard.
     """
     guess = H if x0 is None else x0
     H_D = H if H_star is None else H_star
+    if shard is not None:
+        return _rows_step(H, H_D, guess, dx, dy, values_fn, target, phys, dt, cg_iters, theta,
+                          shard)
     args = _kernel_args(values_fn, target, dx, dy, H, phys)
     if args is not None:
         derived, exps = args
@@ -89,20 +113,20 @@ def semi_implicit_step(H, B, dx, dy, values_fn, target, phys, dt, cg_iters: int 
 
 
 def si2_step(H, B, dx, dy, values_fn, target, phys, dt, cg_iters: int = 30,
-             cg_iters_predictor: int = 6, x0=None):
+             cg_iters_predictor: int = 6, x0=None, shard=None):
     """One second-order step: Crank–Nicolson predictor with D(Hᵏ), then the
     corrector with D((Hᵏ + H_pred)/2), warm-started at H_pred."""
     H_pred = semi_implicit_step(H, B, dx, dy, values_fn, target, phys, dt,
-                                cg_iters_predictor, x0=x0, theta=0.5)
+                                cg_iters_predictor, x0=x0, theta=0.5, shard=shard)
     H_mid = 0.5 * (H + H_pred)
     return semi_implicit_step(H, B, dx, dy, values_fn, target, phys, dt,
-                              cg_iters, x0=H_pred, theta=0.5, H_star=H_mid)
+                              cg_iters, x0=H_pred, theta=0.5, H_star=H_mid, shard=shard)
 
 
 def integrate_semi_implicit(
     H0, B, dx, dy, values_fn, target, phys, tstops, substeps: int = 1,
     cg_iters: int = 30, callback=None, theta: float = 1.0,
-    corrector: bool = False, cg_iters_predictor: int = 6,
+    corrector: bool = False, cg_iters_predictor: int = 6, shard=None,
 ):
     """Semi-implicit integration saving at every tstop.
 
@@ -124,10 +148,11 @@ def integrate_semi_implicit(
             guess = H + float(ratio) * dH
             if corrector:
                 Hn = si2_step(H, B, dx, dy, values_fn, target, phys, float(dt),
-                              cg_iters, cg_iters_predictor, x0=guess)
+                              cg_iters, cg_iters_predictor, x0=guess, shard=shard)
             else:
                 Hn = semi_implicit_step(H, B, dx, dy, values_fn, target, phys,
-                                        float(dt), cg_iters, x0=guess, theta=theta)
+                                        float(dt), cg_iters, x0=guess, theta=theta,
+                                        shard=shard)
             H, dH, dt_prev = Hn, Hn - H, dt
         if callback is not None:
             H = callback(H, t0, t1, i)

@@ -64,7 +64,13 @@ rank, and every host decision (the best iterate, the non-finite check and
 the gradient norm, LBFGS's line search, the re-sizings) reads reduced
 values, so the ranks take the same steps. The tolerance is resolved on the
 whole batch; the final trajectories are gathered, so every rank returns
-the same ``Results``.
+the same ``Results``. A 2-D mesh ``("glaciers", "rows")`` also splits each
+glacier's grid rows (:mod:`odinn_tpu_torch.parallel.spatial`): each rank
+solves its glacier block on its rows, the loss and gradient are summed
+over the whole mesh, and the trajectories are gathered over both
+dimensions and cropped to the original grid and glacier count. The
+tolerance contract (``adaptive``, ``substeps="auto"``) and the continuous
+adjoint are refused on it (``ROADMAP.md`` Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -88,8 +94,8 @@ from odinn_tpu_torch.losses.losses import LossContext, LossH, LossV, MultiLoss, 
 from odinn_tpu_torch.models.model import (
     Model, glacier_index, init_theta, initial_thickness, make_values_fn, resolve_outer_values)
 from odinn_tpu_torch.parallel.mesh import (
-    active_mesh, allreduce_sum, gather_rows, glacier_mesh, mesh_rank, mesh_size, pad_batch_to,
-    shard_inversion)
+    active_mesh, allreduce_sum, gather_rows, glacier_mesh, has_rows, mesh_rank, mesh_size,
+    pad_batch_to, shard_inversion)
 from odinn_tpu_torch.physics.sia2d import v_from_h
 from odinn_tpu_torch.simulation.observations import thickness_at, velocity_at
 from odinn_tpu_torch.simulation.prediction import (
@@ -152,8 +158,12 @@ class _LossEnv:
         dx = per_glacier_column(glacier, glacier.dx)
         dy = per_glacier_column(glacier, glacier.dy)
 
+        shard = glacier.row_shard
+        self.row_rank = 0 if shard is None else shard.rank
+
         def velocity_fn(H, t):
-            return v_from_h(H, glacier.B, dx, dy, vfn, model.target, params.physical)
+            return v_from_h(H, glacier.B, dx, dy, vfn, model.target, params.physical,
+                            shard=shard)
 
         self.velocity_fn = velocity_fn
         pairs = list(zip(loss_cfg.weights, loss_cfg.terms))
@@ -165,12 +175,18 @@ class _LossEnv:
             kinds[kind].append((w, term))
         self.transient, self.initial, self.aggregate = kinds.values()
 
-    def make_ctx(self, H_ref=None, V_ref=None, Vx_ref=None, Vy_ref=None):
+    def make_ctx(self, H_ref=None, V_ref=None, Vx_ref=None, Vy_ref=None, H_ref_ext=None):
         g = self.glacier
         return LossContext(H_ref=H_ref, V_ref=V_ref, Vx_ref=Vx_ref, Vy_ref=Vy_ref,
                            velocity_fn=self.velocity_fn, normalization=self.normalization,
                            theta=self.theta, glacier_idx=self.glacier_idx, glacier=g,
-                           dx=g.dx, dy=g.dy)
+                           dx=g.dx, dy=g.dy, H_ref_ext=H_ref_ext)
+
+    def counted(self, term) -> float:
+        """1, or 0 for a term that reads θ alone (``reads_grid`` False) on a
+        row rank other than 0: such a term is whole on every rank of a row
+        group, and the trainer's all-reduce would count it once per rank."""
+        return 0.0 if (self.row_rank and not getattr(term, "reads_grid", True)) else 1.0
 
     def initial_H(self):
         """The H₀ the initial-state terms see: σ(θ_IC) or the data's H₀."""
@@ -184,13 +200,13 @@ class _LossEnv:
         if self.initial:
             ctx, h_init = self.make_ctx(), self.initial_H()
             for w, term in self.initial:
-                v = w * term(ctx, h_init, float(self.ts[0]))
+                v = w * self.counted(term) * term(ctx, h_init, float(self.ts[0]))
                 total = v if total is None else total + v
         if self.aggregate:
             ctx = self.make_ctx()
             ts = torch.as_tensor(self.ts).to(traj.device)
             for w, term in self.aggregate:
-                v = w * term(ctx, traj, ts)
+                v = w * self.counted(term) * term(ctx, traj, ts)
                 total = v if total is None else total + v
         return total
 
@@ -199,7 +215,12 @@ class _LossEnv:
         t = float(self.ts[tau])
         h_ref, h_valid = thickness_at(self.glacier.thickness_data, t, dtype)
         v_ref, vx_ref, vy_ref, v_valid = velocity_at(self.glacier.velocity_data, t, dtype)
-        ctx = self.make_ctx(H_ref=h_ref, V_ref=v_ref, Vx_ref=vx_ref, Vy_ref=vy_ref)
+        shard = self.glacier.row_shard
+        h_ext = None
+        if shard is not None and h_ref is not None:
+            h_ext = thickness_at(shard.ext.thickness_data, t, dtype)[0]
+        ctx = self.make_ctx(H_ref=h_ref, V_ref=v_ref, Vx_ref=vx_ref, Vy_ref=vy_ref,
+                            H_ref_ext=h_ext)
         return t, ctx, h_valid, v_valid
 
     @staticmethod
@@ -289,7 +310,7 @@ def glacier_residuals(theta, glacier, model, params, tstops):
         ctx = env.make_ctx()
         for w, term in terms:
             check(term)
-            sw = torch.sqrt(torch.as_tensor(w, dtype=traj.dtype))
+            sw = torch.sqrt(torch.as_tensor(w * env.counted(term), dtype=traj.dtype))
             if kind == "initial":
                 rs = term.residuals(ctx, env.initial_H(), float(env.ts[0]))
             else:
@@ -561,8 +582,8 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
     The resolved parameters (recorded schedule, sized substeps) are left in
     ``inversion.parameters``; ``stats.substeps_bumps`` lists each re-sizing
     as (iteration, old, new). ``mesh`` (default: the registered
-    ``active_mesh()``) splits the glacier axis over a job's ranks (module
-    doc); a mesh with a ``"rows"`` dimension raises."""
+    ``active_mesh()``) splits the glacier axis over a job's ranks, and a
+    ``"rows"`` dimension each glacier's grid rows (module doc)."""
     model = inversion.model
     batch = inversion.glaciers
     params = inversion.parameters
@@ -570,8 +591,22 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
     stats = TrainingStats()
     stats._record_theta_hist = record_theta_hist
     mesh = glacier_mesh(active_mesh() if mesh is None else mesh, "train_ude")
+    rows = has_rows(mesh)
+    halo = None
+    if rows:
+        from odinn_tpu_torch.parallel.spatial import refuse_rows, static_halo
+
+        sp = params.solver
+        if sp.adaptive or sp.substeps == "auto":
+            refuse_rows(f"the tolerance contract (solver.adaptive={sp.adaptive!r}, "
+                        f"substeps={sp.substeps!r})", mesh)
+        grad_cfg = params.UDE.grad
+        if (grad_cfg if isinstance(grad_cfg, str) else getattr(grad_cfg, "name", "jax")) \
+                == "continuous":
+            refuse_rows("the continuous adjoint (grad='continuous')", mesh)
+        halo = static_halo(params)
     # this rank's glaciers (padded to a multiple of the mesh), θ as rank 0 has it
-    theta0, local, n_results = shard_inversion(inversion.theta, batch, mesh)
+    theta0, local, n_results = shard_inversion(inversion.theta, batch, mesh, halo=halo)
     theta = _tree_map(lambda x: x.detach().clone().requires_grad_(True), theta0)
     leaves = _tree_leaves(theta)
     substeps_auto = params.solver.substeps == "auto"
@@ -671,9 +706,14 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
     def gnorm_of(grads) -> float:
         return float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads)))
 
-    # the whole (padded) batch that minibatches draw from
+    # the whole (padded) batch that minibatches draw from: on a rows mesh,
+    # every glacier on this rank's rows
     padded = batch if mesh is None else pad_batch_to(batch, mesh_size(mesh))[0]
     n_glaciers = padded.H0.shape[0]
+    if rows:
+        from odinn_tpu_torch.parallel.spatial import pad_batch_rows, row_slab
+
+        padded = row_slab(pad_batch_rows(padded, mesh.size(1))[0], mesh, halo)
     bsize = min(params.hyper.batch_size, n_glaciers)
     # a batch size that covers the glaciers stays full-batch under padding
     minibatching = 0 < bsize < n_results
@@ -719,8 +759,13 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
             with torch.no_grad():
                 r0 = resid(theta, local)
             L_g = torch.sum(r0 * r0, dim=tuple(range(1, r0.ndim)))
+            if rows:
+                from odinn_tpu_torch.parallel.spatial import rows_sum
+
+                L_g = rows_sum(L_g, local.row_shard)
             mean_L = torch.mean(L_g) if mesh is None else (
-                allreduce_sum([torch.sum(L_g)], mesh)[0] / n_glaciers)
+                allreduce_sum([torch.sum(L_g)], mesh)[0] / n_glaciers
+                / (mesh.size(1) if rows else 1))
             sqrt_w = torch.sqrt(1.0 / (L_g + 0.01 * mean_L))
             sqrt_w = sqrt_w.reshape((-1,) + (1,) * (r0.ndim - 1))
             unweighted = resid
@@ -837,7 +882,7 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
         stats.solves += 1
         trajs = forward_batch(trained, local, model, params, tstops, device=inversion.device)
     if mesh is not None:
-        trajs = gather_rows(trajs, mesh)[:n_results]
+        trajs = gather_rows(trajs, mesh, nx=batch.H0.shape[-2])[:n_results]
     inversion.results = Results(simulation=create_results(trajs, tstops, glaciers=batch),
                                 stats=stats)
     return inversion.results

@@ -116,16 +116,41 @@ def _replay_rows(replay_dts, glacier):
 
 def _fused_rkc_stepper(values_fn, target, dx, dy, glacier, H0, phys, s):
     """The fused RKC2 stepper when the configuration is the kernel's (see the
-    module doc), else None."""
+    module doc), else None. On a row-sharded batch each step extends the
+    own rows by ``s`` ghost rows, launches on that slab and keeps the own
+    rows (one stage spoils one row inward from the slab's ring)."""
+    shard = glacier.row_shard
     table = scalar_law_table(values_fn, target, dx, dy, H0)
-    if table is None or not rkc_fits(H0.shape[-2], H0.shape[-1], H0.dtype):
+    nx = H0.shape[-2] if shard is None else H0.shape[-2] + sum(shard.extent(s))
+    if table is None or not rkc_fits(nx, H0.shape[-1], H0.dtype):
         return None
     derived = derive_table(table, phys.rho, phys.g)
     exps = shared_exps(derived)
     if exps is None:
         return None
-    return make_rkc_interval_step(s, glacier.B.to(H0.dtype).contiguous(), derived,
-                                  phys.eta0, exps)
+    if shard is None:
+        return make_rkc_interval_step(s, glacier.B.to(H0.dtype).contiguous(), derived,
+                                      phys.eta0, exps)
+    step = make_rkc_interval_step(s, shard.bed(s, H0.dtype), derived, phys.eta0, exps)
+    return lambda f, y, t, dt: shard.crop(step(f, shard.halo_rows(y, s), t, dt), s)
+
+
+def _refuse_gridded_values(model, vals, shard) -> None:
+    """On a row-sharded batch, law values must be one per glacier: a
+    gridded value (or a gridded input of an inner law) would need its own
+    slab."""
+    from odinn_tpu_torch.laws.inputs import INNER_INPUTS, AvgScalarTemp
+    from odinn_tpu_torch.parallel.spatial import refuse_rows
+
+    gridded = [slot for slot in ("A", "C", "n", "p", "q", "Y", "U", "n_H", "n_gradS")
+               if isinstance(getattr(vals, slot), torch.Tensor)
+               and getattr(vals, slot).ndim >= 2 and getattr(vals, slot).shape[-2] > 1]
+    for slot, law in model.iceflow.laws.items():
+        if law.is_inner and any(spec.name not in INNER_INPUTS
+                                and not isinstance(spec, AvgScalarTemp) for spec in law.inputs):
+            gridded.append(slot)
+    if gridded:
+        refuse_rows(f"gridded law values ({', '.join(gridded)})", shard)
 
 
 def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=None,
@@ -150,6 +175,11 @@ def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=No
     the glaciers' rows.
     """
     _check_supported(model, params)
+    shard = glacier.row_shard
+    if shard is not None and params.solver.adaptive:
+        from odinn_tpu_torch.parallel.spatial import refuse_rows
+
+        refuse_rows(f"solver.adaptive={params.solver.adaptive!r} (the tolerance contract)", shard)
     phys = params.physical
     H0 = initial_thickness(model, theta, glacier) if H0 is None else H0
     ts = host_tstops(tstops, H0.dtype)
@@ -168,6 +198,8 @@ def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=No
             return mb_timestep(H, glacier, model.mass_balance, tb, step_mb)
 
     method = params.solver.solver if params.solver.solver in _METHODS else "RK4"
+    if shard is not None:
+        _refuse_gridded_values(model, outer_vals, shard)
     if model.iceflow.periodic_laws:
         return _periodic_solve(theta, glacier, model, params, ts, H0, outer_vals, dx, dy,
                                callback, method)
@@ -178,13 +210,13 @@ def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=No
             H0, glacier.B, dx, dy, values_fn, target, phys, ts,
             substeps=params.solver.substeps, cg_iters=params.solver.cg_iters,
             callback=callback, corrector=method == "SI2",
-            cg_iters_predictor=params.solver.cg_iters_predictor,
+            cg_iters_predictor=params.solver.cg_iters_predictor, shard=shard,
         )
 
     def rhs(H, t):
         if not params.simulation.use_iceflow:
             return torch.zeros_like(H)
-        return sia2d_rhs(H, glacier.B, dx, dy, values_fn, target, phys)
+        return sia2d_rhs(H, glacier.B, dx, dy, values_fn, target, phys, shard=shard)
 
     if adaptive == "replay":
         return integrate_replay(rhs, H0, ts, _replay_rows(params.solver.replay_dts, glacier),
@@ -235,12 +267,13 @@ def _periodic_solve(theta, glacier, model, params, ts, H0, outer_vals, dx, dy, c
         if method == "SI":
             for _ in range(sp.substeps):
                 H = semi_implicit_step(H, glacier.B, dx, dy, vfn, target, phys, float(dt),
-                                       sp.cg_iters)
+                                       sp.cg_iters, shard=glacier.row_shard)
         else:
             def rhs(Hc, t, vfn=vfn):
                 if not params.simulation.use_iceflow:
                     return torch.zeros_like(Hc)
-                return sia2d_rhs(Hc, glacier.B, dx, dy, vfn, target, phys)
+                return sia2d_rhs(Hc, glacier.B, dx, dy, vfn, target, phys,
+                                 shard=glacier.row_shard)
 
             for k in range(sp.substeps):
                 H = step(rhs, H, float(t0 + npt(k) * dt), float(dt))

@@ -89,8 +89,9 @@ def test_run_dispatch():
 
 def test_enable_multiprocessing_without_a_job():
     """In a process of its own there is no mesh: ``enable_multiprocessing``
-    registers None, warns when more workers are asked for, and refuses
-    ``rows > 1`` naming Queue 1 item 10."""
+    registers None, warns when more workers are asked for, and raises the
+    JAX package's ``ValueError`` for ``rows > 1`` outside a job of that
+    many ranks; ``make_mesh_2d`` is exported."""
     from odinn_tpu_torch import api
     from odinn_tpu_torch.parallel.mesh import active_mesh
 
@@ -104,9 +105,11 @@ def test_enable_multiprocessing_without_a_job():
             api.make_mesh(2)
     finally:
         api.set_active_mesh(None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(ValueError, match="rows=2 exceeds the 1 visible devices"):
         api.enable_multiprocessing(rows=2)
-    assert not hasattr(api, "make_mesh_2d")
+    assert active_mesh() is None
+    assert api.make_mesh_2d is __import__(
+        "odinn_tpu_torch.parallel.spatial", fromlist=["make_mesh_2d"]).make_mesh_2d
 
 
 @pytest.mark.parametrize("kind", ["L2Sum", "LogSum"])

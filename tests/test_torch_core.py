@@ -182,5 +182,5 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "simulation/eki.py", "inverse/uncertainty.py", "data/rgi.py",
                    "data/netcdf.py", "models/mb_machine.py", "utils/io.py", "utils/memory.py",
                    "utils/logging.py", "utils/plotting.py", "utils/time_utils.py", "api.py",
-                   "parallel/multiprocess.py", "parallel/mp_worker.py"):
+                   "parallel/multiprocess.py", "parallel/mp_worker.py", "parallel/spatial.py"):
         assert os.path.join(REPO, "odinn_tpu_torch", module) in scanned, module

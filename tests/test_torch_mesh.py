@@ -231,14 +231,18 @@ def test_run_inversion_mesh_passthrough(ranks):
 
 
 def test_make_mesh_and_rows_refused(ranks):
-    """``make_mesh(3)`` in a job of 2 ranks raises; a mesh with a "rows"
-    dimension, and ``enable_multiprocessing(rows=2)``, raise naming
-    Queue 1 item 10."""
+    """``make_mesh(3)`` in a job of 2 ranks raises. A (1 × 2) mesh with a
+    "rows" dimension is taken: ``shard_inversion`` gives each rank its 12
+    rows of the 24-row grids, ``set_active_mesh`` registers it, and
+    ``train_ude`` refuses on it only what waits for Queue 1 item 11 (here
+    ``substeps="auto"``). Outside a job, ``enable_multiprocessing(rows=2)``
+    raises the JAX package's ValueError."""
     from odinn_tpu_torch.api import enable_multiprocessing
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(ValueError, match="rows=2 exceeds"):
         enable_multiprocessing(rows=2)
-    for out in ranks.result(timeout=TIMEOUT):
+    for r, out in enumerate(ranks.result(timeout=TIMEOUT)):
         assert "needs 3 devices" in out["make_mesh_3"]
-        for key in ("rows_train_ude", "rows_shard_inversion", "rows_set_active_mesh"):
-            assert "Queue 1 item 10" in out[key], key
+        assert out["rows_shard_inversion"] == (r * 12, r * 12 + 12, 12)
+        assert out["rows_set_active_mesh"] == ("glaciers", "rows")
+        assert "Queue 1 item 11" in out["rows_train_ude"]

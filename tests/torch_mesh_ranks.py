@@ -191,18 +191,23 @@ def mesh_scenario(data, mesh):
     out["run_inversion"] = {"losses": list(res.stats.losses), "H": res.simulation["H"].numpy(),
                             "H_single": res1.numpy()}
 
-    # refusals
+    # the rows dimension: taken, with the refusals of Queue 1 item 11
     from torch.distributed.device_mesh import init_device_mesh
 
     out["make_mesh_3"] = _raises(lambda: tmesh.make_mesh(3), ValueError)
     mesh2d = init_device_mesh("cpu", (1, 2), mesh_dim_names=("glaciers", "rows"))
-    inv = tinv.Inversion(model=model, glaciers=batch, parameters=params, theta=theta, device=CPU)
+    auto = dataclasses.replace(params, solver=dataclasses.replace(params.solver,
+                                                                  substeps="auto"))
+    inv = tinv.Inversion(model=model, glaciers=batch, parameters=auto, theta=theta, device=CPU)
     out["rows_train_ude"] = _raises(lambda: tinv.train_ude(inv, mesh=mesh2d),
                                     NotImplementedError)
-    out["rows_shard_inversion"] = _raises(lambda: tmesh.shard_inversion(theta, batch, mesh2d),
-                                          NotImplementedError)
-    out["rows_set_active_mesh"] = _raises(lambda: tmesh.set_active_mesh(mesh2d),
-                                          NotImplementedError)
+    _, rows_local, _ = tmesh.shard_inversion(theta, batch, mesh2d)
+    out["rows_shard_inversion"] = (rows_local.row_shard.lo, rows_local.row_shard.hi,
+                                   rows_local.H0.shape[-2])
+    try:
+        out["rows_set_active_mesh"] = tuple(tmesh.set_active_mesh(mesh2d).mesh_dim_names)
+    finally:
+        tmesh.set_active_mesh(None)
     return out
 
 
