@@ -210,7 +210,7 @@ Phases, each printed as one JSON line:
 14. grid-row sharding (``spatial``): ``launch_local_workers`` starts
    ``python -m chip_smoke RANK N PORT 1 --spatial-worker DIR full|cut``
    twice. "full": phase 5's SI training (16 x 128^2, float32, PCG-20, 24
-   months) by Adam 3 on a (1 x 2) ``("glaciers", "rows")`` mesh of two ranks
+   months) by Adam 2 on a (1 x 2) ``("glaciers", "rows")`` mesh of two ranks
    sharing the card, each on 16 x 64 rows; its losses and gathered
    trajectories equal to the single process's to 1e-5 and θ bitwise the
    same on both ranks after every iteration; one rank's Adam epoch timed
@@ -223,6 +223,18 @@ Phases, each printed as one JSON line:
    transpose and tangent solve, si_rows_apply (iterations + 1) and
    si_rows_update (iterations) times each, si_step_vjp once a step of each
    pullback, no si_step; sia2d_rhs and rkc_interval on the RK4 and RKC rows.
+   Then, in both jobs, the host-driven controllers on the rows, each held
+   to the same run in one process: "full" the float32 adaptive row at
+   reltol 1e-3 (accepted and trial counts equal, H to 1e-5, its device
+   idle share profiled); "cut" the adaptive forward, calibrate_substeps,
+   calibrate_substeps_si (PCG-8 probes), the replay record (1e-11 years),
+   train_ude by the replayed schedule, one ContinuousAdjoint(DiscreteVJP)
+   gradient (reverse steps equal), the per-glacier Laplace posterior of a
+   per-glacier A (Σ to 1e-8), a forward of gridded law values (gridded
+   temperature with a plane-mean factor, roughness of a bumpy bed; 1e-12)
+   and make_shard_map_value_and_grad (glacier blocks with whole planes),
+   the rest to 1e-10; each run's launches asserted (_controller_expected)
+   and its collectives and seconds printed.
    Before the main path, si_assemble alone (three modes) and the row PCG's
    kernels are checked at a rank's 16 x 66 x 128 slab against their plain
    versions, with and without the Jacobi preconditioner, in both dtypes,
@@ -441,7 +453,9 @@ TOL_SCALE_OUT_F32 = 1e-5
 # TOL_SCALE_OUT_F32); the row kernels at a rank's slab (SPATIAL_SLAB: 64 own
 # rows + 2 ghost rows)
 SPATIAL_FULL, SPATIAL_CUT = (1, 2), (2, 2)
-SPATIAL_EPOCHS, SPATIAL_CUT_CG = 3, 6
+# the full width's depth cut: Adam 2, not 3 (a rank's epoch ~3.4 s on a
+# card that two ranks share), to make room for the controller runs
+SPATIAL_EPOCHS, SPATIAL_CUT_CG = 2, 6
 # the float64 cut's depth cut: 3 months, not phase 13's 6, at which the
 # cut's job took 35.5 s and the phase 116.5 s on an H100 80GB HBM3
 # (PERF.md §6), against the phase's ~60 s
@@ -450,6 +464,20 @@ SPATIAL_ROW_TSPAN, SPATIAL_RK4_SUBSTEPS = (5.0, 6.0), 3
 SPATIAL_TIMEOUT = 420.0
 SPATIAL_SLAB = (N_TRAIN, NX // 2 + 2, NY)
 TOL_SPATIAL_F64, TOL_SPATIAL_ROWS_F64 = 1e-10, 1e-12
+# phase 14's runs under the host-driven controllers, each held to the
+# single process: the full width's adaptive row (float32, at
+# CTRL_FULL_RELTOL: at phase 9's 1e-4 the float32 state's own rounding is
+# at the tolerance and the step counts are a draw), and on the float64 cut
+# the adaptive forward, calibrate_substeps and the replay record at
+# CTRL_RELTOL, calibrate_substeps_si at CTRL_SI_RELTOL (probes at PCG-8,
+# candidates 4 and 6), train_ude with adaptive="replay" (Adam
+# CTRL_REPLAY_EPOCHS), one ContinuousAdjoint(DiscreteVJP) gradient, the
+# per-glacier Laplace posterior of a per-glacier A, a forward of gridded law
+# values (RK4, SPATIAL_RK4_SUBSTEPS) and the explicit-collective step
+CTRL_FULL_RELTOL, CTRL_RELTOL, CTRL_SI_RELTOL = 1e-3, 1e-4, 5e-3
+CTRL_SI_PROBE = dict(cg_probe=8, cg_candidates=(4, 6))
+CTRL_REPLAY_EPOCHS = 2
+CTRL_C_MAX = 1e-17
 
 
 def emit(obj) -> None:
@@ -4586,7 +4614,8 @@ def spatial_runs(mesh, which):
     2 then LM 2 from λ0 1e5, by autograd), the discrete adjoint's loss and
     gradient at θ0, and
     forward RK4 and RKC-25 rows of its glaciers over SPATIAL_ROW_TSPAN
-    (Cuffey–Paterson A). Returns numpy and numbers only."""
+    (Cuffey–Paterson A). Both then run :func:`controller_runs`. Returns
+    numpy and numbers only."""
     from odinn_tpu_torch.laws.laws import CuffeyPaterson
     from odinn_tpu_torch.models.model import Model, SIA2DModel
     from odinn_tpu_torch.parallel import spatial
@@ -4647,6 +4676,8 @@ def spatial_runs(mesh, which):
     if which == "full":
         inv.theta = _tree_to(theta0, "cuda", None)
         out["epoch"] = spatial_epoch_profile(adam_epoch_fn(inv, model, params, tstops, mesh))
+        out["controllers"] = controller_runs(mesh, which, inv, model, params, tstops, theta0,
+                                             start, finish)
         return out
 
     # the discrete adjoint's loss and gradient at θ0
@@ -4679,6 +4710,223 @@ def spatial_runs(mesh, which):
                 H = gather_rows(H, mesh, nx=NX)
         out[name] = finish(t0, intervals=len(ts) - 1, substeps=p.solver.substeps,
                            H=H.detach().double().cpu().numpy())
+    out["controllers"] = controller_runs(mesh, which, inv, model, params, tstops, theta0,
+                                         start, finish)
+    return out
+
+
+def _gather_glaciers(x, mesh):
+    """A per-glacier tensor of this rank's glacier block, joined over the
+    mesh's glacier groups in glacier order (row rank 0's of each group); as
+    it is without a mesh."""
+    if mesh is None:
+        return x.detach().cpu()
+    import torch.distributed as dist
+
+    host = x.detach().to("cpu").contiguous()
+    parts = [torch.empty_like(host) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, host)
+    return torch.cat(parts[::mesh.size(1)])
+
+
+def _si_calibration_runs(n, cg, cg_probe, cg_candidates):
+    """The (substeps, PCG iterations) of each probe solve that
+    calibrate_substeps_si makes to return ``n`` substeps at ``cg``: the
+    doubling 1, 2, … n at ``cg_probe``, then the candidates below it up to
+    the one taken."""
+    runs, k = [], 1
+    while k <= n:
+        runs.append((k, cg_probe))
+        k *= 2
+    for c in cg_candidates:
+        if c >= cg_probe:
+            break
+        runs.append((n, c))
+        if c == cg:
+            break
+    return runs
+
+
+def _gridded_problem(batch, params):
+    """The cut's glaciers on a bumpy bed with gridded temperatures that vary
+    over the rows, and a model whose laws read grids: A from the gridded
+    temperature (Cuffey–Paterson on each cell times a factor of the plane's
+    mean, on the staggered grid) and C from the bed's roughness
+    (``SyntheticC`` at CTRL_C_MAX)."""
+    from odinn_tpu_torch.laws import inputs as I
+    from odinn_tpu_torch.laws.laws import Law, SyntheticC, poly_A_paterson_cuffey
+    from odinn_tpu_torch.models.model import Model, SIA2DModel
+    from odinn_tpu_torch.ops.stencils import avg
+
+    a_of_t = poly_A_paterson_cuffey()
+
+    def apply_a(theta, inp):
+        T = inp["T_grid"]
+        mean = torch.mean(T, dim=(-2, -1), keepdim=True)
+        return avg(a_of_t(T) * (1.0 + 0.1 * torch.tanh(mean / 10.0)))
+
+    x = torch.arange(NX, dtype=torch.float64, device=batch.B.device)
+    y = torch.arange(NY, dtype=torch.float64, device=batch.B.device)
+    bump = 3.0 * torch.sin(0.3 * x)[:, None] * torch.cos(0.2 * y)[None, :]
+    clim = batch.climate
+    temps = clim.longterm_temps_gridded + 0.02 * x[:, None] - 0.01 * y[None, :]
+    gbatch = batch.replace(B=batch.B + bump.to(batch.B.dtype),
+                           climate=dataclasses.replace(clim, longterm_temps_gridded=temps))
+    law_a = Law(slot="A", apply_fn=apply_a, inputs=(I.AvgGriddedTemp(),), callback_freq=0.0,
+                trainable=False, name="gridA")
+    law_c = SyntheticC(params, inputs=(I.TopoRough(),), c_max=CTRL_C_MAX)
+    return gbatch, Model(iceflow=SIA2DModel(A=law_a, C=law_c, n_value=3.0))
+
+
+def _busy(fn, seconds):
+    """``fn`` once more, under the profiler: its device busy ms, and the idle
+    share of the first (unprofiled) run's ``seconds``."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+    busy_ms = _profile_sums(prof)[0]
+    return {"device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / (1e3 * seconds)}
+
+
+def controller_runs(mesh, which, inv, model, params, tstops, theta0, start, finish):
+    """Phase 14's runs under the host-driven controllers (the constants'
+    comment), in one process (``mesh`` None) or as this rank of the job's
+    2-D mesh, on the inversion's glaciers at θ0, each between ``start`` and
+    ``finish`` (launch counters and collectives from 0). "full": the
+    adaptive row. "cut": every run. Trajectories and per-glacier counts are
+    gathered over the mesh after each run; losses and gradients summed
+    over it. Returns numpy and numbers only."""
+    from odinn_tpu_torch.inverse.adjoint_types import ContinuousAdjoint, DiscreteVJP
+    from odinn_tpu_torch.inverse.gauss_newton import make_residual_fn
+    from odinn_tpu_torch.inverse.gradient import make_adjoint_value_and_grad
+    from odinn_tpu_torch.inverse.uncertainty import laplace_posterior
+    from odinn_tpu_torch.laws.laws import LawA_inversion
+    from odinn_tpu_torch.models.model import Model, SIA2DModel, glacier_index, init_theta
+    from odinn_tpu_torch.parallel import spatial
+    from odinn_tpu_torch.parallel.mesh import (
+        allreduce_sum, gather_rows, make_shard_map_value_and_grad, shard_inversion)
+    from odinn_tpu_torch.simulation.inversion import Inversion, _tree_leaves, train_ude
+    from odinn_tpu_torch.simulation.prediction import (
+        calibrate_substeps, calibrate_substeps_si, forward_glacier, resolve_replay)
+    from odinn_tpu_torch.simulation.solver import integrate_adaptive as integ
+
+    out = {}
+    batch = inv.glaciers
+    local = batch if mesh is None else shard_inversion(theta0, batch, mesh)[1]
+    theta = _tree_to(theta0, "cuda", None)
+    n_int = len(tstops) - 1
+
+    def gathered(traj):
+        H = traj.movedim(0, 1)
+        H = H if mesh is None else gather_rows(H, mesh, nx=NX)
+        return H.detach().double().cpu().numpy()
+
+    def summed(val, leaves):
+        vals = [val] + list(leaves)
+        vals = vals if mesh is None else allreduce_sum(vals, mesh)
+        return float(vals[0]), [x.detach().double().cpu().numpy() for x in vals[1:]]
+
+    def with_solver(**kw):
+        return params.replace(solver=dataclasses.replace(params.solver, **kw))
+
+    def adaptive(key, reltol, model=model, b=local, th=theta):
+        rec = {}
+        t0 = start()
+        integ.rhs_evals = 0
+        with torch.no_grad():
+            traj, naccs = forward_glacier(th, b, model, with_solver(adaptive=True, reltol=reltol),
+                                          tstops, _return_stats=True, _record=rec)
+        out[key] = finish(t0, rhs_evals=integ.rhs_evals, reltol=reltol)
+        out[key].update(H=gathered(traj), naccs=_gather_glaciers(naccs, mesh).numpy(),
+                        trials=_gather_glaciers(rec["trials"], mesh).numpy())
+
+    if which == "full":
+        adaptive("adaptive", CTRL_FULL_RELTOL)
+        p_ad = with_solver(adaptive=True, reltol=CTRL_FULL_RELTOL)
+        out["adaptive"].update(_busy(lambda: forward_glacier(theta, local, model, p_ad, tstops),
+                                     out["adaptive"]["seconds"]))
+        return out
+    adaptive("adaptive", CTRL_RELTOL)
+
+    t0 = start()
+    integ.rhs_evals = 0
+    n = calibrate_substeps(theta, local, model, with_solver(reltol=CTRL_RELTOL), tstops)
+    out["calibrate"] = finish(t0, substeps=n, rhs_evals=integ.rhs_evals)
+
+    t0 = start()
+    res = calibrate_substeps_si(theta, local, model, with_solver(reltol=CTRL_SI_RELTOL), tstops,
+                                **CTRL_SI_PROBE)
+    out["calibrate_si"] = finish(t0, result=list(res), intervals=n_int,
+                                 runs=_si_calibration_runs(res[0], res[1], **CTRL_SI_PROBE))
+
+    p_rp = with_solver(adaptive="replay", reltol=CTRL_RELTOL)
+    t0 = start()
+    integ.rhs_evals = 0
+    dts = resolve_replay(p_rp, local, model, theta, tstops).solver.replay_dts
+    out["replay_record"] = finish(t0, rhs_evals=integ.rhs_evals, dts=np.asarray(dts))
+
+    # train_ude by the replayed schedule (recorded on the whole batch, as
+    # the JAX package records it, then solved on the rows)
+    p_tr = p_rp.replace(hyper=dataclasses.replace(
+        params.hyper, optimizer=("adam",), learning_rate=(0.05,), epochs=(CTRL_REPLAY_EPOCHS,)))
+    inv_r = Inversion(model=model, glaciers=batch, parameters=p_tr,
+                      theta=_tree_to(theta0, "cuda", None), device="cuda")
+    t0 = start()
+    integ.rhs_evals = 0
+    res = train_ude(inv_r, mesh=mesh)
+    record = np.asarray(inv_r.parameters.solver.replay_dts)[glacier_index(local).cpu().numpy()]
+    columns = int(sum(np.any(record[:, i, :] != 0, axis=0).sum()
+                      for i in range(record.shape[1])))
+    out["train_replay"] = finish(t0, rhs_evals=integ.rhs_evals, solves=res.stats.solves,
+                                 gradients=res.stats.gradients, columns=columns,
+                                 losses=list(res.stats.losses), theta=_leaves_np(inv_r.theta))
+    out["train_replay"]["H"] = res.simulation["H"].detach().double().cpu().numpy()
+
+    # one continuous-adjoint gradient through the rows' SI forward
+    adj = ContinuousAdjoint(VJP_method=DiscreteVJP())
+    inv_c = Inversion(model=model, glaciers=batch,
+                      parameters=params.replace(UDE=dataclasses.replace(params.UDE, grad=adj)),
+                      theta=_tree_to(theta0, "cuda", None), device="cuda")
+    vg = make_adjoint_value_and_grad(inv_c, "continuous")
+    t0 = start()
+    val, g = vg(theta, local)
+    out["continuous"] = finish(t0, reverse_steps=vg.record["reverse_steps"],
+                               host_syncs=vg.record["host_syncs"],
+                               n_quadrature=adj.n_quadrature, intervals=n_int,
+                               cg_iters=params.solver.cg_iters)
+    out["continuous"]["loss"], out["continuous"]["grads"] = summed(val, _tree_leaves(g))
+    out["continuous"]["ids"] = glacier_index(local).tolist()
+    out["continuous"].update(_busy(lambda: vg(theta, local), out["continuous"]["seconds"]))
+
+    # the per-glacier Laplace posterior of a per-glacier A: the residual's
+    # forward, and one J·v (its primal and tangent solves)
+    model_a = Model(iceflow=SIA2DModel(A=LawA_inversion(params), n_value=3.0))
+    theta_a = init_theta(model_a, batch)
+    resid = make_residual_fn(model_a, params, tstops)
+    t0 = start()
+    post = laplace_posterior(theta_a, local, resid, structure="per_glacier")
+    out["laplace"] = finish(t0, cov=post._cov, sigma2=post.sigma2, intervals=n_int,
+                            cg_iters=params.solver.cg_iters)
+
+    # gridded law values through an RK4 forward on the rows (the tensor
+    # code: no kernel takes gridded values, in either package)
+    gbatch, gmodel = _gridded_problem(batch, params)
+    glocal = gbatch if mesh is None else spatial.shard_spatial(gbatch, mesh)
+    t0 = start()
+    with torch.no_grad():
+        traj = forward_glacier(None, glocal, gmodel,
+                               with_solver(solver="RK4", substeps=SPATIAL_RK4_SUBSTEPS), tstops)
+    out["gridded"] = finish(t0, intervals=n_int)
+    out["gridded"]["H"] = gathered(traj)
+
+    # the explicit-collective step: glacier blocks with whole planes
+    step = make_shard_map_value_and_grad(model, params, tstops, mesh)
+    t0 = start()
+    val, g = step(theta, batch)
+    out["shard_map"] = finish(t0, intervals=n_int)
+    out["shard_map"]["loss"] = float(val)
+    out["shard_map"]["grads"] = [x.detach().double().cpu().numpy() for x in _tree_leaves(g)]
     return out
 
 
@@ -4721,6 +4969,93 @@ def _rows_expected(counters, n_int, cg, solves, pullbacks, tangents):
                 si_step_vjp=n_int * pullbacks)
 
 
+def _controller_expected(counters, key, run):
+    """A rank's launches of the controller run ``key`` (:func:`controller_runs`):
+    the adaptive forwards and probes one sia2d_rhs an RHS evaluation; the
+    SI calibration's probe solves on the row PCG; the replay training 3
+    sia2d_rhs a recorded column a solve (after the whole-batch recording's
+    probes) and 3 sia2d_rhs_vjp one a gradient; the continuous gradient
+    the forward on the row PCG, a sia2d_rhs a save (the Hermite slopes)
+    and a sia2d_rhs_vjp a pullback (the first slope of each interval,
+    three a reverse step while any of the rank's glaciers steps, two λ
+    slopes an interval, one a quadrature node); the posterior its
+    residual's and its J·v's primal solves and one tangent solve on the
+    row PCG; the gridded forward none (the tensor code); the
+    explicit-collective step whole planes: si_step, its transpose and
+    si_step_vjp once a step."""
+    zero = {k: 0 for k in counters}
+    if key in ("adaptive", "calibrate", "replay_record"):
+        return dict(zero, sia2d_rhs=run["rhs_evals"])
+    if key == "calibrate_si":
+        steps = [run["intervals"] * n for n, _ in run["runs"]]
+        return dict(zero, si_assemble=sum(steps),
+                    si_rows_apply=sum(k * (c + 1) for k, (_, c) in zip(steps, run["runs"])),
+                    si_rows_update=sum(k * c for k, (_, c) in zip(steps, run["runs"])))
+    if key == "train_replay":
+        return dict(zero, sia2d_rhs=run["rhs_evals"] + 3 * run["columns"] * run["solves"],
+                    sia2d_rhs_vjp=3 * run["columns"] * run["gradients"])
+    if key == "continuous":
+        n_int = run["intervals"]
+        exp = _rows_expected(counters, n_int, run["cg_iters"], 1, 0, 0)
+        exp.update(sia2d_rhs=n_int + 1,
+                   sia2d_rhs_vjp=sum(1 + 3 * max(s) for s in run["reverse_steps"]) + 2 * n_int
+                   + run["n_quadrature"])
+        return exp
+    if key == "laplace":
+        return _rows_expected(counters, run["intervals"], run["cg_iters"], 2, 0, 1)
+    if key == "gridded":
+        return zero
+    if key == "shard_map":
+        n_int = run["intervals"]
+        return dict(zero, si_step=n_int, si_step_transpose=n_int, si_step_vjp=n_int)
+    raise KeyError(key)
+
+
+def _controller_errors(which, c, cref):
+    """The controller runs of one rank (``c``) against the single process's
+    (``cref``): relative errors, and the quantities that must be equal."""
+    errs, equal = {}, {}
+    for key, run in c.items():
+        ref = cref[key]
+        if key == "adaptive":
+            errs[key] = _np_rel(run["H"], ref["H"])
+            equal[key] = (np.array_equal(run["naccs"], ref["naccs"])
+                          and np.array_equal(run["trials"], ref["trials"]))
+        elif key == "calibrate":
+            equal[key] = run["substeps"] == ref["substeps"]
+        elif key == "calibrate_si":
+            equal[key] = run["result"] == ref["result"]
+        elif key == "replay_record":
+            errs[key] = float(np.abs(run["dts"] - ref["dts"]).max())
+            equal[key] = run["dts"].shape == ref["dts"].shape
+        elif key == "train_replay":
+            errs[key] = max(_np_rel(run["losses"], ref["losses"]), _np_rel(run["H"], ref["H"]),
+                            max(_np_rel(a, b) for a, b in zip(run["theta"], ref["theta"])))
+        elif key in ("continuous", "shard_map"):
+            errs[key] = max(_np_rel(run["loss"], ref["loss"]),
+                            max(_np_rel(a, b) for a, b in zip(run["grads"], ref["grads"])))
+            if key == "continuous":
+                steps = np.asarray(ref["reverse_steps"])[:, run["ids"]]
+                equal[key] = np.array_equal(np.asarray(run["reverse_steps"]), steps)
+        elif key == "laplace":
+            errs[key] = max(_np_rel(run["cov"], ref["cov"]),
+                            _np_rel(run["sigma2"], ref["sigma2"]))
+        elif key == "gridded":
+            errs[key] = _np_rel(run["H"], ref["H"])
+            equal[key] = bool(np.isfinite(run["H"]).all())
+    return errs, equal
+
+
+def _controller_ok(which, errs):
+    """Each error within its tolerance: float32 trajectories at
+    TOL_SCALE_OUT_F32, the replay record at 1e-11 years, the posterior at
+    1e-8 (it inverts the Gauss–Newton matrix), the gridded forward at
+    TOL_SPATIAL_ROWS_F64, the rest at TOL_SPATIAL_F64."""
+    tol = {"replay_record": 1e-11, "laplace": 1e-8, "gridded": TOL_SPATIAL_ROWS_F64}
+    default = TOL_SCALE_OUT_F32 if which == "full" else TOL_SPATIAL_F64
+    return all(e <= tol.get(k, default) for k, e in errs.items())
+
+
 def spatial_phase():
     """Phase 14: grid-row sharding on gloo ranks that share the card. The
     single-process runs of :func:`spatial_runs` in this process, then the
@@ -4731,7 +5066,10 @@ def spatial_phase():
     process's to TOL_SCALE_OUT_F32; the cut's losses, θ (per leaf) and
     trajectories, and the discrete adjoint's loss and gradient (per leaf),
     to TOL_SPATIAL_F64; the RK4 and RKC-25 rows' gathered trajectories to
-    TOL_SPATIAL_ROWS_F64; θ bitwise the same on every rank after every
+    TOL_SPATIAL_ROWS_F64; the controller runs (:func:`controller_runs`)
+    to :func:`_controller_ok`'s tolerances with their counts equal and
+    their launches :func:`_controller_expected`'s; θ bitwise the same on
+    every rank after every
     iteration and at the end; per rank the launches of
     :func:`_rows_expected` for the trainings and the discrete gradient (its
     rematerialising and transpose solves by plain CG: three solves a step),
@@ -4765,6 +5103,8 @@ def spatial_phase():
         for run in [ref[which]] + ranks[which]:
             for key in keys:
                 _add(total, run[key]["launches"])
+            for c in run["controllers"].values():
+                _add(total, c["launches"])
 
     fails, per_rank = [], []
     for which, keys in runs_of.items():
@@ -4816,6 +5156,16 @@ def spatial_phase():
             launches = {k: out[k]["launches"] for k in expected}
             if launches != expected:
                 fails.append(f"{which} rank {r}: launches {launches}, expected {expected}")
+            ctl = out["controllers"]
+            ctl_errs, ctl_equal = _controller_errors(which, ctl, rf["controllers"])
+            if not (_controller_ok(which, ctl_errs) and all(ctl_equal.values())):
+                fails.append(f"{which} rank {r}: controllers disagree with the single process: "
+                             f"{ctl_errs}, equal {ctl_equal}")
+            ctl_launches = {k: v["launches"] for k, v in ctl.items()}
+            ctl_expected = {k: _controller_expected(counters, k, v) for k, v in ctl.items()}
+            if ctl_launches != ctl_expected:
+                fails.append(f"{which} rank {r}: controller launches {ctl_launches}, "
+                             f"expected {ctl_expected}")
             row = {"mesh": list(SPATIAL_FULL if which == "full" else SPATIAL_CUT), "rank": r,
                    "errors": errs, "theta_equal_to_rank0": theta_equal,
                    "theta_same_every_iteration": out["theta_same_every_iteration"],
@@ -4826,18 +5176,31 @@ def spatial_phase():
                    "seconds": {k: out[k]["seconds"] for k in keys},
                    "collectives": {k: out[k]["collectives"] for k in keys},
                    "collective_s": {k: out[k]["collective_s"] for k in keys},
-                   "losses": tr["losses"], **out.get("epoch", {})}
+                   "losses": tr["losses"], **out.get("epoch", {}),
+                   "controllers": {k: {"seconds": v["seconds"], "collectives": v["collectives"],
+                                       "collective_s": v["collective_s"],
+                                       "error": ctl_errs.get(k), "equal": ctl_equal.get(k),
+                                       "launches": v["launches"],
+                                       **{q: v[q] for q in ("device_busy_ms", "device_idle_share",
+                                                            "rhs_evals", "substeps", "result")
+                                          if q in v}}
+                                   for k, v in ctl.items()}}
             per_rank.append(row)
     line = {"phase": "spatial", "backend": "gloo", "device": torch.cuda.get_device_name(0),
             "seconds": time.perf_counter() - t0, "single_process_s": single_s, "job_s": job_s,
             "single_process": {w: {"seconds": {k: ref[w][k]["seconds"] for k in keys},
                                    "losses": ref[w]["train"]["losses"],
                                    "launches": {k: ref[w][k]["launches"] for k in keys},
-                                   **ref[w].get("epoch", {})}
+                                   **ref[w].get("epoch", {}),
+                                   "controllers": {k: {q: v[q] for q in (
+                                       "seconds", "launches", "device_busy_ms",
+                                       "device_idle_share", "rhs_evals", "substeps", "result")
+                                       if q in v} for k, v in ref[w]["controllers"].items()}}
                                for w, keys in runs_of.items()},
             "per_rank": per_rank,
             "tolerances": {"f32": TOL_SCALE_OUT_F32, "f64": TOL_SPATIAL_F64,
-                           "f64_rows": TOL_SPATIAL_ROWS_F64}}
+                           "f64_rows": TOL_SPATIAL_ROWS_F64, "replay_record_years": 1e-11,
+                           "laplace": 1e-8}}
     emit(line)
     if fails:
         raise AssertionError("spatial: " + "; ".join(fails))

@@ -52,7 +52,14 @@ cotangents sent back to their owners), a fused RKC step and its pullback
 the slab of ``s``, and the SI/SI2 transposes the slab of two with their
 plain-CG solves split at the reductions (``si_math.rows_cg``); θ's
 cotangent is this rank's partial, which the trainer sums over the mesh.
-The continuous adjoint is refused there (``ROADMAP.md`` Queue 1 item 11).
+The continuous adjoint runs there too: the saved trajectory (and its
+slopes) is extended by one ghost row once, so each reverse RHS pullback
+and each quadrature node reads its slab with no exchange of H; a pullback
+by an exact transpose sends the ghost rows' cotangents back to their
+owners, and the continuous VJP flavor, an operator applied to λ, takes
+λ's ghost rows instead; the reverse controller's error norm is summed
+over the row group (``solver.error_norm``), so every rank of a group
+takes the same reverse steps.
 """
 
 from __future__ import annotations
@@ -126,6 +133,7 @@ class _Pullbacks:
         self.B = glacier.B.to(H0.dtype).contiguous()
         self.dx, self.dy = vjps._spacings(glacier)
         self.vfn = vjps._values_fn(self.theta, glacier, model, t_first)
+        self._glacier = glacier      # the batch itself, also inside on_slab
         self.raw = vjps.fused_table(self.theta, glacier, model, params, t_first, H0, slide)
         self.derived = self.exps = None
         if self.raw is not None:
@@ -142,7 +150,8 @@ class _Pullbacks:
         if self._th is None:
             with torch.enable_grad():
                 self._th = vjps._requiring_grad(self.theta)
-                self._vfn_th = vjps._values_fn(self._th, self.glacier, self.model, self.t_first)
+                self._vfn_th = vjps._values_fn(self._th, self._glacier, self.model,
+                                               self.t_first)
         return self._th, self._vfn_th
 
     def add_tree(self, tree):
@@ -220,13 +229,36 @@ class _Pullbacks:
     def pull(self, lam, H, t=None):
         """λᵀ∂f/∂H at H; accumulates λᵀ∂f/∂θ. On the fused route of the
         discrete flavor both are one pullback launch. On a row shard: on
-        the slab of halo 1, λ zero on its ghost rows (module doc)."""
+        the slab of halo 1 (module doc, :meth:`rows_vjp_H`)."""
         sh = self.shard
         if sh is None:
             return self._pull(lam, H, t)
+        H_s = sh.exchange(H, 1)
+        if isinstance(self.flavor, DiscreteVJP) and self.fused:
+            with self.on_slab(1):
+                dH = self._pull(sh.pad(lam, 1), H_s, t)
+            return sh.halo_transpose(dH, 1)
+        self.rows_vjp_theta(lam, H_s, t)
+        return self.rows_vjp_H(lam, H_s, t)
+
+    def rows_vjp_H(self, lam, H_s, t=None):
+        """:meth:`vjp_H` on a row shard: ``lam`` on the own rows, ``H_s`` on
+        the slab of halo 1; returns the own rows. An exact transpose takes
+        λ zero on the ghost rows and sends the ghost rows' cotangents back
+        to their owners; the continuous flavor, an operator applied to λ,
+        reads λ's ghost rows (one exchange) and keeps its own rows."""
+        sh = self.shard
         with self.on_slab(1):
-            dH = self._pull(sh.pad(lam, 1), sh.exchange(H, 1), t)
+            if isinstance(self.flavor, ContinuousVJP):
+                return sh.crop(self.vjp_H(sh.exchange(lam, 1), H_s, t), 1)
+            dH = self.vjp_H(sh.pad(lam, 1), H_s, t)
         return sh.halo_transpose(dH, 1)
+
+    def rows_vjp_theta(self, lam, H_s, t=None):
+        """:meth:`vjp_theta` on a row shard: λ zero on the ghost rows, so the
+        cotangent is this rank's equations' part."""
+        with self.on_slab(1):
+            self.vjp_theta(self.shard.pad(lam, 1), H_s, t)
 
     def _pull(self, lam, H, t=None):
         if isinstance(self.flavor, DiscreteVJP) and self.fused:
@@ -541,11 +573,6 @@ def glacier_adjoint_value_and_grad(theta, glacier, model, params, tstops, adjoin
     last, the reverse steps each glacier took) and ``host_syncs`` (the
     step loop's reads of the continue condition)."""
     check_adjoint_supported(model)
-    if isinstance(adjoint, ContinuousAdjoint) and glacier.row_shard is not None:
-        from odinn_tpu_torch.parallel.spatial import refuse_rows
-
-        refuse_rows("the continuous adjoint (its quadrature loop reads host values)",
-                    glacier.row_shard)
     flavor = adjoint.VJP_method
     mb_flavor = adjoint.MB_VJP
     use_mb = params.simulation.use_MB and model.mass_balance is not None
@@ -687,20 +714,28 @@ def _discrete(pb, adjoint, traj, ts, npt, params, inject):
 def _continuous(pb, adjoint, traj, ts64, inject, quad_nodes, record):
     """The reverse λ solve, one BS3(2) controller per glacier, then the
     Gauss–Legendre θ contraction; times in float64 (``ts64``). Returns
-    λ(t₀)."""
+    λ(t₀). On a row shard the module doc's slabs and norm."""
     dev = traj.device
+    sh = pb.shard
     n_save, n_g = traj.shape[0], traj.shape[1]
     tdev = torch.as_tensor(ts64, device=dev)
     hermite = adjoint.interpolation == "hermite"
     traj_dots = torch.stack([pb.rhs(traj[k]) for k in range(n_save)]) if hermite else None
+    # the states the pullbacks read: on a row shard, each save (and slope)
+    # with its ghost row, one exchange for all of them
+    traj_s = traj if sh is None else sh.exchange(traj, 1)
+    dots_s = traj_dots if sh is None or not hermite else sh.exchange(traj_dots, 1)
 
     def interp_traj(t):
         if hermite:
-            return _interp(t, tdev, traj[:-1], traj[1:], traj_dots[:-1], traj_dots[1:])
-        return _interp(t, tdev, traj[:-1], traj[1:])
+            return _interp(t, tdev, traj_s[:-1], traj_s[1:], dots_s[:-1], dots_s[1:])
+        return _interp(t, tdev, traj_s[:-1], traj_s[1:])
+
+    vjp_H = pb.vjp_H if sh is None else pb.rows_vjp_H
+    vjp_theta = pb.vjp_theta if sh is None else pb.rows_vjp_theta
 
     def lam_rhs_rev(lam, tau):
-        return pb.vjp_H(lam, interp_traj(-tau))
+        return vjp_H(lam, interp_traj(-tau))
 
     rtol, atol = adjoint.rtol, adjoint.atol
     dtmax = float("inf") if adjoint.dtmax is None else float(adjoint.dtmax)
@@ -726,7 +761,7 @@ def _continuous(pb, adjoint, traj, ts64, inject, quad_nodes, record):
             dt_eff = torch.minimum(torch.clamp(dt, max=dtmax), tau1 - tau)
             lam3, err, k4 = solver_mod._bs32_step(lam_rhs_rev, lam, tau, dt_eff, k1)
             scale = atol + rtol * torch.maximum(lam.abs(), lam3.abs())
-            en = torch.sqrt(torch.mean(((err / scale) ** 2).to(f64), dim=(-2, -1)))
+            en = solver_mod.error_norm(err, scale, sh, dtype=f64)
             accept = active & (en <= 1.0)
             fac = torch.clamp(0.9 * (en + 1e-16) ** (-1.0 / 3.0), 0.2, 5.0)
             acc3 = accept.reshape(-1, 1, 1)
@@ -748,13 +783,13 @@ def _continuous(pb, adjoint, traj, ts64, inject, quad_nodes, record):
     lefts, rights = torch.stack(lam_lefts), torch.stack(lam_rights)
     if hermite:
         # λ̇ = −(∂f/∂H)ᵀλ at each interval's own one-sided limits
-        d_left = torch.stack([-pb.vjp_H(lefts[b], traj[b]) for b in range(n_save - 1)])
-        d_right = torch.stack([-pb.vjp_H(rights[b], traj[b + 1]) for b in range(n_save - 1)])
+        d_left = torch.stack([-vjp_H(lefts[b], traj_s[b]) for b in range(n_save - 1)])
+        d_right = torch.stack([-vjp_H(rights[b], traj_s[b + 1]) for b in range(n_save - 1)])
     for t_q, w_q in zip(np.asarray(tq, np.float64), np.asarray(wq, np.float64)):
         t_vec = torch.full((n_g,), float(t_q), dtype=f64, device=dev)
         lam_q = (_interp(t_vec, tdev, lefts, rights, d_left, d_right) if hermite
                  else _interp(t_vec, tdev, lefts, rights))
-        pb.vjp_theta(float(w_q) * lam_q, interp_traj(t_vec))
+        vjp_theta(float(w_q) * lam_q, interp_traj(t_vec))
     return lam
 
 

@@ -38,6 +38,13 @@ whose squares underflow float32. A quantity's gradient or Jacobian
 σ² defaults to ‖r‖²/(N_eff − p) with N_eff = #{r ≠ 0} (masked entries are
 exactly 0), clamped at ‖r‖²/N_eff when p ≥ N_eff (overparameterized NNs:
 set ``prior_std``).
+
+On a row-sharded batch (``batch.row_shard``, a rank's block of a
+``("glaciers", "rows")`` mesh) every J·v and pullback runs on the rank's
+own rows, and each rank's part of JᵀJ (and of ‖r‖² and N_eff) is summed
+over every rank of the job in one reduction, so the p × p algebra is the
+same numpy float64 on every rank; the matrix-free path sums each product
+of its CG. Every rank must then build and query the posterior together.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ import numpy as np
 import torch
 
 from odinn_tpu_torch.inverse import gauss_newton as gn
+from odinn_tpu_torch.models.model import glacier_index
 from odinn_tpu_torch.simulation.inversion import assemble_tstops
 from odinn_tpu_torch.utils.flatten import (
     rows_to_stack, theta_to_vector, tree_leaves, tree_map, tree_unflatten)
@@ -318,16 +326,17 @@ def laplace_posterior(
     appropriate when p ≪ N; a warning is emitted when p ≥ N_eff and no
     prior is given. ``structure="per_glacier"``: every θ leaf a
     per-glacier vector (G,), one J·v per leaf (see the module doc).
-    A row-sharded batch, or a registered mesh with a ``"rows"`` dimension,
-    raises ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 11; the JAX
-    package does not shard the posterior either).
+    On a row-sharded batch the module doc's reductions over the job.
     """
-    from odinn_tpu_torch.parallel.mesh import active_mesh
-    from odinn_tpu_torch.parallel.spatial import refuse_rows
+    sharded = getattr(batch, "row_shard", None) is not None
 
-    refuse_rows("laplace_posterior", active_mesh())
-    if getattr(batch, "row_shard", None) is not None:
-        refuse_rows("laplace_posterior", batch.row_shard)
+    def job_sum(a: np.ndarray) -> np.ndarray:
+        if not sharded:
+            return a
+        from odinn_tpu_torch.parallel.spatial import job_sum as _sum
+
+        return _sum(torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64))).numpy()
+
     flat, unravel = theta_to_vector(theta)
     p = int(flat.numel())
     dt_ = flat.dtype
@@ -338,8 +347,9 @@ def laplace_posterior(
 
     with torch.no_grad():
         r = resid(theta, b)
-    r64 = r.detach().cpu().double().numpy()
-    n_eff = int(np.sum(np.ravel(r64) != 0.0))
+    r64 = np.ravel(r.detach().cpu().double().numpy())
+    rr, n_eff = job_sum(np.array([np.sum(r64 * r64), np.sum(r64 != 0.0)], np.float64))
+    n_eff = int(n_eff)
     if sigma2 is None:
         if p >= n_eff and prior_std is None:
             import warnings
@@ -350,7 +360,9 @@ def laplace_posterior(
                 "‖r‖²/N_eff and the GGN is rank-deficient — pass prior_std "
                 "to get a well-posed posterior."
             )
-        sigma2 = estimate_sigma2(r64, p)
+        # estimate_sigma2's ‖r‖² / dof, from the sums over the job
+        dof = n_eff - p if n_eff > p else max(n_eff, 1)
+        sigma2 = float(rr / dof)
     prior_precision = 0.0 if prior_std is None else 1.0 / float(prior_std) ** 2
 
     if structure == "per_glacier":
@@ -370,8 +382,12 @@ def laplace_posterior(
         L = len(leaves)
         # batch row-block g reads θ[·][ids[g]], so its curvature belongs at
         # θ column ids[g], and duplicate ids must ACCUMULATE
-        ids = (np.arange(G) if glacier_ids is None
-               else np.asarray(glacier_ids, dtype=int).ravel())
+        if glacier_ids is not None:
+            ids = np.asarray(glacier_ids, dtype=int).ravel()
+        elif sharded:          # a rank's block: the batch's own ids
+            ids = glacier_index(b).reshape(-1).cpu().numpy().astype(int)
+        else:
+            ids = np.arange(G)
         n_blocks = ids.shape[0]
         jvs = []
         for l in range(L):
@@ -386,7 +402,7 @@ def laplace_posterior(
                 np.add.at(JtJ, (l * G + ids, m * G + ids), s)
                 if m > l:
                     np.add.at(JtJ, (m * G + ids, l * G + ids), s)
-        return _finish_dense(theta, p, sigma2, prior_precision, JtJ)
+        return _finish_dense(theta, p, sigma2, prior_precision, job_sum(JtJ))
 
     if p <= dense_threshold:
         # p J·v products and p pullbacks through one linearisation build the
@@ -398,7 +414,7 @@ def laplace_posterior(
             jtv = pb(gn.jvp(resid, theta, b, unravel(eye[i])))
             cols.append(_flat64(jtv))
         del pb
-        JtJ = np.stack(cols)
+        JtJ = job_sum(np.stack(cols))
         JtJ = 0.5 * (JtJ + JtJ.T)
         return _finish_dense(theta, p, sigma2, prior_precision, JtJ)
 
@@ -409,7 +425,8 @@ def laplace_posterior(
         v = (2 * torch.randint(0, 2, (p,), generator=gen) - 1).to(dtype=dt_, device=flat.device)
         jtv = theta_to_vector(pb(gn.jvp(resid, theta, b, unravel(v))))[0]
         del pb
-        scale = float(torch.abs(torch.dot(v, jtv))) / (p * sigma2)
+        vjtv = float(job_sum(np.array([float(torch.dot(v, jtv))]))[0])
+        scale = abs(vjtv) / (p * sigma2)
         prior_precision = 1e-8 * scale + 1e-300
 
     s2 = torch.as_tensor(sigma2, dtype=dt_, device=flat.device)
@@ -421,6 +438,9 @@ def laplace_posterior(
 
         def mv(v):
             jtv = theta_to_vector(pb(gn.jvp(resid, theta, b, unravel(v))))[0]
+            if sharded:
+                jtv = torch.as_tensor(job_sum(jtv.detach().cpu().double().numpy()),
+                                      dtype=jtv.dtype, device=jtv.device)
             return jtv / s2 + pp * v
 
         x = gn._cg_tree(mv, g, cg_iters)

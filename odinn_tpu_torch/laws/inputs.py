@@ -96,14 +96,26 @@ class GradSInput:
 @dataclass(frozen=True)
 class TopoRough:
     """Topographic roughness: the local standard deviation of the bed
-    Laplacian over a (2·window+1)² neighbourhood (zero-padded at the edge)."""
+    Laplacian over a (2·window+1)² neighbourhood (zero-padded at the edge).
+    On a row-sharded glacier it reads the bed's static slab of ``halo``
+    ghost rows and returns the own rows."""
 
     window: int = 2
     curvature_type: str = "laplacian"
     name: str = "topo_rough"
 
+    @property
+    def halo(self) -> int:
+        """The bed's ghost rows an own row's roughness reads."""
+        return self.window + 1
+
     def get(self, glacier, state, t):
-        b = glacier.B
+        shard = getattr(glacier, "row_shard", None)
+        if shard is not None:
+            return shard.crop(self._roughness(shard.bed(self.halo), glacier), self.halo)
+        return self._roughness(glacier.B, glacier)
+
+    def _roughness(self, b, glacier):
         dx, dy = _trail(glacier.dx, 2), _trail(glacier.dy, 2)
         pad = torch.nn.functional.pad
         lap = (pad(st.diff_x(st.diff_x(b)), (0, 0, 1, 1)) / dx ** 2

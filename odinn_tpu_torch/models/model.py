@@ -16,6 +16,7 @@ import torch
 from odinn_tpu_torch.core.glacier import per_glacier_column
 from odinn_tpu_torch.laws import inputs as law_inputs_mod
 from odinn_tpu_torch.laws.laws import Law
+from odinn_tpu_torch.parallel.spatial import slab_rows
 from odinn_tpu_torch.physics import targets as targets_mod
 from odinn_tpu_torch.physics.sia2d import SIAValues, ValuesFn, default_values
 
@@ -144,12 +145,32 @@ def initial_thickness(model: Model, theta, glacier):
     return glacier.H0
 
 
+def _law_inputs(specs, glacier, t, H) -> dict:
+    """The inputs ``specs`` for the glacier or stacked batch at time t and
+    state H. On a row-sharded batch every input is taken on the own rows
+    (an input that reads a stencil of the static fields, such as
+    roughness, reads the static slab's ghost rows and is cropped) and a
+    gridded one is gathered over the row group into the whole plane, so
+    the law sees the plane it sees in one process (its reductions
+    included); the operators then read the values of their slabs
+    (:class:`~odinn_tpu_torch.physics.sia2d.ValuesFn`)."""
+    shard = getattr(glacier, "row_shard", None)
+    inputs = {}
+    for spec in specs:
+        v = spec.get(glacier, H, t)
+        if (shard is not None and isinstance(v, torch.Tensor) and v.ndim >= 2
+                and v.shape[-2] == shard.own and v.shape[-1] == glacier.H0.shape[-1]):
+            v = shard.whole(v)
+        inputs[spec.name] = v
+    return inputs
+
+
 def resolve_law(law: Law, theta, glacier, t, H):
     """One outer law's value for the glacier or stacked batch at time t and
-    state H (a per-glacier value as an (n_g, 1, 1) column)."""
+    state H (a per-glacier value as an (n_g, 1, 1) column; on a row-sharded
+    batch a gridded value is the whole plane's, see :func:`_law_inputs`)."""
     inputs = {"glacier_idx": glacier_index(glacier)}
-    for spec in law.inputs:
-        inputs[spec.name] = spec.get(glacier, H, t)
+    inputs.update(_law_inputs(law.inputs, glacier, t, H))
     return per_glacier_column(glacier, law.apply(theta, inputs))
 
 
@@ -178,20 +199,25 @@ def make_values_fn(model: Model, theta, glacier, t, outer_vals: SIAValues) -> Va
     re-evaluated from the current (H̄, |∇S|); everything else comes from
     ``outer_vals``. With no inner laws the resolver is constant."""
     inner = [(s, l) for s, l in model.iceflow.laws.items() if l.is_inner]
+    shard = getattr(glacier, "row_shard", None)
     if not inner:
-        return ValuesFn(outer_vals)
+        return ValuesFn(outer_vals, shard=shard)
     # outer inputs of inner laws are time-constant within a solve
     static_inputs = {}
     for _, law in inner:
-        for spec in law.inputs:
-            if spec.name not in law_inputs_mod.INNER_INPUTS:
-                static_inputs[spec.name] = spec.get(glacier, glacier.H0, t)
+        static_inputs.update(_law_inputs(
+            [spec for spec in law.inputs if spec.name not in law_inputs_mod.INNER_INPUTS],
+            glacier, t, glacier.H0))
     idx = glacier_index(glacier)
 
     def resolve_inner(vals, hbar, grad_s):
+        statics = static_inputs
+        if shard is not None:        # the whole-plane inputs on the caller's slab
+            statics = {k: slab_rows(v, shard, hbar.shape[-2] + 1)
+                       for k, v in static_inputs.items()}
         for slot, law in inner:
-            inputs = dict(static_inputs, glacier_idx=idx, Hbar=hbar, gradS=grad_s)
+            inputs = dict(statics, glacier_idx=idx, Hbar=hbar, gradS=grad_s)
             vals = vals.replace(**{slot: per_glacier_column(glacier, law.apply(theta, inputs))})
         return vals
 
-    return ValuesFn(outer_vals, resolve_inner)
+    return ValuesFn(outer_vals, resolve_inner, shard=shard)

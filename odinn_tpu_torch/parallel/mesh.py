@@ -199,11 +199,15 @@ def allreduce_sum(tensors, mesh) -> list:
     2-D one), on its own device and in its own dtype: one ``all_reduce`` of
     one host buffer in the promoted dtype. Every rank gets the same
     numbers."""
+    return _allreduce(tensors, _mesh_group(mesh))
+
+
+def _allreduce(tensors, group) -> list:
     import torch.distributed as dist
 
     tensors = list(tensors)
     flat = _flat_host(tensors)
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=_mesh_group(mesh))
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     return _unflat(flat, tensors)
 
 
@@ -303,14 +307,14 @@ def make_shard_map_value_and_grad(model, params, tstops, mesh, per_glacier_keys=
     axis = the glacier count), computes its loss and gradient by autograd
     with shard-local glacier indices, and sums the loss and the shared
     entries' gradients over the ranks in one ``all_reduce``; the
-    per-glacier entries' gradients stay local, this rank's rows."""
+    per-glacier entries' gradients stay local, this rank's rows. On a 2-D
+    mesh the glacier axis alone is mapped, as the JAX package's
+    ``shard_map`` maps it: each rank takes its glacier group's block with
+    whole planes (the ranks of a row group hold replicas), and the sums run
+    over the glacier axis only."""
     from odinn_tpu_torch.simulation.inversion import batch_transient_loss
 
     mesh = glacier_mesh(mesh, "make_shard_map_value_and_grad")
-    if has_rows(mesh):
-        from odinn_tpu_torch.parallel.spatial import refuse_rows
-
-        refuse_rows("make_shard_map_value_and_grad (the per-glacier gradient blocks)", mesh)
     size = mesh_size(mesh)
 
     def value_and_grad(theta, batch):
@@ -335,7 +339,7 @@ def make_shard_map_value_and_grad(model, params, tstops, mesh, per_glacier_keys=
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         if size > 1:
             shared = [i for i, s in enumerate(sharded) if not s]
-            summed = allreduce_sum([loss.detach()] + [grads[i] for i in shared], mesh)
+            summed = _allreduce([loss.detach()] + [grads[i] for i in shared], _group(mesh))
             loss = summed[0]
             for i, g in zip(shared, summed[1:]):
                 grads[i] = g

@@ -31,7 +31,19 @@ the port writes the exchange out itself:
   (:func:`odinn_tpu_torch.ops.si_math.rows_cg`);
 - θ stays whole on every rank; the loss and the θ gradient are summed over
   the whole mesh by the trainer's one ``all_reduce`` a step, with terms
-  that do not read the grid counted on row rank 0 only.
+  that do not read the grid counted on row rank 0 only;
+- the host-driven controllers (the adaptive BS3(2) forward, the continuous
+  adjoint's reverse solve) read each glacier's error norm through
+  :func:`plane_mean`, summed over the row group only: glacier groups take
+  different numbers of steps, so a collective over the whole job inside
+  such a loop would deadlock. A decision over the whole job (a probe's
+  step count, a calibration's distance) is one :func:`job_max` after the
+  loop;
+- a law that reads a grid (gridded temperature, degree-days, roughness)
+  takes its inputs on the own rows, gathers them to the whole plane
+  (:meth:`RowShard.whole`) and is applied there, as the JAX package's
+  partitioned program computes it; each operator then reads the values of
+  its slab (:func:`slab_rows`).
 
 Transport is gloo on host buffers, as on the glacier axis: an exchange is
 one host round trip (counted, with its wall seconds, in :data:`EXCHANGES`).
@@ -61,11 +73,15 @@ __all__ = [
     "RowShard",
     "RowHalo",
     "rows_sum",
+    "plane_mean",
+    "plane_max",
+    "job_max",
+    "job_sum",
+    "slab_rows",
     "row_shard_of",
     "static_halo",
     "in_glacier",
     "gather_grid",
-    "refuse_rows",
 ]
 
 GRID_AXIS = "rows"
@@ -75,7 +91,6 @@ EXCHANGES = {"calls": 0, "seconds": 0.0}
 # the static slabs' ghost rows by default: the semi-implicit step's 2 and
 # the loss masks' erosion distance, 3 by default (is_in_glacier)
 DEFAULT_HALO = 3
-_ITEM_11 = "ROADMAP.md Queue 1 item 11"
 
 
 def make_mesh_2d(n_glaciers: Optional[int] = None, n_rows: int = 2):
@@ -213,6 +228,12 @@ class RowShard:
     def rows_of(self, x):
         """The own rows of a whole-plane field (nx rows)."""
         return x[..., self.lo:self.hi, :]
+
+    def whole(self, x):
+        """``x`` (own rows) joined over the row group into the whole
+        (padded) plane: :meth:`halo_rows` with a halo that reaches the
+        plane's ends, differentiable in both modes."""
+        return self.halo_rows(x, self.nx)
 
     def halo_rows(self, x, h: int):
         """``x`` (own rows) extended by ``h`` ghost rows: :class:`RowHalo`,
@@ -407,6 +428,78 @@ def rows_sum(v, shard: Optional[RowShard]):
     return _sum_over_rows(shard, v)
 
 
+def plane_mean(q, shard: Optional[RowShard] = None):
+    """Each glacier's mean of ``q`` over its plane (the last two axes). On a
+    row shard: the own rows' sums summed over the row group
+    (:func:`rows_sum`) and divided by the padded plane's cell count, the
+    mean the JAX package's partitioned program takes over the padded plane;
+    the same on every rank of the group."""
+    if shard is None:
+        return torch.mean(q, dim=(-2, -1))
+    return rows_sum(torch.sum(q, dim=(-2, -1)), shard) / float(shard.nx * q.shape[-1])
+
+
+def plane_max(x, shard: Optional[RowShard] = None):
+    """Each glacier's max of ``x`` over its plane (the last two axes); on a
+    row shard over the row group's rows (one gather), the same on every
+    rank of the group."""
+    m = torch.amax(x, dim=(-2, -1))
+    if shard is None or shard.size == 1:
+        return m
+    parts = shard.gather(m.detach().to("cpu"))
+    return torch.stack(parts).amax(dim=0).to(m.device)
+
+
+def job_max(value: float) -> float:
+    """A host number's max over every rank of the job (one ``all_reduce``
+    of the world group, which a mesh spans): the same on every rank.
+    Every rank must call it, so it stands outside the per-glacier loops."""
+    import time
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    buf = torch.tensor([float(value)], dtype=torch.float64)
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX)
+    EXCHANGES["calls"] += 1
+    EXCHANGES["seconds"] += time.perf_counter() - t0
+    return float(buf.item())
+
+
+def job_sum(x: torch.Tensor) -> torch.Tensor:
+    """A host tensor summed over every rank of the job (one ``all_reduce``
+    of the world group, in its dtype), the same on every rank."""
+    import time
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    buf = x.detach().to("cpu").clone().contiguous()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+    EXCHANGES["calls"] += 1
+    EXCHANGES["seconds"] += time.perf_counter() - t0
+    return buf
+
+
+def slab_rows(x, shard: RowShard, rows: int):
+    """The rows of a whole-plane field ``x`` (``nx`` rows, or ``nx − 1`` on
+    the staggered grid) that lie on this rank's slab of ``rows`` grid rows
+    (the slab of the halo whose extent gives that count; its staggered
+    grid has ``rows − 1``). Anything else (a number, a per-glacier column)
+    is returned as it is."""
+    if not isinstance(x, torch.Tensor) or x.ndim < 2:
+        return x
+    k = shard.nx - x.shape[-2]
+    if k not in (0, 1):
+        return x
+    need = rows - shard.own              # the slab's ghost rows, top and bottom
+    for h in range(max(need, 0) + 1):
+        t, b = shard.extent(h)
+        if t + b == need:
+            return x[..., shard.lo - t:shard.hi + b - k, :]
+    raise ValueError(f"no slab of the row shard [{shard.lo}, {shard.hi}) has {rows} rows")
+
+
 def row_shard_of(glacier) -> Optional[RowShard]:
     """The glacier batch's row shard, or None (a whole plane)."""
     return None if glacier is None else getattr(glacier, "row_shard", None)
@@ -424,11 +517,16 @@ def in_glacier(H, distance: int, shard: Optional[RowShard] = None, static: bool 
     return shard.crop(is_in_glacier(shard.exchange(H.detach(), d), distance), d)
 
 
-def static_halo(params) -> int:
-    """The static slabs' ghost rows a training with ``params`` reads: the
-    semi-implicit step's 2, an RKC step's stages, and the loss terms'
-    erosion distances."""
+def static_halo(params, model=None) -> int:
+    """The static slabs' ghost rows a training with ``params`` (and
+    ``model``) reads: the semi-implicit step's 2, an RKC step's stages, the
+    loss terms' erosion distances, and the ghost rows of the static fields
+    that ``model``'s law inputs read (``halo``: roughness's stencil)."""
     h = max(DEFAULT_HALO, 2)
+    if model is not None:
+        for law in model.iceflow.laws.values():
+            for spec in law.inputs:
+                h = max(h, int(getattr(spec, "halo", 0)))
     if params.solver.solver == "RKC":
         h = max(h, int(params.solver.rkc_stages))
     seen = []
@@ -561,13 +659,3 @@ def gather_grid(x, mesh, nx: int):
     parts = [torch.empty_like(rows) for _ in range(mesh.size(0))]
     dist.all_gather(parts, rows, group=mesh.get_group(GLACIER_AXIS))
     return torch.cat(parts).to(x.device)
-
-
-def refuse_rows(what: str, shard_or_mesh) -> None:
-    """``NotImplementedError`` naming Queue 1 item 11 for ``what`` on a rows
-    mesh or a row-sharded batch; nothing otherwise."""
-    names = getattr(shard_or_mesh, "mesh_dim_names", None) or ()
-    if isinstance(shard_or_mesh, RowShard) or GRID_AXIS in names:
-        raise NotImplementedError(
-            f"{what} on a mesh with a {GRID_AXIS!r} dimension needs a reduction over the row "
-            f"group inside a host-driven controller; it comes with {_ITEM_11}")

@@ -63,13 +63,17 @@ class ValuesFn:
     re-evaluates the state-dependent laws from (H̄, |∇S|). Without inner laws
     the values are ``constant``, which is what lets the solvers hand them to
     the fused kernels. ``cache`` keeps the kernels' per-glacier tables for
-    the life of one solve.
+    the life of one solve. On a row shard (``shard``) a gridded value is the
+    whole plane's, and a call returns the rows of the caller's slab, read
+    from the row count of its H̄.
     """
 
     def __init__(self, outer: SIAValues,
-                 inner: Optional[Callable[[SIAValues, Any, Any], SIAValues]] = None):
+                 inner: Optional[Callable[[SIAValues, Any, Any], SIAValues]] = None,
+                 shard=None):
         self.outer = outer
         self.inner = inner
+        self.shard = shard
         self.cache = {}
 
     @property
@@ -77,9 +81,16 @@ class ValuesFn:
         return self.outer if self.inner is None else None
 
     def __call__(self, hbar, grad_s) -> SIAValues:
+        vals = self.outer
+        if self.shard is not None:
+            from odinn_tpu_torch.parallel.spatial import slab_rows
+
+            rows = hbar.shape[-2] + 1
+            vals = SIAValues(**{f.name: slab_rows(getattr(vals, f.name), self.shard, rows)
+                                for f in dataclasses.fields(vals)})
         if self.inner is None:
-            return self.outer
-        return self.inner(self.outer, hbar, grad_s)
+            return vals
+        return self.inner(vals, hbar, grad_s)
 
 
 def default_values(glacier) -> SIAValues:

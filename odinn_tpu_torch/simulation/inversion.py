@@ -69,8 +69,11 @@ glacier's grid rows (:mod:`odinn_tpu_torch.parallel.spatial`): each rank
 solves its glacier block on its rows, the loss and gradient are summed
 over the whole mesh, and the trajectories are gathered over both
 dimensions and cropped to the original grid and glacier count. The
-tolerance contract (``adaptive``, ``substeps="auto"``) and the continuous
-adjoint are refused on it (``ROADMAP.md`` Queue 1 item 11).
+tolerance contract is resolved on the whole batch there too, before the
+placement, as the JAX package resolves it; its stage-end re-probe and
+its recovery probe the rank's rows, their controllers' norms summed over
+the row group and their step counts maximised over the job. Replay
+solves, and the continuous adjoint, run on the rows.
 """
 
 from __future__ import annotations
@@ -594,24 +597,20 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
     rows = has_rows(mesh)
     halo = None
     if rows:
-        from odinn_tpu_torch.parallel.spatial import refuse_rows, static_halo
+        from odinn_tpu_torch.parallel.spatial import static_halo
 
-        sp = params.solver
-        if sp.adaptive or sp.substeps == "auto":
-            refuse_rows(f"the tolerance contract (solver.adaptive={sp.adaptive!r}, "
-                        f"substeps={sp.substeps!r})", mesh)
-        grad_cfg = params.UDE.grad
-        if (grad_cfg if isinstance(grad_cfg, str) else getattr(grad_cfg, "name", "jax")) \
-                == "continuous":
-            refuse_rows("the continuous adjoint (grad='continuous')", mesh)
-        halo = static_halo(params)
+        halo = static_halo(params, model)
     # this rank's glaciers (padded to a multiple of the mesh), θ as rank 0 has it
     theta0, local, n_results = shard_inversion(inversion.theta, batch, mesh, halo=halo)
     theta = _tree_map(lambda x: x.detach().clone().requires_grad_(True), theta0)
     leaves = _tree_leaves(theta)
     substeps_auto = params.solver.substeps == "auto"
+    # the tolerance contract resolved on the whole batch, before any
+    # sharding, as the JAX package resolves it; the stage-end re-probe and
+    # the recovery probe the placed batch, on a rows mesh its rows
     params = _resolve_tolerance(params, batch, model, theta, tstops)
     inversion.parameters = params
+    probed = local if rows else batch
     # an explicit solver's sizing is a stability bound that the θ reached
     # may outgrow (SI and SI2 are unconditionally stable: theirs buys
     # accuracy only); a replay schedule is held fixed and shares the hazard
@@ -652,7 +651,7 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
     def recheck_substeps():
         """The staleness guard: probe at the stage's best iterate, and raise
         the substeps when it needs more than the current count."""
-        needed = calibrate_substeps(theta, batch, model, params, tstops)
+        needed = calibrate_substeps(theta, probed, model, params, tstops)
         cur = int(params.solver.substeps)
         if needed <= cur:
             return
@@ -689,14 +688,14 @@ def train_ude(inversion: Inversion, callback: Optional[Callable] = None,
                   f"accepted-dt schedule there (each step split {splits}×), "
                   "and rerunning the stage")
             p = params.replace(solver=dataclasses.replace(params.solver, replay_dts=None))
-            p = resolve_replay(p, batch, model, theta, tstops)
+            p = resolve_replay(p, probed, model, theta, tstops)
             if splits > 1:
                 dts = np.repeat(p.solver.replay_dts / splits, splits, axis=-1)
                 p = p.replace(solver=dataclasses.replace(p.solver, replay_dts=dts))
             resize(p, (stats.niter, "replay", f"re-recorded x{splits}"))
         else:
             cur = int(params.solver.substeps)
-            needed = max(calibrate_substeps(theta, batch, model, params, tstops), 2 * cur)
+            needed = max(calibrate_substeps(theta, probed, model, params, tstops), 2 * cur)
             print(f"[odinn_tpu_torch] substeps='auto': non-finite loss mid-stage — "
                   f"rewinding to the best iterate, re-sizing {cur} → {needed} "
                   f"substeps/interval, and rerunning the stage")

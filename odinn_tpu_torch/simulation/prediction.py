@@ -135,24 +135,6 @@ def _fused_rkc_stepper(values_fn, target, dx, dy, glacier, H0, phys, s):
     return lambda f, y, t, dt: shard.crop(step(f, shard.halo_rows(y, s), t, dt), s)
 
 
-def _refuse_gridded_values(model, vals, shard) -> None:
-    """On a row-sharded batch, law values must be one per glacier: a
-    gridded value (or a gridded input of an inner law) would need its own
-    slab."""
-    from odinn_tpu_torch.laws.inputs import INNER_INPUTS, AvgScalarTemp
-    from odinn_tpu_torch.parallel.spatial import refuse_rows
-
-    gridded = [slot for slot in ("A", "C", "n", "p", "q", "Y", "U", "n_H", "n_gradS")
-               if isinstance(getattr(vals, slot), torch.Tensor)
-               and getattr(vals, slot).ndim >= 2 and getattr(vals, slot).shape[-2] > 1]
-    for slot, law in model.iceflow.laws.items():
-        if law.is_inner and any(spec.name not in INNER_INPUTS
-                                and not isinstance(spec, AvgScalarTemp) for spec in law.inputs):
-            gridded.append(slot)
-    if gridded:
-        refuse_rows(f"gridded law values ({', '.join(gridded)})", shard)
-
-
 def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=None,
                     _return_stats: bool = False, _return_dts: int = 0, _record=None):
     """Solve a glacier, or a stacked batch at once, over ``tstops``; returns
@@ -176,10 +158,6 @@ def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=No
     """
     _check_supported(model, params)
     shard = glacier.row_shard
-    if shard is not None and params.solver.adaptive:
-        from odinn_tpu_torch.parallel.spatial import refuse_rows
-
-        refuse_rows(f"solver.adaptive={params.solver.adaptive!r} (the tolerance contract)", shard)
     phys = params.physical
     H0 = initial_thickness(model, theta, glacier) if H0 is None else H0
     ts = host_tstops(tstops, H0.dtype)
@@ -198,8 +176,6 @@ def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=No
             return mb_timestep(H, glacier, model.mass_balance, tb, step_mb)
 
     method = params.solver.solver if params.solver.solver in _METHODS else "RK4"
-    if shard is not None:
-        _refuse_gridded_values(model, outer_vals, shard)
     if model.iceflow.periodic_laws:
         return _periodic_solve(theta, glacier, model, params, ts, H0, outer_vals, dx, dy,
                                callback, method)
@@ -225,7 +201,7 @@ def forward_glacier(theta, glacier: Glacier, model: Model, params, tstops, H0=No
         return integrate_adaptive(rhs, H0, ts, rtol=params.solver.reltol,
                                   atol=params.solver.reltol, callback=callback,
                                   return_stats=_return_stats, return_dts=_return_dts,
-                                  record=_record)
+                                  record=_record, shard=shard)
     stepper = None
     if method == "RKC" and params.simulation.use_iceflow and not params.solver.compensated:
         stepper = _fused_rkc_stepper(values_fn, target, dx, dy, glacier, H0, phys,
@@ -304,9 +280,21 @@ def calibrate_substeps(theta, batch, model, params, tstops, safety: float = 1.5)
     and ``ceil(safety × the most steps it accepted in one interval)`` over
     all glaciers and intervals, at least 1. The explicit steppers of the
     same order at that uniform step then run within the tolerance's reach;
-    ``safety`` absorbs the uniform-against-adaptive mismatch."""
+    ``safety`` absorbs the uniform-against-adaptive mismatch. On a
+    row-sharded batch the most is taken over every rank of the job, after
+    the probe."""
     (naccs,) = _adaptive_probe(theta, batch, model, params, tstops)
-    return max(int(math.ceil(float(naccs.max()) * safety)), 1)
+    return max(int(math.ceil(_job_max(float(naccs.max()), batch) * safety)), 1)
+
+
+def _job_max(value: float, batch) -> float:
+    """``value``'s max over every rank of the job when ``batch`` is
+    row-sharded (``spatial.job_max``), else ``value``."""
+    if getattr(batch, "row_shard", None) is None:
+        return value
+    from odinn_tpu_torch.parallel.spatial import job_max
+
+    return job_max(value)
 
 
 def calibrate_substeps_si(theta, batch, model, params, tstops,
@@ -323,8 +311,11 @@ def calibrate_substeps_si(theta, batch, model, params, tstops,
     is the first candidate whose trajectory at those substeps lies within
     half that scaled distance of the ``cg_probe`` one (``cg_probe`` when
     none does), and the predictor budget max(cg_iters // 2,
-    ``cg_iters_predictor``) is the one the accepted probe ran with."""
+    ``cg_iters_predictor``) is the one the accepted probe ran with. On a
+    row-sharded batch each distance is a plane max over the row group, then
+    over every rank of the job, so every rank takes the same decisions."""
     reltol = params.solver.reltol
+    shard = getattr(batch, "row_shard", None)
 
     def run(n, cg):
         p = params.replace(solver=dataclasses.replace(
@@ -336,7 +327,12 @@ def calibrate_substeps_si(theta, batch, model, params, tstops,
 
     def scaled_err(a, b):
         scale = reltol + reltol * torch.maximum(a.abs(), b.abs())
-        return float(((a - b).abs() / scale).max())
+        ratio = (a - b).abs() / scale
+        if shard is None:
+            return float(ratio.max())
+        from odinn_tpu_torch.parallel.spatial import plane_max
+
+        return _job_max(float(plane_max(ratio, shard).max()), batch)
 
     n = 1
     traj_n = run(n, cg_probe)
@@ -395,12 +391,17 @@ def resolve_replay(params, batch, model, theta, tstops):
     Two adaptive probes of the batch at rtol = atol = reltol: the first
     counts the accepted steps per interval to size the record, the second
     records them. An accept past the record's end, or a record whose steps
-    do not tile each interval to 1e-4·|span| + 1e-9, raises."""
+    do not tile each interval to 1e-4·|span| + 1e-9, raises. On a
+    row-sharded batch the cap is the most over every rank of the job, and
+    the glacier groups' records are gathered into one, indexed by the
+    glaciers' ``glacier_ids``, before it is checked."""
     if params.solver.adaptive != "replay" or params.solver.replay_dts is not None:
         return params
     (naccs,) = _adaptive_probe(theta, batch, model, params, tstops)
-    cap = int(naccs.max())
+    cap = int(_job_max(float(naccs.max()), batch))
     naccs2, dts = _adaptive_probe(theta, batch, model, params, tstops, cap)
+    if getattr(batch, "row_shard", None) is not None:
+        naccs2, dts = _gather_record(naccs2, dts, batch)
     if int(naccs2.max()) > cap:
         raise RuntimeError(
             "resolve_replay: the recording probe accepted more steps than "
@@ -420,6 +421,32 @@ def resolve_replay(params, batch, model, theta, tstops):
           f"({naccs.shape[0]} glaciers × {naccs.shape[1]} intervals, "
           f"cap {cap}/interval) at reltol={params.solver.reltol:g}")
     return params.replace(solver=dataclasses.replace(params.solver, replay_dts=dts))
+
+
+def _gather_record(naccs, dts, batch):
+    """Every glacier group's accepted counts and step record, gathered over
+    the job's ranks (one ``all_gather``) into arrays indexed by the
+    glaciers' ``glacier_ids`` (the ranks of a row group hold the same)."""
+    import torch.distributed as dist
+
+    from odinn_tpu_torch.models.model import glacier_index
+
+    ids = glacier_index(batch).reshape(-1).to(device="cpu", dtype=torch.float64)
+    n_l = ids.shape[0]
+    flat = torch.cat([ids, naccs.reshape(-1).to(device="cpu", dtype=torch.float64),
+                      dts.reshape(-1).to(device="cpu", dtype=torch.float64)])
+    parts = [torch.empty_like(flat) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, flat)
+    n_int, cap = dts.shape[-2], dts.shape[-1]
+    all_ids = torch.cat([p[:n_l] for p in parts]).long()
+    n_all = int(all_ids.max()) + 1
+    out_n = torch.zeros((n_all, n_int), dtype=naccs.dtype)
+    out_d = torch.zeros((n_all, n_int, cap), dtype=dts.dtype)
+    for p in parts:
+        rows = p[:n_l].long()
+        out_n[rows] = p[n_l:n_l + n_l * n_int].reshape(n_l, n_int).to(naccs.dtype)
+        out_d[rows] = p[n_l + n_l * n_int:].reshape(n_l, n_int, cap).to(dts.dtype)
+    return out_n, out_d
 
 
 def forward_batch(theta, batch: Glacier, model: Model, params, tstops, device=None):

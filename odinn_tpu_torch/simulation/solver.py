@@ -34,6 +34,7 @@ __all__ = [
     "rkc_stages_for",
     "integrate_scan",
     "integrate_adaptive",
+    "error_norm",
     "integrate_replay",
     "rk4_step",
     "ssprk3_step",
@@ -261,6 +262,23 @@ def _bs3_step(f, y, t, dt):
     return y + _col(dt, y) * (2.0 * k1 + 3.0 * k2 + 4.0 * k3) / 9.0
 
 
+def error_norm(err, scale, shard=None, dtype=None):
+    """Each glacier's error norm of an embedded step: the root mean square
+    of err / scale over its plane (in ``dtype`` when given, after the
+    square). On a row shard (``shard``, a ``parallel.spatial.RowShard``)
+    the mean is over the padded plane, its own-row sums summed over the
+    row group (``spatial.plane_mean``), so every rank of the group takes
+    the same decision. The forward and reverse controllers share it."""
+    q = (err / scale) ** 2
+    if dtype is not None:
+        q = q.to(dtype)
+    if shard is None:
+        return torch.sqrt(torch.mean(q, dim=(-2, -1)))
+    from odinn_tpu_torch.parallel.spatial import plane_mean
+
+    return torch.sqrt(plane_mean(q, shard))
+
+
 def integrate_adaptive(
     rhs: Callable,
     y0,
@@ -273,6 +291,7 @@ def integrate_adaptive(
     return_stats: bool = False,
     return_dts: int = 0,
     record: Optional[dict] = None,
+    shard=None,
 ):
     """Adaptive BS3(2) integration hitting every tstop exactly.
 
@@ -289,6 +308,11 @@ def integrate_adaptive(
     first is (t₁ − t₀)/100 of the first interval, or ``dt0``. Times, steps
     and norms are in the state's dtype. The loop reads one flag from the
     device per trial step (and one more that ends the interval).
+
+    On a row-sharded state (``shard``: its rows are the rank's own, and
+    ``rhs`` takes its ghost rows itself) the norm is :func:`error_norm`'s
+    over the row group, so every rank of the group accepts alike, reads the
+    same flag and keeps the same step record and counts.
 
     ``callback(y, t0, t1, interval_idx) -> y`` runs at the end of each save
     interval (mass balance); the FSAL derivative is then evaluated afresh.
@@ -332,7 +356,7 @@ def integrate_adaptive(
             y3, err, k4 = _bs32_step(rhs, y, t, dt_eff, k1)
             integrate_adaptive.rhs_evals += 3
             scale = atol + rtol * torch.maximum(y.abs(), y3.abs())
-            en = torch.sqrt(torch.mean((err / scale) ** 2, dim=(-2, -1)))
+            en = error_norm(err, scale, shard)
             accept = active & (en <= 1.0)
             fac = torch.clamp(0.9 * (en + 1e-16) ** (-1.0 / 3.0), 0.2, 5.0)
             acc = accept.reshape(lead + (1, 1))

@@ -234,9 +234,10 @@ def test_make_mesh_and_rows_refused(ranks):
     """``make_mesh(3)`` in a job of 2 ranks raises. A (1 × 2) mesh with a
     "rows" dimension is taken: ``shard_inversion`` gives each rank its 12
     rows of the 24-row grids, ``set_active_mesh`` registers it, and
-    ``train_ude`` refuses on it only what waits for Queue 1 item 11 (here
-    ``substeps="auto"``). Outside a job, ``enable_multiprocessing(rows=2)``
-    raises the JAX package's ValueError."""
+    ``train_ude`` with ``substeps="auto"`` trains on it as one process does
+    (the same sizing, losses and θ at 1e-9). Outside a job,
+    ``enable_multiprocessing(rows=2)`` raises the JAX package's
+    ValueError."""
     from odinn_tpu_torch.api import enable_multiprocessing
 
     with pytest.raises(ValueError, match="rows=2 exceeds"):
@@ -245,4 +246,8 @@ def test_make_mesh_and_rows_refused(ranks):
         assert "needs 3 devices" in out["make_mesh_3"]
         assert out["rows_shard_inversion"] == (r * 12, r * 12 + 12, 12)
         assert out["rows_set_active_mesh"] == ("glaciers", "rows")
-        assert "Queue 1 item 11" in out["rows_train_ude"]
+        runs = out["rows_train_ude"]
+        assert runs["mesh"]["substeps"] == runs["single"]["substeps"]
+        np.testing.assert_allclose(runs["mesh"]["losses"], runs["single"]["losses"], rtol=1e-9)
+        for a, b in zip(runs["mesh"]["theta"], runs["single"]["theta"]):
+            assert_rel(a, b, 1e-9, "θ")

@@ -31,7 +31,26 @@ and checks:
   single process, results cropped to 25 rows;
 - a term that reads θ alone counted once: the loss and gradient equal the
   single process's;
-- the refusals that wait for ``ROADMAP.md`` Queue 1 item 11.
+- the host-driven controllers on the rows, against the JAX package in
+  float64 over the same 3 months: the adaptive forward (trajectory at
+  1e-10, accepted counts equal; trial counts equal to one process's) on
+  the problem and on a row-padded one, held to JAX's run on
+  ``pad_batch_rows(batch, 2)``, whose padded plane is the RMS denominator;
+  ``calibrate_substeps`` (also row-padded) and ``calibrate_substeps_si``
+  (equal results), the replay record (1e-11 years); ``train_ude`` with
+  ``adaptive="replay"``, ``substeps="auto"`` (RK4 over two stages, so the
+  stage-end re-probe runs on the rows, and SI) and ``grad="continuous"``
+  (losses, θ and trajectories at 1e-9 / 1e-9 / 1e-8, re-sizings equal, θ
+  bitwise the same on every rank); the continuous adjoint's loss and
+  gradient (1e-12 / 1e-9; reverse steps equal to one process's);
+  ``laplace_posterior`` of a per-glacier A on the rows, per-glacier blocks
+  and dense, and ``laplace_uncertainty`` under the rows mesh (Σ 1e-8);
+  gridded law values (the gridded temperature with a plane-mean factor,
+  degree-days and roughness on a bumpy bed) through the forward (1e-10);
+  ``make_shard_map_value_and_grad`` on the 2-D mesh (1e-12 / 1e-10).
+  These are the tolerances of the single-process tests of the same
+  functions (``test_torch_adaptive.py``, ``test_torch_replay.py``,
+  ``test_torch_continuous_adjoint.py``, ``test_torch_uncertainty.py``).
 
 An exchange is one gloo collective, ~1.5 ms on the CPU, so the runs cover
 3 months and the discrete ladder solves by SI.
@@ -61,7 +80,8 @@ from odinn_tpu.simulation.prediction import generate_ground_truth
 from odinn_tpu.simulation.solver import build_tstops
 from tests.test_torch_gauss_newton import _jax_probes
 from tests.torch_parity import CPU, assert_rel, carry_glacier, jax_to_numpy_fields
-from tests.torch_spatial_ranks import OPERATORS, TRAIN_TSPAN, TRAININGS
+from tests.torch_spatial_ranks import (
+    C_MAX, CONTROLLER_TRAININGS, OPERATORS, RELTOL, SI_PROBE, SI_RELTOL, TRAIN_TSPAN, TRAININGS)
 
 TIMEOUT = 240.0
 
@@ -83,6 +103,10 @@ SI6 = dict(solver="SI", substeps=1, cg_iters=6)
 
 @pytest.fixture(scope="module")
 def problem():
+    return _problem()
+
+
+def _problem():
     """tests/test_spatial_sharding.py's problem, in the JAX package, and
     two 25-row glaciers for the row padding."""
     params = _params()
@@ -98,6 +122,42 @@ def problem():
                                                           seed=1), params)))
     batch = stack_glaciers(glaciers)
     return params, model, batch, init_theta(model, batch), tstops, stack_glaciers(pad)
+
+
+def _grid_batch():
+    """4 Halfar glaciers of 24² on a bumpy bed with a monthly climate from
+    4 years (degree-days over the year before 5.0) and gridded long-term
+    temperatures that vary over the rows."""
+    from odinn_tpu.data.synthetic import monthly_dummy_climate
+
+    x = np.arange(24.0)
+    out = []
+    for i, tm in enumerate((-25.0, -23.0, -21.0, -19.0)):
+        clim = monthly_dummy_climate(4.0, 24, temp_mean=-2.0 + i, longterm_temp=tm, nx=24,
+                                     ny=24)
+        clim = dataclasses.replace(clim, longterm_temps_gridded=jnp.asarray(
+            tm + 0.1 * x[:, None] - 0.05 * x[None, :]))
+        g = halfar_glacier(nx=24, ny=24, dx=150.0, temp=tm, climate=clim, rgi_id=f"gr{i}")
+        bump = 3.0 * np.sin(0.7 * (i + 1) * x)[:, None] * np.cos(0.5 * x)[None, :]
+        out.append(g.replace(B=g.B + jnp.asarray(bump)))
+    return stack_glaciers(out)
+
+
+def _jax_gridded_model(params):
+    """torch_spatial_ranks.gridded_model in the JAX package."""
+    from odinn_tpu.laws import inputs as I
+    from odinn_tpu.laws.laws import Law, SyntheticC, poly_A_paterson_cuffey
+    from odinn_tpu.ops.stencils import avg
+
+    a_of_t = poly_A_paterson_cuffey()
+
+    def apply_a(theta, inp):
+        T = inp["T_grid"]
+        return avg(a_of_t(T) * (1.0 + 0.1 * jnp.tanh(jnp.mean(T) / 10.0)))
+
+    law_a = Law(slot="A", apply_fn=apply_a, inputs=(I.AvgGriddedTemp(),), callback_freq=0.0,
+                trainable=False, name="gridA")
+    return Model(iceflow=SIA2DModel(A=law_a, C=SyntheticC(params, c_max=C_MAX)))
 
 
 def _jax_runs(problem):
@@ -124,9 +184,117 @@ def _jax_runs(problem):
 
     jobs = {"discrete_lm": (train, "discrete_lm"), "adam3": (train, "adam3"),
             "vg_rk4": (vg, {}), "vg_si6": (vg, SI6)}
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+    # the controllers' references in three more processes (JAX's tracing
+    # holds the GIL, so threads of one process share one core for it)
+    with concurrent.futures.ThreadPoolExecutor(len(jobs) + len(CONTROLLER_GROUPS)) as pool:
+        groups = [pool.submit(_jax_controller_process, g) for g in CONTROLLER_GROUPS]
         futures = {k: pool.submit(fn, arg) for k, (fn, arg) in jobs.items()}
-        return {k: f.result() for k, f in futures.items()}
+        out = {k: f.result() for k, f in futures.items()}
+        for g in groups:
+            out.update(g.result(timeout=TIMEOUT))
+        return out
+
+
+# the controllers' JAX references, by process, each ~20 s of JAX work
+CONTROLLER_GROUPS = (
+    ("train_replay", "train_auto_rk4", "adaptive", "gridded"),
+    ("train_auto_si", "train_continuous", "continuous_vg"),
+    ("adaptive_padded", "calibrate", "calibrate_padded", "calibrate_si", "laplace_blocks"),
+)
+
+
+def _jax_controller_process(names):
+    """The named controller references, computed by :func:`_jax_controller_group`
+    in a Python process of its own with the test configuration's JAX
+    settings (``tests/conftest.py``)."""
+    import subprocess
+    import sys
+    import tempfile
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "out.pkl")
+        code = ("import sys, pickle, tests.conftest; "
+                "from tests.test_torch_spatial import _jax_controller_group as f; "
+                "pickle.dump(f(sys.argv[1:-1]), open(sys.argv[-1], 'wb'))")
+        subprocess.run([sys.executable, "-c", code, *names, path], cwd=root, check=True,
+                       timeout=TIMEOUT, stdout=subprocess.DEVNULL)
+        with open(path, "rb") as fh:
+            return pickle.load(fh)
+
+
+def _jax_controller_group(names):
+    """The named controller references (see :func:`_jax_controller_process`)."""
+    jobs = _jax_controller_jobs(_problem())
+    return {k: jobs[k][0](jobs[k][1]) for k in names}
+
+
+def _jax_controller_jobs(problem):
+    """The JAX package's references of the controllers on the rows: its
+    single-device runs, and its runs on the row-padded batch."""
+    from odinn_tpu.inverse.gauss_newton import make_residual_fn
+    from odinn_tpu.inverse.gradient import make_adjoint_value_and_grad
+    from odinn_tpu.inverse.uncertainty import laplace_posterior
+    from odinn_tpu.laws.laws import LawA_inversion
+    from odinn_tpu.parallel.spatial import pad_batch_rows
+    from odinn_tpu.simulation import prediction as jp
+    from odinn_tpu.simulation.inversion import assemble_tstops
+
+    _, model, batch, theta, _, pad = problem
+    ts = assemble_tstops(_params(TRAIN_TSPAN), batch)
+    padded, _ = pad_batch_rows(pad, 2)
+
+    def adaptive(b):
+        p = _params(TRAIN_TSPAN, solver=dict(adaptive=True, reltol=RELTOL))
+        traj, naccs = jax.jit(jax.vmap(lambda g, i: jp.forward_glacier(
+            theta, g, i, model, p, ts, _return_stats=True)))(b, jnp.arange(b.H0.shape[0]))
+        return np.asarray(traj), np.asarray(naccs)
+
+    def calibrate(b):
+        return jp.calibrate_substeps(theta, b, model, _params(TRAIN_TSPAN,
+                                                              solver=dict(reltol=RELTOL)), ts)
+
+    def calibrate_si(_):
+        return jp.calibrate_substeps_si(
+            theta, batch, model, _params(TRAIN_TSPAN, solver=dict(reltol=SI_RELTOL, solver="SI")),
+            ts, **SI_PROBE)
+
+    def train(name):
+        _, hyper, grad, solver = next(t for t in CONTROLLER_TRAININGS if t[0] == name)
+        p = _params(TRAIN_TSPAN, solver=solver, hyper=Hyperparameters(**hyper),
+                    UDE=UDEParameters(grad=grad))
+        inv = Inversion(model=model, glaciers=batch, parameters=p,
+                        theta=jax.tree.map(jnp.copy, theta))
+        res = train_ude(inv)
+        return {"losses": np.asarray(res.stats.losses),
+                "theta": [np.asarray(x) for x in jax.tree.leaves(inv.theta)],
+                "H": np.asarray(res.simulation["H"]),
+                "bumps": list(res.stats.substeps_bumps),
+                "replay_dts": np.asarray(inv.parameters.solver.replay_dts)}
+
+    def continuous(_):
+        p = _params(TRAIN_TSPAN, UDE=UDEParameters(grad="continuous"))
+        inv = Inversion(model=model, glaciers=batch, parameters=p, theta=theta)
+        val, g = make_adjoint_value_and_grad(inv)(theta)
+        return float(val), [np.asarray(x) for x in jax.tree.leaves(g)]
+
+    def laplace(structure):
+        model_a = Model(iceflow=SIA2DModel(A=LawA_inversion(_params())))
+        resid = make_residual_fn(model_a, _params(TRAIN_TSPAN), ts)
+        post = laplace_posterior(init_theta(model_a, batch), batch, resid, structure=structure)
+        return np.asarray(post._cov), float(post.sigma2)
+
+    def gridded(_):
+        gb, p = _grid_batch(), _params(TRAIN_TSPAN)
+        m = _jax_gridded_model(p)
+        return np.asarray(jax.jit(lambda b: jp.forward_batch(init_theta(m, b), b, m, p, ts))(gb))
+
+    jobs = {"adaptive": (adaptive, batch), "adaptive_padded": (adaptive, padded),
+            "calibrate": (calibrate, batch), "calibrate_padded": (calibrate, padded),
+            "calibrate_si": (calibrate_si, None), "continuous_vg": (continuous, None),
+            "laplace_blocks": (laplace, "per_glacier"), "gridded": (gridded, None)}
+    jobs.update({f"train_{t[0]}": (train, t[0]) for t in CONTROLLER_TRAININGS})
+    return jobs
 
 
 @pytest.fixture(scope="module")
@@ -136,10 +304,12 @@ def ranks(problem, tmp_path_factory):
     from odinn_tpu_torch.parallel.multiprocess import launch_local_workers
 
     _, _, batch, theta, _, pad = problem
+    grid = _grid_batch()
     d = tmp_path_factory.mktemp("spatial_ranks")
     with open(d / "in.pkl", "wb") as fh:
         pickle.dump({"batch": jax_to_numpy_fields(batch), "rgi_id": batch.rgi_id,
                      "pad_batch": jax_to_numpy_fields(pad), "pad_rgi_id": pad.rgi_id,
+                     "grid_batch": jax_to_numpy_fields(grid), "grid_rgi_id": grid.rgi_id,
                      "theta": jax.tree.map(np.asarray, theta),
                      "probes": [jax.tree.map(np.asarray, v) for v in _jax_probes(theta, 8)]}, fh)
 
@@ -333,10 +503,147 @@ def test_replicated_term_counted_once(ranks):
         np.testing.assert_allclose(out["replicated"]["losses"], single["losses"], rtol=1e-10)
 
 
-@pytest.mark.parametrize("what", ["adaptive", "replay", "substeps_auto", "continuous",
-                                  "laplace"])
-def test_rows_refusals_name_item_11(ranks, what):
-    """The tolerance contract, the continuous adjoint and the Laplace
-    posterior on a rows mesh raise, naming ROADMAP.md Queue 1 item 11."""
+# ---------------------------------------------------------------------------
+# the host-driven controllers on the rows, against the JAX package
+# ---------------------------------------------------------------------------
+
+def _port_single(batch, theta, **solver):
+    """The trial counts of the port's single-process adaptive forward of
+    the JAX ``batch`` at the JAX ``theta``."""
+    from odinn_tpu_torch.convert import theta_from_numpy
+    from odinn_tpu_torch.simulation.inversion import assemble_tstops
+    from odinn_tpu_torch.simulation.prediction import forward_glacier
+    from tests.torch_spatial_ranks import nn_model, spatial_params
+
+    p = spatial_params(TRAIN_TSPAN, solver=solver)
+    tb = carry_glacier(batch)
+    record = {}
+    with torch.no_grad():
+        forward_glacier(theta_from_numpy(jax.tree.map(np.asarray, theta), device=CPU), tb,
+                        nn_model(p), p, assemble_tstops(p, tb), _return_stats=True,
+                        _record=record)
+    return record["trials"].numpy()
+
+
+@pytest.mark.parametrize("key", ["adaptive", "adaptive_padded"])
+def test_adaptive_forward_on_rows_matches_jax(problem, ranks, jax_runs, key):
+    """The adaptive BS3(2) forward on the rows: each rank's own rows of the
+    trajectory equal JAX's (1e-10) and the accepted steps per glacier and
+    interval are equal; the padded case is held to JAX's run on the padded
+    batch (26 rows), the plane its 2-D mesh takes the norm over. The trial
+    counts equal one process's, and a trial is 3 RHS evaluations and one
+    row-group reduction: a collective each."""
+    from odinn_tpu.parallel.spatial import pad_batch_rows
+
+    j_traj, j_nacc = jax_runs[key]
+    batch = problem[2] if key == "adaptive" else pad_batch_rows(problem[5], 2)[0]
+    trials = _port_single(batch, problem[3], adaptive=True, reltol=RELTOL)
     for out in _outs(ranks):
-        assert "Queue 1 item 11" in out["refusals"][what], out["refusals"][what]
+        run = out[key]
+        ids, own = run["ids"], run["traj"]
+        assert_rel(np.moveaxis(own["x"], 0, 1), j_traj[ids][..., own["lo"]:own["hi"], :], 1e-10,
+                   f"{key} trajectory")
+        np.testing.assert_array_equal(run["naccs"], j_nacc[ids])
+        np.testing.assert_array_equal(run["trials"], trials[ids])
+        n_trials = (run["rhs_evals"] - 1) // 3
+        assert out["costs"][key][0] == run["rhs_evals"] + n_trials, (out["costs"][key], run)
+
+
+@pytest.mark.parametrize("key", ["calibrate", "calibrate_padded", "calibrate_si"])
+def test_calibrations_on_rows_match_jax(ranks, jax_runs, key):
+    """calibrate_substeps (its probe on the rows, the most over the job;
+    row-padded against JAX on the padded batch) and calibrate_substeps_si
+    (each distance a plane max over the row group, then the job) give
+    JAX's numbers on every rank."""
+    for out in _outs(ranks):
+        got = out[key]
+        assert (tuple(got) if isinstance(got, (tuple, list)) else got) == \
+            (tuple(jax_runs[key]) if isinstance(jax_runs[key], tuple) else jax_runs[key])
+
+
+def test_replay_record_on_rows_matches_jax(ranks, jax_runs):
+    """resolve_replay on the rows: the glacier groups' records gathered into
+    JAX's (glaciers, intervals, cap) record (the one its replay training
+    recorded), to 1e-11 years."""
+    want = jax_runs["train_replay"]["replay_dts"]
+    for out in _outs(ranks):
+        assert out["replay_dts"].shape == want.shape
+        np.testing.assert_allclose(out["replay_dts"], want, rtol=0, atol=1e-11)
+
+
+@pytest.mark.parametrize("name", [t[0] for t in CONTROLLER_TRAININGS])
+def test_train_ude_under_controllers_matches_jax(ranks, jax_runs, name):
+    """train_ude on the (2 × 2) mesh under replay, substeps="auto" (RK4 with
+    a stage-end re-probe on the rows; SI) and the continuous adjoint equals
+    JAX's single-device run: losses 1e-9, θ 1e-9, trajectories 1e-8, the
+    same re-sizings, θ bitwise the same on every rank."""
+    ref = jax_runs[f"train_{name}"]
+    outs = _outs(ranks)
+    for out in outs:
+        run = out[f"train_{name}"]
+        assert run["same_on_every_rank"]
+        assert [tuple(b) for b in run["bumps"]] == [tuple(b) for b in ref["bumps"]]
+        np.testing.assert_allclose(run["losses"], ref["losses"], rtol=1e-9)
+        for a, b in zip(run["theta"], ref["theta"]):
+            assert_rel(a, b, 1e-9, f"{name} θ")
+        assert run["H"].shape == ref["H"].shape
+        assert_rel(run["H"], ref["H"], 1e-8, f"{name} H")
+    np.testing.assert_array_equal(outs[0][f"train_{name}"]["H"], outs[3][f"train_{name}"]["H"])
+
+
+def test_continuous_adjoint_on_rows_matches_jax(ranks, jax_runs):
+    """The continuous adjoint on the rows, its partials summed over the
+    mesh: JAX's loss (1e-12) and θ gradient (1e-9); each glacier's reverse
+    steps per interval equal one process's."""
+    ref_val, ref_g = jax_runs["continuous_vg"]
+    outs = _outs(ranks)
+    for out in outs:
+        run = out["continuous_vg"]
+        np.testing.assert_allclose(run["loss"], ref_val, rtol=1e-12)
+        for a, b in zip(run["grads"], ref_g):
+            assert_rel(a, b, 1e-9, "continuous gradient")
+    for out in outs[:2]:
+        assert out["continuous_vg"]["reverse_steps"] == out["continuous_vg"]["single_steps"]
+    assert outs[0]["continuous_vg"]["reverse_steps"] == outs[1]["continuous_vg"]["reverse_steps"]
+
+
+@pytest.mark.parametrize("key", ["laplace_blocks", "laplace_dense", "laplace_uncertainty"])
+def test_laplace_posterior_on_rows_matches_jax(ranks, jax_runs, key):
+    """laplace_posterior of a per-glacier A (p = 4) on the rows, by the
+    per-glacier blocks and dense (J·v and pullbacks on the rows, JᵀJ summed
+    over the job once), and laplace_uncertainty under a registered rows
+    mesh (the whole batch, as the JAX package's): Σ and σ² at 1e-8 of JAX's
+    per-glacier posterior, which the dense one equals here (RK4: J is
+    exactly block-diagonal by glacier)."""
+    ref_cov, ref_s2 = jax_runs["laplace_blocks"]
+    for out in _outs(ranks):
+        run = out[key]
+        cov = run["cov"] if isinstance(run, dict) else run
+        assert_rel(cov, ref_cov, 1e-8, f"{key} Σ")
+        if isinstance(run, dict):
+            np.testing.assert_allclose(run["sigma2"], ref_s2, rtol=1e-8)
+
+
+def test_gridded_law_values_on_rows_match_jax(ranks, jax_runs):
+    """Laws of the gridded temperature (with a factor of its plane mean),
+    degree-days and roughness on a bumpy bed, on the rows: each rank's own
+    rows of the forward equal JAX's single-device trajectory (1e-10)."""
+    want = jax_runs["gridded"]
+    assert np.isfinite(want).all()
+    for out in _outs(ranks):
+        run = out["gridded"]
+        own = run["traj"]
+        assert_rel(np.moveaxis(own["x"], 0, 1), want[run["ids"]][..., own["lo"]:own["hi"], :],
+                   1e-10, "gridded trajectory")
+
+
+def test_shard_map_step_on_2d_mesh_matches_jax(ranks, jax_runs):
+    """make_shard_map_value_and_grad on the (2 × 2) mesh maps the glacier
+    axis alone, as JAX's shard_map does: JAX's loss (1e-12) and gradient
+    (1e-10) on every rank."""
+    ref_val, ref_g = jax_runs["vg_rk4"]
+    for out in _outs(ranks):
+        val, grads = out["shard_map"]
+        np.testing.assert_allclose(val, ref_val, rtol=1e-12)
+        for a, b in zip(grads, ref_g):
+            assert_rel(a, b, 1e-10, "shard_map gradient")

@@ -191,16 +191,22 @@ def mesh_scenario(data, mesh):
     out["run_inversion"] = {"losses": list(res.stats.losses), "H": res.simulation["H"].numpy(),
                             "H_single": res1.numpy()}
 
-    # the rows dimension: taken, with the refusals of Queue 1 item 11
+    # the rows dimension: taken, substeps="auto" too (its stage-end
+    # re-probe on the rows), against one process
     from torch.distributed.device_mesh import init_device_mesh
 
     out["make_mesh_3"] = _raises(lambda: tmesh.make_mesh(3), ValueError)
     mesh2d = init_device_mesh("cpu", (1, 2), mesh_dim_names=("glaciers", "rows"))
     auto = dataclasses.replace(params, solver=dataclasses.replace(params.solver,
                                                                   substeps="auto"))
-    inv = tinv.Inversion(model=model, glaciers=batch, parameters=auto, theta=theta, device=CPU)
-    out["rows_train_ude"] = _raises(lambda: tinv.train_ude(inv, mesh=mesh2d),
-                                    NotImplementedError)
+    rows_runs = {}
+    for kind, m in (("mesh", mesh2d), ("single", None)):
+        inv = tinv.Inversion(model=model, glaciers=batch, parameters=auto, theta=theta,
+                             device=CPU)
+        res = tinv.train_ude(inv, mesh=m)
+        rows_runs[kind] = {"losses": list(res.stats.losses), "theta": _leaves(inv.theta),
+                           "substeps": inv.parameters.solver.substeps}
+    out["rows_train_ude"] = rows_runs
     _, rows_local, _ = tmesh.shard_inversion(theta, batch, mesh2d)
     out["rows_shard_inversion"] = (rows_local.row_shard.lo, rows_local.row_shard.hi,
                                    rows_local.H0.shape[-2])

@@ -40,6 +40,27 @@ SI6 = dict(solver="SI", substeps=1, cg_iters=6)
 # ladder, whose LM stage through RK4's steps takes 20 s in one process
 TRAIN_TSPAN = (5.0, 5.25)
 TRAIN_SOLVER = {"adam3": {}, "discrete_lm": SI6}
+# the host-driven controllers on the rows (all over TRAIN_TSPAN): the
+# tolerance of the adaptive runs, the SI calibration's (which doubles the
+# substeps 1 → 4 there, each probe at PCG-8) and the SI training's
+# (4 substeps at PCG-4 from its whole-batch calibration)
+RELTOL = 1e-4
+SI_RELTOL = 5e-3
+SI_TRAIN_RELTOL = 1e-2
+SI_PROBE = dict(cg_probe=8, cg_candidates=(4, 6))
+# train_ude on the rows under the controllers: (name, hyperparameters,
+# grad, solver fields); auto_rk4's two stages re-probe at the stage end
+CONTROLLER_TRAININGS = (
+    ("replay", dict(optimizer="adam", learning_rate=1e-2, epochs=2), "jax",
+     dict(adaptive="replay", reltol=RELTOL)),
+    ("auto_rk4", dict(optimizer=("adam", "adam"), learning_rate=(1e-2, 1e-2), epochs=(1, 1)),
+     "jax", dict(substeps="auto", reltol=RELTOL)),
+    ("auto_si", dict(optimizer="adam", learning_rate=1e-2, epochs=1), "jax",
+     dict(substeps="auto", reltol=SI_TRAIN_RELTOL, solver="SI")),
+    ("continuous", dict(optimizer="adam", learning_rate=1e-2, epochs=2), "continuous", {}),
+)
+# the gridded laws' sliding ceiling (SyntheticC's c_max)
+C_MAX = 1e-19
 
 
 def _np(x):
@@ -331,7 +352,7 @@ def spatial_scenario(data, mesh):
                      "same_on_every_rank": _same_on_every_rank(inv.theta, mesh)}
     out["replicated_vg"] = _value_and_grad(model, batch, theta, p_tik, mesh, local)
 
-    out["refusals"] = refusals(model, batch, theta, mesh)
+    out.update(controllers(data, mesh, batch, padded, theta, model))
     return out
 
 
@@ -366,29 +387,158 @@ def _same_on_every_rank(theta, mesh) -> bool:
                                                  tree_leaves(replicate(theta, mesh))))
 
 
-def refusals(model, batch, theta, mesh) -> dict:
-    """The rows mesh's refusals (ROADMAP.md Queue 1 item 11)."""
-    from odinn_tpu_torch.inverse.uncertainty import laplace_uncertainty
-    from odinn_tpu_torch.parallel.mesh import set_active_mesh
-    from odinn_tpu_torch.simulation import inversion as tinv
+def gridded_model(params):
+    """A model whose laws read grids: A from the gridded temperature
+    (Cuffey–Paterson on each cell, times a factor of the plane's mean
+    temperature, on the staggered grid) and C from the degree-days and the
+    bed's roughness (``SyntheticC``)."""
+    from odinn_tpu_torch.laws import inputs as I
+    from odinn_tpu_torch.laws.laws import Law, SyntheticC, poly_A_paterson_cuffey
+    from odinn_tpu_torch.models.model import Model, SIA2DModel
+    from odinn_tpu_torch.ops.stencils import avg
 
-    out = {}
-    cases = (("adaptive", dict(solver=dict(adaptive=True))),
-             ("replay", dict(solver=dict(adaptive="replay"))),
-             ("substeps_auto", dict(solver=dict(substeps="auto"))),
-             ("continuous", dict(grad="continuous")))
-    for name, kw in cases:
-        inv = tinv.Inversion(model=model, glaciers=batch, parameters=spatial_params(**kw),
-                             theta=theta, device=CPU)
-        out[name] = _raises(lambda: tinv.train_ude(inv, mesh=mesh))
-    inv = tinv.Inversion(model=model, glaciers=batch, parameters=spatial_params(), theta=theta,
-                         device=CPU)
-    set_active_mesh(mesh)
+    a_of_t = poly_A_paterson_cuffey()
+
+    def apply_a(theta, inp):
+        T = inp["T_grid"]
+        mean = torch.mean(T, dim=(-2, -1), keepdim=True)
+        return avg(a_of_t(T) * (1.0 + 0.1 * torch.tanh(mean / 10.0)))
+
+    law_a = Law(slot="A", apply_fn=apply_a, inputs=(I.AvgGriddedTemp(),), callback_freq=0.0,
+                trainable=False, name="gridA")
+    return Model(iceflow=SIA2DModel(A=law_a, C=SyntheticC(params, c_max=C_MAX)))
+
+
+def _own(x, shard):
+    """A tensor's numpy, with the shard's position."""
+    return {"x": _np(x), "lo": shard.lo, "hi": shard.hi}
+
+
+def controllers(data, mesh, batch, padded, theta, model) -> dict:
+    """The host-driven controllers on the rows: the adaptive forward (also
+    row-padded), the substep calibrations, the replay record, train_ude
+    under each, the continuous adjoint, the Laplace posterior, gridded law
+    values and the explicit-collective step. Each run's collectives and
+    seconds are recorded beside it."""
+    import time
+
+    from odinn_tpu_torch.convert import glacier_from_numpy
+    from odinn_tpu_torch.inverse.gradient import make_adjoint_value_and_grad
+    from odinn_tpu_torch.inverse.gauss_newton import make_residual_fn
+    from odinn_tpu_torch.inverse.uncertainty import laplace_posterior, laplace_uncertainty
+    from odinn_tpu_torch.laws.laws import LawA_inversion
+    from odinn_tpu_torch.models.model import Model, SIA2DModel, init_theta
+    from odinn_tpu_torch.parallel import mesh as tmesh
+    from odinn_tpu_torch.parallel import spatial
+    from odinn_tpu_torch.simulation import inversion as tinv
+    from odinn_tpu_torch.simulation import prediction as tpred
+    from odinn_tpu_torch.simulation.solver import integrate_adaptive
+
+    out, costs = {}, {}
+
+    def timed(name, fn):
+        spatial.EXCHANGES.update(calls=0, seconds=0.0)
+        t0 = time.perf_counter()
+        r = fn()
+        costs[name] = (spatial.EXCHANGES["calls"], time.perf_counter() - t0)
+        return r
+
+    tstops = tinv.assemble_tstops(spatial_params(TRAIN_TSPAN), batch)
+    _, local, _ = tmesh.shard_inversion(theta, batch, mesh)
+    _, local_pad, _ = tmesh.shard_inversion(theta, padded, mesh)
+    sh = local.row_shard
+
+    # the adaptive forward: own rows, accepted and trial counts, RHS evaluations
+    p_ad = spatial_params(TRAIN_TSPAN, solver=dict(adaptive=True, reltol=RELTOL))
+    for key, b in (("adaptive", local), ("adaptive_padded", local_pad)):
+        rec = {}
+        integrate_adaptive.rhs_evals = 0
+        with torch.no_grad():
+            traj, naccs = timed(key, lambda b=b, rec=rec: tpred.forward_glacier(
+                theta, b, model, p_ad, tstops, _return_stats=True, _record=rec))
+        out[key] = {"traj": _own(traj, b.row_shard), "naccs": _np(naccs),
+                    "trials": _np(rec["trials"]), "ids": _np(b.glacier_ids),
+                    "rhs_evals": integrate_adaptive.rhs_evals}
+
+    # the calibrations and the replay record, on the rows
+    p_rk = spatial_params(TRAIN_TSPAN, solver=dict(reltol=RELTOL))
+    p_si = spatial_params(TRAIN_TSPAN, solver=dict(reltol=SI_RELTOL, solver="SI"))
+    p_rp = spatial_params(TRAIN_TSPAN, solver=dict(adaptive="replay", reltol=RELTOL))
+    out["calibrate"] = timed("calibrate", lambda: tpred.calibrate_substeps(
+        theta, local, model, p_rk, tstops))
+    out["calibrate_padded"] = timed("calibrate_padded", lambda: tpred.calibrate_substeps(
+        theta, local_pad, model, p_rk, tstops))
+    out["calibrate_si"] = timed("calibrate_si", lambda: tpred.calibrate_substeps_si(
+        theta, local, model, p_si, tstops, **SI_PROBE))
+    out["replay_dts"] = timed("replay_record", lambda: tpred.resolve_replay(
+        p_rp, local, model, theta, tstops).solver.replay_dts)
+
+    # train_ude under each controller, on the mesh
+    for name, hyper, grad, solver in CONTROLLER_TRAININGS:
+        p = spatial_params(TRAIN_TSPAN, hyper=hyper, grad=grad, solver=solver)
+        inv = tinv.Inversion(model=model, glaciers=batch, parameters=p, theta=theta, device=CPU)
+        res = timed(f"train_{name}", lambda inv=inv: tinv.train_ude(inv, mesh=mesh))
+        out[f"train_{name}"] = {
+            "losses": list(res.stats.losses), "theta": _leaves(inv.theta),
+            "H": res.simulation["H"].numpy(), "bumps": list(res.stats.substeps_bumps),
+            "same_on_every_rank": _same_on_every_rank(inv.theta, mesh)}
+
+    # the continuous adjoint's loss and gradient, summed over the mesh, and
+    # its reverse steps (the single process's on ranks 0 and 1)
+    p_c = spatial_params(TRAIN_TSPAN, grad="continuous")
+    inv = tinv.Inversion(model=model, glaciers=batch, parameters=p_c, theta=theta, device=CPU)
+    vg = make_adjoint_value_and_grad(inv, "continuous")
+    val, grads = timed("continuous_vg", lambda: vg(theta, local))
+    leaves = tinv._tree_leaves(grads)
+    summed = tmesh.allreduce_sum([val] + leaves, mesh)
+    out["continuous_vg"] = {"loss": float(summed[0]), "grads": [g.numpy() for g in summed[1:]],
+                            "reverse_steps": vg.record["reverse_steps"], "ids": _np(local.glacier_ids)}
+    if dist_rank() < 2:
+        single = make_adjoint_value_and_grad(inv, "continuous")
+        single(theta, tinv.gather_batch(batch, local.glacier_ids))
+        out["continuous_vg"]["single_steps"] = single.record["reverse_steps"]
+
+    # the Laplace posterior of a per-glacier A on the rows (per-glacier
+    # blocks and dense, p = 4), and laplace_uncertainty under the rows mesh
+    model_a = Model(iceflow=SIA2DModel(A=LawA_inversion(spatial_params())))
+    theta_a = init_theta(model_a, batch)
+    _, local_a, _ = tmesh.shard_inversion(theta_a, batch, mesh)
+    resid = make_residual_fn(model_a, spatial_params(TRAIN_TSPAN), tstops)
+    out["laplace_blocks"] = timed("laplace_blocks", lambda: laplace_posterior(
+        theta_a, local_a, resid, structure="per_glacier")._cov)
+    post = timed("laplace_dense", lambda: laplace_posterior(theta_a, local_a, resid))
+    out["laplace_dense"] = {"cov": post._cov, "sigma2": post.sigma2}
+    inv_a = tinv.Inversion(model=model_a, glaciers=batch, parameters=spatial_params(TRAIN_TSPAN),
+                           theta=theta_a, device=CPU)
+    tmesh.set_active_mesh(mesh)
     try:
-        out["laplace"] = _raises(lambda: laplace_uncertainty(inv))
+        out["laplace_uncertainty"] = laplace_uncertainty(inv_a, structure="per_glacier")._cov
     finally:
-        set_active_mesh(None)
+        tmesh.set_active_mesh(None)
+
+    # gridded law values on the rows: the forward's own rows
+    grid = glacier_from_numpy(data["grid_batch"], data["grid_rgi_id"], device=CPU)
+    p_g = spatial_params(TRAIN_TSPAN)
+    model_g = gridded_model(p_g)
+    local_g = spatial.shard_spatial(grid, mesh)
+    with torch.no_grad():
+        traj = timed("gridded", lambda: tpred.forward_glacier(None, local_g, model_g, p_g,
+                                                               tstops))
+    out["gridded"] = {"traj": _own(traj, local_g.row_shard), "ids": _np(local_g.glacier_ids)}
+
+    # the explicit-collective step on the 2-D mesh: glacier blocks with
+    # whole planes, summed over the glacier axis
+    step = tmesh.make_shard_map_value_and_grad(model, spatial_params(TRAIN_TSPAN), tstops, mesh)
+    val, g = timed("shard_map", lambda: step(theta, batch))
+    out["shard_map"] = (float(val), [x.numpy() for x in tinv._tree_leaves(g)])
+    out["costs"] = costs
     return out
+
+
+def dist_rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank()
 
 
 SCENARIOS = {"spatial": spatial_scenario}
