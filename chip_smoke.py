@@ -13,7 +13,9 @@ Phases, each printed as one JSON line:
    pullback kernels also at 2 x 10 x 33; at the training's 16 x 128^2
    ``rkc_interval`` at s = 8, and ``si_step``, its transpose-solve mode and
    ``si_step_vjp`` at PCG-20 on 8-block clusters, the 16th glacier in a
-   second wave), in float64 and float32 (``si_step`` in
+   second wave; at the folded continuous adjoint's 128 x 128^2
+   ``sia2d_rhs`` and ``sia2d_rhs_vjp``, each with a bitwise repeat, as at
+   every shape), in float64 and float32 (``si_step`` in
    float32 also on its increment out − H, at 6 and, at 4 x 128^2, 30 PCG
    iterations, with two launches on the same inputs bit-identical, and at
    2 x 300^2 on its large-plane path, there also at n = 4, where float32
@@ -142,7 +144,9 @@ Phases, each printed as one JSON line:
    substeps, float64, Adam 30 then 8 of the test's 15 LM iterations,
    LM_GATE_EPOCHS: a gain of 15x, a monotone trace,
    A within 15 % at both temperatures, every RK4 stage's tangent one
-   ``sia2d_rhs_jvp`` launch); ``grad="forward"`` of the classical
+   ``sia2d_rhs_jvp`` launch; host-bound, in a process of their own that
+   runs beside phases 12-14 and is joined after them); ``grad="forward"``
+   of the classical
    per-glacier A through SI and RKC, float64 against the CPU's forward
    mode and the card's autograd to 1e-9, float32 at full
    width within 2x the CPU float32 error, with its launches and Adam epoch;
@@ -153,7 +157,22 @@ Phases, each printed as one JSON line:
    transpose and si_step_vjp 24, timed and profiled beside phase 5's
    single-start epoch; 4 Adam epochs with restart 0 equal to a
    single-start ``run_inversion`` from θ0 within 1e-5, every restart's
-   loss falling; again with ``refine_top_k=2`` and 2 LBFGS iterations);
+   loss falling; again with ``refine_top_k=2`` and 2 LBFGS iterations;
+   ``multistart_mode`` lines: the same fold under the discrete adjoint,
+   ``ContinuousAdjoint(DiscreteVJP)`` and the dummy gradient with A =
+   NN(T), and forward mode with per-glacier scalar A, 2 Adam epochs each:
+   one folded epoch launching what a single-start epoch of the mode does,
+   one launch a step for all 128 planes (the discrete adjoint si_step 48,
+   transpose and si_step_vjp 24; the continuous one si_step 24, sia2d_rhs
+   25 and sia2d_rhs_vjp once a pullback of its reverse steps; forward mode
+   si_step and si_step_tangent 24 a θ leaf; the dummy gradient si_step 24),
+   with the mode, seconds, epoch ms, busy ms and idle share; restart 0
+   equal to a single-start ``run_inversion`` under the mode within 1e-5,
+   every restart's loss falling, or under the dummy gradient every
+   restart's θ moved by the same update; and ``multistart_mode_cut``
+   lines: 2 restarts x 4 glaciers, 128^2, 3 months, PCG-6, float64, the
+   folded gradient equal to the single starts' gradients of the mode on
+   the card within 1e-10);
    ``eki_train`` on benchmarks/eki_bench.py's section 1 (16 glaciers, 64^2,
    SI PCG-12, 32 members, 15 iterations: si_step 6 a residual batch for
    all 512 planes, and the reference's A gate, max relative error <= 1e-3
@@ -171,7 +190,8 @@ Phases, each printed as one JSON line:
    checked at the folded 128 x 128^2 (PCG-20) and 512 x 64^2 (PCG-12),
    whose plans run many waves of clusters (asserted; ``cluster_report``
    prints them), against its plain versions with a bitwise repeat, in both
-   dtypes; ``kernel_times`` times those and ``sia2d_rhs`` at 32 x 32^2;
+   dtypes; ``kernel_times`` times those, the tangent-solve mode and
+   sia2d_rhs_vjp at 128 x 128^2, and ``sia2d_rhs`` at 32 x 32^2;
 12. data, I/O and the MLP mass balance (``data_io``), in a temporary
    directory: 16 synthetic .npz glaciers of 256^2 (the npz route, which
    needs no h5py) loaded by ``initialize_glaciers`` onto the
@@ -346,6 +366,8 @@ LM_PROBES = 8
 # (15.66x) and stood at 1.2e4x after the 8th; the 8 iterations draw the
 # first two of the test's three probe sets
 LM_GATE_EPOCHS = (30, 8)
+LM_GATE_SHAPE = (2, 36, 36)        # the gates' glaciers and grid
+LM_GATE_TIMEOUT = 600.0            # the wait for the gates' own process
 # the initial θ of tests/test_gauss_newton.py::test_lm_collapses_loss_after_adam:
 # the JAX package's NeuralNetwork(default_architecture(1, light=True),
 # seed=666) in float64 (its PRNG's draw, which the port's generator does
@@ -385,6 +407,20 @@ UQ_ADAM = 5
 # independent of the launch's other glaciers), summed over the member's
 # glaciers in another order
 TOL_RESTART0 = 1e-5
+# phase 11's runs under the gradient modes other than autograd, each mode
+# with its law: Adam epochs at full width; the dummy gradient's shared
+# update, against the leaf's largest |θ| (float32 rounds each θ + update
+# to ~1e-7 of |θ|; another member's draw would differ by the step, ~0.05);
+# the float64 cut: restarts, glaciers, 3 months, PCG iterations, and its
+# tolerance on the fold against the single starts (the same per-glacier
+# arithmetic, summed in another order)
+MS_MODES = (("discrete", "ude"), ("continuous", "ude"), ("forward", "classical"),
+            ("dummy", "ude"))
+MS_MODE_EPOCHS = 2
+MS_MODE_REPS = 2                   # timed folded epochs a mode (phase 5's epochs take 5)
+MS_DUMMY_TOL = 1e-6
+MS_CUT_RESTARTS, MS_CUT_GLACIERS, MS_CUT_TSPAN, MS_CUT_CG = 2, 4, (5.0, 5.25), 6
+TOL_FOLD_F64 = 1e-10
 # the folded batches of phase 11 as si_step sees them: (planes, nx, ny,
 # PCG iterations)
 FOLDED_SI = ((MS_RESTARTS * N_TRAIN, NX, NY, SI_TRAIN_CG),
@@ -857,6 +893,14 @@ def check_kernels():
             H, B, raw = kernel_inputs(n_g, nx, ny, dtype, seed=50 + nx)
             derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
             check_si(H, B, derived, (n_g, nx, ny), dtype, cg_iters=(it,))
+        # the folded continuous adjoint's 128 x 128^2: sia2d_rhs (the
+        # Hermite slopes of H) and sia2d_rhs_vjp (its reverse pullbacks)
+        shape = (MS_RESTARTS * N_TRAIN, NX, NY)
+        H, B, raw = kernel_inputs(*shape, dtype, seed=52)
+        derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+        check_rhs(H, B, raw, "sia2d_rhs", shape, dtype)
+        check_rhs_vjp(H, B, derived, shape, dtype,
+                      TOL_F64 if dtype == torch.float64 else TOL_F32)
     # the runtime-exponent paths: Glen n = 4 for rkc_interval (one set a
     # launch), n = 3, 4 and 2.5 in one batch for the pullback
     for dtype in (torch.float64, torch.float32):
@@ -1316,12 +1360,14 @@ def check_rhs(H, B, raw, name, shape, dtype):
     PHYS = PhysicalParameters()
     tol = TOL_F64 if dtype == torch.float64 else TOL_F32
     out = sia_kernel.sia2d_rhs(H, B, raw, PHYS.rho, PHYS.g, PHYS.eta0)
+    again = sia_kernel.sia2d_rhs(H, B, raw, PHYS.rho, PHYS.g, PHYS.eta0)
     ref = sia_kernel.sia2d_rhs_reference(H, B, raw, PHYS.rho, PHYS.g, PHYS.eta0)
     torch.cuda.synchronize()
     row = {"phase": "check", "kernel": name, "shape": list(shape), "dtype": str(dtype),
-           "n": sorted(set(raw[:, 4].tolist())), "rel_err": rel_err(out, ref), "tol": tol}
+           "n": sorted(set(raw[:, 4].tolist())), "rel_err": rel_err(out, ref), "tol": tol,
+           "bitwise_repeat": bool(torch.equal(out, again))}
     emit(row)
-    if not (torch.isfinite(out).all() and row["rel_err"] <= tol):
+    if not (torch.isfinite(out).all() and row["rel_err"] <= tol and row["bitwise_repeat"]):
         raise AssertionError(f"{name} disagrees with its plain version: {row}")
 
 
@@ -1350,25 +1396,40 @@ def check_rkc(H, B, derived, shape, dtype, stage_counts):
             raise AssertionError(f"rkc_interval disagrees with its plain version: {row}")
 
 
-def check_rkc_and_vjp(H, B, derived, shape, dtype, tol):
-    """rkc_interval and sia2d_rhs_vjp against their plain versions on the card."""
+def check_rhs_vjp(H, B, derived, shape, dtype, tol):
+    """sia2d_rhs_vjp against its plain version on the card at a random
+    cotangent, with a bitwise repeat (each glacier's d(creep) is summed by
+    its last block in block order); returns the cotangent."""
     from odinn_tpu_torch.core.params import PhysicalParameters
-    from odinn_tpu_torch.ops.cuda import rkc_kernel, sia_kernel
+    from odinn_tpu_torch.ops.cuda import sia_kernel
 
     PHYS = PhysicalParameters()
-    check_rkc(H, B, derived, shape, dtype, (8, RKC_STAGES))
     lam = torch.randn(shape, generator=torch.Generator().manual_seed(sum(shape) + 1),
                       dtype=torch.float64).to("cuda", dtype)
     dH, dcreep = sia_kernel.sia2d_rhs_vjp(lam, H, B, derived, PHYS.eta0)
+    dH2, dcreep2 = sia_kernel.sia2d_rhs_vjp(lam, H, B, derived, PHYS.eta0)
     rH, rcreep = sia_kernel.sia2d_rhs_vjp_reference(lam, H, B, derived, PHYS.eta0)
     torch.cuda.synchronize()
     row = {"phase": "check", "kernel": "sia2d_rhs_vjp", "shape": list(shape),
            "dtype": str(dtype), "dH_rel_err": rel_err(dH, rH),
-           "dcreep_rel_err": rel_err(dcreep, rcreep), "tol": tol}
+           "dcreep_rel_err": rel_err(dcreep, rcreep), "tol": tol,
+           "bitwise_repeat": bool(torch.equal(dH, dH2) and torch.equal(dcreep, dcreep2))}
     emit(row)
     if not (torch.isfinite(dH).all() and torch.isfinite(dcreep).all()
-            and row["dH_rel_err"] <= tol and row["dcreep_rel_err"] <= tol):
+            and row["dH_rel_err"] <= tol and row["dcreep_rel_err"] <= tol
+            and row["bitwise_repeat"]):
         raise AssertionError(f"sia2d_rhs_vjp disagrees with its plain version: {row}")
+    return lam
+
+
+def check_rkc_and_vjp(H, B, derived, shape, dtype, tol):
+    """rkc_interval and sia2d_rhs_vjp against their plain versions on the card."""
+    from odinn_tpu_torch.core.params import PhysicalParameters
+    from odinn_tpu_torch.ops.cuda import rkc_kernel
+
+    PHYS = PhysicalParameters()
+    check_rkc(H, B, derived, shape, dtype, (8, RKC_STAGES))
+    lam = check_rhs_vjp(H, B, derived, shape, dtype, tol)
     # the fused RKC-backward stage (stage 5 of 8, at the point H), first
     # with zero carries (j = s), then with carries
     weights = rkc_kernel._stage_weights(8, dtype, DT * (8 / RKC_STAGES) ** 2)[1][5]
@@ -1715,10 +1776,12 @@ def time_kernels():
     at 4 x 128^2; si_step, its transpose and si_step_vjp at phase 13's
     per-rank 8 x 128^2, PCG-20; and phase 11's folded batches: si_step, its transpose and
     si_step_vjp at 128 x 128^2 (PCG-20), si_step at 512 x 64^2 (PCG-12),
-    sia2d_rhs at 32 x 32^2; and phase 14's: si_rows_apply and
-    si_rows_update (rows of their own), si_assemble alone and si_step_vjp
-    at a rank's 16 x 66 x 128 slab, sia2d_rhs at 2 x 65 x 128 and
-    rkc_interval (s = 25) at 2 x 89 x 128."""
+    sia2d_rhs at 32 x 32^2, and the tangent-solve mode and sia2d_rhs_vjp at
+    128 x 128^2 (the folded forward mode and continuous adjoint); phase
+    14's: si_rows_apply and si_rows_update (rows of their own), si_assemble
+    alone and si_step_vjp at a rank's 16 x 66 x 128 slab, sia2d_rhs at 2 x
+    65 x 128 and rkc_interval (s = 25) at 2 x 89 x 128; and, in float64,
+    sia2d_rhs_jvp at the LM gates' 2 x 36^2."""
     from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
     from odinn_tpu_torch.ops.cuda.common import derived_scalars
     from odinn_tpu_torch.core.params import PhysicalParameters
@@ -1779,6 +1842,15 @@ def time_kernels():
     derived_e = derived_scalars(*(rawe[:, k] for k in range(7)), PHYS.rho, PHYS.g)
     n_s = EKI_A_MEMBERS * EKI_A_GLACIERS
     Hs, Bs, raws = kernel_inputs(n_s, EKI_A_NX, EKI_A_NX, f32, seed=25)
+    # the folded multi-start's forward mode (the tangent-solve mode at 128 x
+    # 128^2, PCG-20) and continuous adjoint (the RHS pullback at 128 x
+    # 128^2); the LM gates' RHS tangent, float64 at 2 x 36^2
+    rdotm = torch.randn(Hm.shape, generator=torch.Generator().manual_seed(26)).to("cuda")
+    f64 = torch.float64
+    Hj, Bj, rawj = kernel_inputs(*LM_GATE_SHAPE, f64, seed=27)
+    table_j = derived_scalars(*(rawj[:, k] for k in range(7)), PHYS.rho, PHYS.g).to(f64)
+    dYj = torch.randn(Hj.shape, generator=torch.Generator().manual_seed(28),
+                      dtype=f64).to("cuda")
     derived_15 = derived_t[:n15].contiguous()
     entries = {
         "si_step": ("si_step", lambda f: lambda: f(H, H, B, H, derived, DT, 1.0, 6, exps),
@@ -1914,6 +1986,19 @@ def time_kernels():
             "sia2d_rhs", lambda f: lambda: f(Hs, Bs, raws, PHYS.rho, PHYS.g, PHYS.eta0),
             sia_kernel.sia2d_rhs, sia_kernel.sia2d_rhs_reference,
             sia_bound(n_s, EKI_A_NX, EKI_A_NX, 4), ("sia2d_rhs_kernel",), 50),
+        f"si_step tangent {n_m}x{NX}x{NY} cg_iters={it_m}": (
+            "si_step", lambda f: lambda: f(rdotm, xm, Hm, Hm, Bm, derived_m, DT, 1.0, it_m, exps),
+            si_kernel.si_step_tangent, si_kernel.si_step_tangent_reference,
+            si_tangent_bound(n_m, NX, NY, 4, it_m), SI_KERNELS, 3),
+        f"sia2d_rhs_vjp {n_m}x{NX}x{NY}": (
+            "sia2d_rhs_vjp", lambda f: lambda: f(gm, Hm, Bm, derived_m, PHYS.eta0),
+            sia_kernel.sia2d_rhs_vjp, sia_kernel.sia2d_rhs_vjp_reference,
+            vjp_bound(n_m, NX, NY, 4), ("sia2d_rhs_vjp_kernel",), 10),
+        "sia2d_rhs_jvp {}x{}x{} float64".format(*LM_GATE_SHAPE): (
+            "sia2d_rhs_jvp", lambda f: lambda: f(dYj, Hj, Bj, table_j, 0.1 * table_j[:, 2],
+                                                 PHYS.eta0),
+            sia_kernel.sia2d_rhs_jvp, sia_kernel.sia2d_rhs_jvp_reference,
+            jvp_bound(*LM_GATE_SHAPE, 8) + (f64,), ("sia2d_rhs_jvp_kernel",), 50),
     }
     # phase 14's kernels at a rank's slab (SPATIAL_SLAB; the top rank's 64
     # own rows), each on its own scratch prepared alike: si_rows_apply (an
@@ -1984,13 +2069,15 @@ def time_kernels():
         if isinstance(out, tuple):
             out, ref = out[0], ref[0]
         torch.cuda.synchronize()
-        b_ms, b_by = bound_ms(*bound, f32)
+        dtype = bound[2] if len(bound) > 2 else f32     # a float64 entry names its dtype
+        b_ms, b_by = bound_ms(bound[0], bound[1], dtype)
         # every call launches each of its device kernels once
         k_ms, _, by_name, attempt = complete_profile(
             call(kern), 50, kernel_names,
             lambda seen: bool(seen) and all(n == 1.0 for n in seen.values()))
         t = timing[name] = {
             "kernel": kernel,
+            "dtype": str(dtype),
             # the kernel's own device time (and its device launches per call
             # by kernel name), and the wrapper's and the plain version's
             # elapsed time per call on the stream
@@ -2015,7 +2102,7 @@ def time_kernels():
     fill = lambda: one.fill_(1.0)
     floor = {"ms": device_ms(fill, 50), "call_ms": cuda_ms(fill, 200),
              "what": "torch.empty(1).fill_(1.0): device time and elapsed time per call"}
-    emit({"phase": "kernel_times", "dtype": "torch.float32", "times": timing,
+    emit({"phase": "kernel_times", "times": timing,
           "launch_floor": floor})
     return timing
 
@@ -2423,14 +2510,15 @@ def adam_epoch_fn(inv, model, params, tstops, mesh=None):
             p.grad = g
         opt.step()
 
+    adam_epoch.record = vg.record
     return adam_epoch
 
 
-def epoch_profile(adam_epoch):
-    """The epoch's time (CUDA events, median of 5 after a warm-up), device
-    busy time, idle share and device launches, all and by kernel name, and
-    our kernels' device ms (profiler, one epoch)."""
-    epoch_ms = row_ms(adam_epoch, reps=5)
+def epoch_profile(adam_epoch, reps=5):
+    """The epoch's time (CUDA events, median of ``reps`` after a warm-up),
+    device busy time, idle share and device launches, all and by kernel
+    name, and our kernels' device ms (profiler, one epoch)."""
+    epoch_ms = row_ms(adam_epoch, reps=reps)
     busy_ms, launches, by_name, ms_of = device_profile(adam_epoch, 1, ms_by_name=True)
     return {"adam_epoch_ms": epoch_ms, "adam_epoch_device_busy_ms": busy_ms,
             "adam_epoch_device_idle_share": 1.0 - busy_ms / epoch_ms,
@@ -3156,6 +3244,70 @@ def lm_gate_phase(device="cuda"):
     return launches
 
 
+def lm_gates_worker(argv) -> int:
+    """Phase 10's LM gates in a process of their own (``python3
+    chip_smoke.py --lm-gates-worker DIR``, as :func:`start_lm_gates`
+    starts it): :func:`lm_gate_phase` on the card, its line on stdout and
+    its launches in DIR/launches.json."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = argv[argv.index("--lm-gates-worker") + 1]
+    launches = lm_gate_phase()
+    with open(os.path.join(out_dir, "launches.json"), "w") as fh:
+        json.dump(launches, fh)
+    return 0
+
+
+def start_lm_gates():
+    """Start the LM gates' process (:func:`lm_gates_worker`); its log and
+    launches go to a directory of its own. The gates hold one CPU core and
+    leave the card idle most of the time (~190-245 s of host-bound LM
+    iterations at 2 x 36^2), so they run beside the multi-process phases
+    12-14, whose ranks are host-bound too, after the phases whose device
+    times they would disturb. Returns (process, directory)."""
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="lm_gates_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(out_dir, "log"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"), "--lm-gates-worker", out_dir],
+            cwd=here, stdout=log, stderr=subprocess.STDOUT, text=True)
+    return proc, out_dir
+
+
+def join_lm_gates(gates) -> dict:
+    """Wait for the LM gates' process (at most LM_GATE_TIMEOUT seconds from
+    now), print its output (the ``lm_gates`` line) and return its launches;
+    raise when it failed or timed out."""
+    proc, out_dir = gates
+    try:
+        rc = proc.wait(timeout=LM_GATE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        rc = None
+    with open(os.path.join(out_dir, "log")) as fh:
+        out = fh.read()
+    sys.stdout.write(out)
+    sys.stdout.flush()
+    if rc != 0:
+        raise AssertionError(f"LM gates: the gates' process "
+                             f"{'timed out' if rc is None else f'exited with {rc}'}")
+    with open(os.path.join(out_dir, "launches.json")) as fh:
+        return json.load(fh)
+
+
+def stop_lm_gates(gates) -> None:
+    """End the LM gates' process if it still runs, and remove its directory."""
+    import shutil
+
+    proc, out_dir = gates
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def forward_grad_phase():
     """grad="forward" of the classical per-glacier A (LawA_inversion, one
     θ entry a glacier) through SI (PCG-20) and RKC: float64 on a cut
@@ -3571,23 +3723,29 @@ def run_profile(fn, seconds):
 
 def multistart_epoch_fn(inv, params, tstops, n):
     """One Adam epoch of ``n`` restarts (init_restarts of the inversion's θ)
-    on the folded batch: the per-member losses, the gradient of their sum
-    (one backward through the kernels over n x G planes) and the update."""
-    from odinn_tpu_torch.simulation.ensemble import fold_members, folded_losses, init_restarts
-    from odinn_tpu_torch.utils.flatten import tree_leaves, tree_map
+    on the folded batch, by params.UDE.grad through multistart_train's
+    gradient dispatch: the per-member losses, the stack's gradient (by
+    autograd one backward through the kernels over n x G planes; by a
+    manual adjoint one reverse sweep; by forward mode one dual solve a θ
+    leaf) and the update."""
+    from odinn_tpu_torch.simulation.ensemble import (
+        _fold_value_and_grad, fold_members, init_restarts)
+    from odinn_tpu_torch.simulation.inversion import _tree_leaves
+    from odinn_tpu_torch.utils.flatten import tree_map
 
     stack = tree_map(lambda x: x.detach().clone().requires_grad_(True),
                      init_restarts(inv.theta, n, 0.5, seed=0))
-    leaves = tree_leaves(stack)
-    fold = fold_members(inv.model, inv.glaciers, params, n)
+    leaves = _tree_leaves(stack)
+    vg = _fold_value_and_grad([fold_members(inv.model, inv.glaciers, params, n)], tstops)
     opt = torch.optim.Adam(leaves, lr=0.05)
 
     def epoch():
-        per = folded_losses(stack, fold, tstops)
-        for p, g in zip(leaves, torch.autograd.grad(per.sum(), leaves)):
+        _, grads = vg(stack)
+        for p, g in zip(leaves, grads):
             p.grad = g
         opt.step()
 
+    epoch.record = vg.record
     return epoch
 
 
@@ -3602,7 +3760,9 @@ def multistart_phase():
     si_step_vjp 24 x epochs), restart 0's losses held to a single-start
     run_inversion from θ0 to TOL_RESTART0, every restart's loss falling;
     then again with refine_top_k=2 and MS_LBFGS LBFGS iterations, the
-    best loss no worse than restart 0's."""
+    best loss no worse than restart 0's; then each of MS_MODES at full
+    width (multistart_mode_run) and on the float64 cut
+    (multistart_mode_cut)."""
     from odinn_tpu_torch.simulation.ensemble import multistart_train
     from odinn_tpu_torch.simulation.inversion import Inversion, run_inversion
 
@@ -3691,7 +3851,214 @@ def multistart_phase():
             and np.isfinite(msr.refined_losses).all()
             and launches_r["si_step_transpose"] == launches_r["si_step_vjp"] > 0):
         raise AssertionError(f"multistart with refinement: {row['refine']}")
+    for grad, kind in MS_MODES:
+        _add(total, multistart_mode_run(grad, kind))
+    for grad, kind in MS_MODES:
+        _add(total, multistart_mode_cut(grad, kind))
     return total
+
+
+def ms_mode_grad(grad):
+    """params.UDE.grad of a mode line: the continuous adjoint on the
+    kernels' route (its pullbacks launch sia2d_rhs_vjp), as phase 5's
+    continuous gradient."""
+    from odinn_tpu_torch.inverse.adjoint_types import ContinuousAdjoint, DiscreteVJP
+
+    return ContinuousAdjoint(VJP_method=DiscreteVJP()) if grad == "continuous" else grad
+
+
+def mode_gradient_launches(grad, counters, n_int, n_leaves, record=None, n_quadrature=0):
+    """The launches of one SI PCG gradient of a mode, one launch a step for
+    every plane of the batch: the discrete adjoint si_step twice an
+    interval (the forward and the plain-CG rematerialisation of the
+    pre-relu state), the transpose solve and the pullback once; the
+    continuous adjoint si_step once an interval, sia2d_rhs once a save (the
+    Hermite slopes of H) and sia2d_rhs_vjp once a pullback (the first slope
+    of each interval, three a reverse step while any glacier steps, two λ
+    slopes an interval, one a quadrature node; ``record``'s reverse
+    steps); forward mode one dual solve a θ leaf (si_step and its
+    tangent-solve mode); the dummy gradient the forward's si_step."""
+    out = {k: 0 for k in counters}
+    if grad == "discrete":
+        out.update(si_step=2 * n_int, si_step_transpose=n_int, si_step_vjp=n_int)
+    elif grad == "continuous":
+        steps = record["reverse_steps"]
+        out.update(si_step=n_int, sia2d_rhs=n_int + 1,
+                   sia2d_rhs_vjp=sum(1 + 3 * max(s) for s in steps) + 2 * n_int + n_quadrature)
+    elif grad == "forward":
+        out.update(si_step=n_int * n_leaves, si_step_tangent=n_int * n_leaves)
+    else:
+        out.update(si_step=n_int)
+    return out
+
+
+def multistart_mode_run(grad, kind):
+    """Phase 11, multistart under a gradient mode other than autograd, at
+    the phase's full width (MS_RESTARTS restarts of the SI training
+    problem, 16 x 128^2, float32, PCG-20, 24 intervals; 128 planes a
+    launch): A = NN(T) for the discrete and continuous adjoints and the
+    dummy gradient, per-glacier scalar A for forward mode (``kind``
+    "classical"). One folded Adam epoch with its launches held to the
+    mode's gradient (mode_gradient_launches; the continuous adjoint's
+    from its own reverse steps) and to a single-start epoch's count,
+    timed (median of MS_MODE_REPS) and profiled; multistart_train with
+    MS_MODE_EPOCHS Adam epochs,
+    its launches held likewise (epochs gradients and the final losses'
+    forward), restart 0's losses held to a single-start run_inversion from
+    θ0 under the mode to TOL_RESTART0; every restart's loss finite and
+    falling, and under the dummy gradient instead every restart's θ moved
+    by the same update (MS_DUMMY_TOL of the leaf's largest |θ|: one draw
+    of the member's shape, shared). Returns the launches."""
+    from odinn_tpu_torch.simulation.ensemble import init_restarts, multistart_train
+    from odinn_tpu_torch.simulation.inversion import Inversion, run_inversion
+    from odinn_tpu_torch.utils.flatten import tree_leaves
+
+    counters = kernel_counters()
+    total = {k: 0 for k in counters}
+    marks = [("start", time.perf_counter())]
+    inv, model, params, tstops, _ = training_problem("SI", ms_mode_grad(grad), kind=kind)
+    marks.append(("problem", time.perf_counter()))
+    n_int = len(tstops) - 1
+    adam = params.replace(hyper=dataclasses.replace(
+        params.hyper, optimizer=("adam",), learning_rate=(0.05,), epochs=(MS_MODE_EPOCHS,)))
+    theta0 = _tree_to(inv.theta, "cuda", None)
+    n_leaves = len(tree_leaves(theta0))
+    n_q = getattr(adam.UDE.grad, "n_quadrature", 0)
+
+    def expected(records, solves=0):
+        out = {k: solves * n_int if k == "si_step" else 0 for k in counters}
+        for rec in records:
+            _add(out, mode_gradient_launches(grad, counters, n_int, n_leaves, rec, n_q))
+        return out
+
+    # one folded epoch and one single-start epoch: launches (each gradient's
+    # own reverse steps under the continuous adjoint), then the folded one
+    # timed and profiled
+    epoch = multistart_epoch_fn(inv, adam, tstops, MS_RESTARTS)
+    _peak_reset()
+    _reset(counters)
+    epoch()
+    torch.cuda.synchronize()
+    epoch_launches = _read(counters)
+    _add(total, epoch_launches)
+    epoch_record = dict(epoch.record)
+    epoch_expected = expected([epoch_record])
+    single = adam_epoch_fn(inv, model, adam, tstops)
+    _reset(counters)
+    single()
+    torch.cuda.synchronize()
+    single_launches = _read(counters)
+    single_expected = expected([dict(single.record)])
+    marks.append(("epochs", time.perf_counter()))
+    folded = epoch_profile(epoch, reps=MS_MODE_REPS)
+    epoch_peak = torch.cuda.max_memory_allocated()
+    marks.append(("epoch_profile", time.perf_counter()))
+
+    ref = Inversion(model=model, glaciers=inv.glaciers, parameters=adam,
+                    theta=_tree_to(theta0, "cuda", None), device="cuda")
+    ref_losses = run_inversion(ref).stats.losses
+    marks.append(("single_start", time.perf_counter()))
+
+    ms_inv = Inversion(model=model, glaciers=inv.glaciers, parameters=adam,
+                       theta=_tree_to(theta0, "cuda", None), device="cuda")
+    _peak_reset()
+    _reset(counters)
+    t0 = time.perf_counter()
+    ms = multistart_train(ms_inv, n_restarts=MS_RESTARTS, seed=0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read(counters)
+    _add(total, launches)
+    run_expected = expected(ms.adjoint_records, solves=1)
+    peak = torch.cuda.max_memory_allocated()
+    marks.append(("multistart_train", time.perf_counter()))
+    r0_err = float(np.max(np.abs(ms.losses[0] - np.asarray(ref_losses)) / np.abs(ref_losses)))
+    start = init_restarts(theta0, MS_RESTARTS, 0.5, seed=0)
+    update_errs = []
+    for a, b in zip(tree_leaves(ms.thetas), tree_leaves(start)):
+        step = a.double() - b.double()
+        update_errs.append(float((step - step[0]).abs().max() / a.abs().max()))
+    row = dict({
+        "phase": "multistart_mode", "grad": grad, "adjoint": str(adam.UDE.grad),
+        "law": "LawA_inversion(scalar)" if kind == "classical" else "NN(T)", "solver": "SI",
+        "cg_iters": SI_TRAIN_CG, "glaciers": N_TRAIN, "restarts": MS_RESTARTS,
+        "planes_per_launch": MS_RESTARTS * N_TRAIN, "grid": [NX, NY], "dtype": "torch.float32",
+        "intervals": n_int, "adam_epochs": MS_MODE_EPOCHS,
+        "seconds": marks[-1][1] - marks[0][1],
+        "part_seconds": {name: t - prev for (name, t), (_, prev) in zip(marks[1:], marks)},
+        "epoch_launches": epoch_launches, "epoch_expected_launches": epoch_expected,
+        "single_start_epoch_launches": single_launches,
+        "single_start_epoch_expected_launches": single_expected,
+        "reverse_steps_per_interval_max": ([max(s) for s in epoch_record["reverse_steps"]]
+                                           if grad == "continuous" else None),
+        "epoch_max_memory_allocated": epoch_peak, "multistart_train_s": seconds,
+        "launches": launches, "expected_launches": run_expected,
+        "max_memory_allocated": peak, "losses": ms.losses.tolist(),
+        "final_losses": ms.final_losses.tolist(), "best_idx": ms.best_idx,
+        "single_start_losses": ref_losses, "restart0_rel_err": r0_err,
+        "restart0_tol": TOL_RESTART0, "update_spread": max(update_errs),
+    }, **folded)
+    emit(row)
+    what = f"multistart {grad}"
+    if (epoch_launches != epoch_expected or single_launches != single_expected
+            or launches != run_expected):
+        raise AssertionError(f"{what}: launches {epoch_launches} / {single_launches} / "
+                             f"{launches}, expected {epoch_expected} / {single_expected} / "
+                             f"{run_expected}")
+    if not r0_err <= TOL_RESTART0:
+        raise AssertionError(f"{what}: restart 0 is not the single start: {r0_err}")
+    if not np.isfinite(ms.losses).all() or not np.isfinite(ms.final_losses).all():
+        raise AssertionError(f"{what}: a loss is not finite: {ms.losses}")
+    if grad == "dummy":
+        if not row["update_spread"] <= MS_DUMMY_TOL:
+            raise AssertionError(f"{what}: the restarts' updates differ: {update_errs}")
+    elif not np.all(ms.losses[:, -1] < ms.losses[:, 0]):
+        raise AssertionError(f"{what}: a restart's loss did not fall: {ms.losses}")
+    return total
+
+
+def multistart_mode_cut(grad, kind):
+    """Phase 11's float64 cut of a mode: MS_CUT_RESTARTS restarts of 4 SI
+    glaciers, 128^2, 3 months, PCG-6 on the card; the folded gradient (the
+    member losses and the stack's gradient through multistart_train's
+    dispatch) against the stack of single-start gradients of the same mode
+    (the trainer's dispatch) on the card, each member to TOL_FOLD_F64 per θ
+    leaf. Returns the launches."""
+    from odinn_tpu_torch.simulation.ensemble import (
+        _fold_value_and_grad, fold_members, init_restarts, member_theta)
+    from odinn_tpu_torch.simulation.inversion import Inversion
+
+    counters = kernel_counters()
+    t0 = time.perf_counter()
+    inv, model, params, tstops, _ = training_problem(
+        "SI", ms_mode_grad(grad), n_g=MS_CUT_GLACIERS, tspan=MS_CUT_TSPAN, dtype=torch.float64,
+        kind=kind)
+    params = _with_solver(params, cg_iters=MS_CUT_CG)
+    stack = init_restarts(inv.theta, MS_CUT_RESTARTS, 0.5, seed=0)
+    _reset(counters)
+    fold = fold_members(model, inv.glaciers, params, MS_CUT_RESTARTS)
+    per, grads = _fold_value_and_grad([fold], tstops)(stack)
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    loss_errs, grad_errs = [], []
+    for k in range(MS_CUT_RESTARTS):
+        th = member_theta(stack, k)
+        one = Inversion(model=model, glaciers=inv.glaciers, parameters=params, theta=th,
+                        device="cuda")
+        vg, _ = grad_fn(one, params)
+        loss, g = vg(_tree_to(th, "cuda", None), inv.glaciers)
+        loss_errs.append(abs(float(per[k]) - float(loss)) / abs(float(loss)))
+        grad_errs.append(_leaf_errs([x[k] for x in grads], g))
+    row = {"phase": "multistart_mode_cut", "grad": grad, "adjoint": str(params.UDE.grad),
+           "restarts": MS_CUT_RESTARTS, "glaciers": MS_CUT_GLACIERS, "grid": [NX, NY],
+           "dtype": "torch.float64", "intervals": len(tstops) - 1, "cg_iters": MS_CUT_CG,
+           "seconds": time.perf_counter() - t0, "launches": launches,
+           "loss_rel_errs": loss_errs, "grad_rel_errs": grad_errs, "tol": TOL_FOLD_F64}
+    emit(row)
+    if not max(loss_errs + grad_errs) <= TOL_FOLD_F64:
+        raise AssertionError(f"multistart {grad} float64 cut: the fold is not the single "
+                             f"starts: {row}")
+    return launches
 
 
 def eki_problem(n_g, nx, temps, solver_kw, prefix):
@@ -5224,6 +5591,8 @@ def main() -> int:
         return scale_out_worker(sys.argv[1:])
     if "--spatial-worker" in sys.argv:
         return spatial_worker(sys.argv[1:])
+    if "--lm-gates-worker" in sys.argv:
+        return lm_gates_worker(sys.argv[1:])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from odinn_tpu_torch.ops.cuda.build import build_all
 
@@ -5286,24 +5655,28 @@ def main() -> int:
         for name, n in lm_phase(solver).items():
             launches[name] += n
     marks.append(("lm", time.perf_counter()))
-    for name, n in lm_gate_phase().items():
-        launches[name] += n
-    marks.append(("lm_gates", time.perf_counter()))
     for name, n in forward_grad_phase().items():
         launches[name] += n
     marks.append(("forward_grad", time.perf_counter()))
     for name, n in ensemble_phase().items():
         launches[name] += n
     marks.append(("ensembles", time.perf_counter()))
-    for name, n in data_io_phase().items():
-        launches[name] += n
-    marks.append(("data_io", time.perf_counter()))
-    for name, n in scale_out_phase().items():
-        launches[name] += n
-    marks.append(("scale_out", time.perf_counter()))
-    for name, n in spatial_phase().items():
-        launches[name] += n
-    marks.append(("spatial", time.perf_counter()))
+    gates = start_lm_gates()
+    try:
+        for name, n in data_io_phase().items():
+            launches[name] += n
+        marks.append(("data_io", time.perf_counter()))
+        for name, n in scale_out_phase().items():
+            launches[name] += n
+        marks.append(("scale_out", time.perf_counter()))
+        for name, n in spatial_phase().items():
+            launches[name] += n
+        marks.append(("spatial", time.perf_counter()))
+        for name, n in join_lm_gates(gates).items():
+            launches[name] += n
+        marks.append(("lm_gates_wait", time.perf_counter()))
+    finally:
+        stop_lm_gates(gates)
     meta = {
         "si_step": ("odinn_tpu_torch/csrc/si_step.cu", "odinn_tpu/ops/pallas/si_kernel.py:174"),
         "sia2d_rhs": ("odinn_tpu_torch/csrc/sia2d_rhs.cu", "odinn_tpu/ops/pallas/sia_kernel.py:137"),
@@ -5330,7 +5703,7 @@ def main() -> int:
                            "odinn_tpu/ops/pallas/si_kernel.py:174"),
     }
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "ms_source", "call_ms",
-            "plain_device_ms")
+            "plain_device_ms", "dtype")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
          "launches": launches[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"],

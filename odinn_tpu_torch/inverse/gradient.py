@@ -86,7 +86,7 @@ from odinn_tpu_torch.simulation.inversion import _LossEnv, assemble_tstops
 from odinn_tpu_torch.simulation.prediction import _METHODS, _mb_every, forward_glacier
 
 __all__ = ["glacier_adjoint_value_and_grad", "make_adjoint_value_and_grad",
-           "gauss_legendre_nodes", "check_adjoint_supported"]
+           "resolve_adjoint", "gauss_legendre_nodes", "check_adjoint_supported"]
 
 _MAX_INNER = 10_000      # reverse steps of one interval at most
 
@@ -646,7 +646,8 @@ def glacier_adjoint_value_and_grad(theta, glacier, model, params, tstops, adjoin
                 d_ic = full
             else:
                 d_ic = lam0 * d_ic
-            grads = dict(grads, IC=grads["IC"].index_add(0, ids, d_ic.to(grads["IC"].dtype)))
+            grads = dict(grads, IC=model.initial_condition.add_cotangent(
+                grads["IC"], ids, d_ic.to(grads["IC"].dtype)))
         return losses, grads
 
 
@@ -793,17 +794,11 @@ def _continuous(pb, adjoint, traj, ts64, inject, quad_nodes, record):
     return lam
 
 
-def make_adjoint_value_and_grad(inversion, flavor: str = "continuous") -> Callable:
-    """``vg(theta, b=None) -> (loss, θ gradient)`` over the inversion's
-    stacked batch (or the batch ``b``) by a manual adjoint:
-    ``params.UDE.grad`` when it is a DiscreteAdjoint or ContinuousAdjoint,
-    else the default of ``flavor``. After a continuous call, ``vg.record``
-    holds the reverse step counts (:func:`glacier_adjoint_value_and_grad`)."""
-    params = inversion.parameters
-    model = inversion.model
-    check_adjoint_supported(model)
-    batch = inversion.glaciers
-    tstops = assemble_tstops(params, batch)
+def resolve_adjoint(params, tstops, flavor: str = "continuous"):
+    """(adjoint, quad_nodes): ``params.UDE.grad`` when it is a
+    DiscreteAdjoint or ContinuousAdjoint, else the default of ``flavor``;
+    a continuous adjoint's Gauss–Legendre nodes over ``tstops`` (None for
+    the discrete one)."""
     grad_cfg = params.UDE.grad
     if isinstance(grad_cfg, (DiscreteAdjoint, ContinuousAdjoint)):
         adjoint = grad_cfg
@@ -815,6 +810,21 @@ def make_adjoint_value_and_grad(inversion, flavor: str = "continuous") -> Callab
     if isinstance(adjoint, ContinuousAdjoint):
         ts = np.asarray(tstops, dtype=np.float64)
         quad_nodes = gauss_legendre_nodes(float(ts[0]), float(ts[-1]), adjoint.n_quadrature)
+    return adjoint, quad_nodes
+
+
+def make_adjoint_value_and_grad(inversion, flavor: str = "continuous") -> Callable:
+    """``vg(theta, b=None) -> (loss, θ gradient)`` over the inversion's
+    stacked batch (or the batch ``b``) by a manual adjoint:
+    ``params.UDE.grad`` when it is a DiscreteAdjoint or ContinuousAdjoint,
+    else the default of ``flavor``. After a continuous call, ``vg.record``
+    holds the reverse step counts (:func:`glacier_adjoint_value_and_grad`)."""
+    params = inversion.parameters
+    model = inversion.model
+    check_adjoint_supported(model)
+    batch = inversion.glaciers
+    tstops = assemble_tstops(params, batch)
+    adjoint, quad_nodes = resolve_adjoint(params, tstops, flavor)
 
     def vg(theta, b=None):
         record = {}

@@ -76,6 +76,8 @@ def _grad_theta(out, theta, cot, retain=False):
     """The θ-tree cotangent of ``out`` at ``cot``: zeros where θ has no
     route to ``out``. ``theta``'s leaves require grad."""
     leaves = tree_leaves(theta)
+    if not out.requires_grad:       # no leaf has a route (a trainable H₀ beside fixed laws)
+        return _unflatten(theta, [torch.zeros_like(p) for p in leaves])
     grads = torch.autograd.grad(out, leaves, cot, allow_unused=True, retain_graph=retain)
     return _unflatten(theta, [torch.zeros_like(p) if g is None else g
                               for p, g in zip(leaves, grads)])

@@ -157,3 +157,8 @@ class InitialCondition:
     def evaluate_dH0(self, theta, glacier_idx):
         """σ′(θ_IC[glacier_idx])."""
         return filter_derivative(theta["IC"][glacier_idx], self.filter)
+
+    def add_cotangent(self, d_theta_ic, glacier_idx, d_rows):
+        """θ_IC's cotangent ``d_theta_ic`` with ``d_rows``, the cotangents of
+        the rows ``glacier_idx`` of θ_IC, added in."""
+        return d_theta_ic.index_add(0, glacier_idx, d_rows)

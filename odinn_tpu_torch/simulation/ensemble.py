@@ -37,7 +37,15 @@ restart. Trailing curvature stages (LBFGS/LM) either belong in a follow-up
 the best k surviving restarts one after the other (LBFGS through
 ``train_ude``'s strong-Wolfe ``torch.optim.LBFGS`` stage, LM through
 ``lm_train``), with the final winner selected after refinement. The folded
-Adam stages train by autograd (``grad="jax"``).
+Adam stages take every gradient mode of ``params.UDE.grad``, as the JAX
+package's restart ``vmap`` of ``_make_grad_fn`` does: autograd; the
+discrete or continuous adjoint (``DiscreteAdjoint`` / ``ContinuousAdjoint``
+instances too) over the folded batch, its per-glacier losses summed by
+member (a trainable H₀'s cotangent lands in each member's own θ_IC row);
+forward mode, one dual solve a θ leaf for every member, each member's
+loss tangents scattered into its own θ row; and the dummy gradient, one
+draw of the member's leaf shape shared by every member (JAX draws from an
+unbatched key inside its ``vmap``).
 
 On a mesh of several ranks (:mod:`odinn_tpu_torch.parallel.mesh`; every
 rank of a 2-D ``("glaciers", "rows")`` one, whose rows do not split the
@@ -69,8 +77,8 @@ from odinn_tpu_torch.parallel.mesh import (
     active_mesh, allreduce_sum, gather_rows, glacier_mesh, has_rows, mesh_devices,
     mesh_flat_rank, replicate, shard_inversion)
 from odinn_tpu_torch.simulation.inversion import (
-    Inversion, _stages, assemble_tstops, gather_batch, glacier_residuals,
-    glacier_transient_loss, resolve_accum_chunks, train_ude)
+    Inversion, _mode_value_and_grad, _stages, _tree_leaves, assemble_tstops, gather_batch,
+    glacier_residuals, glacier_transient_loss, grad_mode, resolve_accum_chunks, train_ude)
 from odinn_tpu_torch.utils.flatten import tree_leaves, tree_map
 
 __all__ = ["MultistartResult", "init_restarts", "multistart_train", "select_best",
@@ -104,6 +112,9 @@ class MultistartResult:
     refined_idxs: Any = None    # (k,) original restart indices that entered
                                 # curvature refinement (refine_top_k)
     refined_losses: Any = None  # (k,) their post-refinement losses
+    adjoint_records: list = dataclasses.field(default_factory=list)
+                                # each Adam epoch's manual-adjoint record (the
+                                # continuous adjoint's reverse steps; {} else)
 
 
 def stack_thetas(thetas):
@@ -195,6 +206,13 @@ class _MemberIC:
     def evaluate_dH0(self, theta, glacier_idx):
         return self._per_member("evaluate_dH0", theta, glacier_idx)
 
+    def add_cotangent(self, d_theta_ic, glacier_idx, d_rows):
+        """Member k's rows of ``d_rows`` into ``d_theta_ic[k]``."""
+        n, n_g = self._n, self._n_g
+        return torch.stack([self._ic.add_cotangent(d_theta_ic[k], _rows(glacier_idx, k, n, n_g),
+                                                   _rows(d_rows, k, n, n_g))
+                            for k in range(n)])
+
 
 class _MemberTerm:
     """An "initial" loss term evaluated per member: each member's θ, with
@@ -272,6 +290,35 @@ def folded_losses(stacked, fold: MemberFold, tstops) -> torch.Tensor:
     return losses.reshape(fold.members, fold.glaciers).sum(dim=1)
 
 
+def _fold_value_and_grad(folds, tstops):
+    """``vg(stacked) -> ((N,) per-member losses, the stack's gradient in θ's
+    leaf order)`` over ``folds``, the folds of one batch (its chunks under
+    ``hyper.grad_accum_chunks``, whose losses and gradients add up), for
+    the folds' ``params.UDE.grad``: the trainer's value and gradient of one
+    batch (``inversion._mode_value_and_grad``) over each folded batch, as
+    the JAX package's ``_make_grad_fn`` under its restart ``vmap``. The
+    dummy draw is taken once, however many chunks. ``vg.record`` is the
+    manual adjoint's record of the last fold."""
+    name = grad_mode(folds[0].params.UDE.grad)
+    ones = [_mode_value_and_grad(name, f.model, f.params, tstops,
+                                 lambda th, _b, f=f: folded_losses(th, f, tstops), f.members)
+            for f in folds]
+
+    def vg(stacked):
+        per, grads = None, None
+        for fold, one in zip(folds, ones):
+            p, g = one(stacked, fold.batch)
+            per = p if per is None else per + p
+            if grads is None:
+                grads = g
+            elif name != "dummy":
+                grads = [a + b for a, b in zip(grads, g)]
+        return per, grads
+
+    vg.record = ones[-1].record
+    return vg
+
+
 def folded_residuals(stacked, fold: MemberFold, tstops) -> torch.Tensor:
     """(N, G·R) per-member residual rows, each a member's (G, R) residuals
     raveled glacier by glacier (the JAX package's ``r.ravel()``)."""
@@ -337,12 +384,7 @@ def multistart_train(
             "winner via run_inversion(inversion) afterwards — it warm-starts "
             "at the best θ this function selects"
         )
-    grad_cfg = params.UDE.grad
-    grad_kind = grad_cfg if isinstance(grad_cfg, str) else getattr(grad_cfg, "name", "jax")
-    if stages and grad_kind not in ("jax", "sciml"):
-        raise NotImplementedError(
-            f"multistart_train's Adam stages train the folded restarts by autograd "
-            f"(grad='jax'); got grad={grad_kind!r}")
+    grad_mode(params.UDE.grad)       # an unknown mode raises before any solve
     mesh = glacier_mesh(active_mesh() if mesh is None else mesh, "multistart_train")
 
     if thetas is None:
@@ -363,7 +405,7 @@ def multistart_train(
         return gather_rows(x) if split else x
 
     thetas = tree_map(lambda x: x.detach().clone().requires_grad_(True), thetas)
-    leaves = tree_leaves(thetas)
+    leaves = _tree_leaves(thetas)       # the order of the gradients' leaves
 
     # the folded batch, or its chunks under hyper.grad_accum_chunks, built once
     n_g = batch.H0.shape[0]
@@ -374,32 +416,24 @@ def multistart_train(
         gather_batch(batch, torch.arange(c * n_g // k_chunks, (c + 1) * n_g // k_chunks))
         for c in range(k_chunks)]
     folds = [fold_members(model, b, params, n_local) for b in subs]
-
-    def value_and_grad():
-        vals, grads = None, None
-        for fold in folds:
-            per = folded_losses(thetas, fold, tstops)
-            g = torch.autograd.grad(per.sum(), leaves, allow_unused=True)
-            g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(leaves, g)]
-            vals = per.detach() if vals is None else vals + per.detach()
-            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
-        return vals, grads
+    vg = _fold_value_and_grad(folds, tstops)
 
     def final_of(stacked, n):
         fold = fold_members(model, batch, params, n)
         with torch.no_grad():
             return np.asarray(folded_losses(stacked, fold, tstops).double().cpu(), np.float64)
 
-    curves = []
+    curves, records = [], []
     for _, lr, epochs in stages:
         opt = torch.optim.Adam(leaves, lr=lr)
         for _ in range(int(epochs)):
-            vals, grads = value_and_grad()
+            vals, grads = vg(thetas)
+            records.append(dict(vg.record))
             for p, g in zip(leaves, grads):
                 p.grad = g
             opt.step()
             curves.append(vals)
-    del folds
+    del folds, vg
     final = gathered(torch.as_tensor(final_of(thetas, n_local)))
     final = np.asarray(final, np.float64)
     thetas = tree_map(lambda x: gathered(x.detach()), thetas)
@@ -442,6 +476,7 @@ def multistart_train(
         best_theta=best_theta,
         refined_idxs=refined_idxs,
         refined_losses=refined_final,
+        adjoint_records=records,
     )
 
 

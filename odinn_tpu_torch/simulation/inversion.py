@@ -404,19 +404,26 @@ def _tree_leaves(tree) -> list:
     return out
 
 
-def _forward_mode_grad(theta, b, model, params, tstops):
+def _forward_mode_grad(theta, b, model, params, tstops, members: Optional[int] = None):
     """(loss, gradients in θ's leaf order) by forward mode: each glacier's
     loss depends on its own θ entries only (per-glacier laws route by
     glacier index), so one dual solve per θ leaf, with tangent 1 on every
     glacier at once, reads the gradient off the per-glacier losses'
     tangents; a batch row adds into its glacier's entry (``glacier_ids``
-    under minibatching)."""
+    under minibatching).
+
+    ``members``: θ is a stack of that many members over a folded batch
+    (``simulation.ensemble.fold_members``): each leaf's member shape must be
+    per-glacier scalar, member k's rows add into its own θ row (at
+    k·n_θ + glacier id of the flattened leaf), and the loss is the (members,)
+    vector of per-member sums."""
     leaves = _tree_leaves(theta)
+    lead = 0 if members is None else 1
     for x in leaves:
-        if x.ndim != 1:
+        if x.ndim - lead != 1:
             raise ValueError(
                 "grad='forward' requires per-glacier SCALAR θ leaves of shape "
-                f"(n_glaciers,), got {tuple(x.shape)}: it reads the gradient off "
+                f"(n_glaciers,), got {tuple(x.shape[lead:])}: it reads the gradient off "
                 "per-glacier loss tangents, which only resolves one component per "
                 "glacier per leaf. Use classical inversion laws (LawA_inversion/"
                 "LawC_inversion/LawN_inversion); gridded or NN θ needs a reverse-mode "
@@ -432,18 +439,28 @@ def _forward_mode_grad(theta, b, model, params, tstops):
                                                params, tstops)
             primal, tangent = fwAD.unpack_dual(losses)
         if val is None:
-            val = torch.sum(primal)
+            val = (torch.sum(primal) if members is None
+                   else primal.reshape(members, -1).sum(dim=1))
         jv = torch.zeros_like(primal) if tangent is None else tangent
-        grads.append(torch.zeros_like(x).index_add(0, idxs.to(x.device), jv.to(x.dtype)))
+        rows = idxs.to(x.device)
+        if members is not None:     # member k's rows are the k-th block of the fold
+            rows = rows + x.shape[1] * torch.arange(
+                members, device=x.device).repeat_interleave(rows.numel() // members)
+        grads.append(torch.zeros(x.numel(), dtype=x.dtype, device=x.device).index_add(
+            0, rows, jv.to(x.dtype)).reshape(x.shape))
     return val, grads
 
 
-def _dummy_grad(theta):
+def _dummy_grad(theta, members: Optional[int] = None):
     """Normal draws in θ's leaf order from a ``torch.Generator`` seeded 0
-    (the same at every call), drawn on the host and moved to each leaf."""
+    (the same at every call), drawn on the host and moved to each leaf.
+    ``members``: θ is a stack of that many members, and every member gets
+    the same draw of the member's leaf shape, as the JAX package's
+    restart ``vmap`` gives its unbatched key's draw to every restart."""
     gen = torch.Generator().manual_seed(0)
-    return [torch.randn(tuple(x.shape), generator=gen, dtype=torch.float64).to(
-        dtype=x.dtype, device=x.device) for x in _tree_leaves(theta)]
+    lead = 0 if members is None else 1
+    return [torch.randn(tuple(x.shape[lead:]), generator=gen, dtype=torch.float64).to(
+        dtype=x.dtype, device=x.device).expand(x.shape).clone() for x in _tree_leaves(theta)]
 
 
 def _reduced(vg, mesh, grads_too: bool = True):
@@ -462,58 +479,95 @@ def _reduced(vg, mesh, grads_too: bool = True):
     return reduced_vg
 
 
-def _make_grad_fn(inversion: Inversion, loss_fn_b, stats: TrainingStats, mesh=None):
-    """``vg(theta, b) -> (loss, grads)`` for params.UDE.grad, with the
-    gradients in θ's leaf order: autograd through the solve, a hand-written
-    adjoint (one forward solve and one backward sweep each), forward mode
-    (one dual solve per θ leaf) or the dummy gradient. Chunked accumulation
-    (hyper.grad_accum_chunks) sums the exact per-chunk losses and gradients,
-    bounding the live autograd graph (or the adjoint's trajectory) to one
-    chunk. With a ``mesh`` the loss and gradients are summed over its ranks
-    (the dummy draw is not: every rank draws the same)."""
-    grad_cfg = inversion.parameters.UDE.grad
+_GRAD_MODES = ("jax", "sciml", "discrete", "continuous", "forward", "dummy")
+
+
+def grad_mode(grad_cfg) -> str:
+    """The gradient mode's name of ``params.UDE.grad``: the string itself,
+    or a DiscreteAdjoint's or ContinuousAdjoint's ``name``."""
     name = grad_cfg if isinstance(grad_cfg, str) else getattr(grad_cfg, "name", "jax")
-    if name not in ("jax", "sciml", "discrete", "continuous", "forward", "dummy"):
+    if name not in _GRAD_MODES:
         raise ValueError(f"unknown adjoint method {name!r}")
-    k_cfg = getattr(inversion.parameters.hyper, "grad_accum_chunks", 1) or 1
+    return name
 
+
+def _mode_value_and_grad(name, model, params, tstops, loss_fn_b,
+                         members: Optional[int] = None):
+    """``value_and_grad(theta, b) -> (loss, gradients in θ's leaf order)``
+    of one batch for the gradient mode ``name``: autograd of
+    ``loss_fn_b(theta, b)``, a hand-written adjoint (one forward solve and
+    one backward sweep), forward mode (one dual solve per θ leaf) or the
+    dummy gradient (the loss without a graph). After a manual-adjoint call,
+    ``value_and_grad.record`` holds that call's record
+    (:func:`~odinn_tpu_torch.inverse.gradient.glacier_adjoint_value_and_grad`;
+    one dict, refilled at every call).
+
+    ``members``: θ is a stack of that many members over a folded batch
+    (``simulation.ensemble.fold_members``, whose model and parameters these
+    are), and ``loss_fn_b`` and ``value_and_grad`` give the (members,)
+    per-member losses."""
+    record = {}
     if name == "forward":
-        params = inversion.parameters
-        tstops = assemble_tstops(params, inversion.glaciers)
-
-        def forward_vg(theta, b):
-            val, grads = _forward_mode_grad(theta, b, inversion.model, params, tstops)
-            stats.solves += len(grads)
-            return val, grads
-
-        return _reduced(forward_vg, mesh)
-    if name == "dummy":
-        def dummy_vg(theta, b):
+        def value_and_grad(theta, b):
+            return _forward_mode_grad(theta, b, model, params, tstops, members)
+    elif name == "dummy":
+        def value_and_grad(theta, b):
             with torch.no_grad():
                 val = loss_fn_b(theta, b)
-            return val, _dummy_grad(theta)
+            return val, _dummy_grad(theta, members)
+    elif name in ("discrete", "continuous"):
+        from odinn_tpu_torch.inverse.gradient import (
+            check_adjoint_supported, glacier_adjoint_value_and_grad, resolve_adjoint)
 
-        return _reduced(dummy_vg, mesh, grads_too=False)
-    if name in ("discrete", "continuous"):
-        from odinn_tpu_torch.inverse.gradient import make_adjoint_value_and_grad
-
-        adjoint_vg = make_adjoint_value_and_grad(inversion, flavor=name)
+        check_adjoint_supported(model)
+        adjoint, quad_nodes = resolve_adjoint(params, tstops, name)
 
         def value_and_grad(theta, b):
-            loss, grads = adjoint_vg(theta, b)
-            stats.solves += 1
-            stats.gradients += 1
-            return loss, _tree_leaves(grads)
+            record.clear()
+            losses, grads = glacier_adjoint_value_and_grad(
+                theta, b, model, params, tstops, adjoint, quad_nodes, record)
+            val = torch.sum(losses) if members is None else losses.reshape(members, -1).sum(1)
+            return val, _tree_leaves(grads)
     else:
         def value_and_grad(theta, b):
             leaves = _tree_leaves(theta)
             loss = loss_fn_b(theta, b)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            stats.gradients += 1
+            grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
             return loss.detach(), [torch.zeros_like(p) if g is None else g
                                    for p, g in zip(leaves, grads)]
+    value_and_grad.record = record
+    return value_and_grad
+
+
+def _make_grad_fn(inversion: Inversion, loss_fn_b, stats: TrainingStats, mesh=None):
+    """``vg(theta, b) -> (loss, grads)`` for params.UDE.grad, with the
+    gradients in θ's leaf order (:func:`_mode_value_and_grad`). Chunked
+    accumulation (hyper.grad_accum_chunks) sums the exact per-chunk losses
+    and gradients of autograd and the adjoints, bounding the live autograd
+    graph (or the adjoint's trajectory) to one chunk. With a ``mesh`` the
+    loss and gradients are summed over its ranks (the dummy draw is not:
+    every rank draws the same). ``vg.record`` is the manual adjoint's record
+    of its last chunk."""
+    params = inversion.parameters
+    name = grad_mode(params.UDE.grad)
+    k_cfg = getattr(params.hyper, "grad_accum_chunks", 1) or 1
+    one = _mode_value_and_grad(name, inversion.model, params,
+                               assemble_tstops(params, inversion.glaciers), loss_fn_b)
+
+    def value_and_grad(theta, b):
+        val, grads = one(theta, b)
+        if name == "forward":
+            stats.solves += len(grads)
+        elif name in ("discrete", "continuous"):
+            stats.solves += 1
+            stats.gradients += 1
+        elif name != "dummy":       # autograd: loss_fn_b counted the solve
+            stats.gradients += 1
+        return val, grads
 
     def vg(theta, b):
+        if name in ("forward", "dummy"):     # one dual solve a leaf, one draw: unchunked
+            return value_and_grad(theta, b)
         n = b.H0.shape[0]
         k = resolve_accum_chunks(k_cfg, n)
         if k <= 1:
@@ -528,7 +582,9 @@ def _make_grad_fn(inversion: Inversion, loss_fn_b, stats: TrainingStats, mesh=No
             grads = g if grads is None else [a + x for a, x in zip(grads, g)]
         return val, grads
 
-    return _reduced(vg, mesh)
+    out = _reduced(vg, mesh, grads_too=name != "dummy")
+    out.record = one.record
+    return out
 
 
 def _record(stats: TrainingStats, val, theta, gnorm, dt):
