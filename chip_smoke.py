@@ -145,8 +145,9 @@ Phases, each printed as one JSON line:
    LM_GATE_EPOCHS: a gain of 15x, a monotone trace,
    A within 15 % at both temperatures, every RK4 stage's tangent one
    ``sia2d_rhs_jvp`` launch; host-bound, in a process of their own that
-   runs beside phases 12-14 and is joined after them); ``grad="forward"``
-   of the classical
+   starts after phase 11, runs beside the forward-mode checks below (run
+   after phase 11 too) and phases 12-14, and is joined after them);
+   ``grad="forward"`` of the classical
    per-glacier A through SI and RKC, float64 against the CPU's forward
    mode and the card's autograd to 1e-9, float32 at full
    width within 2x the CPU float32 error, with its launches and Adam epoch;
@@ -258,9 +259,15 @@ Phases, each printed as one JSON line:
    Before the main path, si_assemble alone (three modes) and the row PCG's
    kernels are checked at a rank's 16 x 66 x 128 slab against their plain
    versions, with and without the Jacobi preconditioner, in both dtypes,
-   bitwise on a repeat, and the row-sharded step with a row group of one
+   both orders of the p planes, bitwise on a repeat (the row PCG also at a
+   middle rank's 16 x 68 x 128, the bottom rank's 16 x 66 x 128, a ragged
+   3 x 41 x 100, half a 1024^2 plane's 4 x 516 x 1024 and three odd
+   widths, 3 x 41 x 101 as a middle and as a bottom rank and 2 x 260 x
+   601, each with a rows_layout line and its ghost rows of p equal to
+   their owner's), and the row-sharded step with a row group of one
    against si_step at 16 x 128^2, PCG-20; ``time_kernels`` times them
-   there, and sia2d_rhs and rkc_interval at the cut's slabs.
+   there (the row PCG also at 4 x 516 x 1024), and sia2d_rhs and
+   rkc_interval at the cut's slabs.
 
 Any failed check raises, so the exit code is not 0. A ``done`` line gives
 the whole run's seconds, build included, and each phase's. The last line is
@@ -487,7 +494,7 @@ TOL_SCALE_OUT_F32 = 1e-5
 # SPATIAL_ROW_TSPAN, held to the single process at TOL_SPATIAL_F64 and
 # TOL_SPATIAL_ROWS_F64 (the full width's Adam losses and trajectories at
 # TOL_SCALE_OUT_F32); the row kernels at a rank's slab (SPATIAL_SLAB: 64 own
-# rows + 2 ghost rows)
+# rows + 2 ghost rows), and more (ROWS_CHECK_SLABS)
 SPATIAL_FULL, SPATIAL_CUT = (1, 2), (2, 2)
 # the full width's depth cut: Adam 2, not 3 (a rank's epoch ~3.4 s on a
 # card that two ranks share), to make room for the controller runs
@@ -499,6 +506,17 @@ SPATIAL_CUT_TSPAN = (5.0, 5.25)
 SPATIAL_ROW_TSPAN, SPATIAL_RK4_SUBSTEPS = (5.0, 6.0), 3
 SPATIAL_TIMEOUT = 420.0
 SPATIAL_SLAB = (N_TRAIN, NX // 2 + 2, NY)
+# the row kernels' checks (check_rows_kernels): the top rank's slab with its
+# own rows, a middle rank's (ghost rows on both sides), the bottom rank's
+# (its own rows end at the plane's ring row), a ragged one (ny not a
+# multiple of 32), half a 1024^2 plane with ghosts on both sides (64 rows
+# a block), and three of odd ny (one value a thread a step): a middle
+# rank's, a bottom rank's and a wide one
+ROWS_LARGE_SLAB, ROWS_LARGE_OWN = (4, 516, 1024), (2, 514)
+ROWS_CHECK_SLABS = ((SPATIAL_SLAB, (0, NX // 2)), ((N_TRAIN, NX // 2 + 4, NY), (2, NX // 2 + 2)),
+                    ((N_TRAIN, NX // 2 + 2, NY), (2, NX // 2 + 2)),
+                    ((3, 41, 100), (2, 39)), (ROWS_LARGE_SLAB, ROWS_LARGE_OWN),
+                    ((3, 41, 101), (2, 39)), ((3, 41, 101), (2, 41)), ((2, 260, 601), (2, 258)))
 TOL_SPATIAL_F64, TOL_SPATIAL_ROWS_F64 = 1e-10, 1e-12
 # phase 14's runs under the host-driven controllers, each held to the
 # single process: the full width's adaptive row (float32, at
@@ -776,8 +794,9 @@ def ptxas_entry(mangled: str) -> str:
     arguments as tags: float32/float64, Glen (fixed exponents) or runtime
     exponents, the cells a thread owns (K), the pullback's and the tangent
     kernel's stage mode, the SI kernels' mode (forward, transpose or
-    tangent solve) and Jacobi or plain CG, or si_step_vjp's copy route
-    (16-byte or one value a copy)."""
+    tangent solve) and Jacobi or plain CG, si_rows_apply's start or
+    iteration mode, or si_step_vjp's copy route and the row kernels' vector
+    width (16-byte or one value)."""
     i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else len(mangled)
     name = mangled
     while i < len(mangled) and mangled[i].isdigit():
@@ -800,6 +819,10 @@ def ptxas_entry(mangled: str) -> str:
         elif ints:
             tags.append(f"K={ints[0]}")
         names = ([("vec16", "scalar")] if name.startswith("si_step_vjp")
+                 # si_rows_apply<T, kJ, kInit, kVec>, si_rows_update<T, kJ, kVec>
+                 else [("jacobi", "plain-cg"), ("start", "iteration"), ("vec16", "scalar")]
+                 if name == "si_rows_apply"
+                 else [("jacobi", "plain-cg"), ("vec16", "scalar")] if name == "si_rows_update"
                  else [("jacobi", "plain-cg")] if name.startswith("si_")
                  else [("stage", "pullback")])
         tags += [on if f == "1" else off for f, (on, off) in zip(flags, names)]
@@ -934,87 +957,145 @@ def check_kernels():
 
 
 def check_rows_kernels():
-    """Phase 14's kernels at a rank's slab (SPATIAL_SLAB: the top rank's 64
-    own rows and 2 ghost rows below), float64 and float32, with and without
-    the Jacobi preconditioner: si_assemble alone in its three modes (D's
-    corners, b and the inverse diagonal) against its plain version, then,
-    from the plain assembly, the row PCG's start (si_rows_apply, start
-    mode), two iterations of si_rows_apply and si_rows_update (the p planes
-    swapped between them) against their plain versions (each partial and
-    the x, r, z, p and Ap planes on the own rows), and the kernels' sequence
-    run twice, bitwise the same."""
+    """Phase 14's kernels at rank slabs (ROWS_CHECK_SLABS: the top rank's
+    SPATIAL_SLAB, a middle rank's, the bottom rank's, a ragged one, half a
+    1024^2 plane and three of odd width),
+    float64 and float32, with and without the Jacobi preconditioner, the
+    p planes in both orders: si_assemble alone (in its three modes at
+    SPATIAL_SLAB, the forward mode elsewhere: D's corners, b and the
+    inverse diagonal) against its plain version, then, from the plain
+    assembly, the row PCG's start (si_rows_apply, start mode), two
+    iterations of si_rows_apply and si_rows_update (the p planes swapped
+    between them) against their plain versions (each partial and the x, r,
+    z, p and Ap planes on the own rows), and the kernels' sequence run
+    twice, bitwise the same; at each slab and dtype the kernels' plan (a
+    rows_layout line) and the p invariant (check_rows_ghosts)."""
     from odinn_tpu_torch.core.params import PhysicalParameters
     from odinn_tpu_torch.ops import si_math
     from odinn_tpu_torch.ops.cuda import si_kernel
     from odinn_tpu_torch.ops.cuda.common import derived_scalars, shared_exps
 
     PHYS = PhysicalParameters()
-    shape = SPATIAL_SLAB
-    r0, r1 = 0, NX // 2
-    own = slice(r0, r1)
     P, P2 = si_math.ROWS_P, si_math.ROWS_P2
-    for dtype in (torch.float64, torch.float32):
-        tol = TOL_F64 if dtype == torch.float64 else TOL_F32
-        H, B, raw = kernel_inputs(*shape, dtype, seed=61)
-        derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
-        exps = shared_exps(derived)
-        table = derived[:, :4].to(dtype).contiguous()
-        gen = torch.Generator().manual_seed(62)
-        g = torch.randn(shape, generator=gen, dtype=torch.float64).to("cuda", dtype)
-        x_fwd = H - 20.0
-        beta = (0.3 + 0.1 * torch.rand(shape[0], generator=gen, dtype=torch.float64)).to(
-            "cuda", dtype)
-        alpha = (0.2 * torch.rand(shape[0], generator=gen, dtype=torch.float64)).to(
-            "cuda", dtype)
-        for mode, name in ((si_math.FORWARD, "forward"), (si_math.TRANSPOSE, "transpose"),
-                           (si_math.TANGENT, "tangent")):
-            rhs_in = H if mode == si_math.FORWARD else g
-            for pre in (True, False):
-                def assembled(fn):
-                    work = torch.zeros((si_math.ROWS_PLANES,) + shape, dtype=dtype,
-                                       device="cuda")
-                    fn(work, rhs_in, H, B, x_fwd, derived, DT, 1.0, mode, pre, exps)
-                    return work
+    for shape, (r0, r1) in ROWS_CHECK_SLABS:
+        own = slice(r0, r1)
+        modes = (((si_math.FORWARD, "forward"), (si_math.TRANSPOSE, "transpose"),
+                  (si_math.TANGENT, "tangent")) if shape == SPATIAL_SLAB
+                 else ((si_math.FORWARD, "forward"),))
+        for dtype in (torch.float64, torch.float32):
+            tol = TOL_F64 if dtype == torch.float64 else TOL_F32
+            lay = si_kernel.rows_layout(*shape, r0, r1, dtype)
+            resident = si_kernel.rows_occupancy(lay, dtype)
+            emit({"phase": "rows_layout", "shape": list(shape), "own_rows": [r0, r1],
+                  "dtype": str(dtype), "layout": lay._asdict(),
+                  "blocks_per_glacier": lay.cluster, "resident_clusters": resident,
+                  "waves": -(-shape[0] // resident) if resident else None})
+            H, B, raw = kernel_inputs(*shape, dtype, seed=61)
+            derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+            exps = shared_exps(derived)
+            table = derived[:, :4].to(dtype).contiguous()
+            gen = torch.Generator().manual_seed(62)
+            g = torch.randn(shape, generator=gen, dtype=torch.float64).to("cuda", dtype)
+            x_fwd = H - 20.0
+            beta = (0.3 + 0.1 * torch.rand(shape[0], generator=gen, dtype=torch.float64)).to(
+                "cuda", dtype)
+            alpha = (0.2 * torch.rand(shape[0], generator=gen, dtype=torch.float64)).to(
+                "cuda", dtype)
+            check_rows_ghosts(shape, r0, r1, dtype, table, beta)
+            for mode, name in modes:
+                rhs_in = H if mode == si_math.FORWARD else g
+                for pre in (True, False):
+                    def assembled(fn):
+                        work = torch.zeros((si_math.ROWS_PLANES,) + shape, dtype=dtype,
+                                           device="cuda")
+                        fn(work, rhs_in, H, B, x_fwd, derived, DT, 1.0, mode, pre, exps)
+                        return work
 
-                ref_work = assembled(si_kernel.si_assemble_reference)
-                ker_work = assembled(si_kernel.si_assemble)
+                    ref_work = assembled(si_kernel.si_assemble_reference)
+                    ker_work = assembled(si_kernel.si_assemble)
+                    for first, second in ((P2, P), (P, P2)):
+                        def pcg(apply, update):
+                            work = ref_work.clone()
+                            x0 = (1.01 * H).contiguous()
+                            parts = [apply(work, x0, None, first, second, r0, r1, table, DT,
+                                           True, pre)]
+                            parts.append(apply(work, None, beta, first, second, r0, r1, table,
+                                               DT, False, pre))
+                            parts.append(update(work, alpha, second, r0, r1, pre))
+                            parts.append(apply(work, None, 0.5 * beta, second, first, r0, r1,
+                                               table, DT, False, pre))
+                            parts.append(update(work, 0.5 * alpha, first, r0, r1, pre))
+                            return work, parts
 
-                def pcg(apply, update):
-                    work = ref_work.clone()
-                    x0 = (1.01 * H).contiguous()
-                    parts = [apply(work, x0, None, P2, P, r0, r1, table, DT, True, pre)]
-                    parts.append(apply(work, None, beta, P2, P, r0, r1, table, DT, False, pre))
-                    parts.append(update(work, alpha, P, r0, r1, pre))
-                    parts.append(apply(work, None, 0.5 * beta, P, P2, r0, r1, table, DT, False,
-                                       pre))
-                    parts.append(update(work, 0.5 * alpha, P2, r0, r1, pre))
-                    return work, parts
+                        kw, kp = pcg(si_kernel.si_rows_apply, si_kernel.si_rows_update)
+                        kw2, kp2 = pcg(si_kernel.si_rows_apply, si_kernel.si_rows_update)
+                        rw, rp = pcg(si_kernel.si_rows_apply_reference,
+                                     si_kernel.si_rows_update_reference)
+                        torch.cuda.synchronize()
+                        errs = {
+                            "D": rel_err(ker_work[si_math.ROWS_D][..., :-1, :-1],
+                                         ref_work[si_math.ROWS_D][..., :-1, :-1]),
+                            "b": rel_err(ker_work[si_math.ROWS_RHS], ref_work[si_math.ROWS_RHS]),
+                            "inv_diag": rel_err(ker_work[si_math.ROWS_INV],
+                                                ref_work[si_math.ROWS_INV]),
+                            "partials": max(rel_err(a, b) for a, b in zip(kp, rp)),
+                        }
+                        for plane, label in ((si_math.ROWS_X, "x"), (si_math.ROWS_R, "r"),
+                                             (si_math.ROWS_Z, "z"), (P, "p"), (P2, "p2"),
+                                             (si_math.ROWS_AP, "Ap")):
+                            errs[label] = rel_err(kw[plane][..., own, :], rw[plane][..., own, :])
+                        row = {"phase": "check", "kernel": f"si_rows {name}"
+                               + ("" if pre else " no-precondition"), "shape": list(shape),
+                               "own_rows": [r0, r1], "p_planes": [first, second],
+                               "dtype": str(dtype), "rel_errs": errs, "tol": tol,
+                               "bitwise_repeat": bool(torch.equal(kw, kw2) and all(
+                                   torch.equal(a, b) for a, b in zip(kp, kp2)))}
+                        emit(row)
+                        if not (max(errs.values()) <= tol and row["bitwise_repeat"]
+                                and all(torch.isfinite(t).all() for t in kp)):
+                            raise AssertionError(f"si_rows disagrees with its plain version or "
+                                                 f"with itself: {row}")
 
-                kw, kp = pcg(si_kernel.si_rows_apply, si_kernel.si_rows_update)
-                kw2, kp2 = pcg(si_kernel.si_rows_apply, si_kernel.si_rows_update)
-                rw, rp = pcg(si_kernel.si_rows_apply_reference, si_kernel.si_rows_update_reference)
-                torch.cuda.synchronize()
-                errs = {
-                    "D": rel_err(ker_work[si_math.ROWS_D][..., :-1, :-1],
-                                 ref_work[si_math.ROWS_D][..., :-1, :-1]),
-                    "b": rel_err(ker_work[si_math.ROWS_RHS], ref_work[si_math.ROWS_RHS]),
-                    "inv_diag": rel_err(ker_work[si_math.ROWS_INV], ref_work[si_math.ROWS_INV]),
-                    "partials": max(rel_err(a, b) for a, b in zip(kp, rp)),
-                }
-                for plane, label in ((si_math.ROWS_X, "x"), (si_math.ROWS_R, "r"),
-                                     (si_math.ROWS_Z, "z"), (P, "p"), (P2, "p2"),
-                                     (si_math.ROWS_AP, "Ap")):
-                    errs[label] = rel_err(kw[plane][..., own, :], rw[plane][..., own, :])
-                row = {"phase": "check", "kernel": f"si_rows {name}"
-                       + ("" if pre else " no-precondition"), "shape": list(shape),
-                       "own_rows": [r0, r1], "dtype": str(dtype), "rel_errs": errs, "tol": tol,
-                       "bitwise_repeat": bool(torch.equal(kw, kw2) and all(
-                           torch.equal(a, b) for a, b in zip(kp, kp2)))}
-                emit(row)
-                if not (max(errs.values()) <= tol and row["bitwise_repeat"]
-                        and all(torch.isfinite(t).all() for t in kp)):
-                    raise AssertionError(f"si_rows disagrees with its plain version or with "
-                                         f"itself: {row}")
+
+def check_rows_ghosts(shape, r0, r1, dtype, table, beta):
+    """The p invariant of csrc/si_rows.cu: a plane of own + nx rows cut into
+    two slabs of ``shape`` with own rows [r0, r1), the second starting
+    own rows below the first, z and p[src] the plane's on both (as the
+    exchange leaves them); after si_rows_apply's iteration on each, each
+    slab's ghost rows of p[dst] are torch.equal to the other's own rows
+    there, in both p directions."""
+    from odinn_tpu_torch.ops import si_math
+    from odinn_tpu_torch.ops.cuda import si_kernel
+
+    n_g, nx, ny = shape
+    n_own = r1 - r0
+    gen = torch.Generator().manual_seed(63)
+    plane = lambda: torch.randn((n_g, n_own + nx, ny), generator=gen,
+                                dtype=torch.float64).to("cuda", dtype)
+    z, p_src, d = plane(), plane(), plane().abs()
+    same = []
+    for src, dst in ((si_math.ROWS_P2, si_math.ROWS_P), (si_math.ROWS_P, si_math.ROWS_P2)):
+        slabs = []
+        for top in (0, n_own):
+            work = torch.zeros((si_math.ROWS_PLANES,) + shape, dtype=dtype, device="cuda")
+            work[si_math.ROWS_Z] = z[:, top:top + nx]
+            work[src] = p_src[:, top:top + nx]
+            work[si_math.ROWS_D] = d[:, top:top + nx]
+            si_kernel.si_rows_apply(work, None, beta, src, dst, r0, r1, table, DT, False)
+            slabs.append(work[dst])
+        first, second = slabs
+        # the first slab's rows below r1 are the second's own rows [r0, ...);
+        # the second's rows above r0 are the first's own rows [n_own, ...)
+        same.append(torch.equal(first[:, r1:], second[:, r0:r0 + nx - r1]))
+        if r0:
+            same.append(torch.equal(second[:, :r0], first[:, n_own:n_own + r0]))
+    torch.cuda.synchronize()
+    row = {"phase": "check", "kernel": "si_rows p ghost rows", "shape": list(shape),
+           "own_rows": [r0, r1], "dtype": str(dtype), "ghost_rows_equal": all(same),
+           "comparisons": len(same)}
+    emit(row)
+    if not row["ghost_rows_equal"]:
+        raise AssertionError(f"si_rows_apply forms a ghost row of p unlike its owner: {row}")
 
 
 def check_rows_step():
@@ -1778,8 +1859,9 @@ def time_kernels():
     si_step_vjp at 128 x 128^2 (PCG-20), si_step at 512 x 64^2 (PCG-12),
     sia2d_rhs at 32 x 32^2, and the tangent-solve mode and sia2d_rhs_vjp at
     128 x 128^2 (the folded forward mode and continuous adjoint); phase
-    14's: si_rows_apply and si_rows_update (rows of their own), si_assemble
-    alone and si_step_vjp at a rank's 16 x 66 x 128 slab, sia2d_rhs at 2 x
+    14's: si_rows_apply and si_rows_update (rows of their own; and, under
+    ``more``, at half a 1024^2 plane, 4 x 516 x 1024 with 512 own rows),
+    si_assemble alone and si_step_vjp at a rank's 16 x 66 x 128 slab, sia2d_rhs at 2 x
     65 x 128 and rkc_interval (s = 25) at 2 x 89 x 128; and, in float64,
     sia2d_rhs_jvp at the LM gates' 2 x 36^2."""
     from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
@@ -2026,6 +2108,22 @@ def time_kernels():
                  si_kernel.si_assemble: base.clone(),
                  si_kernel.si_assemble_reference: base.clone()}
     lam_r = torch.randn(SPATIAL_SLAB, generator=rgen).to("cuda")
+    # and at half a 1024^2 plane with ghosts on both sides (ROWS_LARGE_SLAB)
+    n_l, nx_l, ny_l = ROWS_LARGE_SLAB
+    r0_l, r1_l = ROWS_LARGE_OWN
+    Hl, Bl, rawl = kernel_inputs(*ROWS_LARGE_SLAB, f32, seed=67)
+    derived_l = derived_scalars(*(rawl[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+    table_l = derived_l[:, :4].to(f32).contiguous()
+    base_l = torch.zeros((si_math.ROWS_PLANES,) + ROWS_LARGE_SLAB, dtype=f32, device="cuda")
+    si_kernel.si_assemble_reference(base_l, Hl, Hl, Bl, Hl, derived_l, DT, 1.0, 0, True, exps)
+    si_kernel.si_rows_apply_reference(base_l, (1.01 * Hl).contiguous(), None, si_math.ROWS_P2,
+                                      si_math.ROWS_P, r0_l, r1_l, table_l, DT, True)
+    beta_l = (0.3 * torch.rand(n_l, generator=rgen, dtype=torch.float64)).to("cuda", f32)
+    alpha_l = (0.2 * torch.rand(n_l, generator=rgen, dtype=torch.float64)).to("cuda", f32)
+    large_work = {f: base_l.clone() for f in (
+        si_kernel.si_rows_apply, si_kernel.si_rows_apply_reference, si_kernel.si_rows_update,
+        si_kernel.si_rows_update_reference)}
+    large_tag = "x".join(map(str, ROWS_LARGE_SLAB))
     x_r = si_kernel._si_solve_reference(Hr, Hr, Br, Hr, derived_r, DT, 1.0, it_t, exps)
     H2, B2, raw2 = (t[:2].contiguous() for t in kernel_inputs(2, NX // 2 + 25, NY, f32,
                                                                  seed=66))
@@ -2043,6 +2141,16 @@ def time_kernels():
                                                   own_r),
             si_kernel.si_rows_update, si_kernel.si_rows_update_reference,
             rows_update_bound(n_r, nx_r, NY, own_r, 4), ("si_rows_update",), 50),
+        f"si_rows_apply {large_tag}": (
+            "si_rows_apply", lambda f: lambda: f(large_work[f], None, beta_l, si_math.ROWS_P2,
+                                                 si_math.ROWS_P, r0_l, r1_l, table_l, DT, False),
+            si_kernel.si_rows_apply, si_kernel.si_rows_apply_reference,
+            rows_apply_bound(n_l, nx_l, ny_l, r1_l - r0_l, 4), ("si_rows_apply",), 10),
+        f"si_rows_update {large_tag}": (
+            "si_rows_update", lambda f: lambda: f(large_work[f], alpha_l, si_math.ROWS_P, r0_l,
+                                                  r1_l),
+            si_kernel.si_rows_update, si_kernel.si_rows_update_reference,
+            rows_update_bound(n_l, nx_l, ny_l, r1_l - r0_l, 4), ("si_rows_update",), 10),
         f"si_assemble {slab_tag}": (
             "si_step", lambda f: lambda: (f(rows_work[f], Hr, Hr, Br, Hr, derived_r, DT, 1.0, 0,
                                             True, exps), rows_work[f][si_math.ROWS_RHS])[1],
@@ -3263,9 +3371,10 @@ def start_lm_gates():
     """Start the LM gates' process (:func:`lm_gates_worker`); its log and
     launches go to a directory of its own. The gates hold one CPU core and
     leave the card idle most of the time (~190-245 s of host-bound LM
-    iterations at 2 x 36^2), so they run beside the multi-process phases
-    12-14, whose ranks are host-bound too, after the phases whose device
-    times they would disturb. Returns (process, directory)."""
+    iterations at 2 x 36^2), so they run beside forward mode's gradient
+    checks and the multi-process phases 12-14, whose ranks are host-bound
+    too, after the phases whose device times they would disturb. Returns
+    (process, directory)."""
     import tempfile
 
     out_dir = tempfile.mkdtemp(prefix="lm_gates_")
@@ -5655,14 +5764,14 @@ def main() -> int:
         for name, n in lm_phase(solver).items():
             launches[name] += n
     marks.append(("lm", time.perf_counter()))
-    for name, n in forward_grad_phase().items():
-        launches[name] += n
-    marks.append(("forward_grad", time.perf_counter()))
     for name, n in ensemble_phase().items():
         launches[name] += n
     marks.append(("ensembles", time.perf_counter()))
     gates = start_lm_gates()
     try:
+        for name, n in forward_grad_phase().items():
+            launches[name] += n
+        marks.append(("forward_grad", time.perf_counter()))
         for name, n in data_io_phase().items():
             launches[name] += n
         marks.append(("data_io", time.perf_counter()))

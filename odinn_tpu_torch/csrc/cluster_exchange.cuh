@@ -2,7 +2,8 @@
 // (PTX ISA 8.0, sm_90): the split cluster barrier, distributed shared
 // memory addresses, st.async stores counted on the receiving block's
 // mbarrier, and the fixed-order sums that make every block's total
-// bit-identical. profile_exchange.py times one round of it.
+// bit-identical. profile_exchange.py times one round of it; si_rows.cu's
+// kernels sum through cluster_sum, which profile_rows.py times alone.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -67,6 +68,14 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
   }
 }
 
+// The sum of v over the warp's lanes by a fixed shuffle tree, in lane 0.
+template <typename T>
+__device__ __forceinline__ T warp_tree(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // The sum of v[0 .. 15] as a fixed tree.
 template <typename T>
 __device__ __forceinline__ T tree16(T (&v)[16]) {
@@ -99,13 +108,49 @@ template <typename T>
 __device__ __forceinline__ void share_partial(T v, T* warp_part, T* slots, unsigned bar,
                                               int extra, int tid, int nwarps, int csize,
                                               int rank) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  v = warp_tree(v);
   if ((tid & 31) == 0) warp_part[tid >> 5] = v;
   __syncthreads();
   if (tid == 0) mbar_expect(bar, (csize + extra) * static_cast<int>(sizeof(T)));
   if (tid < csize) {
     st_async(mapa(smem_u32(slots + rank), tid), fixed_sum(warp_part, nwarps), mapa(bar, tid));
+  }
+}
+
+// A cluster's sum of one value a thread into one place, in a fixed order
+// (si_rows.cu): each block sums its threads' values by warp_tree, then its
+// warps' partials (at most 32, in warp_part) by warp_tree again; block
+// `rank` sends its total to slot `rank` of block 0's `slots` (at least
+// csize <= 32 of them) over distributed shared memory, counted on block 0's
+// mbarrier `bar`, and block 0 sums the slots by warp_tree into *out. No
+// atomics: a rerun is bitwise the same. cluster_sum_begin, called by every
+// thread once before cluster_sum, arms block 0's `bar` for the csize totals
+// of `bytes` each and arrives on the split cluster barrier, on which
+// cluster_sum waits (so block 0 has armed it) before any store.
+__device__ __forceinline__ void cluster_sum_begin(unsigned bar, int rank, int csize, int bytes) {
+  if (rank == 0 && threadIdx.x == 0) {
+    mbar_init(bar);
+    mbar_init_fence();
+    mbar_expect(bar, csize * bytes);
+  }
+  cluster_arrive_relaxed();
+}
+template <typename T>
+__device__ __forceinline__ void cluster_sum(T v, T* slots, T* warp_part, unsigned bar, int rank,
+                                            int csize, T* out) {
+  v = warp_tree(v);
+  const int tid = threadIdx.x;
+  if ((tid & 31) == 0) warp_part[tid >> 5] = v;
+  __syncthreads();
+  cluster_wait();
+  if (tid < 32) {
+    const T total = warp_tree(tid < static_cast<int>(blockDim.x >> 5) ? warp_part[tid] : T(0));
+    if (tid == 0) st_async(mapa(smem_u32(slots + rank), 0), total, mapa(bar, 0));
+    if (rank == 0) {
+      mbar_wait(bar, 0);
+      const T sum = warp_tree(tid < csize ? slots[tid] : T(0));
+      if (tid == 0) *out = sum;
+    }
   }
 }
 

@@ -103,6 +103,7 @@ using odinn::mbar_wait;
 using odinn::relu;
 using odinn::smem_u32;
 using odinn::st_async;
+using odinn::warp_tree;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -250,15 +251,6 @@ __device__ __forceinline__ CellTerms<T> gather_cell(const Corner<T>& k00, const 
   const T fym = ys * ((wc - wym) * k.inv_dy);
   t.ubar = (fxp - fxm) * k.inv_dx + (fyp - fym) * k.inv_dy;
   return t;
-}
-
-// The sum of v over a warp's 32 lanes by a fixed shuffle tree, valid in
-// lane 0: the same inputs give the same bits.
-template <typename T>
-__device__ __forceinline__ T warp_tree(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // The items start, start + kThreads, ... of a grid `width` wide, walked as

@@ -63,14 +63,18 @@ reductions (``si_math.rows_cg``) on the kernels of ``csrc/si_rows.cu``:
 :func:`si_rows_apply` (A·p on the own rows after p = z + β·p on the whole
 slab, and each glacier's partial p·Ap; in its start mode r = b − A·x0,
 z and the partial r·z) and :func:`si_rows_update` (x += α·p, r −= α·Ap,
-z = M⁻¹r and the partial r·z). One block a glacier sums its partials in a
-fixed order, so a rerun is bitwise the same. Their plain versions,
-:func:`si_rows_apply_reference` and :func:`si_rows_update_reference`, are
-built from ``si_math``'s pieces. The backward is the transpose solve by the
-same PCG (its b = ḡ·[x > 0] formed on the own rows and exchanged, so the
-assembly runs in its tangent mode, b as given) and :func:`si_step_vjp`,
-unchanged, on the slab with λ zero on the ghost rows; the tangent is the
-residual's tangent on the slab and the tangent solve.
+z = M⁻¹r and the partial r·z). Each launch gives a glacier one
+thread-block cluster of up to 8 blocks, each a band of its own rows
+(:func:`rows_layout`); the apply reads its band with a halo through L1, and
+each glacier's partials are summed in a fixed order across the cluster
+through distributed shared memory, so a rerun is bitwise the same. Their plain
+versions, :func:`si_rows_apply_reference` and
+:func:`si_rows_update_reference`, are built from ``si_math``'s pieces. The
+backward is the transpose solve by the same PCG (its b = ḡ·[x > 0] formed
+on the own rows and exchanged, so the assembly runs in its tangent mode, b
+as given) and :func:`si_step_vjp`, unchanged, on the slab with λ zero on
+the ghost rows; the tangent is the residual's tangent on the slab and the
+tangent solve.
 """
 
 from __future__ import annotations
@@ -93,7 +97,8 @@ __all__ = ["si_step", "si_step_reference", "si_step_transpose", "si_step_transpo
            "si_step_residual_tangent", "si_layout", "si_fits", "si_plan", "si_vjp_layout",
            "si_vjp_plan", "si_assemble", "si_assemble_reference", "si_rows_apply",
            "si_rows_apply_reference", "si_rows_update", "si_rows_update_reference",
-           "rows_step_x", "rows_step_transpose", "si_rows_step"]
+           "RowsLayout", "rows_layout", "rows_occupancy", "rows_step_x", "rows_step_transpose",
+           "si_rows_step"]
 
 # the kernel's modes (csrc/si_step.cu): the step, the transpose solve of its
 # backward, the tangent solve of its jvp
@@ -156,12 +161,84 @@ def _rows_library() -> ctypes.CDLL:
     lib = load_library("si_rows")
     for fn in (lib.si_rows_apply_f32, lib.si_rows_apply_f64):
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_double]
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     for fn in (lib.si_rows_update_f32, lib.si_rows_update_f64):
-        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
+    lib.si_rows_occupancy.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.si_rows_occupancy.restype = ctypes.c_int
     return lib
+
+
+# csrc/si_rows.cu: blocks a glacier at most (a portable cluster), threads a
+# block at most, and the dynamic shared memory (all of it): an 8-byte
+# mbarrier padded to 16 bytes, then 32 values (block 0's slots, the warps'
+# partials); the cells a plane may hold (32-bit indices).
+_ROWS_MAX_CLUSTER = 8
+_ROWS_MAX_THREADS = 512
+_ROWS_BAR_BYTES = 16
+_ROWS_HEAD_VALUES = 32
+_ROWS_MAX_CELLS = 2 ** 31 - 1
+
+
+class RowsLayout(NamedTuple):
+    """How the row PCG's kernels cut each glacier's own rows [r0, r1) over a
+    cluster: block k of ``cluster`` owns the band of rows r0 + ⌊k·own /
+    cluster⌋ to r0 + ⌊(k + 1)·own / cluster⌋, the full width."""
+
+    cluster: int      # blocks a glacier
+    rows: int         # rows a band at most: ⌈own / cluster⌉
+    threads: int      # threads a block
+    smem: int         # shared memory a block, bytes
+    vec: bool         # 16-byte vectors (ny and the pointers allow them)
+
+    def launch_args(self):
+        """The C entries' plan arguments: cluster, threads, shared memory
+        and the vector width."""
+        return self.cluster, self.threads, self.smem, int(self.vec)
+
+
+@functools.lru_cache(maxsize=None)
+def rows_layout(n_g, nx, ny, r0, r1, dtype, vec=True) -> RowsLayout:
+    """The row PCG kernels' plan for n_g glaciers' slabs of nx × ny with own
+    rows [r0, r1): min(8, own) blocks a glacier, each a band of the own
+    rows; threads one a vector of the widest band, in warps, 64 to 512 (a
+    vector is 16 bytes where ``vec``, the caller's pointers being 16-byte
+    aligned, and ny allow it, else one value); shared memory for the
+    cluster's sum alone. A slab the kernels do not take raises
+    ValueError."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"si_rows: float32 or float64, got {dtype}")
+    if n_g < 1 or nx < 3 or ny < 3:
+        raise ValueError(f"si_rows: a slab of at least 1 x 3 x 3 cells, got {n_g} x {nx} x {ny}")
+    if nx * ny > _ROWS_MAX_CELLS:
+        raise ValueError(f"si_rows: a plane of at most {_ROWS_MAX_CELLS} cells (32-bit "
+                         f"indices), got {nx} x {ny}")
+    if not 0 <= r0 < r1 <= nx:
+        raise ValueError(f"si_rows: own rows [{r0}, {r1}) outside a slab of {nx} rows")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    v = 16 // itemsize if vec and ny % (16 // itemsize) == 0 else 1
+    own = r1 - r0
+    cluster = min(_ROWS_MAX_CLUSTER, own)
+    rows = -(-own // cluster)
+    threads = min(_ROWS_MAX_THREADS, max(64, -(-(rows * ny // v) // 32) * 32))
+    return RowsLayout(cluster, rows, threads, _ROWS_BAR_BYTES + _ROWS_HEAD_VALUES * itemsize,
+                      v > 1)
+
+
+def rows_occupancy(lay: RowsLayout, dtype, device=None) -> int:
+    """cudaOccupancyMaxActiveClusters of si_rows_apply's iteration mode at
+    the plan ``lay``: the clusters resident at once on the device."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _rows_library().si_rows_occupancy(int(dtype == torch.float64), int(lay.vec),
+                                                lay.cluster, lay.threads, lay.smem,
+                                                ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"si_rows: the occupancy query failed with CUDA error {err}")
+    return n.value
 
 
 class SILayout(NamedTuple):
@@ -811,6 +888,12 @@ def _rows_args(name, work, table, r0, r1):
     return n_g, nx, ny, table.detach().to(work.dtype).contiguous()
 
 
+def _aligned16(*tensors) -> bool:
+    """Whether every given tensor starts on a 16-byte boundary (the rows
+    kernels' 16-byte vectors)."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def si_rows_apply(work, x0, beta, src, dst, r0, r1, table, coef, init, precondition=True):
     """One half of a row-sharded PCG iteration on the scratch ``work``
     (module doc): p[dst] = z + β·p[src] on the whole slab, then Ap = A·p
@@ -819,8 +902,9 @@ def si_rows_apply(work, x0, beta, src, dst, r0, r1, table, coef, init, precondit
     ``precondition``) and the partial r·z. ``table`` holds each glacier's
     (dx, dy) in its first columns, ``coef`` is θ·dt. Returns the (n_g,)
     partials on ``work``'s device. A CUDA scratch launches
-    ``csrc/si_rows.cu``, counted on ``si_rows_apply.launches``; a CPU one
-    takes :func:`si_rows_apply_reference`."""
+    ``csrc/si_rows.cu`` on the plan of :func:`rows_layout` (a slab it does
+    not take raises ValueError), counted on ``si_rows_apply.launches``; a
+    CPU one takes :func:`si_rows_apply_reference`."""
     n_g, nx, ny, table = _rows_args("si_rows_apply", work, table, r0, r1)
     if work.device.type == "cpu":
         return si_rows_apply_reference(work, x0, beta, src, dst, r0, r1, table, coef, init,
@@ -834,11 +918,14 @@ def si_rows_apply(work, x0, beta, src, dst, r0, r1, table, coef, init, precondit
     else:
         beta = beta.to(device=work.device, dtype=work.dtype).contiguous()
         beta_ptr, x0_ptr = beta.data_ptr(), None
+    lay = rows_layout(n_g, nx, ny, int(r0), int(r1), work.dtype,
+                      _aligned16(work, x0 if init else None))
     lib = _rows_library()
     fn = lib.si_rows_apply_f32 if work.dtype == torch.float32 else lib.si_rows_apply_f64
     err = fn(work.data_ptr(), x0_ptr, table.data_ptr(), beta_ptr, int(src), int(dst), n_g, nx, ny,
              int(r0), int(r1), float(coef), int(bool(init)), int(bool(precondition)),
-             partial.data_ptr(), torch.cuda.current_stream(work.device).cuda_stream)
+             *lay.launch_args(), partial.data_ptr(),
+             torch.cuda.current_stream(work.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"si_rows_apply: kernel launch failed with CUDA error {err}")
     si_rows_apply.launches += 1
@@ -848,18 +935,19 @@ def si_rows_apply(work, x0, beta, src, dst, r0, r1, table, coef, init, precondit
 def si_rows_update(work, alpha, p_plane, r0, r1, precondition=True):
     """The other half (module doc): x += α·p, r −= α·Ap, z = M⁻¹r on the
     own rows [r0, r1) with p the plane ``p_plane``, and each glacier's
-    partial r·z. A CUDA scratch launches ``csrc/si_rows.cu``, counted on
-    ``si_rows_update.launches``; a CPU one takes
-    :func:`si_rows_update_reference`."""
+    partial r·z. A CUDA scratch launches ``csrc/si_rows.cu`` on the plan
+    of :func:`rows_layout`, counted on ``si_rows_update.launches``; a CPU
+    one takes :func:`si_rows_update_reference`."""
     n_g, nx, ny, _ = _rows_args("si_rows_update", work, alpha.new_zeros(1, 2), r0, r1)
     if work.device.type == "cpu":
         return si_rows_update_reference(work, alpha, p_plane, r0, r1, precondition)
     alpha = alpha.to(device=work.device, dtype=work.dtype).contiguous()
     partial = torch.empty(n_g, dtype=work.dtype, device=work.device)
+    lay = rows_layout(n_g, nx, ny, int(r0), int(r1), work.dtype, _aligned16(work))
     lib = _rows_library()
     fn = lib.si_rows_update_f32 if work.dtype == torch.float32 else lib.si_rows_update_f64
     err = fn(work.data_ptr(), alpha.data_ptr(), int(p_plane), n_g, nx, ny, int(r0), int(r1),
-             int(bool(precondition)), partial.data_ptr(),
+             int(bool(precondition)), *lay.launch_args(), partial.data_ptr(),
              torch.cuda.current_stream(work.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"si_rows_update: kernel launch failed with CUDA error {err}")
