@@ -7,7 +7,8 @@ Phases, each printed as one JSON line:
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions;
 2. build: the CUDA kernels under ``odinn_tpu_torch/csrc``, one ``nvcc`` per
-   source, all started together;
+   source (``si_step.cu`` in a float32 and a float64 part), all started
+   together;
 3. kernel checks: each kernel against its plain PyTorch version on the card,
    at the main path's 4 x 128^2 and at a ragged 3 x 97 x 131 (the RKC and
    pullback kernels also at 2 x 10 x 33; at the training's 16 x 128^2
@@ -31,8 +32,12 @@ Phases, each printed as one JSON line:
    their plain versions on the same inputs, each with a bitwise repeat;
    ``sia2d_rhs_jvp`` at 4 x 128^2 and 16 x 128^2 with n = 3, 4 and 3, 4,
    2.5 in one batch, its stage mode and the whole RKC2 step's tangent at
-   16 x 128^2, s = 8 (float32 within TOL_F32 or 2x the float32 plain
-   version's own error against float64); the three autograd Functions'
+   16 x 128^2, s = 8, and both modes also at the ragged 3 x 41 x 101 and
+   3 x 37 x 128 and the LM gates' 2 x 36^2, each on the wrapper's plan and
+   on every other plan of ``jvp_layout`` (float32 within TOL_F32 or 2x the
+   float32 plain version's own error against float64). Phase 3's gradient
+   checks, which follow here, run beside the LM gates' process (phase 10),
+   after phase 11: the three autograd Functions'
    tangents on the card (forward mode) against the CPU's float64 run to
    1e-9, and each tangent's duality with its backward, <u, J v> =
    <J^T u, v>, to 1e-10 (si_step at PCG-40 from a zero guess); the
@@ -145,8 +150,9 @@ Phases, each printed as one JSON line:
    LM_GATE_EPOCHS: a gain of 15x, a monotone trace,
    A within 15 % at both temperatures, every RK4 stage's tangent one
    ``sia2d_rhs_jvp`` launch; host-bound, in a process of their own that
-   starts after phase 11, runs beside the forward-mode checks below (run
-   after phase 11 too) and phases 12-14, and is joined after them);
+   starts after phase 11, runs beside phase 3's gradient checks, the
+   forward-mode checks below (run after phase 11 too) and phases 12-14,
+   and is joined after them);
    ``grad="forward"`` of the classical
    per-glacier A through SI and RKC, float64 against the CPU's forward
    mode and the card's autograd to 1e-9, float32 at full
@@ -284,6 +290,7 @@ stage, on the card and on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -357,6 +364,10 @@ CAPPED_MAX_D = 3.0e4
 # the tolerance phase's reltol: float32's setting (benchmarks/eki_bench.py);
 # below ~1e-5 a float32 error estimate sits under the roundoff floor
 TOL_RELTOL = 1e-4
+# sia2d_rhs_jvp's ragged shapes (check_rhs_jvp_edges): a width that is no
+# multiple of the 16-byte vector, a height that is no multiple of any tile's
+# rows, and the LM gates' 2 x 36^2
+JVP_EDGE_SHAPES = ((3, 41, 101), (3, 37, 128), (2, 36, 36))
 # our kernels' device names: none may run in a D-target or capped solve
 KERNEL_NAMES = ("si_step_cluster", "si_assemble", "si_pcg", "si_step_vjp_kernel",
                 "sia2d_rhs_kernel", "sia2d_rhs_vjp_kernel", "rkc_interval_kernel",
@@ -792,11 +803,12 @@ def bound_ms(nbytes, ops, dtype):
 def ptxas_entry(mangled: str) -> str:
     """A kernel instance's name from its mangled symbol, with its template
     arguments as tags: float32/float64, Glen (fixed exponents) or runtime
-    exponents, the cells a thread owns (K), the pullback's and the tangent
-    kernel's stage mode, the SI kernels' mode (forward, transpose or
-    tangent solve) and Jacobi or plain CG, si_rows_apply's start or
-    iteration mode, or si_step_vjp's copy route and the row kernels' vector
-    width (16-byte or one value)."""
+    exponents, the cells a thread owns (K; the tangent kernel's rows a
+    thread), the pullback's and the tangent kernel's stage mode, the SI
+    kernels' mode (forward, transpose or tangent solve) and Jacobi or plain
+    CG, si_rows_apply's start or iteration mode, or si_step_vjp's copy
+    route and the row and tangent kernels' vector width (16-byte or one
+    value)."""
     i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else len(mangled)
     name = mangled
     while i < len(mangled) and mangled[i].isdigit():
@@ -824,6 +836,9 @@ def ptxas_entry(mangled: str) -> str:
                  if name == "si_rows_apply"
                  else [("jacobi", "plain-cg"), ("vec16", "scalar")] if name == "si_rows_update"
                  else [("jacobi", "plain-cg")] if name.startswith("si_")
+                 # sia2d_rhs_jvp_kernel<T, R, kStage, kVec>
+                 else [("stage", "plain"), ("vec16", "scalar")]
+                 if name == "sia2d_rhs_jvp_kernel"
                  else [("stage", "pullback")])
         tags += [on if f == "1" else off for f, (on, off) in zip(flags, names)]
     return name + ("<" + ",".join(tags) + ">" if tags else "")
@@ -906,6 +921,7 @@ def check_kernels():
         check_si(H[:n_r].contiguous(), B[:n_r].contiguous(), derived[:n_r].contiguous(),
                  (n_r, NX, NY), dtype, cg_iters=(SI_TRAIN_CG,))
         check_rhs_jvp_sets(H, B, raw, (N_TRAIN, NX, NY), dtype, stage_s=8)
+    check_rhs_jvp_edges()
     # phase 11's folded batches: multistart's 8 restarts x 16 glaciers at
     # PCG-20 and EKI's 32 members x 16 glaciers of 64^2 at PCG-12, in many
     # waves of clusters (each glacier's cluster is independent: the bitwise
@@ -1360,13 +1376,14 @@ def check_si_tangent(x, x0, H_D, B, derived, dt, theta, it, exps, name, shape, d
 
 def check_rhs_jvp(H, B, raw, name, shape, dtype, stage_s=None):
     """sia2d_rhs_jvp against its plain version on the card (dH a random
-    plane, d(creep) a tenth of each glacier's creep), with a bitwise repeat;
-    with ``stage_s`` also its stage mode (stage 5 of ``stage_s``, keeping
-    and not keeping fdot) and the whole RKC2 step's tangent
-    (interval_tangent, s + 1 launches) at the RKC training's step. float32
-    passes within TOL_F32 (TOL_RKC_F32 for the step) of max|reference| or
-    within GRAD_F32_FACTOR times the float32 plain version's own error
-    against float64."""
+    plane, d(creep) a tenth of each glacier's creep), with a bitwise repeat,
+    on the wrapper's plan and on every other plan of jvp_layout (R = 1, 2,
+    4 rows a thread, and the plan's R with loads of one value); with
+    ``stage_s`` also its stage mode (stage 5 of ``stage_s``, keeping and not
+    keeping fdot) and the whole RKC2 step's tangent (interval_tangent, s + 1
+    launches) at the RKC training's step. float32 passes within TOL_F32
+    (TOL_RKC_F32 for the step) of max|reference| or within GRAD_F32_FACTOR
+    times the float32 plain version's own error against float64."""
     from odinn_tpu_torch.core.params import PhysicalParameters
     from odinn_tpu_torch.ops.cuda import rkc_kernel, sia_kernel
 
@@ -1386,19 +1403,29 @@ def check_rhs_jvp(H, B, raw, name, shape, dtype, stage_s=None):
                 lambda m, a, k=keep: m(a[0], a[1], a[2], a[3], a[4], PHYS.eta0,
                                        stage=(a[5], a[6], a[7], weights), keep_f=k),
                 (planes[0], H, B, derived, d_creep, planes[1], planes[2], planes[3]))
+    plan = sia_kernel.jvp_layout(*shape, dtype)
+    others = {f"R={r}": sia_kernel.jvp_layout(*shape, dtype, rows=r)
+              for r in sia_kernel.JVP_ROWS if r != plan.rows}
+    others[f"R={plan.rows} scalar"] = sia_kernel.jvp_layout(*shape, dtype, vec=False,
+                                                           rows=plan.rows)
+    pick = lambda r: [t for t in (r if isinstance(r, tuple) else (r,)) if t is not None]
     for case, (call, args) in cases.items():
-        got = call(sia_kernel.sia2d_rhs_jvp, args)
-        again = call(sia_kernel.sia2d_rhs_jvp, args)
         want = call(sia_kernel.sia2d_rhs_jvp_reference, args)
         want64 = call(sia_kernel.sia2d_rhs_jvp_reference, tuple(a.double() for a in args))
-        pick = lambda r: [t for t in (r if isinstance(r, tuple) else (r,)) if t is not None]
-        torch.cuda.synchronize()
-        errs = [rel_err(a, b) for a, b in zip(pick(got), pick(want))]
-        vs64 = [(rel_err(a, c), rel_err(b, c))
-                for a, b, c in zip(pick(got), pick(want), pick(want64))]
-        check_tangent_row(case, shape, dtype, errs, vs64, TOL_F32,
-                          all(torch.equal(a, b) for a, b in zip(pick(got), pick(again))),
-                          n=sorted(set(raw[:, 4].tolist())))
+        for tag, layout in [("plan", None)] + list(others.items()):
+            kern = sia_kernel.sia2d_rhs_jvp if layout is None else functools.partial(
+                sia_kernel._jvp_launch, layout=layout)
+            got = call(kern, args)
+            again = call(kern, args)
+            torch.cuda.synchronize()
+            errs = [rel_err(a, b) for a, b in zip(pick(got), pick(want))]
+            vs64 = [(rel_err(a, c), rel_err(b, c))
+                    for a, b, c in zip(pick(got), pick(want), pick(want64))]
+            check_tangent_row(case if layout is None else f"{case} {tag}", shape, dtype, errs,
+                              vs64, TOL_F32,
+                              all(torch.equal(a, b) for a, b in zip(pick(got), pick(again))),
+                              n=sorted(set(raw[:, 4].tolist())),
+                              layout=(plan if layout is None else layout)._asdict())
     if stage_s is not None:
         dt = DT * (stage_s / RKC_STAGES) ** 2
         exps = tuple(float(e) for e in derived[0, 4:8].tolist())
@@ -1412,6 +1439,19 @@ def check_rhs_jvp(H, B, raw, name, shape, dtype, stage_s=None):
         check_tangent_row(f"rkc_interval tangent s={stage_s}", shape, dtype,
                           [rel_err(got, want)], [(rel_err(got, want64), rel_err(want, want64))],
                           TOL_RKC_F32, bool(torch.equal(got, again)))
+
+
+def check_rhs_jvp_edges():
+    """sia2d_rhs_jvp (check_rhs_jvp_sets: both modes, every plan, the three
+    exponent sets) at shapes that put each edge of the plan in play, in
+    both dtypes: 3 x 41 x 101 (ny no multiple of the 16-byte vector, so
+    loads of one value, and a last tile of 5 of 32 columns), 3 x 37 x 128
+    (nx a multiple of no tile's rows) and the LM gates' 2 x 36^2 (a last
+    tile of 4 columns)."""
+    for dtype in (torch.float64, torch.float32):
+        for shape in JVP_EDGE_SHAPES:
+            H, B, raw = kernel_inputs(*shape, dtype, seed=sum(shape) + 60)
+            check_rhs_jvp_sets(H, B, raw, shape, dtype, stage_s=8)
 
 
 def check_tangent_row(name, shape, dtype, errs, vs64, tol32, repeat, **extra):
@@ -3371,10 +3411,10 @@ def start_lm_gates():
     """Start the LM gates' process (:func:`lm_gates_worker`); its log and
     launches go to a directory of its own. The gates hold one CPU core and
     leave the card idle most of the time (~190-245 s of host-bound LM
-    iterations at 2 x 36^2), so they run beside forward mode's gradient
-    checks and the multi-process phases 12-14, whose ranks are host-bound
-    too, after the phases whose device times they would disturb. Returns
-    (process, directory)."""
+    iterations at 2 x 36^2), so they run beside phase 3's gradient checks,
+    forward mode's gradient checks and the multi-process phases 12-14,
+    whose ranks are host-bound too, after the phases whose device times
+    they would disturb. Returns (process, directory)."""
     import tempfile
 
     out_dir = tempfile.mkdtemp(prefix="lm_gates_")
@@ -5725,12 +5765,6 @@ def main() -> int:
         return 0
 
     check_kernels()
-    check_gradients()
-    check_tangents()
-    check_adjoint_gradients()
-    check_classical_gradients()
-    check_law_target_gradients()
-    check_replay_gradient()
     cluster_report()
     marks.append(("checks", time.perf_counter()))
     timing = time_kernels()
@@ -5769,6 +5803,14 @@ def main() -> int:
     marks.append(("ensembles", time.perf_counter()))
     gates = start_lm_gates()
     try:
+        # phase 3's gradient checks: correctness only, so beside the gates
+        check_gradients()
+        check_tangents()
+        check_adjoint_gradients()
+        check_classical_gradients()
+        check_law_target_gradients()
+        check_replay_gradient()
+        marks.append(("gradient_checks", time.perf_counter()))
         for name, n in forward_grad_phase().items():
             launches[name] += n
         marks.append(("forward_grad", time.perf_counter()))

@@ -31,8 +31,12 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # rounding into the next, and contracted roundings took the float32 RKC
 # gradient's d(creep) error from 1.1e-3 to 2.9e-3 of max|d(creep)| (PERF.md).
 # sia2d_rhs_jvp's stage mode carries the RKC tangent through the same
-# recursion, so it rounds the same way.
-_SOURCE_FLAGS = {"rkc_interval": ("-fmad=false",), "sia2d_rhs_jvp": ("-fmad=false",)}
+# recursion, so its stage combination rounds as rkc_interval's does (its RHS
+# arithmetic is reordered and differs from the plain version by a few ulps).
+# si_step.cu's many kernel instances make the slowest build by far: nvcc
+# splits its optimisation over every core (PERF.md §5).
+_SOURCE_FLAGS = {"rkc_interval": ("-fmad=false",), "sia2d_rhs_jvp": ("-fmad=false",),
+                 "si_step": ("-split-compile=0",)}
 
 
 def _nvcc() -> str:
@@ -67,27 +71,38 @@ def _stale(name: str) -> bool:
 def build_all(names=None) -> Dict[str, Tuple[float, str]]:
     """Build the stale libraries among ``names`` (default: every source), one
     ``nvcc`` process per source, all started together. Returns
-    ``{name: (seconds, compiler output)}`` for each library built; raises
-    with the compiler's output if any build fails."""
+    ``{name: (seconds, compiler output)}`` for each library built, the
+    seconds to that build's own end; raises with the compiler's output if
+    any build fails."""
     if names is None:
         names = sorted(p.stem for p in SRC_DIR.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, t0 = {}, time.perf_counter()
     for name in names:
         if not _stale(name):
             continue
         tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
-        procs[name] = (tmp, time.perf_counter(), subprocess.Popen(
-            nvcc_command(name, tmp), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
+        # the output goes to a file: a full pipe would stall its build
+        log = open(BUILD_DIR / f"lib{name}.{os.getpid()}.log", "w+")
+        procs[name] = (tmp, log, subprocess.Popen(nvcc_command(name, tmp), stdout=log,
+                                                  stderr=subprocess.STDOUT))
+    ended = {}
+    while len(ended) < len(procs):
+        for name, (_, _, proc) in procs.items():
+            if name not in ended and proc.poll() is not None:
+                ended[name] = time.perf_counter() - t0
+        time.sleep(0.05)
     done, failed = {}, []
-    for name, (tmp, t0, proc) in procs.items():
-        log, _ = proc.communicate()
+    for name, (tmp, log, proc) in procs.items():
+        log.seek(0)
+        text = log.read()
+        log.close()
+        os.remove(log.name)
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+            failed.append(f"{name}:\n{text}")
             continue
         os.replace(tmp, _lib_path(name))
-        done[name] = (time.perf_counter() - t0, log)
+        done[name] = (ended[name], text)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return done

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -45,7 +46,8 @@ from odinn_tpu_torch.ops.cuda.common import (
     refuse_tangent, storage_key, ticket_buffers)
 
 __all__ = ["sia2d_rhs", "sia2d_rhs_reference", "sia2d_rhs_vjp", "sia2d_rhs_vjp_reference",
-           "sia2d_rhs_jvp", "sia2d_rhs_jvp_reference", "derive_table", "creep_tangent"]
+           "sia2d_rhs_jvp", "sia2d_rhs_jvp_reference", "derive_table", "creep_tangent",
+           "JvpLayout", "jvp_layout"]
 
 # the raw table's columns the RHS does not differentiate: all but A
 _FIXED_RAW_COLS = (0, 1, 3, 4, 5, 6)
@@ -93,10 +95,64 @@ def _vjp_library() -> ctypes.CDLL:
 
 
 # sia2d_rhs_jvp_f32/_f64 of csrc/sia2d_rhs_jvp.cu: the ten planes and
-# tables (dH, H, B, table, dcreep, dH0, dY2, df0, f, y), n_g, nx, ny, eta0,
-# the five stage weights, the stage flag and the stream
-JVP_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_double] * 6
+# tables (dH, H, B, table, dcreep, dH0, dY2, df0, f, y), n_g, nx, ny, the
+# plan's rows a thread and vector flag, eta0, the five stage weights, the
+# stage flag and the stream
+JVP_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_double] * 6
                 + [ctypes.c_int, ctypes.c_void_p])
+
+# the tangent kernel's block (kLanes, kGroups in csrc/sia2d_rhs_jvp.cu): a
+# warp of 32 cells along y, 4 warps each R rows down the tile
+JVP_LANES = 32
+JVP_GROUPS = 4
+JVP_THREADS = JVP_LANES * JVP_GROUPS
+JVP_ROWS = (4, 2, 1)           # the instantiated rows a thread, largest first
+# the blocks below which the plan takes fewer rows a thread: two on each of
+# the H100's 132 SMs
+JVP_MIN_BLOCKS = 2 * 132
+_GRID_LIMIT = 65535            # gridDim.y and gridDim.z
+
+
+class JvpLayout(NamedTuple):
+    """How the tangent kernel tiles a launch (:func:`jvp_layout`)."""
+
+    rows: int                      # cells a thread owns down its column (R)
+    tile_rows: int                 # rows of a tile: JVP_GROUPS × rows
+    width: int                     # values a load of dH, H and B along y: 16 bytes, or 1
+    grid: Tuple[int, int, int]     # (tiles along y, tiles along x, glaciers)
+
+
+def jvp_layout(n_g, nx, ny, dtype, vec=True, rows=None) -> JvpLayout:
+    """The tangent kernel's plan for n_g glaciers of nx × ny: tiles of 32
+    cells along y by 4·R rows, one block of JVP_THREADS threads a tile, R
+    (``rows``, else picked here) the largest of 4, 2, 1 whose launch still
+    has JVP_MIN_BLOCKS blocks, else 1: more rows a thread share more edges
+    and corners, fewer blocks launch sooner, and a small plane spreads over
+    the most SMs. Loads of 16 bytes where ``vec`` (the caller's dH, H and
+    B 16-byte aligned) and ny a multiple of the vector allow it, else of
+    one value. What the kernel does not take raises ValueError."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"sia2d_rhs_jvp: float32 or float64, got {dtype}")
+    if n_g < 1 or nx < 3 or ny < 3:
+        raise ValueError(f"sia2d_rhs_jvp: at least 1 glacier of 3 x 3 cells, got "
+                         f"{n_g} x {nx} x {ny}")
+    if rows is not None and rows not in JVP_ROWS:
+        raise ValueError(f"sia2d_rhs_jvp: rows a thread {rows} not among {JVP_ROWS}")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    v = 16 // itemsize
+    tiles_y = -(-ny // JVP_LANES)
+
+    def blocks(r):
+        return n_g * -(-nx // (JVP_GROUPS * r)) * tiles_y
+
+    if rows is None:
+        rows = next((r for r in JVP_ROWS if blocks(r) >= JVP_MIN_BLOCKS), 1)
+    tile_rows = JVP_GROUPS * rows
+    grid = (tiles_y, -(-nx // tile_rows), n_g)
+    if grid[1] > _GRID_LIMIT or n_g > _GRID_LIMIT:
+        raise ValueError(f"sia2d_rhs_jvp: {n_g} glaciers of {nx} rows exceed the launch's "
+                         f"grid ({grid}, at most {_GRID_LIMIT} along x and glaciers)")
+    return JvpLayout(rows, tile_rows, v if vec and ny % v == 0 else 1, grid)
 
 
 @functools.cache
@@ -320,7 +376,8 @@ def sia2d_rhs_jvp(dH, H, B, derived, d_creep, eta0, stage=None, keep_f=True):
     (:func:`sia2d_rhs_jvp_reference`'s contract, both modes; in the stage
     mode (ẏ_j, ḟ or None)). dH, H, B of shape (n_g, nx, ny), ``derived`` the
     (n_g, 8) table, ``d_creep`` (n_g,) or None. A CUDA tensor launches the
-    kernel ``csrc/sia2d_rhs_jvp.cu``, one launch counted on
+    kernel ``csrc/sia2d_rhs_jvp.cu`` on :func:`jvp_layout`'s plan for the
+    shape and the planes' alignment, one launch counted on
     ``sia2d_rhs_jvp.launches``, in which each glacier takes the
     fixed-exponent path when its set is (5, 2, 4, 2); a CPU tensor takes the
     plain version."""
@@ -333,6 +390,15 @@ def sia2d_rhs_jvp(dH, H, B, derived, d_creep, eta0, stage=None, keep_f=True):
     if has_tangent(*planes, derived, d_creep):
         raise NotImplementedError("sia2d_rhs_jvp: the tangent kernel takes no forward-mode "
                                   "tangent of its own")
+    layout = jvp_layout(*H.shape, H.dtype, vec=all(t.data_ptr() % 16 == 0 for t in (dH, H, B)))
+    return _jvp_launch(dH, H, B, derived, d_creep, eta0, stage, keep_f, layout=layout)
+
+
+def _jvp_launch(dH, H, B, derived, d_creep, eta0, stage=None, keep_f=True, *, layout):
+    """The tangent kernel's launch on CUDA inputs that :func:`sia2d_rhs_jvp`
+    takes, on the plan ``layout`` (any of :func:`jvp_layout`'s: the card's
+    checks hold each to the plain version); one launch counted on
+    ``sia2d_rhs_jvp.launches``."""
     table = derived.detach().to(H.dtype).contiguous()
     n_g, nx, ny = H.shape
     dc = None if d_creep is None else d_creep.detach().to(H.dtype).contiguous()
@@ -347,9 +413,9 @@ def sia2d_rhs_jvp(dH, H, B, derived, d_creep, eta0, stage=None, keep_f=True):
         ptrs = (dH0.data_ptr(), dY2.data_ptr(), df0.data_ptr())
     err = fn(dH.data_ptr(), H.data_ptr(), B.data_ptr(), table.data_ptr(),
              None if dc is None else dc.data_ptr(), *ptrs, None if f is None else f.data_ptr(),
-             None if y is None else y.data_ptr(), n_g, nx, ny, float(eta0),
-             *(float(w) for w in weights), int(stage is not None),
-             torch.cuda.current_stream(H.device).cuda_stream)
+             None if y is None else y.data_ptr(), n_g, nx, ny, layout.rows,
+             int(layout.width > 1), float(eta0), *(float(w) for w in weights),
+             int(stage is not None), torch.cuda.current_stream(H.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sia2d_rhs_jvp: kernel launch failed with CUDA error {err}")
     sia2d_rhs_jvp.launches += 1

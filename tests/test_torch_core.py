@@ -155,6 +155,7 @@ def _port_sources():
     yield os.path.join(REPO, "profile_epoch.py")
     yield os.path.join(REPO, "profile_exchange.py")
     yield os.path.join(REPO, "profile_lm_step.py")
+    yield os.path.join(REPO, "profile_jvp.py")
     yield os.path.join(REPO, "profile_rows.py")
     yield os.path.join(REPO, "profile_tolerance.py")
     yield os.path.join(REPO, "profile_vjp.py")
