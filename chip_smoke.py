@@ -21,7 +21,9 @@ Phases, each printed as one JSON line:
    iterations, with two launches on the same inputs bit-identical, and at
    2 x 300^2 on its large-plane path, there also at n = 4, where float32
    is held on its increment to 2x the float32 plain version's own error
-   against float64; ``rkc_interval`` at s = 8 and 25; the
+   against float64, and on that path at phase 15's 1 x 1024^2, PCG-12,
+   and, in float32, its 1 x 2048^2, PCG-12;
+   ``rkc_interval`` at s = 8 and 25; the
    pullback also in its fused RKC-backward stage mode); the runtime-exponent
    paths (n = 4 with sliding for ``si_step``, ``sia2d_rhs`` and
    ``rkc_interval``; n = 3, 4 and 2.5 in one batch for ``sia2d_rhs`` and the
@@ -53,7 +55,8 @@ Phases, each printed as one JSON line:
    float32 within 2x the float32 plain version's own error; the RKC, SI and
    SI-pullback kernels' cluster size and occupancy at 4 and 16 glaciers (the
    pullback's also at 2 x 300^2, 3 x 97 x 131 and 2 x 10 x 33, with its
-   tiles);
+   tiles), and the large-plane path's plans (the cooperative PCG's blocks,
+   bands and threads beside its resident blocks; the assembly's tiles);
 4. main path: the forward prediction of 4 Halfar glaciers, 128^2, float32,
    5 years with monthly saves and monthly mass balance, Cuffey–Paterson A(T),
    n = 3, for the rows SI (PCG-6), SI2 (PCG-6), compensated SSPRK3 at 3
@@ -120,7 +123,13 @@ Phases, each printed as one JSON line:
    glaciers, its transpose-solve mode, both modes there without the
    preconditioner, and on its large-plane path at
    4 x 128^2 and 2 x 300^2; ``rkc_interval`` at 16 x 128^2, s = 8; each
-   pullback at its other shape and the fused RKC-backward stage). The
+   pullback at its other shape and the fused RKC-backward stage); the
+   large-plane path (``csrc/si_plane.cu``) as ``si_plane``: at phase 15's
+   1 x 1024^2, PCG-12, its launches phase 15's (counted there alone, not
+   again under ``si_step``), and under ``more`` at
+   PCG-6, its transpose at PCG-12, 1 x 2048^2 PCG-12, 2 x 300^2 and 4 x
+   128^2 PCG-6, and ``si_assemble`` alone at a rank's 16 x 66 x 128 slab
+   and at 1 x 1024^2 (``si_step_vjp`` there under its own entry). The
    ``kernel_times`` line before it also times a one-element PyTorch fill,
    the card's single-launch floor. It is printed last, after phase 13, and
    its launches are all phases' (phase 13's ranks' too);
@@ -274,6 +283,27 @@ Phases, each printed as one JSON line:
    against si_step at 16 x 128^2, PCG-20; ``time_kernels`` times them
    there (the row PCG also at 4 x 516 x 1024), and sia2d_rhs and
    rkc_interval at the cut's slabs.
+15. the ice-sheet domain (``icesheet``), benchmarks/icesheet_scale.py's
+   scenario through ``forward_batch`` and the classical inversion's loss
+   and gradient, in a process of its own (``python3 chip_smoke.py
+   --icesheet-worker DIR``) started with the LM gates' and joined after
+   them, so that it runs beside phase 3's gradient checks: one Halfar
+   dome (R0 = 800 km, H0 = 3000 m, A = 8e-19, from its intrinsic time
+   ~2.5e5 years, dx = 2.56 R0 / N), float32, SI2 (PCG-12, a PCG-6
+   predictor, one substep), monthly saves, no mass balance,
+   ``ConstantA``. At 1024^2 (the large-plane path asserted) the 10-year
+   forward, 240 si_step launches, each one si_assemble and one si_pcg (the
+   profiler asserts both), timed and profiled, its final H against the
+   port's float64 unfused run within 2x the float32 unfused run's error;
+   one loss and gradient of the scalar-A inversion against observations
+   at the span's ends from the forward at 1.2 A, timed and profiled by
+   kernel, with si_step, its transpose and si_step_vjp 240 each; and the
+   depth cut: over the first 2 intervals the kernels' gradient against
+   the unfused float64 gradient (float64 to 1e-9, float32 within 2x the
+   float32 unfused run's error), with the kernels' max |dH| there. At
+   2048^2 one year, 24 launches, timed. The phase's launches are asserted
+   per run. Its times are contended: each line's ``times_beside`` says
+   what ran beside them.
 
 Any failed check raises, so the exit code is not 0. A ``done`` line gives
 the whole run's seconds, build included, and each phase's. The last line is
@@ -292,6 +322,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import os
 import re
 import statistics
@@ -543,6 +574,21 @@ CTRL_FULL_RELTOL, CTRL_RELTOL, CTRL_SI_RELTOL = 1e-3, 1e-4, 5e-3
 CTRL_SI_PROBE = dict(cg_probe=8, cg_candidates=(4, 6))
 CTRL_REPLAY_EPOCHS = 2
 CTRL_C_MAX = 1e-17
+# phase 15 (icesheet): benchmarks/icesheet_scale.py's ice-sheet domain, a
+# Halfar dome of R0 = 800 km and H0 = 3000 m, A = 8e-19, T = -20 C, from its
+# intrinsic time halfar_t0, dx = 2.56 R0 / N; float32, SI2 at one substep,
+# PCG-12 with a PCG-6 predictor, monthly saves, no mass balance, ConstantA;
+# 10 years at 1024^2 (the benchmark's span) and one at 2048^2 (a timed line
+# of the HBM regime). The scalar-A inversion's gradient is held to the plain
+# versions' float64 gradient over the first ICE_GRAD_INTERVALS intervals: the
+# depth cut, since a plain float64 autograd graph of 240 PCG solves at
+# 1024^2 does not fit the card
+ICE_R0, ICE_H0, ICE_A, ICE_TEMP = 800_000.0, 3000.0, 8e-19, -20.0
+ICE_SIZES = ((1024, 10.0), (2048, 1.0))
+ICE_GRAD_INTERVALS = 2
+# what shares the card and the host with phase 15's timed runs
+ICE_TIMES_BESIDE = ("contended: the main process's phase 3 gradient checks (and the phases "
+                    "after them) and the LM gates' process run at the same time")
 
 
 def emit(obj) -> None:
@@ -803,12 +849,12 @@ def bound_ms(nbytes, ops, dtype):
 def ptxas_entry(mangled: str) -> str:
     """A kernel instance's name from its mangled symbol, with its template
     arguments as tags: float32/float64, Glen (fixed exponents) or runtime
-    exponents, the cells a thread owns (K; the tangent kernel's rows a
-    thread), the pullback's and the tangent kernel's stage mode, the SI
-    kernels' mode (forward, transpose or tangent solve) and Jacobi or plain
-    CG, si_rows_apply's start or iteration mode, or si_step_vjp's copy
-    route and the row and tangent kernels' vector width (16-byte or one
-    value)."""
+    exponents, the cells a thread owns (K; the tangent kernel's and the
+    assembly's rows a thread, R), the pullback's and the tangent kernel's
+    stage mode, the cluster kernel's mode (forward, transpose or tangent
+    solve) and Jacobi or plain CG, si_rows_apply's start or iteration
+    mode, or si_step_vjp's copy route and the row, tangent and large-plane
+    kernels' vector width (16-byte or one value)."""
     i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else len(mangled)
     name = mangled
     while i < len(mangled) and mangled[i].isdigit():
@@ -822,15 +868,16 @@ def ptxas_entry(mangled: str) -> str:
         tags += [t for key, t in (("GlenExps", "Glen"), ("RuntimeExps", "runtime")) if key in rest]
         ints = re.findall(r"Li(\d+)E", rest)
         flags = re.findall(r"Lb(\d)E", rest)
-        if name in ("si_step_cluster", "si_assemble", "si_pcg"):
-            # si_step_cluster<T, E, K, kMode, kJ>, si_assemble<T, E, kMode,
-            # kJ>, si_pcg<T, kMode, kJ>
-            k_cells, mode = (ints[0], ints[1]) if name == "si_step_cluster" else (None, ints[0])
-            tags += [f"K={k_cells}"] if k_cells else []
-            tags.append(("forward", "transpose", "tangent")[int(mode)])
+        if name == "si_step_cluster":
+            # si_step_cluster<T, E, K, kMode, kJ>
+            tags += [f"K={ints[0]}", ("forward", "transpose", "tangent")[int(ints[1])]]
+        elif name == "si_assemble":
+            # si_assemble<T, E, R, kVec>, si_pcg<T, kVec>: modes at run time
+            tags.append(f"R={ints[0]}")
         elif ints:
             tags.append(f"K={ints[0]}")
         names = ([("vec16", "scalar")] if name.startswith("si_step_vjp")
+                 or name in ("si_assemble", "si_pcg")
                  # si_rows_apply<T, kJ, kInit, kVec>, si_rows_update<T, kJ, kVec>
                  else [("jacobi", "plain-cg"), ("start", "iteration"), ("vec16", "scalar")]
                  if name == "si_rows_apply"
@@ -898,6 +945,20 @@ def check_kernels():
         derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
         check_si(H, B, derived, shape, dtype, cg_iters=(6,), tag=" n=4 large-plane",
                  increment_factor=True)
+    # phase 15's ice-sheet planes on the large-plane path at PCG-12 (every
+    # mode, with and without the preconditioner): 1 x 1024^2 in both dtypes,
+    # and 1 x 2048^2 in float32, whose bands and vectors no longer fit in L2
+    for n, dtype in ((ICE_SIZES[0][0], torch.float64), (ICE_SIZES[0][0], torch.float32),
+                     (ICE_SIZES[1][0], torch.float32)):
+        shape = (1, n, n)
+        H, B, raw = kernel_inputs(*shape, dtype, seed=70)
+        derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+        if si_kernel.si_plan(*shape, dtype).layout is not None:
+            raise AssertionError(f"si_step: {shape} {dtype} should take the large-plane path")
+        # at 2048^2 plain CG's float32 increment carries the plain version's
+        # own rounding (both 1.3e-4 off float64): held as at n = 4
+        check_si(H, B, derived, shape, dtype, cg_iters=(12,),
+                 increment_factor=n > ICE_SIZES[0][0])
     # 10 rows leave 3 of rkc_interval's and si_step's 8 cluster blocks
     # without rows, or 6 of 16 (97 rows: 2 of 16)
     for dtype in (torch.float64, torch.float32):
@@ -1583,7 +1644,10 @@ def cluster_report():
     glaciers of 128^2 in both dtypes (and si_step's path at the large-plane
     check's 300^2); si_step's and si_step_vjp's also at phase 11's folded
     batches (128 x 128^2, 512 x 64^2), si_step_vjp's at the other check
-    shapes, with their tiles."""
+    shapes, with their tiles; the large-plane path's (a ``plane_plan``
+    line): the cooperative PCG's blocks, bands and threads beside its
+    resident blocks at 2 x 300^2, 1 x 1024^2 and 1 x 2048^2, and the
+    assembly's tiles there and at a rank's slab."""
     from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel
 
     for phase, make_plan in (("rkc_cluster", rkc_kernel.rkc_plan),
@@ -1608,6 +1672,17 @@ def cluster_report():
         if phase == "si_cluster":
             line["path_2x300x300"] = si_kernel.si_plan(2, 300, 300, torch.float32).path
         emit(line)
+    # the large-plane path's plans: the cooperative PCG's blocks, bands and
+    # threads beside the blocks resident at once, and the assembly's tiles
+    plans = {}
+    for dtype in (torch.float32, torch.float64):
+        for shape in ((2, 300, 300), (1, 1024, 1024), (1, 2048, 2048), SPATIAL_SLAB):
+            key = f"{dtype} " + "x".join(map(str, shape))
+            plans[key] = {"assemble": si_kernel.assemble_plan(*shape, dtype)._asdict()}
+            if shape != SPATIAL_SLAB:
+                plans[key].update(pcg=si_kernel.plane_plan(*shape, dtype)._asdict(),
+                                  resident_blocks=si_kernel.plane_occupancy(dtype))
+    emit({"phase": "plane_plan", "plans": plans})
 
 
 def check_gradients():
@@ -1925,8 +2000,9 @@ def time_kernels():
     table_t = derived_t.to(f32)
     # name -> (kernel of the kernels line, call, kernel, plain version,
     # bound, device kernel names, plain-version repetitions)
-    Hl, Bl, rawl = kernel_inputs(2, 300, 300, f32, seed=13)
-    derived_l = derived_scalars(*(rawl[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+    # (names of their own: the entries' calls read them when the loop runs)
+    Hp, Bp, rawp = kernel_inputs(2, 300, 300, f32, seed=13)
+    derived_p = derived_scalars(*(rawp[:, k] for k in range(7)), PHYS.rho, PHYS.g)
     # the SI backward's inputs: the forward's pre-relu x and the transpose
     # solve's lambda (plain versions), at 4 and 16 glaciers, theta = 1
     gbar = torch.randn(H.shape, generator=torch.Generator().manual_seed(16)).to("cuda")
@@ -1986,11 +2062,11 @@ def time_kernels():
         # the plan gives the cluster kernel: the design the cluster kernel
         # replaced there
         f"si_step large-plane path {N_G}x{NX}x{NY}": (
-            "si_step", lambda f: lambda: f(H, H, B, H, derived, DT, 1.0, 6, exps),
+            "si_plane", lambda f: lambda: f(H, H, B, H, derived, DT, 1.0, 6, exps),
             lambda *a: si_kernel._launch(*a, None), si_kernel.si_step_reference,
             si_bound(N_G, NX, NY, 4, 6), SI_KERNELS, 50),
         "si_step large-plane 2x300x300": (
-            "si_step", lambda f: lambda: f(Hl, Hl, Bl, Hl, derived_l, DT, 1.0, 6, exps),
+            "si_plane", lambda f: lambda: f(Hp, Hp, Bp, Hp, derived_p, DT, 1.0, 6, exps),
             si_kernel.si_step, si_kernel.si_step_reference,
             si_bound(2, 300, 300, 4, 6), SI_KERNELS, 10),
         f"si_step transpose {N_G}x{NX}x{NY} cg_iters=6": (
@@ -2170,6 +2246,18 @@ def time_kernels():
     derived2 = derived_scalars(*(raw2[:, k] for k in range(7)), PHYS.rho, PHYS.g)
     H65, B65 = H2[:, :NX // 2 + 1].contiguous(), B2[:, :NX // 2 + 1].contiguous()
     slab_tag = "x".join(map(str, SPATIAL_SLAB))
+    # phase 15's planes: 1 x 1024^2 (PCG-6 and 12, the transpose at 12, the
+    # assembly alone) and 1 x 2048^2 (PCG-12)
+    n_i, n_b = ICE_SIZES[0][0], ICE_SIZES[1][0]
+    ice_tag, big_tag = f"1x{n_i}x{n_i}", f"1x{n_b}x{n_b}"
+    Hi, Bi, rawi = kernel_inputs(1, n_i, n_i, f32, seed=71)
+    derived_i = derived_scalars(*(rawi[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+    gi = torch.randn(Hi.shape, generator=torch.Generator().manual_seed(72)).to("cuda")
+    xi = si_kernel._si_solve_reference(Hi, Hi, Bi, Hi, derived_i, DT, 1.0, 12, exps)
+    ice_work = {f: torch.zeros((si_math.ROWS_PLANES, 1, n_i, n_i), dtype=f32, device="cuda")
+                for f in (si_kernel.si_assemble, si_kernel.si_assemble_reference)}
+    Hb, Bb, rawb = kernel_inputs(1, n_b, n_b, f32, seed=73)
+    derived_b = derived_scalars(*(rawb[:, k] for k in range(7)), PHYS.rho, PHYS.g)
     entries.update({
         "si_rows_apply": (
             "si_rows_apply", lambda f: lambda: f(rows_work[f], None, beta_r, si_math.ROWS_P2,
@@ -2192,10 +2280,36 @@ def time_kernels():
             si_kernel.si_rows_update, si_kernel.si_rows_update_reference,
             rows_update_bound(n_l, nx_l, ny_l, r1_l - r0_l, 4), ("si_rows_update",), 10),
         f"si_assemble {slab_tag}": (
-            "si_step", lambda f: lambda: (f(rows_work[f], Hr, Hr, Br, Hr, derived_r, DT, 1.0, 0,
-                                            True, exps), rows_work[f][si_math.ROWS_RHS])[1],
+            "si_plane", lambda f: lambda: (f(rows_work[f], Hr, Hr, Br, Hr, derived_r, DT, 1.0, 0,
+                                             True, exps), rows_work[f][si_math.ROWS_RHS])[1],
             si_kernel.si_assemble, si_kernel.si_assemble_reference,
             assemble_bound(n_r, nx_r, NY, 4), ("si_assemble",), 50),
+        f"si_assemble {ice_tag}": (
+            "si_plane", lambda f: lambda: (f(ice_work[f], Hi, Hi, Bi, Hi, derived_i, DT, 1.0, 0,
+                                             True, exps), ice_work[f][si_math.ROWS_RHS])[1],
+            si_kernel.si_assemble, si_kernel.si_assemble_reference,
+            assemble_bound(1, n_i, n_i, 4), ("si_assemble",), 10),
+        # the large-plane path at phase 15's ice-sheet planes
+        "si_plane": (
+            "si_plane", lambda f: lambda: f(Hi, Hi, Bi, Hi, derived_i, DT, 1.0, 12, exps),
+            si_kernel.si_step, si_kernel.si_step_reference,
+            si_bound(1, n_i, n_i, 4, 12), SI_KERNELS, 3),
+        f"si_step {ice_tag} cg_iters=6": (
+            "si_plane", lambda f: lambda: f(Hi, Hi, Bi, Hi, derived_i, DT, 1.0, 6, exps),
+            si_kernel.si_step, si_kernel.si_step_reference,
+            si_bound(1, n_i, n_i, 4, 6), SI_KERNELS, 3),
+        f"si_step transpose {ice_tag} cg_iters=12": (
+            "si_plane", lambda f: lambda: f(gi, xi, Hi, Bi, derived_i, DT, 1.0, 12, exps),
+            si_kernel.si_step_transpose, si_kernel.si_step_transpose_reference,
+            si_transpose_bound(1, n_i, n_i, 4, 12), SI_KERNELS, 3),
+        f"si_step_vjp {ice_tag}": (
+            "si_step_vjp", lambda f: lambda: f(gi, Hi, Hi, Bi, xi, derived_i, DT, 1.0, exps),
+            si_kernel.si_step_vjp, si_kernel.si_step_vjp_reference,
+            si_vjp_bound(1, n_i, n_i, 4, planes_in=4), ("si_step_vjp_kernel",), 10),
+        f"si_step {big_tag} cg_iters=12": (
+            "si_plane", lambda f: lambda: f(Hb, Hb, Bb, Hb, derived_b, DT, 1.0, 12, exps),
+            si_kernel.si_step, si_kernel.si_step_reference,
+            si_bound(1, n_b, n_b, 4, 12), SI_KERNELS, 2),
         f"si_step_vjp {slab_tag}": (
             "si_step_vjp", lambda f: lambda: f(lam_r, Hr, Hr, Br, x_r, derived_r, DT, 1.0, exps),
             si_kernel.si_step_vjp, si_kernel.si_step_vjp_reference,
@@ -3394,43 +3508,67 @@ def lm_gate_phase(device="cuda"):
 
 def lm_gates_worker(argv) -> int:
     """Phase 10's LM gates in a process of their own (``python3
-    chip_smoke.py --lm-gates-worker DIR``, as :func:`start_lm_gates`
-    starts it): :func:`lm_gate_phase` on the card, its line on stdout and
-    its launches in DIR/launches.json."""
+    chip_smoke.py --lm-gates-worker DIR``, as :func:`start_side` starts
+    it): :func:`lm_gate_phase` on the card, its line on stdout and its
+    launches in DIR/launches.json."""
+    return _side_worker(argv, "--lm-gates-worker", lm_gate_phase)
+
+
+def icesheet_worker(argv) -> int:
+    """Phase 15 in a process of its own (``python3 chip_smoke.py
+    --icesheet-worker DIR``): :func:`icesheet_phase` on the card, its lines
+    on stdout, its launches in DIR/launches.json (the large-plane path's
+    under ``si_plane`` alone)."""
+    def phase():
+        launches, plane = icesheet_phase()
+        # every si_step launch of the phase ran csrc/si_plane.cu: it counts
+        # there alone, not again under si_step (csrc/si_step.cu)
+        moved = ("si_step", "si_step_transpose", "si_step_tangent")
+        if sum(launches[k] for k in moved) != plane:
+            raise AssertionError(f"icesheet: {plane} large-plane launches, but si_step's "
+                                 f"wrappers counted {[launches[k] for k in moved]}")
+        return dict(launches, si_plane=plane, **{k: 0 for k in moved})
+
+    return _side_worker(argv, "--icesheet-worker", phase)
+
+
+def _side_worker(argv, flag, phase) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    out_dir = argv[argv.index("--lm-gates-worker") + 1]
-    launches = lm_gate_phase()
+    out_dir = argv[argv.index(flag) + 1]
+    launches = phase()
     with open(os.path.join(out_dir, "launches.json"), "w") as fh:
         json.dump(launches, fh)
     return 0
 
 
-def start_lm_gates():
-    """Start the LM gates' process (:func:`lm_gates_worker`); its log and
-    launches go to a directory of its own. The gates hold one CPU core and
-    leave the card idle most of the time (~190-245 s of host-bound LM
-    iterations at 2 x 36^2), so they run beside phase 3's gradient checks,
-    forward mode's gradient checks and the multi-process phases 12-14,
-    whose ranks are host-bound too, after the phases whose device times
-    they would disturb. Returns (process, directory)."""
+def start_side(flag):
+    """Start ``python3 chip_smoke.py FLAG DIR`` in a process of its own
+    (:func:`lm_gates_worker`, :func:`icesheet_worker`); its log and
+    launches go to a directory of its own. The LM gates hold one CPU core
+    and leave the card idle most of the time (~190-245 s of host-bound LM
+    iterations at 2 x 36^2); phase 15 holds the card for ~20 s. Both run
+    beside phase 3's gradient checks, forward mode's gradient checks and
+    the multi-process phases 12-14, whose ranks are host-bound too, after
+    the phases whose device times they would disturb. Returns (process,
+    directory)."""
     import tempfile
 
-    out_dir = tempfile.mkdtemp(prefix="lm_gates_")
+    out_dir = tempfile.mkdtemp(prefix="side_")
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(out_dir, "log"), "w") as log:
         proc = subprocess.Popen(
-            [sys.executable, os.path.join(here, "chip_smoke.py"), "--lm-gates-worker", out_dir],
+            [sys.executable, os.path.join(here, "chip_smoke.py"), flag, out_dir],
             cwd=here, stdout=log, stderr=subprocess.STDOUT, text=True)
     return proc, out_dir
 
 
-def join_lm_gates(gates) -> dict:
-    """Wait for the LM gates' process (at most LM_GATE_TIMEOUT seconds from
-    now), print its output (the ``lm_gates`` line) and return its launches;
-    raise when it failed or timed out."""
-    proc, out_dir = gates
+def join_side(side, what) -> dict:
+    """Wait for a side process (at most LM_GATE_TIMEOUT seconds from now),
+    print its output (the ``lm_gates`` or ``icesheet`` lines) and return its
+    launches; raise when it failed or timed out."""
+    proc, out_dir = side
     try:
         rc = proc.wait(timeout=LM_GATE_TIMEOUT)
     except subprocess.TimeoutExpired:
@@ -3440,17 +3578,17 @@ def join_lm_gates(gates) -> dict:
     sys.stdout.write(out)
     sys.stdout.flush()
     if rc != 0:
-        raise AssertionError(f"LM gates: the gates' process "
+        raise AssertionError(f"{what}: the side process "
                              f"{'timed out' if rc is None else f'exited with {rc}'}")
     with open(os.path.join(out_dir, "launches.json")) as fh:
         return json.load(fh)
 
 
-def stop_lm_gates(gates) -> None:
-    """End the LM gates' process if it still runs, and remove its directory."""
+def stop_side(side) -> None:
+    """End a side process if it still runs, and remove its directory."""
     import shutil
 
-    proc, out_dir = gates
+    proc, out_dir = side
     if proc.poll() is None:
         proc.kill()
     proc.wait()
@@ -5723,6 +5861,209 @@ def spatial_phase():
     return total
 
 
+def icesheet_params(t0, years):
+    """Phase 15's parameters: benchmarks/icesheet_scale.py's params_for."""
+    from odinn_tpu_torch.core.params import (
+        Parameters, PhysicalParameters, SimulationParameters, SolverParameters, UDEParameters)
+
+    return Parameters(
+        physical=PhysicalParameters(min_A=8e-21, max_A=8e-18),
+        simulation=SimulationParameters(tspan=(t0, t0 + years), use_MB=False,
+                                        use_velocities=False, float_dtype="float32"),
+        solver=SolverParameters(solver="SI2", step=1.0 / 12.0, substeps=1, cg_iters=12,
+                                cg_iters_predictor=6),
+        UDE=UDEParameters(grad="jax"))
+
+
+def icesheet_batch(n, t0, dtype):
+    """The dome on an n x n grid on the card, every field in ``dtype``
+    (halfar_glacier builds in float64 and casts): the benchmark's float32
+    on a TPU, where JAX runs without x64. (Cast H0 and B alone, the batch
+    keeps float64 spacings, which promote the unfused path's stencils to
+    float64.)"""
+    from odinn_tpu_torch.core.glacier import stack_glaciers
+    from odinn_tpu_torch.data.synthetic import halfar_glacier
+
+    dx = 2.56 * ICE_R0 / n
+    g = halfar_glacier(nx=n, ny=n, dx=dx, dy=dx, r0=ICE_R0, h0=ICE_H0, A=ICE_A, temp=ICE_TEMP,
+                       t_ic=t0, rgi_id=f"icesheet-{n}", device="cuda", dtype=dtype)
+    return stack_glaciers([g], device="cuda")
+
+
+def icesheet_phase():
+    """Phase 15: the ice-sheet domain through the public entry points
+    (``forward_batch``, the classical inversion's ``batch_transient_loss``
+    and its autograd gradient) on the large-plane path. At 1024^2: the
+    10-year forward (240 si_step launches, asserted, each one launch of the
+    large-plane path), its final H against the port's float64 run on the
+    unfused path (within 2x the float32 unfused run's error, as
+    main_path_rows holds a row), timed and profiled; one loss and gradient
+    of the scalar-A inversion against observations at the span's ends from
+    the forward at 1.2 A, timed; and over the first ICE_GRAD_INTERVALS the
+    same gradient by the kernels against the unfused path's float64
+    gradient (float64 to TOL_GRAD_F64, float32 within GRAD_F32_FACTOR times
+    the float32 unfused run's error), with the kernels' max |dH| there. At
+    2048^2: one year, 24 launches, timed. Returns the launches of the runs
+    the phase asserts, by wrapper, and the large-plane path's."""
+    from odinn_tpu_torch.core.glacier import ThicknessData
+    from odinn_tpu_torch.data.halfar import HalfarParameters, halfar_t0
+    from odinn_tpu_torch.laws.laws import ConstantA, LawA_inversion
+    from odinn_tpu_torch.models.model import Model, SIA2DModel
+    from odinn_tpu_torch.ops.cuda import si_kernel
+    from odinn_tpu_torch.simulation.inversion import batch_transient_loss
+    from odinn_tpu_torch.simulation.prediction import forward_batch
+    from odinn_tpu_torch.simulation.solver import build_tstops
+
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    counters = kernel_counters()
+    none = {k: 0 for k in counters}
+    total, plane = dict(none), 0
+    t0 = halfar_t0(HalfarParameters(R0=ICE_R0, H0=ICE_H0, A=ICE_A, n=3.0))
+
+    def unfused(law):
+        # evaluated at every RHS call: the solve takes the plain PyTorch path
+        return dataclasses.replace(law, callback_freq=None)
+
+    def counted(fn, expected, plane_expected, what):
+        nonlocal plane
+        _reset(counters)
+        si_kernel.si_step.plane_launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got, got_plane = _read(counters), si_kernel.si_step.plane_launches
+        if got != dict(none, **expected) or got_plane != plane_expected:
+            raise AssertionError(f"icesheet {what}: launches {got} ({got_plane} on the "
+                                 f"large-plane path), expected {expected} ({plane_expected})")
+        _add(total, got)
+        plane += got_plane
+        return out
+
+    def loss_and_grad(batch, model, params, tstops, dtype):
+        theta = {"A": torch.zeros(1, dtype=dtype, device="cuda", requires_grad=True)}
+        val = batch_transient_loss(theta, batch, model, params, tstops)
+        (g,) = torch.autograd.grad(val, [theta["A"]])
+        return val.detach(), g
+
+    def observed(batch, truth, tstops):
+        obs = ThicknessData(t=torch.stack([tstops[0], tstops[-1]]).to("cuda", f64).reshape(1, 2),
+                            H=torch.stack([truth[:, 0], truth[:, -1]], dim=1))
+        return dataclasses.replace(batch, thickness_data=obs)
+
+    model = Model(iceflow=SIA2DModel(A=ConstantA(ICE_A)))
+    for n, years in ICE_SIZES:
+        t_row = time.perf_counter()
+        path = si_kernel.si_plan(1, n, n, f32).path
+        if path != "large-plane":
+            raise AssertionError(f"icesheet {n}^2: si_step takes {path}, not the large-plane path")
+        params = icesheet_params(t0, years)
+        tstops = build_tstops((t0, t0 + years), 1.0 / 12.0)
+        n_int = len(tstops) - 1
+        batch = icesheet_batch(n, t0, f32)
+        fwd = lambda: forward_batch(None, batch, model, params, tstops, device="cuda")
+        H = counted(fwd, {"si_step": 2 * n_int}, 2 * n_int, f"{n}^2 forward")
+        if tuple(H.shape) != (1, n_int + 1, n, n) or not torch.isfinite(H).all():
+            raise AssertionError(f"icesheet {n}^2: trajectory {tuple(H.shape)} not finite")
+        # the profiler can lose a device record, never add one (complete_profile)
+        want = {"si_assemble": 2 * n_int, "si_pcg": 2 * n_int}
+        busy_ms, _, by_name, profiles = complete_profile(fwd, 1, SI_KERNELS,
+                                                         lambda seen: seen == want)
+        row = {"phase": "icesheet", "n": n, "years": years, "dx_m": 2.56 * ICE_R0 / n,
+               "t0_years": t0, "dtype": str(f32), "path": path,
+               "plan": si_kernel.plane_plan(1, n, n, f32)._asdict(),
+               "assemble_plan": si_kernel.assemble_plan(1, n, n, f32)._asdict(),
+               "launches": {"si_step": 2 * n_int}, "plane_launches": 2 * n_int,
+               "times_beside": ICE_TIMES_BESIDE,
+               "ms": row_ms(fwd, reps=3), "kernel_device_ms": busy_ms,
+               "kernel_launches_by_name": by_name, "profiles": profiles,
+               "device_busy_ms": device_ms(fwd, 1),
+               "max_H_end_m": float(H[0, -1].max())}
+        row["device_idle_share"] = 1.0 - row["device_busy_ms"] / row["ms"]
+        if set(by_name) != set(want) or any(not 0 < by_name[k] <= want[k] for k in want):
+            raise AssertionError(f"icesheet {n}^2: device kernels {by_name} in profile "
+                                 f"{profiles} of at most {PROFILES}, expected {want}")
+        if row["max_H_end_m"] <= 0.5 * ICE_H0:
+            raise AssertionError(f"icesheet {n}^2: the dome collapsed: {row}")
+        if n == ICE_SIZES[0][0]:
+            plain = Model(iceflow=SIA2DModel(A=unfused(ConstantA(ICE_A))))
+            plain32 = counted(lambda: forward_batch(None, batch, plain, params, tstops,
+                                                    device="cuda"), {}, 0, "plain forward")
+            batch64 = icesheet_batch(n, t0, f64)
+            plain64 = counted(lambda: forward_batch(None, batch64, plain, params, tstops,
+                                                    device="cuda"), {}, 0, "plain forward")
+            row["final_H_rel_err_vs_f64_plain"] = rel_err(H[:, -1], plain64[:, -1])
+            row["f32_plain_final_H_rel_err_vs_f64_plain"] = rel_err(plain32[:, -1],
+                                                                    plain64[:, -1])
+            row["kernel_vs_f32_plain_rel_err"] = rel_err(H[:, -1], plain32[:, -1])
+            del plain32, plain64
+            # the scalar-A inversion against the forward at 1.2 A, whole span
+            truth = forward_batch(None, batch, Model(iceflow=SIA2DModel(A=ConstantA(1.2 * ICE_A))),
+                                  params, tstops, device="cuda")
+            obs = observed(batch, truth, tstops)
+            del truth
+            inv = Model(iceflow=SIA2DModel(A=LawA_inversion(params, scalar=True)))
+            loss, grad = counted(lambda: loss_and_grad(obs, inv, params, tstops, f32),
+                                 {"si_step": 2 * n_int, "si_step_transpose": 2 * n_int,
+                                  "si_step_vjp": 2 * n_int}, 4 * n_int, "loss and gradient")
+            row["loss"], row["grad_A"] = float(loss), float(grad[0])
+            vg = lambda: loss_and_grad(obs, inv, params, tstops, f32)
+            row["loss_grad_ms"] = row_ms(vg, reps=3)
+            # the gradient's device time by kernel: the large-plane forward
+            # and transpose solves (si_assemble, si_pcg) and the pullback,
+            # whose cluster plan gives the glacier 16 blocks (si_vjp_plan)
+            row["loss_grad_device_ms"], _, _, row["loss_grad_kernel_ms"] = device_profile(
+                vg, 1, SI_KERNELS + ("si_step_vjp_kernel",), ms_by_name=True)
+            row["vjp_plan"] = si_kernel.si_vjp_plan(1, n, n, f32).layout._asdict()
+            # the depth cut: the first ICE_GRAD_INTERVALS intervals
+            cut = tstops[:ICE_GRAD_INTERVALS + 1]
+            c_int = len(cut) - 1
+            truth = forward_batch(None, batch, Model(iceflow=SIA2DModel(A=ConstantA(1.2 * ICE_A))),
+                                  params, cut, device="cuda")
+            obs32, obs64 = observed(batch, truth, cut), observed(batch64, truth.double(), cut)
+            inv_plain = Model(iceflow=SIA2DModel(A=unfused(LawA_inversion(params, scalar=True))))
+            grad_launches = {"si_step": 2 * c_int, "si_step_transpose": 2 * c_int,
+                             "si_step_vjp": 2 * c_int}
+            grads = {
+                "kernel_f32": counted(lambda: loss_and_grad(obs32, inv, params, cut, f32),
+                                      grad_launches, 4 * c_int, "cut gradient")[1],
+                "kernel_f64": counted(lambda: loss_and_grad(obs64, inv, params, cut, f64),
+                                      grad_launches, 4 * c_int, "cut gradient")[1],
+                "plain_f32": counted(lambda: loss_and_grad(obs32, inv_plain, params, cut, f32),
+                                     {}, 0, "cut plain gradient")[1],
+                "plain_f64": counted(lambda: loss_and_grad(obs64, inv_plain, params, cut, f64),
+                                     {}, 0, "cut plain gradient")[1],
+            }
+            ref = grads["plain_f64"]
+            h_cut = forward_batch(None, batch, model, params, cut, device="cuda")
+            h_ref = forward_batch(None, batch64, Model(iceflow=SIA2DModel(
+                A=unfused(ConstantA(ICE_A)))), params, cut, device="cuda")
+            row["cut"] = {
+                "intervals": c_int, "grad_A": {k: float(v[0]) for k, v in grads.items()},
+                "float64_rel_err": rel_err(grads["kernel_f64"], ref), "tol": TOL_GRAD_F64,
+                "float32_rel_err": rel_err(grads["kernel_f32"], ref),
+                "f32_plain_rel_err": rel_err(grads["plain_f32"], ref),
+                "factor": GRAD_F32_FACTOR,
+                "max_abs_dH_m_vs_f64_plain": float((h_cut.double() - h_ref).abs().max())}
+            c = row["cut"]
+            ok = (row["final_H_rel_err_vs_f64_plain"]
+                  <= 2.0 * row["f32_plain_final_H_rel_err_vs_f64_plain"]
+                  and c["float64_rel_err"] <= TOL_GRAD_F64
+                  and c["float32_rel_err"] <= GRAD_F32_FACTOR * c["f32_plain_rel_err"]
+                  and all(torch.isfinite(g).all() and g.abs().max() > 0 for g in grads.values())
+                  and math.isfinite(row["loss"]) and math.isfinite(row["grad_A"]))
+            if not ok:
+                emit(row)
+                raise AssertionError(f"icesheet {n}^2 disagrees with the plain path: {row}")
+            del batch64, obs, obs32, obs64, truth, h_cut, h_ref
+        row["seconds"] = time.perf_counter() - t_row
+        emit(row)
+        del batch, H
+        torch.cuda.empty_cache()
+    emit({"phase": "icesheet_done", "seconds": time.perf_counter() - t_phase,
+          "launches": total, "plane_launches": plane})
+    return total, plane
+
+
 def _tree_to(tree, device, dtype, requires_grad=False):
     """θ on ``device`` in ``dtype`` (None: its own), a copy (leaves
     requiring grad when asked)."""
@@ -5742,6 +6083,8 @@ def main() -> int:
         return spatial_worker(sys.argv[1:])
     if "--lm-gates-worker" in sys.argv:
         return lm_gates_worker(sys.argv[1:])
+    if "--icesheet-worker" in sys.argv:
+        return icesheet_worker(sys.argv[1:])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from odinn_tpu_torch.ops.cuda.build import build_all
 
@@ -5801,7 +6144,9 @@ def main() -> int:
     for name, n in ensemble_phase().items():
         launches[name] += n
     marks.append(("ensembles", time.perf_counter()))
-    gates = start_lm_gates()
+    gates = start_side("--lm-gates-worker")
+    ice = start_side("--icesheet-worker")
+    launches["si_plane"] = 0
     try:
         # phase 3's gradient checks: correctness only, so beside the gates
         check_gradients()
@@ -5823,11 +6168,15 @@ def main() -> int:
         for name, n in spatial_phase().items():
             launches[name] += n
         marks.append(("spatial", time.perf_counter()))
-        for name, n in join_lm_gates(gates).items():
+        for name, n in join_side(gates, "LM gates").items():
             launches[name] += n
         marks.append(("lm_gates_wait", time.perf_counter()))
+        for name, n in join_side(ice, "icesheet").items():
+            launches[name] += n
+        marks.append(("icesheet_wait", time.perf_counter()))
     finally:
-        stop_lm_gates(gates)
+        stop_side(gates)
+        stop_side(ice)
     meta = {
         "si_step": ("odinn_tpu_torch/csrc/si_step.cu", "odinn_tpu/ops/pallas/si_kernel.py:174"),
         "sia2d_rhs": ("odinn_tpu_torch/csrc/sia2d_rhs.cu", "odinn_tpu/ops/pallas/sia_kernel.py:137"),
@@ -5846,8 +6195,13 @@ def main() -> int:
         # jax.jvp of its production RHS (and of make_rkc2_step's stages)
         "sia2d_rhs_jvp": ("odinn_tpu_torch/csrc/sia2d_rhs_jvp.cu",
                           "jax.jvp of odinn_tpu/physics/sia2d.py:63 (sia2d_rhs)"),
+        # si_step_pallas at the planes no cluster holds: the large-plane
+        # path (si_assemble, then the cooperative si_pcg), its launches
+        # those of phase 15, where every si_step takes it; the rows axis's
+        # si_assemble launches alone are under si_step's assemble_launches
+        "si_plane": ("odinn_tpu_torch/csrc/si_plane.cu", "odinn_tpu/ops/pallas/si_kernel.py:174"),
         # the PCG of si_step_pallas, split at its two reductions for the
-        # rows axis (its assembly is si_step.cu's si_assemble, under si_step)
+        # rows axis (its assembly is si_plane.cu's si_assemble)
         "si_rows_apply": ("odinn_tpu_torch/csrc/si_rows.cu",
                           "odinn_tpu/ops/pallas/si_kernel.py:174"),
         "si_rows_update": ("odinn_tpu_torch/csrc/si_rows.cu",

@@ -3,9 +3,9 @@
 //
 // On a rows mesh (odinn_tpu_torch/parallel/spatial.py) a rank holds its own
 // rows [r0, r1) of each glacier's plane inside a slab with up to two ghost
-// rows on each side. The step's assembly is csrc/si_step.cu's si_assemble,
-// unchanged, on that slab (D's corners, b and the inverse Jacobi diagonal
-// into the first planes of a scratch of the Plane layout). The PCG cannot
+// rows on each side. The step's assembly is csrc/si_plane.cu's si_assemble
+// on that slab (D's corners, b and the inverse Jacobi diagonal into the
+// first planes of a scratch of the Plane layout). The PCG cannot
 // run in one launch, as the TPU kernel odinn_tpu/ops/pallas/si_kernel.py::
 // si_step_pallas and si_step_cluster run it: its two dot products span
 // every rank of the row group, and p needs its neighbours' rows each
@@ -100,8 +100,8 @@ constexpr int kBarBytes = 16;
 constexpr int kHeadValues = 32;
 static_assert(kMaxCluster + kMaxWarps <= kHeadValues, "the head holds the slots and partials");
 
-// Scratch planes, each (n_g, nx, ny): si_step.cu's Plane layout, then z and
-// a second p (ops/si_math.py, ROWS_*).
+// Scratch planes, each (n_g, nx, ny): si_plane.cu's Plane layout up to Ap,
+// then z and a second p (ops/si_math.py, ROWS_*).
 enum Plane { kD = 0, kRhs, kInvDiag, kX, kR, kP, kAp, kZ, kP2, kPlanes };
 
 template <typename T, bool kVec>

@@ -96,18 +96,11 @@
 // (_cg without precond): the rematerialised step from H0 and the adjoint
 // solve from gbar*[x > 0].
 //
-// The row-sharded step (ops/cuda/si_kernel.py::si_rows_step) launches
-// si_assemble alone on a rank's slab of rows (si_assemble_f32/f64 below),
-// then the PCG of csrc/si_rows.cu with the host's exchanges between.
-//
-// The large-plane path (si_assemble + si_pcg), for planes whose layout does
-// not fit a cluster (more than 8 cells a thread or 227 KB of shared memory
-// a block): an assembly kernel over the whole batch (D, b, inverse
-// diagonal into a global scratch buffer; each interior cell forms its four
-// corners with corner_D and the step's exponent set), then one 1024-thread
-// block per glacier running the PCG recursion with its vectors in that
-// buffer (L2 at the sizes it serves) and fixed-order block reductions. The
-// plan takes it by shape alone.
+// A plane whose layout fits no cluster (more than 8 cells a thread or
+// 227 KB of shared memory a block) takes the large-plane path of
+// csrc/si_plane.cu, an assembly over tiles and one cooperative PCG launch
+// across the card, whose assembly alone is also the row-sharded step's
+// first launch; the plan chooses by shape alone.
 #include <cooperative_groups.h>
 
 #include "cluster_exchange.cuh"
@@ -557,289 +550,6 @@ int occupancy(const Shape& sh, int* active) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// ---------------------------------------------------------------------------
-// The large-plane path: assembly kernel + one PCG block per glacier
-// ---------------------------------------------------------------------------
-
-// 32 x 32 threads: thread (ty, tx) owns the cells (ty + 32a, tx + 32b).
-constexpr int kTile = 32;
-constexpr int kPcgThreads = kTile * kTile;
-
-// Scratch planes, each (n_g, nx, ny).
-enum Plane { kD = 0, kRhs, kInvDiag, kX, kR, kP, kAp, kPlanes };
-
-template <typename T>
-struct Faces {
-  T xe, xw, yn, ys;   // face diffusivities: x east/west, y north/south
-};
-
-// Face diffusivities of an interior cell from its four corners
-// d00 = D(i-1, j-1), d01 = D(i-1, j), d10 = D(i, j-1), d11 = D(i, j).
-template <typename T>
-__device__ __forceinline__ Faces<T> faces_of(T d00, T d01, T d10, T d11) {
-  return {T(0.5) * (d10 + d11), T(0.5) * (d00 + d01), T(0.5) * (d01 + d11),
-          T(0.5) * (d00 + d10)};
-}
-
-// Face diffusivities of interior cell (i, j) from the corner D plane.
-template <typename T>
-__device__ __forceinline__ Faces<T> faces(const T* __restrict__ D, int ny, int i, int j) {
-  const long r0 = static_cast<long>(i - 1) * ny, r1 = static_cast<long>(i) * ny;
-  return faces_of(D[r0 + j - 1], D[r0 + j], D[r1 + j - 1], D[r1 + j]);
-}
-
-// One thread per cell: its own corner D(i, j) into the corner plane, when
-// it has one, and b and the inverse diagonal. An interior cell forms its
-// three other corners itself, as no barrier spans the grid. In the transpose
-// mode H is gbar, X the forward's x, and b = gbar*[x > 0], which si_pcg
-// also takes as its guess; in the tangent mode H is rdot, which is b. Without
-// kJ the inverse diagonal is 1.
-template <typename T, class E, int kMode, bool kJ>
-__global__ void __launch_bounds__(256)
-si_assemble(const T* __restrict__ H, const T* __restrict__ HD,
-            const T* __restrict__ B, const T* __restrict__ X, const T* __restrict__ table,
-            T* __restrict__ work, int n_g, int nx, int ny, T dt, T dt_eff,
-            T one_minus_theta, E e) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= nx || j >= ny) return;
-  const long plane = static_cast<long>(nx) * ny;
-  const long batch = plane * n_g;
-  const long off = static_cast<long>(blockIdx.z) * plane;
-  const long c = static_cast<long>(i) * ny + j;
-  const long g = off + c;
-  const Recip<T> k = odinn::recip_row(table + 4L * blockIdx.z);
-  const T* h = H + off;
-  const T* b = B + off;
-  T* __restrict__ D = work + kD * batch + off;
-  T* __restrict__ rhs = work + kRhs * batch + off;
-  T* __restrict__ inv_diag = work + kInvDiag * batch + off;
-
-  constexpr bool kT = kMode == kTranspose;
-  const bool own_corner = i < nx - 1 && j < ny - 1;
-  const T d11 = own_corner ? corner_at(HD, B, g, ny, k, e) : T(0);
-  if (own_corner) D[c] = d11;
-  const T gc = kT ? (X[g] > T(0) ? h[c] : T(0)) : T(0);
-  if (i == 0 || j == 0 || i == nx - 1 || j == ny - 1) {
-    rhs[c] = kT ? gc : h[c];
-    inv_diag[c] = T(1);
-    return;
-  }
-  const Faces<T> f = faces_of(corner_at(HD, B, g - ny - 1, ny, k, e),
-                              corner_at(HD, B, g - ny, ny, k, e),
-                              corner_at(HD, B, g - 1, ny, k, e), d11);
-  // u = B + ring*H + (1-theta)*interior*H on the 5 points
-  auto u = [&](int di, int dj) {
-    const int ii = i + di, jj = j + dj;
-    const long cc = static_cast<long>(ii) * ny + jj;
-    const bool in = ii > 0 && jj > 0 && ii < nx - 1 && jj < ny - 1;
-    return in ? b[cc] + one_minus_theta * h[cc] : b[cc] + h[cc];
-  };
-  if (kT) {
-    rhs[c] = gc;
-  } else if (kMode == kTangent) {
-    rhs[c] = h[c];
-  } else {
-    const T div = div_faces(f.xe, f.xw, f.yn, f.ys, u(0, 0), u(1, 0), u(-1, 0), u(0, 1),
-                            u(0, -1), k.inv_dx, k.inv_dy);
-    rhs[c] = h[c] + dt * div;
-  }
-  if (kJ) {
-    const T sx = (f.xw + f.xe) * (k.inv_dx * k.inv_dx);
-    const T sy = (f.ys + f.yn) * (k.inv_dy * k.inv_dy);
-    inv_diag[c] = T(1) / (T(1) + dt_eff * (sx + sy));
-  } else {
-    inv_diag[c] = T(1);
-  }
-}
-
-// Sum over the block in a fixed order: registers, warp shuffles, then the
-// per-warp partials in shared memory. Every thread gets the total.
-template <typename T>
-__device__ __forceinline__ T block_sum(T v, T* sh) {
-  constexpr int kWarps = kPcgThreads / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if (lane == 0) sh[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < kWarps ? sh[lane] : T(0);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) sh[kWarps] = v;
-  }
-  __syncthreads();
-  const T total = sh[kWarps];
-  __syncthreads();
-  return total;
-}
-
-// A u = u - theta*dt*M*div(D grad(M u)) at cell (i, j); M masks the ring.
-template <typename T>
-__device__ __forceinline__ T matvec(const T* __restrict__ u,
-                                    const T* __restrict__ D, int nx, int ny,
-                                    int i, int j, T coef, const Recip<T>& k) {
-  const long c = static_cast<long>(i) * ny + j;
-  if (i == 0 || j == 0 || i == nx - 1 || j == ny - 1) return u[c];
-  auto m = [&](int ii, int jj) {
-    const bool in = ii > 0 && jj > 0 && ii < nx - 1 && jj < ny - 1;
-    return in ? u[static_cast<long>(ii) * ny + jj] : T(0);
-  };
-  const Faces<T> f = faces(D, ny, i, j);
-  const T div = div_faces(f.xe, f.xw, f.yn, f.ys, u[c], m(i + 1, j), m(i - 1, j),
-                          m(i, j + 1), m(i, j - 1), k.inv_dx, k.inv_dy);
-  return u[c] - coef * div;
-}
-
-// kMode: the forward writes relu(x) and, when xout is given, the pre-relu
-// x; the transpose mode writes x; the tangent mode x*[xout > 0], xout the
-// forward's x. kJ: Jacobi-preconditioned; without it z is r.
-template <typename T, int kMode, bool kJ>
-__global__ void __launch_bounds__(kPcgThreads)
-si_pcg(const T* __restrict__ x0, const T* __restrict__ table, T* work,
-       T* __restrict__ out, T* __restrict__ xout, int n_g, int nx, int ny, T coef,
-       int cg_iters) {
-  __shared__ T sh[kPcgThreads / 32 + 1];
-  const long plane = static_cast<long>(nx) * ny;
-  const long batch = plane * n_g;
-  const long off = static_cast<long>(blockIdx.x) * plane;
-  const Recip<T> k = odinn::recip_row(table + 4L * blockIdx.x);
-  // the scratch planes are disjoint: restrict views let loads move above
-  // earlier stores to other planes
-  const T* __restrict__ D = work + kD * batch + off;
-  const T* __restrict__ rhs = work + kRhs * batch + off;
-  const T* __restrict__ inv = work + kInvDiag * batch + off;
-  T* __restrict__ x = work + kX * batch + off;
-  T* __restrict__ r = work + kR * batch + off;
-  T* __restrict__ p = work + kP * batch + off;
-  T* __restrict__ Ap = work + kAp * batch + off;
-  const T* __restrict__ xs = x0 + off;
-  const T tiny = static_cast<T>(1e-300);   // 0 in float32, as in the reference
-
-  const int ty = threadIdx.x / kTile, tx = threadIdx.x % kTile;
-// every cell (i, j) this thread owns, row by row; the inner loop is
-// unrolled so that its loads are in flight together
-#define FOR_OWN_CELLS(...)                                    \
-  for (int i = ty; i < nx; i += kTile) {                      \
-    _Pragma("unroll 4")                                       \
-    for (int j = tx; j < ny; j += kTile) {                    \
-      const long c = static_cast<long>(i) * ny + j;           \
-      __VA_ARGS__                                             \
-    }                                                         \
-  }
-
-  // r0 = b - A x0, z0 = r0/diag, p0 = z0
-  T acc = T(0);
-  FOR_OWN_CELLS({
-    const T rc = rhs[c] - matvec(xs, D, nx, ny, i, j, coef, k);
-    const T zc = kJ ? rc * inv[c] : rc;
-    x[c] = xs[c];
-    r[c] = rc;
-    p[c] = zc;
-    acc += rc * zc;
-  })
-  T rz = block_sum(acc, sh);
-
-  for (int it = 0; it < cg_iters; ++it) {
-    acc = T(0);
-    FOR_OWN_CELLS({
-      const T a = matvec(p, D, nx, ny, i, j, coef, k);
-      Ap[c] = a;
-      acc += p[c] * a;
-    })
-    const T denom = block_sum(acc, sh);
-    const T alpha = denom > T(0) ? rz / fmax(denom, tiny) : T(0);
-    acc = T(0);
-    FOR_OWN_CELLS({
-      x[c] = x[c] + alpha * p[c];
-      const T rc = r[c] - alpha * Ap[c];
-      r[c] = rc;
-      acc += rc * (kJ ? rc * inv[c] : rc);
-    })
-    const T rz_new = block_sum(acc, sh);
-    const T beta = rz > T(0) ? rz_new / fmax(rz, tiny) : T(0);
-    FOR_OWN_CELLS({ p[c] = (kJ ? r[c] * inv[c] : r[c]) + beta * p[c]; })
-    rz = rz_new;
-    __syncthreads();   // the next matvec reads the neighbours' p
-  }
-  FOR_OWN_CELLS({
-    if (kMode == kForward) {
-      out[off + c] = relu(x[c]);
-      if (xout != nullptr) xout[off + c] = x[c];
-    } else if (kMode == kTangent) {
-      out[off + c] = xout[off + c] > T(0) ? x[c] : T(0);
-    } else {
-      out[off + c] = x[c];
-    }
-  })
-#undef FOR_OWN_CELLS
-}
-
-template <typename T, class E, int kMode, bool kJ>
-int launch_split_mode(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(32, 8);
-  const dim3 grid((a.ny + block.x - 1) / block.x, (a.nx + block.y - 1) / block.y, n_g);
-  si_assemble<T, E, kMode, kJ><<<grid, block, 0, s>>>(
-      a.H, a.HD, a.B, a.x0, a.table, work, n_g, a.nx, a.ny, static_cast<T>(a.dt),
-      static_cast<T>(a.theta * a.dt), static_cast<T>(1.0 - a.theta), e);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // the transpose mode's guess is its right-hand side, the assembled b
-  const T* guess =
-      kMode == kTranspose ? work + static_cast<long>(kRhs) * n_g * a.nx * a.ny : a.x0;
-  si_pcg<T, kMode, kJ><<<n_g, kPcgThreads, 0, s>>>(guess, a.table, work, a.out, a.xout, n_g,
-                                                a.nx, a.ny, static_cast<T>(a.theta * a.dt),
-                                                a.cg_iters);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The assembly alone (the row-sharded step's, ops/cuda/si_kernel.py::
-// si_assemble): D, b and the inverse diagonal into `work`, the first three
-// planes of a scratch of the Plane layout.
-template <typename T, class E, int kMode, bool kJ>
-int launch_assemble_mode(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((a.ny + block.x - 1) / block.x, (a.nx + block.y - 1) / block.y, n_g);
-  si_assemble<T, E, kMode, kJ><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      a.H, a.HD, a.B, a.x0, a.table, work, n_g, a.nx, a.ny, static_cast<T>(a.dt),
-      static_cast<T>(a.theta * a.dt), static_cast<T>(1.0 - a.theta), e);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, class E, int kMode>
-int launch_assemble_pre(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
-  return a.precondition ? launch_assemble_mode<T, E, kMode, true>(a, e, work, n_g, stream)
-                        : launch_assemble_mode<T, E, kMode, false>(a, e, work, n_g, stream);
-}
-
-template <typename T, class E>
-int launch_assemble(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
-  switch (a.mode) {
-    case kForward: return launch_assemble_pre<T, E, kForward>(a, e, work, n_g, stream);
-    case kTranspose: return launch_assemble_pre<T, E, kTranspose>(a, e, work, n_g, stream);
-    case kTangent: return launch_assemble_pre<T, E, kTangent>(a, e, work, n_g, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <typename T, class E, int kMode>
-int launch_split_pre(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
-  return a.precondition ? launch_split_mode<T, E, kMode, true>(a, e, work, n_g, stream)
-                        : launch_split_mode<T, E, kMode, false>(a, e, work, n_g, stream);
-}
-
-template <typename T, class E>
-int launch_split(const StepArgs<T>& a, E e, T* work, int n_g, void* stream) {
-  switch (a.mode) {
-    case kForward: return launch_split_pre<T, E, kForward>(a, e, work, n_g, stream);
-    case kTranspose: return launch_split_pre<T, E, kTranspose>(a, e, work, n_g, stream);
-    case kTangent: return launch_split_pre<T, E, kTangent>(a, e, work, n_g, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 template <typename T>
 StepArgs<T> step_args(const T* H, const T* HD, const T* B, const T* x0, const T* table,
                       T* out, T* xout, int nx, int ny, double dt, double theta, int cg_iters,
@@ -899,62 +609,4 @@ extern "C" int si_step_occupancy(int f64, int glen, int cluster, int bx, int by,
   }
   return with_exps<float>(glen, 0, 0, 0, 0,
                           [&](auto e) { return occupancy<float, decltype(e)>(sh, active); });
-}
-
-// The large-plane path; `work` holds 7 planes of the batch's shape. `xout`,
-// `mode`, `precondition`, `glen` and e_* as for the cluster kernel.
-extern "C" int si_step_split_f32(const float* H, const float* HD, const float* B,
-                                 const float* x0, const float* table, float* work, float* out,
-                                 float* xout, int n_g, int nx, int ny, double dt, double theta,
-                                 int cg_iters, int mode, int precondition, int glen,
-                                 double e_hc, double e_sc, double e_hs, double e_ss,
-                                 void* stream) {
-  const StepArgs<float> a =
-      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, mode,
-                precondition);
-  return with_exps<float>(glen, e_hc, e_sc, e_hs, e_ss,
-                          [&](auto e) { return launch_split<float>(a, e, work, n_g, stream); });
-}
-
-extern "C" int si_step_split_f64(const double* H, const double* HD, const double* B,
-                                 const double* x0, const double* table, double* work,
-                                 double* out, double* xout, int n_g, int nx, int ny, double dt,
-                                 double theta, int cg_iters, int mode, int precondition,
-                                 int glen, double e_hc, double e_sc, double e_hs, double e_ss,
-                                 void* stream) {
-  const StepArgs<double> a =
-      step_args(H, HD, B, x0, table, out, xout, nx, ny, dt, theta, cg_iters, mode,
-                precondition);
-  return with_exps<double>(glen, e_hc, e_sc, e_hs, e_ss,
-                           [&](auto e) { return launch_split<double>(a, e, work, n_g, stream); });
-}
-
-// The assembly alone into `work` (planes of the batch's shape, the Plane
-// layout's D, b and inverse diagonal written): the row-sharded step's
-// first launch. `X` is the forward's x in the transpose mode (b =
-// H*[X > 0]) and unread otherwise; `mode`, `precondition`, `glen` and e_*
-// as for the cluster kernel.
-extern "C" int si_assemble_f32(const float* H, const float* HD, const float* B, const float* X,
-                               const float* table, float* work, int n_g, int nx, int ny,
-                               double dt, double theta, int mode, int precondition, int glen,
-                               double e_hc, double e_sc, double e_hs, double e_ss,
-                               void* stream) {
-  const StepArgs<float> a =
-      step_args<float>(H, HD, B, X, table, nullptr, nullptr, nx, ny, dt, theta, 0, mode,
-                     precondition);
-  return with_exps<float>(glen, e_hc, e_sc, e_hs, e_ss,
-                          [&](auto e) { return launch_assemble<float>(a, e, work, n_g, stream); });
-}
-
-extern "C" int si_assemble_f64(const double* H, const double* HD, const double* B,
-                               const double* X, const double* table, double* work, int n_g,
-                               int nx, int ny, double dt, double theta, int mode,
-                               int precondition, int glen, double e_hc, double e_sc,
-                               double e_hs, double e_ss, void* stream) {
-  const StepArgs<double> a =
-      step_args<double>(H, HD, B, X, table, nullptr, nullptr, nx, ny, dt, theta, 0, mode,
-                     precondition);
-  return with_exps<double>(glen, e_hc, e_sc, e_hs, e_ss, [&](auto e) {
-    return launch_assemble<double>(a, e, work, n_g, stream);
-  });
 }

@@ -1,5 +1,5 @@
 // Device helpers shared by the SIA2D kernels (sia2d_rhs.cu, si_step.cu,
-// rkc_interval.cu, sia2d_rhs_vjp.cu).
+// si_plane.cu, rkc_interval.cu, sia2d_rhs_vjp.cu).
 //
 // Planes are (n_g, nx, ny) row-major with y contiguous. The staggered
 // diffusivity D[a][c] lives on the (nx-1, ny-1) grid of cell corners: it is

@@ -1,22 +1,28 @@
 """Fused semi-implicit θ-step (A target, per-glacier scalar laws).
 
-``si_step`` launches the hand-written CUDA kernel of ``csrc/si_step.cu`` on
-a CUDA tensor and runs its plain PyTorch version, :func:`si_step_reference`,
-on a CPU tensor. It replaces the TPU kernel
-``odinn_tpu.ops.pallas.si_kernel.si_step_pallas``: the frozen staggered
-diffusivity at ``H_D``, the right-hand side
+``si_step`` launches the hand-written CUDA kernels of ``csrc/si_step.cu``
+(or, on a large plane, ``csrc/si_plane.cu``) on a CUDA tensor and runs
+their plain PyTorch version, :func:`si_step_reference`, on a CPU tensor.
+It replaces the TPU kernel ``odinn_tpu.ops.pallas.si_kernel.si_step_pallas``:
+the frozen staggered diffusivity at ``H_D``, the right-hand side
 b = H + dt·M·∇·(D∇(B + ring·H + (1−θ)·M·H)), the Jacobi inverse diagonal,
 ``cg_iters`` preconditioned-CG iterations from ``x0`` on
 A = I − θ·dt·M·∇·(D∇(M·)), and a final relu. M is the interior mask.
 
-On the card the step is one launch: one thread-block cluster of 8 or 16
-blocks per glacier (:func:`si_layout`, chosen by occupancy in
-:func:`si_plan`), with each thread's cells' CG state in registers, p in
-shared memory and the dot products summed across the cluster in a fixed
-order, the blocks' partials exchanged through distributed shared memory and
-counted on mbarriers. A plane whose layout fits no cluster takes the
-large-plane path, chosen by shape alone: an assembly kernel over the batch,
-then one block per glacier with the CG vectors in a global scratch buffer.
+On the card the step is one launch (two on a large plane): one
+thread-block cluster of 8 or 16 blocks per glacier (:func:`si_layout`,
+chosen by occupancy in :func:`si_plan`), with each thread's cells' CG state
+in registers, p in shared memory and the dot products summed across the
+cluster in a fixed order, the blocks' partials exchanged through
+distributed shared memory and counted on mbarriers. A plane whose layout fits no cluster takes the
+large-plane path of ``csrc/si_plane.cu``, chosen by shape alone: the
+assembly over tiles of the batch (:func:`assemble_layout`), then one
+cooperative launch of as many blocks as the card holds at once
+(:func:`plane_plan`), each glacier an equal share of them, a block a band of
+its rows, with the CG vectors in a global scratch of ``PLANE_SCRATCH``
+planes, two grid barriers an iteration and each glacier's dot products
+summed over its bands in one fixed order in every block; a launch of it
+also counts on ``si_step.plane_launches``.
 
 ``si_step`` is differentiable in H, H_D, B and the creep and slide columns
 (2, 3) of the table, with the gradient of the JAX package's production step
@@ -57,8 +63,8 @@ pre-relu solution (``keep_x``).
 On a row shard (``parallel.spatial.RowShard``; :func:`si_rows_step`) the
 step runs on the slab of the own rows plus two ghost rows on each side:
 :func:`si_assemble`, the large-plane path's assembly kernel alone (its
-C entry ``si_assemble_*`` of ``csrc/si_step.cu``, unchanged), into a
-scratch of ``si_math.ROWS_PLANES`` planes, then the PCG split at its two
+C entry ``si_assemble_*`` of ``csrc/si_plane.cu``), into a scratch of
+``si_math.ROWS_PLANES`` planes, then the PCG split at its two
 reductions (``si_math.rows_cg``) on the kernels of ``csrc/si_rows.cu``:
 :func:`si_rows_apply` (A·p on the own rows after p = z + β·p on the whole
 slab, and each glacier's partial p·Ap; in its start mode r = b − A·x0,
@@ -81,7 +87,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -98,7 +104,9 @@ __all__ = ["si_step", "si_step_reference", "si_step_transpose", "si_step_transpo
            "si_vjp_plan", "si_assemble", "si_assemble_reference", "si_rows_apply",
            "si_rows_apply_reference", "si_rows_update", "si_rows_update_reference",
            "RowsLayout", "rows_layout", "rows_occupancy", "rows_step_x", "rows_step_transpose",
-           "si_rows_step"]
+           "si_rows_step", "AssembleLayout", "assemble_layout", "assemble_plan",
+           "PlaneLayout", "plane_layout",
+           "plane_occupancy", "plane_plan"]
 
 # the kernel's modes (csrc/si_step.cu): the step, the transpose solve of its
 # backward, the tangent solve of its jvp
@@ -107,8 +115,6 @@ _FORWARD, _TRANSPOSE, _TANGENT = 0, 1, 2
 _RATE_COLS = (2, 3)
 _FIXED_COLS = (0, 1, 4, 5, 6, 7)
 
-# planes of the large-plane path's scratch buffer: D, b, inv_diag, x, r, p, Ap
-_N_SCRATCH = 7
 # csrc/si_step.cu's cluster kernel: the cells a thread owns at most, the
 # cluster sizes, and the shared memory a block holds besides its slab of
 # rows + 2 rows (two halo rows of z; 64 values: the blocks' partials of the
@@ -142,18 +148,179 @@ def _library() -> ctypes.CDLL:
                        + [ctypes.c_int] * 4 + [ctypes.c_double] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    for fn in (lib.si_step_split_f32, lib.si_step_split_f64):
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-                       + [ctypes.c_double] * 2 + [ctypes.c_int] * 4 + [ctypes.c_double] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
     lib.si_step_occupancy.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
     lib.si_step_occupancy.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _plane_library() -> ctypes.CDLL:
+    """``csrc/si_plane.cu``: the assembly and the large-plane path."""
+    lib = load_library("si_plane")
     for fn in (lib.si_assemble_f32, lib.si_assemble_f64):
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_double] * 2
-                       + [ctypes.c_int] * 3 + [ctypes.c_double] * 4 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 3 + [ctypes.c_double] * 4 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    for fn in (lib.si_plane_f32, lib.si_plane_f64):
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_double] * 2
+                       + [ctypes.c_int] * 4 + [ctypes.c_double] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.si_pcg_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.si_pcg_occupancy.restype = ctypes.c_int
     return lib
+
+
+# csrc/si_plane.cu's assembly: tiles of 32 cells along y by 4·R rows, one
+# block of 128 threads a tile, R among the instantiated rows a thread; the
+# blocks an SM below which R = 1's launch is taken: on an H100 (132 SMs) at
+# a rank's 16 x 66 x 128 slab (320 blocks at R = 4) R = 1 took 0.0036 ms
+# and R = 4 0.0042, at 1 x 1024^2 (2048) R = 4 0.0124 and R = 1 0.0169
+# (PERF.md, profile_plane.py); the launch's grid limit along x and glaciers
+ASM_LANES = 32
+ASM_GROUPS = 4
+ASM_THREADS = ASM_LANES * ASM_GROUPS
+ASM_ROWS = (4, 1)
+ASM_BLOCKS_PER_SM = 8
+_GRID_LIMIT = 65535
+
+
+class AssembleLayout(NamedTuple):
+    """How the assembly tiles a launch (:func:`assemble_layout`)."""
+
+    rows: int                      # cells a thread owns down its column (R)
+    tile_rows: int                 # rows of a tile: ASM_GROUPS × rows
+    width: int                     # values a load of H_D, B and H along y: 16 bytes, or 1
+    grid: Tuple[int, int, int]     # (tiles along y, tiles along x, glaciers)
+    threads: int = ASM_THREADS
+
+    def launch_args(self):
+        """The C entries' plan arguments: rows a thread, 16-byte loads."""
+        return self.rows, int(self.width > 1)
+
+
+def assemble_layout(n_g, nx, ny, dtype, sms, vec=True) -> AssembleLayout:
+    """The assembly's plan for n_g glaciers of nx × ny on a card of ``sms``
+    SMs: tiles of 32 cells along y by 4·R rows, R 4 where that launch still
+    has ASM_BLOCKS_PER_SM blocks an SM, else 1: fewer rows a block, more
+    blocks in flight at once and less arithmetic after each block's loads;
+    loads of 16 bytes where ``vec`` (the caller's H, H_D and B 16-byte
+    aligned) and ny a multiple of the vector allow it, else of one value.
+    What the kernel does not take raises ValueError."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"si_assemble: float32 or float64, got {dtype}")
+    if n_g < 1 or nx < 3 or ny < 3:
+        raise ValueError(f"si_assemble: at least 1 glacier of 3 x 3 cells, got "
+                         f"{n_g} x {nx} x {ny}")
+    if sms < 1:
+        raise ValueError(f"si_assemble: a card of at least one SM, got {sms}")
+    v = 16 // torch.empty((), dtype=dtype).element_size()
+    tiles_y = -(-ny // ASM_LANES)
+    rows = next((r for r in ASM_ROWS
+                 if n_g * -(-nx // (ASM_GROUPS * r)) * tiles_y >= ASM_BLOCKS_PER_SM * sms),
+                ASM_ROWS[-1])
+    grid = (tiles_y, -(-nx // (ASM_GROUPS * rows)), n_g)
+    if grid[1] > _GRID_LIMIT or n_g > _GRID_LIMIT:
+        raise ValueError(f"si_assemble: {n_g} glaciers of {nx} rows exceed the launch's grid "
+                         f"({grid}, at most {_GRID_LIMIT} along x and glaciers)")
+    return AssembleLayout(rows, ASM_GROUPS * rows, v if vec and ny % v == 0 else 1, grid)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def assemble_plan(n_g, nx, ny, dtype, vec=True, device=None) -> AssembleLayout:
+    """:func:`assemble_layout` at the CUDA device's SM count."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return assemble_layout(n_g, nx, ny, dtype, _sm_count(index), vec)
+
+
+# csrc/si_plane.cu's PCG: threads a block, the scratch's planes (D, b, the
+# inverse diagonal, x, r, p, Ap and p's second buffer), the slot arrays (p·Ap
+# and the two r·z rounds), and the cells a plane may hold (32-bit indices)
+PLANE_THREADS = 512
+PLANE_SCRATCH = 8
+PLANE_SLOT_ARRAYS = 3
+_PLANE_MAX_CELLS = 2 ** 31 - 1
+
+
+class PlaneLayout(NamedTuple):
+    """How the large-plane PCG lays a batch on the card (:func:`plane_layout`):
+    glacier g's band k (of ``bands``) is rows ⌊k·nx/bands⌋ to
+    ⌊(k+1)·nx/bands⌋, the full width; block b walks the bands b, b +
+    blocks, … of the n_g·bands in glacier order."""
+
+    blocks: int       # blocks of the cooperative launch
+    bands: int        # bands a glacier
+    rows: int         # rows a band at most: ⌈nx / bands⌉
+    threads: int      # threads a block
+    walk: int         # bands a block walks at most
+    vec: bool         # 16-byte vectors (ny and the pointers allow them)
+
+    def launch_args(self):
+        """The C entries' plan arguments: blocks, bands, threads, vectors."""
+        return self.blocks, self.bands, self.threads, int(self.vec)
+
+
+def plane_layout(n_g, nx, ny, dtype, resident, vec=True) -> PlaneLayout:
+    """The large-plane PCG's plan for n_g glaciers of nx × ny on a card that
+    holds ``resident`` blocks of it at once (occupancy × SMs): every glacier
+    an equal share of them, min(nx, ⌊resident / n_g⌋) bands of full rows,
+    one a block; with more glaciers than resident blocks one band a
+    glacier, and each of the ``resident`` blocks walks several. The blocks
+    never exceed ``resident``: a grid barrier needs them all resident at
+    once. 16-byte vectors where ``vec`` (the pointers aligned) and ny allow
+    them. A plane the kernel does not take, or a launch that cannot be
+    co-scheduled (no block resident), raises ValueError."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"si_plane: float32 or float64, got {dtype}")
+    if n_g < 1 or nx < 3 or ny < 3:
+        raise ValueError(f"si_plane: at least 1 glacier of 3 x 3 cells, got "
+                         f"{n_g} x {nx} x {ny}")
+    if nx * ny > _PLANE_MAX_CELLS:
+        raise ValueError(f"si_plane: a plane of at most {_PLANE_MAX_CELLS} cells (32-bit "
+                         f"indices), got {nx} x {ny}")
+    if resident < 1:
+        raise ValueError(f"si_plane: no block of the cooperative PCG is resident on the card "
+                         f"({resident}); a grid barrier cannot be co-scheduled")
+    v = 16 // torch.empty((), dtype=dtype).element_size()
+    bands = max(1, min(nx, resident // n_g))
+    total = n_g * bands
+    blocks = min(resident, total)
+    if PLANE_SLOT_ARRAYS * total > _PLANE_MAX_CELLS:
+        raise ValueError(f"si_plane: {n_g} glaciers need more slots than 32-bit indices hold")
+    return PlaneLayout(blocks, bands, -(-nx // bands), PLANE_THREADS, -(-total // blocks),
+                       bool(vec and ny % v == 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _plane_resident(dtype, vec, device_index) -> int:
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _plane_library().si_pcg_occupancy(int(dtype == torch.float64), int(vec),
+                                                PLANE_THREADS, ctypes.byref(per_sm),
+                                                ctypes.byref(sms))
+    if err != 0:
+        raise RuntimeError(f"si_plane: the occupancy query failed with CUDA error {err}")
+    return per_sm.value * sms.value
+
+
+def plane_occupancy(dtype, vec=True, device=None) -> int:
+    """The large-plane PCG's blocks resident at once on a CUDA device:
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor × the SM count."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _plane_resident(dtype, bool(vec), index)
+
+
+def plane_plan(n_g, nx, ny, dtype, vec=True, device=None) -> PlaneLayout:
+    """:func:`plane_layout` at the device's resident blocks
+    (:func:`plane_occupancy`)."""
+    return plane_layout(n_g, nx, ny, dtype, plane_occupancy(dtype, vec, device), vec)
 
 
 @functools.cache
@@ -764,26 +931,37 @@ def _launch(H, H_D, B, x0, scalars, dt, theta, cg_iters, exps, lay, x_out=None,
     ḡ in H's place and x in x0's, and returns λ; _TANGENT the tangent-solve
     mode, which reads ṙ in H's place, the primal guess in x0's and the
     forward's x in ``x_out``'s, and returns ẋ·[x > 0];
-    ``precondition=False`` runs any mode as plain CG. Counts nothing: the
-    wrappers count their launches."""
+    ``precondition=False`` runs any mode as plain CG. The wrappers count
+    their launches; a launch of the large-plane path (``csrc/si_plane.cu``:
+    the assembly and the cooperative PCG) also counts one on
+    ``si_step.plane_launches``, whichever mode it runs."""
     n_g, nx, ny = H.shape
     table = scalars[:, :4].detach().to(H.dtype).contiguous()
     out = torch.empty_like(H)
-    lib = _library()
     f32 = H.dtype == torch.float32
     stream = torch.cuda.current_stream(H.device).cuda_stream
     planes = (H.data_ptr(), H_D.data_ptr(), B.data_ptr(), x0.data_ptr(), table.data_ptr())
     xp = x_out.data_ptr() if x_out is not None else None
     if lay is not None:
+        lib = _library()
         fn = lib.si_step_cluster_f32 if f32 else lib.si_step_cluster_f64
         err = fn(*planes, out.data_ptr(), xp, n_g, nx, ny, dt, theta, cg_iters, mode,
                  int(precondition), int(uses_glen(exps)), *exps, lay.cluster, lay.bx, lay.by,
                  lay.smem, lay.cells, stream)
     else:
-        work = torch.empty((_N_SCRATCH,) + tuple(H.shape), dtype=H.dtype, device=H.device)
-        fn = lib.si_step_split_f32 if f32 else lib.si_step_split_f64
-        err = fn(*planes, work.data_ptr(), out.data_ptr(), xp, n_g, nx, ny, dt, theta, cg_iters,
-                 mode, int(precondition), int(uses_glen(exps)), *exps, stream)
+        n_bytes = H.element_size()
+        vec_in = (ny * n_bytes) % 16 == 0 and _aligned16(H, H_D, B)
+        alay = assemble_plan(n_g, nx, ny, H.dtype, vec_in, H.device)
+        work = torch.empty((PLANE_SCRATCH,) + tuple(H.shape), dtype=H.dtype, device=H.device)
+        play = plane_plan(n_g, nx, ny, H.dtype, _aligned16(work, x0, out), H.device)
+        slots = torch.empty(PLANE_SLOT_ARRAYS * n_g * play.bands, dtype=H.dtype, device=H.device)
+        lib = _plane_library()
+        fn = lib.si_plane_f32 if f32 else lib.si_plane_f64
+        err = fn(*planes, work.data_ptr(), slots.data_ptr(), out.data_ptr(), xp, n_g, nx, ny, dt,
+                 theta, cg_iters, mode, int(precondition), int(uses_glen(exps)), *exps,
+                 *alay.launch_args(), *play.launch_args(), stream)
+        if err == 0:
+            si_step.plane_launches += 1
     if err != 0:
         raise RuntimeError(f"si_step: kernel launch failed with CUDA error {err}")
     return out
@@ -810,9 +988,9 @@ def si_assemble(work, H, H_D, B, X, scalars, dt, theta=1.0, mode=si_math.FORWARD
     ``work`` (``si_math.ROWS_PLANES`` planes of that shape): D's corners,
     b of ``mode`` (the step's; ḡ·[X > 0] with ḡ in H; H as given) and the
     inverse Jacobi diagonal. A CUDA tensor launches the large-plane path's
-    assembly kernel (``csrc/si_step.cu``), counted on
-    ``si_assemble.launches``; a CPU tensor takes
-    :func:`si_assemble_reference`."""
+    assembly kernel (``csrc/si_plane.cu``), counted on
+    ``si_assemble.launches``, on the tiles of :func:`assemble_plan`; a
+    CPU tensor takes :func:`si_assemble_reference`."""
     check_inputs("si_assemble", (H, H_D, B, X), scalars, 8)
     exps = _resolve_exps(scalars, exps)
     if _device_of("si_assemble", H) == "cpu":
@@ -823,11 +1001,14 @@ def si_assemble(work, H, H_D, B, X, scalars, dt, theta=1.0, mode=si_math.FORWARD
         raise ValueError("si_assemble: the scratch must be contiguous planes of H's shape")
     n_g, nx, ny = H.shape
     table = scalars[:, :4].detach().to(H.dtype).contiguous()
-    lib = _library()
+    vec = (ny * H.element_size()) % 16 == 0 and _aligned16(H, H_D, B)
+    lay = assemble_plan(n_g, nx, ny, H.dtype, vec, H.device)
+    lib = _plane_library()
     fn = lib.si_assemble_f32 if H.dtype == torch.float32 else lib.si_assemble_f64
     err = fn(H.data_ptr(), H_D.data_ptr(), B.data_ptr(), X.data_ptr(), table.data_ptr(),
              work.data_ptr(), n_g, nx, ny, float(dt), float(theta), int(mode), int(precondition),
-             int(uses_glen(exps)), *exps, torch.cuda.current_stream(H.device).cuda_stream)
+             int(uses_glen(exps)), *exps, *lay.launch_args(),
+             torch.cuda.current_stream(H.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"si_assemble: kernel launch failed with CUDA error {err}")
     si_assemble.launches += 1
@@ -1048,6 +1229,7 @@ si_assemble.launches = 0
 si_rows_apply.launches = 0
 si_rows_update.launches = 0
 si_step.launches = 0
+si_step.plane_launches = 0
 si_step_transpose.launches = 0
 si_step_tangent.launches = 0
 si_step_vjp.launches = 0

@@ -252,12 +252,12 @@ def theta_solve(H, D, B, x0, dt, theta, cg_iters: int, dx, dy, precondition=True
 # The row-sharded step (module doc)
 # ---------------------------------------------------------------------------
 
-# planes of the scratch: the large-plane path's seven (csrc/si_step.cu,
+# planes of the scratch: the large-plane path's first seven (csrc/si_plane.cu,
 # Plane: D, b, inverse diagonal, x, r, p, Ap), then z and a second p
 (ROWS_D, ROWS_RHS, ROWS_INV, ROWS_X, ROWS_R, ROWS_P, ROWS_AP, ROWS_Z,
  ROWS_P2) = range(9)
 ROWS_PLANES = 9
-# the assembly's modes (csrc/si_step.cu): b of the step, ḡ·[x > 0], b as given
+# the assembly's modes (csrc/si_plane.cu): b of the step, ḡ·[x > 0], b as given
 FORWARD, TRANSPOSE, TANGENT = 0, 1, 2
 # the slab's ghost rows: the ring two rows from any own equation
 ROWS_HALO = 2
