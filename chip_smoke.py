@@ -22,16 +22,19 @@ Phases, each printed as one JSON line:
    2 x 300^2 on its large-plane path, there also at n = 4, where float32
    is held on its increment to 2x the float32 plain version's own error
    against float64, and on that path at phase 15's 1 x 1024^2, PCG-12,
-   and, in float32, its 1 x 2048^2, PCG-12;
-   ``rkc_interval`` at s = 8 and 25; the
+   and, in float32, its 1 x 2048^2, PCG-12, and the odd 2 x 301 x 333,
+   1 x 257 x 301 and 1 x 257 x 300 at PCG-6 (every plan of the large-plane
+   pullback); ``rkc_interval`` at s = 8 and 25; the
    pullback also in its fused RKC-backward stage mode); the runtime-exponent
    paths (n = 4 with sliding for ``si_step``, ``sia2d_rhs`` and
    ``rkc_interval``; n = 3, 4 and 2.5 in one batch for ``sia2d_rhs`` and the
    pullback); every ``si_step`` check with the Jacobi preconditioner and
    without it (plain CG, the manual SI adjoints' solves); at each also its
    forward's pre-relu output, its transpose-solve mode, its tangent-solve
-   mode (and, preconditioned, the ``si_step_vjp`` pullback kernel) against
-   their plain versions on the same inputs, each with a bitwise repeat;
+   mode (and, preconditioned, the ``si_step_vjp`` pullback kernel: on every
+   large plane the large-plane pullback, which its launch count asserts)
+   against their plain versions on the same inputs, each with a bitwise
+   repeat;
    ``sia2d_rhs_jvp`` at 4 x 128^2 and 16 x 128^2 with n = 3, 4 and 3, 4,
    2.5 in one batch, its stage mode and the whole RKC2 step's tangent at
    16 x 128^2, s = 8, and both modes also at the ragged 3 x 41 x 101 and
@@ -56,7 +59,8 @@ Phases, each printed as one JSON line:
    SI-pullback kernels' cluster size and occupancy at 4 and 16 glaciers (the
    pullback's also at 2 x 300^2, 3 x 97 x 131 and 2 x 10 x 33, with its
    tiles), and the large-plane path's plans (the cooperative PCG's blocks,
-   bands and threads beside its resident blocks; the assembly's tiles);
+   bands and threads beside its resident blocks; the assembly's and the
+   large-plane pullback's tiles);
 4. main path: the forward prediction of 4 Halfar glaciers, 128^2, float32,
    5 years with monthly saves and monthly mass balance, Cuffey–Paterson A(T),
    n = 3, for the rows SI (PCG-6), SI2 (PCG-6), compensated SSPRK3 at 3
@@ -129,7 +133,10 @@ Phases, each printed as one JSON line:
    again under ``si_step``), and under ``more`` at
    PCG-6, its transpose at PCG-12, 1 x 2048^2 PCG-12, 2 x 300^2 and 4 x
    128^2 PCG-6, and ``si_assemble`` alone at a rank's 16 x 66 x 128 slab
-   and at 1 x 1024^2 (``si_step_vjp`` there under its own entry). The
+   and at 1 x 1024^2; the large-plane pullback (``csrc/si_plane_vjp.cu``)
+   as ``si_plane_vjp``: at 1 x 1024^2, its launches phase 15's (counted
+   there alone, not again under ``si_step_vjp``), and under ``more`` at
+   2 x 300^2, 1 x 2048^2 and 4 x 512^2. The
    ``kernel_times`` line before it also times a one-element PyTorch fill,
    the card's single-launch floor. It is printed last, after phase 13, and
    its launches are all phases' (phase 13's ranks' too);
@@ -291,19 +298,23 @@ Phases, each printed as one JSON line:
    dome (R0 = 800 km, H0 = 3000 m, A = 8e-19, from its intrinsic time
    ~2.5e5 years, dx = 2.56 R0 / N), float32, SI2 (PCG-12, a PCG-6
    predictor, one substep), monthly saves, no mass balance,
-   ``ConstantA``. At 1024^2 (the large-plane path asserted) the 10-year
-   forward, 240 si_step launches, each one si_assemble and one si_pcg (the
-   profiler asserts both), timed and profiled, its final H against the
-   port's float64 unfused run within 2x the float32 unfused run's error;
+   ``ConstantA``. At 1024^2 and at 2048^2 (the large-plane path asserted)
+   the 10-year forward, 240 si_step launches, each one si_assemble and one
+   si_pcg (the profiler asserts both), timed and profiled, with its peak
+   memory (``utils/memory.py::aot_step_memory``, the benchmark's ``hbm``);
    one loss and gradient of the scalar-A inversion against observations
-   at the span's ends from the forward at 1.2 A, timed and profiled by
-   kernel, with si_step, its transpose and si_step_vjp 240 each; and the
-   depth cut: over the first 2 intervals the kernels' gradient against
+   at the span's ends from the forward at 1.2 A, timed, profiled by
+   kernel, with its peak memory, with si_step, its transpose and
+   si_step_vjp 240 each, all on the large-plane routes (the pullbacks
+   ``si_plane_vjp``, counted on its entry of the kernels line alone); and
+   the depth cut: over the first 2 intervals the kernels' gradient against
    the unfused float64 gradient (float64 to 1e-9, float32 within 2x the
-   float32 unfused run's error), with the kernels' max |dH| there. At
-   2048^2 one year, 24 launches, timed. The phase's launches are asserted
-   per run. Its times are contended: each line's ``times_beside`` says
-   what ran beside them.
+   float32 unfused run's error), with the kernels' max |dH| there, where
+   the unfused float64 cut fits the card (its peak memory measured
+   first). At 1024^2 also the final H against the port's float64 unfused
+   run within 2x the float32 unfused run's error. The phase's launches are
+   asserted per run. Its times are contended: each line's
+   ``times_beside`` says what ran beside them.
 
 Any failed check raises, so the exit code is not 0. A ``done`` line gives
 the whole run's seconds, build included, and each phase's. The last line is
@@ -401,8 +412,8 @@ TOL_RELTOL = 1e-4
 JVP_EDGE_SHAPES = ((3, 41, 101), (3, 37, 128), (2, 36, 36))
 # our kernels' device names: none may run in a D-target or capped solve
 KERNEL_NAMES = ("si_step_cluster", "si_assemble", "si_pcg", "si_step_vjp_kernel",
-                "sia2d_rhs_kernel", "sia2d_rhs_vjp_kernel", "rkc_interval_kernel",
-                "sia2d_rhs_jvp_kernel", "si_rows_apply", "si_rows_update")
+                "si_plane_vjp", "sia2d_rhs_kernel", "sia2d_rhs_vjp_kernel",
+                "rkc_interval_kernel", "sia2d_rhs_jvp_kernel", "si_rows_apply", "si_rows_update")
 # the LM phase: Adam epochs, LM iterations and CG iterations of the
 # training batch's stage; the Hutchinson probes of lm_train's default
 LM_EPOCHS = (2, 3)
@@ -578,14 +589,25 @@ CTRL_C_MAX = 1e-17
 # Halfar dome of R0 = 800 km and H0 = 3000 m, A = 8e-19, T = -20 C, from its
 # intrinsic time halfar_t0, dx = 2.56 R0 / N; float32, SI2 at one substep,
 # PCG-12 with a PCG-6 predictor, monthly saves, no mass balance, ConstantA;
-# 10 years at 1024^2 (the benchmark's span) and one at 2048^2 (a timed line
-# of the HBM regime). The scalar-A inversion's gradient is held to the plain
-# versions' float64 gradient over the first ICE_GRAD_INTERVALS intervals: the
-# depth cut, since a plain float64 autograd graph of 240 PCG solves at
-# 1024^2 does not fit the card
+# 10 years at 1024^2 and at 2048^2 (the benchmark's span and sizes). The
+# scalar-A inversion's gradient is held to the plain versions' float64
+# gradient over the first ICE_GRAD_INTERVALS intervals: the depth cut, since
+# a plain float64 autograd graph of 240 PCG solves at 1024^2 does not fit
+# the card
 ICE_R0, ICE_H0, ICE_A, ICE_TEMP = 800_000.0, 3000.0, 8e-19, -20.0
-ICE_SIZES = ((1024, 10.0), (2048, 1.0))
+ICE_SIZES = ((1024, 10.0), (2048, 10.0))
 ICE_GRAD_INTERVALS = 2
+# PyTorch's own kernels named in a gradient's profile: the largest by device ms
+ICE_OTHERS = 8
+# odd large planes (check_kernels): rows and columns no tile divides; the
+# pullback's R = 4 with one-value loads, R = 1 with one-value loads and R = 1
+# with 16-byte loads (every other large-plane check takes R = 4 with 16-byte
+# loads)
+ODD_PLANES = ((2, 301, 333), (1, 257, 301), (1, 257, 300))
+# the large-plane pullback's shapes (time_kernels, profile_plane.py): the
+# check's 2 x 300^2, the ice sheet's planes, and
+# benchmarks/si_pallas_bench.py:177-197's four 512^2 glaciers
+PLANE_VJP_SHAPES = ((2, 300, 300), (1, 1024, 1024), (1, 2048, 2048), (4, 512, 512))
 # what shares the card and the host with phase 15's timed runs
 ICE_TIMES_BESIDE = ("contended: the main process's phase 3 gradient checks (and the phases "
                     "after them) and the LM gates' process run at the same time")
@@ -871,13 +893,14 @@ def ptxas_entry(mangled: str) -> str:
         if name == "si_step_cluster":
             # si_step_cluster<T, E, K, kMode, kJ>
             tags += [f"K={ints[0]}", ("forward", "transpose", "tangent")[int(ints[1])]]
-        elif name == "si_assemble":
-            # si_assemble<T, E, R, kVec>, si_pcg<T, kVec>: modes at run time
+        elif name in ("si_assemble", "si_plane_vjp"):
+            # si_assemble<T, E, R, kVec>, si_plane_vjp<T, E, R, kVec>,
+            # si_pcg<T, kVec>: modes at run time
             tags.append(f"R={ints[0]}")
         elif ints:
             tags.append(f"K={ints[0]}")
         names = ([("vec16", "scalar")] if name.startswith("si_step_vjp")
-                 or name in ("si_assemble", "si_pcg")
+                 or name in ("si_assemble", "si_pcg", "si_plane_vjp")
                  # si_rows_apply<T, kJ, kInit, kVec>, si_rows_update<T, kJ, kVec>
                  else [("jacobi", "plain-cg"), ("start", "iteration"), ("vec16", "scalar")]
                  if name == "si_rows_apply"
@@ -959,6 +982,24 @@ def check_kernels():
         # own rounding (both 1.3e-4 off float64): held as at n = 4
         check_si(H, B, derived, shape, dtype, cg_iters=(12,),
                  increment_factor=n > ICE_SIZES[0][0])
+    # odd large planes: the pullback's other plans (ODD_PLANES)
+    for shape in ODD_PLANES:
+        for dtype in (torch.float64, torch.float32):
+            H, B, raw = kernel_inputs(*shape, dtype, seed=74)
+            derived = derived_scalars(*(raw[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+            if si_kernel.si_plan(*shape, dtype).layout is not None:
+                raise AssertionError(f"si_step: {shape} {dtype} should take the large-plane "
+                                     f"path")
+            check_si(H, B, derived, shape, dtype, cg_iters=(6,))
+    # every instantiated plan of the large-plane pullback ran above, in both
+    # dtypes: R = 4 and 1, 16-byte and one-value loads
+    for dtype in (torch.float64, torch.float32):
+        shapes = ((2, 300, 300), (1, ICE_SIZES[0][0], ICE_SIZES[0][0])) + ODD_PLANES
+        plans = {(lay.rows, lay.width > 1)
+                 for lay in (si_kernel.plane_vjp_plan(*shape, dtype) for shape in shapes)}
+        if plans != {(r, v) for r in si_kernel.ASM_ROWS for v in (True, False)}:
+            raise AssertionError(f"si_step_vjp: the large-plane checks ran the plans {plans} "
+                                 f"in {dtype}, not every one")
     # 10 rows leave 3 of rkc_interval's and si_step's 8 cluster blocks
     # without rows, or 6 of 16 (97 rows: 2 of 16)
     for dtype in (torch.float64, torch.float32):
@@ -1339,7 +1380,9 @@ def check_si_backward(H, H_D, B, x0, derived, dt, theta, it, exps, name, shape, 
     on the same inputs (the transpose at the plain x, the pullback at the
     plain lambda, so a relu tie cannot differ), each with a bitwise repeat
     of its launch; without the preconditioner x and the transpose solve
-    only (the pullback has no such mode). Tolerances as for the forward,
+    only (the pullback has no such mode). The pullback's launches must take
+    the large-plane kernel (si_step_vjp.plane_launches) exactly where the
+    step takes the large-plane path. Tolerances as for the forward,
     each relative to max|reference|; in float32 the per-glacier sums
     d(creep) and d(slide), which cancel digits over the corners, pass also
     within GRAD_F32_FACTOR times the float32 plain version's own error
@@ -1372,8 +1415,11 @@ def check_si_backward(H, H_D, B, x0, derived, dt, theta, it, exps, name, shape, 
                                  f"or with themselves: {row}")
         return
     vjp_args = (lam_ref, H, H_D, B, x_ref, derived, dt, theta, exps)
+    plane_before = si_kernel.si_step_vjp.plane_launches
     got = si_kernel.si_step_vjp(*vjp_args)
     again = si_kernel.si_step_vjp(*vjp_args)
+    plane_vjp = si_kernel.si_step_vjp.plane_launches - plane_before
+    large = si_kernel.si_plan(*shape, dtype, exps).layout is None
     want = si_kernel.si_step_vjp_reference(*vjp_args)
     torch.cuda.synchronize()
     names = ("dH", "dH_D", "dB", "dcreep", "dslide")
@@ -1383,7 +1429,13 @@ def check_si_backward(H, H_D, B, x0, derived, dt, theta, it, exps, name, shape, 
     repeat = {"lambda": bool(torch.equal(lam, lam_again)),
               "vjp": all(torch.equal(a, b) for a, b in zip(got, again))}
     row = {"phase": "check", "kernel": f"{name} backward kernels", "shape": list(shape),
-           "dtype": str(dtype), "rel_err": errs, "tol": tol, "bitwise_repeat": repeat}
+           "dtype": str(dtype), "rel_err": errs, "tol": tol, "bitwise_repeat": repeat,
+           "vjp_route": "si_plane_vjp" if plane_vjp else "si_step_vjp",
+           "vjp_plane_launches": plane_vjp}
+    if plane_vjp != (2 if large else 0):
+        raise AssertionError(f"{name}: {plane_vjp} of 2 pullbacks on the large-plane kernel, "
+                             f"where the step takes the {'large-plane' if large else 'cluster'} "
+                             f"path: {row}")
     if dtype == torch.float32:
         want64 = si_kernel.si_step_vjp_reference(*(t.double() for t in vjp_args[:5]),
                                                  derived.double(), dt, theta, exps)
@@ -1646,8 +1698,9 @@ def cluster_report():
     batches (128 x 128^2, 512 x 64^2), si_step_vjp's at the other check
     shapes, with their tiles; the large-plane path's (a ``plane_plan``
     line): the cooperative PCG's blocks, bands and threads beside its
-    resident blocks at 2 x 300^2, 1 x 1024^2 and 1 x 2048^2, and the
-    assembly's tiles there and at a rank's slab."""
+    resident blocks and the large-plane pullback's tiles
+    (``plane_vjp_plan``) at 2 x 300^2, 1 x 1024^2, 1 x 2048^2, 4 x 512^2 and
+    the odd plane, and the assembly's tiles there and at a rank's slab."""
     from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel
 
     for phase, make_plan in (("rkc_cluster", rkc_kernel.rkc_plan),
@@ -1676,12 +1729,13 @@ def cluster_report():
     # threads beside the blocks resident at once, and the assembly's tiles
     plans = {}
     for dtype in (torch.float32, torch.float64):
-        for shape in ((2, 300, 300), (1, 1024, 1024), (1, 2048, 2048), SPATIAL_SLAB):
+        for shape in PLANE_VJP_SHAPES + ODD_PLANES + (SPATIAL_SLAB,):
             key = f"{dtype} " + "x".join(map(str, shape))
             plans[key] = {"assemble": si_kernel.assemble_plan(*shape, dtype)._asdict()}
             if shape != SPATIAL_SLAB:
                 plans[key].update(pcg=si_kernel.plane_plan(*shape, dtype)._asdict(),
-                                  resident_blocks=si_kernel.plane_occupancy(dtype))
+                                  resident_blocks=si_kernel.plane_occupancy(dtype),
+                                  pullback=si_kernel.plane_vjp_plan(*shape, dtype)._asdict())
     emit({"phase": "plane_plan", "plans": plans})
 
 
@@ -1977,8 +2031,12 @@ def time_kernels():
     14's: si_rows_apply and si_rows_update (rows of their own; and, under
     ``more``, at half a 1024^2 plane, 4 x 516 x 1024 with 512 own rows),
     si_assemble alone and si_step_vjp at a rank's 16 x 66 x 128 slab, sia2d_rhs at 2 x
-    65 x 128 and rkc_interval (s = 25) at 2 x 89 x 128; and, in float64,
-    sia2d_rhs_jvp at the LM gates' 2 x 36^2."""
+    65 x 128 and rkc_interval (s = 25) at 2 x 89 x 128; in float64,
+    sia2d_rhs_jvp at the LM gates' 2 x 36^2; and phase 15's large planes:
+    the large-plane path ``si_plane`` at 1 x 1024^2, PCG-12 (under ``more``
+    PCG-6, the transpose, 1 x 2048^2 and si_assemble alone), and the
+    large-plane pullback ``si_plane_vjp`` at 1 x 1024^2 (under ``more`` at
+    the other PLANE_VJP_SHAPES), H_D = H as in the SI trainings."""
     from odinn_tpu_torch.ops.cuda import rkc_kernel, si_kernel, sia_kernel
     from odinn_tpu_torch.ops.cuda.common import derived_scalars
     from odinn_tpu_torch.core.params import PhysicalParameters
@@ -2258,6 +2316,16 @@ def time_kernels():
                 for f in (si_kernel.si_assemble, si_kernel.si_assemble_reference)}
     Hb, Bb, rawb = kernel_inputs(1, n_b, n_b, f32, seed=73)
     derived_b = derived_scalars(*(rawb[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+    # the large-plane pullback at its other shapes: lambda, H, B, x and the table
+    pullback = {}
+    for shape in PLANE_VJP_SHAPES:
+        if shape == (1, n_i, n_i):
+            continue
+        Hv, Bv, rawv = kernel_inputs(*shape, f32, seed=75 + shape[1])
+        derived_v = derived_scalars(*(rawv[:, k] for k in range(7)), PHYS.rho, PHYS.g)
+        lam_v = torch.randn(shape, generator=torch.Generator().manual_seed(76)).to("cuda")
+        x_v = si_kernel._si_solve_reference(Hv, Hv, Bv, Hv, derived_v, DT, 1.0, 12, exps)
+        pullback[shape] = (lam_v, Hv, Bv, x_v, derived_v)
     entries.update({
         "si_rows_apply": (
             "si_rows_apply", lambda f: lambda: f(rows_work[f], None, beta_r, si_math.ROWS_P2,
@@ -2302,10 +2370,17 @@ def time_kernels():
             "si_plane", lambda f: lambda: f(gi, xi, Hi, Bi, derived_i, DT, 1.0, 12, exps),
             si_kernel.si_step_transpose, si_kernel.si_step_transpose_reference,
             si_transpose_bound(1, n_i, n_i, 4, 12), SI_KERNELS, 3),
-        f"si_step_vjp {ice_tag}": (
-            "si_step_vjp", lambda f: lambda: f(gi, Hi, Hi, Bi, xi, derived_i, DT, 1.0, exps),
+        # the large-plane pullback at 1 x 1024^2, phase 15's
+        "si_plane_vjp": (
+            "si_plane_vjp", lambda f: lambda: f(gi, Hi, Hi, Bi, xi, derived_i, DT, 1.0, exps),
             si_kernel.si_step_vjp, si_kernel.si_step_vjp_reference,
-            si_vjp_bound(1, n_i, n_i, 4, planes_in=4), ("si_step_vjp_kernel",), 10),
+            si_vjp_bound(1, n_i, n_i, 4, planes_in=4), ("si_plane_vjp",), 10),
+        **{f"si_plane_vjp {'x'.join(map(str, shape))}": (
+            "si_plane_vjp", lambda f, a=a: lambda: f(a[0], a[1], a[1], a[2], a[3], a[4], DT, 1.0,
+                                                     exps),
+            si_kernel.si_step_vjp, si_kernel.si_step_vjp_reference,
+            si_vjp_bound(*shape, 4, planes_in=4), ("si_plane_vjp",), 3)
+           for shape, a in pullback.items()},
         f"si_step {big_tag} cg_iters=12": (
             "si_plane", lambda f: lambda: f(Hb, Hb, Bb, Hb, derived_b, DT, 1.0, 12, exps),
             si_kernel.si_step, si_kernel.si_step_reference,
@@ -3518,16 +3593,21 @@ def icesheet_worker(argv) -> int:
     """Phase 15 in a process of its own (``python3 chip_smoke.py
     --icesheet-worker DIR``): :func:`icesheet_phase` on the card, its lines
     on stdout, its launches in DIR/launches.json (the large-plane path's
-    under ``si_plane`` alone)."""
+    under ``si_plane`` alone, the large-plane pullback's under
+    ``si_plane_vjp`` alone)."""
     def phase():
-        launches, plane = icesheet_phase()
-        # every si_step launch of the phase ran csrc/si_plane.cu: it counts
-        # there alone, not again under si_step (csrc/si_step.cu)
+        launches, plane, plane_vjp = icesheet_phase()
+        # every si_step launch of the phase ran csrc/si_plane.cu, and every
+        # pullback csrc/si_plane_vjp.cu: each counts there alone, not again
+        # under si_step (csrc/si_step.cu) or si_step_vjp (csrc/si_step_vjp.cu)
         moved = ("si_step", "si_step_transpose", "si_step_tangent")
-        if sum(launches[k] for k in moved) != plane:
-            raise AssertionError(f"icesheet: {plane} large-plane launches, but si_step's "
-                                 f"wrappers counted {[launches[k] for k in moved]}")
-        return dict(launches, si_plane=plane, **{k: 0 for k in moved})
+        if (sum(launches[k] for k in moved) != plane
+                or launches["si_step_vjp"] != plane_vjp):
+            raise AssertionError(f"icesheet: {plane} large-plane launches and {plane_vjp} "
+                                 f"large-plane pullbacks, but the wrappers counted "
+                                 f"{[launches[k] for k in moved + ('si_step_vjp',)]}")
+        return dict(launches, si_plane=plane, si_plane_vjp=plane_vjp, si_step_vjp=0,
+                    **{k: 0 for k in moved})
 
     return _side_worker(argv, "--icesheet-worker", phase)
 
@@ -5893,18 +5973,23 @@ def icesheet_batch(n, t0, dtype):
 def icesheet_phase():
     """Phase 15: the ice-sheet domain through the public entry points
     (``forward_batch``, the classical inversion's ``batch_transient_loss``
-    and its autograd gradient) on the large-plane path. At 1024^2: the
-    10-year forward (240 si_step launches, asserted, each one launch of the
-    large-plane path), its final H against the port's float64 run on the
-    unfused path (within 2x the float32 unfused run's error, as
-    main_path_rows holds a row), timed and profiled; one loss and gradient
-    of the scalar-A inversion against observations at the span's ends from
-    the forward at 1.2 A, timed; and over the first ICE_GRAD_INTERVALS the
+    and its autograd gradient) on the large-plane path, at each of
+    ICE_SIZES (1024^2 and 2048^2, 10 years): the forward (240 si_step
+    launches, asserted, each one launch of the large-plane path), timed,
+    profiled, with its peak memory; one loss and gradient of the scalar-A
+    inversion against observations at the span's ends from the forward at
+    1.2 A (si_step, its transpose and si_step_vjp 240 each, every one on
+    the large-plane routes: si_pcg and si_plane_vjp), timed, profiled by
+    kernel, with its peak memory; and over the first ICE_GRAD_INTERVALS the
     same gradient by the kernels against the unfused path's float64
     gradient (float64 to TOL_GRAD_F64, float32 within GRAD_F32_FACTOR times
-    the float32 unfused run's error), with the kernels' max |dH| there. At
-    2048^2: one year, 24 launches, timed. Returns the launches of the runs
-    the phase asserts, by wrapper, and the large-plane path's."""
+    the float32 unfused run's error), with the kernels' max |dH| there,
+    where the unfused float64 cut fits the card (its peak is measured
+    first; a cut that does not fit is recorded with its peak). At 1024^2
+    also the final H against the port's float64 run on the unfused path
+    (within 2x the float32 unfused run's error, as main_path_rows holds a
+    row). Returns the launches of the runs the phase asserts, by wrapper,
+    those of the large-plane path and those of the large-plane pullback."""
     from odinn_tpu_torch.core.glacier import ThicknessData
     from odinn_tpu_torch.data.halfar import HalfarParameters, halfar_t0
     from odinn_tpu_torch.laws.laws import ConstantA, LawA_inversion
@@ -5913,30 +5998,39 @@ def icesheet_phase():
     from odinn_tpu_torch.simulation.inversion import batch_transient_loss
     from odinn_tpu_torch.simulation.prediction import forward_batch
     from odinn_tpu_torch.simulation.solver import build_tstops
+    from odinn_tpu_torch.utils.memory import aot_step_memory
 
     t_phase = time.perf_counter()
     f32, f64 = torch.float32, torch.float64
     counters = kernel_counters()
     none = {k: 0 for k in counters}
-    total, plane = dict(none), 0
+    total, plane, plane_vjp = dict(none), 0, 0
     t0 = halfar_t0(HalfarParameters(R0=ICE_R0, H0=ICE_H0, A=ICE_A, n=3.0))
 
     def unfused(law):
         # evaluated at every RHS call: the solve takes the plain PyTorch path
         return dataclasses.replace(law, callback_freq=None)
 
-    def counted(fn, expected, plane_expected, what):
-        nonlocal plane
+    def counted(fn, expected, what):
+        # every si_step launch of the phase (forward, transpose, tangent)
+        # runs the large-plane path, and every pullback the large-plane one
+        nonlocal plane, plane_vjp
         _reset(counters)
-        si_kernel.si_step.plane_launches = 0
+        si_kernel.si_step.plane_launches = si_kernel.si_step_vjp.plane_launches = 0
         out = fn()
         torch.cuda.synchronize()
-        got, got_plane = _read(counters), si_kernel.si_step.plane_launches
-        if got != dict(none, **expected) or got_plane != plane_expected:
+        got = _read(counters)
+        got_plane = si_kernel.si_step.plane_launches
+        got_vjp = si_kernel.si_step_vjp.plane_launches
+        want = dict(none, **expected)
+        want_plane = want["si_step"] + want["si_step_transpose"] + want["si_step_tangent"]
+        if got != want or got_plane != want_plane or got_vjp != want["si_step_vjp"]:
             raise AssertionError(f"icesheet {what}: launches {got} ({got_plane} on the "
-                                 f"large-plane path), expected {expected} ({plane_expected})")
+                                 f"large-plane path, {got_vjp} on the large-plane pullback), "
+                                 f"expected {want} ({want_plane}, {want['si_step_vjp']})")
         _add(total, got)
         plane += got_plane
+        plane_vjp += got_vjp
         return out
 
     def loss_and_grad(batch, model, params, tstops, dtype):
@@ -5950,6 +6044,10 @@ def icesheet_phase():
                             H=torch.stack([truth[:, 0], truth[:, -1]], dim=1))
         return dataclasses.replace(batch, thickness_data=obs)
 
+    def truth_at(batch, params, tstops):
+        return forward_batch(None, batch, Model(iceflow=SIA2DModel(A=ConstantA(1.2 * ICE_A))),
+                             params, tstops, device="cuda")
+
     model = Model(iceflow=SIA2DModel(A=ConstantA(ICE_A)))
     for n, years in ICE_SIZES:
         t_row = time.perf_counter()
@@ -5961,7 +6059,7 @@ def icesheet_phase():
         n_int = len(tstops) - 1
         batch = icesheet_batch(n, t0, f32)
         fwd = lambda: forward_batch(None, batch, model, params, tstops, device="cuda")
-        H = counted(fwd, {"si_step": 2 * n_int}, 2 * n_int, f"{n}^2 forward")
+        H = counted(fwd, {"si_step": 2 * n_int}, f"{n}^2 forward")
         if tuple(H.shape) != (1, n_int + 1, n, n) or not torch.isfinite(H).all():
             raise AssertionError(f"icesheet {n}^2: trajectory {tuple(H.shape)} not finite")
         # the profiler can lose a device record, never add one (complete_profile)
@@ -5972,6 +6070,7 @@ def icesheet_phase():
                "t0_years": t0, "dtype": str(f32), "path": path,
                "plan": si_kernel.plane_plan(1, n, n, f32)._asdict(),
                "assemble_plan": si_kernel.assemble_plan(1, n, n, f32)._asdict(),
+               "vjp_plan": si_kernel.plane_vjp_plan(1, n, n, f32)._asdict(),
                "launches": {"si_step": 2 * n_int}, "plane_launches": 2 * n_int,
                "times_beside": ICE_TIMES_BESIDE,
                "ms": row_ms(fwd, reps=3), "kernel_device_ms": busy_ms,
@@ -5979,60 +6078,82 @@ def icesheet_phase():
                "device_busy_ms": device_ms(fwd, 1),
                "max_H_end_m": float(H[0, -1].max())}
         row["device_idle_share"] = 1.0 - row["device_busy_ms"] / row["ms"]
+        # peak device memory of each run, as benchmarks/icesheet_scale.py's
+        # "hbm" fields hold it
+        row["hbm"] = {"si2_forward": aot_step_memory(fwd)[1]}
         if set(by_name) != set(want) or any(not 0 < by_name[k] <= want[k] for k in want):
             raise AssertionError(f"icesheet {n}^2: device kernels {by_name} in profile "
                                  f"{profiles} of at most {PROFILES}, expected {want}")
         if row["max_H_end_m"] <= 0.5 * ICE_H0:
             raise AssertionError(f"icesheet {n}^2: the dome collapsed: {row}")
+        batch64 = icesheet_batch(n, t0, f64)
+        ok = True
         if n == ICE_SIZES[0][0]:
             plain = Model(iceflow=SIA2DModel(A=unfused(ConstantA(ICE_A))))
             plain32 = counted(lambda: forward_batch(None, batch, plain, params, tstops,
-                                                    device="cuda"), {}, 0, "plain forward")
-            batch64 = icesheet_batch(n, t0, f64)
+                                                    device="cuda"), {}, "plain forward")
             plain64 = counted(lambda: forward_batch(None, batch64, plain, params, tstops,
-                                                    device="cuda"), {}, 0, "plain forward")
+                                                    device="cuda"), {}, "plain forward")
             row["final_H_rel_err_vs_f64_plain"] = rel_err(H[:, -1], plain64[:, -1])
             row["f32_plain_final_H_rel_err_vs_f64_plain"] = rel_err(plain32[:, -1],
                                                                     plain64[:, -1])
             row["kernel_vs_f32_plain_rel_err"] = rel_err(H[:, -1], plain32[:, -1])
+            ok = (row["final_H_rel_err_vs_f64_plain"]
+                  <= 2.0 * row["f32_plain_final_H_rel_err_vs_f64_plain"])
             del plain32, plain64
-            # the scalar-A inversion against the forward at 1.2 A, whole span
-            truth = forward_batch(None, batch, Model(iceflow=SIA2DModel(A=ConstantA(1.2 * ICE_A))),
-                                  params, tstops, device="cuda")
-            obs = observed(batch, truth, tstops)
-            del truth
-            inv = Model(iceflow=SIA2DModel(A=LawA_inversion(params, scalar=True)))
-            loss, grad = counted(lambda: loss_and_grad(obs, inv, params, tstops, f32),
-                                 {"si_step": 2 * n_int, "si_step_transpose": 2 * n_int,
-                                  "si_step_vjp": 2 * n_int}, 4 * n_int, "loss and gradient")
-            row["loss"], row["grad_A"] = float(loss), float(grad[0])
-            vg = lambda: loss_and_grad(obs, inv, params, tstops, f32)
-            row["loss_grad_ms"] = row_ms(vg, reps=3)
-            # the gradient's device time by kernel: the large-plane forward
-            # and transpose solves (si_assemble, si_pcg) and the pullback,
-            # whose cluster plan gives the glacier 16 blocks (si_vjp_plan)
-            row["loss_grad_device_ms"], _, _, row["loss_grad_kernel_ms"] = device_profile(
-                vg, 1, SI_KERNELS + ("si_step_vjp_kernel",), ms_by_name=True)
-            row["vjp_plan"] = si_kernel.si_vjp_plan(1, n, n, f32).layout._asdict()
-            # the depth cut: the first ICE_GRAD_INTERVALS intervals
-            cut = tstops[:ICE_GRAD_INTERVALS + 1]
-            c_int = len(cut) - 1
-            truth = forward_batch(None, batch, Model(iceflow=SIA2DModel(A=ConstantA(1.2 * ICE_A))),
-                                  params, cut, device="cuda")
-            obs32, obs64 = observed(batch, truth, cut), observed(batch64, truth.double(), cut)
-            inv_plain = Model(iceflow=SIA2DModel(A=unfused(LawA_inversion(params, scalar=True))))
+        del H
+        # the scalar-A inversion against the forward at 1.2 A, whole span
+        obs = observed(batch, truth_at(batch, params, tstops), tstops)
+        inv = Model(iceflow=SIA2DModel(A=LawA_inversion(params, scalar=True)))
+        vg = lambda: loss_and_grad(obs, inv, params, tstops, f32)
+        loss, grad = counted(vg, {"si_step": 2 * n_int, "si_step_transpose": 2 * n_int,
+                                  "si_step_vjp": 2 * n_int}, f"{n}^2 loss and gradient")
+        row["loss"], row["grad_A"] = float(loss), float(grad[0])
+        row["loss_grad_ms"] = row_ms(vg, reps=3)
+        # the gradient's device time by kernel, from one profile: ours (the
+        # large-plane forward and transpose solves, si_assemble and si_pcg,
+        # and the large-plane pullback) and the largest of PyTorch's own
+        busy, _, by_name, ms_of = device_profile(vg, 1, ms_by_name=True)
+        ours = SI_KERNELS + ("si_step_vjp_kernel", "si_plane_vjp")
+        mine = [k for k in ms_of if any(name in k for name in ours)]
+        others = sorted((k for k in ms_of if k not in mine), key=ms_of.get, reverse=True)
+        row.update(loss_grad_busy_ms=busy, loss_grad_device_ms=sum(ms_of[k] for k in mine),
+                   loss_grad_kernel_ms={k: ms_of[k] for k in mine},
+                   loss_grad_launches_by_name={k: by_name[k] for k in mine},
+                   loss_grad_other_ms={k: [ms_of[k], by_name[k]] for k in others[:ICE_OTHERS]})
+        row["loss_grad_idle_share"] = 1.0 - row["loss_grad_busy_ms"] / row["loss_grad_ms"]
+        row["hbm"]["si2_loss_grad"] = aot_step_memory(vg)[1]
+        seen = row["loss_grad_launches_by_name"]
+        if "si_step_vjp_kernel" in seen or not 0 < seen.get("si_plane_vjp", 0) <= 2 * n_int:
+            raise AssertionError(f"icesheet {n}^2: the pullbacks ran as {seen}, expected "
+                                 f"{2 * n_int} of si_plane_vjp")
+        del obs
+        # the depth cut: the first ICE_GRAD_INTERVALS intervals; the unfused
+        # float64 gradient's peak memory first, on the run the check reads
+        cut = tstops[:ICE_GRAD_INTERVALS + 1]
+        c_int = len(cut) - 1
+        truth = truth_at(batch, params, cut)
+        obs32, obs64 = observed(batch, truth, cut), observed(batch64, truth.double(), cut)
+        inv_plain = Model(iceflow=SIA2DModel(A=unfused(LawA_inversion(params, scalar=True))))
+        grads = {}
+        try:
+            _, row["cut_plain_f64_hbm"] = aot_step_memory(lambda: grads.update(plain_f64=counted(
+                lambda: loss_and_grad(obs64, inv_plain, params, cut, f64), {},
+                "cut plain gradient")[1]))
+        except torch.cuda.OutOfMemoryError as exc:
+            row["cut_plain_f64_hbm"] = {"error": str(exc).splitlines()[0],
+                                        "peak_bytes": torch.cuda.max_memory_allocated()}
+            torch.cuda.empty_cache()
+        if "plain_f64" in grads:
             grad_launches = {"si_step": 2 * c_int, "si_step_transpose": 2 * c_int,
                              "si_step_vjp": 2 * c_int}
-            grads = {
-                "kernel_f32": counted(lambda: loss_and_grad(obs32, inv, params, cut, f32),
-                                      grad_launches, 4 * c_int, "cut gradient")[1],
-                "kernel_f64": counted(lambda: loss_and_grad(obs64, inv, params, cut, f64),
-                                      grad_launches, 4 * c_int, "cut gradient")[1],
-                "plain_f32": counted(lambda: loss_and_grad(obs32, inv_plain, params, cut, f32),
-                                     {}, 0, "cut plain gradient")[1],
-                "plain_f64": counted(lambda: loss_and_grad(obs64, inv_plain, params, cut, f64),
-                                     {}, 0, "cut plain gradient")[1],
-            }
+            grads.update(
+                kernel_f32=counted(lambda: loss_and_grad(obs32, inv, params, cut, f32),
+                                   grad_launches, "cut gradient")[1],
+                kernel_f64=counted(lambda: loss_and_grad(obs64, inv, params, cut, f64),
+                                   grad_launches, "cut gradient")[1],
+                plain_f32=counted(lambda: loss_and_grad(obs32, inv_plain, params, cut, f32),
+                                  {}, "cut plain gradient")[1])
             ref = grads["plain_f64"]
             h_cut = forward_batch(None, batch, model, params, cut, device="cuda")
             h_ref = forward_batch(None, batch64, Model(iceflow=SIA2DModel(
@@ -6045,23 +6166,24 @@ def icesheet_phase():
                 "factor": GRAD_F32_FACTOR,
                 "max_abs_dH_m_vs_f64_plain": float((h_cut.double() - h_ref).abs().max())}
             c = row["cut"]
-            ok = (row["final_H_rel_err_vs_f64_plain"]
-                  <= 2.0 * row["f32_plain_final_H_rel_err_vs_f64_plain"]
-                  and c["float64_rel_err"] <= TOL_GRAD_F64
+            ok = (ok and c["float64_rel_err"] <= TOL_GRAD_F64
                   and c["float32_rel_err"] <= GRAD_F32_FACTOR * c["f32_plain_rel_err"]
-                  and all(torch.isfinite(g).all() and g.abs().max() > 0 for g in grads.values())
-                  and math.isfinite(row["loss"]) and math.isfinite(row["grad_A"]))
-            if not ok:
-                emit(row)
-                raise AssertionError(f"icesheet {n}^2 disagrees with the plain path: {row}")
-            del batch64, obs, obs32, obs64, truth, h_cut, h_ref
+                  and all(torch.isfinite(g).all() and g.abs().max() > 0
+                          for g in grads.values()))
+            del h_cut, h_ref
+        elif n == ICE_SIZES[0][0]:
+            raise AssertionError(f"icesheet {n}^2: the unfused float64 cut does not fit: {row}")
+        ok = ok and math.isfinite(row["loss"]) and math.isfinite(row["grad_A"])
+        if not ok:
+            emit(row)
+            raise AssertionError(f"icesheet {n}^2 disagrees with the plain path: {row}")
+        del batch, batch64, obs32, obs64, truth, grads
         row["seconds"] = time.perf_counter() - t_row
         emit(row)
-        del batch, H
         torch.cuda.empty_cache()
     emit({"phase": "icesheet_done", "seconds": time.perf_counter() - t_phase,
-          "launches": total, "plane_launches": plane})
-    return total, plane
+          "launches": total, "plane_launches": plane, "plane_vjp_launches": plane_vjp})
+    return total, plane, plane_vjp
 
 
 def _tree_to(tree, device, dtype, requires_grad=False):
@@ -6146,7 +6268,7 @@ def main() -> int:
     marks.append(("ensembles", time.perf_counter()))
     gates = start_side("--lm-gates-worker")
     ice = start_side("--icesheet-worker")
-    launches["si_plane"] = 0
+    launches["si_plane"] = launches["si_plane_vjp"] = 0
     try:
         # phase 3's gradient checks: correctness only, so beside the gates
         check_gradients()
@@ -6200,6 +6322,11 @@ def main() -> int:
         # those of phase 15, where every si_step takes it; the rows axis's
         # si_assemble launches alone are under si_step's assemble_launches
         "si_plane": ("odinn_tpu_torch/csrc/si_plane.cu", "odinn_tpu/ops/pallas/si_kernel.py:174"),
+        # the backward of si_step_pallas at those planes: the large-plane
+        # pullback, its launches those of phase 15, where every pullback
+        # takes it (the checks' launches of it are not counted)
+        "si_plane_vjp": ("odinn_tpu_torch/csrc/si_plane_vjp.cu",
+                         "odinn_tpu/ops/pallas/si_kernel.py:222"),
         # the PCG of si_step_pallas, split at its two reductions for the
         # rows axis (its assembly is si_plane.cu's si_assemble)
         "si_rows_apply": ("odinn_tpu_torch/csrc/si_rows.cu",

@@ -83,7 +83,6 @@
 #include <cooperative_groups.h>
 
 #include <cstdint>
-#include <cstring>
 
 #include "sia_common.cuh"
 
@@ -94,7 +93,10 @@ namespace {
 using odinn::GlenExps;
 using odinn::Recip;
 using odinn::RuntimeExps;
+using odinn::ld_wide;
+using odinn::ldg_wide;
 using odinn::relu;
+using odinn::st_wide;
 
 // the kernels' modes (the wrapper's `mode` argument)
 constexpr int kForward = 0;
@@ -106,47 +108,6 @@ constexpr int kTangent = 2;
 // p, Ap and p's second buffer. The assembly writes the first three; the
 // rows axis's scratch (si_rows.cu) shares them.
 enum Plane { kD = 0, kRhs, kInvDiag, kX, kR, kP, kAp, kP2, kPlanes };
-
-// ---------------------------------------------------------------------------
-// Loads and stores of V values along y
-// ---------------------------------------------------------------------------
-
-template <typename T, int W>
-struct Wide {
-  using type = T;
-};
-template <>
-struct Wide<float, 4> {
-  using type = float4;
-};
-template <>
-struct Wide<double, 2> {
-  using type = double2;
-};
-
-// through the read-only path: planes the launch does not write
-template <typename T, int W>
-__device__ __forceinline__ void ldg_wide(T (&v)[W], const T* src) {
-  using V = typename Wide<T, W>::type;
-  const V w = __ldg(reinterpret_cast<const V*>(src));
-  memcpy(v, &w, sizeof(w));
-}
-
-// plain loads: planes other blocks of the launch write
-template <typename T, int W>
-__device__ __forceinline__ void ld_wide(T (&v)[W], const T* src) {
-  using V = typename Wide<T, W>::type;
-  const V w = *reinterpret_cast<const V*>(src);
-  memcpy(v, &w, sizeof(w));
-}
-
-template <typename T, int W>
-__device__ __forceinline__ void st_wide(T* dst, const T (&v)[W]) {
-  using V = typename Wide<T, W>::type;
-  V w;
-  memcpy(&w, v, sizeof(w));
-  *reinterpret_cast<V*>(dst) = w;
-}
 
 // ---------------------------------------------------------------------------
 // si_assemble

@@ -1,5 +1,5 @@
 // Device helpers shared by the SIA2D kernels (sia2d_rhs.cu, si_step.cu,
-// si_plane.cu, rkc_interval.cu, sia2d_rhs_vjp.cu).
+// si_plane.cu, si_plane_vjp.cu, rkc_interval.cu, sia2d_rhs_vjp.cu).
 //
 // Planes are (n_g, nx, ny) row-major with y contiguous. The staggered
 // diffusivity D[a][c] lives on the (nx-1, ny-1) grid of cell corners: it is
@@ -9,6 +9,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 namespace odinn {
 
@@ -153,6 +155,45 @@ __device__ __forceinline__ T rhs_cell_recip(T h_c, T h_xp, T h_xm, T h_yp,
   const T fy_n = -(T(0.5) * (d[0][1] + d[1][1])) * dsy_n;
   const T fy_s = -(T(0.5) * (d[0][0] + d[1][0])) * dsy_s;
   return -((fx_e - fx_w) * k.inv_dx + (fy_n - fy_s) * k.inv_dy);
+}
+
+// Loads and stores of W values along y: one 16-byte vector (float4, double2)
+// where W fills it, else one value.
+template <typename T, int W>
+struct Wide {
+  using type = T;
+};
+template <>
+struct Wide<float, 4> {
+  using type = float4;
+};
+template <>
+struct Wide<double, 2> {
+  using type = double2;
+};
+
+// through the read-only path: planes the launch does not write
+template <typename T, int W>
+__device__ __forceinline__ void ldg_wide(T (&v)[W], const T* src) {
+  using V = typename Wide<T, W>::type;
+  const V w = __ldg(reinterpret_cast<const V*>(src));
+  memcpy(v, &w, sizeof(w));
+}
+
+// plain loads: planes other blocks of the launch write
+template <typename T, int W>
+__device__ __forceinline__ void ld_wide(T (&v)[W], const T* src) {
+  using V = typename Wide<T, W>::type;
+  const V w = *reinterpret_cast<const V*>(src);
+  memcpy(v, &w, sizeof(w));
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void st_wide(T* dst, const T (&v)[W]) {
+  using V = typename Wide<T, W>::type;
+  V w;
+  memcpy(&w, v, sizeof(w));
+  *reinterpret_cast<V*>(dst) = w;
 }
 
 }  // namespace odinn

@@ -37,7 +37,11 @@ again bit-identical in every block), and :func:`si_step_vjp`, the pullback
 kernel ``csrc/si_step_vjp.cu`` (the residual's cotangents at λ through b and
 the frozen D, down to H, H_D, B, creep and slide; one thread-block cluster
 per glacier, tiles of :func:`si_vjp_layout`, cluster size by
-:func:`si_vjp_plan`). Their plain versions are
+:func:`si_vjp_plan`), or, on a plane whose step takes the large-plane path,
+``csrc/si_plane_vjp.cu``: tiles of 32 × 4R cells over the whole batch
+(:func:`plane_vjp_layout`), each glacier's two sums finished by its last
+block in block order; a launch of it also counts on
+``si_step_vjp.plane_launches``. Their plain versions are
 :func:`si_step_transpose_reference` and :func:`si_step_vjp_reference`;
 autograd through :func:`si_step_reference` is the whole plain backward. The
 two contracts agree where PCG has converged (``tests/test_torch_si_adjoint.py``).
@@ -78,9 +82,9 @@ versions, :func:`si_rows_apply_reference` and
 :func:`si_rows_update_reference`, are built from ``si_math``'s pieces. The
 backward is the transpose solve by the same PCG (its b = ḡ·[x > 0] formed
 on the own rows and exchanged, so the assembly runs in its tangent mode, b
-as given) and :func:`si_step_vjp`, unchanged, on the slab with λ zero on
-the ghost rows; the tangent is the residual's tangent on the slab and the
-tangent solve.
+as given) and :func:`si_step_vjp` on the slab (routed by the slab's shape,
+as the whole plane's is) with λ zero on the ghost rows; the tangent is the
+residual's tangent on the slab and the tangent solve.
 """
 
 from __future__ import annotations
@@ -96,7 +100,8 @@ from odinn_tpu_torch.ops import stencils as st
 from odinn_tpu_torch.ops.cuda.build import load_library
 from odinn_tpu_torch.ops.cuda.common import (
     GLEN_EXPS, SMEM_PER_BLOCK, block_shape, check_inputs, diffusivity_tangent, has_tangent,
-    needs_function, pick_cluster, pow_pos, refuse_tangent, shared_exps, uses_glen)
+    needs_function, pick_cluster, pow_pos, refuse_tangent, shared_exps, ticket_buffers,
+    uses_glen)
 
 __all__ = ["si_step", "si_step_reference", "si_step_transpose", "si_step_transpose_reference",
            "si_step_vjp", "si_step_vjp_reference", "si_step_tangent", "si_step_tangent_reference",
@@ -106,7 +111,8 @@ __all__ = ["si_step", "si_step_reference", "si_step_transpose", "si_step_transpo
            "RowsLayout", "rows_layout", "rows_occupancy", "rows_step_x", "rows_step_transpose",
            "si_rows_step", "AssembleLayout", "assemble_layout", "assemble_plan",
            "PlaneLayout", "plane_layout",
-           "plane_occupancy", "plane_plan"]
+           "plane_occupancy", "plane_plan", "PlaneVjpLayout", "plane_vjp_layout",
+           "plane_vjp_plan"]
 
 # the kernel's modes (csrc/si_step.cu): the step, the transpose solve of its
 # backward, the tangent solve of its jvp
@@ -208,23 +214,38 @@ def assemble_layout(n_g, nx, ny, dtype, sms, vec=True) -> AssembleLayout:
     loads of 16 bytes where ``vec`` (the caller's H, H_D and B 16-byte
     aligned) and ny a multiple of the vector allow it, else of one value.
     What the kernel does not take raises ValueError."""
+    rows, width, grid = _tiles("si_assemble", n_g, nx, ny, dtype, sms, vec, ASM_BLOCKS_PER_SM)
+    return AssembleLayout(rows, ASM_GROUPS * rows, width, grid)
+
+
+def _tiles(name, n_g, nx, ny, dtype, sms, vec, blocks_per_sm):
+    """(R, load width, grid) of a launch of ASM_LANES × ASM_GROUPS·R tiles,
+    the glacier in z (si_assemble's and si_plane_vjp's): R 4 where that
+    launch has ``blocks_per_sm`` blocks an SM, else 1; 16-byte loads where
+    ``vec`` and ny allow them. What the kernel ``name`` does not take raises
+    ValueError."""
     if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"si_assemble: float32 or float64, got {dtype}")
+        raise ValueError(f"{name}: float32 or float64, got {dtype}")
     if n_g < 1 or nx < 3 or ny < 3:
-        raise ValueError(f"si_assemble: at least 1 glacier of 3 x 3 cells, got "
-                         f"{n_g} x {nx} x {ny}")
+        raise ValueError(f"{name}: at least 1 glacier of 3 x 3 cells, got {n_g} x {nx} x {ny}")
     if sms < 1:
-        raise ValueError(f"si_assemble: a card of at least one SM, got {sms}")
+        raise ValueError(f"{name}: a card of at least one SM, got {sms}")
     v = 16 // torch.empty((), dtype=dtype).element_size()
     tiles_y = -(-ny // ASM_LANES)
     rows = next((r for r in ASM_ROWS
-                 if n_g * -(-nx // (ASM_GROUPS * r)) * tiles_y >= ASM_BLOCKS_PER_SM * sms),
+                 if n_g * -(-nx // (ASM_GROUPS * r)) * tiles_y >= blocks_per_sm * sms),
                 ASM_ROWS[-1])
     grid = (tiles_y, -(-nx // (ASM_GROUPS * rows)), n_g)
     if grid[1] > _GRID_LIMIT or n_g > _GRID_LIMIT:
-        raise ValueError(f"si_assemble: {n_g} glaciers of {nx} rows exceed the launch's grid "
+        raise ValueError(f"{name}: {n_g} glaciers of {nx} rows exceed the launch's grid "
                          f"({grid}, at most {_GRID_LIMIT} along x and glaciers)")
-    return AssembleLayout(rows, ASM_GROUPS * rows, v if vec and ny % v == 0 else 1, grid)
+    return rows, v if vec and ny % v == 0 else 1, grid
+
+
+def _device_index(device) -> int:
+    """A CUDA device's index (None: the current device)."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    return device.index if device.index is not None else torch.cuda.current_device()
 
 
 @functools.lru_cache(maxsize=None)
@@ -234,8 +255,7 @@ def _sm_count(device_index) -> int:
 
 def assemble_plan(n_g, nx, ny, dtype, vec=True, device=None) -> AssembleLayout:
     """:func:`assemble_layout` at the CUDA device's SM count."""
-    device = torch.device("cuda") if device is None else torch.device(device)
-    index = device.index if device.index is not None else torch.cuda.current_device()
+    index = _device_index(device)
     return assemble_layout(n_g, nx, ny, dtype, _sm_count(index), vec)
 
 
@@ -312,8 +332,7 @@ def _plane_resident(dtype, vec, device_index) -> int:
 def plane_occupancy(dtype, vec=True, device=None) -> int:
     """The large-plane PCG's blocks resident at once on a CUDA device:
     cudaOccupancyMaxActiveBlocksPerMultiprocessor × the SM count."""
-    device = torch.device("cuda") if device is None else torch.device(device)
-    index = device.index if device.index is not None else torch.cuda.current_device()
+    index = _device_index(device)
     return _plane_resident(dtype, bool(vec), index)
 
 
@@ -321,6 +340,67 @@ def plane_plan(n_g, nx, ny, dtype, vec=True, device=None) -> PlaneLayout:
     """:func:`plane_layout` at the device's resident blocks
     (:func:`plane_occupancy`)."""
     return plane_layout(n_g, nx, ny, dtype, plane_occupancy(dtype, vec, device), vec)
+
+
+@functools.cache
+def _plane_vjp_library() -> ctypes.CDLL:
+    """``csrc/si_plane_vjp.cu``: the pullback on a large plane."""
+    lib = load_library("si_plane_vjp")
+    for fn in (lib.si_plane_vjp_f32, lib.si_plane_vjp_f64):
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_long, ctypes.c_int]
+                       + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_double] * 2
+                       + [ctypes.c_int] + [ctypes.c_double] * 4 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+# csrc/si_plane_vjp.cu: the assembly's tiles (ASM_LANES × ASM_GROUPS·R
+# cells, one block of ASM_THREADS a tile, R among ASM_ROWS), R = 4 where
+# that launch still has PLANE_VJP_BLOCKS_PER_SM blocks an SM: on an H100
+# (132 SMs) R = 4 beat R = 1 at every plane timed, 2 x 300^2 (380 blocks)
+# 0.0066 ms against 0.0086, 1 x 1024^2 0.020 against 0.031 (PERF.md,
+# profile_plane.py); each block one slot of each of the glacier's two sums
+PLANE_VJP_BLOCKS_PER_SM = 2
+PLANE_VJP_SUMS = 2
+
+
+class PlaneVjpLayout(NamedTuple):
+    """How the large-plane pullback tiles a launch (:func:`plane_vjp_layout`):
+    block (bx, by, g) takes glacier g's cells of rows by·tile_rows to
+    (by + 1)·tile_rows and columns 32·bx to 32·(bx + 1), and its slot by·
+    grid[0] + bx of each of the glacier's two sums."""
+
+    rows: int                      # cells a thread owns down its column (R)
+    tile_rows: int                 # rows of a tile: ASM_GROUPS × rows
+    width: int                     # values a load along y: 16 bytes, or 1
+    grid: Tuple[int, int, int]     # (tiles along y, tiles along x, glaciers)
+    slots: int                     # blocks a glacier: grid[0] × grid[1]
+    threads: int = ASM_THREADS
+
+    def launch_args(self):
+        """The C entries' plan arguments: rows a thread, 16-byte loads."""
+        return self.rows, int(self.width > 1)
+
+
+def plane_vjp_layout(n_g, nx, ny, dtype, sms, vec=True) -> PlaneVjpLayout:
+    """The large-plane pullback's plan for n_g glaciers of nx × ny on a card
+    of ``sms`` SMs: tiles of 32 cells along y by 4·R rows, R 4 where that
+    launch still has PLANE_VJP_BLOCKS_PER_SM blocks an SM, else 1; loads of
+    16 bytes where ``vec`` (the caller's input planes 16-byte aligned) and
+    ny a multiple of the vector allow it, else of one value; a slot of each
+    sum a block. What the kernel does not take raises ValueError."""
+    if nx * ny > _PLANE_MAX_CELLS:
+        raise ValueError(f"si_plane_vjp: a plane of at most {_PLANE_MAX_CELLS} cells (32-bit "
+                         f"indices), got {nx} x {ny}")
+    rows, width, grid = _tiles("si_plane_vjp", n_g, nx, ny, dtype, sms, vec,
+                               PLANE_VJP_BLOCKS_PER_SM)
+    return PlaneVjpLayout(rows, ASM_GROUPS * rows, width, grid, grid[0] * grid[1])
+
+
+def plane_vjp_plan(n_g, nx, ny, dtype, vec=True, device=None) -> PlaneVjpLayout:
+    """:func:`plane_vjp_layout` at the CUDA device's SM count."""
+    return plane_vjp_layout(n_g, nx, ny, dtype, _sm_count(_device_index(device)), vec)
 
 
 @functools.cache
@@ -474,8 +554,7 @@ def si_plan(n_g, nx, ny, dtype, exps=GLEN_EXPS, device=None) -> SIPlan:
     or when the plane fits only at 16, else of 8; a size that cannot be
     scheduled raises. Any other plane takes the large-plane path. Cached per
     (dtype, nx, ny, n_g, exponent path)."""
-    device = torch.device("cuda") if device is None else torch.device(device)
-    index = device.index if device.index is not None else torch.cuda.current_device()
+    index = _device_index(device)
     return _plan(dtype, nx, ny, n_g, uses_glen(exps), index)
 
 
@@ -601,6 +680,17 @@ def _vjp_plan(dtype, nx, ny, n_g, glen, vec, device_index) -> SIVjpPlan:
     return SIVjpPlan(*pick_cluster("si_step_vjp", layouts, occupancy, n_g, device_index))
 
 
+def _pullback_plan(dtype, nx, ny, n_g, glen, vec, device_index):
+    """The pullback's launch on device ``device_index``: where
+    :func:`si_plan` sends the step to the large-plane path, the large-plane
+    pullback's plan (:func:`plane_vjp_layout`), else the cluster kernel's
+    layout (:func:`si_vjp_plan`), so that a gradient's three launches share
+    a path."""
+    if _plan(dtype, nx, ny, n_g, glen, device_index).layout is None:
+        return plane_vjp_layout(n_g, nx, ny, dtype, _sm_count(device_index), vec)
+    return _vjp_plan(dtype, nx, ny, n_g, glen, vec, device_index).layout
+
+
 def si_vjp_plan(n_g, nx, ny, dtype, exps=GLEN_EXPS, vec=True, device=None) -> SIVjpPlan:
     """How a pullback launch over n_g glaciers runs on a CUDA device: the
     layout (:func:`si_vjp_layout`) at 16 blocks when the occupancy API says
@@ -608,8 +698,7 @@ def si_vjp_plan(n_g, nx, ny, dtype, exps=GLEN_EXPS, vec=True, device=None) -> SI
     only at 16, else at 8; a plane that fits neither, or a cluster that
     cannot be scheduled, raises. ``vec``: the 16-byte copy route. Cached
     per (dtype, nx, ny, n_g, exponent path, route)."""
-    device = torch.device("cuda") if device is None else torch.device(device)
-    index = device.index if device.index is not None else torch.cuda.current_device()
+    index = _device_index(device)
     return _vjp_plan(dtype, nx, ny, n_g, uses_glen(exps), bool(vec), index)
 
 
@@ -890,13 +979,22 @@ def _vjp_table(scalars, dtype):
     return table
 
 
+# the large-plane pullback's slots of the glaciers' sums and its ticket
+# counters
+_plane_vjp_buffers = {}
+
+
 def si_step_vjp(lam, H, H_D, B, x, scalars, dt, theta=1.0, exps=None):
     """(dH, dH_D, dB, d_creep, d_slide) of ``si_step``'s backward at λ
-    (:func:`si_step_vjp_reference`'s contract). A CUDA tensor launches the
-    pullback kernel ``csrc/si_step_vjp.cu`` (one clustered launch,
-    :func:`si_vjp_plan`), counted on ``si_step_vjp.launches``; a CPU tensor
-    takes the plain version. The kernel reads the table in place when it
-    is in H's dtype or in float64, with its row stride."""
+    (:func:`si_step_vjp_reference`'s contract). A CUDA tensor launches one
+    pullback kernel, counted on ``si_step_vjp.launches``: where
+    :func:`si_plan` sends the step to the large-plane path,
+    ``csrc/si_plane_vjp.cu`` on the tiles of :func:`plane_vjp_plan` (also
+    counted on ``si_step_vjp.plane_launches``), else ``csrc/si_step_vjp.cu``
+    (one clustered launch, :func:`si_vjp_plan`); a plane neither takes
+    raises. A CPU tensor takes the plain version. The kernels read the
+    table in place when it is in H's dtype or in float64, with its row
+    stride."""
     check_inputs("si_step_vjp", (lam, H, H_D, B, x), scalars, 8)
     exps = _resolve_exps(scalars, exps)
     dt, theta = float(dt), float(theta)
@@ -906,17 +1004,30 @@ def si_step_vjp(lam, H, H_D, B, x, scalars, dt, theta=1.0, exps=None):
     n_g, nx, ny = H.shape
     planes = (lam, H, H_D, B, x)
     vec = (ny * H.element_size()) % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in planes)
-    lay = si_vjp_plan(n_g, nx, ny, H.dtype, exps, vec, H.device).layout
+    glen = int(uses_glen(exps))
+    lay = _pullback_plan(H.dtype, nx, ny, n_g, bool(glen), vec, _device_index(H.device))
     table = _vjp_table(scalars, H.dtype)
     dH, dHD, dB = (torch.empty_like(H) for _ in range(3))
     dcreep, dslide = (torch.empty(n_g, dtype=H.dtype, device=H.device) for _ in range(2))
-    lib = _vjp_library()
-    fn = lib.si_step_vjp_f32 if H.dtype == torch.float32 else lib.si_step_vjp_f64
-    err = fn(*(t.data_ptr() for t in planes), table.data_ptr(), table.stride(0),
-             int(table.dtype == torch.float64),
-             dH.data_ptr(), dHD.data_ptr(), dB.data_ptr(), dcreep.data_ptr(), dslide.data_ptr(),
-             n_g, nx, ny, dt, theta, int(uses_glen(exps)), *exps, lay.cluster, lay.rows,
-             lay.cols, lay.smem, int(vec), torch.cuda.current_stream(H.device).cuda_stream)
+    f32 = H.dtype == torch.float32
+    head = (*(t.data_ptr() for t in planes), table.data_ptr(), table.stride(0),
+            int(table.dtype == torch.float64), dH.data_ptr(), dHD.data_ptr(), dB.data_ptr())
+    stream = torch.cuda.current_stream(H.device).cuda_stream
+    if isinstance(lay, PlaneVjpLayout):
+        partial, counter = ticket_buffers(_plane_vjp_buffers, H.device, H.dtype,
+                                          PLANE_VJP_SUMS * n_g * lay.slots, n_g)
+        lib = _plane_vjp_library()
+        fn = lib.si_plane_vjp_f32 if f32 else lib.si_plane_vjp_f64
+        err = fn(*head, partial.data_ptr(), counter.data_ptr(), dcreep.data_ptr(),
+                 dslide.data_ptr(), n_g, nx, ny, dt, theta, glen, *exps, *lay.launch_args(),
+                 stream)
+        if err == 0:
+            si_step_vjp.plane_launches += 1
+    else:
+        lib = _vjp_library()
+        fn = lib.si_step_vjp_f32 if f32 else lib.si_step_vjp_f64
+        err = fn(*head, dcreep.data_ptr(), dslide.data_ptr(), n_g, nx, ny, dt, theta, glen,
+                 *exps, lay.cluster, lay.rows, lay.cols, lay.smem, int(vec), stream)
     if err != 0:
         raise RuntimeError(f"si_step_vjp: kernel launch failed with CUDA error {err}")
     si_step_vjp.launches += 1
@@ -1233,3 +1344,4 @@ si_step.plane_launches = 0
 si_step_transpose.launches = 0
 si_step_tangent.launches = 0
 si_step_vjp.launches = 0
+si_step_vjp.plane_launches = 0

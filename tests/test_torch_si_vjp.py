@@ -52,7 +52,11 @@ def test_vjp_layout_constants_are_the_kernels():
                         ("kHeadValues", si_kernel._VJP_HEAD_VALUES),
                         ("kPlanes", si_kernel._VJP_PLANES)):
         assert f"constexpr int {name} = {value};" in source
-    assert re.search(r"struct alignas\(16\) Corner \{\s*T D, Q, PX, PY;", source)
+    # the corner's four values, in the arithmetic the kernel shares with the
+    # large-plane pullback
+    assert '#include "si_vjp_common.cuh"' in source
+    common = (SRC_DIR / "si_vjp_common.cuh").read_text()
+    assert re.search(r"struct alignas\(16\) Corner \{\s*T D, Q, PX, PY;", common)
     assert si_kernel._VJP_CORNER_VALUES == 4
     # the pullback sums its blocks over distributed shared memory
     assert "ticket" not in source and "__threadfence" not in source and "atomicAdd" not in source
